@@ -28,3 +28,10 @@ class _nullcontext:
 
     def __exit__(self, *a):
         return False
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped without one (on the "
+        "card: python -m pytest --noconftest -m gpu "
+        "tests/test_torch_kernels.py tests/test_torch_imports.py)")

@@ -1,0 +1,130 @@
+"""The port stands alone: no JAX and nothing of h2o3_tpu in
+h2o3_tpu_torch or chip_smoke.py; entry points run on CUDA unless the
+CPU is asked for; a CUDA tensor never reaches a plain version."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import h2o3_tpu_torch as th2o
+from h2o3_tpu_torch import _device
+from h2o3_tpu_torch.ops import hist_adaptive as tha
+from h2o3_tpu_torch.ops import kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _sources():
+    return sorted((ROOT / "h2o3_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys; import h2o3_tpu_torch, h2o3_tpu_torch.estimators, "
+            "h2o3_tpu_torch.ops.binning; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'h2o3_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_device, "_default", None)
+    X = np.zeros((4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        th2o.Frame.from_numpy(X)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        th2o.upload_numpy(X, device="cuda")
+    assert th2o.Frame.from_numpy(X, device="cpu").device.type == "cpu"
+    assert th2o.init(device="cpu").type == "cpu"
+    assert th2o.Frame.from_numpy(X).device.type == "cpu"
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor in the dispatch check."""
+    class device:
+        type = "cuda"
+    shape = (8, 2)
+
+
+def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
+    calls = []
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tha, "binned_level_plain", refuse)
+    monkeypatch.setattr(tha, "binned_route_only_plain", refuse)
+    monkeypatch.setattr(kernels, "binned_level",
+                        lambda *a: calls.append("level") or (None, None))
+    monkeypatch.setattr(kernels, "binned_route_only",
+                        lambda *a: calls.append("route"))
+    t = _FakeCuda()
+    tha.binned_level(t, t, t, t, 1, 2, 1, 16)
+    tha.binned_route_only(t, t, t, 1, 1, 16)
+    assert calls == ["level", "route"]
+    meta = torch.empty((8, 2), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tha.binned_level(meta, meta, meta, meta, 0, 1, 0, 16)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    codes = torch.zeros((8, 2), dtype=torch.int8)
+    nid = torch.zeros(8, dtype=torch.int32)
+    tables = torch.zeros((4, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.binned_level(codes, nid, torch.zeros((3, 8)), tables, 0, 1,
+                             0, 16, False)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.binned_route_only(codes, nid, tables, 1, 1, 16)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest --noconftest -m gpu tests/test_torch_kernels.py tests/test_torch_imports.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_training_launches_the_kernels(cuda):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(20_000, 5)).astype(np.float32)
+    y = (X[:, 0] + rng.normal(size=20_000) > 0).astype(np.float32)
+    cols = {f"f{i}": X[:, i] for i in range(5)}
+    cols["label"] = y
+    fr = th2o.Frame.from_numpy(cols, device=cuda)
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    H2OGradientBoostingEstimator(
+        ntrees=2, max_depth=3, nbins=14, distribution="bernoulli",
+        histogram_type="quantiles_global").train(y="label", training_frame=fr)
+    assert kernels.LAUNCHES == {"binned_level": 6, "binned_route_only": 2}
