@@ -3,27 +3,39 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and the repository; without either it exits non-zero and
-prints no result. Phases, each fatal on failure:
+prints no result. It drives the port's two GBM paths: packed codes
+(``histogram_type="quantiles_global"``, kernels binned_level and
+binned_route_only) and adaptive bins (``packed_codes=False``, H2O's
+default ``uniform_adaptive``, kernels adaptive_level and
+adaptive_route_only in the [rows, F] and [F, rows] layouts). Phases,
+each fatal on failure:
 
 1. device: the card's name and power limit;
-2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc``;
-3. kernel vs plain on the card: binned_level at W=16 (int8), W=32 (int8)
-   and W=256 (int16) with F=28, 1M rows and N in {1, 8, 32}, and
-   binned_route_only at N=64. With integer-valued (g, h, w) node ids and
-   histograms must be bit-equal to the plain PyTorch version; with float
-   (g, h, w) node ids bit-equal and each histogram bin within
-   1e-4 + 1e-5 x (its absolute mass) of the plain version accumulated in
-   float64, for float32 and for bfloat16-rounded masses;
-4. the main path at full width: 10M x 28 HIGGS-shaped rows ->
-   Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, nbins 14,
-   quantiles_global, 20 trees -> training AUC -> predict, with the launch
+2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
+   nvcc per source, in parallel);
+3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
+   at W=16 (int8), W=32 (int8) and W=256 (int16), binned_route_only at
+   N=64; adaptive_level at W in {16, 32, 256} and adaptive_route_only at
+   N=64, both layouts, plus a case with NaN, ±inf and zero-span
+   features. With integer-valued (g, h, w) node ids and histograms must
+   be bit-equal to the plain PyTorch version; with float (g, h, w) node
+   ids bit-equal and each histogram bin within 1e-4 + 1e-5 x (its
+   absolute mass) of the plain version accumulated in float64, for
+   float32 and for bfloat16-rounded masses;
+4. the main paths at full width: 10M x 28 HIGGS-shaped rows ->
+   Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, 20 trees,
+   min_rows 1, seed 7 -> training AUC -> predict; packed at nbins 14,
+   then adaptive at nbins 20 (W=32). Each path runs with the launch
    counters set to 0 just before and read just after (6 x 20 level
-   launches and 20 route launches expected);
-5. card vs CPU, same code: 200k rows, depth 6, float32 histograms,
-   5 trees on each device; tree 0's splits equal, |dAUC| <= 1e-4;
-6. timing of each kernel at the main path's shapes against its plain
+   launches and 20 route launches of its own kernels, 0 of the other
+   path's);
+5. card vs CPU, same code, each path: 200k rows, depth 6, float32
+   histograms, 5 trees on each device; tree 0's splits equal,
+   |dAUC| <= 1e-4;
+6. timing of each kernel at the main paths' shapes (10M x 28, per level
+   N = 1..32, both layouts for the adaptive kernels) against its plain
    version and its bound;
-7. where the time goes: the main path's train again, warm (20 trees
+7. where the time goes: each main path's train again, warm (20 trees
    plain, then 5 trees under torch.profiler: device time by kernel,
    device busy share).
 
@@ -42,9 +54,28 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
-SRC = "h2o3_tpu_torch/csrc/hist_binned.cu"
+SRC = {"binned_level": "h2o3_tpu_torch/csrc/hist_binned.cu",
+       "binned_route_only": "h2o3_tpu_torch/csrc/hist_binned.cu",
+       "adaptive_level": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
+       "adaptive_route_only": "h2o3_tpu_torch/csrc/hist_adaptive.cu"}
+# the TPU kernel each replaces; the adaptive kernels' layout parameter
+# also covers the row-major forms (K8, K9)
 REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:930",
-            "binned_route_only": "h2o3_tpu/ops/hist_adaptive.py:1282"}
+            "binned_route_only": "h2o3_tpu/ops/hist_adaptive.py:1282",
+            "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
+            "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755"}
+ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:134",
+                 "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:787"}
+# the two GBM paths: their parameters and the kernels each launches
+PATHS = {
+    "packed": {"params": dict(nbins=14, histogram_type="quantiles_global"),
+               "level": "binned_level", "route": "binned_route_only",
+               "split_key": "split_bin"},
+    "adaptive": {"params": dict(nbins=20, packed_codes=False),
+                 "level": "adaptive_level", "route": "adaptive_route_only",
+                 "split_key": "thr"},
+}
+LAYOUTS = ("rows_f", "f_rows")
 
 
 def log(*a):
@@ -94,8 +125,30 @@ def level_bound_ms(rows, F, itemsize, N, W, rows_in_level):
 
 
 def route_bound_ms(rows, itemsize):
-    """The route reads one code, one nid and writes one nid per row."""
+    """The route reads one code (or raw value), one nid and writes one
+    nid per row."""
     return rows * (itemsize + 8) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def adaptive_level_bound_ms(rows, F, N, W, rows_in_level):
+    """Least time for one adaptive level: each input read once (float32
+    features, nid, ghw), each output written once (nid', hist), or a
+    subtract, a multiply and 3 float adds per (row in the level,
+    feature), whichever takes longer."""
+    nbytes = rows * (F * 4 + 4 + 12 + 4) + 3 * N * F * W * 4
+    ops = 5 * rows_in_level * F
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def mass_check(name, hk, hp, mass):
+    """Float masses: each bin within 1e-4 + 1e-5 x its absolute mass of
+    the float64 plain version."""
+    excess = (hk.double() - hp).abs() - (1e-4 + 1e-5 * mass)
+    if float(excess.max()) > 0:
+        err = float((hk.double() - hp).abs().max())
+        raise AssertionError(f"{name} float ghw: max abs err {err} beyond "
+                             f"1e-4 + 1e-5 x bin mass")
 
 
 # ------------------------------------------------- kernel vs plain
@@ -159,11 +212,7 @@ def check_level(rows, F, W, N, int_ghw, bf16, dev, seed):
     else:
         _n, mass = binned_level_plain(codes, nid, ghw.double().abs(),
                                       tables, n_prev, N, base, W, bf16)
-        excess = (hk.double() - hp).abs() - (1e-4 + 1e-5 * mass)
-        if float(excess.max()) > 0:
-            raise AssertionError(f"binned_level W={W} N={N} float ghw: "
-                                 f"max abs err {err} beyond 1e-4 + 1e-5 x "
-                                 f"bin mass")
+        mass_check(f"binned_level W={W} N={N}", hk, hp, mass)
     return err, (codes, nid, ghw, tables, n_prev, base)
 
 
@@ -221,6 +270,135 @@ def phase_kernels(dev, rows=1_000_000, F=28):
           f"{pms:.6g} ms, bound {bound:.6g} ms by {by})", flush=True)
 
 
+def adaptive_inputs(rows, F, W, N, int_ghw, seed, dev, layout,
+                    specials=False):
+    """Raw HIGGS-like features (5% NaN) in ``layout``, nid in the
+    previous level's window, (g, h, w), float32 split tables and per-node
+    ranges that cover the bulk of the values. ``specials`` adds ±inf on a
+    live range (feature 0) and on a zero-span feature (feature 1)."""
+    import torch
+    from h2o3_tpu_torch.ops.hist_adaptive import make_adaptive_tables
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (rows, F) if layout == "rows_f" else (F, rows)
+    x = torch.randn(shape, generator=g, device=dev)
+    x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.05,
+                    torch.nan, x)
+    n_prev, base = N // 2, N - 1
+    lo = -4.0 + 0.5 * torch.rand((N, F), generator=g, device=dev)
+    inv = (W - 2) / (7.0 + torch.rand((N, F), generator=g, device=dev))
+    if specials:
+        xr = x if layout == "rows_f" else x.t()
+        xr[:, 1] = 0.5
+        xr[0::5, 1] = torch.inf
+        xr[2::5, 1] = -torch.inf
+        xr[1::7, 0] = torch.inf
+        xr[3::7, 0] = -torch.inf
+        lo[:, 1] = 0.5
+        inv[:, 1] = 0.0
+    if n_prev:
+        nid = (base - n_prev + torch.randint(0, n_prev, (rows,), generator=g,
+                                             device=dev)).to(torch.int32)
+    else:
+        nid = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if int_ghw:
+        gg = torch.randint(-8, 9, (rows,), generator=g, device=dev).float()
+        hh = torch.randint(0, 4, (rows,), generator=g, device=dev).float()
+    else:
+        gg = torch.randn(rows, generator=g, device=dev)
+        hh = torch.rand(rows, generator=g, device=dev) * 0.25
+    ghw = torch.stack([gg, hh, torch.ones(rows, device=dev)]).contiguous()
+    m = max(n_prev, 1)
+    tables = make_adaptive_tables(
+        torch.randint(0, F, (m,), generator=g, device=dev),
+        torch.randn(m, generator=g, device=dev),
+        torch.rand(m, generator=g, device=dev) < 0.5,
+        torch.rand(m, generator=g, device=dev) < 0.9).contiguous()
+    return (x.contiguous(), nid, ghw, tables, lo.contiguous(),
+            inv.contiguous(), n_prev, base)
+
+
+def check_adaptive_level(rows, F, W, N, int_ghw, bf16, dev, seed, layout,
+                         specials=False):
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import adaptive_level_plain
+    inp = adaptive_inputs(rows, F, W, N, int_ghw, seed, dev, layout,
+                          specials)
+    x, nid, ghw, tables, lo, inv, n_prev, base = inp
+    nk, hk = kernels.adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, N,
+                                    base, W, bf16, layout)
+    npl, hp = adaptive_level_plain(x, nid, ghw if int_ghw else ghw.double(),
+                                   tables, lo, inv, n_prev, N, base, W, bf16,
+                                   layout)
+    torch.cuda.synchronize()
+    name = f"adaptive_level {layout} W={W} N={N}"
+    if not torch.equal(nk, npl):
+        raise AssertionError(f"{name}: nid differs in "
+                             f"{int((nk != npl).sum())} rows")
+    err = float((hk.double() - hp.double()).abs().max())
+    if int_ghw:
+        if not torch.equal(hk, hp):
+            raise AssertionError(f"{name} integer ghw: histogram not "
+                                 f"bit-equal (max {err})")
+    else:
+        _n, mass = adaptive_level_plain(x, nid, ghw.double().abs(), tables,
+                                        lo, inv, n_prev, N, base, W, bf16,
+                                        layout)
+        mass_check(name, hk, hp, mass)
+    return err, inp
+
+
+def check_adaptive_route(rows, F, N, dev, seed, layout):
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import adaptive_route_only_plain
+    x, nid, _g, tables, _lo, _inv, n_prev, base = adaptive_inputs(
+        rows, F, 16, N, True, seed, dev, layout)
+    rk = kernels.adaptive_route_only(x, nid, tables, n_prev, base, layout)
+    rp = adaptive_route_only_plain(x, nid, tables, n_prev, base, layout)
+    torch.cuda.synchronize()
+    if not torch.equal(rk, rp):
+        raise AssertionError(f"adaptive_route_only {layout} N={N}: nid "
+                             f"differs")
+    return (x, nid, tables, n_prev, base)
+
+
+def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
+    """Phase 3, adaptive half: every instance and layout against its
+    plain version at 1M rows, timed with the L2 flushed."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    seed = 500
+    for layout in LAYOUTS:
+        for W in (16, 32, 256):
+            for N in (1, 8, 32):
+                seed += 1
+                check_adaptive_level(rows, F, W, N, True, False, dev, seed,
+                                     layout)
+                err16, _ = check_adaptive_level(rows, F, W, N, False, True,
+                                                dev, seed + 100, layout)
+                err, inp = check_adaptive_level(rows, F, W, N, False, False,
+                                                dev, seed + 200, layout)
+                x, nid, ghw, tables, lo, inv, n_prev, base = inp
+                ms = time_cuda(lambda: kernels.adaptive_level(
+                    x, nid, ghw, tables, lo, inv, n_prev, N, base, W, False,
+                    layout), 20, flush)
+                bound, by = adaptive_level_bound_ms(rows, F, N, W, rows)
+                print(f"adaptive_level {layout} {rows}x{F} W={W} N={N}: "
+                      f"{ms:.6g} ms (bound {bound:.6g} ms by {by}) max abs "
+                      f"err f32 {err:.3g} bf16 {err16:.3g}", flush=True)
+                del inp, x, nid, ghw
+        check_adaptive_level(rows, 6, 16, 4, True, False, dev, 77, layout,
+                             specials=True)
+        r = check_adaptive_route(rows, F, 64, dev, 7, layout)
+        ms = time_cuda(lambda: kernels.adaptive_route_only(*r, layout), 20,
+                       flush)
+        print(f"adaptive_route_only {layout} {rows}x{F} N=64: {ms:.6g} ms "
+              f"(bound {route_bound_ms(rows, 4)[0]:.6g} ms); NaN/±inf/"
+              f"zero-span case bit-equal", flush=True)
+
+
 # ------------------------------------------------------- main path
 
 
@@ -243,39 +421,44 @@ def frame_of(X, y, device):
     return h2o.Frame.from_numpy(cols, device=device)
 
 
-def train(fr, ntrees, **kw):
+def train(fr, ntrees, path="packed", **kw):
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     est = H2OGradientBoostingEstimator(
-        ntrees=ntrees, max_depth=6, learn_rate=0.1, nbins=14,
+        ntrees=ntrees, max_depth=6, learn_rate=0.1,
         distribution="bernoulli", seed=7, min_rows=1.0,
-        histogram_type="quantiles_global", **kw)
+        **PATHS[path]["params"], **kw)
     est.train(y="label", training_frame=fr)
     return est.model
 
 
-def phase_main_path(card, rows=10_000_000, ntrees=20, depth=6):
+def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
+                    depth=6):
+    """One GBM path at full width, launch counters set to 0 just before
+    and read just after; the frame is made here unless given."""
     import torch
     from h2o3_tpu_torch.ops import kernels
-    X, y, F = higgs_arrays(rows)
-    t0 = time.perf_counter()
-    fr = frame_of(X, y, "cuda")
-    torch.cuda.synchronize()
-    log(f"frame {rows}x{F + 1} on cuda in {time.perf_counter() - t0:.2f} s")
+    if fr is None:
+        X, y, _F = higgs_arrays(rows)
+        t0 = time.perf_counter()
+        fr = frame_of(X, y, "cuda")
+        torch.cuda.synchronize()
+        log(f"frame {rows}x{fr.ncol} on cuda in "
+            f"{time.perf_counter() - t0:.2f} s")
+    F = fr.ncol - 1
+    torch.cuda.reset_peak_memory_stats()
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
-    model = train(fr, ntrees)
+    model = train(fr, ntrees, path)
     auc = model.training_metrics.auc
     pred = model.predict(fr)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if launches["binned_level"] != depth * ntrees:
-        raise AssertionError(f"binned_level launched "
-                             f"{launches['binned_level']} times, expected "
-                             f"{depth * ntrees}")
-    if launches["binned_route_only"] != ntrees:
-        raise AssertionError(f"binned_route_only launched "
-                             f"{launches['binned_route_only']} times, "
-                             f"expected {ntrees}")
+    expected = {k: 0 for k in launches}
+    expected[PATHS[path]["level"]] = depth * ntrees
+    expected[PATHS[path]["route"]] = ntrees
+    if launches != expected:
+        raise AssertionError(f"{path} path launched {launches}, expected "
+                             f"{expected}")
     if not np.isfinite(auc) or not 0.5 < auc <= 1.0:
         raise AssertionError(f"training AUC {auc} is not a finite "
                              f"better-than-chance value")
@@ -286,35 +469,38 @@ def phase_main_path(card, rows=10_000_000, ntrees=20, depth=6):
                              "row")
     loop_s = model.output["training_loop_seconds"]
     rps = rows * model.ntrees_built / loop_s
-    pc = model.output["packed_codes"]
-    print(f"main path: {rows}x{F} bernoulli GBM depth {depth} nbins 14 "
-          f"{ntrees} trees: AUC {auc!r} training_loop_seconds {loop_s!r} "
-          f"rows/s {rps!r} codes {pc['dtype']} W={pc['W']} "
-          f"train_profile {json.dumps(model.output['train_profile'])} "
-          f"launches {launches} [{card}]", flush=True)
+    print(f"main path {path}: {rows}x{F} bernoulli GBM depth {depth} "
+          f"{json.dumps(PATHS[path]['params'])} {ntrees} trees: AUC {auc!r} "
+          f"training_loop_seconds {loop_s!r} rows/s {rps!r} packed_codes "
+          f"{json.dumps(model.output['packed_codes'])} train_profile "
+          f"{json.dumps(model.output['train_profile'])} launches "
+          f"{launches} peak device memory in the train "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]",
+          flush=True)
     return {"auc": auc, "loop_s": loop_s, "rows_per_s": rps,
-            "launches": launches, "frame": fr}
+            "launches": launches, "frame": fr, "trees": model.trees}
 
 
-def phase_card_vs_cpu(rows=200_000, ntrees=5):
+def phase_card_vs_cpu(path, rows=200_000, ntrees=5):
     X, y, _F = higgs_arrays(rows, seed=11)
     models = {}
     for dev in ("cuda", "cpu"):
-        models[dev] = train(frame_of(X, y, dev), ntrees,
+        models[dev] = train(frame_of(X, y, dev), ntrees, path,
                             histogram_precision="float32")
     mc, mh = models["cuda"], models["cpu"]
-    for key in ("feat", "split_bin"):
+    for key in ("feat", PATHS[path]["split_key"]):
         a = mc.trees[key][0]
         b = mh.trees[key][0]
         if not np.array_equal(a, b):
-            raise AssertionError(f"tree 0 {key} differs between cuda and "
-                                 f"cpu: {a} vs {b}")
+            raise AssertionError(f"{path}: tree 0 {key} differs between "
+                                 f"cuda and cpu: {a} vs {b}")
     d_auc = abs(mc.training_metrics.auc - mh.training_metrics.auc)
     if d_auc > 1e-4:
-        raise AssertionError(f"|dAUC| cuda vs cpu = {d_auc}")
-    print(f"card vs cpu: {rows} rows, {ntrees} trees, float32 histograms: "
-          f"tree 0 splits equal, AUC cuda {mc.training_metrics.auc!r} "
-          f"cpu {mh.training_metrics.auc!r} |dAUC| {d_auc!r}", flush=True)
+        raise AssertionError(f"{path}: |dAUC| cuda vs cpu = {d_auc}")
+    print(f"card vs cpu, {path}: {rows} rows, {ntrees} trees, float32 "
+          f"histograms: tree 0 splits equal, AUC cuda "
+          f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
+          f"|dAUC| {d_auc!r}", flush=True)
 
 
 def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
@@ -344,7 +530,8 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     print(f"binned_level at 10M x 28, W=16, per level N: "
           f"{json.dumps(per_level)} ms; sum per tree "
           f"{sum(per_level.values())!r} ms", flush=True)
-    rec = [{"name": "binned_level", "route": "cuda", "source": SRC,
+    rec = [{"name": "binned_level", "route": "cuda",
+            "source": SRC["binned_level"],
             "replaces": REPLACES["binned_level"],
             "launches": launches["binned_level"], "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
@@ -357,7 +544,8 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     pms = time_cuda(lambda: binned_route_only_plain(
         codes, nid, tables, n_prev, base, W), 3)
     bound, by = route_bound_ms(rows, 1)
-    rec.append({"name": "binned_route_only", "route": "cuda", "source": SRC,
+    rec.append({"name": "binned_route_only", "route": "cuda",
+                "source": SRC["binned_route_only"],
                 "replaces": REPLACES["binned_route_only"],
                 "launches": launches["binned_route_only"],
                 "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
@@ -365,24 +553,114 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     return rec
 
 
-def phase_warm_profile(fr, card, ntrees=5):
-    """Where the time goes: the main path's train again (warm: kernels
+def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
+    """The adaptive kernels at the adaptive main path's shapes (10M x 28
+    float32 features, W=32, bfloat16-rounded (g, h, w) as
+    histogram_precision='auto' picks at this size), in both layouts:
+    per-level times, the plain version's time and the bound at N=32, the
+    route at N=64. The record's time is the training path's layout."""
+    import torch
+    from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level_plain,
+                                                  adaptive_route_only_plain)
+    W, N = 32, 32
+    level_ms, route_ms, per_level = {}, {}, {}
+    for layout in LAYOUTS:
+        per_level[layout] = {}
+        for n_lvl in (1, 2, 4, 8, 16, 32):
+            e, inp = check_adaptive_level(rows, F, W, n_lvl, False, True, dev,
+                                          900 + n_lvl, layout)
+            x, nid, ghw, tables, lo, inv, n_prev, base = inp
+            per_level[layout][n_lvl] = time_cuda(
+                lambda: kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
+                                               n_prev, n_lvl, base, W, True,
+                                               layout), 10)
+            if n_lvl == N and layout == ADAPTIVE_LAYOUT:
+                err = e
+                pms = time_cuda(lambda: adaptive_level_plain(
+                    x, nid, ghw, tables, lo, inv, n_prev, N, base, W, True,
+                    layout), 3)
+            del inp, x, nid, ghw
+        level_ms[layout] = per_level[layout][N]
+        print(f"adaptive_level {layout} at 10M x 28, W=32, per level N: "
+              f"{json.dumps(per_level[layout])} ms; sum per tree "
+              f"{sum(per_level[layout].values())!r} ms", flush=True)
+        x, nid, tables, n_prev, base = check_adaptive_route(rows, F, 2 * N,
+                                                            dev, 4321, layout)
+        route_ms[layout] = time_cuda(lambda: kernels.adaptive_route_only(
+            x, nid, tables, n_prev, base, layout), 20)
+        if layout == ADAPTIVE_LAYOUT:
+            rpms = time_cuda(lambda: adaptive_route_only_plain(
+                x, nid, tables, n_prev, base, layout), 3)
+        del x, nid
+    print(f"adaptive layouts at 10M x 28 (training path: {ADAPTIVE_LAYOUT}):"
+          f" level N=32 {json.dumps(level_ms)} ms, route N=64 "
+          f"{json.dumps(route_ms)} ms", flush=True)
+    bound, by = adaptive_level_bound_ms(rows, F, N, W, rows)
+    rbound, rby = route_bound_ms(rows, 4)
+    return [{"name": "adaptive_level", "route": "cuda",
+             "source": SRC["adaptive_level"],
+             "replaces": REPLACES["adaptive_level"],
+             "also_replaces": ALSO_REPLACES["adaptive_level"],
+             "launches": launches["adaptive_level"], "max_abs_err": err,
+             "ms": level_ms[ADAPTIVE_LAYOUT], "ms_by_layout": level_ms,
+             "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None},
+            {"name": "adaptive_route_only", "route": "cuda",
+             "source": SRC["adaptive_route_only"],
+             "replaces": REPLACES["adaptive_route_only"],
+             "also_replaces": ALSO_REPLACES["adaptive_route_only"],
+             "launches": launches["adaptive_route_only"], "max_abs_err": 0.0,
+             "ms": route_ms[ADAPTIVE_LAYOUT], "ms_by_layout": route_ms,
+             "plain_ms": rpms, "bound_ms": rbound, "bound_by": rby,
+             "library_ms": None}]
+
+
+def split_flips(a, b) -> str:
+    """How two models' trees differ: split features that differ, and the
+    first tree where any does (over the trees both have)."""
+    n = min(len(a["feat"]), len(b["feat"]))
+    diff = a["feat"][:n] != b["feat"][:n]
+    first = int(np.argmax(diff.any(axis=1))) if diff.any() else None
+    return f"{int(diff.sum())} of {diff.size} split features differ " \
+           f"(first in tree {first})"
+
+
+def phase_repeatability(fr, path):
+    """The same train twice at float32 histograms. Float atomics add in
+    another order each run; this reports how far that moves the
+    trees."""
+    runs = [train(fr, 20, path, histogram_precision="float32")
+            for _ in range(2)]
+    print(f"repeatability {path}, float32 x2: "
+          f"{split_flips(runs[0].trees, runs[1].trees)}, AUC "
+          f"{runs[0].training_metrics.auc!r} vs "
+          f"{runs[1].training_metrics.auc!r}", flush=True)
+
+
+def phase_warm_profile(fr, card, path, cold_trees, ntrees=5):
+    """Where the time goes: a main path's train again (warm: kernels
     loaded, allocator grown), once plain at 20 trees and once with 5
     trees under torch.profiler. Prints the loop times, the device time
-    by kernel and the device busy share of the whole train() call."""
+    by kernel and the device busy share of the whole train() call, and
+    how the warm retrain's trees differ from the cold run's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    warm = train(fr, 20)
+    warm = train(fr, 20, path)
+    print(f"repeatability {path}, cold vs warm at 'auto': "
+          f"{split_flips(cold_trees, warm.trees)}", flush=True)
     w_loop = warm.output["training_loop_seconds"]
-    print(f"warm retrain: {fr.nrow} rows, 20 trees: training_loop_seconds "
+    print(f"warm retrain {path}: {fr.nrow} rows, 20 trees: "
+          f"training_loop_seconds "
           f"{w_loop!r} (rows/s {fr.nrow * 20 / w_loop!r}), AUC "
           f"{warm.training_metrics.auc!r} [{card}]", flush=True)
     del warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model = train(fr, ntrees)
+        model = train(fr, ntrees, path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     loop_s = model.output["training_loop_seconds"]
@@ -395,7 +673,7 @@ def phase_warm_profile(fr, card, ntrees=5):
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"warm profile: {fr.nrow} rows, {ntrees} trees: "
+    print(f"warm profile {path}: {fr.nrow} rows, {ntrees} trees: "
           f"training_loop_seconds {loop_s!r} "
           f"(rows/s {fr.nrow * ntrees / loop_s!r}), train() wall "
           f"{wall * 1e3!r} ms, device busy {busy!r} ms "
@@ -447,24 +725,34 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}")
-    print(sass_atomics(kernels.library_path()), flush=True)
+    for so in kernels.library_paths().values():
+        print(sass_atomics(so), flush=True)
 
     # 3. kernel vs plain
     phase_kernels(dev)
+    phase_adaptive_kernels(dev)
 
-    # 4. main path
-    main_res = phase_main_path(card)
+    # 4. the main paths, each with its own launch counts
+    packed = phase_main_path(card, "packed")
+    fr = packed.pop("frame")
+    adaptive = phase_main_path(card, "adaptive", fr)
+    del adaptive["frame"]
 
     # 5. card vs cpu
-    phase_card_vs_cpu()
+    phase_card_vs_cpu("packed")
+    phase_card_vs_cpu("adaptive")
 
-    # 6. kernels at the main path's shape
-    rec = phase_kernel_record(dev, main_res["launches"])
+    # 6. kernels at the main paths' shapes
+    rec = phase_kernel_record(dev, packed["launches"])
+    rec += phase_adaptive_record(dev, adaptive["launches"])
 
-    # 7. where the time goes: a warm, profiled retrain of the main path
-    phase_warm_profile(main_res.pop("frame"), card)
-    print("kernels run: binned_level[W=16,32,256] binned_route_only",
-          flush=True)
+    # 7. where the time goes: a warm, profiled retrain of each main path
+    phase_warm_profile(fr, card, "packed", packed["trees"])
+    phase_warm_profile(fr, card, "adaptive", adaptive["trees"])
+    phase_repeatability(fr, "adaptive")
+    print("kernels run: binned_level[W=16,32,256] binned_route_only "
+          "adaptive_level[rows_f,f_rows x W=16,32,256] "
+          "adaptive_route_only[rows_f,f_rows]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

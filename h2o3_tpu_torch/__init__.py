@@ -8,8 +8,9 @@ tensors. Entry points run on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``device="cpu"`` per frame); without a CUDA
 device and without that request they raise.
 
-This slice covers training a bernoulli or gaussian GBM on packed bin
-codes, its training metrics and ``predict``; ROADMAP.md queues the rest.
+The port covers training a bernoulli or gaussian GBM on packed bin
+codes or on per-node adaptive bins (H2O's ``UniformAdaptive``), its
+training metrics and ``predict``; ROADMAP.md queues the rest.
 """
 from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame

@@ -29,7 +29,7 @@
 // adds its nonzero partial cells into the output with global atomics.
 // When the level's [3, N, F, W] partial does not fit the shared budget,
 // the grid's second dimension splits it into node x feature tiles; each
-// tile re-reads the rows it needs.
+// tile re-reads the rows it needs (level_common.cuh).
 //
 // What the simple design leaves on the table (later work): Hopper has no
 // native shared-memory float atomic add, so each shared atomicAdd is a
@@ -41,20 +41,11 @@
 // cp.async staging of the codes; no wgmma one-hot contraction; feature
 // tiles re-read nid and ghw.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "level_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;  // threads per block == rows per chunk
-// Shared-memory budget for one block's partial histogram: small enough
-// that two blocks fit on an SM (228 KB each, 1 KB reserved per block).
-constexpr int64_t kHistBudget = 108 * 1024;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+using h2o3::kThreads;
 
 template <typename CodeT>
 __device__ __forceinline__ int route_row(const CodeT* __restrict__ codes,
@@ -115,9 +106,9 @@ binned_level_kernel(const CodeT* __restrict__ codes,
       s_lid[threadIdx.x] = (ln >= n0 && ln < n0 + nt) ? ln - n0 : -1;
       float g = ghw[r], h = ghw[rows + r], w = ghw[2 * rows + r];
       if (bf16) {
-        g = round_bf16(g);
-        h = round_bf16(h);
-        w = round_bf16(w);
+        g = h2o3::round_bf16(g);
+        h = h2o3::round_bf16(h);
+        w = h2o3::round_bf16(w);
       }
       s_g[threadIdx.x] = g;
       s_h[threadIdx.x] = h;
@@ -140,22 +131,8 @@ binned_level_kernel(const CodeT* __restrict__ codes,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) {
-    const float v = s_hist[i];
-    if (v == 0.f) continue;
-    const int k = i / cells;
-    const int rem = i - k * cells;
-    const int b = rem % WP;
-    const int t = rem / WP;
-    if (b >= W) continue;
-    const int fl = t % feat_tile;
-    const int ln = t / feat_tile;
-    if (ln >= nt || fl >= ft) continue;
-    const int64_t o =
-        ((static_cast<int64_t>(k) * n_nodes + (n0 + ln)) * F + (f0 + fl)) *
-            W + b;
-    atomicAdd(hist + o, v);
-  }
+  h2o3::merge_partial<W>(s_hist, cells, node_tile, feat_tile, n0, f0, nt, ft,
+                         n_nodes, F, hist);
 }
 
 template <typename CodeT>
@@ -175,35 +152,15 @@ binned_route_only_kernel(const CodeT* __restrict__ codes,
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
 template <typename CodeT, int W>
 int launch_level(const void* codes, const int* nid, const float* ghw,
                  const int* tables, int64_t rows, int F, int n_prev,
                  int n_nodes, int level_base, int bf16, int* nid_out,
                  float* hist, cudaStream_t stream) {
   const int64_t per_cell = 3 * (W + 1) * static_cast<int64_t>(sizeof(float));
-  int node_tile, feat_tile;
-  if (n_nodes * F * per_cell <= kHistBudget) {
-    node_tile = n_nodes;
-    feat_tile = F;
-  } else if (n_nodes * per_cell <= kHistBudget) {
-    node_tile = n_nodes;
-    feat_tile = static_cast<int>(kHistBudget / (n_nodes * per_cell));
-  } else {
-    feat_tile = 1;
-    node_tile = static_cast<int>(kHistBudget / per_cell);
-  }
-  const int n_feat_tiles = (F + feat_tile - 1) / feat_tile;
-  const int n_node_tiles = (n_nodes + node_tile - 1) / node_tile;
-  const int64_t tiles = static_cast<int64_t>(n_feat_tiles) * n_node_tiles;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = (3 * static_cast<size_t>(node_tile) * feat_tile *
+  const h2o3::LevelTiles t = h2o3::level_tiles(n_nodes, F, per_cell);
+  if (t.n_tiles < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = (3 * static_cast<size_t>(t.node_tile) * t.feat_tile *
                           (W + 1) + 4 * kThreads) * sizeof(float);
   auto kern = binned_level_kernel<CodeT, W>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -214,16 +171,13 @@ int launch_level(const void* codes, const int* nid, const float* ghw,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  const int64_t chunks = (rows + kThreads - 1) / kThreads;
-  int64_t gx = (static_cast<int64_t>(sm_count()) * per_sm + tiles - 1) / tiles;
-  if (gx > chunks) gx = chunks;
-  if (gx < 1) gx = 1;
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(tiles));
+  dim3 grid(static_cast<unsigned>(h2o3::level_grid_x(per_sm, t.n_tiles,
+                                                     rows)),
+            static_cast<unsigned>(t.n_tiles));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(codes), nid, ghw, tables, rows, F, n_prev,
-      n_nodes, level_base, node_tile, feat_tile, n_feat_tiles, bf16, nid_out,
-      hist);
+      n_nodes, level_base, t.node_tile, t.feat_tile, t.n_feat_tiles, bf16,
+      nid_out, hist);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,7 +235,7 @@ int h2o3_binned_route_only(const void* codes, int code_bytes, const int* nid,
   if (F < 1 || n_prev < 1 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks64 = (rows + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * 32;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 32;
   const unsigned blocks = static_cast<unsigned>(
       blocks64 < 1 ? 1 : (blocks64 > cap ? cap : blocks64));
   if (code_bytes == 1) {

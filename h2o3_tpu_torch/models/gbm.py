@@ -1,11 +1,16 @@
-"""GBM — gradient boosting on packed bin codes.
+"""GBM — gradient boosting on packed bin codes or adaptive bins.
 
-Counterpart of ``h2o3_tpu/models/gbm.py``: the packed branch of the
-dense trainer and the per-tree body of its boosting chunk (K = 1), as a
-Python loop. Per tree: (g, h) from the distribution at the current
-margin, one tree grown on the packed codes (``models/tree.py``), and the
-tree's leaf values folded back into the margin through the leaf ids the
-grower already routed. Trees are fetched to the host once, at the end.
+Counterpart of ``h2o3_tpu/models/gbm.py``: the in-memory trainer
+(``_train_dense``) and the per-tree body of its boosting chunk (K = 1),
+as a Python loop. The trainer takes the JAX package's path for the same
+parameters (``models/tree.py`` holds the rule): packed codes, binned once
+per train by the global quantile sketch (``packed_codes`` 'auto' or True
+on every device), or per-node adaptive bins on the raw features
+(``packed_codes=False``, and the fallback where packing cannot hold the
+bins). Per tree: (g, h) from the distribution at the current margin, one
+tree grown, and the tree's leaf values folded back into the margin
+through the leaf ids the grower already routed. Trees are fetched to the
+host once, at the end.
 
 Parameters the port does not support yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them; none is silently ignored.
@@ -23,12 +28,22 @@ from h2o3_tpu_torch.models.distributions import get_distribution, sigmoid
 from h2o3_tpu_torch.models.model_base import (BUILDER_PARAMS, Model,
                                               ModelBuilder, TrainingSpec,
                                               compute_metrics)
-from h2o3_tpu_torch.models.tree import (TreeConfig,
+from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
+                                        adaptive_feasible, adaptive_setup,
+                                        binned_feasible,
                                         bins_to_thresholds_stacked,
+                                        grow_tree_adaptive,
                                         grow_tree_binned,
-                                        predict_raw_stacked)
+                                        packed_bins_upper_bound,
+                                        packed_codes_requested,
+                                        predict_raw_stacked, tree_config)
 from h2o3_tpu_torch.ops.binning import (bin_matrix_device, pack_codes,
                                         packed_codes_record)
+
+# feature layout of the adaptive level kernels on the training path:
+# "rows_f" ([rows, F], the training matrix as it is) or "f_rows"
+# ([F, rows], one more copy of the features)
+ADAPTIVE_LAYOUT = "rows_f"
 
 # the JAX package's GBM_DEFAULTS without its TPU kernel switch
 GBM_DEFAULTS: Dict = dict(
@@ -52,10 +67,8 @@ GBM_DEFAULTS: Dict = dict(
 # parameters of the JAX GBM the port refuses until the named ROADMAP.md
 # item (queue 1) lands: (name, predicate on its value, item)
 _UNSUPPORTED = (
-    ("packed_codes", lambda v: str(v).lower() in ("false", "0"),
-     "item 11, the adaptive path"),
     ("histogram_type", lambda v: str(v or "").lower() == "random",
-     "item 11, the adaptive path"),
+     "item A4, sampling: the per-tree generator of the grid phase"),
     ("distribution", lambda v: str(v or "auto").lower() == "multinomial",
      "item A1, multinomial GBM"),
     ("distribution", lambda v: str(v or "auto").lower() not in (
@@ -201,27 +214,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         p = self.params
         dist_name = self._distribution(spec)
         dev = spec.device
-        hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
         t_bin0 = time.monotonic()
-        bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
-                               nbins=max(int(p["nbins"]), 2),
-                               nbins_cats=int(p["nbins_cats"]),
-                               histogram_type=hist_type)
-        if bm.n_bins > 254:
-            raise NotImplementedError(
-                f"gbm: {bm.n_bins} bins exceed the packed kernel's 254-lane "
-                f"cap; the global-sketch path is not ported yet (ROADMAP.md "
-                f"queue 1, item 12)")
-        pc = pack_codes(bm)
-        bm.codes = None            # the packed codes replace them
-        cfg = TreeConfig(
-            max_depth=int(p["max_depth"]), n_bins=bm.n_bins,
-            n_features=spec.n_features, min_rows=float(p["min_rows"]),
-            min_split_improvement=float(p["min_split_improvement"]),
-            reg_lambda=float(p.get("reg_lambda", 0.0)),
-            reg_alpha=float(p.get("reg_alpha", 0.0)),
-            histogram_precision=str(p.get("histogram_precision",
-                                          "auto")).lower())
+        cfg, grow, bm, pc = self._grower(spec)
         t_bin = time.monotonic() - t_bin0
 
         dist = get_distribution(dist_name)
@@ -240,7 +234,7 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         t_loop0 = time.monotonic()
         for _ in range(ntrees):
             g, h = dist.grad_hess(margin, yf)
-            tree, nid = grow_tree_binned(pc.rm, g * w, h * w, w, cfg)
+            tree, nid = grow(g * w, h * w, w)
             margin = margin + float(lr) * tree["value"][nid.long()]
             trees.append(tree)
             lr = np.float32(lr * anneal)
@@ -257,15 +251,66 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         model.output["train_profile"] = {"bin_s": t_bin, "loop_s": t_loop,
                                          "finalize_s": t_fin}
         model.output["packed_codes"] = packed_codes_record(
-            pc.rm.dtype, pc.W, pc.itemsize, bm.n_bins)
+            pc, bm.n_bins if pc is not None else None)
         return model
 
+    def _grower(self, spec: TrainingSpec):
+        """The JAX package's path rule (its ``_train_dense``) and the
+        chosen path's set-up. Returns (cfg, grow(g, h, w) -> (tree, nid),
+        bm, pc), with bm and pc None on the adaptive path; raises where
+        the JAX package would take the global-sketch grower."""
+        p = self.params
+        hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
+        depth = int(p["max_depth"])
+
+        def adaptive():
+            cfg, root_lo, root_hi, nb_f = adaptive_setup(spec, p, depth)
+            x = (spec.X if ADAPTIVE_LAYOUT == "rows_f"
+                 else spec.X.t().contiguous())
+
+            def grow(g, h, w):
+                return grow_tree_adaptive(x, g, h, w, cfg, root_lo, root_hi,
+                                          nb_f=nb_f, layout=ADAPTIVE_LAYOUT)
+            return cfg, grow, None, None
+
+        packed_req = packed_codes_requested(p) and hist_type != "random"
+        feasible = adaptive_feasible(spec, p, depth)
+        can_adapt = hist_type in ADAPTIVE_HIST_TYPES and feasible
+        if packed_req and can_adapt and not binned_feasible(
+                packed_bins_upper_bound(spec, p), spec.n_features, depth):
+            # packing cannot hold the categorical domains' bins: adaptive
+            # bins, without paying for the sketch
+            packed_req = False
+        if not packed_req and (can_adapt or hist_type == "random"
+                               and feasible):
+            return adaptive()
+        if packed_req:
+            bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
+                                   nbins=max(int(p["nbins"]), 2),
+                                   nbins_cats=int(p["nbins_cats"]),
+                                   histogram_type=hist_type)
+            if binned_feasible(bm.n_bins, spec.n_features, depth):
+                pc = pack_codes(bm)
+                bm.codes = None            # the packed codes replace them
+                cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
+                return (cfg, lambda g, h, w: grow_tree_binned(pc.rm, g, h, w,
+                                                              cfg), bm, pc)
+            if can_adapt:
+                # the sketch's bin count is past the packed lanes
+                return adaptive()
+        raise NotImplementedError(
+            f"gbm: histogram_type={hist_type!r}, nbins={p['nbins']}, "
+            f"packed_codes={p.get('packed_codes', 'auto')!r} takes the "
+            f"global-sketch grower, which is not ported yet (ROADMAP.md "
+            f"queue 1, item 12)")
+
     def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev):
-        """One fetch of the stacked trees, bins to raw thresholds, leaf
-        values scaled by each tree's learning rate, variable
+        """One fetch of the stacked trees, raw thresholds (unbinned from
+        the packed path's split bins; the adaptive grower's as they are),
+        leaf values scaled by each tree's learning rate, variable
         importances."""
-        keys = ("feat", "split_bin", "na_left", "is_split", "value", "gain",
-                "node_w")
+        keys = ("feat", "na_left", "is_split", "value", "gain", "node_w",
+                "thr" if bm is None else "split_bin")
         th = {k: torch.stack([t[k] for t in trees]).cpu().numpy()
               for k in keys}
         T = len(trees)
@@ -273,16 +318,22 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         anneal = float(self.params["learn_rate_annealing"])
         lrs = lr0 * anneal ** np.arange(T)
         trees_host = {
-            "feat": th["feat"], "split_bin": th["split_bin"],
-            "thr": bins_to_thresholds_stacked(th["split_bin"], th["feat"],
-                                              bm.edges),
-            "na_left": th["na_left"], "is_split": th["is_split"],
+            "feat": th["feat"], "na_left": th["na_left"],
+            "is_split": th["is_split"],
             "value": (th["value"].astype(np.float64)
                       * lrs[:, None]).astype(np.float32),
             "node_w": th["node_w"]}
+        if bm is None:
+            edges = []
+            trees_host["thr"] = th["thr"]
+        else:
+            edges = bm.edges
+            trees_host["split_bin"] = th["split_bin"]
+            trees_host["thr"] = bins_to_thresholds_stacked(
+                th["split_bin"], th["feat"], edges)
         model = GBMModel(self._model_key(), self.params, spec.names,
                          spec.nclasses, dist_name, f0.cpu().numpy(),
-                         trees_host, bm.edges, bm.n_bins, cfg.max_depth, T,
+                         trees_host, edges, cfg.n_bins, cfg.max_depth, T,
                          dev, response=spec.response,
                          response_domain=spec.response_domain)
         vi = np.zeros(len(spec.names))

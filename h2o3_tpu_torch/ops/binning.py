@@ -193,10 +193,13 @@ def pack_codes_for(X: torch.Tensor, bm: BinnedMatrix,
                          bm.n_bins, W)
 
 
-def packed_codes_record(dtype: torch.dtype, W: int, bytes_per_value: int,
-                        n_bins: int) -> dict:
+def packed_codes_record(pc: Optional[PackedCodes],
+                        n_bins: Optional[int] = None) -> dict:
     """``model.output['packed_codes']``, spelled as the JAX package
-    spells it."""
-    return {"enabled": True, "dtype": str(dtype).replace("torch.", ""),
-            "W": int(W), "bytes_per_value": int(bytes_per_value),
+    spells it; an adaptive train (no packed codes) records
+    ``{"enabled": False}``."""
+    if pc is None:
+        return {"enabled": False}
+    return {"enabled": True, "dtype": str(pc.rm.dtype).replace("torch.", ""),
+            "W": int(pc.W), "bytes_per_value": int(pc.itemsize),
             "n_bins": int(n_bins), "kernel": "binned_level"}

@@ -1,20 +1,36 @@
-"""The packed-code tree level: route + histogram, and the deepest-level
-route — plain PyTorch versions and their dispatchers.
+"""Tree level functions — plain PyTorch versions and their dispatchers.
 
-Counterpart of the binned half of ``h2o3_tpu/ops/hist_adaptive.py``.
-Codes are ``[rows, F]`` int8 (W <= 128) or int16 (W == 256) with values
-in ``[0, W-2]`` and NA in the reserved last lane ``W-1``. Split tables
-are one int32 ``[4, max(n_prev, 1)]`` tensor holding, per node of the
+Counterpart of ``h2o3_tpu/ops/hist_adaptive.py``. Two families share
+one routing and histogram contract:
+
+**Packed codes** (``binned_level``, ``binned_route_only``). Codes are
+``[rows, F]`` int8 (W <= 128) or int16 (W == 256) with values in
+``[0, W-2]`` and NA in the reserved last lane ``W-1``. Split tables are
+one int32 ``[4, max(n_prev, 1)]`` tensor holding, per node of the
 previous level, the split feature, the split bin, na_left and can-split.
+A row whose node can split reads ``code = codes[row, feat]``; NA goes
+right unless na_left, any other code goes right when
+``code >= split_bin``.
 
-Routing: a row in the previous level's window whose node can split reads
-``code = codes[row, feat]``; NA goes right unless na_left, any other code
-goes right when ``code >= split_bin``; the child is ``2*nid + 1 + right``.
-The histogram adds each row's (g, h, w) into the (node, feature, code)
-bin of every feature for the rows whose new node lies in
-``[level_base, level_base + n_nodes)``. With ``bf16=True`` each of g, h
-and w is rounded to bfloat16 (round to nearest even) before the float32
-add, which reproduces the TPU kernel's exact bf16 one-hot product.
+**Adaptive bins** (``adaptive_level``, ``adaptive_route_only``), H2O's
+``UniformAdaptive``: raw float32 features (NaN = NA) in one of two
+layouts, ``"rows_f"`` ``[rows, F]`` or ``"f_rows"`` ``[F, rows]``. Split
+tables are one float32 ``[4, max(n_prev, 1)]`` tensor (feat, raw
+threshold, na_left, can as floats, the JAX package's spelling). A row
+whose node can split (``can > 0.5``) reads ``x = x[row, feat]``; NaN
+goes right unless ``na_left > 0.5``, any other value goes right when
+``x >= thr``. The level then bins every feature per (node, feature)
+range: ``bin = floor(clip((x - lo) * inv, 0, W-2))`` with NaN in lane
+``W-1``. On a zero-span node (``inv = 0``) an infinite x gives
+``(±inf - lo) * 0 = NaN``: that row takes bin 0, as the JAX package's
+CPU reference does (its ``astype(int32)`` of NaN).
+
+In both, the child is ``2*nid + 1 + right``, and the histogram adds each
+row's (g, h, w) into the (node, feature, bin) cell of every feature for
+the rows whose new node lies in ``[level_base, level_base + n_nodes)``.
+With ``bf16=True`` each of g, h and w is rounded to bfloat16 (round to
+nearest even) before the float32 add, which reproduces the TPU kernel's
+exact bf16 one-hot product.
 
 The dispatchers send CPU tensors to the plain versions and CUDA tensors
 to the hand-written kernels (``ops/kernels.py``); anything else raises.
@@ -24,6 +40,8 @@ from __future__ import annotations
 import torch
 
 from h2o3_tpu_torch.ops import kernels
+
+LAYOUTS = ("rows_f", "f_rows")
 
 
 def pick_W(nbins: int) -> int:
@@ -44,9 +62,31 @@ def code_dtype(W: int) -> torch.dtype:
 
 def make_tables(feat, split_bin, na_left, can) -> torch.Tensor:
     """Stack one level's split record into the int32 [4, n] routing
-    table the level functions take."""
+    table the packed level functions take."""
     return torch.stack([torch.as_tensor(t).to(torch.int32)
                         for t in (feat, split_bin, na_left, can)])
+
+
+def make_adaptive_tables(feat, thr, na_left, can) -> torch.Tensor:
+    """Stack one level's split record into the float32 [4, n] routing
+    table the adaptive level functions take."""
+    return torch.stack([torch.as_tensor(t).to(torch.float32)
+                        for t in (feat, thr, na_left, can)])
+
+
+def rows_features(x: torch.Tensor, layout: str):
+    """(rows, F) of a feature matrix in ``layout``."""
+    if layout == "rows_f":
+        return x.shape[0], x.shape[1]
+    if layout == "f_rows":
+        return x.shape[1], x.shape[0]
+    raise ValueError(f"unknown layout {layout!r}; expected one of "
+                     f"{LAYOUTS}")
+
+
+def _as_rows_f(x: torch.Tensor, layout: str) -> torch.Tensor:
+    rows_features(x, layout)
+    return x if layout == "rows_f" else x.t()
 
 
 def _route_plain(codes, nid, tables, n_prev: int, level_base: int, W: int):
@@ -62,19 +102,32 @@ def _route_plain(codes, nid, tables, n_prev: int, level_base: int, W: int):
     return torch.where(in_prev & (tables[3][lid_p] != 0), child, nid)
 
 
-def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
-                       level_base: int, W: int, bf16: bool = False):
-    """Plain version of the level kernel: scatter-add histogram in row
-    order. Returns (nid' [rows] int32, hist [3, n_nodes, F, W] in ghw's
-    dtype)."""
-    rows, F = codes.shape
-    if n_prev > 0:
-        nid = _route_plain(codes, nid, tables, n_prev, level_base, W)
+def _adaptive_route_plain(x, nid, tables, n_prev: int, level_base: int):
+    """Raw-threshold route of ``x`` [rows, F] (any strides)."""
+    F = x.shape[1]
+    prev_base = level_base - n_prev
+    lid_p = (nid - prev_base).clamp(0, n_prev - 1).long()
+    in_prev = (nid >= prev_base) & (nid < prev_base + n_prev)
+    feat = tables[0][lid_p].to(torch.int32).clamp(0, F - 1).long()
+    xsel = x.gather(1, feat[:, None])[:, 0]
+    right = torch.where(torch.isnan(xsel), tables[2][lid_p] < 0.5,
+                        xsel >= tables[1][lid_p])
+    child = 2 * nid + 1 + right.to(torch.int32)
+    return torch.where(in_prev & (tables[3][lid_p] > 0.5), child, nid)
+
+
+def _level_hist_plain(nid, bins, ghw, n_nodes: int, level_base: int, W: int,
+                      bf16: bool):
+    """Scatter-add each row's (g, h, w) into the (node, feature, bin)
+    cells of the rows in the level's window, in row order. ``bins`` is
+    [rows, F] int64 in [0, W). Returns hist [3, n_nodes, F, W] in ghw's
+    dtype."""
+    rows, F = bins.shape
     lid = nid - level_base
     in_lvl = (lid >= 0) & (lid < n_nodes)
     lidc = torch.where(in_lvl, lid, 0).long()
-    fidx = torch.arange(F, device=codes.device)
-    flat = (lidc[:, None] * F + fidx[None, :]) * W + codes.long()
+    fidx = torch.arange(F, device=bins.device)
+    flat = (lidc[:, None] * F + fidx[None, :]) * W + bins
     vals = ghw.t()
     if bf16:
         vals = vals.to(torch.bfloat16).to(ghw.dtype)
@@ -82,40 +135,110 @@ def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
     # the histogram accumulates in ghw's dtype: float32 on the training
     # path; a float64 ghw gives the exact yardstick the kernel checks use
     out = torch.zeros(n_nodes * F * W, 3, dtype=ghw.dtype,
-                      device=codes.device)
+                      device=bins.device)
     out.index_add_(0, flat.reshape(-1),
                    vals[:, None, :].expand(rows, F, 3).reshape(-1, 3))
-    return nid, out.reshape(n_nodes, F, W, 3).permute(3, 0, 1, 2).contiguous()
+    return out.reshape(n_nodes, F, W, 3).permute(3, 0, 1, 2).contiguous()
+
+
+def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
+                       level_base: int, W: int, bf16: bool = False):
+    """Plain version of the packed level kernel: scatter-add histogram in
+    row order. Returns (nid' [rows] int32, hist [3, n_nodes, F, W] in
+    ghw's dtype)."""
+    if n_prev > 0:
+        nid = _route_plain(codes, nid, tables, n_prev, level_base, W)
+    return nid, _level_hist_plain(nid, codes.long(), ghw, n_nodes,
+                                  level_base, W, bf16)
 
 
 def binned_route_only_plain(codes, nid, tables, n_prev: int, level_base: int,
                             W: int):
-    """Plain version of the deepest-level route kernel."""
+    """Plain version of the packed deepest-level route kernel."""
     return _route_plain(codes, nid, tables, n_prev, level_base, W)
+
+
+def adaptive_bins_plain(x, nid, lo, inv, n_nodes: int, level_base: int,
+                        W: int):
+    """Per-(node, feature) uniform bins of ``x`` [rows, F]: NaN -> W-1,
+    else ``floor(clip((x - lo) * inv, 0, W-2))`` under the row's node
+    range; a NaN product (an infinite x on a zero-span node) -> bin 0.
+    Rows outside the level's window read node 0's range (their mass is
+    masked off by the histogram). int64 [rows, F]."""
+    lid = nid - level_base
+    lidc = torch.where((lid >= 0) & (lid < n_nodes), lid, 0).long()
+    v = (x - lo[lidc]) * inv[lidc]
+    # torch turns NaN into INT_MIN on the int cast; the JAX CPU
+    # reference and the kernel give 0 — say so explicitly
+    v = torch.where(torch.isnan(v), 0.0, v)
+    b = torch.floor(torch.clamp(v, 0.0, float(W - 2))).long()
+    return torch.where(torch.isnan(x), W - 1, b)
+
+
+def adaptive_level_plain(x, nid, ghw, tables, lo, inv, n_prev: int,
+                         n_nodes: int, level_base: int, W: int,
+                         bf16: bool = False, layout: str = "rows_f"):
+    """Plain version of the adaptive level kernel (K5 in the ``"f_rows"``
+    layout, K8 in ``"rows_f"``): raw-threshold route, per-node re-bin,
+    scatter-add histogram in row order. ``lo``/``inv`` are [n_nodes, F]
+    float32. Returns (nid' [rows] int32, hist [3, n_nodes, F, W] in
+    ghw's dtype)."""
+    xr = _as_rows_f(x, layout)
+    if n_prev > 0:
+        nid = _adaptive_route_plain(xr, nid, tables, n_prev, level_base)
+    bins = adaptive_bins_plain(xr, nid, lo, inv, n_nodes, level_base, W)
+    return nid, _level_hist_plain(nid, bins, ghw, n_nodes, level_base, W,
+                                  bf16)
+
+
+def adaptive_route_only_plain(x, nid, tables, n_prev: int, level_base: int,
+                              layout: str = "rows_f"):
+    """Plain version of the adaptive deepest-level route kernel (K6 in
+    ``"f_rows"``, K9 in ``"rows_f"``)."""
+    return _adaptive_route_plain(_as_rows_f(x, layout), nid, tables,
+                                 n_prev, level_base)
+
+
+def _dispatch(name: str, t, plain, kernel, *args):
+    if t.device.type == "cpu":
+        return plain(*args)
+    if t.device.type == "cuda":
+        return kernel(*args)
+    raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                  level_base: int, W: int, bf16: bool = False):
     """One packed-code tree level: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors."""
-    if codes.device.type == "cpu":
-        return binned_level_plain(codes, nid, ghw, tables, n_prev, n_nodes,
-                                  level_base, W, bf16)
-    if codes.device.type == "cuda":
-        return kernels.binned_level(codes, nid, ghw, tables, n_prev,
-                                    n_nodes, level_base, W, bf16)
-    raise ValueError(f"binned_level: unsupported device {codes.device}")
+    return _dispatch("binned_level", codes, binned_level_plain,
+                     kernels.binned_level, codes, nid, ghw, tables, n_prev,
+                     n_nodes, level_base, W, bf16)
 
 
 def binned_route_only(codes, nid, tables, n_prev: int, level_base: int,
                       W: int):
-    """The deepest level's route: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
-    if codes.device.type == "cpu":
-        return binned_route_only_plain(codes, nid, tables, n_prev,
-                                       level_base, W)
-    if codes.device.type == "cuda":
-        return kernels.binned_route_only(codes, nid, tables, n_prev,
-                                         level_base, W)
-    raise ValueError(f"binned_route_only: unsupported device "
-                     f"{codes.device}")
+    """The packed deepest level's route: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    return _dispatch("binned_route_only", codes, binned_route_only_plain,
+                     kernels.binned_route_only, codes, nid, tables, n_prev,
+                     level_base, W)
+
+
+def adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
+                   level_base: int, W: int, bf16: bool = False,
+                   layout: str = "rows_f"):
+    """One adaptive-bin tree level: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
+    return _dispatch("adaptive_level", x, adaptive_level_plain,
+                     kernels.adaptive_level, x, nid, ghw, tables, lo, inv,
+                     n_prev, n_nodes, level_base, W, bf16, layout)
+
+
+def adaptive_route_only(x, nid, tables, n_prev: int, level_base: int,
+                        layout: str = "rows_f"):
+    """The adaptive deepest level's route: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    return _dispatch("adaptive_route_only", x, adaptive_route_only_plain,
+                     kernels.adaptive_route_only, x, nid, tables, n_prev,
+                     level_base, layout)

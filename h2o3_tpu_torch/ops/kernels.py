@@ -1,10 +1,12 @@
 """Build, bind and launch the hand-written CUDA kernels of the port.
 
-``csrc/hist_binned.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, and bound with
-``ctypes``. The library lands in ``h2o3_tpu_torch/_build/`` under a name
-that carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads the library already there.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface at first use (one
+``nvcc`` per source, all started together), and bound with ``ctypes``.
+The libraries land in ``h2o3_tpu_torch/_build/`` under names that carry
+one hash of all the sources (``*.cu`` and ``*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged tree loads the libraries already
+there.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch on the tensors' device, launches on the current
@@ -21,22 +23,40 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hist_binned.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel; a run sets these to 0 before the path it measures
-LAUNCHES = {"binned_level": 0, "binned_route_only": 0}
+LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
+            "adaptive_level": 0, "adaptive_route_only": 0}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Optional[Dict[str, ctypes.CDLL]] = None
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures: library stem -> {function: argtypes}; every function
+# returns a cudaError_t as int
+_SIGNATURES = {
+    "hist_binned": {
+        "h2o3_binned_level": [_VP, _INT, _VP, _VP, _VP, _LL, _INT, _INT,
+                              _INT, _INT, _INT, _INT, _VP, _VP, _VP],
+        "h2o3_binned_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
+                                   _INT, _INT, _VP, _VP],
+    },
+    "hist_adaptive": {
+        "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
+                                _INT, _INT, _INT, _INT, _INT, _INT, _VP,
+                                _VP, _VP],
+        "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
+                                     _INT, _VP, _VP],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -51,50 +71,75 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def sources() -> Dict[str, Path]:
+    """The kernel sources, by library stem."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def library_paths() -> Dict[str, Path]:
+    """Where each library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libh2o3_hist_binned_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    return {stem: BUILD_DIR / f"libh2o3_{stem}_{tag}.so"
+            for stem in sources()}
 
 
-def build() -> ctypes.CDLL:
-    """Compile (when the hashed library is missing) and load the kernel
-    library; later calls return the loaded library."""
-    global _lib
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile (where a hashed library is missing, every source at once)
+    and load the kernel libraries; later calls return the loaded
+    libraries, by stem."""
+    global _libs
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not so.exists():
+        if _libs is not None:
+            return _libs
+        paths, srcs = library_paths(), sources()
+        todo = {s: so for s, so in paths.items() if not so.exists()}
+        if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        lib.h2o3_binned_level.argtypes = [
-            _VP, _INT, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT, _INT,
-            _INT, _VP, _VP, _VP]
-        lib.h2o3_binned_level.restype = _INT
-        lib.h2o3_binned_route_only.argtypes = [
-            _VP, _INT, _VP, _VP, _LL, _INT, _INT, _INT, _INT, _VP, _VP]
-        lib.h2o3_binned_route_only.restype = _INT
-        _lib = lib
-        return lib
+            nvcc = _nvcc()
+            procs = {}
+            for stem, so in todo.items():
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                procs[stem] = (tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[stem])],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            failed = []
+            for stem, (tmp, proc) in procs.items():
+                out, err = proc.communicate()
+                todo[stem].with_suffix(".log").write_text(out + err)
+                if proc.returncode != 0:
+                    failed.append(f"{srcs[stem].name} "
+                                  f"({proc.returncode}):\n{err[-4000:]}")
+                else:
+                    os.replace(tmp, todo[stem])
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        libs = {}
+        for stem, so in paths.items():
+            lib = ctypes.CDLL(str(so))
+            for fn, argtypes in _SIGNATURES.get(stem, {}).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _INT
+            libs[stem] = lib
+        _libs = libs
+        return libs
 
 
 def build_log() -> str:
     """The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) from the build of the current library, if this host built
-    it."""
-    log = library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+    spills) from the build of the current libraries, if this host built
+    them."""
+    logs = []
+    for stem, so in library_paths().items():
+        log = so.with_suffix(".log")
+        if log.exists():
+            logs.append(f"== {stem}\n{log.read_text()}")
+    return "\n".join(logs)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -110,13 +155,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_common(codes, nid, tables, n_prev: int, W: int):
-    from h2o3_tpu_torch.ops.hist_adaptive import code_dtype
-    if codes.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called with a tensor on "
-                         f"{codes.device}")
+def _check_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called with a tensor on {t.device}")
+
+
+def _check_W(W: int) -> None:
     if W not in (16, 32, 64, 128, 256):
         raise ValueError(f"unsupported lane width W={W}")
+
+
+def _check_common(codes, nid, tables, n_prev: int, W: int):
+    from h2o3_tpu_torch.ops.hist_adaptive import code_dtype
+    _check_cuda(codes)
+    _check_W(W)
     if codes.dim() != 2:
         raise ValueError(f"codes must be [rows, F], got {tuple(codes.shape)}")
     rows, F = codes.shape
@@ -127,9 +179,26 @@ def _check_common(codes, nid, tables, n_prev: int, W: int):
     return rows, F, dev
 
 
+def _check_adaptive(x, nid, tables, n_prev: int, layout: str):
+    from h2o3_tpu_torch.ops.hist_adaptive import rows_features
+    _check_cuda(x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    rows, F = rows_features(x, layout)
+    dev = x.device
+    _check("x", x, torch.float32, tuple(x.shape), dev)
+    _check("nid", nid, torch.int32, (rows,), dev)
+    _check("tables", tables, torch.float32, (4, max(n_prev, 1)), dev)
+    return rows, F, dev
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
@@ -140,7 +209,7 @@ def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     [4, max(n_prev, 1)] (feat, split_bin, na_left, can)."""
     rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
     _check("ghw", ghw, torch.float32, (3, rows), dev)
-    lib = build()
+    lib = build()["hist_binned"]
     nid_out = torch.empty_like(nid)
     hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -148,7 +217,7 @@ def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
             codes.data_ptr(), codes.element_size(), nid.data_ptr(),
             ghw.data_ptr(), tables.data_ptr(), rows, F, W, n_prev, n_nodes,
             level_base, int(bf16), nid_out.data_ptr(), hist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     _raise_on(rc, "binned_level")
     LAUNCHES["binned_level"] += 1
     return nid_out, hist
@@ -162,13 +231,60 @@ def binned_route_only(codes: torch.Tensor, nid: torch.Tensor,
     if n_prev < 1:
         raise ValueError("binned_route_only needs a previous level")
     rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
-    lib = build()
+    lib = build()["hist_binned"]
     nid_out = torch.empty_like(nid)
     with torch.cuda.device(dev):
         rc = lib.h2o3_binned_route_only(
             codes.data_ptr(), codes.element_size(), nid.data_ptr(),
             tables.data_ptr(), rows, F, W, n_prev, level_base,
-            nid_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            nid_out.data_ptr(), _stream(dev))
     _raise_on(rc, "binned_route_only")
     LAUNCHES["binned_route_only"] += 1
+    return nid_out
+
+
+def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
+                   tables: torch.Tensor, lo: torch.Tensor, inv: torch.Tensor,
+                   n_prev: int, n_nodes: int, level_base: int, W: int,
+                   bf16: bool, layout: str):
+    """Launch the adaptive route + re-bin + histogram level kernel. Same
+    contract as ``hist_adaptive.adaptive_level_plain``; ``tables`` is
+    float32 [4, max(n_prev, 1)] (feat, thr, na_left, can), ``lo``/``inv``
+    float32 [n_nodes, F]."""
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
+    _check_W(W)
+    _check("ghw", ghw, torch.float32, (3, rows), dev)
+    _check("lo", lo, torch.float32, (n_nodes, F), dev)
+    _check("inv", inv, torch.float32, (n_nodes, F), dev)
+    lib = build()["hist_adaptive"]
+    nid_out = torch.empty_like(nid)
+    hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_adaptive_level(
+            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
+            ghw.data_ptr(), tables.data_ptr(), lo.data_ptr(), inv.data_ptr(),
+            rows, F, W, n_prev, n_nodes, level_base, int(bf16),
+            nid_out.data_ptr(), hist.data_ptr(), _stream(dev))
+    _raise_on(rc, "adaptive_level")
+    LAUNCHES["adaptive_level"] += 1
+    return nid_out, hist
+
+
+def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
+                        tables: torch.Tensor, n_prev: int, level_base: int,
+                        layout: str) -> torch.Tensor:
+    """Launch the adaptive deepest-level route kernel. Same contract as
+    ``hist_adaptive.adaptive_route_only_plain``."""
+    if n_prev < 1:
+        raise ValueError("adaptive_route_only needs a previous level")
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
+    lib = build()["hist_adaptive"]
+    nid_out = torch.empty_like(nid)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_adaptive_route_only(
+            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
+            tables.data_ptr(), rows, F, n_prev, level_base,
+            nid_out.data_ptr(), _stream(dev))
+    _raise_on(rc, "adaptive_route_only")
+    LAUNCHES["adaptive_route_only"] += 1
     return nid_out

@@ -1,7 +1,8 @@
 """The slice as a whole: a JAX GBM and the port's GBM trained on the same
-frame (bernoulli, packed codes, float32 histograms) agree on every tree,
-on the training AUC and on predict; and the port scores a JAX model
-carried across through from_jax_arrays."""
+frame (bernoulli, float32 histograms) agree on every tree, on the
+training AUC and on predict, on packed codes and on adaptive bins (asked
+for, and where packing cannot hold the bins); and the port scores a JAX
+model carried across through from_jax_arrays."""
 import numpy as np
 import pytest
 import torch
@@ -99,7 +100,7 @@ def test_gaussian_regression_trains_on_cpu():
 
 
 @pytest.mark.parametrize("param", [
-    {"histogram_type": "random"}, {"packed_codes": False},
+    {"histogram_type": "random"},
     {"distribution": "multinomial"}, {"distribution": "poisson"},
     {"stopping_rounds": 3}, {"checkpoint": "gbm_1"},
     {"sample_rate": 0.8}, {"col_sample_rate": 0.5}, {"mtries": 3},
@@ -118,3 +119,115 @@ def test_unknown_parameter_and_validation_frame_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchGBM(ntrees=1).train(y="label", training_frame=fr,
                                  validation_frame=fr)
+
+
+# ------------------------------------------------------------ adaptive path
+
+# min_rows 10: leaves of a few rows tie exactly between features that cut
+# out the same rows, and their -G/H amplifies the summation order of the
+# JAX run's 8 virtual devices past 1e-5
+ADAPTIVE = dict(ntrees=3, max_depth=3, learn_rate=0.1,
+                distribution="bernoulli", histogram_precision="float32",
+                min_rows=10.0, seed=7)
+
+
+def _with_enum(cols, card, seed=1):
+    """``cols`` plus an enum column of ``card`` levels that carries part
+    of the signal, in both packages' frames."""
+    rng = np.random.default_rng(seed)
+    cat = rng.permutation(np.arange(ROWS) % card).astype(np.float32)
+    cols = dict(cols)
+    lab = cols.pop("label")
+    low = cat < card // 3                 # the low levels lean positive
+    cols["cat"] = cat
+    cols["label"] = np.where(low, rng.random(ROWS) < 0.85,
+                             lab).astype(np.float32)
+    jfr = jh2o.Frame.from_numpy(cols)
+    jfr["cat"] = jfr.vec("cat").asfactor()
+    tfr = th2o.Frame.from_numpy(cols, device="cpu")
+    tfr = th2o.Frame(tfr.names, [tfr.vec(n).asfactor() if n == "cat"
+                                 else tfr.vec(n) for n in tfr.names])
+    return jfr, tfr
+
+
+def _train_both(jfr, tfr, **params):
+    jm = JaxGBM(**params).train(y="label", training_frame=jfr).model
+    tm = TorchGBM(**params).train(y="label", training_frame=tfr).model
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def adaptive_models():
+    """packed_codes=False and the default histogram type
+    (uniform_adaptive, nbins 20 -> W=32) in both packages."""
+    cols = _data(seed=4)
+    jfr = jh2o.Frame.from_numpy(cols)
+    tfr = th2o.Frame.from_numpy(cols, device="cpu")
+    jm, tm = _train_both(jfr, tfr, packed_codes=False, **ADAPTIVE)
+    return jm, jfr, tm, tfr
+
+
+def _assert_same_model(jm, tm):
+    assert tm.ntrees_built == jm.ntrees_built
+    for k, j in (("feat", jm._feat), ("thr", jm._thr),
+                 ("na_left", jm._na_left), ("is_split", jm._is_split)):
+        np.testing.assert_array_equal(tm.trees[k], np.asarray(j), err_msg=k)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
+    assert tm.output["packed_codes"] == jm.output["packed_codes"] \
+        == {"enabled": False}
+    assert tm.edges == [] and jm.edges == []
+    assert abs(tm.training_metrics.auc - jm.training_metrics.auc) <= 1e-6
+    assert abs(tm.training_metrics.logloss
+               - jm.training_metrics.logloss) <= 1e-6
+
+
+def test_adaptive_trees_auc_and_predict_match(adaptive_models):
+    jm, jfr, tm, tfr = adaptive_models
+    assert tm.n_bins == 20
+    assert bool(tm.trees["is_split"].any())
+    _assert_same_model(jm, tm)
+    jp = jm.predict(jfr).vec("p1").to_numpy()
+    tp = tm.predict(tfr).vec("p1").to_numpy()
+    np.testing.assert_allclose(tp, jp, rtol=1e-5, atol=1e-7)
+
+
+def test_adaptive_from_jax_arrays_predicts_like_jax(adaptive_models):
+    jm, jfr, _tm, tfr = adaptive_models
+    meta = {"dist_name": jm.dist_name, "n_bins": jm.n_bins,
+            "max_depth": jm.max_depth, "ntrees_built": jm.ntrees_built,
+            "nclasses": jm.nclasses, "names": jm.feature_names,
+            "response_domain": jm.response_domain}
+    arrays = jm._save_arrays()
+    assert not any(k.startswith("edge_") for k in arrays)
+    carried = GBMModel.from_jax_arrays(arrays, meta, device="cpu")
+    got = carried.predict(tfr).vec("p1").to_numpy()
+    want = jm.predict(jfr).vec("p1").to_numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_packing_fallback_takes_the_adaptive_path_in_both():
+    """packed_codes=True, but an enum of 300 levels puts the sketch's bin
+    count past the 254 packed lanes: both packages fall back to adaptive
+    bins, here at W=256."""
+    jfr, tfr = _with_enum(_data(seed=6), 300)
+    jm, tm = _train_both(jfr, tfr, packed_codes=True, nbins=20, **ADAPTIVE)
+    assert tm.n_bins == 254
+    assert (tm.trees["feat"] == tm.feature_names.index("cat")).any()
+    _assert_same_model(jm, tm)
+
+
+def test_adaptive_with_small_enum_matches_jax():
+    jfr, tfr = _with_enum(_data(seed=8), 12)
+    jm, tm = _train_both(jfr, tfr, packed_codes=False, nbins=14, **ADAPTIVE)
+    _assert_same_model(jm, tm)
+
+
+@pytest.mark.parametrize("params", [
+    {"packed_codes": False, "histogram_type": "quantiles_global"},
+    {"nbins": 300}])
+def test_global_sketch_path_raises(params):
+    fr = th2o.Frame.from_numpy(_data(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TorchGBM(ntrees=1, max_depth=2, **params).train(
+            y="label", training_frame=fr)

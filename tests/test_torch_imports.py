@@ -79,19 +79,28 @@ def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    monkeypatch.setattr(tha, "binned_level_plain", refuse)
-    monkeypatch.setattr(tha, "binned_route_only_plain", refuse)
-    monkeypatch.setattr(kernels, "binned_level",
-                        lambda *a: calls.append("level") or (None, None))
-    monkeypatch.setattr(kernels, "binned_route_only",
-                        lambda *a: calls.append("route"))
+    for name in ("binned_level_plain", "binned_route_only_plain",
+                 "adaptive_level_plain", "adaptive_route_only_plain"):
+        monkeypatch.setattr(tha, name, refuse)
+    for name in ("binned_level", "binned_route_only", "adaptive_level",
+                 "adaptive_route_only"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name: calls.append(_n))
     t = _FakeCuda()
     tha.binned_level(t, t, t, t, 1, 2, 1, 16)
     tha.binned_route_only(t, t, t, 1, 1, 16)
-    assert calls == ["level", "route"]
+    tha.adaptive_level(t, t, t, t, t, t, 1, 2, 1, 16, False, "f_rows")
+    tha.adaptive_route_only(t, t, t, 1, 1, "rows_f")
+    assert calls == ["binned_level", "binned_route_only", "adaptive_level",
+                     "adaptive_route_only"]
     meta = torch.empty((8, 2), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tha.binned_level(meta, meta, meta, meta, 0, 1, 0, 16)
+    xm = torch.empty((8, 2), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tha.adaptive_level(xm, xm, xm, xm, xm, xm, 0, 1, 0, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tha.adaptive_route_only(xm, xm, xm, 1, 1)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -103,6 +112,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                              0, 16, False)
     with pytest.raises(ValueError, match="CUDA kernel"):
         kernels.binned_route_only(codes, nid, tables, 1, 1, 16)
+    x = torch.zeros((8, 2), dtype=torch.float32)
+    ftab = torch.zeros((4, 1), dtype=torch.float32)
+    rng = torch.zeros((1, 2), dtype=torch.float32)
+    for layout in ("rows_f", "f_rows"):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            kernels.adaptive_level(x, nid, torch.zeros((3, 8)), ftab, rng,
+                                   rng, 0, 1, 0, 16, False, layout)
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            kernels.adaptive_route_only(x, nid, ftab, 1, 1, layout)
 
 
 @pytest.fixture
@@ -114,7 +132,14 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_cuda_training_launches_the_kernels(cuda):
+@pytest.mark.parametrize("params,launches", [
+    (dict(nbins=14, histogram_type="quantiles_global"),
+     {"binned_level": 6, "binned_route_only": 2, "adaptive_level": 0,
+      "adaptive_route_only": 0}),
+    (dict(nbins=20, packed_codes=False),
+     {"binned_level": 0, "binned_route_only": 0, "adaptive_level": 6,
+      "adaptive_route_only": 2})])
+def test_cuda_training_launches_the_kernels(cuda, params, launches):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(20_000, 5)).astype(np.float32)
     y = (X[:, 0] + rng.normal(size=20_000) > 0).astype(np.float32)
@@ -125,6 +150,6 @@ def test_cuda_training_launches_the_kernels(cuda):
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     H2OGradientBoostingEstimator(
-        ntrees=2, max_depth=3, nbins=14, distribution="bernoulli",
-        histogram_type="quantiles_global").train(y="label", training_frame=fr)
-    assert kernels.LAUNCHES == {"binned_level": 6, "binned_route_only": 2}
+        ntrees=2, max_depth=3, distribution="bernoulli", **params).train(
+        y="label", training_frame=fr)
+    assert kernels.LAUNCHES == launches
