@@ -3,12 +3,13 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and the repository; without either it exits non-zero and
-prints no result. It drives the port's two GBM paths: packed codes
+prints no result. It drives the port's three GBM paths: packed codes
 (``histogram_type="quantiles_global"``, kernels binned_level and
-binned_route_only) and adaptive bins (``packed_codes=False``, H2O's
+binned_route_only), adaptive bins (``packed_codes=False``, H2O's
 default ``uniform_adaptive``, kernels adaptive_level and
-adaptive_route_only in the [rows, F] and [F, rows] layouts). Phases,
-each fatal on failure:
+adaptive_route_only in the [rows, F] and [F, rows] layouts) and the
+unpacked global sketch (nbins 1024, kernel global_hist). Phases, each
+fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
@@ -17,29 +18,41 @@ each fatal on failure:
    at W=16 (int8), W=32 (int8) and W=256 (int16), binned_route_only at
    N=64; adaptive_level at W in {16, 32, 256} and adaptive_route_only at
    N=64, both layouts, plus a case with NaN, ±inf and zero-span
-   features. With integer-valued (g, h, w) node ids and histograms must
-   be bit-equal to the plain PyTorch version; with float (g, h, w) node
-   ids bit-equal and each histogram bin within 1e-4 + 1e-5 x (its
-   absolute mass) of the plain version accumulated in float64, for
-   float32 and for bfloat16-rounded masses;
+   features; global_hist at B1 in {15 (uint8), 257, 1025 (int32)}, N in
+   {1, 8, 16}, about 10% of the rows outside [0, N), NA codes. With
+   integer-valued (g, h, w) node ids and histograms must be bit-equal to
+   the plain PyTorch version; with float (g, h, w) node ids bit-equal and
+   each histogram bin within 1e-4 + 1e-5 x (its absolute mass) of the
+   plain version accumulated in float64, for float32 and for
+   bfloat16-rounded masses;
 4. the main paths at full width: 10M x 28 HIGGS-shaped rows ->
    Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, 20 trees,
    min_rows 1, seed 7 -> training AUC -> predict; packed at nbins 14,
-   then adaptive at nbins 20 (W=32). Each path runs with the launch
-   counters set to 0 just before and read just after (6 x 20 level
-   launches and 20 route launches of its own kernels, 0 of the other
-   path's);
+   adaptive at nbins 20 (W=32), then global at nbins 1024 with
+   ``quantiles_global`` (B1 = 1025, int32 codes). Each path runs with the
+   launch counters set to 0 just before and read just after (6 x 20
+   level launches and 20 route launches of its own kernels on the packed
+   and adaptive paths, 6 x 20 global_hist on the global path, 0 of any
+   other kernel);
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
-   histograms, 5 trees on each device; tree 0's splits equal,
-   |dAUC| <= 1e-4;
+   histograms, 5 trees on each device (nbins 300 on the global path);
+   tree 0's splits equal, |dAUC| <= 1e-4; and packed vs global on the
+   card (200k rows, nbins 14, ``quantiles_global``, float32,
+   ``packed_codes`` True vs False): every tree's split features, bins
+   and NA directions identical;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
-   N = 1..32, both layouts for the adaptive kernels) against its plain
-   version and its bound;
+   N = 1..32, both layouts for the adaptive kernels; global_hist at the
+   six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, in the form
+   the shapes pick and in each form forced) against its plain version
+   and its bound (global_hist also against one ``index_add_``); the
+   global_hist record comes last, after phase 7, whose warm global loop
+   it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
    plain, then 5 trees under torch.profiler: device time by kernel,
    device busy share).
 
-The last two lines of stdout are the kernel record and
+Before its last lines it prints each phase's wall seconds. The last
+two lines of stdout are the kernel record and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -57,16 +70,18 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 SRC = {"binned_level": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "binned_route_only": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "adaptive_level": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
-       "adaptive_route_only": "h2o3_tpu_torch/csrc/hist_adaptive.cu"}
+       "adaptive_route_only": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
+       "global_hist": "h2o3_tpu_torch/csrc/hist_global.cu"}
 # the TPU kernel each replaces; the adaptive kernels' layout parameter
 # also covers the row-major forms (K8, K9)
 REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:930",
             "binned_route_only": "h2o3_tpu/ops/hist_adaptive.py:1282",
             "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
-            "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755"}
+            "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755",
+            "global_hist": "h2o3_tpu/ops/hist_pallas.py:47"}
 ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:134",
                  "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:787"}
-# the two GBM paths: their parameters and the kernels each launches
+# the three GBM paths: their parameters and the kernels each launches
 PATHS = {
     "packed": {"params": dict(nbins=14, histogram_type="quantiles_global"),
                "level": "binned_level", "route": "binned_route_only",
@@ -74,6 +89,9 @@ PATHS = {
     "adaptive": {"params": dict(nbins=20, packed_codes=False),
                  "level": "adaptive_level", "route": "adaptive_route_only",
                  "split_key": "thr"},
+    "global": {"params": dict(nbins=1024, histogram_type="quantiles_global"),
+               "level": "global_hist", "route": None,
+               "split_key": "split_bin"},
 }
 LAYOUTS = ("rows_f", "f_rows")
 
@@ -137,6 +155,18 @@ def adaptive_level_bound_ms(rows, F, N, W, rows_in_level):
     feature), whichever takes longer."""
     nbytes = rows * (F * 4 + 4 + 12 + 4) + 3 * N * F * W * 4
     ops = 5 * rows_in_level * F
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def global_bound_ms(rows, F, itemsize, N, B1, rows_in_level):
+    """Least time for one global-sketch histogram: every row's seg read
+    once, the codes and ghw of the rows in [0, N) read once (no other
+    row's are needed), the histogram written once; or 3 float adds per
+    (row in [0, N), feature); whichever takes longer."""
+    nbytes = (rows * 4 + rows_in_level * (F * itemsize + 12)
+              + 3 * N * F * B1 * 4)
+    ops = 3 * rows_in_level * F
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
@@ -399,6 +429,104 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
               f"zero-span case bit-equal", flush=True)
 
 
+def global_inputs(rows, F, B1, N, int_ghw, seed, dev, left_only=False):
+    """Codes (uint8 below 256 bins, else int32) uniform over the real
+    bins with 5% NA (the last bin), node ids and (g, h, w). About 10% of
+    the rows lie outside [0, N); with ``left_only``, as at a sibling-
+    subtraction level, half of them (the right children's rows)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, B1 - 1, (rows, F), generator=g, device=dev)
+    na = torch.rand((rows, F), generator=g, device=dev) < 0.05
+    dtype = torch.uint8 if B1 <= 256 else torch.int32
+    codes = torch.where(na, B1 - 1, codes).to(dtype)
+    if left_only:
+        local = torch.randint(0, 2 * N, (rows,), generator=g, device=dev)
+        seg = torch.where(local % 2 == 0, local // 2, -1)
+    else:
+        seg = torch.randint(0, N, (rows,), generator=g, device=dev)
+        seg = torch.where(torch.rand(rows, generator=g, device=dev) < 0.1,
+                          -1, seg)
+    if int_ghw:
+        gg = torch.randint(-8, 9, (rows,), generator=g, device=dev).float()
+        hh = torch.randint(0, 4, (rows,), generator=g, device=dev).float()
+    else:
+        gg = torch.randn(rows, generator=g, device=dev)
+        hh = torch.rand(rows, generator=g, device=dev) * 0.25
+    ghw = torch.stack([gg, hh, torch.ones(rows, device=dev)]).contiguous()
+    return codes, seg.to(torch.int32), ghw
+
+
+def global_form(form):
+    """The launch of one form of global_hist: "picked" (the training
+    path's wrapper: the kernel picks from the shapes), "shared" (shared
+    partials forced) or "global" (global atomics forced)."""
+    from h2o3_tpu_torch.ops import kernels
+    if form == "picked":
+        return kernels.global_hist
+    shared = {"shared": True, "global": False}[form]
+    return lambda *a: kernels.global_hist_form(*a, shared)
+
+
+def check_global(rows, F, B1, N, int_ghw, bf16, dev, seed, left_only=False,
+                 form="picked"):
+    """global_hist against its plain version, in one form (global_form)."""
+    import torch
+    from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    codes, seg, ghw = global_inputs(rows, F, B1, N, int_ghw, seed, dev,
+                                    left_only)
+    hk = global_form(form)(codes, seg, ghw, N, B1, bf16)
+    hp = build_histograms_plain(codes, seg, ghw if int_ghw else ghw.double(),
+                                N, B1, bf16)
+    torch.cuda.synchronize()
+    name = f"global_hist B1={B1} N={N} form={form}"
+    err = float((hk.double() - hp.double()).abs().max())
+    if int_ghw:
+        if not torch.equal(hk, hp):
+            raise AssertionError(f"{name} integer ghw: histogram not "
+                                 f"bit-equal (max {err})")
+    else:
+        mass = build_histograms_plain(codes, seg, ghw.double().abs(), N, B1,
+                                      bf16)
+        mass_check(name, hk, hp, mass)
+    return err, (codes, seg, ghw)
+
+
+def phase_global_kernels(dev, rows=1_000_000, F=28):
+    """Phase 3, global half: global_hist against its plain version at 1M
+    rows, B1 in {15, 257, 1025}, integer masses in both forms of the
+    kernel, timed with the L2 flushed in the picked form and in each
+    form forced (where the kernel's tile-count rule holds at 1M rows)."""
+    import torch
+    from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    seed = 700
+    for B1 in (15, 257, 1025):
+        for N in (1, 8, 16):
+            seed += 1
+            for form in ("shared", "global"):
+                check_global(rows, F, B1, N, True, False, dev, seed,
+                             form=form)
+            err16, _ = check_global(rows, F, B1, N, False, True, dev,
+                                    seed + 100)
+            err, (codes, seg, ghw) = check_global(rows, F, B1, N, False,
+                                                  False, dev, seed + 200)
+            ms, ms_s, ms_g = (time_cuda(lambda: global_form(form)(
+                codes, seg, ghw, N, B1, False), 20, flush)
+                for form in ("picked", "shared", "global"))
+            pms = time_cuda(lambda: build_histograms_plain(
+                codes, seg, ghw, N, B1, False), 3, flush)
+            live = int(((seg >= 0) & (seg < N)).sum())
+            bound, by = global_bound_ms(rows, F, codes.element_size(), N, B1,
+                                        live)
+            print(f"global_hist {rows}x{F} {str(codes.dtype)[6:]} B1={B1} "
+                  f"N={N}: {ms:.6g} ms (forced shared {ms_s:.6g}, "
+                  f"forced global {ms_g:.6g}; plain {pms:.6g} ms, bound "
+                  f"{bound:.6g} ms by {by}) max abs err f32 {err:.3g} bf16 "
+                  f"{err16:.3g}", flush=True)
+            del codes, seg, ghw
+
+
 # ------------------------------------------------------- main path
 
 
@@ -426,7 +554,7 @@ def train(fr, ntrees, path="packed", **kw):
     est = H2OGradientBoostingEstimator(
         ntrees=ntrees, max_depth=6, learn_rate=0.1,
         distribution="bernoulli", seed=7, min_rows=1.0,
-        **PATHS[path]["params"], **kw)
+        **{**PATHS[path]["params"], **kw})
     est.train(y="label", training_frame=fr)
     return est.model
 
@@ -455,7 +583,8 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     launches = dict(kernels.LAUNCHES)
     expected = {k: 0 for k in launches}
     expected[PATHS[path]["level"]] = depth * ntrees
-    expected[PATHS[path]["route"]] = ntrees
+    if PATHS[path]["route"]:
+        expected[PATHS[path]["route"]] = ntrees
     if launches != expected:
         raise AssertionError(f"{path} path launched {launches}, expected "
                              f"{expected}")
@@ -481,12 +610,12 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
             "launches": launches, "frame": fr, "trees": model.trees}
 
 
-def phase_card_vs_cpu(path, rows=200_000, ntrees=5):
+def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
     X, y, _F = higgs_arrays(rows, seed=11)
     models = {}
     for dev in ("cuda", "cpu"):
         models[dev] = train(frame_of(X, y, dev), ntrees, path,
-                            histogram_precision="float32")
+                            histogram_precision="float32", **kw)
     mc, mh = models["cuda"], models["cpu"]
     for key in ("feat", PATHS[path]["split_key"]):
         a = mc.trees[key][0]
@@ -497,8 +626,8 @@ def phase_card_vs_cpu(path, rows=200_000, ntrees=5):
     d_auc = abs(mc.training_metrics.auc - mh.training_metrics.auc)
     if d_auc > 1e-4:
         raise AssertionError(f"{path}: |dAUC| cuda vs cpu = {d_auc}")
-    print(f"card vs cpu, {path}: {rows} rows, {ntrees} trees, float32 "
-          f"histograms: tree 0 splits equal, AUC cuda "
+    print(f"card vs cpu, {path} {json.dumps(kw)}: {rows} rows, {ntrees} "
+          f"trees, float32 histograms: tree 0 splits equal, AUC cuda "
           f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
           f"|dAUC| {d_auc!r}", flush=True)
 
@@ -617,6 +746,87 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "library_ms": None}]
 
 
+def phase_packed_vs_global(rows=200_000, ntrees=5):
+    """The two sketch paths on the card at float32 histograms and 14
+    bins: the packed grower and the global-sketch grower must pick the
+    same splits in every tree."""
+    X, y, _F = higgs_arrays(rows, seed=12)
+    fr = frame_of(X, y, "cuda")
+    kw = dict(nbins=14, histogram_precision="float32")
+    packed = train(fr, ntrees, "packed", packed_codes=True, **kw)
+    glob = train(fr, ntrees, "global", packed_codes=False, **kw)
+    if not (packed.output["packed_codes"]["enabled"]
+            and not glob.output["packed_codes"]["enabled"]):
+        raise AssertionError("packed vs global: the paths were not taken")
+    for key in ("feat", "split_bin", "na_left"):
+        a, b = packed.trees[key], glob.trees[key]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"packed vs global: {key} differs in "
+                                 f"{int((a != b).sum())} of {a.size} nodes")
+    print(f"packed vs global on the card: {rows} rows, {ntrees} trees, "
+          f"nbins 14, float32: feat, split_bin, na_left identical; AUC "
+          f"{packed.training_metrics.auc!r} vs "
+          f"{glob.training_metrics.auc!r}", flush=True)
+
+
+def phase_global_record(dev, launches, loop_s, ntrees, rows=10_000_000,
+                        F=28, B1=1025):
+    """global_hist at the global path's shapes (10M x 28 int32 codes,
+    B1 = 1025, bfloat16-rounded (g, h, w) as histogram_precision='auto'
+    picks at this size): the six builds of a tree (N = 1 at level 0 over
+    every row; then the left children, N = 1, 2, 4, 8, 16, over half the
+    rows), their sum and its share of the loop, each build also in both
+    forms of the kernel (shared partials forced, global atomics forced:
+    the evidence for the kernel's ``kMaxSharedTiles``); at N = 16
+    the plain version's time, the bound and one ``index_add_`` over a
+    precomputed flat (node, feature, bin) index of the rows in [0, N)."""
+    import torch
+    from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    builds = [(1, False), (1, True), (2, True), (4, True), (8, True),
+              (16, True)]
+    forms = ("picked", "shared", "global")
+    per_level = {f: [] for f in forms}
+    for d, (n, left) in enumerate(builds):
+        e, (codes, seg, ghw) = check_global(rows, F, B1, n, False, True, dev,
+                                            1300 + d, left_only=left)
+        for form in forms:
+            per_level[form].append(time_cuda(lambda: global_form(form)(
+                codes, seg, ghw, n, B1, True), 10))
+        if d < len(builds) - 1:
+            del codes, seg, ghw
+    N = builds[-1][0]
+    ms, err = per_level["picked"][-1], e
+    pms = time_cuda(lambda: build_histograms_plain(codes, seg, ghw, N, B1,
+                                                   True), 3)
+    live = (seg >= 0) & (seg < N)
+    bound, by = global_bound_ms(rows, F, codes.element_size(), N, B1,
+                                int(live.sum()))
+    # the library yardstick: one index_add_ of the bf16-rounded masses of
+    # the rows in [0, N) over their flat (node, feature, bin) index; index
+    # and values are built before the timing
+    flat = ((seg[live].long()[:, None] * F + torch.arange(F, device=dev))
+            * B1 + codes[live].long()).reshape(-1)
+    vals = (ghw.t()[live].to(torch.bfloat16).float()[:, None, :]
+            .expand(-1, F, 3).reshape(-1, 3).contiguous())
+    out = torch.zeros((N * F * B1, 3), device=dev)
+    lib_ms = time_cuda(lambda: out.index_add_(0, flat, vals), 5)
+    del flat, vals, out, codes, seg, ghw, live
+    sums = {f: sum(v) for f, v in per_level.items()}
+    share = sums["picked"] * ntrees / (loop_s * 1e3)
+    print(f"global_hist at 10M x 28, B1={B1}, per build N "
+          f"{[n for n, _ in builds]}: {json.dumps(per_level)} ms; sum per "
+          f"tree {json.dumps(sums)} ms, the picked form's {share!r} of the "
+          f"warm loop ({loop_s!r} s for {ntrees} trees); N={N}: {ms!r} ms, "
+          f"plain {pms!r} ms, index_add_ {lib_ms!r} ms, bound {bound!r} ms "
+          f"by {by}", flush=True)
+    return [{"name": "global_hist", "route": "cuda",
+             "source": SRC["global_hist"],
+             "replaces": REPLACES["global_hist"],
+             "launches": launches["global_hist"], "max_abs_err": err,
+             "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+             "library_ms": lib_ms}]
+
+
 def split_flips(a, b) -> str:
     """How two models' trees differ: split features that differ, and the
     first tree where any does (over the trees both have)."""
@@ -644,7 +854,8 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5):
     loaded, allocator grown), once plain at 20 trees and once with 5
     trees under torch.profiler. Prints the loop times, the device time
     by kernel and the device busy share of the whole train() call, and
-    how the warm retrain's trees differ from the cold run's."""
+    how the warm retrain's trees differ from the cold run's. Returns the
+    warm 20-tree loop's seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -682,6 +893,7 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5):
           flush=True)
     for k, v in top:
         print(f"  device ms {v:10.3f}  {k[:100]}", flush=True)
+    return w_loop
 
 
 def sass_atomics(lib_path) -> str:
@@ -700,6 +912,19 @@ def sass_atomics(lib_path) -> str:
         counts = {op: ops.count(op) for op in sorted(set(ops))}
         lines.append(f"  {fn.split(chr(10))[0][:80]}: {counts}")
     return "SASS atomics per kernel:\n" + "\n".join(lines)
+
+
+class PhaseClock:
+    """Wall seconds of each phase of the run (the cost of each phase)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
 
 
 def main() -> int:
@@ -722,37 +947,64 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # 2. build
+    clock = PhaseClock()
     t0 = time.perf_counter()
     kernels.build()
     log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}")
     for so in kernels.library_paths().values():
         print(sass_atomics(so), flush=True)
 
+    clock.lap("2 build + SASS")
+
     # 3. kernel vs plain
     phase_kernels(dev)
+    clock.lap("3 packed kernels")
     phase_adaptive_kernels(dev)
+    clock.lap("3 adaptive kernels")
+    phase_global_kernels(dev)
+    clock.lap("3 global kernels")
 
     # 4. the main paths, each with its own launch counts
     packed = phase_main_path(card, "packed")
     fr = packed.pop("frame")
+    clock.lap("4 packed (frame included)")
     adaptive = phase_main_path(card, "adaptive", fr)
     del adaptive["frame"]
+    clock.lap("4 adaptive")
+    glob = phase_main_path(card, "global", fr)
+    del glob["frame"]
+    clock.lap("4 global")
 
-    # 5. card vs cpu
+    # 5. card vs cpu; the two sketch paths against each other
     phase_card_vs_cpu("packed")
     phase_card_vs_cpu("adaptive")
+    clock.lap("5 packed + adaptive card vs cpu")
+    phase_card_vs_cpu("global", nbins=300)
+    clock.lap("5 global card vs cpu")
+    phase_packed_vs_global()
+    clock.lap("5 packed vs global")
 
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
     rec += phase_adaptive_record(dev, adaptive["launches"])
+    clock.lap("6 packed + adaptive record")
 
     # 7. where the time goes: a warm, profiled retrain of each main path
     phase_warm_profile(fr, card, "packed", packed["trees"])
     phase_warm_profile(fr, card, "adaptive", adaptive["trees"])
+    clock.lap("7 packed + adaptive profile")
+    warm_s = phase_warm_profile(fr, card, "global", glob["trees"])
+    clock.lap("7 global profile")
     phase_repeatability(fr, "adaptive")
+    del fr
+    clock.lap("7 repeatability")
+    rec += phase_global_record(dev, glob["launches"], warm_s, 20)
+    clock.lap("6 global record")
+    print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32,256] binned_route_only "
           "adaptive_level[rows_f,f_rows x W=16,32,256] "
-          "adaptive_route_only[rows_f,f_rows]", flush=True)
+          "adaptive_route_only[rows_f,f_rows] "
+          "global_hist[B1=15 uint8,257,1025 int32]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

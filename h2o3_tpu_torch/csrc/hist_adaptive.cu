@@ -176,8 +176,8 @@ adaptive_level_kernel(const float* __restrict__ x,
     }
   }
   __syncthreads();
-  h2o3::merge_partial<W>(s_hist, cells, node_tile, feat_tile, n0, f0, nt, ft,
-                         n_nodes, F, hist);
+  h2o3::merge_partial(s_hist, cells, WP, W, node_tile, feat_tile, n0, f0,
+                      nt, ft, n_nodes, F, hist);
 }
 
 template <bool kFeatMajor>

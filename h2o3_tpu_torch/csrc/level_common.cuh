@@ -1,6 +1,6 @@
-// Pieces the tree-level kernels share (hist_binned.cu, hist_adaptive.cu):
-// the block shape, the shared-memory budget of a block's partial
-// histogram, how a level's [3, N, F, W] partial is cut into node x
+// Pieces the histogram kernels share (hist_binned.cu, hist_adaptive.cu,
+// hist_global.cu): the block shape, the shared-memory budget of a block's
+// partial histogram, how a level's [3, N, F, W] partial is cut into node x
 // feature tiles that fit it, and the merge of a block's partial into the
 // output.
 #pragma once
@@ -35,8 +35,15 @@ struct LevelTiles {
   int node_tile, feat_tile, n_feat_tiles, n_tiles;
 };
 
+// n_tiles is -1 when no tiling fits: one cell past the budget, or more
+// than 65535 tiles (the grid's second dimension); the launcher refuses.
 inline LevelTiles level_tiles(int n_nodes, int F, int64_t per_cell) {
   LevelTiles t;
+  if (per_cell > kHistBudget) {
+    t.node_tile = t.feat_tile = t.n_feat_tiles = 1;
+    t.n_tiles = -1;
+    return t;
+  }
   if (n_nodes * F * per_cell <= kHistBudget) {
     t.node_tile = n_nodes;
     t.feat_tile = F;
@@ -64,29 +71,30 @@ inline int64_t level_grid_x(int per_sm, int n_tiles, int64_t rows) {
   return gx < 1 ? 1 : gx;
 }
 
-// Add a block's nonzero partial cells ([3][node_tile][feat_tile][W + 1]
-// in shared memory) into hist [3, n_nodes, F, W] with global atomics.
-template <int W>
+// Add a block's nonzero partial cells ([3][node_tile][feat_tile][stride]
+// in shared memory, `width` bins used of each `stride`) into hist
+// [3, n_nodes, F, width] with global atomics. The level kernels pass a
+// compile-time W and W + 1; the global-sketch kernel its run-time B1.
 __device__ __forceinline__ void merge_partial(const float* s_hist, int cells,
+                                              int stride, int width,
                                               int node_tile, int feat_tile,
                                               int n0, int f0, int nt, int ft,
                                               int n_nodes, int F,
                                               float* __restrict__ hist) {
-  constexpr int WP = W + 1;
   for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) {
     const float v = s_hist[i];
     if (v == 0.f) continue;
     const int k = i / cells;
     const int rem = i - k * cells;
-    const int b = rem % WP;
-    const int t = rem / WP;
-    if (b >= W) continue;
+    const int b = rem % stride;
+    const int t = rem / stride;
+    if (b >= width) continue;
     const int fl = t % feat_tile;
     const int ln = t / feat_tile;
     if (ln >= nt || fl >= ft) continue;
     const int64_t o =
         ((static_cast<int64_t>(k) * n_nodes + (n0 + ln)) * F + (f0 + fl)) *
-            W + b;
+            width + b;
     atomicAdd(hist + o, v);
   }
 }

@@ -1,13 +1,16 @@
-"""GBM — gradient boosting on packed bin codes or adaptive bins.
+"""GBM — gradient boosting on packed bin codes, adaptive bins or the
+unpacked global sketch.
 
 Counterpart of ``h2o3_tpu/models/gbm.py``: the in-memory trainer
 (``_train_dense``) and the per-tree body of its boosting chunk (K = 1),
 as a Python loop. The trainer takes the JAX package's path for the same
 parameters (``models/tree.py`` holds the rule): packed codes, binned once
-per train by the global quantile sketch (``packed_codes`` 'auto' or True
-on every device), or per-node adaptive bins on the raw features
+per train by the global sketch (``packed_codes`` 'auto' or True on every
+device); per-node adaptive bins on the raw features
 (``packed_codes=False``, and the fallback where packing cannot hold the
-bins). Per tree: (g, h) from the distribution at the current margin, one
+bins); or the global sketch's codes unpacked, where neither holds them
+(more than 254 bins) or ``quantiles_global`` is asked for without
+packing. Per tree: (g, h) from the distribution at the current margin, one
 tree grown, and the tree's leaf values folded back into the margin
 through the leaf ids the grower already routed. Trees are fetched to the
 host once, at the end.
@@ -32,7 +35,7 @@ from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         adaptive_feasible, adaptive_setup,
                                         binned_feasible,
                                         bins_to_thresholds_stacked,
-                                        grow_tree_adaptive,
+                                        grow_tree, grow_tree_adaptive,
                                         grow_tree_binned,
                                         packed_bins_upper_bound,
                                         packed_codes_requested,
@@ -257,8 +260,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
     def _grower(self, spec: TrainingSpec):
         """The JAX package's path rule (its ``_train_dense``) and the
         chosen path's set-up. Returns (cfg, grow(g, h, w) -> (tree, nid),
-        bm, pc), with bm and pc None on the adaptive path; raises where
-        the JAX package would take the global-sketch grower."""
+        bm, pc): bm and pc None on the adaptive path, pc None on the
+        global-sketch path (unpacked codes)."""
         p = self.params
         hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
         depth = int(p["max_depth"])
@@ -284,29 +287,29 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         if not packed_req and (can_adapt or hist_type == "random"
                                and feasible):
             return adaptive()
-        if packed_req:
-            bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
-                                   nbins=max(int(p["nbins"]), 2),
-                                   nbins_cats=int(p["nbins_cats"]),
-                                   histogram_type=hist_type)
-            if binned_feasible(bm.n_bins, spec.n_features, depth):
-                pc = pack_codes(bm)
-                bm.codes = None            # the packed codes replace them
-                cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
-                return (cfg, lambda g, h, w: grow_tree_binned(pc.rm, g, h, w,
-                                                              cfg), bm, pc)
-            if can_adapt:
-                # the sketch's bin count is past the packed lanes
-                return adaptive()
-        raise NotImplementedError(
-            f"gbm: histogram_type={hist_type!r}, nbins={p['nbins']}, "
-            f"packed_codes={p.get('packed_codes', 'auto')!r} takes the "
-            f"global-sketch grower, which is not ported yet (ROADMAP.md "
-            f"queue 1, item 12)")
+        bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
+                               nbins=max(int(p["nbins"]), 2),
+                               nbins_cats=int(p["nbins_cats"]),
+                               histogram_type=hist_type)
+        if packed_req and binned_feasible(bm.n_bins, spec.n_features,
+                                          depth):
+            pc = pack_codes(bm)
+            bm.codes = None                # the packed codes replace them
+            cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
+            return (cfg, lambda g, h, w: grow_tree_binned(pc.rm, g, h, w,
+                                                          cfg), bm, pc)
+        if packed_req and can_adapt:
+            # the sketch's bin count is past the packed lanes
+            return adaptive()
+        # the global sketch, unpacked: uint8 or int32 codes, NA = n_bins
+        codes = bm.codes
+        cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
+        return (cfg, lambda g, h, w: grow_tree(codes, g, h, w, cfg), bm,
+                None)
 
     def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev):
         """One fetch of the stacked trees, raw thresholds (unbinned from
-        the packed path's split bins; the adaptive grower's as they are),
+        the sketch paths' split bins; the adaptive grower's as they are),
         leaf values scaled by each tree's learning rate, variable
         importances."""
         keys = ("feat", "na_left", "is_split", "value", "gain", "node_w",

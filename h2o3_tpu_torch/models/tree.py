@@ -1,17 +1,19 @@
 """Histogram tree growing, and tree prediction.
 
-Counterpart of ``h2o3_tpu/models/tree.py``'s two in-memory growers of
+Counterpart of ``h2o3_tpu/models/tree.py``'s three in-memory growers of
 the port: ``grow_tree_binned`` on packed bin codes (the global quantile
-sketch, binned once per train) and ``grow_tree_adaptive`` on raw
-features with per-node adaptive uniform bins (H2O's default
-``UniformAdaptive``), plus the rule that picks between them. Trees are
-complete binary arrays of static depth: node k's children are 2k+1 and
-2k+2, rows carry an int32 node id, and each level runs one fused route +
-histogram kernel (``ops/hist_adaptive``) followed by the split search
-here. Split search is Newton gain over [nodes, features, bins, NA
-direction], with NA in a dedicated lane whose direction is learned. The
-level loop is a Python loop; everything in it stays on the features'
-device.
+sketch, binned once per train), ``grow_tree_adaptive`` on raw features
+with per-node adaptive uniform bins (H2O's default ``UniformAdaptive``)
+and ``grow_tree`` on unpacked global-sketch codes (more than 254 bins, or
+``quantiles_global`` without packing), plus the rule that picks between
+them. Trees are complete binary arrays of static depth: node k's
+children are 2k+1 and 2k+2, rows carry an int32 node id, and each level
+runs one fused route + histogram kernel (``ops/hist_adaptive``; the
+global-sketch grower a histogram kernel, ``ops/histogram``, and a route
+in torch) followed by the split search here. Split search is Newton
+gain over [nodes, features, bins, NA direction], with NA in a dedicated
+lane whose direction is learned. The level loop is a Python loop;
+everything in it stays on the features' device.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level,
                                               make_adaptive_tables,
                                               make_tables, pick_W,
                                               rows_features)
+from h2o3_tpu_torch.ops.histogram import build_histograms
 
 NEG_INF = -1e30
 BIGV = 1e30
@@ -257,6 +260,94 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
     node_w[baseD:] = wD
     return tree(), nid
+
+
+def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
+    """Build one tree on global-sketch codes ``[rows, F]`` (uint8 or
+    int32, NA = bin ``cfg.n_bins``), the JAX package's ``grow_tree`` in
+    single-device form. Per level: one histogram build
+    (``ops/histogram.build_histograms``), at levels >= 1 of the left
+    children only, the right ones being parent - left (sibling
+    subtraction); the split search over every bin (no ``max_bin``);
+    routing by one packed-word gather per row. The deepest level's leaf
+    values come from per-leaf totals after the last route.
+
+    Returns (tree dict of [M] tensors: feat, split_bin, na_left,
+    is_split, value, gain, node_w; and every row's leaf node id)."""
+    D = cfg.max_depth
+    M = cfg.n_nodes
+    B1 = cfg.n_bins + 1
+    rows, F = codes.shape
+    dev = codes.device
+    bf16 = _hist_bf16(cfg, rows)
+    if col_mask is None:
+        col_mask = torch.ones(F, dtype=torch.bool, device=dev)
+
+    feat = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    split_bin = torch.zeros(M, dtype=torch.int32, device=dev)
+    na_left = torch.zeros(M, dtype=torch.bool, device=dev)
+    is_split = torch.zeros(M, dtype=torch.bool, device=dev)
+    value = torch.zeros(M, dtype=torch.float32, device=dev)
+    gain_arr = torch.zeros(M, dtype=torch.float32, device=dev)
+    node_w = torch.zeros(M, dtype=torch.float32, device=dev)
+
+    # stacked once; rows off the level are excluded by an out-of-range seg
+    ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
+    nid = torch.zeros(rows, dtype=torch.int32, device=dev)
+    prev_hist = None
+    for d in range(D):
+        base = 2 ** d - 1
+        N = 2 ** d
+        local = nid - base
+        in_level = (local >= 0) & (local < N)
+        lid = local.clamp(0, N - 1)
+        if prev_hist is None:
+            seg = torch.where(in_level, local, -1)
+            hist = build_histograms(codes, seg, ghw, N, B1, bf16)
+        else:
+            # children of a non-split parent get phantom mass here, but
+            # no row routes to them, so nothing reads it
+            is_left = in_level & (local % 2 == 0)
+            seg = torch.where(is_left, local // 2, -1)
+            hist_l = build_histograms(codes, seg, ghw, N // 2, B1, bf16)
+            hist = tuple(torch.stack([hl, hp - hl], dim=1).reshape(N, F, B1)
+                         for hl, hp in zip(hist_l, prev_hist))
+        prev_hist = hist
+        bg, bf, bb, bnl, gt, ht, wt = _find_splits(hist, cfg, col_mask)[:7]
+        can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
+        idx = slice(base, base + N)
+        feat[idx] = torch.where(can, bf, -1)
+        split_bin[idx] = bb
+        na_left[idx] = bnl
+        is_split[idx] = can
+        value[idx] = torch.clamp(_leaf_value(gt, ht, cfg), -BIGV, BIGV)
+        gain_arr[idx] = torch.where(can, bg, 0.0)
+        node_w[idx] = wt
+        # route the level's rows whose node splits: one gather of the
+        # node's packed word per row
+        word = (bf | (bb << BIN_SHIFT) | (bnl.to(torch.int32) << NA_SHIFT)
+                | (can.to(torch.int32) << SPLIT_SHIFT))
+        rw = word[lid.long()]
+        node_feat = (rw & FEAT_MASK).long()
+        node_bin = (rw >> BIN_SHIFT) & BIN_MASK
+        node_nal = ((rw >> NA_SHIFT) & 1).to(torch.bool)
+        node_can = ((rw >> SPLIT_SHIFT) & 1).to(torch.bool)
+        c = codes.gather(1, node_feat[:, None])[:, 0].to(torch.int32)
+        right = torch.where(c == cfg.n_bins, ~node_nal, c >= node_bin)
+        child = 2 * nid + 1 + right.to(torch.int32)
+        nid = torch.where(in_level & node_can, child, nid)
+
+    # deepest level: leaf values from per-leaf totals
+    ND = 2 ** D
+    baseD = ND - 1
+    localD = nid - baseD
+    inD = (localD >= 0) & (localD < ND)
+    gD, hD, wD = _segment_totals(localD.clamp(0, ND - 1), inD, g, h, w, ND)
+    value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
+    node_w[baseD:] = wD
+    return {"feat": feat, "split_bin": split_bin, "na_left": na_left,
+            "is_split": is_split, "value": value, "gain": gain_arr,
+            "node_w": node_w}, nid
 
 
 # ---------------------------------------------------------------- path rule

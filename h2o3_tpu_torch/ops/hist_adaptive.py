@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from h2o3_tpu_torch.ops import kernels
+from h2o3_tpu_torch.ops.common import dispatch, level_hist_plain
 
 LAYOUTS = ("rows_f", "f_rows")
 
@@ -116,31 +117,6 @@ def _adaptive_route_plain(x, nid, tables, n_prev: int, level_base: int):
     return torch.where(in_prev & (tables[3][lid_p] > 0.5), child, nid)
 
 
-def _level_hist_plain(nid, bins, ghw, n_nodes: int, level_base: int, W: int,
-                      bf16: bool):
-    """Scatter-add each row's (g, h, w) into the (node, feature, bin)
-    cells of the rows in the level's window, in row order. ``bins`` is
-    [rows, F] int64 in [0, W). Returns hist [3, n_nodes, F, W] in ghw's
-    dtype."""
-    rows, F = bins.shape
-    lid = nid - level_base
-    in_lvl = (lid >= 0) & (lid < n_nodes)
-    lidc = torch.where(in_lvl, lid, 0).long()
-    fidx = torch.arange(F, device=bins.device)
-    flat = (lidc[:, None] * F + fidx[None, :]) * W + bins
-    vals = ghw.t()
-    if bf16:
-        vals = vals.to(torch.bfloat16).to(ghw.dtype)
-    vals = vals * in_lvl.to(ghw.dtype)[:, None]
-    # the histogram accumulates in ghw's dtype: float32 on the training
-    # path; a float64 ghw gives the exact yardstick the kernel checks use
-    out = torch.zeros(n_nodes * F * W, 3, dtype=ghw.dtype,
-                      device=bins.device)
-    out.index_add_(0, flat.reshape(-1),
-                   vals[:, None, :].expand(rows, F, 3).reshape(-1, 3))
-    return out.reshape(n_nodes, F, W, 3).permute(3, 0, 1, 2).contiguous()
-
-
 def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                        level_base: int, W: int, bf16: bool = False):
     """Plain version of the packed level kernel: scatter-add histogram in
@@ -148,8 +124,8 @@ def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
     ghw's dtype)."""
     if n_prev > 0:
         nid = _route_plain(codes, nid, tables, n_prev, level_base, W)
-    return nid, _level_hist_plain(nid, codes.long(), ghw, n_nodes,
-                                  level_base, W, bf16)
+    return nid, level_hist_plain(nid, codes.long(), ghw, n_nodes,
+                                 level_base, W, bf16)
 
 
 def binned_route_only_plain(codes, nid, tables, n_prev: int, level_base: int,
@@ -187,8 +163,8 @@ def adaptive_level_plain(x, nid, ghw, tables, lo, inv, n_prev: int,
     if n_prev > 0:
         nid = _adaptive_route_plain(xr, nid, tables, n_prev, level_base)
     bins = adaptive_bins_plain(xr, nid, lo, inv, n_nodes, level_base, W)
-    return nid, _level_hist_plain(nid, bins, ghw, n_nodes, level_base, W,
-                                  bf16)
+    return nid, level_hist_plain(nid, bins, ghw, n_nodes, level_base, W,
+                                 bf16)
 
 
 def adaptive_route_only_plain(x, nid, tables, n_prev: int, level_base: int,
@@ -199,30 +175,22 @@ def adaptive_route_only_plain(x, nid, tables, n_prev: int, level_base: int,
                                  n_prev, level_base)
 
 
-def _dispatch(name: str, t, plain, kernel, *args):
-    if t.device.type == "cpu":
-        return plain(*args)
-    if t.device.type == "cuda":
-        return kernel(*args)
-    raise ValueError(f"{name}: unsupported device {t.device}")
-
-
 def binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                  level_base: int, W: int, bf16: bool = False):
     """One packed-code tree level: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors."""
-    return _dispatch("binned_level", codes, binned_level_plain,
-                     kernels.binned_level, codes, nid, ghw, tables, n_prev,
-                     n_nodes, level_base, W, bf16)
+    return dispatch("binned_level", codes, binned_level_plain,
+                    kernels.binned_level, codes, nid, ghw, tables, n_prev,
+                    n_nodes, level_base, W, bf16)
 
 
 def binned_route_only(codes, nid, tables, n_prev: int, level_base: int,
                       W: int):
     """The packed deepest level's route: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    return _dispatch("binned_route_only", codes, binned_route_only_plain,
-                     kernels.binned_route_only, codes, nid, tables, n_prev,
-                     level_base, W)
+    return dispatch("binned_route_only", codes, binned_route_only_plain,
+                    kernels.binned_route_only, codes, nid, tables, n_prev,
+                    level_base, W)
 
 
 def adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
@@ -230,15 +198,15 @@ def adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
                    layout: str = "rows_f"):
     """One adaptive-bin tree level: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors."""
-    return _dispatch("adaptive_level", x, adaptive_level_plain,
-                     kernels.adaptive_level, x, nid, ghw, tables, lo, inv,
-                     n_prev, n_nodes, level_base, W, bf16, layout)
+    return dispatch("adaptive_level", x, adaptive_level_plain,
+                    kernels.adaptive_level, x, nid, ghw, tables, lo, inv,
+                    n_prev, n_nodes, level_base, W, bf16, layout)
 
 
 def adaptive_route_only(x, nid, tables, n_prev: int, level_base: int,
                         layout: str = "rows_f"):
     """The adaptive deepest level's route: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    return _dispatch("adaptive_route_only", x, adaptive_route_only_plain,
-                     kernels.adaptive_route_only, x, nid, tables, n_prev,
-                     level_base, layout)
+    return dispatch("adaptive_route_only", x, adaptive_route_only_plain,
+                    kernels.adaptive_route_only, x, nid, tables, n_prev,
+                    level_base, layout)

@@ -12,7 +12,8 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch on the tensors' device, launches on the current
 stream, raises when the launch returns a CUDA error, and adds one to its
 entry in ``LAUNCHES``. They take CUDA tensors only: the dispatchers in
-``ops/hist_adaptive.py`` send CPU tensors to the plain versions.
+``ops/hist_adaptive.py`` and ``ops/histogram.py`` send CPU tensors to the
+plain versions.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel; a run sets these to 0 before the path it measures
 LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
-            "adaptive_level": 0, "adaptive_route_only": 0}
+            "adaptive_level": 0, "adaptive_route_only": 0, "global_hist": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -55,6 +56,12 @@ _SIGNATURES = {
                                 _VP, _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
+    },
+    "hist_global": {
+        "h2o3_global_hist": [_VP, _INT, _VP, _VP, _LL, _INT, _INT, _INT,
+                             _INT, _VP, _VP],
+        "h2o3_global_hist_form": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
+                                  _INT, _INT, _INT, _VP, _VP],
     },
 }
 
@@ -288,3 +295,58 @@ def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
     _raise_on(rc, "adaptive_route_only")
     LAUNCHES["adaptive_route_only"] += 1
     return nid_out
+
+
+def _global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
+                 n_nodes: int, n_bins1: int, bf16: bool,
+                 shared: Optional[bool]) -> torch.Tensor:
+    _check_cuda(codes)
+    if codes.dim() != 2:
+        raise ValueError(f"codes must be [rows, F], got {tuple(codes.shape)}")
+    if codes.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"codes has dtype {codes.dtype}, expected uint8 or "
+                        f"int32")
+    if n_nodes < 1 or n_bins1 < 1:
+        raise ValueError(f"n_nodes {n_nodes} and n_bins1 {n_bins1} must be "
+                         f">= 1")
+    rows, F = codes.shape
+    dev = codes.device
+    _check("codes", codes, codes.dtype, (rows, F), dev)
+    _check("seg", seg, torch.int32, (rows,), dev)
+    _check("ghw", ghw, torch.float32, (3, rows), dev)
+    lib = build()["hist_global"]
+    hist = torch.zeros((3, n_nodes, F, n_bins1), dtype=torch.float32,
+                       device=dev)
+    args = (codes.data_ptr(), codes.element_size(), seg.data_ptr(),
+            ghw.data_ptr(), rows, F, n_nodes, n_bins1, int(bf16))
+    with torch.cuda.device(dev):
+        if shared is None:
+            rc = lib.h2o3_global_hist(*args, hist.data_ptr(), _stream(dev))
+        else:
+            rc = lib.h2o3_global_hist_form(*args, int(shared),
+                                           hist.data_ptr(), _stream(dev))
+    _raise_on(rc, "global_hist")
+    LAUNCHES["global_hist"] += 1
+    return hist
+
+
+def global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
+                n_nodes: int, n_bins1: int, bf16: bool) -> torch.Tensor:
+    """Launch the global-sketch histogram kernel. Same contract as
+    ``histogram.build_histograms_plain``: codes [rows, F] uint8 or int32
+    in [0, n_bins1), seg int32 [rows] (outside [0, n_nodes) = excluded),
+    ghw float32 [3, rows]; returns hist [3, n_nodes, F, n_bins1]
+    float32. The kernel picks its form (shared partials or global
+    atomics) from the shapes."""
+    return _global_hist(codes, seg, ghw, n_nodes, n_bins1, bf16, None)
+
+
+def global_hist_form(codes: torch.Tensor, seg: torch.Tensor,
+                     ghw: torch.Tensor, n_nodes: int, n_bins1: int,
+                     bf16: bool, shared: bool) -> torch.Tensor:
+    """``global_hist`` with one form of the kernel forced: shared
+    partials (raises where no node x feature tiling fits) or global
+    atomics. For the tests and ``chip_smoke.py``'s measurement of both
+    forms; the training path calls ``global_hist``."""
+    return _global_hist(codes, seg, ghw, n_nodes, n_bins1, bf16,
+                        bool(shared))

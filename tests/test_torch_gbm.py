@@ -1,8 +1,9 @@
 """The slice as a whole: a JAX GBM and the port's GBM trained on the same
 frame (bernoulli, float32 histograms) agree on every tree, on the
-training AUC and on predict, on packed codes and on adaptive bins (asked
-for, and where packing cannot hold the bins); and the port scores a JAX
-model carried across through from_jax_arrays."""
+training AUC and on predict, on packed codes, on adaptive bins (asked
+for, and where packing cannot hold the bins) and on the unpacked global
+sketch; and the port scores a JAX model carried across through
+from_jax_arrays."""
 import numpy as np
 import pytest
 import torch
@@ -223,11 +224,61 @@ def test_adaptive_with_small_enum_matches_jax():
     _assert_same_model(jm, tm)
 
 
+# ------------------------------------------------------ global-sketch path
+
+GLOBAL = dict(ntrees=3, max_depth=3, learn_rate=0.1,
+              distribution="bernoulli", histogram_precision="float32",
+              min_rows=1.0, seed=7)
+
+
 @pytest.mark.parametrize("params", [
     {"packed_codes": False, "histogram_type": "quantiles_global"},
     {"nbins": 300}])
 def test_global_sketch_path_raises(params):
-    fr = th2o.Frame.from_numpy(_data(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TorchGBM(ntrees=1, max_depth=2, **params).train(
-            y="label", training_frame=fr)
+    """The global-sketch grower (unpacked codes), which the port refused
+    before it had one: asked for (quantiles_global without packing), and
+    where neither packing nor adaptive bins hold the bins (nbins 300,
+    uniform_adaptive: equal-width sketch edges). It trains, and its trees,
+    AUC and predict match the JAX GBM's."""
+    cols = _data(seed=9)
+    jfr = jh2o.Frame.from_numpy(cols)
+    tfr = th2o.Frame.from_numpy(cols, device="cpu")
+    jm, tm = _train_both(jfr, tfr, **GLOBAL, **params)
+    assert tm.n_bins == jm.n_bins == params.get("nbins", 20)
+    assert bool(tm.trees["is_split"].any())
+    assert tm.ntrees_built == jm.ntrees_built
+    for k, j in (("feat", jm._feat), ("thr", jm._thr),
+                 ("na_left", jm._na_left), ("is_split", jm._is_split)):
+        np.testing.assert_array_equal(tm.trees[k], np.asarray(j), err_msg=k)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
+    assert tm.output["packed_codes"] == jm.output["packed_codes"] \
+        == {"enabled": False}
+    assert abs(tm.training_metrics.auc - jm.training_metrics.auc) <= 1e-6
+    assert abs(tm.training_metrics.logloss
+               - jm.training_metrics.logloss) <= 1e-6
+    jp = jm.predict(jfr).vec("p1").to_numpy()
+    tp = tm.predict(tfr).vec("p1").to_numpy()
+    np.testing.assert_allclose(tp, jp, rtol=1e-5, atol=1e-7)
+
+
+def test_packed_and_global_give_the_same_splits():
+    """At float32 histograms the packed grower (int8 codes, NA in lane
+    W-1, max_bin) and the global-sketch grower (uint8 codes, NA = bin
+    n_bins, sibling subtraction) pick the same splits on the same sketch,
+    and the deepest leaves, summed from the same rows, are bit-equal."""
+    tfr = th2o.Frame.from_numpy(_data(seed=10), device="cpu")
+    kw = dict(GLOBAL, ntrees=5, max_depth=4, nbins=14,
+              histogram_type="quantiles_global")
+    packed = TorchGBM(packed_codes=True, **kw).train(
+        y="label", training_frame=tfr).model
+    glob = TorchGBM(packed_codes=False, **kw).train(
+        y="label", training_frame=tfr).model
+    assert packed.output["packed_codes"]["enabled"]
+    assert not glob.output["packed_codes"]["enabled"]
+    for k in ("feat", "split_bin", "thr", "na_left", "is_split"):
+        np.testing.assert_array_equal(packed.trees[k], glob.trees[k],
+                                      err_msg=k)
+    baseD = 2 ** kw["max_depth"] - 1
+    np.testing.assert_array_equal(packed.trees["value"][:, baseD:],
+                                  glob.trees["value"][:, baseD:])

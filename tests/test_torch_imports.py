@@ -135,10 +135,13 @@ def cuda():
 @pytest.mark.parametrize("params,launches", [
     (dict(nbins=14, histogram_type="quantiles_global"),
      {"binned_level": 6, "binned_route_only": 2, "adaptive_level": 0,
-      "adaptive_route_only": 0}),
+      "adaptive_route_only": 0, "global_hist": 0}),
     (dict(nbins=20, packed_codes=False),
      {"binned_level": 0, "binned_route_only": 0, "adaptive_level": 6,
-      "adaptive_route_only": 2})])
+      "adaptive_route_only": 2, "global_hist": 0}),
+    (dict(nbins=1024, histogram_type="quantiles_global"),
+     {"binned_level": 0, "binned_route_only": 0, "adaptive_level": 0,
+      "adaptive_route_only": 0, "global_hist": 6})])
 def test_cuda_training_launches_the_kernels(cuda, params, launches):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(20_000, 5)).astype(np.float32)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 binned_level / binned_route_only on packed codes, adaptive_level /
-adaptive_route_only on raw features in both layouts.
+adaptive_route_only on raw features in both layouts, global_hist on
+unpacked global-sketch codes.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -215,3 +216,79 @@ def test_adaptive_wrappers_check_their_operands(cuda):
     with pytest.raises(TypeError):
         kernels.adaptive_route_only(x, n, t.to(torch.int32), n_prev, base,
                                     "rows_f")
+
+
+# ------------------------------------------------------------ global sketch
+
+
+def _global_inputs(rows, F, B1, N, seed, int_ghw, dev):
+    """Codes (uint8 below 256 bins, else int32) with NA in the last bin,
+    node ids with out-of-range rows on both sides, and (g, h, w)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, B1 - 1, size=(rows, F))
+    codes[rng.random((rows, F)) < 0.07] = B1 - 1
+    seg = rng.integers(0, N, rows).astype(np.int32)
+    out = rng.random(rows)
+    seg[out < 0.08] = -1
+    seg[(out >= 0.08) & (out < 0.1)] = N
+    if int_ghw:
+        g = rng.integers(-8, 9, rows).astype(np.float32)
+        h = rng.integers(0, 4, rows).astype(np.float32)
+    else:
+        g = rng.normal(size=rows).astype(np.float32)
+        h = (rng.random(rows) * 0.25).astype(np.float32)
+    ghw = np.stack([g, h, np.ones(rows, np.float32)])
+    dtype = torch.uint8 if B1 <= 256 else torch.int32
+    return (torch.as_tensor(codes, device=dev).to(dtype),
+            torch.as_tensor(seg, device=dev), torch.as_tensor(ghw, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B1", [15, 257, 1025])
+@pytest.mark.parametrize("N", [1, 8, 16])
+def test_global_hist_integer_mass_bit_equal(cuda, B1, N):
+    from h2o3_tpu_torch.ops import histogram as thist
+    c, s, g = _global_inputs(50_000, 9, B1, N, B1 + N, True, cuda)
+    before = kernels.LAUNCHES["global_hist"]
+    trip = thist.build_histograms(c, s, g, N, B1)
+    assert kernels.LAUNCHES["global_hist"] == before + 1
+    want = thist.build_histograms_plain(c, s, g, N, B1)
+    assert torch.equal(torch.stack(trip), want)
+    # both forms of the kernel, whichever the shapes pick
+    for shared in (False, True):
+        assert torch.equal(kernels.global_hist_form(c, s, g, N, B1, False,
+                                                    shared), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B1", [15, 1025])
+def test_global_hist_float_mass_close(cuda, bf16, B1):
+    from h2o3_tpu_torch.ops import histogram as thist
+    c, s, g = _global_inputs(200_000, 28, B1, 8, 3, False, cuda)
+    hk = kernels.global_hist(c, s, g, 8, B1, bf16)
+    hp = thist.build_histograms_plain(c, s, g.double(), 8, B1, bf16)
+    mass = thist.build_histograms_plain(c, s, g.double().abs(), 8, B1, bf16)
+    # float32 sums in any order are accurate relative to the bin's
+    # absolute mass, not to a signed sum that may cancel
+    assert bool(((hk.double() - hp).abs() <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+def test_global_hist_checks_its_operands(cuda):
+    c, s, g = _global_inputs(1000, 4, 15, 4, 1, True, cuda)
+    with pytest.raises(TypeError):
+        kernels.global_hist(c.to(torch.int16), s, g, 4, 15, False)
+    with pytest.raises(ValueError):
+        kernels.global_hist(c, s[:-1], g, 4, 15, False)
+    with pytest.raises(ValueError):
+        kernels.global_hist(c.t(), s, g, 4, 15, False)
+    # one (node, feature) cell of 9000 bins is past the shared budget:
+    # the kernel adds with global atomics, no tiling needed
+    from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    c9 = c.to(torch.int32) * 600
+    assert torch.equal(kernels.global_hist(c9, s, g, 4, 9000, False),
+                       build_histograms_plain(c9, s, g, 4, 9000))
+    # and the shared form, forced, refuses it
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.global_hist_form(c9, s, g, 4, 9000, False, True)
