@@ -7,9 +7,13 @@ prints no result. It drives the port's three GBM paths: packed codes
 (``histogram_type="quantiles_global"``, kernels binned_level and
 binned_route_only), adaptive bins (``packed_codes=False``, H2O's
 default ``uniform_adaptive``, kernels adaptive_level and
-adaptive_route_only in the [rows, F] and [F, rows] layouts) and the
-unpacked global sketch (nbins 1024, kernel global_hist). Phases, each
-fatal on failure:
+adaptive_route_only in the [rows, F] and [F, rows] layouts), the
+unpacked global sketch (nbins 1024, kernel global_hist), and the packed
+and adaptive paths again with int8 fixed-point masses
+(``H2O3_HIST_I8=1``, set around those trains only; kernels
+binned_level_i8 and adaptive_level_i8). It also holds leaf_totals, which
+no path launches, against its plain version. Phases, each fatal on
+failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
@@ -24,7 +28,12 @@ fatal on failure:
    the plain PyTorch version; with float (g, h, w) node ids bit-equal and
    each histogram bin within 1e-4 + 1e-5 x (its absolute mass) of the
    plain version accumulated in float64, for float32 and for
-   bfloat16-rounded masses;
+   bfloat16-rounded masses. binned_level_i8 and adaptive_level_i8 (both
+   layouts) at W in {16, 32, 256}, one term at N in {1, 8, 32}, two at
+   N in {1, 8, 16}, NA codes / NaN features, 5% of the rows off the
+   window: nid and histogram bit-equal to the plain version.
+   leaf_totals at n_prev in {0, 32}, N in {1, 64}: nid bit-equal, totals
+   within the float tolerance against float64;
 4. the main paths at full width: 10M x 28 HIGGS-shaped rows ->
    Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, 20 trees,
    min_rows 1, seed 7 -> training AUC -> predict; packed at nbins 14,
@@ -33,23 +42,31 @@ fatal on failure:
    launch counters set to 0 just before and read just after (6 x 20
    level launches and 20 route launches of its own kernels on the packed
    and adaptive paths, 6 x 20 global_hist on the global path, 0 of any
-   other kernel);
+   other kernel); then packed_i8 and adaptive_i8 on the same frame
+   (6 x 20 int8 level launches, 20 route launches, 0 float level
+   launches), each AUC within 0.005 of its path's bf16 AUC of this run;
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
    histograms, 5 trees on each device (nbins 300 on the global path);
    tree 0's splits equal, |dAUC| <= 1e-4; and packed vs global on the
    card (200k rows, nbins 14, ``quantiles_global``, float32,
    ``packed_codes`` True vs False): every tree's split features, bins
-   and NA directions identical;
+   and NA directions identical; the two int8 paths on card and CPU at
+   200k rows, depth 6, 5 trees, bf16, ``H2O3_HIST_I8`` 1 and 2: |dAUC|
+   <= 1e-4, and at one term (every level an integer sum) tree 0's
+   splits equal; the number of identical trees is printed;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
    N = 1..32, both layouts for the adaptive kernels; global_hist at the
    six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, in the form
    the shapes pick and in each form forced) against its plain version
    and its bound (global_hist also against one ``index_add_``); the
-   global_hist record comes last, after phase 7, whose warm global loop
-   it is set against;
+   int8 levels per level N = 1..32 at one term and N = 1..16 at two,
+   beside the float level on the same inputs in the same run;
+   leaf_totals at n_prev = 32, N = 64; the global_hist record comes
+   last, after phase 7, whose warm global loop it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
-   plain, then 5 trees under torch.profiler: device time by kernel,
-   device busy share).
+   plain, three times, then 5 trees under torch.profiler: device time by
+   kernel, device busy share); adaptive trained twice at float32 and
+   adaptive_i8 twice at 'auto', with the split features that differ.
 
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
@@ -57,6 +74,7 @@ two lines of stdout are the kernel record and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -69,15 +87,21 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 SRC = {"binned_level": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "binned_route_only": "h2o3_tpu_torch/csrc/hist_binned.cu",
+       "binned_level_i8": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "adaptive_level": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "adaptive_route_only": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
+       "adaptive_level_i8": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
+       "leaf_totals": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "global_hist": "h2o3_tpu_torch/csrc/hist_global.cu"}
 # the TPU kernel each replaces; the adaptive kernels' layout parameter
 # also covers the row-major forms (K8, K9)
 REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:930",
             "binned_route_only": "h2o3_tpu/ops/hist_adaptive.py:1282",
+            "binned_level_i8": "h2o3_tpu/ops/hist_adaptive.py:1154",
             "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
             "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755",
+            "adaptive_level_i8": "h2o3_tpu/ops/hist_adaptive.py:500",
+            "leaf_totals": "h2o3_tpu/ops/hist_adaptive.py:365",
             "global_hist": "h2o3_tpu/ops/hist_pallas.py:47"}
 ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:134",
                  "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:787"}
@@ -92,6 +116,15 @@ PATHS = {
     "global": {"params": dict(nbins=1024, histogram_type="quantiles_global"),
                "level": "global_hist", "route": None,
                "split_key": "split_bin"},
+    # the packed and adaptive paths with H2O3_HIST_I8 (int8 fixed-point
+    # masses, one term: every level of a depth-6 tree at bf16)
+    "packed_i8": {"params": dict(nbins=14, histogram_type="quantiles_global"),
+                  "level": "binned_level_i8", "route": "binned_route_only",
+                  "split_key": "split_bin", "i8": 1},
+    "adaptive_i8": {"params": dict(nbins=20, packed_codes=False),
+                    "level": "adaptive_level_i8",
+                    "route": "adaptive_route_only", "split_key": "thr",
+                    "i8": 1},
 }
 LAYOUTS = ("rows_f", "f_rows")
 
@@ -527,6 +560,144 @@ def phase_global_kernels(dev, rows=1_000_000, F=28):
             del codes, seg, ghw
 
 
+def off_window(nid, seed):
+    """5% of the rows moved outside every level's window."""
+    import torch
+    g = torch.Generator(device=nid.device).manual_seed(seed)
+    out = torch.rand(nid.shape[0], generator=g, device=nid.device) < 0.05
+    return torch.where(out, 1 << 20, nid).to(torch.int32).contiguous()
+
+
+def i8_level(kind, inp, qs, N, W, layout="rows_f"):
+    """One int8 level launch (kind "binned" or "adaptive") on the inputs
+    of level_inputs / adaptive_inputs and ``qs`` = (q, scales)."""
+    from h2o3_tpu_torch.ops import kernels
+    if kind == "binned":
+        codes, nid, _g, tables, n_prev, base = inp
+        return kernels.binned_level_i8(codes, nid, *qs, tables, n_prev, N,
+                                       base, W)
+    x, nid, _g, tables, lo, inv, n_prev, base = inp
+    return kernels.adaptive_level_i8(x, nid, *qs, tables, lo, inv, n_prev, N,
+                                     base, W, layout)
+
+
+def i8_plain(kind, inp, qs, N, W, layout="rows_f"):
+    """The plain version of ``i8_level``."""
+    from h2o3_tpu_torch.ops import hist_adaptive as H
+    if kind == "binned":
+        codes, nid, _g, tables, n_prev, base = inp
+        return H.binned_level_i8_plain(codes, nid, *qs, tables, n_prev, N,
+                                       base, W)
+    x, nid, _g, tables, lo, inv, n_prev, base = inp
+    return H.adaptive_level_i8_plain(x, nid, *qs, tables, lo, inv, n_prev,
+                                     N, base, W, layout)
+
+
+def i8_inputs(kind, rows, F, W, N, seed, dev, layout="rows_f"):
+    """Float (g, h, w) level inputs with 5% of the rows off the window:
+    packed codes with 5% NA, or raw features with 5% NaN."""
+    if kind == "binned":
+        inp = level_inputs(rows, F, W, N, False, seed, dev)
+    else:
+        inp = adaptive_inputs(rows, F, W, N, False, seed, dev, layout)
+    return (inp[0], off_window(inp[1], seed)) + tuple(inp[2:])
+
+
+def check_i8(kind, rows, F, W, N, terms, dev, seed, layout="rows_f"):
+    """An int8 level against its plain version: nid and histogram
+    bit-equal (integer sums, the same float32 flush)."""
+    import torch
+    from h2o3_tpu_torch.ops.hist_adaptive import quantize_ghw_i8
+    inp = i8_inputs(kind, rows, F, W, N, seed, dev, layout)
+    qs = quantize_ghw_i8(inp[2], terms)
+    nk, hk = i8_level(kind, inp, qs, N, W, layout)
+    npl, hp = i8_plain(kind, inp, qs, N, W, layout)
+    torch.cuda.synchronize()
+    name = f"{kind}_level_i8 {layout} W={W} N={N} terms={terms}"
+    if not torch.equal(nk, npl):
+        raise AssertionError(f"{name}: nid differs in "
+                             f"{int((nk != npl).sum())} rows")
+    if not torch.equal(hk, hp):
+        err = float((hk.double() - hp.double()).abs().max())
+        raise AssertionError(f"{name}: histogram not bit-equal (max {err})")
+    return inp, qs
+
+
+I8_LEVELS = ((1, (1, 8, 32)), (2, (1, 8, 16)))   # (terms, N) checked
+
+
+def phase_i8_kernels(dev, rows=1_000_000, F=28):
+    """Phase 3, int8 levels: binned_level_i8 and adaptive_level_i8 (both
+    layouts) at W in {16, 32, 256}, one term at N in {1, 8, 32}, two at
+    N in {1, 8, 16}, with NA codes / NaN features and 5% of the rows off
+    the window: bit-equal to the plain version."""
+    seed, n = 1100, 0
+    for W in (16, 32, 256):
+        for terms, levels in I8_LEVELS:
+            for N in levels:
+                seed += 1
+                check_i8("binned", rows, F, W, N, terms, dev, seed)
+                for layout in LAYOUTS:
+                    check_i8("adaptive", rows, F, W, N, terms, dev,
+                             seed + 500, layout)
+                n += 3
+    print(f"int8 levels at {rows}x{F}: {n} cases (binned_level_i8, "
+          f"adaptive_level_i8 rows_f and f_rows; W 16/32/256; terms 1 at N "
+          f"1/8/32, terms 2 at N 1/8/16) bit-equal to the plain version",
+          flush=True)
+
+
+def totals_inputs(rows, F, n_prev, N, seed, dev):
+    """Raw features (5% NaN), float (g, h, w), split tables of the
+    previous level and nid in its window (in this level's when there is
+    no route), 5% of the rows off every window."""
+    import torch
+    x, _n, ghw, tables, _lo, _inv, _p, _b = adaptive_inputs(
+        rows, F, 16, 2 * max(n_prev, 1), False, seed, dev, "rows_f")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = N - 1
+    if n_prev:
+        nid = base - n_prev + torch.randint(0, n_prev, (rows,), generator=g,
+                                            device=dev)
+    else:
+        nid = base + torch.randint(0, N, (rows,), generator=g, device=dev)
+    return x, off_window(nid, seed), ghw, tables, base
+
+
+def check_totals(rows, F, n_prev, N, dev, seed):
+    """leaf_totals against its plain version: nid bit-equal, each total
+    within 1e-4 + 1e-5 x its absolute mass of the float64 plain
+    version."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import leaf_totals_plain
+    x, nid, ghw, tables, base = totals_inputs(rows, F, n_prev, N, seed, dev)
+    nk, tk = kernels.leaf_totals(x, nid, ghw, tables, n_prev, N, base)
+    npl, tp = leaf_totals_plain(x, nid, ghw.double(), tables, n_prev, N,
+                                base)
+    torch.cuda.synchronize()
+    name = f"leaf_totals n_prev={n_prev} N={N}"
+    if not torch.equal(nk, npl):
+        raise AssertionError(f"{name}: nid differs in "
+                             f"{int((nk != npl).sum())} rows")
+    _n, mass = leaf_totals_plain(x, nid, ghw.double().abs(), tables, n_prev,
+                                 N, base)
+    mass_check(name, tk, tp, mass)
+    return float((tk.double() - tp).abs().max()), (x, nid, ghw, tables, base)
+
+
+def phase_totals_kernel(dev, rows=1_000_000, F=28):
+    """Phase 3, leaf_totals at n_prev in {0, 32}, N in {1, 64}."""
+    errs = {}
+    for n_prev in (0, 32):
+        for N in (1, 64):
+            errs[f"n_prev={n_prev} N={N}"] = check_totals(
+                rows, F, n_prev, N, dev, 1200 + n_prev + N)[0]
+    print(f"leaf_totals at {rows}x{F}: nid bit-equal, totals within "
+          f"1e-4 + 1e-5 x mass of float64; max abs err {json.dumps(errs)}",
+          flush=True)
+
+
 # ------------------------------------------------------- main path
 
 
@@ -549,20 +720,40 @@ def frame_of(X, y, device):
     return h2o.Frame.from_numpy(cols, device=device)
 
 
-def train(fr, ntrees, path="packed", **kw):
+@contextlib.contextmanager
+def hist_i8(terms):
+    """``H2O3_HIST_I8`` set to ``terms`` (None: unset) for the trains
+    inside, and restored after."""
+    old = os.environ.pop("H2O3_HIST_I8", None)
+    if terms:
+        os.environ["H2O3_HIST_I8"] = str(terms)
+    try:
+        yield
+    finally:
+        os.environ.pop("H2O3_HIST_I8", None)
+        if old is not None:
+            os.environ["H2O3_HIST_I8"] = old
+
+
+def train(fr, ntrees, path="packed", i8=None, **kw):
+    """A GBM of ``path``'s parameters (and ``kw``); ``H2O3_HIST_I8`` is
+    ``i8`` or the path's own setting, for this train only."""
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     est = H2OGradientBoostingEstimator(
         ntrees=ntrees, max_depth=6, learn_rate=0.1,
         distribution="bernoulli", seed=7, min_rows=1.0,
         **{**PATHS[path]["params"], **kw})
-    est.train(y="label", training_frame=fr)
+    with hist_i8(i8 if i8 is not None else PATHS[path].get("i8")):
+        est.train(y="label", training_frame=fr)
     return est.model
 
 
 def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
-                    depth=6):
+                    depth=6, ref_auc=None):
     """One GBM path at full width, launch counters set to 0 just before
-    and read just after; the frame is made here unless given."""
+    and read just after; the frame is made here unless given. With
+    ``ref_auc`` (the float path's AUC from this run) the AUC must lie
+    within 0.005 of it."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     if fr is None:
@@ -591,6 +782,9 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     if not np.isfinite(auc) or not 0.5 < auc <= 1.0:
         raise AssertionError(f"training AUC {auc} is not a finite "
                              f"better-than-chance value")
+    if ref_auc is not None and abs(auc - ref_auc) > 0.005:
+        raise AssertionError(f"{path}: AUC {auc} is more than 0.005 from "
+                             f"the float path's {ref_auc}")
     p1 = pred.vec("p1").to_numpy()
     if p1.shape != (rows,) or not np.all(np.isfinite(p1)) \
             or p1.min() < 0 or p1.max() > 1:
@@ -598,8 +792,10 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
                              "row")
     loop_s = model.output["training_loop_seconds"]
     rps = rows * model.ntrees_built / loop_s
+    i8 = f" H2O3_HIST_I8={PATHS[path]['i8']}" if "i8" in PATHS[path] else ""
     print(f"main path {path}: {rows}x{F} bernoulli GBM depth {depth} "
-          f"{json.dumps(PATHS[path]['params'])} {ntrees} trees: AUC {auc!r} "
+          f"{json.dumps(PATHS[path]['params'])}{i8} {ntrees} trees: AUC "
+          f"{auc!r} "
           f"training_loop_seconds {loop_s!r} rows/s {rps!r} packed_codes "
           f"{json.dumps(model.output['packed_codes'])} train_profile "
           f"{json.dumps(model.output['train_profile'])} launches "
@@ -630,6 +826,148 @@ def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
           f"trees, float32 histograms: tree 0 splits equal, AUC cuda "
           f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
           f"|dAUC| {d_auc!r}", flush=True)
+
+
+def phase_card_vs_cpu_i8(path, terms, rows=200_000, ntrees=5):
+    """An int8 path on the card and on the CPU, bf16 histograms. At one
+    term every split level is an exact integer sum on both devices: tree
+    0's splits must be equal. At two terms the N = 32 level takes the
+    float bf16 level, whose float sums differ in the last bits, so a
+    near-tie there may flip a split: the differing splits are printed.
+    |dAUC| <= 1e-4 at both."""
+    X, y, _F = higgs_arrays(rows, seed=11)
+    models = {dev: train(frame_of(X, y, dev), ntrees, path, i8=terms,
+                         histogram_precision="bfloat16")
+              for dev in ("cuda", "cpu")}
+    mc, mh = models["cuda"], models["cpu"]
+    keys = ("feat", PATHS[path]["split_key"], "na_left")
+    same = [all(np.array_equal(mc.trees[k][t], mh.trees[k][t]) for k in keys)
+            for t in range(ntrees)]
+    if terms == 1 and not same[0]:
+        raise AssertionError(f"{path} H2O3_HIST_I8=1: tree 0 differs "
+                             f"between cuda and cpu")
+    d_auc = abs(mc.training_metrics.auc - mh.training_metrics.auc)
+    if d_auc > 1e-4:
+        raise AssertionError(f"{path} H2O3_HIST_I8={terms}: |dAUC| cuda vs "
+                             f"cpu = {d_auc}")
+    print(f"card vs cpu, {path} H2O3_HIST_I8={terms}: {rows} rows, {ntrees} "
+          f"trees, bf16 histograms: {sum(same)} of {ntrees} trees identical "
+          f"({split_flips(mc.trees, mh.trees)}), AUC cuda "
+          f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
+          f"|dAUC| {d_auc!r}", flush=True)
+
+
+def i8_level_bound_ms(kind, rows, F, N, W, terms, rows_in_level,
+                      itemsize=1):
+    """Least time for one int8 level: each input read once (codes or
+    float32 x, nid, q at one byte a term), each output written once
+    (nid', the float32 histogram), or its integer adds (3·terms per row in
+    the level and feature, and the adaptive re-bin's subtract and
+    multiply) at the float32 rate, whichever takes longer."""
+    width = F * (itemsize if kind == "binned" else 4)
+    nbytes = rows * (width + 4 + 3 * terms + 4) + 3 * N * F * W * 4
+    ops = (3 * terms + (0 if kind == "binned" else 2)) * rows_in_level * F
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_i8_record(dev, launches, rows=10_000_000, F=28):
+    """The int8 levels at the main paths' shapes (10M x 28; packed int8
+    codes at W=16, adaptive float32 features at W=32 in the training
+    layout), per level N = 1..32: one term at every level, two up to
+    N = 16, and the float kernel of the same level (bfloat16 masses, as
+    the path takes it without the switch) on the same inputs in the same
+    run; at N = 32 (one term) the plain version, the bound and, for the
+    adaptive kernel, the other layout."""
+    from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import quantize_ghw_i8
+    rec = []
+    for kind, W in (("binned", 16), ("adaptive", 32)):
+        name = f"{kind}_level_i8"
+        per = {"float_bf16": {}, "i8_terms1": {}, "i8_terms2": {}}
+        for N in (1, 2, 4, 8, 16, 32):
+            inp, qs1 = check_i8(kind, rows, F, W, N, 1, dev, 1400 + N,
+                                ADAPTIVE_LAYOUT)
+            if kind == "binned":
+                codes, nid, ghw, tables, n_prev, base = inp
+                per["float_bf16"][N] = time_cuda(lambda: kernels.binned_level(
+                    codes, nid, ghw, tables, n_prev, N, base, W, True), 10)
+            else:
+                x, nid, ghw, tables, lo, inv, n_prev, base = inp
+                per["float_bf16"][N] = time_cuda(
+                    lambda: kernels.adaptive_level(
+                        x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
+                        True, ADAPTIVE_LAYOUT), 10)
+            per["i8_terms1"][N] = time_cuda(lambda: i8_level(
+                kind, inp, qs1, N, W, ADAPTIVE_LAYOUT), 10)
+            if N <= 16:
+                qs2 = quantize_ghw_i8(inp[2], 2)
+                hist2 = i8_level(kind, inp, qs2, N, W, ADAPTIVE_LAYOUT)[1]
+                if not hist2.equal(i8_plain(kind, inp, qs2, N, W,
+                                            ADAPTIVE_LAYOUT)[1]):
+                    raise AssertionError(f"{name} N={N} terms=2 at 10M: "
+                                         f"histogram not bit-equal")
+                per["i8_terms2"][N] = time_cuda(lambda: i8_level(
+                    kind, inp, qs2, N, W, ADAPTIVE_LAYOUT), 10)
+                del qs2, hist2
+            if N == 32:
+                pms = time_cuda(lambda: i8_plain(kind, inp, qs1, N, W,
+                                                 ADAPTIVE_LAYOUT), 3)
+                other = None
+                if kind == "adaptive":
+                    # the other layout, same values
+                    xo = inp[0].t().contiguous()
+                    lay = "f_rows" if ADAPTIVE_LAYOUT == "rows_f" else \
+                        "rows_f"
+                    inp_o = (xo,) + tuple(inp[1:])
+                    other = {lay: time_cuda(lambda: i8_level(
+                        kind, inp_o, qs1, N, W, lay), 10)}
+                    del xo, inp_o
+            del inp, qs1
+        sums = {k: sum(v.values()) for k, v in per.items()}
+        bound, by = i8_level_bound_ms(kind, rows, F, 32, W, 1, rows)
+        form = ADAPTIVE_LAYOUT if kind == "adaptive" else "int8 codes"
+        print(f"{name} at 10M x 28, W={W} ({form}), "
+              f"per level N: {json.dumps(per)} ms; sum per tree "
+              f"{json.dumps(sums)} ms; N=32: plain {pms!r} ms, bound "
+              f"{bound!r} ms by {by}"
+              + (f", other layout {json.dumps(other)} ms" if other else ""),
+              flush=True)
+        rec.append({"name": name, "route": "cuda", "source": SRC[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name], "max_abs_err": 0.0,
+                    "ms": per["i8_terms1"][32],
+                    "float_level_ms": per["float_bf16"][32],
+                    "ms_terms2_n16": per["i8_terms2"][16],
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None})
+    return rec
+
+
+def phase_totals_record(dev, rows=10_000_000, F=28, n_prev=32, N=64):
+    """leaf_totals at 10M x 28 after a depth-6 tree's last split level
+    (n_prev = 32, N = 64): time, plain version's time, bound (nid in and
+    out, ghw, the one x value a row the route reads). No path launches
+    it, in either package."""
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import leaf_totals_plain
+    err, (x, nid, ghw, tables, base) = check_totals(rows, F, n_prev, N, dev,
+                                                   1500)
+    ms = time_cuda(lambda: kernels.leaf_totals(x, nid, ghw, tables, n_prev, N,
+                                               base), 20)
+    pms = time_cuda(lambda: leaf_totals_plain(x, nid, ghw, tables, n_prev, N,
+                                              base), 3)
+    nbytes = rows * (4 + 4 + 12 + 4)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
+    bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    print(f"leaf_totals at 10M x 28, n_prev={n_prev} N={N}: {ms!r} ms, plain "
+          f"{pms!r} ms, bound {bound!r} ms by {by}, max abs err {err!r}",
+          flush=True)
+    return [{"name": "leaf_totals", "route": "cuda",
+             "source": SRC["leaf_totals"], "replaces": REPLACES["leaf_totals"],
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}]
 
 
 def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
@@ -849,24 +1187,40 @@ def phase_repeatability(fr, path):
           f"{runs[1].training_metrics.auc!r}", flush=True)
 
 
-def phase_warm_profile(fr, card, path, cold_trees, ntrees=5):
+def phase_repeatability_i8(fr):
+    """The adaptive path with H2O3_HIST_I8=1 trained twice at 'auto'
+    (bf16, every level an integer sum): how far the runs differ."""
+    runs = [train(fr, 20, "adaptive_i8") for _ in range(2)]
+    print(f"repeatability adaptive_i8, H2O3_HIST_I8=1 at 'auto' x2: "
+          f"{split_flips(runs[0].trees, runs[1].trees)}, AUC "
+          f"{runs[0].training_metrics.auc!r} vs "
+          f"{runs[1].training_metrics.auc!r}", flush=True)
+
+
+def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
     """Where the time goes: a main path's train again (warm: kernels
-    loaded, allocator grown), once plain at 20 trees and once with 5
-    trees under torch.profiler. Prints the loop times, the device time
-    by kernel and the device busy share of the whole train() call, and
-    how the warm retrain's trees differ from the cold run's. Returns the
-    warm 20-tree loop's seconds."""
+    loaded, allocator grown), ``reps`` times plain at 20 trees (the
+    loop is host-bound and its time spreads from train to train) and
+    once with 5 trees under torch.profiler. Prints the loop times and
+    their median, the device time by kernel and the device busy share of
+    the whole train() call, and how the first warm retrain's trees
+    differ from the cold run's. Returns the median warm 20-tree loop's
+    seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    warm = train(fr, 20, path)
-    print(f"repeatability {path}, cold vs warm at 'auto': "
-          f"{split_flips(cold_trees, warm.trees)}", flush=True)
-    w_loop = warm.output["training_loop_seconds"]
-    print(f"warm retrain {path}: {fr.nrow} rows, 20 trees: "
-          f"training_loop_seconds "
-          f"{w_loop!r} (rows/s {fr.nrow * 20 / w_loop!r}), AUC "
-          f"{warm.training_metrics.auc!r} [{card}]", flush=True)
+    loops = []
+    for i in range(reps):
+        warm = train(fr, 20, path)
+        if i == 0:
+            print(f"repeatability {path}, cold vs warm at 'auto': "
+                  f"{split_flips(cold_trees, warm.trees)}", flush=True)
+        loops.append(warm.output["training_loop_seconds"])
+    w_loop = float(np.median(loops))
+    print(f"warm retrain {path}: {fr.nrow} rows, 20 trees, x{reps}: "
+          f"training_loop_seconds {loops!r}, median {w_loop!r} (rows/s "
+          f"{fr.nrow * 20 / w_loop!r}), AUC {warm.training_metrics.auc!r} "
+          f"[{card}]", flush=True)
     del warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -963,6 +1317,9 @@ def main() -> int:
     clock.lap("3 adaptive kernels")
     phase_global_kernels(dev)
     clock.lap("3 global kernels")
+    phase_i8_kernels(dev)
+    phase_totals_kernel(dev)
+    clock.lap("3 int8 + totals kernels")
 
     # 4. the main paths, each with its own launch counts
     packed = phase_main_path(card, "packed")
@@ -974,6 +1331,13 @@ def main() -> int:
     glob = phase_main_path(card, "global", fr)
     del glob["frame"]
     clock.lap("4 global")
+    # the int8 paths, against the same path's bf16 AUC of this run
+    packed_i8 = phase_main_path(card, "packed_i8", fr, ref_auc=packed["auc"])
+    del packed_i8["frame"]
+    adaptive_i8 = phase_main_path(card, "adaptive_i8", fr,
+                                  ref_auc=adaptive["auc"])
+    del adaptive_i8["frame"]
+    clock.lap("4 packed_i8 + adaptive_i8")
 
     # 5. card vs cpu; the two sketch paths against each other
     phase_card_vs_cpu("packed")
@@ -983,27 +1347,43 @@ def main() -> int:
     clock.lap("5 global card vs cpu")
     phase_packed_vs_global()
     clock.lap("5 packed vs global")
+    for path in ("packed_i8", "adaptive_i8"):
+        for terms in (1, 2):
+            phase_card_vs_cpu_i8(path, terms)
+    clock.lap("5 int8 card vs cpu")
 
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
     rec += phase_adaptive_record(dev, adaptive["launches"])
     clock.lap("6 packed + adaptive record")
+    rec += phase_i8_record(dev, {
+        "binned_level_i8": packed_i8["launches"]["binned_level_i8"],
+        "adaptive_level_i8": adaptive_i8["launches"]["adaptive_level_i8"]})
+    rec += phase_totals_record(dev)
+    clock.lap("6 int8 + totals record")
 
     # 7. where the time goes: a warm, profiled retrain of each main path
     phase_warm_profile(fr, card, "packed", packed["trees"])
     phase_warm_profile(fr, card, "adaptive", adaptive["trees"])
     clock.lap("7 packed + adaptive profile")
+    phase_warm_profile(fr, card, "packed_i8", packed_i8["trees"])
+    phase_warm_profile(fr, card, "adaptive_i8", adaptive_i8["trees"])
+    clock.lap("7 packed_i8 + adaptive_i8 profile")
     warm_s = phase_warm_profile(fr, card, "global", glob["trees"])
     clock.lap("7 global profile")
     phase_repeatability(fr, "adaptive")
+    phase_repeatability_i8(fr)
     del fr
     clock.lap("7 repeatability")
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32,256] binned_route_only "
+          "binned_level_i8[W=16,32,256 x terms=1,2] "
           "adaptive_level[rows_f,f_rows x W=16,32,256] "
           "adaptive_route_only[rows_f,f_rows] "
+          "adaptive_level_i8[rows_f,f_rows x W=16,32,256 x terms=1,2] "
+          "leaf_totals[n_prev=0,32 x N=1,64] "
           "global_hist[B1=15 uint8,257,1025 int32]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)

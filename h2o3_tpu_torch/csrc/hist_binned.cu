@@ -6,6 +6,15 @@
 // node id, and, when that node lies in the level's window, adds its
 // (g, h, w) into the (node, feature, code) bin of every feature.
 //
+// binned_level_i8 (replaces _kernel_bt_i8, K4): the same level with the
+// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8): the integer-
+// mass instance (kTerms = 1 or 2) of the same kernel. It stages q (3 or 6
+// bytes a row in place of 12), adds into an int32 shared partial with
+// native integer atomics, merges blocks into an int32 buffer with integer
+// atomics, and one flush pass writes the float32 histogram
+// (level_common.cuh). Sums of integers leave no room for order: the
+// histogram is bit-equal to the plain version and to the TPU kernel.
+//
 // binned_route_only (replaces _route_kernel_bt, K2): the deepest level's
 // route, one thread per row, no histogram.
 //
@@ -19,25 +28,27 @@
 // What bounds them on an H100: memory. binned_level reads
 // rows * (F * itemsize + 16) bytes and writes rows * 4 (about
 // rows * (F * itemsize + 20) per level); its 3 * rows * F float adds are
-// far below the 67 TFLOP/s f32 rate. binned_route_only moves about
+// far below the 67 TFLOP/s f32 rate; binned_level_i8 reads 3 * terms in
+// place of 12 bytes of mass a row. binned_route_only moves about
 // rows * 9 bytes. Design: a block takes 512 rows at a time; phase 1 routes
 // them (one thread per row) and stages node id and (g, h, w) in shared
 // memory; phase 2 walks the chunk's codes contiguously (coalesced byte
 // loads) and adds into a per-block histogram in shared memory. Each
-// feature's W bins sit at a stride of W + 1 floats, so the bins of
+// feature's W bins sit at a stride of W + 1 words, so the bins of
 // neighbouring features start on different banks. At the end each block
 // adds its nonzero partial cells into the output with global atomics.
-// When the level's [3, N, F, W] partial does not fit the shared budget,
-// the grid's second dimension splits it into node x feature tiles; each
-// tile re-reads the rows it needs (level_common.cuh).
+// When the level's [planes, N, F, W] partial does not fit the shared
+// budget (six int32 planes at terms = 2 take twice the float level's
+// three), the grid's second dimension splits it into node x feature tiles;
+// each tile re-reads the rows it needs (level_common.cuh).
 //
 // What the simple design leaves on the table (later work): Hopper has no
 // native shared-memory float atomic add, so each shared atomicAdd is a
 // compare-and-swap loop (ATOMS.CAST.SPIN in the SASS) and the kernel is
-// bound by those loops, not by memory; quantised integer masses would take
-// the native ATOMS.ADD. The block-partial merge uses float atomics, so
-// float sums vary in the last bits from run to run (integer masses are
-// exact); a fixed-order merge would make them reproducible. No TMA or
+// bound by those loops, not by memory; the int8 instances take the native
+// ATOMS.ADD. The block-partial merge uses float atomics, so float sums vary
+// in the last bits from run to run (integer masses are exact); a
+// fixed-order merge would make them reproducible. No TMA or
 // cp.async staging of the codes; no wgmma one-hot contraction; feature
 // tiles re-read nid and ghw.
 
@@ -63,30 +74,34 @@ __device__ __forceinline__ int route_row(const CodeT* __restrict__ codes,
   return 2 * nid + 1 + right;
 }
 
-template <typename CodeT, int W>
+template <typename CodeT, int W, int kTerms>
 __global__ void __launch_bounds__(kThreads)
 binned_level_kernel(const CodeT* __restrict__ codes,
                     const int* __restrict__ nid_in,
-                    const float* __restrict__ ghw,
+                    const typename h2o3::LevelMass<kTerms>::In* mass,
                     const int* __restrict__ tables, int64_t rows, int F,
                     int n_prev, int n_nodes, int level_base, int node_tile,
                     int feat_tile, int n_feat_tiles, int bf16,
-                    int* __restrict__ nid_out, float* __restrict__ hist) {
-  extern __shared__ float smem[];
+                    int* __restrict__ nid_out,
+                    typename h2o3::LevelMass<kTerms>::Acc* __restrict__ hist) {
+  using M = h2o3::LevelMass<kTerms>;
+  using Acc = typename M::Acc;
+  using Stage = typename M::Stage;
+  constexpr int P = M::kPlanes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tile = blockIdx.y;
   const int n0 = (tile / n_feat_tiles) * node_tile;
   const int f0 = (tile % n_feat_tiles) * feat_tile;
   const int nt = min(node_tile, n_nodes - n0);
   const int ft = min(feat_tile, F - f0);
   constexpr int WP = W + 1;
-  const int cells = node_tile * feat_tile * WP;  // per component
-  float* s_hist = smem;                          // [3][node_tile][feat_tile][WP]
-  float* s_g = smem + 3 * cells;
-  float* s_h = s_g + kThreads;
-  float* s_w = s_h + kThreads;
-  int* s_lid = reinterpret_cast<int*>(s_w + kThreads);
+  const int cells = node_tile * feat_tile * WP;  // per plane
+  // [P][node_tile][feat_tile][WP]
+  Acc* s_hist = reinterpret_cast<Acc*>(smem_raw);
+  int* s_lid = reinterpret_cast<int*>(s_hist + P * cells);
+  Stage* s_m = reinterpret_cast<Stage*>(s_lid + kThreads);  // [P][kThreads]
 
-  for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) s_hist[i] = 0.f;
+  for (int i = threadIdx.x; i < P * cells; i += blockDim.x) s_hist[i] = 0;
 
   const int prev_base = level_base - n_prev;
   const int64_t n_chunks = (rows + kThreads - 1) / kThreads;
@@ -104,15 +119,9 @@ binned_level_kernel(const CodeT* __restrict__ codes,
       if (tile == 0) nid_out[r] = nid;
       const int ln = nid - level_base;
       s_lid[threadIdx.x] = (ln >= n0 && ln < n0 + nt) ? ln - n0 : -1;
-      float g = ghw[r], h = ghw[rows + r], w = ghw[2 * rows + r];
-      if (bf16) {
-        g = h2o3::round_bf16(g);
-        h = h2o3::round_bf16(h);
-        w = h2o3::round_bf16(w);
-      }
-      s_g[threadIdx.x] = g;
-      s_h[threadIdx.x] = h;
-      s_w[threadIdx.x] = w;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        s_m[p * kThreads + threadIdx.x] = M::load(mass, rows, r, p, bf16);
     }
     __syncthreads();
     const int work = nr * ft;
@@ -125,13 +134,13 @@ binned_level_kernel(const CodeT* __restrict__ codes,
       const int c = static_cast<int>(base[static_cast<int64_t>(rr) * F + fl]);
       if (static_cast<unsigned>(c) >= static_cast<unsigned>(W)) continue;
       const int cell = (ln * feat_tile + fl) * WP + c;
-      atomicAdd(s_hist + cell, s_g[rr]);
-      atomicAdd(s_hist + cells + cell, s_h[rr]);
-      atomicAdd(s_hist + 2 * cells + cell, s_w[rr]);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        M::add(s_hist + p * cells + cell, s_m[p * kThreads + rr]);
     }
   }
   __syncthreads();
-  h2o3::merge_partial(s_hist, cells, WP, W, node_tile, feat_tile, n0, f0,
+  h2o3::merge_partial(s_hist, P, cells, WP, W, node_tile, feat_tile, n0, f0,
                       nt, ft, n_nodes, F, hist);
 }
 
@@ -152,17 +161,27 @@ binned_route_only_kernel(const CodeT* __restrict__ codes,
   }
 }
 
-template <typename CodeT, int W>
-int launch_level(const void* codes, const int* nid, const float* ghw,
+// Shared bytes of one block: the partial, the staged node ids and masses.
+template <int kTerms>
+size_t level_smem(int node_tile, int feat_tile, int W) {
+  using M = h2o3::LevelMass<kTerms>;
+  return static_cast<size_t>(M::kPlanes) * node_tile * feat_tile * (W + 1) *
+             sizeof(typename M::Acc) +
+         kThreads * (sizeof(int) + M::kPlanes * sizeof(typename M::Stage));
+}
+
+template <typename CodeT, int W, int kTerms>
+int launch_level(const void* codes, const int* nid, const void* mass,
                  const int* tables, int64_t rows, int F, int n_prev,
                  int n_nodes, int level_base, int bf16, int* nid_out,
-                 float* hist, cudaStream_t stream) {
-  const int64_t per_cell = 3 * (W + 1) * static_cast<int64_t>(sizeof(float));
+                 void* hist, cudaStream_t stream) {
+  using M = h2o3::LevelMass<kTerms>;
+  const int64_t per_cell = static_cast<int64_t>(M::kPlanes) * (W + 1) *
+                           static_cast<int64_t>(sizeof(typename M::Acc));
   const h2o3::LevelTiles t = h2o3::level_tiles(n_nodes, F, per_cell);
   if (t.n_tiles < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = (3 * static_cast<size_t>(t.node_tile) * t.feat_tile *
-                          (W + 1) + 4 * kThreads) * sizeof(float);
-  auto kern = binned_level_kernel<CodeT, W>;
+  const size_t smem = level_smem<kTerms>(t.node_tile, t.feat_tile, W);
+  auto kern = binned_level_kernel<CodeT, W, kTerms>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -175,10 +194,50 @@ int launch_level(const void* codes, const int* nid, const float* ghw,
                                                      rows)),
             static_cast<unsigned>(t.n_tiles));
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), nid, ghw, tables, rows, F, n_prev,
+      static_cast<const CodeT*>(codes), nid,
+      static_cast<const typename M::In*>(mass), tables, rows, F, n_prev,
       n_nodes, level_base, t.node_tile, t.feat_tile, t.n_feat_tiles, bf16,
-      nid_out, hist);
+      nid_out, static_cast<typename M::Acc*>(hist));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The level's instance by code width and W.
+template <int kTerms>
+int launch_level_w(const void* codes, int code_bytes, const int* nid,
+                   const void* mass, const int* tables, int64_t rows, int F,
+                   int W, int n_prev, int n_nodes, int level_base, int bf16,
+                   int* nid_out, void* hist, cudaStream_t s) {
+  if (code_bytes == 1) {
+    switch (W) {
+      case 16:
+        return launch_level<int8_t, 16, kTerms>(codes, nid, mass, tables,
+                                                rows, F, n_prev, n_nodes,
+                                                level_base, bf16, nid_out,
+                                                hist, s);
+      case 32:
+        return launch_level<int8_t, 32, kTerms>(codes, nid, mass, tables,
+                                                rows, F, n_prev, n_nodes,
+                                                level_base, bf16, nid_out,
+                                                hist, s);
+      case 64:
+        return launch_level<int8_t, 64, kTerms>(codes, nid, mass, tables,
+                                                rows, F, n_prev, n_nodes,
+                                                level_base, bf16, nid_out,
+                                                hist, s);
+      case 128:
+        return launch_level<int8_t, 128, kTerms>(codes, nid, mass, tables,
+                                                 rows, F, n_prev, n_nodes,
+                                                 level_base, bf16, nid_out,
+                                                 hist, s);
+      default:
+        break;
+    }
+  } else if (code_bytes == 2 && W == 256) {
+    return launch_level<int16_t, 256, kTerms>(codes, nid, mass, tables, rows,
+                                              F, n_prev, n_nodes, level_base,
+                                              bf16, nid_out, hist, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -193,36 +252,35 @@ int h2o3_binned_level(const void* codes, int code_bytes, const int* nid,
                       const float* ghw, const int* tables, long long rows,
                       int F, int W, int n_prev, int n_nodes, int level_base,
                       int bf16, int* nid_out, float* hist, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_nodes < 1 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (code_bytes == 1) {
-    switch (W) {
-      case 16:
-        return launch_level<int8_t, 16>(codes, nid, ghw, tables, rows, F,
-                                        n_prev, n_nodes, level_base, bf16,
-                                        nid_out, hist, s);
-      case 32:
-        return launch_level<int8_t, 32>(codes, nid, ghw, tables, rows, F,
-                                        n_prev, n_nodes, level_base, bf16,
-                                        nid_out, hist, s);
-      case 64:
-        return launch_level<int8_t, 64>(codes, nid, ghw, tables, rows, F,
-                                        n_prev, n_nodes, level_base, bf16,
-                                        nid_out, hist, s);
-      case 128:
-        return launch_level<int8_t, 128>(codes, nid, ghw, tables, rows, F,
-                                         n_prev, n_nodes, level_base, bf16,
-                                         nid_out, hist, s);
-      default:
-        break;
-    }
-  } else if (code_bytes == 2 && W == 256) {
-    return launch_level<int16_t, 256>(codes, nid, ghw, tables, rows, F,
-                                      n_prev, n_nodes, level_base, bf16,
-                                      nid_out, hist, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_level_w<0>(codes, code_bytes, nid, ghw, tables, rows, F, W,
+                           n_prev, n_nodes, level_base, bf16, nid_out, hist,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]
+// float32 in place of ghw; acc [3 * terms, n_nodes, F, W] int32, which the
+// caller zeroes, takes the sums; writes nid_out and hist [3, n_nodes, F, W]
+// float32 (all of it, in the flush). Returns a cudaError_t value.
+int h2o3_binned_level_i8(const void* codes, int code_bytes, const int* nid,
+                         const int8_t* q, int terms, const float* scales,
+                         const int* tables, long long rows, int F, int W,
+                         int n_prev, int n_nodes, int level_base,
+                         int* nid_out, int* acc, float* hist, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F < 1 || n_nodes < 1 || rows < 0 || (terms != 1 && terms != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc =
+      terms == 1
+          ? launch_level_w<1>(codes, code_bytes, nid, q, tables, rows, F, W,
+                              n_prev, n_nodes, level_base, 0, nid_out, acc, s)
+          : launch_level_w<2>(codes, code_bytes, nid, q, tables, rows, F, W,
+                              n_prev, n_nodes, level_base, 0, nid_out, acc, s);
+  if (rc != 0) return rc;
+  return h2o3::launch_flush_i8(acc, scales, terms,
+                               static_cast<int64_t>(n_nodes) * F * W, hist,
+                               s);
 }
 
 // The deepest level's route: same operands as h2o3_binned_level without

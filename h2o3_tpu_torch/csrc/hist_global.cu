@@ -28,11 +28,16 @@
 //   is cut into node x feature tiles, down to one feature and eight nodes
 //   a tile, and every tile re-reads every row's seg and its own rows'
 //   ghw and codes.
-// - Global atomics: phase 2 adds straight into hist with float atomicAdd,
-//   which Hopper executes in L2 (REDG.E.ADD.F32), one pass over the rows
-//   whatever N and B1 are. Its cost follows the number of adds, not the
-//   tiles, and same-address adds serialise, so it loses where few bins
-//   take many rows.
+// - Global atomics: phase 2 adds straight into a float64 copy of hist
+//   (acc, which the caller zeroes) with double atomicAdd, which Hopper
+//   executes in L2 (REDG.E.ADD.F64), one pass over the rows whatever N
+//   and B1 are; a second pass adds acc, rounded once, into hist. Its cost
+//   follows the number of adds, not the tiles, and same-address adds
+//   serialise, so it loses where few bins take many rows. The sum is
+//   float64 because one global sum per bin is a chain as long as the
+//   bin's rows: in float32 a 125k-row bin drifted by up to 1.25e-5 of its
+//   mass from run to run, past the 1e-5 that the shared partials (short
+//   chains per block) keep.
 //
 // The launcher alone picks the form (kMaxSharedTiles below): shared
 // partials when the tiling needs at most 4 tiles, global atomics
@@ -67,7 +72,7 @@ global_hist_kernel(const CodeT* __restrict__ codes,
                    const float* __restrict__ ghw, int64_t rows, int F,
                    int n_nodes, int B1, int stride, int node_tile,
                    int feat_tile, int n_feat_tiles, int bf16,
-                   float* __restrict__ hist) {
+                   double* __restrict__ acc, float* __restrict__ hist) {
   extern __shared__ float smem[];
   const int tile = blockIdx.y;
   const int n0 = (tile / n_feat_tiles) * node_tile;
@@ -125,25 +130,37 @@ global_hist_kernel(const CodeT* __restrict__ codes,
         atomicAdd(s_hist + cells + cell, s_h[rr]);
         atomicAdd(s_hist + 2 * cells + cell, s_w[rr]);
       } else {
-        float* o = hist + (static_cast<int64_t>(ln) * F + fl) * B1 + c;
-        atomicAdd(o, s_g[rr]);
-        atomicAdd(o + plane, s_h[rr]);
-        atomicAdd(o + 2 * plane, s_w[rr]);
+        double* o = acc + (static_cast<int64_t>(ln) * F + fl) * B1 + c;
+        atomicAdd(o, static_cast<double>(s_g[rr]));
+        atomicAdd(o + plane, static_cast<double>(s_h[rr]));
+        atomicAdd(o + 2 * plane, static_cast<double>(s_w[rr]));
       }
     }
   }
   if (kTiled) {
     __syncthreads();
-    h2o3::merge_partial(s_hist, cells, stride, B1, node_tile, feat_tile, n0,
-                        f0, nt, ft, n_nodes, F, hist);
+    h2o3::merge_partial(s_hist, 3, cells, stride, B1, node_tile, feat_tile,
+                        n0, f0, nt, ft, n_nodes, F, hist);
   }
+}
+
+// hist[i] += acc[i], rounded once to float32: the global-atomics form's
+// second pass.
+__global__ void __launch_bounds__(kThreads)
+add_acc_kernel(const double* __restrict__ acc, int64_t n,
+               float* __restrict__ hist) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += step)
+    hist[i] = __fadd_rn(hist[i], __double2float_rn(acc[i]));
 }
 
 template <typename CodeT, bool kTiled>
 int launch_form(const void* codes, const int* seg, const float* ghw,
                 int64_t rows, int F, int n_nodes, int B1, int stride,
-                const h2o3::LevelTiles& t, int bf16, float* hist,
-                cudaStream_t stream) {
+                const h2o3::LevelTiles& t, int bf16, double* acc,
+                float* hist, cudaStream_t stream) {
   const size_t smem = (3 * static_cast<size_t>(kTiled ? t.node_tile : 0) *
                            t.feat_tile * stride + 4 * kThreads) *
                       sizeof(float);
@@ -161,7 +178,14 @@ int launch_form(const void* codes, const int* seg, const float* ghw,
             static_cast<unsigned>(t.n_tiles));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(codes), seg, ghw, rows, F, n_nodes, B1,
-      stride, t.node_tile, t.feat_tile, t.n_feat_tiles, bf16, hist);
+      stride, t.node_tile, t.feat_tile, t.n_feat_tiles, bf16, acc, hist);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kTiled) return static_cast<int>(err);
+  const int64_t n = 3 * static_cast<int64_t>(n_nodes) * F * B1;
+  const int64_t blocks64 = (n + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 8;
+  add_acc_kernel<<<static_cast<unsigned>(blocks64 > cap ? cap : blocks64),
+                   kThreads, 0, stream>>>(acc, n, hist);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -178,8 +202,8 @@ enum Form { kPick = -1, kGlobal = 0, kShared = 1 };
 
 template <typename CodeT>
 int launch(const void* codes, const int* seg, const float* ghw, int64_t rows,
-           int F, int n_nodes, int B1, int bf16, int form, float* hist,
-           cudaStream_t stream) {
+           int F, int n_nodes, int B1, int bf16, int form, double* acc,
+           float* hist, cudaStream_t stream) {
   const int stride = B1 | 1;  // odd: neighbouring cells on other banks
   const int64_t per_cell = 3 * static_cast<int64_t>(stride) * sizeof(float);
   const h2o3::LevelTiles t = h2o3::level_tiles(n_nodes, F, per_cell);
@@ -189,25 +213,26 @@ int launch(const void* codes, const int* seg, const float* ghw, int64_t rows,
   if (tiled) {
     if (t.n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_form<CodeT, true>(codes, seg, ghw, rows, F, n_nodes, B1,
-                                    stride, t, bf16, hist, stream);
+                                    stride, t, bf16, acc, hist, stream);
   }
   const h2o3::LevelTiles whole = {n_nodes, F, 1, 1};
   return launch_form<CodeT, false>(codes, seg, ghw, rows, F, n_nodes, B1,
-                                   stride, whole, bf16, hist, stream);
+                                   stride, whole, bf16, acc, hist, stream);
 }
 
 int launch_codes(const void* codes, int code_bytes, const int* seg,
                  const float* ghw, long long rows, int F, int n_nodes, int B1,
-                 int bf16, int form, float* hist, void* stream) {
+                 int bf16, int form, double* acc, float* hist,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_nodes < 1 || B1 < 1 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (code_bytes == 1)
     return launch<uint8_t>(codes, seg, ghw, rows, F, n_nodes, B1, bf16, form,
-                           hist, s);
+                           acc, hist, s);
   if (code_bytes == 4)
     return launch<int32_t>(codes, seg, ghw, rows, F, n_nodes, B1, bf16, form,
-                           hist, s);
+                           acc, hist, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -217,13 +242,15 @@ extern "C" {
 
 // codes [rows, F] uint8 (code_bytes 1) or int32 (code_bytes 4), row-major;
 // seg [rows] int32; ghw [3, rows] float32. ADDS into hist [3, n_nodes, F,
-// B1] float32, which the caller zeroes, in the form the shapes pick.
-// Returns a cudaError_t value.
+// B1] float32, which the caller zeroes, in the form the shapes pick; acc,
+// the same shape in float64 and zeroed by the caller, is the global-
+// atomics form's scratch. Returns a cudaError_t value.
 int h2o3_global_hist(const void* codes, int code_bytes, const int* seg,
                      const float* ghw, long long rows, int F, int n_nodes,
-                     int B1, int bf16, float* hist, void* stream) {
+                     int B1, int bf16, double* acc, float* hist,
+                     void* stream) {
   return launch_codes(codes, code_bytes, seg, ghw, rows, F, n_nodes, B1,
-                      bf16, kPick, hist, stream);
+                      bf16, kPick, acc, hist, stream);
 }
 
 // The same with one form forced (shared 1: shared partials, an error
@@ -231,9 +258,9 @@ int h2o3_global_hist(const void* codes, int code_bytes, const int* seg,
 int h2o3_global_hist_form(const void* codes, int code_bytes, const int* seg,
                           const float* ghw, long long rows, int F,
                           int n_nodes, int B1, int bf16, int shared,
-                          float* hist, void* stream) {
+                          double* acc, float* hist, void* stream) {
   return launch_codes(codes, code_bytes, seg, ghw, rows, F, n_nodes, B1,
-                      bf16, shared ? kShared : kGlobal, hist, stream);
+                      bf16, shared ? kShared : kGlobal, acc, hist, stream);
 }
 
 }  // extern "C"

@@ -17,18 +17,20 @@ everything in it stays on the features' device.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 from typing import List
 
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level,
+from h2o3_tpu_torch.ops.hist_adaptive import (I8_MAX_ROWS, adaptive_level,
                                               adaptive_route_only,
                                               binned_level,
                                               binned_route_only,
                                               make_adaptive_tables,
                                               make_tables, pick_W,
+                                              quantize_ghw_i8,
                                               rows_features)
 from h2o3_tpu_torch.ops.histogram import build_histograms
 
@@ -180,6 +182,21 @@ def _hist_bf16(cfg: TreeConfig, rows: int) -> bool:
     return rows >= (1 << 18)
 
 
+def _hist_i8(ghw, bf16: bool, rows: int):
+    """The int8 fixed-point opt-in, read as the JAX growers read it:
+    ``H2O3_HIST_I8`` = the number of terms (1 or 2; unset or 0 = off).
+    Where it is on, the level histogram is bf16 and the frame has at
+    most ``I8_MAX_ROWS`` rows, the tree's (g, h, w) are quantised once
+    and the level dispatchers take the int8 form where ``takes_i8``
+    holds. Unlike the JAX package, which reads it only on the TPU (or
+    in interpret mode), the port applies it on every device. Returns
+    ``qs`` = (q, scales) or None."""
+    terms = int(os.environ.get("H2O3_HIST_I8", "0") or 0)
+    if terms and bf16 and rows <= I8_MAX_ROWS:
+        return quantize_ghw_i8(ghw, terms)
+    return None
+
+
 def _segment_totals(lid, valid, g, h, w, n_seg: int):
     """Per-node (g, h, w) sums over rows, in one weighted bincount."""
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
@@ -196,6 +213,8 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     """Build one tree on packed codes ``[rows, F]`` (int8/int16, NA = the
     reserved lane W-1, W = pick_W(cfg.n_bins)). Split thresholds stay bin
     indices (``split_bin``); finalize unbins them to raw thresholds.
+    ``H2O3_HIST_I8`` switches levels to int8 fixed-point masses
+    (``_hist_i8``).
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
     is_split, value, gain, node_w; and every row's leaf node id)."""
@@ -218,6 +237,7 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     node_w = torch.zeros(M, dtype=torch.float32, device=dev)
 
     ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
+    qs = _hist_i8(ghw, bf16, rows)
     nid = torch.zeros(rows, dtype=torch.int32, device=dev)
     tables = torch.zeros((4, 1), dtype=torch.int32, device=dev)
 
@@ -236,7 +256,7 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
         N = 2 ** d
         base = N - 1
         nid, hist = binned_level(codes, nid, ghw, tables, N // 2 if d else 0,
-                                 N, base, W, bf16)
+                                 N, base, W, bf16, qs)
         sel, can, tables = _binned_split_level(
             (hist[0], hist[1], hist[2]), find_cfg, col_mask, cfg)
         bg, bf, bb, bnl, gt, ht, wt = sel[:7]
@@ -515,7 +535,8 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     ``max_bin`` limit), raw thresholds ``lo + bin/inv`` (``BIG_THR`` on a
     zero span), and the next level's ranges (``_next_ranges``). The
     deepest level only routes: leaf values are the last split level's
-    selected child stats.
+    selected child stats. ``H2O3_HIST_I8`` switches levels to int8
+    fixed-point masses (``_hist_i8``).
 
     Returns (tree dict of [M] tensors: feat, thr, na_left, is_split,
     value, gain, node_w; and every row's leaf node id)."""
@@ -543,6 +564,7 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     node_w = torch.zeros(M, dtype=torch.float32, device=dev)
 
     ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
+    qs = _hist_i8(ghw, bf16, rows)
     nid = torch.zeros(rows, dtype=torch.int32, device=dev)
     lo_d = root_lo.to(torch.float32).reshape(1, F)
     hi_d = root_hi.to(torch.float32).reshape(1, F)
@@ -573,7 +595,7 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
         lo_d = lo_d.contiguous()
         nid, hist = adaptive_level(x, nid, ghw, tables, lo_d, inv_d,
                                    N // 2 if d else 0, N, base, W, bf16,
-                                   layout)
+                                   layout, qs)
         (bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s, wl_s,
          wr_s) = _find_splits((hist[0], hist[1], hist[2]), find_cfg,
                               col_mask)

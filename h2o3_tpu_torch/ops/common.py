@@ -1,6 +1,7 @@
 """What the dispatching modules (``ops/hist_adaptive.py``,
 ``ops/histogram.py``) share: the device dispatch, and the scatter-add
-histogram that every plain version of a histogram kernel ends in."""
+histogram that every plain version of a histogram kernel ends in, in
+its float and its int8 fixed-point form."""
 from __future__ import annotations
 
 import torch
@@ -29,6 +30,43 @@ def level_hist_plain(nid, bins, ghw, n_nodes: int, level_base: int, W: int,
     out.index_add_(0, flat.reshape(-1),
                    vals[:, None, :].expand(rows, F, 3).reshape(-1, 3))
     return out.reshape(n_nodes, F, W, 3).permute(3, 0, 1, 2).contiguous()
+
+
+def level_hist_i8_plain(nid, bins, q, scales, n_nodes: int, level_base: int,
+                        W: int):
+    """``level_hist_plain`` on int8 fixed-point masses: each row's
+    ``q`` [3·terms, rows] is added exactly in int64 into the (term, node,
+    feature, bin) cells of the rows in the level's window, then flushed
+    to float32 by ``flush_i8``. Returns hist [3, n_nodes, F, W]
+    float32."""
+    rows, F = bins.shape
+    lid = nid - level_base
+    in_lvl = (lid >= 0) & (lid < n_nodes)
+    lidc = torch.where(in_lvl, lid, 0).long()
+    fidx = torch.arange(F, device=bins.device)
+    flat = ((lidc[:, None] * F + fidx[None, :]) * W + bins).reshape(-1)
+    vals = q.long() * in_lvl.long()[None, :]
+    # one 1-D scatter per plane: on the CPU a few times faster than one
+    # scatter of [rows·F, planes] rows
+    acc = torch.stack([
+        torch.zeros(n_nodes * F * W, dtype=torch.int64,
+                    device=bins.device).index_add_(
+            0, flat, v[:, None].expand(rows, F).reshape(-1))
+        for v in vals])
+    return flush_i8(acc.reshape(-1, n_nodes, F, W), scales)
+
+
+def flush_i8(acc, scales):
+    """The int8 level kernels' flush (the TPU kernels' ``_flush``): an
+    integer sum [3·terms, ...] to float32 [3, ...]. One term:
+    ``s_c · f32(Σq_c)``; two: ``s_c · (256 · f32(Σa_c) + f32(Σb_c))``,
+    the high and low sums converted apart, as the reference does (at
+    10M rows |Σa| passes 2^24 and rounds)."""
+    accf = acc.to(torch.float32)
+    s = scales.reshape(3, *([1] * (acc.dim() - 1)))
+    if acc.shape[0] == 3:
+        return (s * accf).contiguous()
+    return (s * (256.0 * accf[0::2] + accf[1::2])).contiguous()
 
 
 def dispatch(name: str, t, plain, kernel, *args):

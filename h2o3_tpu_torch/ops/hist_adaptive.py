@@ -32,6 +32,19 @@ With ``bf16=True`` each of g, h and w is rounded to bfloat16 (round to
 nearest even) before the float32 add, which reproduces the TPU kernel's
 exact bf16 one-hot product.
 
+**int8 fixed-point masses** (``H2O3_HIST_I8``, the reference's opt-in):
+``quantize_ghw_i8`` encodes a tree's (g, h, w) once as int8 ``q``
+[3·terms, rows] with float32 scales [3]; ``binned_level`` and
+``adaptive_level`` given ``qs = (q, scales)`` send every level with
+``3·terms·n_nodes <= 128`` (at bf16) to an int8 level, which routes and
+bins as the float level does, sums ``q`` exactly in integers and
+flushes to float32 (``common.flush_i8``). Integer sums leave no room
+for order: kernel, plain version and the TPU kernel give the same bits.
+
+**Leaf totals** (``leaf_totals``): route one adaptive level and sum
+float32 (g, h, w) per node of the window. As in the JAX package, no
+grower calls it.
+
 The dispatchers send CPU tensors to the plain versions and CUDA tensors
 to the hand-written kernels (``ops/kernels.py``); anything else raises.
 """
@@ -40,9 +53,12 @@ from __future__ import annotations
 import torch
 
 from h2o3_tpu_torch.ops import kernels
-from h2o3_tpu_torch.ops.common import dispatch, level_hist_plain
+from h2o3_tpu_torch.ops.common import (dispatch, level_hist_i8_plain,
+                                       level_hist_plain)
 
 LAYOUTS = ("rows_f", "f_rows")
+# the int8 levels' row cap: int32 sums of |q| <= 127 cannot overflow
+I8_MAX_ROWS = 16_000_000
 
 
 def pick_W(nbins: int) -> int:
@@ -117,6 +133,30 @@ def _adaptive_route_plain(x, nid, tables, n_prev: int, level_base: int):
     return torch.where(in_prev & (tables[3][lid_p] > 0.5), child, nid)
 
 
+def quantize_ghw_i8(ghw, terms: int = 1):
+    """Per-tree int8 fixed-point encoding of (g, h, w) rows, the JAX
+    package's ``quantize_ghw_i8`` in the same float32 operations:
+    ``amax = max(max|v|, 1e-30)`` per component; one term: ``s = amax /
+    127``, ``q = clip(round(v / s), ±127)``; two (any other ``terms``, as
+    there): ``s = amax / 32639``, ``q16 = clip(round(v / s), ±32639)``,
+    ``a = floor((q16 + 128) / 256)``, ``b = q16 - 256·a`` (b stays in
+    [-128, 127]), rows ``[a_g, b_g, a_h, b_h, a_w, b_w]``. ``round`` is
+    half to even. Returns (q [3·terms, rows] int8, scales [3]
+    float32)."""
+    ghw = ghw.to(torch.float32)
+    amax = torch.clamp(ghw.abs().amax(dim=1), min=1e-30)
+    if terms == 1:
+        s = amax / 127.0
+        q = torch.clamp(torch.round(ghw / s[:, None]), -127, 127)
+        return q.to(torch.int8), s
+    s = amax / 32639.0
+    q16 = torch.clamp(torch.round(ghw / s[:, None]), -32639, 32639)
+    a = torch.floor((q16 + 128.0) / 256.0)
+    b = q16 - 256.0 * a
+    q = torch.stack([a[0], b[0], a[1], b[1], a[2], b[2]])
+    return q.to(torch.int8), s
+
+
 def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                        level_base: int, W: int, bf16: bool = False):
     """Plain version of the packed level kernel: scatter-add histogram in
@@ -126,6 +166,18 @@ def binned_level_plain(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
         nid = _route_plain(codes, nid, tables, n_prev, level_base, W)
     return nid, level_hist_plain(nid, codes.long(), ghw, n_nodes,
                                  level_base, W, bf16)
+
+
+def binned_level_i8_plain(codes, nid, q, scales, tables, n_prev: int,
+                          n_nodes: int, level_base: int, W: int):
+    """Plain version of the packed int8 level kernel (K4): the packed
+    route, then ``q`` [3·terms, rows] int8 summed exactly per (node,
+    feature, code) and flushed with ``scales`` [3]. Returns (nid' [rows]
+    int32, hist [3, n_nodes, F, W] float32)."""
+    if n_prev > 0:
+        nid = _route_plain(codes, nid, tables, n_prev, level_base, W)
+    return nid, level_hist_i8_plain(nid, codes.long(), q, scales, n_nodes,
+                                    level_base, W)
 
 
 def binned_route_only_plain(codes, nid, tables, n_prev: int, level_base: int,
@@ -167,6 +219,38 @@ def adaptive_level_plain(x, nid, ghw, tables, lo, inv, n_prev: int,
                                  bf16)
 
 
+def adaptive_level_i8_plain(x, nid, q, scales, tables, lo, inv, n_prev: int,
+                            n_nodes: int, level_base: int, W: int,
+                            layout: str = "rows_f"):
+    """Plain version of the adaptive int8 level kernel (K7, in either
+    layout): the adaptive route and re-bin, then ``q`` summed exactly and
+    flushed as in ``binned_level_i8_plain``."""
+    xr = _as_rows_f(x, layout)
+    if n_prev > 0:
+        nid = _adaptive_route_plain(xr, nid, tables, n_prev, level_base)
+    bins = adaptive_bins_plain(xr, nid, lo, inv, n_nodes, level_base, W)
+    return nid, level_hist_i8_plain(nid, bins, q, scales, n_nodes,
+                                    level_base, W)
+
+
+def leaf_totals_plain(x, nid, ghw, tables, n_prev: int, n_nodes: int,
+                      level_base: int):
+    """Plain version of the leaf-totals kernel (K10): route one level of
+    ``x`` [rows, F] by raw threshold (none when ``n_prev`` is 0), then
+    sum each row's (g, h, w) into its node of the window, in row order
+    and in ghw's dtype. Returns (nid' [rows] int32, totals [3,
+    n_nodes])."""
+    if n_prev > 0:
+        nid = _adaptive_route_plain(x, nid, tables, n_prev, level_base)
+    lid = nid - level_base
+    in_lvl = (lid >= 0) & (lid < n_nodes)
+    lidc = torch.where(in_lvl, lid, 0).long()
+    vals = ghw.t() * in_lvl.to(ghw.dtype)[:, None]
+    tot = torch.zeros(n_nodes, 3, dtype=ghw.dtype, device=x.device)
+    tot.index_add_(0, lidc, vals)
+    return nid, tot.t().contiguous()
+
+
 def adaptive_route_only_plain(x, nid, tables, n_prev: int, level_base: int,
                               layout: str = "rows_f"):
     """Plain version of the adaptive deepest-level route kernel (K6 in
@@ -175,10 +259,22 @@ def adaptive_route_only_plain(x, nid, tables, n_prev: int, level_base: int,
                                  n_prev, level_base)
 
 
+def takes_i8(qs, n_nodes: int, bf16: bool) -> bool:
+    """Whether a level with ``qs`` takes the int8 form: the reference's
+    gate, ``3·terms·n_nodes <= 128`` at bf16 histograms."""
+    return qs is not None and bf16 and qs[0].shape[0] * n_nodes <= 128
+
+
 def binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
-                 level_base: int, W: int, bf16: bool = False):
+                 level_base: int, W: int, bf16: bool = False, qs=None):
     """One packed-code tree level: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+    CUDA kernel for CUDA tensors. ``qs`` (q, scales) from
+    ``quantize_ghw_i8`` sends the level to the int8 form where
+    ``takes_i8`` holds."""
+    if takes_i8(qs, n_nodes, bf16):
+        return dispatch("binned_level_i8", codes, binned_level_i8_plain,
+                        kernels.binned_level_i8, codes, nid, qs[0], qs[1],
+                        tables, n_prev, n_nodes, level_base, W)
     return dispatch("binned_level", codes, binned_level_plain,
                     kernels.binned_level, codes, nid, ghw, tables, n_prev,
                     n_nodes, level_base, W, bf16)
@@ -195,9 +291,15 @@ def binned_route_only(codes, nid, tables, n_prev: int, level_base: int,
 
 def adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
                    level_base: int, W: int, bf16: bool = False,
-                   layout: str = "rows_f"):
+                   layout: str = "rows_f", qs=None):
     """One adaptive-bin tree level: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors; ``qs`` as in ``binned_level``, in
+    either layout."""
+    if takes_i8(qs, n_nodes, bf16):
+        return dispatch("adaptive_level_i8", x, adaptive_level_i8_plain,
+                        kernels.adaptive_level_i8, x, nid, qs[0], qs[1],
+                        tables, lo, inv, n_prev, n_nodes, level_base, W,
+                        layout)
     return dispatch("adaptive_level", x, adaptive_level_plain,
                     kernels.adaptive_level, x, nid, ghw, tables, lo, inv,
                     n_prev, n_nodes, level_base, W, bf16, layout)
@@ -210,3 +312,11 @@ def adaptive_route_only(x, nid, tables, n_prev: int, level_base: int,
     return dispatch("adaptive_route_only", x, adaptive_route_only_plain,
                     kernels.adaptive_route_only, x, nid, tables, n_prev,
                     level_base, layout)
+
+
+def leaf_totals(x, nid, ghw, tables, n_prev: int, n_nodes: int,
+                level_base: int):
+    """Route one adaptive level and sum (g, h, w) per node: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    return dispatch("leaf_totals", x, leaf_totals_plain, kernels.leaf_totals,
+                    x, nid, ghw, tables, n_prev, n_nodes, level_base)

@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel; a run sets these to 0 before the path it measures
 LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
-            "adaptive_level": 0, "adaptive_route_only": 0, "global_hist": 0}
+            "binned_level_i8": 0, "adaptive_level": 0,
+            "adaptive_route_only": 0, "adaptive_level_i8": 0,
+            "leaf_totals": 0, "global_hist": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -49,6 +51,9 @@ _SIGNATURES = {
                               _INT, _INT, _INT, _INT, _VP, _VP, _VP],
         "h2o3_binned_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                    _INT, _INT, _VP, _VP],
+        "h2o3_binned_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _LL,
+                                 _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
+                                 _VP],
     },
     "hist_adaptive": {
         "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
@@ -56,12 +61,17 @@ _SIGNATURES = {
                                 _VP, _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
+        "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
+                                   _VP, _LL, _INT, _INT, _INT, _INT, _INT,
+                                   _VP, _VP, _VP, _VP],
+        "h2o3_leaf_totals": [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT,
+                             _VP, _VP, _VP],
     },
     "hist_global": {
         "h2o3_global_hist": [_VP, _INT, _VP, _VP, _LL, _INT, _INT, _INT,
-                             _INT, _VP, _VP],
+                             _INT, _VP, _VP, _VP],
         "h2o3_global_hist_form": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
-                                  _INT, _INT, _INT, _VP, _VP],
+                                  _INT, _INT, _INT, _VP, _VP, _VP],
     },
 }
 
@@ -199,6 +209,21 @@ def _check_adaptive(x, nid, tables, n_prev: int, layout: str):
     return rows, F, dev
 
 
+def _check_qs(q, scales, rows: int, dev) -> int:
+    """The int8 masses of ``quantize_ghw_i8``: q int8 [3·terms, rows]
+    (terms 1 or 2), scales float32 [3]; at most ``I8_MAX_ROWS`` rows, so
+    that int32 sums cannot overflow. Returns terms."""
+    from h2o3_tpu_torch.ops.hist_adaptive import I8_MAX_ROWS
+    if q.dim() != 2 or q.shape[0] not in (3, 6):
+        raise ValueError(f"q must be [3 or 6, rows], got {tuple(q.shape)}")
+    _check("q", q, torch.int8, (q.shape[0], rows), dev)
+    _check("scales", scales, torch.float32, (3,), dev)
+    if rows > I8_MAX_ROWS:
+        raise ValueError(f"{rows} rows exceed the int8 levels' "
+                         f"{I8_MAX_ROWS}-row cap (int32 sums)")
+    return q.shape[0] // 3
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -227,6 +252,29 @@ def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
             _stream(dev))
     _raise_on(rc, "binned_level")
     LAUNCHES["binned_level"] += 1
+    return nid_out, hist
+
+
+def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
+                    scales: torch.Tensor, tables: torch.Tensor, n_prev: int,
+                    n_nodes: int, level_base: int, W: int):
+    """Launch the packed level kernel on int8 fixed-point masses, then its
+    flush. Same contract as ``hist_adaptive.binned_level_i8_plain``."""
+    rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
+    terms = _check_qs(q, scales, rows, dev)
+    lib = build()["hist_binned"]
+    nid_out = torch.empty_like(nid)
+    acc = torch.zeros((3 * terms, n_nodes, F, W), dtype=torch.int32,
+                      device=dev)
+    hist = torch.empty((3, n_nodes, F, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_binned_level_i8(
+            codes.data_ptr(), codes.element_size(), nid.data_ptr(),
+            q.data_ptr(), terms, scales.data_ptr(), tables.data_ptr(), rows,
+            F, W, n_prev, n_nodes, level_base, nid_out.data_ptr(),
+            acc.data_ptr(), hist.data_ptr(), _stream(dev))
+    _raise_on(rc, "binned_level_i8")
+    LAUNCHES["binned_level_i8"] += 1
     return nid_out, hist
 
 
@@ -277,6 +325,57 @@ def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     return nid_out, hist
 
 
+def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
+                      scales: torch.Tensor, tables: torch.Tensor,
+                      lo: torch.Tensor, inv: torch.Tensor, n_prev: int,
+                      n_nodes: int, level_base: int, W: int, layout: str):
+    """Launch the adaptive level kernel on int8 fixed-point masses, then
+    its flush. Same contract as ``hist_adaptive.adaptive_level_i8_plain``."""
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
+    _check_W(W)
+    terms = _check_qs(q, scales, rows, dev)
+    _check("lo", lo, torch.float32, (n_nodes, F), dev)
+    _check("inv", inv, torch.float32, (n_nodes, F), dev)
+    lib = build()["hist_adaptive"]
+    nid_out = torch.empty_like(nid)
+    acc = torch.zeros((3 * terms, n_nodes, F, W), dtype=torch.int32,
+                      device=dev)
+    hist = torch.empty((3, n_nodes, F, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_adaptive_level_i8(
+            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
+            q.data_ptr(), terms, scales.data_ptr(), tables.data_ptr(),
+            lo.data_ptr(), inv.data_ptr(), rows, F, W, n_prev, n_nodes,
+            level_base, nid_out.data_ptr(), acc.data_ptr(), hist.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "adaptive_level_i8")
+    LAUNCHES["adaptive_level_i8"] += 1
+    return nid_out, hist
+
+
+def leaf_totals(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
+                tables: torch.Tensor, n_prev: int, n_nodes: int,
+                level_base: int):
+    """Launch the leaf-totals kernel. Same contract as
+    ``hist_adaptive.leaf_totals_plain`` (x [rows, F] float32); returns
+    (nid', totals [3, n_nodes] float32)."""
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, "rows_f")
+    _check("ghw", ghw, torch.float32, (3, rows), dev)
+    if not 1 <= n_nodes <= 4096:
+        raise ValueError(f"n_nodes {n_nodes} outside [1, 4096]")
+    lib = build()["hist_adaptive"]
+    nid_out = torch.empty_like(nid)
+    totals = torch.zeros((3, n_nodes), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_leaf_totals(
+            x.data_ptr(), nid.data_ptr(), ghw.data_ptr(), tables.data_ptr(),
+            rows, F, n_prev, n_nodes, level_base, nid_out.data_ptr(),
+            totals.data_ptr(), _stream(dev))
+    _raise_on(rc, "leaf_totals")
+    LAUNCHES["leaf_totals"] += 1
+    return nid_out, totals
+
+
 def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
                         tables: torch.Tensor, n_prev: int, level_base: int,
                         layout: str) -> torch.Tensor:
@@ -317,13 +416,16 @@ def _global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
     lib = build()["hist_global"]
     hist = torch.zeros((3, n_nodes, F, n_bins1), dtype=torch.float32,
                        device=dev)
+    # float64 scratch of the global-atomics form (hist_global.cu)
+    acc = torch.zeros(hist.shape, dtype=torch.float64, device=dev)
     args = (codes.data_ptr(), codes.element_size(), seg.data_ptr(),
             ghw.data_ptr(), rows, F, n_nodes, n_bins1, int(bf16))
     with torch.cuda.device(dev):
         if shared is None:
-            rc = lib.h2o3_global_hist(*args, hist.data_ptr(), _stream(dev))
+            rc = lib.h2o3_global_hist(*args, acc.data_ptr(), hist.data_ptr(),
+                                      _stream(dev))
         else:
-            rc = lib.h2o3_global_hist_form(*args, int(shared),
+            rc = lib.h2o3_global_hist_form(*args, int(shared), acc.data_ptr(),
                                            hist.data_ptr(), _stream(dev))
     _raise_on(rc, "global_hist")
     LAUNCHES["global_hist"] += 1

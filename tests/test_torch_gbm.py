@@ -234,7 +234,7 @@ GLOBAL = dict(ntrees=3, max_depth=3, learn_rate=0.1,
 @pytest.mark.parametrize("params", [
     {"packed_codes": False, "histogram_type": "quantiles_global"},
     {"nbins": 300}])
-def test_global_sketch_path_raises(params):
+def test_global_sketch_path_matches_jax(params):
     """The global-sketch grower (unpacked codes), which the port refused
     before it had one: asked for (quantiles_global without packing), and
     where neither packing nor adaptive bins hold the bins (nbins 300,

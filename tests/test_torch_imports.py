@@ -80,10 +80,13 @@ def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     for name in ("binned_level_plain", "binned_route_only_plain",
-                 "adaptive_level_plain", "adaptive_route_only_plain"):
+                 "adaptive_level_plain", "adaptive_route_only_plain",
+                 "binned_level_i8_plain", "adaptive_level_i8_plain",
+                 "leaf_totals_plain"):
         monkeypatch.setattr(tha, name, refuse)
     for name in ("binned_level", "binned_route_only", "adaptive_level",
-                 "adaptive_route_only"):
+                 "adaptive_route_only", "binned_level_i8",
+                 "adaptive_level_i8", "leaf_totals"):
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name: calls.append(_n))
     t = _FakeCuda()
@@ -91,8 +94,13 @@ def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
     tha.binned_route_only(t, t, t, 1, 1, 16)
     tha.adaptive_level(t, t, t, t, t, t, 1, 2, 1, 16, False, "f_rows")
     tha.adaptive_route_only(t, t, t, 1, 1, "rows_f")
+    qs = (torch.zeros((6, 8), dtype=torch.int8), t)
+    tha.binned_level(t, t, t, t, 1, 2, 1, 16, True, qs)
+    tha.adaptive_level(t, t, t, t, t, t, 1, 2, 1, 16, True, "rows_f", qs)
+    tha.leaf_totals(t, t, t, t, 1, 2, 1)
     assert calls == ["binned_level", "binned_route_only", "adaptive_level",
-                     "adaptive_route_only"]
+                     "adaptive_route_only", "binned_level_i8",
+                     "adaptive_level_i8", "leaf_totals"]
     meta = torch.empty((8, 2), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tha.binned_level(meta, meta, meta, meta, 0, 1, 0, 16)
@@ -101,6 +109,11 @@ def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
         tha.adaptive_level(xm, xm, xm, xm, xm, xm, 0, 1, 0, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         tha.adaptive_route_only(xm, xm, xm, 1, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tha.leaf_totals(xm, xm, xm, xm, 1, 2, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tha.binned_level(meta, meta, meta, meta, 0, 1, 0, 16, True,
+                         (torch.zeros((3, 8), dtype=torch.int8), xm))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -115,12 +128,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros((8, 2), dtype=torch.float32)
     ftab = torch.zeros((4, 1), dtype=torch.float32)
     rng = torch.zeros((1, 2), dtype=torch.float32)
+    q = torch.zeros((3, 8), dtype=torch.int8)
+    scales = torch.ones(3)
     for layout in ("rows_f", "f_rows"):
         with pytest.raises(ValueError, match="CUDA kernel"):
             kernels.adaptive_level(x, nid, torch.zeros((3, 8)), ftab, rng,
                                    rng, 0, 1, 0, 16, False, layout)
         with pytest.raises(ValueError, match="CUDA kernel"):
             kernels.adaptive_route_only(x, nid, ftab, 1, 1, layout)
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            kernels.adaptive_level_i8(x, nid, q, scales, ftab, rng, rng, 0,
+                                      1, 0, 16, layout)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.binned_level_i8(codes, nid, q, scales, tables, 0, 1, 0, 16)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.leaf_totals(x, nid, torch.zeros((3, 8)), ftab, 1, 2, 1)
 
 
 @pytest.fixture
@@ -131,18 +153,33 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches(**nonzero):
+    out = {k: 0 for k in kernels.LAUNCHES}
+    out.update(nonzero)
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("params,launches", [
-    (dict(nbins=14, histogram_type="quantiles_global"),
-     {"binned_level": 6, "binned_route_only": 2, "adaptive_level": 0,
-      "adaptive_route_only": 0, "global_hist": 0}),
-    (dict(nbins=20, packed_codes=False),
-     {"binned_level": 0, "binned_route_only": 0, "adaptive_level": 6,
-      "adaptive_route_only": 2, "global_hist": 0}),
-    (dict(nbins=1024, histogram_type="quantiles_global"),
-     {"binned_level": 0, "binned_route_only": 0, "adaptive_level": 0,
-      "adaptive_route_only": 0, "global_hist": 6})])
-def test_cuda_training_launches_the_kernels(cuda, params, launches):
+@pytest.mark.parametrize("params,i8,launches", [
+    (dict(nbins=14, histogram_type="quantiles_global"), "0",
+     _launches(binned_level=6, binned_route_only=2)),
+    (dict(nbins=20, packed_codes=False), "0",
+     _launches(adaptive_level=6, adaptive_route_only=2)),
+    (dict(nbins=1024, histogram_type="quantiles_global"), "0",
+     _launches(global_hist=6)),
+    # H2O3_HIST_I8 at bf16: every level of a depth-3 tree at one term
+    (dict(nbins=14, histogram_type="quantiles_global",
+          histogram_precision="bfloat16"), "1",
+     _launches(binned_level_i8=6, binned_route_only=2)),
+    (dict(nbins=20, packed_codes=False, histogram_precision="bfloat16"),
+     "1", _launches(adaptive_level_i8=6, adaptive_route_only=2)),
+    # at float32 histograms the switch is not read
+    (dict(nbins=14, histogram_type="quantiles_global",
+          histogram_precision="float32"), "1",
+     _launches(binned_level=6, binned_route_only=2))])
+def test_cuda_training_launches_the_kernels(cuda, monkeypatch, params, i8,
+                                            launches):
+    monkeypatch.setenv("H2O3_HIST_I8", i8)
     rng = np.random.default_rng(0)
     X = rng.normal(size=(20_000, 5)).astype(np.float32)
     y = (X[:, 0] + rng.normal(size=20_000) > 0).astype(np.float32)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 binned_level / binned_route_only on packed codes, adaptive_level /
 adaptive_route_only on raw features in both layouts, global_hist on
-unpacked global-sketch codes.
+unpacked global-sketch codes, the int8 fixed-point levels
+binned_level_i8 / adaptive_level_i8 and leaf_totals.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -292,3 +293,97 @@ def test_global_hist_checks_its_operands(cuda):
     # and the shared form, forced, refuses it
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.global_hist_form(c9, s, g, 4, 9000, False, True)
+
+
+# ------------------------------------------------- int8 levels, leaf totals
+
+
+def _off_window(nid, N, seed):
+    """5% of the rows outside every level's window."""
+    rng = np.random.default_rng(seed)
+    out = torch.as_tensor(rng.random(nid.shape[0]) < 0.05, device=nid.device)
+    return torch.where(out, 2 * N + 7, nid).to(torch.int32).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("terms,N", [(1, 1), (1, 8), (1, 32), (2, 1),
+                                     (2, 8), (2, 16)])
+def test_binned_level_i8_bit_equal(cuda, W, terms, N):
+    c, n, g, t, n_prev, base = _inputs(50_000, 9, W, N, N + W, False, cuda)
+    n = _off_window(n, N, W)
+    q, s = tha.quantize_ghw_i8(g, terms)
+    before = kernels.LAUNCHES["binned_level_i8"]
+    nid_k, hist_k = tha.binned_level(c, n, g, t, n_prev, N, base, W, True,
+                                     (q, s))
+    assert kernels.LAUNCHES["binned_level_i8"] == before + 1
+    nid_p, hist_p = tha.binned_level_i8_plain(c, n, q, s, t, n_prev, N, base,
+                                              W)
+    assert torch.equal(nid_k, nid_p)
+    assert torch.equal(hist_k, hist_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
+@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("terms,N", [(1, 8), (1, 32), (2, 16)])
+def test_adaptive_level_i8_bit_equal(cuda, layout, W, terms, N):
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        50_000, 9, W, N, N + W + terms, False, layout, cuda)
+    n = _off_window(n, N, W)
+    q, s = tha.quantize_ghw_i8(g, terms)
+    before = kernels.LAUNCHES["adaptive_level_i8"]
+    nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, N, base,
+                                       W, True, layout, (q, s))
+    assert kernels.LAUNCHES["adaptive_level_i8"] == before + 1
+    nid_p, hist_p = tha.adaptive_level_i8_plain(x, n, q, s, t, lo, inv,
+                                                n_prev, N, base, W, layout)
+    assert torch.equal(nid_k, nid_p)
+    assert torch.equal(hist_k, hist_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_prev,N", [(0, 1), (32, 64), (0, 64)])
+def test_leaf_totals_close(cuda, n_prev, N):
+    x, _n, g, t, _lo, _inv, _p, _b = _adaptive_inputs(
+        200_000, 9, 16, 2 * max(n_prev, 1), 5 + N, False, "rows_f", cuda)
+    base = N - 1
+    # rows in the previous level's window, or in this one's when there
+    # is no route
+    rng = np.random.default_rng(N)
+    n = (base - n_prev + rng.integers(0, n_prev, 200_000)
+         if n_prev else base + rng.integers(0, N, 200_000))
+    n = _off_window(torch.as_tensor(n, device=cuda), N, N)
+    before = kernels.LAUNCHES["leaf_totals"]
+    nid_k, tot_k = tha.leaf_totals(x, n, g, t, n_prev, N, base)
+    assert kernels.LAUNCHES["leaf_totals"] == before + 1
+    nid_p, tot_p = tha.leaf_totals_plain(x, n, g.double(), t, n_prev, N,
+                                         base)
+    _n, mass = tha.leaf_totals_plain(x, n, g.double().abs(), t, n_prev, N,
+                                     base)
+    assert torch.equal(nid_k, nid_p)
+    # float32 sums in another order: within 1e-4 + 1e-5 x the node's
+    # absolute mass of the float64 plain version
+    assert bool(((tot_k.double() - tot_p).abs() <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+def test_i8_and_totals_wrappers_check_their_operands(cuda):
+    c, n, g, t, n_prev, base = _inputs(1000, 4, 16, 4, 1, False, cuda)
+    q, s = tha.quantize_ghw_i8(g, 2)
+    with pytest.raises(TypeError):
+        kernels.binned_level_i8(c, n, q.int(), s, t, n_prev, 4, base, 16)
+    with pytest.raises(ValueError):
+        kernels.binned_level_i8(c, n, q[:4].contiguous(), s, t, n_prev, 4,
+                                base, 16)
+    with pytest.raises(ValueError):
+        kernels.binned_level_i8(c, n, q, s[:2], t, n_prev, 4, base, 16)
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        1000, 4, 16, 4, 1, False, "rows_f", cuda)
+    with pytest.raises(ValueError):       # [rows, F] read as [F, rows]
+        kernels.adaptive_level_i8(x, n, q, s, t, lo, inv, n_prev, 4, base,
+                                  16, "f_rows")
+    with pytest.raises(ValueError):
+        kernels.leaf_totals(x.t().contiguous(), n, g, t, n_prev, 4, base)
+    with pytest.raises(TypeError):
+        kernels.leaf_totals(x, n, g.double(), t, n_prev, 4, base)
