@@ -17,13 +17,17 @@ failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
-   nvcc per source, in parallel);
+   nvcc per source, in parallel); print each kernel's atomic and HMMA
+   opcodes from its SASS and require HMMA and no shared float CAS loop
+   (``ATOMS.CAST.SPIN``) in every tensor-core instance of the
+   node-grouped adaptive level;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
    at W=16 (int8), W=32 (int8) and W=256 (int16), binned_route_only at
-   N=64; adaptive_level at W in {16, 32, 256} and adaptive_route_only at
-   N=64, both layouts, plus a case with NaN, ±inf and zero-span
-   features; global_hist at B1 in {15 (uint8), 257, 1025 (int32)}, N in
-   {1, 8, 16}, about 10% of the rows outside [0, N), NA codes. With
+   N=64; adaptive_level at W in {16, 32, 64, 128, 256} and
+   adaptive_route_only at N=64, both layouts, plus a case with NaN, ±inf
+   and zero-span features; global_hist at B1 in {15 (uint8), 257, 1025
+   (int32)}, N in {1, 8, 16, 32}, about 10% of the rows outside [0, N),
+   NA codes, in the node-grouped form and with global atomics. With
    integer-valued (g, h, w) node ids and histograms must be bit-equal to
    the plain PyTorch version; with float (g, h, w) node ids bit-equal and
    each histogram bin within 1e-4 + 1e-5 x (its absolute mass) of the
@@ -55,18 +59,24 @@ failure:
    <= 1e-4, and at one term (every level an integer sum) tree 0's
    splits equal; the number of identical trees is printed;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
-   N = 1..32, both layouts for the adaptive kernels; global_hist at the
-   six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, in the form
-   the shapes pick and in each form forced) against its plain version
-   and its bound (global_hist also against one ``index_add_``); the
+   N = 1..32; the node-grouped adaptive level at bf16 and float32, each
+   level checked against its plain version at 10M rows, beside its
+   shared-atomics ablation and the [F, rows] tiled body; global_hist at
+   the six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, each
+   checked at 10M rows, node-grouped and with global atomics forced; the
+   grouping pass alone) against its plain version and its bound
+   (global_hist also against one ``index_add_``); the
    int8 levels per level N = 1..32 at one term and N = 1..16 at two,
    beside the float level on the same inputs in the same run;
    leaf_totals at n_prev = 32, N = 64; the global_hist record comes
    last, after phase 7, whose warm global loop it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
    plain, three times, then 5 trees under torch.profiler: device time by
-   kernel, device busy share); adaptive trained twice at float32 and
-   adaptive_i8 twice at 'auto', with the split features that differ.
+   kernel, device busy share); adaptive trained three times at float32,
+   the first right after the allocator is filled with NaN, with every
+   pair required to pick the same splits (the float level sums in a
+   fixed order), then twice at 'auto', and adaptive_i8 twice at 'auto',
+   with the split features that differ.
 
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
@@ -93,17 +103,18 @@ SRC = {"binned_level": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "adaptive_level_i8": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "leaf_totals": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "global_hist": "h2o3_tpu_torch/csrc/hist_global.cu"}
-# the TPU kernel each replaces; the adaptive kernels' layout parameter
-# also covers the row-major forms (K8, K9)
+# the TPU kernel each replaces (adaptive_level: K8, the training layout's,
+# whose record times the node-grouped form); the adaptive kernels' layout
+# parameter also covers the other layout (K5; K9 beside K6)
 REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:930",
             "binned_route_only": "h2o3_tpu/ops/hist_adaptive.py:1282",
             "binned_level_i8": "h2o3_tpu/ops/hist_adaptive.py:1154",
-            "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
+            "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:134",
             "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755",
             "adaptive_level_i8": "h2o3_tpu/ops/hist_adaptive.py:500",
             "leaf_totals": "h2o3_tpu/ops/hist_adaptive.py:365",
             "global_hist": "h2o3_tpu/ops/hist_pallas.py:47"}
-ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:134",
+ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
                  "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:787"}
 # the three GBM paths: their parameters and the kernels each launches
 PATHS = {
@@ -434,7 +445,7 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     seed = 500
     for layout in LAYOUTS:
-        for W in (16, 32, 256):
+        for W in (16, 32, 64, 128, 256):
             for N in (1, 8, 32):
                 seed += 1
                 check_adaptive_level(rows, F, W, N, True, False, dev, seed,
@@ -492,13 +503,13 @@ def global_inputs(rows, F, B1, N, int_ghw, seed, dev, left_only=False):
 
 def global_form(form):
     """The launch of one form of global_hist: "picked" (the training
-    path's wrapper: the kernel picks from the shapes), "shared" (shared
-    partials forced) or "global" (global atomics forced)."""
+    path's wrapper: the kernel picks from the shapes, node-grouped
+    wherever a cell fits shared memory) or "global" (global atomics
+    forced)."""
     from h2o3_tpu_torch.ops import kernels
     if form == "picked":
         return kernels.global_hist
-    shared = {"shared": True, "global": False}[form]
-    return lambda *a: kernels.global_hist_form(*a, shared)
+    return lambda *a: kernels.global_hist_form(*a, False)
 
 
 def check_global(rows, F, B1, N, int_ghw, bf16, dev, seed, left_only=False,
@@ -527,36 +538,36 @@ def check_global(rows, F, B1, N, int_ghw, bf16, dev, seed, left_only=False,
 
 def phase_global_kernels(dev, rows=1_000_000, F=28):
     """Phase 3, global half: global_hist against its plain version at 1M
-    rows, B1 in {15, 257, 1025}, integer masses in both forms of the
-    kernel, timed with the L2 flushed in the picked form and in each
-    form forced (where the kernel's tile-count rule holds at 1M rows)."""
-    import torch
+    rows, B1 in {15, 257, 1025}, N in {1, 8, 16, 32}, integer masses in
+    both forms of the kernel (bit-equal), float masses within tolerance,
+    timed with the L2 flushed in the picked (node-grouped) form and with
+    global atomics forced."""
     from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    import torch
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     seed = 700
     for B1 in (15, 257, 1025):
-        for N in (1, 8, 16):
+        for N in (1, 8, 16, 32):
             seed += 1
-            for form in ("shared", "global"):
+            for form in ("picked", "global"):
                 check_global(rows, F, B1, N, True, False, dev, seed,
                              form=form)
             err16, _ = check_global(rows, F, B1, N, False, True, dev,
                                     seed + 100)
             err, (codes, seg, ghw) = check_global(rows, F, B1, N, False,
                                                   False, dev, seed + 200)
-            ms, ms_s, ms_g = (time_cuda(lambda: global_form(form)(
+            ms, ms_g = (time_cuda(lambda: global_form(form)(
                 codes, seg, ghw, N, B1, False), 20, flush)
-                for form in ("picked", "shared", "global"))
+                for form in ("picked", "global"))
             pms = time_cuda(lambda: build_histograms_plain(
                 codes, seg, ghw, N, B1, False), 3, flush)
             live = int(((seg >= 0) & (seg < N)).sum())
             bound, by = global_bound_ms(rows, F, codes.element_size(), N, B1,
                                         live)
             print(f"global_hist {rows}x{F} {str(codes.dtype)[6:]} B1={B1} "
-                  f"N={N}: {ms:.6g} ms (forced shared {ms_s:.6g}, "
-                  f"forced global {ms_g:.6g}; plain {pms:.6g} ms, bound "
-                  f"{bound:.6g} ms by {by}) max abs err f32 {err:.3g} bf16 "
-                  f"{err16:.3g}", flush=True)
+                  f"N={N}: {ms:.6g} ms (global atomics forced {ms_g:.6g}; "
+                  f"plain {pms:.6g} ms, bound {bound:.6g} ms by {by}) max "
+                  f"abs err f32 {err:.3g} bf16 {err16:.3g}", flush=True)
             del codes, seg, ghw
 
 
@@ -1022,37 +1033,80 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
 
 def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     """The adaptive kernels at the adaptive main path's shapes (10M x 28
-    float32 features, W=32, bfloat16-rounded (g, h, w) as
-    histogram_precision='auto' picks at this size), in both layouts:
-    per-level times, the plain version's time and the bound at N=32, the
-    route at N=64. The record's time is the training path's layout."""
+    float32 features, W=32). In the training layout ([rows, F], the
+    node-grouped tensor-core level): per level N = 1..32 at bfloat16
+    (as histogram_precision='auto' picks at this size) and at float32,
+    each checked against the plain version at 10M rows, and the grouped
+    kernel's shared-atomics ablation on the same inputs (checked too); the
+    grouping pass alone at N = 32; at N = 32 the plain version's time and
+    the bound. In [F, rows] (K5, the tiled body) per level at bfloat16.
+    The route at N = 64 in both layouts."""
     import torch
     from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level_plain,
                                                   adaptive_route_only_plain)
     W, N = 32, 32
-    level_ms, route_ms, per_level = {}, {}, {}
-    for layout in LAYOUTS:
-        per_level[layout] = {}
-        for n_lvl in (1, 2, 4, 8, 16, 32):
-            e, inp = check_adaptive_level(rows, F, W, n_lvl, False, True, dev,
-                                          900 + n_lvl, layout)
+    level_ms, route_ms = {}, {}
+    per = {"bf16": {}, "f32": {}, "atomics_bf16": {}, "atomics_f32": {},
+           "f_rows_bf16": {}}
+    errs = {}
+    for n_lvl in (1, 2, 4, 8, 16, 32):
+        for bf16 in (True, False):
+            tag = "bf16" if bf16 else "f32"
+            e, inp = check_adaptive_level(rows, F, W, n_lvl, False, bf16, dev,
+                                          900 + n_lvl, "rows_f")
+            errs[f"{tag} N={n_lvl}"] = e
             x, nid, ghw, tables, lo, inv, n_prev, base = inp
-            per_level[layout][n_lvl] = time_cuda(
+            per[tag][n_lvl] = time_cuda(
                 lambda: kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
-                                               n_prev, n_lvl, base, W, True,
-                                               layout), 10)
-            if n_lvl == N and layout == ADAPTIVE_LAYOUT:
+                                               n_prev, n_lvl, base, W, bf16,
+                                               "rows_f"), 10)
+            _n, ha = kernels.adaptive_level_atomics(
+                x, nid, ghw, tables, lo, inv, n_prev, n_lvl, base, W, bf16)
+            _n, hp = adaptive_level_plain(x, nid, ghw.double(), tables, lo,
+                                          inv, n_prev, n_lvl, base, W, bf16)
+            _n, mass = adaptive_level_plain(x, nid, ghw.double().abs(),
+                                            tables, lo, inv, n_prev, n_lvl,
+                                            base, W, bf16)
+            mass_check(f"adaptive_level atomics ablation {tag} N={n_lvl}",
+                       ha, hp, mass)
+            del ha, hp, mass
+            per["atomics_" + tag][n_lvl] = time_cuda(
+                lambda: kernels.adaptive_level_atomics(
+                    x, nid, ghw, tables, lo, inv, n_prev, n_lvl, base, W,
+                    bf16), 10)
+            if n_lvl == N and bf16:
                 err = e
                 pms = time_cuda(lambda: adaptive_level_plain(
-                    x, nid, ghw, tables, lo, inv, n_prev, N, base, W, True,
-                    layout), 3)
+                    x, nid, ghw, tables, lo, inv, n_prev, N, base, W, True),
+                    3)
+                # the grouping pass alone: the level's keys (the parent of
+                # a routed row), its G = n_prev + N groups
+                lp = nid.long() - (base - n_prev)
+                keys = torch.where(tables[3][lp.clamp(0, n_prev - 1)] > 0.5,
+                                   lp, -1).to(torch.int32)
+                group_ms = time_cuda(lambda: kernels.group_rows(
+                    keys, n_prev + N, ghw), 10)
+                del keys, lp
             del inp, x, nid, ghw
-        level_ms[layout] = per_level[layout][N]
-        print(f"adaptive_level {layout} at 10M x 28, W=32, per level N: "
-              f"{json.dumps(per_level[layout])} ms; sum per tree "
-              f"{sum(per_level[layout].values())!r} ms", flush=True)
+        e, inp = check_adaptive_level(rows, F, W, n_lvl, False, True, dev,
+                                      900 + n_lvl, "f_rows")
+        x, nid, ghw, tables, lo, inv, n_prev, base = inp
+        per["f_rows_bf16"][n_lvl] = time_cuda(
+            lambda: kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
+                                           n_prev, n_lvl, base, W, True,
+                                           "f_rows"), 10)
+        del inp, x, nid, ghw
+    sums = {k: sum(v.values()) for k, v in per.items()}
+    level_ms = {"rows_f": per["bf16"][N], "f_rows": per["f_rows_bf16"][N]}
+    print(f"adaptive_level at 10M x 28, W=32, per level N (rows_f: "
+          f"node-grouped tensor-core form, and its shared-atomics ablation; "
+          f"f_rows: the tiled body): {json.dumps(per)} ms; sum per tree "
+          f"{json.dumps(sums)} ms; grouping pass alone at N=32 "
+          f"{group_ms!r} ms; max abs err vs plain {json.dumps(errs)}",
+          flush=True)
+    for layout in LAYOUTS:
         x, nid, tables, n_prev, base = check_adaptive_route(rows, F, 2 * N,
                                                             dev, 4321, layout)
         route_ms[layout] = time_cuda(lambda: kernels.adaptive_route_only(
@@ -1072,8 +1126,10 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "also_replaces": ALSO_REPLACES["adaptive_level"],
              "launches": launches["adaptive_level"], "max_abs_err": err,
              "ms": level_ms[ADAPTIVE_LAYOUT], "ms_by_layout": level_ms,
-             "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-             "library_ms": None},
+             "ms_tree": sums["bf16"], "ms_tree_f32": sums["f32"],
+             "ms_tree_atomics_ablation": sums["atomics_bf16"],
+             "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
+             "bound_by": by, "library_ms": None},
             {"name": "adaptive_route_only", "route": "cuda",
              "source": SRC["adaptive_route_only"],
              "replaces": REPLACES["adaptive_route_only"],
@@ -1113,16 +1169,17 @@ def phase_global_record(dev, launches, loop_s, ntrees, rows=10_000_000,
     B1 = 1025, bfloat16-rounded (g, h, w) as histogram_precision='auto'
     picks at this size): the six builds of a tree (N = 1 at level 0 over
     every row; then the left children, N = 1, 2, 4, 8, 16, over half the
-    rows), their sum and its share of the loop, each build also in both
-    forms of the kernel (shared partials forced, global atomics forced:
-    the evidence for the kernel's ``kMaxSharedTiles``); at N = 16
-    the plain version's time, the bound and one ``index_add_`` over a
-    precomputed flat (node, feature, bin) index of the rows in [0, N)."""
+    rows), each checked against the plain version and timed in the picked
+    (node-grouped) form and with global atomics forced, their sum and its
+    share of the loop; at N = 16 the grouping pass alone, the plain
+    version's time, the bound and one ``index_add_`` over a precomputed
+    flat (node, feature, bin) index of the rows in [0, N)."""
     import torch
+    from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.histogram import build_histograms_plain
     builds = [(1, False), (1, True), (2, True), (4, True), (8, True),
               (16, True)]
-    forms = ("picked", "shared", "global")
+    forms = ("picked", "global")
     per_level = {f: [] for f in forms}
     for d, (n, left) in enumerate(builds):
         e, (codes, seg, ghw) = check_global(rows, F, B1, n, False, True, dev,
@@ -1134,6 +1191,7 @@ def phase_global_record(dev, launches, loop_s, ntrees, rows=10_000_000,
             del codes, seg, ghw
     N = builds[-1][0]
     ms, err = per_level["picked"][-1], e
+    group_ms = time_cuda(lambda: kernels.group_rows(seg, N, ghw), 10)
     pms = time_cuda(lambda: build_histograms_plain(codes, seg, ghw, N, B1,
                                                    True), 3)
     live = (seg >= 0) & (seg < N)
@@ -1154,14 +1212,17 @@ def phase_global_record(dev, launches, loop_s, ntrees, rows=10_000_000,
     print(f"global_hist at 10M x 28, B1={B1}, per build N "
           f"{[n for n, _ in builds]}: {json.dumps(per_level)} ms; sum per "
           f"tree {json.dumps(sums)} ms, the picked form's {share!r} of the "
-          f"warm loop ({loop_s!r} s for {ntrees} trees); N={N}: {ms!r} ms, "
-          f"plain {pms!r} ms, index_add_ {lib_ms!r} ms, bound {bound!r} ms "
-          f"by {by}", flush=True)
+          f"warm loop ({loop_s!r} s for {ntrees} trees); N={N}: {ms!r} ms "
+          f"(grouping pass alone {group_ms!r} ms), plain {pms!r} ms, "
+          f"index_add_ {lib_ms!r} ms, bound {bound!r} ms by {by}",
+          flush=True)
     return [{"name": "global_hist", "route": "cuda",
              "source": SRC["global_hist"],
              "replaces": REPLACES["global_hist"],
              "launches": launches["global_hist"], "max_abs_err": err,
-             "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+             "ms": ms, "ms_tree": sums["picked"],
+             "ms_tree_global_atomics": sums["global"], "group_ms": group_ms,
+             "plain_ms": pms, "bound_ms": bound, "bound_by": by,
              "library_ms": lib_ms}]
 
 
@@ -1175,13 +1236,40 @@ def split_flips(a, b) -> str:
            f"(first in tree {first})"
 
 
-def phase_repeatability(fr, path):
-    """The same train twice at float32 histograms. Float atomics add in
-    another order each run; this reports how far that moves the
-    trees."""
+def poison_allocator(dev, gib=8):
+    """Fill free memory of the caching allocator with NaN and give it back:
+    a kernel or torch op that reads memory it never wrote then computes on
+    NaN instead of on a previous run's values."""
+    import torch
+    free = torch.cuda.mem_get_info(dev)[0]
+    n = min(gib << 30, free // 2) // 4
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    t.fill_(float("nan"))
+    torch.cuda.synchronize()
+    del t
+
+
+def phase_repeatability(fr, path, dev):
+    """The same train three times at float32 histograms in one process,
+    the first right after the allocator is filled with NaN: the float
+    [rows, F] level sums in a fixed order (no float atomics), so every
+    pair must agree in every split. Then the same path twice at 'auto'
+    (bf16 masses), recorded, not checked."""
+    poison_allocator(dev)
     runs = [train(fr, 20, path, histogram_precision="float32")
-            for _ in range(2)]
-    print(f"repeatability {path}, float32 x2: "
+            for _ in range(3)]
+    pairs = {f"{i}-{j}": split_flips(runs[i].trees, runs[j].trees)
+             for i, j in ((0, 1), (0, 2), (1, 2))}
+    aucs = [r.training_metrics.auc for r in runs]
+    print(f"repeatability {path}, float32 x3 (first after NaN-filling the "
+          f"allocator): {json.dumps(pairs)}, AUC {aucs!r}", flush=True)
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        for key in ("feat", PATHS[path]["split_key"], "na_left"):
+            if not np.array_equal(runs[i].trees[key], runs[j].trees[key]):
+                raise AssertionError(f"{path} float32 trains {i} and {j} "
+                                     f"differ in {key}: {pairs}")
+    runs = [train(fr, 20, path) for _ in range(2)]
+    print(f"repeatability {path}, 'auto' (bf16) x2: "
           f"{split_flips(runs[0].trees, runs[1].trees)}, AUC "
           f"{runs[0].training_metrics.auc!r} vs "
           f"{runs[1].training_metrics.auc!r}", flush=True)
@@ -1250,22 +1338,44 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
     return w_loop
 
 
-def sass_atomics(lib_path) -> str:
-    """The atomic opcodes in each built kernel's SASS (``cuobjdump``),
-    e.g. whether a shared-memory float add is native or a CAS loop."""
+def sass_atomics(lib_path):
+    """The atomic and tensor-core opcodes in each built kernel's SASS
+    (``cuobjdump``), e.g. whether a shared-memory float add is native or
+    a CAS loop. Returns (the printable summary, {function: {opcode:
+    count}})."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return "cuobjdump not found: SASS summary not printed"
+        return "cuobjdump not found: SASS summary not printed", {}
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    lines = []
+    lines, by_fn = [], {}
     for fn in sass.split("Function : ")[1:]:
-        ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", fn)
+        name = fn.split(chr(10))[0].strip()
+        ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|HMMA)\."
+                         r"[A-Z0-9_.]+)", fn)
         counts = {op: ops.count(op) for op in sorted(set(ops))}
-        lines.append(f"  {fn.split(chr(10))[0][:80]}: {counts}")
-    return "SASS atomics per kernel:\n" + "\n".join(lines)
+        by_fn[name] = counts
+        lines.append(f"  {name[:80]}: {counts}")
+    return "SASS atomics per kernel:\n" + "\n".join(lines), by_fn
+
+
+def check_sass(by_fn):
+    """The node-grouped float level's tensor-core instances (template
+    flag kMma, mangled ``Lb1E``): every one has HMMA and no shared float
+    CAS loop in its accumulation."""
+    mma = {n: c for n, c in by_fn.items()
+           if "adaptive_level_grouped_kernel" in n and "Lb1E" in n}
+    if not mma:
+        raise AssertionError("SASS: no tensor-core adaptive_level instance")
+    for name, counts in mma.items():
+        hmma = sum(v for k, v in counts.items() if k.startswith("HMMA"))
+        if hmma == 0 or "ATOMS.CAST.SPIN" in counts:
+            raise AssertionError(f"SASS of {name}: {counts}")
+    print(f"SASS check: {len(mma)} tensor-core adaptive_level instances, "
+          f"HMMA per instance {[sum(v for k, v in c.items() if k.startswith('HMMA')) for c in mma.values()]}, "
+          f"no ATOMS.CAST.SPIN", flush=True)
 
 
 class PhaseClock:
@@ -1305,8 +1415,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}")
+    by_fn = {}
     for so in kernels.library_paths().values():
-        print(sass_atomics(so), flush=True)
+        text, counts = sass_atomics(so)
+        print(text, flush=True)
+        by_fn.update(counts)
+    if by_fn:
+        check_sass(by_fn)
 
     clock.lap("2 build + SASS")
 
@@ -1371,7 +1486,7 @@ def main() -> int:
     clock.lap("7 packed_i8 + adaptive_i8 profile")
     warm_s = phase_warm_profile(fr, card, "global", glob["trees"])
     clock.lap("7 global profile")
-    phase_repeatability(fr, "adaptive")
+    phase_repeatability(fr, "adaptive", dev)
     phase_repeatability_i8(fr)
     del fr
     clock.lap("7 repeatability")
@@ -1380,11 +1495,13 @@ def main() -> int:
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32,256] binned_route_only "
           "binned_level_i8[W=16,32,256 x terms=1,2] "
-          "adaptive_level[rows_f,f_rows x W=16,32,256] "
+          "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
+          "node-grouped: bf16, float32, shared-atomics ablation] "
           "adaptive_route_only[rows_f,f_rows] "
           "adaptive_level_i8[rows_f,f_rows x W=16,32,256 x terms=1,2] "
           "leaf_totals[n_prev=0,32 x N=1,64] "
-          "global_hist[B1=15 uint8,257,1025 int32]", flush=True)
+          "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
+          "atomics] group_rows[alone]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,48 +14,46 @@
 //
 // The TPU kernel contracts a node one-hot times (g, h, w) with a bin
 // one-hot on the matrix unit: a chip without a fast scatter. Hopper has
-// one, so this is a scatter, in one of two forms chosen per launch from
-// the shapes. Both take 512 rows a block at a time; phase 1 reads each
-// row's seg (one thread per row) and, for the rows it will add, stages
-// (g, h, w) in shared memory; phase 2 walks the chunk's codes, row-major.
+// one, so this is a scatter, with the rows grouped by node first (the row
+// partition of XGBoost's gpu_hist, which hist_pallas.py names as the GPU
+// design). Two forms, picked per launch from the shapes:
 //
-// - Shared partials (the shape of binned_level in hist_binned.cu): phase 2
-//   adds into a per-block histogram in shared memory at a stride of
-//   B1 | 1 floats per (node, feature) cell (odd, so neighbouring cells
-//   start on other banks), and blocks merge their partials with global
-//   atomics (level_common.cuh). The bin count is a run-time value; at
-//   B1 = 1025 one cell takes 12.3 KB, so a level's [3, N, F, B1] partial
-//   is cut into node x feature tiles, down to one feature and eight nodes
-//   a tile, and every tile re-reads every row's seg and its own rows'
-//   ghw and codes.
-// - Global atomics: phase 2 adds straight into a float64 copy of hist
-//   (acc, which the caller zeroes) with double atomicAdd, which Hopper
-//   executes in L2 (REDG.E.ADD.F64), one pass over the rows whatever N
-//   and B1 are; a second pass adds acc, rounded once, into hist. Its cost
-//   follows the number of adds, not the tiles, and same-address adds
-//   serialise, so it loses where few bins take many rows. The sum is
-//   float64 because one global sum per bin is a chain as long as the
-//   bin's rows: in float32 a 125k-row bin drifted by up to 1.25e-5 of its
-//   mass from run to run, past the 1e-5 that the shared partials (short
-//   chains per block) keep.
+// - Node-grouped (every shape whose cell fits shared memory, up to
+//   kMaxGroups nodes): the grouping pass of level_common.cuh writes the
+//   rows of each node, with their (g, h, w), into one contiguous stably
+//   ordered list of 16-byte records. A block owns (node, feature slice,
+//   span of that node's records): it keeps [3][fs][B1 | 1] float partials
+//   in shared memory (fs features, as many as the 105 KB budget allows,
+//   evened out over the slices: 7 of 28 at B1 = 1025), reads each record
+//   once and its row's fs codes (one or two 32-byte sectors), and adds
+//   with shared float atomics. No block reads a row outside its node and
+//   no code is read twice. Each block writes its partial into its own slot
+//   of a scratch buffer; a second pass sums each cell's slots in slot
+//   order, so no float chain runs across blocks.
+// - Global atomics (one (node, feature) cell past the shared budget, B1
+//   above 8959, or more than kMaxGroups nodes: no training path at its
+//   default sizes): one pass over the rows adds straight into a float64
+//   copy of hist with double atomicAdd (L2 REDG.E.ADD.F64), a second adds
+//   it, rounded once, into hist. The sum is float64 because one global sum
+//   per bin is a chain as long as the bin's rows: in float32 a 125k-row
+//   bin drifted past the 1e-5 of its mass that the checks keep.
 //
-// The launcher alone picks the form (kMaxSharedTiles below): shared
-// partials when the tiling needs at most 4 tiles, global atomics
-// otherwise, also where no tiling fits (one cell past the shared budget,
-// B1 above 8959, or more than 65535 tiles). The crossover was measured on
-// an H100 at the global path's 10M x 28 (chip_smoke.py times both forms
-// at every build): shared partials win up to 4 tiles, global atomics from
-// 7 on. h2o3_global_hist_form forces one form, for that measurement and
-// the tests; the training path calls h2o3_global_hist.
+// This replaced (an earlier port of K11) shared partials over node x
+// feature tiles, every tile re-reading every row's seg and its rows' codes
+// at a 112-byte stride, with global atomics from 4 tiles on: 4.85 ms at the
+// global path's N = 16 build on an H100, against 3.38 ms for one
+// index_add_. h2o3_global_hist_form forces one form (grouped 1, global
+// atomics 0), for the tests and chip_smoke.py; the training path calls
+// h2o3_global_hist.
 //
 // What bounds it on an H100: memory, on paper. It must read every row's
 // seg and the codes and ghw of the rows it adds, rows * 4 + added *
 // (F * itemsize + 12) bytes, and write 3 * N * F * B1 * 4; its
 // 3 * added * F float adds are far below the 67 TFLOP/s f32 rate. In
-// practice the atomics bound both forms: the shared-memory float atomic
-// add is a compare-and-swap loop on Hopper (ATOMS.CAST.SPIN), and the L2
-// takes the global ones at a fixed rate. Rows sorted by node, tensor-core
-// one-hot products or TMA staging are later work.
+// practice the shared-memory float atomic add, a compare-and-swap loop on
+// Hopper (ATOMS.CAST.SPIN), bounds the grouped form: three a (row,
+// feature). Within a block their order follows the warps' schedule, so
+// the last bits of a float histogram can still differ between runs.
 
 #include "level_common.cuh"
 
@@ -63,84 +61,115 @@ namespace {
 
 using h2o3::kThreads;
 
-// kTiled: the block's node x feature tile of a shared partial, merged at
-// the end; else every node and feature, added straight into hist.
-template <typename CodeT, bool kTiled>
+// Node-grouped form: block (b, slice) adds the records of span b (of the
+// node bstart assigns it) over features [slice * fs, + fs) into its
+// shared partial, then writes the partial into part[b][3][F][B1].
+template <typename CodeT>
 __global__ void __launch_bounds__(kThreads)
-global_hist_kernel(const CodeT* __restrict__ codes,
-                   const int* __restrict__ seg,
-                   const float* __restrict__ ghw, int64_t rows, int F,
-                   int n_nodes, int B1, int stride, int node_tile,
-                   int feat_tile, int n_feat_tiles, int bf16,
-                   double* __restrict__ acc, float* __restrict__ hist) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.y;
-  const int n0 = (tile / n_feat_tiles) * node_tile;
-  const int f0 = (tile % n_feat_tiles) * feat_tile;
-  const int nt = min(node_tile, n_nodes - n0);
-  const int ft = min(feat_tile, F - f0);
-  // per component: cells of the shared partial, values of hist
-  const int cells = kTiled ? node_tile * feat_tile * stride : 0;
-  const int64_t plane = static_cast<int64_t>(n_nodes) * F * B1;
-  float* s_hist = smem;               // [3][node_tile][feat_tile][stride]
-  float* s_g = smem + 3 * cells;
-  float* s_h = s_g + kThreads;
-  float* s_w = s_h + kThreads;
-  int* s_lid = reinterpret_cast<int*>(s_w + kThreads);
-
-  if (kTiled)
-    for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) s_hist[i] = 0.f;
-
-  const int64_t n_chunks = (rows + kThreads - 1) / kThreads;
-  for (int64_t chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    const int64_t r0 = chunk * kThreads;
-    const int nr = (rows - r0) < kThreads ? static_cast<int>(rows - r0)
-                                          : kThreads;
-    __syncthreads();  // zeroing done / previous chunk's phase 2 done
-    if (threadIdx.x < nr) {
-      const int64_t r = r0 + threadIdx.x;
-      const int ln = seg[r] - n0;
-      const bool mine = ln >= 0 && ln < nt;
-      s_lid[threadIdx.x] = mine ? ln : -1;
-      if (mine) {
-        float g = ghw[r], h = ghw[rows + r], w = ghw[2 * rows + r];
-        if (bf16) {
-          g = h2o3::round_bf16(g);
-          h = h2o3::round_bf16(h);
-          w = h2o3::round_bf16(w);
-        }
-        s_g[threadIdx.x] = g;
-        s_h[threadIdx.x] = h;
-        s_w[threadIdx.x] = w;
-      }
+global_hist_grouped_kernel(const CodeT* __restrict__ codes,
+                           const float4* __restrict__ rec,
+                           const int* __restrict__ offsets,
+                           const int* __restrict__ bstart, int G,
+                           int64_t span, int F, int B1, int stride, int fs,
+                           int bf16, float* __restrict__ part) {
+  extern __shared__ float s_hist[];  // [3][fs][stride]
+  const int b = blockIdx.x;
+  if (b >= __ldg(bstart + G)) return;
+  const int f0 = blockIdx.y * fs;
+  const int ft = min(fs, F - f0);
+  const int plane = fs * stride;
+  for (int i = threadIdx.x; i < 3 * plane; i += blockDim.x) s_hist[i] = 0.f;
+  __syncthreads();
+  const int k = h2o3::span_group(bstart, G, b);
+  const int64_t i0 = __ldg(offsets + k) +
+                     static_cast<int64_t>(b - __ldg(bstart + k)) * span;
+  const int64_t i1 =
+      h2o3::imin64(__ldg(offsets + k + 1), i0 + span);
+  for (int64_t i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+    const float4 q = rec[i];
+    float g = q.y, h = q.z, w = q.w;
+    if (bf16) {
+      g = h2o3::round_bf16(g);
+      h = h2o3::round_bf16(h);
+      w = h2o3::round_bf16(w);
     }
-    __syncthreads();
-    const int work = nr * ft;
-    const CodeT* base = codes + r0 * F + f0;
-    for (int i = threadIdx.x; i < work; i += blockDim.x) {
-      const int rr = i / ft;
-      const int fl = i - rr * ft;
-      const int ln = s_lid[rr];
-      if (ln < 0) continue;
-      const int c = static_cast<int>(base[static_cast<int64_t>(rr) * F + fl]);
-      if (static_cast<unsigned>(c) >= static_cast<unsigned>(B1)) continue;
-      if (kTiled) {
-        const int cell = (ln * feat_tile + fl) * stride + c;
-        atomicAdd(s_hist + cell, s_g[rr]);
-        atomicAdd(s_hist + cells + cell, s_h[rr]);
-        atomicAdd(s_hist + 2 * cells + cell, s_w[rr]);
-      } else {
-        double* o = acc + (static_cast<int64_t>(ln) * F + fl) * B1 + c;
-        atomicAdd(o, static_cast<double>(s_g[rr]));
-        atomicAdd(o + plane, static_cast<double>(s_h[rr]));
-        atomicAdd(o + 2 * plane, static_cast<double>(s_w[rr]));
+    const CodeT* row =
+        codes + static_cast<int64_t>(__float_as_int(q.x)) * F + f0;
+    for (int f8 = 0; f8 < ft; f8 += 8) {
+      int cv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        cv[j] = f8 + j < ft ? static_cast<int>(row[f8 + j]) : -1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (static_cast<unsigned>(cv[j]) >= static_cast<unsigned>(B1))
+          continue;
+        float* cell = s_hist + (f8 + j) * stride + cv[j];
+        atomicAdd(cell, g);
+        atomicAdd(cell + plane, h);
+        atomicAdd(cell + 2 * plane, w);
       }
     }
   }
-  if (kTiled) {
-    __syncthreads();
-    h2o3::merge_partial(s_hist, 3, cells, stride, B1, node_tile, feat_tile,
-                        n0, f0, nt, ft, n_nodes, F, hist);
+  __syncthreads();
+  float* pb = part + static_cast<int64_t>(b) * 3 * F * B1;
+  const int per = ft * B1;
+  for (int j = threadIdx.x; j < 3 * per; j += blockDim.x) {
+    const int p = j / per;
+    const int rem = j - p * per;
+    const int fl = rem / B1, bin = rem - fl * B1;
+    pb[(static_cast<int64_t>(p) * F + f0 + fl) * B1 + bin] =
+        s_hist[p * plane + fl * stride + bin];
+  }
+}
+
+// The sources of hist cell i ([3, N, F, B1]): its node's blocks, at the
+// cell's place in a block's [3][F][B1] partial.
+struct GlobalSrc {
+  int n_nodes;
+  int64_t fb;  // F * B1
+  __device__ __forceinline__ int operator()(int64_t i, int* g,
+                                            int64_t* o) const {
+    const int c = static_cast<int>(i / (n_nodes * fb));
+    const int64_t rem = i - c * n_nodes * fb;
+    const int j = static_cast<int>(rem / fb);
+    g[0] = j;
+    o[0] = c * fb + (rem - j * fb);
+    return 1;
+  }
+};
+
+// Global-atomics form: every (row, feature) of a row in [0, N) adds into
+// acc [3, N, F, B1] float64 in L2.
+template <typename CodeT>
+__global__ void __launch_bounds__(kThreads)
+global_hist_atomic_kernel(const CodeT* __restrict__ codes,
+                          const int* __restrict__ seg,
+                          const float* __restrict__ ghw, int64_t rows, int F,
+                          int n_nodes, int B1, int bf16,
+                          double* __restrict__ acc) {
+  const int64_t plane = static_cast<int64_t>(n_nodes) * F * B1;
+  const int64_t n = rows * F;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += step) {
+    const int64_t r = i / F;
+    const int f = static_cast<int>(i - r * F);
+    const int ln = seg[r];
+    if (static_cast<unsigned>(ln) >= static_cast<unsigned>(n_nodes)) continue;
+    const int c = static_cast<int>(codes[i]);
+    if (static_cast<unsigned>(c) >= static_cast<unsigned>(B1)) continue;
+    float g = ghw[r], h = ghw[rows + r], w = ghw[2 * rows + r];
+    if (bf16) {
+      g = h2o3::round_bf16(g);
+      h = h2o3::round_bf16(h);
+      w = h2o3::round_bf16(w);
+    }
+    double* o = acc + (static_cast<int64_t>(ln) * F + f) * B1 + c;
+    atomicAdd(o, static_cast<double>(g));
+    atomicAdd(o + plane, static_cast<double>(h));
+    atomicAdd(o + 2 * plane, static_cast<double>(w));
   }
 }
 
@@ -156,111 +185,163 @@ add_acc_kernel(const double* __restrict__ acc, int64_t n,
     hist[i] = __fadd_rn(hist[i], __double2float_rn(acc[i]));
 }
 
-template <typename CodeT, bool kTiled>
-int launch_form(const void* codes, const int* seg, const float* ghw,
-                int64_t rows, int F, int n_nodes, int B1, int stride,
-                const h2o3::LevelTiles& t, int bf16, double* acc,
-                float* hist, cudaStream_t stream) {
-  const size_t smem = (3 * static_cast<size_t>(kTiled ? t.node_tile : 0) *
-                           t.feat_tile * stride + 4 * kThreads) *
-                      sizeof(float);
-  auto kern = global_hist_kernel<CodeT, kTiled>;
+inline unsigned grid_for(int64_t n, int per_sm) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * per_sm;
+  if (blocks > cap) blocks = cap;
+  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
+}
+
+// form: kPick chooses from the shapes; kGrouped and kGlobal force one
+// (kGrouped fails where it does not fit)
+enum Form { kPick = -1, kGlobal = 0, kGrouped = 1 };
+
+// How a launch runs: the form, and for the grouped one its feature slices,
+// span, blocks and shared memory; bytes of workspace either way.
+struct GlobalPlan {
+  bool grouped;
+  int fs, slices;
+  int64_t span, nblk;
+  size_t smem, bytes;
+};
+
+template <typename CodeT>
+int plan(int64_t rows, int F, int n_nodes, int B1, int form, GlobalPlan* p) {
+  const int stride = B1 | 1;  // odd: neighbouring cells on other banks
+  const int64_t fs_max =
+      h2o3::kHistBudget / (3 * static_cast<int64_t>(stride) * sizeof(float));
+  const bool fits = fs_max >= 1 && n_nodes <= h2o3::kMaxGroups &&
+                    rows < (int64_t{1} << 31);
+  p->grouped = form == kPick ? fits : form == kGrouped;
+  if (!p->grouped) {
+    p->bytes = sizeof(double) * 3 * static_cast<size_t>(n_nodes) * F * B1;
+    return 0;
+  }
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+  p->slices = static_cast<int>((F + fs_max - 1) / fs_max);
+  p->fs = (F + p->slices - 1) / p->slices;
+  p->smem = 3 * static_cast<size_t>(p->fs) * stride * sizeof(float);
+  auto kern = global_hist_grouped_kernel<CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(p->smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      kThreads, smem);
+                                                      kThreads, p->smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(h2o3::level_grid_x(per_sm, t.n_tiles,
-                                                     rows)),
-            static_cast<unsigned>(t.n_tiles));
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), seg, ghw, rows, F, n_nodes, B1,
-      stride, t.node_tile, t.feat_tile, t.n_feat_tiles, bf16, acc, hist);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || kTiled) return static_cast<int>(err);
-  const int64_t n = 3 * static_cast<int64_t>(n_nodes) * F * B1;
-  const int64_t blocks64 = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 8;
-  add_acc_kernel<<<static_cast<unsigned>(blocks64 > cap ? cap : blocks64),
-                   kThreads, 0, stream>>>(acc, n, hist);
-  return static_cast<int>(cudaGetLastError());
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // about four waves of blocks over the card when every row is added
+  int64_t target = static_cast<int64_t>(h2o3::sm_count()) * per_sm * 4 /
+                   p->slices;
+  if (target < 1) target = 1;
+  const int64_t span = (rows + target - 1) / target;
+  p->span = span < kThreads ? kThreads : span;
+  p->nblk = h2o3::span_blocks(rows, n_nodes, p->span);
+  p->bytes = h2o3::grouping_bytes(rows, n_nodes) +
+             h2o3::align256(sizeof(float) * 3 * static_cast<size_t>(F) * B1 *
+                            p->nblk);
+  return 0;
 }
 
-// shared partials up to this many node x feature tiles, global atomics
-// beyond: the crossover of the global path's builds (10M x 28, half the
-// rows added after level 0) on an H100. It moves with the share of rows a
-// build adds, which the launcher does not see: at 1M rows with 90% added,
-// shared partials still win at 14 tiles.
-constexpr int kMaxSharedTiles = 4;
-
-// form: kPick chooses by the tile count; kShared and kGlobal force one
-// (kShared fails where no tiling fits)
-enum Form { kPick = -1, kGlobal = 0, kShared = 1 };
-
 template <typename CodeT>
-int launch(const void* codes, const int* seg, const float* ghw, int64_t rows,
-           int F, int n_nodes, int B1, int bf16, int form, double* acc,
-           float* hist, cudaStream_t stream) {
-  const int stride = B1 | 1;  // odd: neighbouring cells on other banks
-  const int64_t per_cell = 3 * static_cast<int64_t>(stride) * sizeof(float);
-  const h2o3::LevelTiles t = h2o3::level_tiles(n_nodes, F, per_cell);
-  const bool tiled =
-      form == kPick ? t.n_tiles > 0 && t.n_tiles <= kMaxSharedTiles
-                    : form == kShared;
-  if (tiled) {
-    if (t.n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_form<CodeT, true>(codes, seg, ghw, rows, F, n_nodes, B1,
-                                    stride, t, bf16, acc, hist, stream);
+int launch(const void* codes_v, const int* seg, const float* ghw,
+           int64_t rows, int F, int n_nodes, int B1, int bf16, int form,
+           void* ws, float* hist, cudaStream_t stream) {
+  const CodeT* codes = static_cast<const CodeT*>(codes_v);
+  GlobalPlan p;
+  int rc = plan<CodeT>(rows, F, n_nodes, B1, form, &p);
+  if (rc != 0) return rc;
+  const int64_t cells = 3 * static_cast<int64_t>(n_nodes) * F * B1;
+  cudaError_t err;
+  if (!p.grouped) {
+    double* acc = static_cast<double*>(ws);
+    err = cudaMemsetAsync(acc, 0, p.bytes, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    global_hist_atomic_kernel<CodeT><<<grid_for(rows * F, 8), kThreads, 0,
+                                       stream>>>(codes, seg, ghw, rows, F,
+                                                 n_nodes, B1, bf16, acc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    add_acc_kernel<<<grid_for(cells, 8), kThreads, 0, stream>>>(acc, cells,
+                                                                 hist);
+    return static_cast<int>(cudaGetLastError());
   }
-  const h2o3::LevelTiles whole = {n_nodes, F, 1, 1};
-  return launch_form<CodeT, false>(codes, seg, ghw, rows, F, n_nodes, B1,
-                                   stride, whole, bf16, acc, hist, stream);
+  h2o3::Grouping g;
+  float* part = reinterpret_cast<float*>(
+      h2o3::carve_grouping(static_cast<char*>(ws), rows, n_nodes, &g));
+  rc = h2o3::launch_grouping(h2o3::SegKey{seg, n_nodes}, ghw, rows, n_nodes,
+                             p.span, g, stream);
+  if (rc != 0) return rc;
+  dim3 grid(static_cast<unsigned>(p.nblk), static_cast<unsigned>(p.slices));
+  global_hist_grouped_kernel<CodeT><<<grid, kThreads, p.smem, stream>>>(
+      codes, g.rec, g.offsets, g.bstart, n_nodes, p.span, F, B1, B1 | 1,
+      p.fs, bf16, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t fb = static_cast<int64_t>(F) * B1;
+  return h2o3::launch_merge(GlobalSrc{n_nodes, fb}, part, 3 * fb, g.bstart,
+                            cells, hist, stream);
+}
+
+bool valid(int code_bytes, long long rows, int F, int n_nodes, int B1) {
+  return (code_bytes == 1 || code_bytes == 4) && F >= 1 && n_nodes >= 1 &&
+         B1 >= 1 && rows >= 0;
 }
 
 int launch_codes(const void* codes, int code_bytes, const int* seg,
                  const float* ghw, long long rows, int F, int n_nodes, int B1,
-                 int bf16, int form, double* acc, float* hist,
-                 void* stream) {
+                 int bf16, int form, void* ws, float* hist, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F < 1 || n_nodes < 1 || B1 < 1 || rows < 0)
+  if (!valid(code_bytes, rows, F, n_nodes, B1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (code_bytes == 1)
     return launch<uint8_t>(codes, seg, ghw, rows, F, n_nodes, B1, bf16, form,
-                           acc, hist, s);
-  if (code_bytes == 4)
-    return launch<int32_t>(codes, seg, ghw, rows, F, n_nodes, B1, bf16, form,
-                           acc, hist, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                           ws, hist, s);
+  return launch<int32_t>(codes, seg, ghw, rows, F, n_nodes, B1, bf16, form,
+                         ws, hist, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// codes [rows, F] uint8 (code_bytes 1) or int32 (code_bytes 4), row-major;
-// seg [rows] int32; ghw [3, rows] float32. ADDS into hist [3, n_nodes, F,
-// B1] float32, which the caller zeroes, in the form the shapes pick; acc,
-// the same shape in float64 and zeroed by the caller, is the global-
-// atomics form's scratch. Returns a cudaError_t value.
-int h2o3_global_hist(const void* codes, int code_bytes, const int* seg,
-                     const float* ghw, long long rows, int F, int n_nodes,
-                     int B1, int bf16, double* acc, float* hist,
-                     void* stream) {
-  return launch_codes(codes, code_bytes, seg, ghw, rows, F, n_nodes, B1,
-                      bf16, kPick, acc, hist, stream);
+// The workspace bytes of a launch at these shapes (form: -1 the one the
+// shapes pick, 1 grouped, 0 global atomics); *grouped says which form
+// runs. -1 where the shapes are refused.
+long long h2o3_global_hist_workspace(int code_bytes, long long rows, int F,
+                                     int n_nodes, int B1, int form,
+                                     int* grouped) {
+  if (!valid(code_bytes, rows, F, n_nodes, B1)) return -1;
+  GlobalPlan p;
+  const int rc = code_bytes == 1
+                     ? plan<uint8_t>(rows, F, n_nodes, B1, form, &p)
+                     : plan<int32_t>(rows, F, n_nodes, B1, form, &p);
+  if (rc != 0) return -1;
+  *grouped = p.grouped ? 1 : 0;
+  return static_cast<long long>(p.bytes);
 }
 
-// The same with one form forced (shared 1: shared partials, an error
-// where no tiling fits; 0: global atomics), for measurement and tests.
+// codes [rows, F] uint8 (code_bytes 1) or int32 (code_bytes 4), row-major;
+// seg [rows] int32; ghw [3, rows] float32; ws, h2o3_global_hist_workspace
+// bytes (form -1). ADDS into hist [3, n_nodes, F, B1] float32, which the
+// caller zeroes, in the form the shapes pick. Returns a cudaError_t value.
+int h2o3_global_hist(const void* codes, int code_bytes, const int* seg,
+                     const float* ghw, long long rows, int F, int n_nodes,
+                     int B1, int bf16, void* ws, float* hist, void* stream) {
+  return launch_codes(codes, code_bytes, seg, ghw, rows, F, n_nodes, B1,
+                      bf16, kPick, ws, hist, stream);
+}
+
+// The same with one form forced (grouped 1: node-grouped, an error where
+// it does not fit; 0: global atomics), for measurement and tests; ws as
+// h2o3_global_hist_workspace gives for that form.
 int h2o3_global_hist_form(const void* codes, int code_bytes, const int* seg,
                           const float* ghw, long long rows, int F,
-                          int n_nodes, int B1, int bf16, int shared,
-                          double* acc, float* hist, void* stream) {
+                          int n_nodes, int B1, int bf16, int grouped,
+                          void* ws, float* hist, void* stream) {
   return launch_codes(codes, code_bytes, seg, ghw, rows, F, n_nodes, B1,
-                      bf16, shared ? kShared : kGlobal, acc, hist, stream);
+                      bf16, grouped ? kGrouped : kGlobal, ws, hist, stream);
 }
 
 }  // extern "C"

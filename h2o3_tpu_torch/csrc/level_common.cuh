@@ -3,7 +3,9 @@
 // partial histogram, how a level's [planes, N, F, W] partial is cut into
 // node x feature tiles that fit it, the masses a level kernel adds (float
 // (g, h, w), or int8 fixed-point terms summed in int32), the merge of a
-// block's partial into the output, and the int8 levels' float32 flush.
+// block's partial into the output, the int8 levels' float32 flush, and
+// the row grouping of the node-grouped kernels (global_hist and the float
+// [rows, F] adaptive level).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -179,6 +181,358 @@ inline int launch_flush_i8(const int* acc, const float* scales, int terms,
   flush_i8_kernel<<<blocks, kThreads, 0, stream>>>(acc, scales, terms,
                                                    per_plane, hist);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ row grouping
+//
+// Rows grouped by a key, the row partition of XGBoost's gpu_hist: for a
+// key in [0, G) per row (any other value: the row is left out), a stable
+// counting sort writes one record per kept row, {row id (int bits), g, h,
+// w} (zeros without ghw; a key may put another int than the row id, see
+// tag), into rec, the rows of key 0 first, each key's
+// rows in ascending row order, and offsets[k] .. offsets[k + 1] bound key
+// k's records. Three kernels, none of which waits on the host:
+//
+// 1. group_count: blocks take contiguous row ranges (block b the b-th);
+//    each counts its rows per key in shared memory (one warp-aggregated
+//    integer add per key present in a warp) into counts [G][nb].
+// 2. group_scan (one block): the exclusive scan of counts in key-major
+//    order, in place, so counts[k][b] becomes where block b's rows of key
+//    k start; offsets; and bstart [G + 1], the first span of each key when
+//    a key's records are cut into spans of `span` rows (the histogram
+//    kernels' blocks: bstart[G] of them).
+// 3. group_scatter: the same row ranges, 256 rows at a time in row order;
+//    a row's place is its block's running start for its key, plus the
+//    rows of that key in earlier warps of the tile and in earlier lanes of
+//    its warp. Integer arithmetic throughout: the order never depends on
+//    scheduling.
+//
+// What bounds it: memory, keys (or what they are computed from) read
+// twice, ghw once, rec written once: about 36 bytes a row.
+
+constexpr int kGroupThreads = 256;
+constexpr int kGroupWarps = kGroupThreads / 32;
+// keys a grouping takes: the scatter keeps (1 + warps) x G counters in
+// shared memory (144 KB at 4096)
+constexpr int kMaxGroups = 4096;
+
+// row-range blocks of the count and scatter passes: at least 2048 rows
+// each, at most four per SM
+inline int group_blocks(int64_t rows) {
+  int64_t nb = (rows + 2047) / 2048;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * 4;
+  if (nb > cap) nb = cap;
+  return nb < 1 ? 1 : static_cast<int>(nb);
+}
+
+// spans of a grouping: at most rows / span + G (each key's last span may
+// be partial)
+inline int64_t span_blocks(int64_t rows, int G, int64_t span) {
+  return (rows + span - 1) / span + G;
+}
+
+// The buffers of one grouping, carved from a caller's workspace.
+struct Grouping {
+  int nb;        // row-range blocks of the count and scatter passes
+  int* counts;   // [G][nb]
+  int* offsets;  // [G + 1]
+  int* bstart;   // [G + 1]
+  float4* rec;   // [rows]
+};
+
+inline size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
+
+inline size_t counts_bytes(int64_t rows, int G) {
+  return align256(sizeof(int) * static_cast<size_t>(G) * group_blocks(rows));
+}
+
+inline size_t grouping_bytes(int64_t rows, int G) {
+  return counts_bytes(rows, G) +
+         2 * align256(sizeof(int) * (static_cast<size_t>(G) + 1)) +
+         align256(sizeof(float4) * static_cast<size_t>(rows > 0 ? rows : 1));
+}
+
+// Carve a grouping from ws (256-byte aligned); returns the first byte
+// after it.
+inline char* carve_grouping(char* ws, int64_t rows, int G, Grouping* g) {
+  g->nb = group_blocks(rows);
+  g->counts = reinterpret_cast<int*>(ws);
+  ws += counts_bytes(rows, G);
+  g->offsets = reinterpret_cast<int*>(ws);
+  ws += align256(sizeof(int) * (static_cast<size_t>(G) + 1));
+  g->bstart = reinterpret_cast<int*>(ws);
+  ws += align256(sizeof(int) * (static_cast<size_t>(G) + 1));
+  g->rec = reinterpret_cast<float4*>(ws);
+  return ws + align256(sizeof(float4) * static_cast<size_t>(rows > 0 ? rows : 1));
+}
+
+// The key of a row read from an int32 array: in [0, G) or left out.
+struct SegKey {
+  const int* __restrict__ seg;
+  int G;
+  __device__ __forceinline__ int operator()(int64_t r) const {
+    const int k = seg[r];
+    return static_cast<unsigned>(k) < static_cast<unsigned>(G) ? k : -1;
+  }
+  // what a kept row's record carries in its first field: its id
+  __device__ __forceinline__ int tag(int64_t r, int) const {
+    return static_cast<int>(r);
+  }
+};
+
+__device__ __forceinline__ int64_t imin64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ void row_range(int64_t rows, int nb, int b,
+                                          int64_t* r0, int64_t* r1) {
+  const int64_t per = (rows + nb - 1) / nb;
+  *r0 = per * b;
+  *r1 = *r0 + per < rows ? *r0 + per : rows;
+}
+
+template <class Key>
+__global__ void __launch_bounds__(kGroupThreads)
+group_count_kernel(Key key, int64_t rows, int G, int* __restrict__ counts) {
+  extern __shared__ int s_cnt[];  // [G]
+  for (int i = threadIdx.x; i < G; i += blockDim.x) s_cnt[i] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int64_t r0, r1;
+  row_range(rows, gridDim.x, blockIdx.x, &r0, &r1);
+  // the bound is the same for every lane of a warp: full-warp matches
+  for (int64_t w0 = r0 + (threadIdx.x - lane); w0 < r1; w0 += blockDim.x) {
+    const int64_t r = w0 + lane;
+    const int k = r < r1 ? key(r) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, k);
+    if (k >= 0 && lane == __ffs(peers) - 1) atomicAdd(s_cnt + k, __popc(peers));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G; i += blockDim.x)
+    counts[static_cast<int64_t>(i) * gridDim.x + blockIdx.x] = s_cnt[i];
+}
+
+// Exclusive prefix of v over the block (blockDim.x a multiple of 32, at
+// most 1024); *total gets the sum. s_warp: 32 ints of shared memory.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  __syncthreads();  // s_warp free from any earlier use
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? s_warp[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += t;
+    }
+    if (lane < nw) s_warp[lane] = w;  // inclusive warp sums
+  }
+  __syncthreads();
+  *total = s_warp[nw - 1];
+  return incl - v + (warp > 0 ? s_warp[warp - 1] : 0);
+}
+
+// One block of 1024 threads, each over a contiguous run of the n = G *
+// nseg counts (nseg row ranges): sums, one block scan, then the runs in
+// place.
+__global__ void __launch_bounds__(1024)
+group_scan_kernel(int* __restrict__ counts, int G, int nseg, int64_t span,
+                  int* __restrict__ offsets, int* __restrict__ bstart) {
+  __shared__ int s_warp[32];
+  const int64_t n = static_cast<int64_t>(G) * nseg;
+  const int64_t per = (n + blockDim.x - 1) / blockDim.x;
+  const int64_t i0 = imin64(n, per * threadIdx.x);
+  const int64_t i1 = imin64(n, i0 + per);
+  int s = 0;
+  for (int64_t i = i0; i < i1; ++i) s += counts[i];
+  int total;
+  int run = block_exclusive_scan(s, s_warp, &total);
+  for (int64_t i = i0; i < i1; ++i) {
+    const int c = counts[i];
+    counts[i] = run;
+    run += c;
+  }
+  __syncthreads();  // the bases are visible to the whole block
+  // spans per key, scanned the same way over the G keys
+  const int gper = (G + blockDim.x - 1) / blockDim.x;
+  const int k0 = min(G, gper * static_cast<int>(threadIdx.x));
+  const int k1 = min(G, k0 + gper);
+  int sp = 0;
+  for (int k = k0; k < k1; ++k) {
+    const int lo = counts[static_cast<int64_t>(k) * nseg];
+    const int hi = k + 1 < G ? counts[static_cast<int64_t>(k + 1) * nseg]
+                             : total;
+    sp += static_cast<int>((hi - lo + span - 1) / span);
+  }
+  int n_spans;
+  int b = block_exclusive_scan(sp, s_warp, &n_spans);
+  for (int k = k0; k < k1; ++k) {
+    const int lo = counts[static_cast<int64_t>(k) * nseg];
+    const int hi = k + 1 < G ? counts[static_cast<int64_t>(k + 1) * nseg]
+                             : total;
+    offsets[k] = lo;
+    bstart[k] = b;
+    b += static_cast<int>((hi - lo + span - 1) / span);
+  }
+  if (threadIdx.x == 0) {
+    offsets[G] = total;
+    bstart[G] = n_spans;
+  }
+}
+
+template <class Key>
+__global__ void __launch_bounds__(kGroupThreads)
+group_scatter_kernel(Key key, const float* __restrict__ ghw, int64_t rows,
+                     int G, const int* __restrict__ base,
+                     float4* __restrict__ rec) {
+  extern __shared__ int s_grp[];
+  int* s_run = s_grp;      // [G]: where this block's next row of a key goes
+  int* s_wcnt = s_grp + G;  // [warps][G]: a tile's rows per key and warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < G; i += blockDim.x)
+    s_run[i] = base[static_cast<int64_t>(i) * gridDim.x + blockIdx.x];
+  for (int i = threadIdx.x; i < kGroupWarps * G; i += blockDim.x)
+    s_wcnt[i] = 0;
+  __syncthreads();
+  int64_t r0, r1;
+  row_range(rows, gridDim.x, blockIdx.x, &r0, &r1);
+  // a row's key and masses, loaded a tile ahead of their use
+  auto fetch = [&](int64_t r, int* k, float4* v) {
+    *k = -1;
+    *v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < r1) {
+      *k = key(r);
+      if (ghw != nullptr)
+        *v = make_float4(0.f, ghw[r], ghw[rows + r], ghw[2 * rows + r]);
+    }
+  };
+  int k_next;
+  float4 v_next;
+  fetch(r0 + threadIdx.x, &k_next, &v_next);
+  for (int64_t t0 = r0; t0 < r1; t0 += blockDim.x) {
+    const int64_t r = t0 + threadIdx.x;
+    const int k = k_next;
+    float4 v = v_next;
+    if (r < r1) v.x = __int_as_float(key.tag(r, k));  // every row: tag may write
+    fetch(r + blockDim.x, &k_next, &v_next);
+    const unsigned peers = __match_any_sync(0xffffffffu, k);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (k >= 0 && rank == 0) s_wcnt[warp * G + k] = __popc(peers);
+    __syncthreads();
+    if (k >= 0) {
+      int pos = s_run[k] + rank;
+      for (int w = 0; w < warp; ++w) pos += s_wcnt[w * G + k];
+      rec[pos] = v;
+    }
+    __syncthreads();
+    if (k >= 0 && rank == 0) {
+      atomicAdd(s_run + k, s_wcnt[warp * G + k]);
+      s_wcnt[warp * G + k] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+// Launch the three passes. G in [1, kMaxGroups]; span >= 1. Returns a
+// cudaError_t value.
+template <class Key>
+int launch_grouping(Key key, const float* ghw, int64_t rows, int G,
+                    int64_t span, const Grouping& g, cudaStream_t stream) {
+  if (G < 1 || G > kMaxGroups || span < 1 || rows >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_count = sizeof(int) * static_cast<size_t>(G);
+  const size_t smem_scatter = sizeof(int) * (1 + kGroupWarps) *
+                              static_cast<size_t>(G);
+  cudaError_t err = cudaFuncSetAttribute(
+      group_count_kernel<Key>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_count));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(group_scatter_kernel<Key>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_scatter));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  group_count_kernel<Key><<<g.nb, kGroupThreads, smem_count, stream>>>(
+      key, rows, G, g.counts);
+  group_scan_kernel<<<1, 1024, 0, stream>>>(g.counts, G, g.nb, span,
+                                            g.offsets, g.bstart);
+  group_scatter_kernel<Key><<<g.nb, kGroupThreads, smem_scatter, stream>>>(
+      key, ghw, rows, G, g.counts, g.rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge of the blocks' partials: out[i] += for each source (g, o) of
+// cell i, in order, the sum over g's blocks b, in block order, of
+// part[b * bstride + o]. A CTA takes 32 consecutive cells; warp w of 8
+// adds blocks w, w + 8, ... of each source, and lane i's eight sums are
+// added in warp order: one fixed order whatever the schedule. Src gives a
+// cell's sources: int operator()(int64_t i, int* g, int64_t* o) (at most
+// two).
+constexpr int kMergeWarps = 8;
+
+template <class Src>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+merge_slots_kernel(Src src, const float* __restrict__ part, int64_t bstride,
+                   const int* __restrict__ bstart, int64_t n,
+                   float* __restrict__ out) {
+  __shared__ float s_p[kMergeWarps][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * 32; i0 < n;
+       i0 += static_cast<int64_t>(gridDim.x) * 32) {
+    const int64_t i = i0 + lane;
+    float s = 0.f;
+    if (i < n) {
+      int g[2];
+      int64_t o[2];
+      const int ns = src(i, g, o);
+      for (int q = 0; q < ns; ++q) {
+        const int b1 = __ldg(bstart + g[q] + 1);
+        for (int b = __ldg(bstart + g[q]) + warp; b < b1; b += kMergeWarps)
+          s = __fadd_rn(s, part[b * bstride + o[q]]);
+      }
+    }
+    s_p[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0 && i < n) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMergeWarps; ++w) t = __fadd_rn(t, s_p[w][lane]);
+      out[i] = __fadd_rn(out[i], t);
+    }
+    __syncthreads();
+  }
+}
+
+template <class Src>
+int launch_merge(Src src, const float* part, int64_t bstride,
+                 const int* bstart, int64_t n, float* out,
+                 cudaStream_t stream) {
+  int64_t ctas = (n + 31) / 32;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * 16;
+  if (ctas > cap) ctas = cap;
+  merge_slots_kernel<Src><<<static_cast<unsigned>(ctas < 1 ? 1 : ctas),
+                            32 * kMergeWarps, 0, stream>>>(
+      src, part, bstride, bstart, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The key whose span holds histogram block b: the last k with bstart[k]
+// <= b (b < bstart[G]).
+__device__ __forceinline__ int span_group(const int* __restrict__ bstart,
+                                          int G, int b) {
+  int lo = 0, hi = G - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(bstart + mid) <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
 }
 
 }  // namespace h2o3

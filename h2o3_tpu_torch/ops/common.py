@@ -1,7 +1,9 @@
 """What the dispatching modules (``ops/hist_adaptive.py``,
-``ops/histogram.py``) share: the device dispatch, and the scatter-add
+``ops/histogram.py``) share: the device dispatch, the scatter-add
 histogram that every plain version of a histogram kernel ends in, in
-its float and its int8 fixed-point form."""
+its float and its int8 fixed-point form, and the plain versions of two
+pieces of the node-grouped kernels: the row grouping and the exact
+three-term bf16 split of float32 masses."""
 from __future__ import annotations
 
 import torch
@@ -77,3 +79,37 @@ def dispatch(name: str, t, plain, kernel, *args):
     if t.device.type == "cuda":
         return kernel(*args)
     raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def group_rows_plain(keys, n_groups: int):
+    """Plain version of the kernels' row grouping (``kernels.group_rows``,
+    ``csrc/level_common.cuh``): a stable sort of the rows by ``keys``
+    (int32 [rows]; a key outside [0, n_groups) leaves its row out).
+    Returns (offsets int32 [n_groups + 1], idx int32 [rows]): the kept
+    rows' ids, key 0's first, each key's in ascending order, then -1."""
+    rows = keys.shape[0]
+    kept = (keys >= 0) & (keys < n_groups)
+    order = torch.argsort(torch.where(kept, keys, n_groups).long(),
+                          stable=True)
+    counts = torch.bincount(keys[kept].long(), minlength=n_groups)
+    offsets = torch.zeros(n_groups + 1, dtype=torch.int64,
+                          device=keys.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    idx = torch.where(torch.arange(rows, device=keys.device) < offsets[-1],
+                      order, -1)
+    return offsets.to(torch.int32), idx.to(torch.int32)
+
+
+def split3_bf16(t):
+    """The exact three-term bf16 split of float32 ``t`` (the JAX package's
+    ``_split3_bf16``, the node-grouped adaptive level's float32 masses):
+    ``hi`` = t rounded to bf16, ``mid`` = the residual scaled by 2^8 and
+    rounded, ``lo`` = the rest scaled by 2^8, so that t == hi + (mid / 2^8
+    + lo / 2^16) for every finite t whose bf16 rounding is finite, each
+    term bf16-valued. Returns the [3, ...] float32 stack (hi, mid, lo)."""
+    t = t.to(torch.float32)
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    r1 = (t - hi) * 256.0
+    mid = r1.to(torch.bfloat16).to(torch.float32)
+    lo = (r1 - mid) * 256.0
+    return torch.stack([hi, mid, lo])

@@ -9,7 +9,8 @@ edited source rebuilds and an unchanged tree loads the libraries already
 there.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with torch on the tensors' device, launches on the current
+outputs, and the scratch workspace whose size the library reports for the
+shapes, with torch on the tensors' device, launches on the current
 stream, raises when the launch returns a CUDA error, and adds one to its
 entry in ``LAUNCHES``. They take CUDA tensors only: the dispatchers in
 ``ops/hist_adaptive.py`` and ``ops/histogram.py`` send CPU tensors to the
@@ -58,7 +59,14 @@ _SIGNATURES = {
     "hist_adaptive": {
         "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _VP,
-                                _VP, _VP],
+                                _VP, _VP, _VP],
+        "h2o3_adaptive_level_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
+                                          _INT, _INT],
+        "h2o3_adaptive_level_atomics": [_VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                                        _INT, _INT, _INT, _INT, _INT, _INT,
+                                        _VP, _VP, _VP, _VP],
+        "h2o3_group_rows_workspace": [_LL, _INT],
+        "h2o3_group_rows": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
@@ -68,12 +76,18 @@ _SIGNATURES = {
                              _VP, _VP, _VP],
     },
     "hist_global": {
+        "h2o3_global_hist_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
+                                       _VP],
         "h2o3_global_hist": [_VP, _INT, _VP, _VP, _LL, _INT, _INT, _INT,
                              _INT, _VP, _VP, _VP],
         "h2o3_global_hist_form": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                   _INT, _INT, _INT, _VP, _VP, _VP],
     },
 }
+# the workspace queries return a byte count (-1: shapes refused); every
+# other function a cudaError_t
+_RETURNS_BYTES = ("h2o3_adaptive_level_workspace",
+                  "h2o3_group_rows_workspace", "h2o3_global_hist_workspace")
 
 
 def _nvcc() -> str:
@@ -141,7 +155,8 @@ def build() -> Dict[str, ctypes.CDLL]:
             lib = ctypes.CDLL(str(so))
             for fn, argtypes in _SIGNATURES.get(stem, {}).items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _INT
+                getattr(lib, fn).restype = (_LL if fn in _RETURNS_BYTES
+                                            else _INT)
             libs[stem] = lib
         _libs = libs
         return libs
@@ -298,31 +313,97 @@ def binned_route_only(codes: torch.Tensor, nid: torch.Tensor,
     return nid_out
 
 
-def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
-                   tables: torch.Tensor, lo: torch.Tensor, inv: torch.Tensor,
-                   n_prev: int, n_nodes: int, level_base: int, W: int,
-                   bf16: bool, layout: str):
-    """Launch the adaptive route + re-bin + histogram level kernel. Same
-    contract as ``hist_adaptive.adaptive_level_plain``; ``tables`` is
-    float32 [4, max(n_prev, 1)] (feat, thr, na_left, can), ``lo``/``inv``
-    float32 [n_nodes, F]."""
+def _workspace(nbytes: int, name: str, dev) -> torch.Tensor:
+    if nbytes < 0:
+        raise ValueError(f"{name}: shapes refused by the kernel")
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
+
+
+def _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
+                    level_base: int, W: int, bf16: bool, layout: str,
+                    atomics: bool):
     rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
     _check_W(W)
     _check("ghw", ghw, torch.float32, (3, rows), dev)
     _check("lo", lo, torch.float32, (n_nodes, F), dev)
     _check("inv", inv, torch.float32, (n_nodes, F), dev)
     lib = build()["hist_adaptive"]
+    feat_major = int(layout == "f_rows")
     nid_out = torch.empty_like(nid)
     hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.h2o3_adaptive_level(
-            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
-            ghw.data_ptr(), tables.data_ptr(), lo.data_ptr(), inv.data_ptr(),
-            rows, F, W, n_prev, n_nodes, level_base, int(bf16),
-            nid_out.data_ptr(), hist.data_ptr(), _stream(dev))
+        ws = _workspace(lib.h2o3_adaptive_level_workspace(
+            feat_major, rows, F, W, n_prev, n_nodes, int(bf16),
+            int(atomics)), "adaptive_level", dev)
+        args = (x.data_ptr(), nid.data_ptr(), ghw.data_ptr(),
+                tables.data_ptr(), lo.data_ptr(), inv.data_ptr(), rows, F, W,
+                n_prev, n_nodes, level_base, int(bf16), nid_out.data_ptr(),
+                hist.data_ptr(), ws.data_ptr(), _stream(dev))
+        if atomics:
+            rc = lib.h2o3_adaptive_level_atomics(*args)
+        else:
+            rc = lib.h2o3_adaptive_level(args[0], feat_major, *args[1:])
     _raise_on(rc, "adaptive_level")
     LAUNCHES["adaptive_level"] += 1
     return nid_out, hist
+
+
+def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
+                   tables: torch.Tensor, lo: torch.Tensor, inv: torch.Tensor,
+                   n_prev: int, n_nodes: int, level_base: int, W: int,
+                   bf16: bool, layout: str):
+    """Launch the adaptive route + re-bin + histogram level. Same
+    contract as ``hist_adaptive.adaptive_level_plain``; ``tables`` is
+    float32 [4, max(n_prev, 1)] (feat, thr, na_left, can), ``lo``/``inv``
+    float32 [n_nodes, F]. In ``"rows_f"`` (K8) the rows are grouped by
+    parent first and the histogram is a tensor-core one-hot product,
+    summed in a fixed order (``csrc/hist_adaptive.cu``)."""
+    return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
+                           level_base, W, bf16, layout, False)
+
+
+def adaptive_level_atomics(x: torch.Tensor, nid: torch.Tensor,
+                           ghw: torch.Tensor, tables: torch.Tensor,
+                           lo: torch.Tensor, inv: torch.Tensor, n_prev: int,
+                           n_nodes: int, level_base: int, W: int,
+                           bf16: bool):
+    """``adaptive_level`` in ``"rows_f"`` with the grouped kernel's
+    shared float atomics in place of its tensor-core products: the
+    ablation the design was measured against, for the tests and
+    ``chip_smoke.py``; no path calls it."""
+    return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
+                           level_base, W, bf16, "rows_f", True)
+
+
+def group_rows(keys: torch.Tensor, n_groups: int, ghw=None):
+    """Launch the row grouping of the node-grouped kernels alone (the
+    level and histogram wrappers run it inside their launch): ``keys``
+    int32 [rows], a key outside [0, n_groups) leaves its row out; ``ghw``
+    float32 [3, rows] or None. Returns (offsets int32 [n_groups + 1],
+    rec float32 [rows, 4]: per kept row, key 0's first and each key's in
+    ascending row order, its id (int32 bits) and its (g, h, w), zeros
+    without ghw; rows past offsets[-1] unwritten). Its plain version,
+    ``common.group_rows_plain``, gives the ids alone. It counts in no
+    ``LAUNCHES`` entry: inside a level or histogram launch it is part of
+    that kernel's one count."""
+    _check_cuda(keys)
+    rows = keys.shape[0]
+    dev = keys.device
+    _check("keys", keys, torch.int32, (rows,), dev)
+    if ghw is not None:
+        _check("ghw", ghw, torch.float32, (3, rows), dev)
+    lib = build()["hist_adaptive"]
+    offsets = torch.empty(n_groups + 1, dtype=torch.int32, device=dev)
+    rec = torch.empty((max(rows, 1), 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        ws = _workspace(lib.h2o3_group_rows_workspace(rows, n_groups),
+                        "group_rows", dev)
+        rc = lib.h2o3_group_rows(
+            keys.data_ptr(), 0 if ghw is None else ghw.data_ptr(), rows,
+            n_groups, offsets.data_ptr(), rec.data_ptr(), ws.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "group_rows")
+    return offsets, rec[:rows]
 
 
 def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
@@ -398,7 +479,7 @@ def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
 
 def _global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
                  n_nodes: int, n_bins1: int, bf16: bool,
-                 shared: Optional[bool]) -> torch.Tensor:
+                 grouped: Optional[bool]) -> torch.Tensor:
     _check_cuda(codes)
     if codes.dim() != 2:
         raise ValueError(f"codes must be [rows, F], got {tuple(codes.shape)}")
@@ -416,16 +497,23 @@ def _global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
     lib = build()["hist_global"]
     hist = torch.zeros((3, n_nodes, F, n_bins1), dtype=torch.float32,
                        device=dev)
-    # float64 scratch of the global-atomics form (hist_global.cu)
-    acc = torch.zeros(hist.shape, dtype=torch.float64, device=dev)
+    form = -1 if grouped is None else int(grouped)
     args = (codes.data_ptr(), codes.element_size(), seg.data_ptr(),
             ghw.data_ptr(), rows, F, n_nodes, n_bins1, int(bf16))
     with torch.cuda.device(dev):
-        if shared is None:
-            rc = lib.h2o3_global_hist(*args, acc.data_ptr(), hist.data_ptr(),
+        # the grouped form's grouping and per-block partials, or the
+        # global-atomics form's float64 sums (hist_global.cu)
+        picked = ctypes.c_int(0)
+        nbytes = lib.h2o3_global_hist_workspace(
+            codes.element_size(), rows, F, n_nodes, n_bins1, form,
+            ctypes.byref(picked))
+        # -1: a forced grouped form that does not fit; its launch refuses
+        ws = _workspace(max(nbytes, 0), "global_hist", dev)
+        if grouped is None:
+            rc = lib.h2o3_global_hist(*args, ws.data_ptr(), hist.data_ptr(),
                                       _stream(dev))
         else:
-            rc = lib.h2o3_global_hist_form(*args, int(shared), acc.data_ptr(),
+            rc = lib.h2o3_global_hist_form(*args, form, ws.data_ptr(),
                                            hist.data_ptr(), _stream(dev))
     _raise_on(rc, "global_hist")
     LAUNCHES["global_hist"] += 1
@@ -438,17 +526,19 @@ def global_hist(codes: torch.Tensor, seg: torch.Tensor, ghw: torch.Tensor,
     ``histogram.build_histograms_plain``: codes [rows, F] uint8 or int32
     in [0, n_bins1), seg int32 [rows] (outside [0, n_nodes) = excluded),
     ghw float32 [3, rows]; returns hist [3, n_nodes, F, n_bins1]
-    float32. The kernel picks its form (shared partials or global
-    atomics) from the shapes."""
+    float32. The kernel picks its form from the shapes: node-grouped
+    shared partials wherever a (node, feature) cell fits shared memory,
+    global atomics beyond."""
     return _global_hist(codes, seg, ghw, n_nodes, n_bins1, bf16, None)
 
 
 def global_hist_form(codes: torch.Tensor, seg: torch.Tensor,
                      ghw: torch.Tensor, n_nodes: int, n_bins1: int,
                      bf16: bool, shared: bool) -> torch.Tensor:
-    """``global_hist`` with one form of the kernel forced: shared
-    partials (raises where no node x feature tiling fits) or global
-    atomics. For the tests and ``chip_smoke.py``'s measurement of both
-    forms; the training path calls ``global_hist``."""
+    """``global_hist`` with one form of the kernel forced: ``shared``
+    True, the node-grouped shared partials (raises where a cell does not
+    fit shared memory); False, global atomics. For the tests and
+    ``chip_smoke.py``'s timing of both forms; the training path calls
+    ``global_hist``."""
     return _global_hist(codes, seg, ghw, n_nodes, n_bins1, bf16,
                         bool(shared))

@@ -141,8 +141,8 @@ def _adaptive_inputs(rows, F, W, N, seed, int_ghw, layout, dev,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
-@pytest.mark.parametrize("W", [16, 32, 256])
-@pytest.mark.parametrize("N", [1, 8, 32])
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32])
 def test_adaptive_level_integer_mass_bit_equal(cuda, layout, W, N):
     x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
         50_000, 9, W, N, N + W, True, layout, cuda)
@@ -159,16 +159,18 @@ def test_adaptive_level_integer_mass_bit_equal(cuda, layout, W, N):
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_adaptive_level_float_mass_close(cuda, layout, bf16):
+@pytest.mark.parametrize("W,N", [(16, 1), (32, 8), (32, 32), (64, 2),
+                                 (128, 4), (256, 16)])
+def test_adaptive_level_float_mass_close(cuda, layout, bf16, W, N):
     x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
-        200_000, 28, 32, 8, 3, False, layout, cuda)
-    nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, 8, base,
-                                       32, bf16, layout)
+        200_000, 28, W, N, 3, False, layout, cuda)
+    nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, N, base,
+                                       W, bf16, layout)
     nid_p, hist_p = tha.adaptive_level_plain(x, n, g.double(), t, lo, inv,
-                                             n_prev, 8, base, 32, bf16,
+                                             n_prev, N, base, W, bf16,
                                              layout)
     _n, mass = tha.adaptive_level_plain(x, n, g.double().abs(), t, lo, inv,
-                                        n_prev, 8, base, 32, bf16, layout)
+                                        n_prev, N, base, W, bf16, layout)
     assert torch.equal(nid_k, nid_p)
     # float32 sums in any order are accurate relative to the bin's
     # absolute mass, not to a signed sum that may cancel
@@ -219,6 +221,55 @@ def test_adaptive_wrappers_check_their_operands(cuda):
                                     "rows_f")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_adaptive_level_atomics_ablation_close(cuda, bf16):
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        200_000, 28, 32, 8, 4, False, "rows_f", cuda)
+    nid_k, hist_k = kernels.adaptive_level_atomics(x, n, g, t, lo, inv,
+                                                   n_prev, 8, base, 32, bf16)
+    nid_p, hist_p = tha.adaptive_level_plain(x, n, g.double(), t, lo, inv,
+                                             n_prev, 8, base, 32, bf16)
+    _n, mass = tha.adaptive_level_plain(x, n, g.double().abs(), t, lo, inv,
+                                        n_prev, 8, base, 32, bf16)
+    assert torch.equal(nid_k, nid_p)
+    assert bool(((hist_k.double() - hist_p).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_grouped_adaptive_level_repeats_bit_for_bit(cuda, bf16):
+    """No float atomics in the grouped [rows, F] level: the same inputs
+    give the same bits every launch."""
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        300_000, 28, 32, 16, 6, False, "rows_f", cuda)
+    runs = [tha.adaptive_level(x, n, g, t, lo, inv, n_prev, 16, base, 32,
+                               bf16)[1] for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,G", [(100_000, 1), (300_000, 48),
+                                    (50_000, 4096), (0, 3), (1, 2)])
+def test_group_rows_matches_plain(cuda, rows, G):
+    from h2o3_tpu_torch.ops.common import group_rows_plain
+    rng = np.random.default_rng(rows + G)
+    keys = torch.as_tensor(rng.integers(-2, G + 2, rows).astype(np.int32),
+                           device=cuda)
+    ghw = torch.as_tensor(rng.normal(size=(3, rows)).astype(np.float32),
+                          device=cuda)
+    off_k, rec = kernels.group_rows(keys, G, ghw)
+    off_p, idx_p = group_rows_plain(keys, G)
+    assert torch.equal(off_k, off_p)
+    n = int(off_p[-1])
+    assert torch.equal(rec[:n, 0].view(torch.int32), idx_p[:n])
+    assert torch.equal(rec[:n, 1:].t(), ghw[:, idx_p[:n].long()])
+    _off, rec0 = kernels.group_rows(keys, G)          # no masses: zeros
+    assert torch.equal(rec0[:n, 0].view(torch.int32), idx_p[:n])
+    assert not rec0[:n, 1:].any()
+
+
 # ------------------------------------------------------------ global sketch
 
 
@@ -246,7 +297,7 @@ def _global_inputs(rows, F, B1, N, seed, int_ghw, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B1", [15, 257, 1025])
-@pytest.mark.parametrize("N", [1, 8, 16])
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32])
 def test_global_hist_integer_mass_bit_equal(cuda, B1, N):
     from h2o3_tpu_torch.ops import histogram as thist
     c, s, g = _global_inputs(50_000, 9, B1, N, B1 + N, True, cuda)
@@ -263,13 +314,14 @@ def test_global_hist_integer_mass_bit_equal(cuda, B1, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("B1", [15, 1025])
-def test_global_hist_float_mass_close(cuda, bf16, B1):
+@pytest.mark.parametrize("B1", [15, 257, 1025])
+@pytest.mark.parametrize("N", [1, 8, 16])
+def test_global_hist_float_mass_close(cuda, bf16, B1, N):
     from h2o3_tpu_torch.ops import histogram as thist
-    c, s, g = _global_inputs(200_000, 28, B1, 8, 3, False, cuda)
-    hk = kernels.global_hist(c, s, g, 8, B1, bf16)
-    hp = thist.build_histograms_plain(c, s, g.double(), 8, B1, bf16)
-    mass = thist.build_histograms_plain(c, s, g.double().abs(), 8, B1, bf16)
+    c, s, g = _global_inputs(200_000, 28, B1, N, 3, False, cuda)
+    hk = kernels.global_hist(c, s, g, N, B1, bf16)
+    hp = thist.build_histograms_plain(c, s, g.double(), N, B1, bf16)
+    mass = thist.build_histograms_plain(c, s, g.double().abs(), N, B1, bf16)
     # float32 sums in any order are accurate relative to the bin's
     # absolute mass, not to a signed sum that may cancel
     assert bool(((hk.double() - hp).abs() <= 1e-4 + 1e-5 * mass).all())
