@@ -11,18 +11,22 @@ adaptive_route_only in the [rows, F] and [F, rows] layouts), the
 unpacked global sketch (nbins 1024, kernel global_hist), and the packed
 and adaptive paths again with int8 fixed-point masses
 (``H2O3_HIST_I8=1``, set around those trains only; kernels
-binned_level_i8 and adaptive_level_i8). It also holds leaf_totals, which
-no path launches, against its plain version. Phases, each fatal on
-failure:
+binned_level_i8 and adaptive_level_i8), and, on the packed and global
+paths, the deepest level's per-leaf sums (segment_totals, the
+leaf-totals kernel without a route). It also holds leaf_totals with a
+route, which no path launches, against its plain version. Phases, each
+fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
    nvcc per source, in parallel); print each kernel's atomic and HMMA
    opcodes from its SASS and require HMMA and no shared float CAS loop
    (``ATOMS.CAST.SPIN``) in every tensor-core instance of the
-   node-grouped adaptive level;
+   node-grouped level (adaptive and packed), and no atomics at all in
+   the leaf-totals kernel and global_hist's node-grouped form;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
-   at W=16 (int8), W=32 (int8) and W=256 (int16), binned_route_only at
+   at W=16 (int8), W=32 (int8) and W=256 (int16), in the form the shapes
+   pick and in both forms forced (node-grouped, tiled), binned_route_only at
    N=64; adaptive_level at W in {16, 32, 64, 128, 256} and
    adaptive_route_only at N=64, both layouts, plus a case with NaN, ±inf
    and zero-span features; global_hist at B1 in {15 (uint8), 257, 1025
@@ -37,7 +41,8 @@ failure:
    N in {1, 8, 16}, NA codes / NaN features, 5% of the rows off the
    window: nid and histogram bit-equal to the plain version.
    leaf_totals at n_prev in {0, 32}, N in {1, 64}: nid bit-equal, totals
-   within the float tolerance against float64;
+   within the float tolerance against float64; segment_totals at N in
+   {1, 64, 512, 4096}, also five launches with the same bits;
 4. the main paths at full width: 10M x 28 HIGGS-shaped rows ->
    Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, 20 trees,
    min_rows 1, seed 7 -> training AUC -> predict; packed at nbins 14,
@@ -45,8 +50,9 @@ failure:
    ``quantiles_global`` (B1 = 1025, int32 codes). Each path runs with the
    launch counters set to 0 just before and read just after (6 x 20
    level launches and 20 route launches of its own kernels on the packed
-   and adaptive paths, 6 x 20 global_hist on the global path, 0 of any
-   other kernel); then packed_i8 and adaptive_i8 on the same frame
+   and adaptive paths, 6 x 20 global_hist on the global path, 20
+   segment_totals on the packed and global paths, 0 of any other kernel);
+   then packed_i8 and adaptive_i8 on the same frame
    (6 x 20 int8 level launches, 20 route launches, 0 float level
    launches), each AUC within 0.005 of its path's bf16 AUC of this run;
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
@@ -59,7 +65,13 @@ failure:
    <= 1e-4, and at one term (every level an integer sum) tree 0's
    splits equal; the number of identical trees is printed;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
-   N = 1..32; the node-grouped adaptive level at bf16 and float32, each
+   N = 1..32; the packed level at W = 16 node-grouped at bf16 and
+   float32 beside the tiled body forced, each level checked against its
+   plain version at 10M rows and launched five times with the same bits,
+   with one ``index_add_`` and the grouping pass alone at N = 32, and
+   both forms at W = 32, 64, 128 and 256; the node-grouped adaptive
+   level at bf16
+   and float32, each
    level checked against its plain version at 10M rows, beside its
    shared-atomics ablation and the [F, rows] tiled body; global_hist at
    the six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, each
@@ -68,15 +80,18 @@ failure:
    (global_hist also against one ``index_add_``); the
    int8 levels per level N = 1..32 at one term and N = 1..16 at two,
    beside the float level on the same inputs in the same run;
-   leaf_totals at n_prev = 32, N = 64; the global_hist record comes
+   leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64 beside
+   one ``index_add_``; the global_hist record comes
    last, after phase 7, whose warm global loop it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
    plain, three times, then 5 trees under torch.profiler: device time by
-   kernel, device busy share); adaptive trained three times at float32,
-   the first right after the allocator is filled with NaN, with every
-   pair required to pick the same splits (the float level sums in a
-   fixed order), then twice at 'auto', and adaptive_i8 twice at 'auto',
-   with the split features that differ.
+   kernel, device busy share); the packed, adaptive and global paths
+   each trained three times at float32, the first right after the
+   allocator is filled with NaN, then twice at 'auto', and packed_i8 and
+   adaptive_i8 twice at 'auto', with every pair of a path's trains
+   required to agree bit for bit in split features, split keys, NA
+   directions and leaf values (every float sum on these paths comes in a
+   fixed order).
 
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
@@ -102,6 +117,7 @@ SRC = {"binned_level": "h2o3_tpu_torch/csrc/hist_binned.cu",
        "adaptive_route_only": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "adaptive_level_i8": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "leaf_totals": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
+       "segment_totals": "h2o3_tpu_torch/csrc/hist_adaptive.cu",
        "global_hist": "h2o3_tpu_torch/csrc/hist_global.cu"}
 # the TPU kernel each replaces (adaptive_level: K8, the training layout's,
 # whose record times the node-grouped form); the adaptive kernels' layout
@@ -113,25 +129,29 @@ REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:930",
             "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:755",
             "adaptive_level_i8": "h2o3_tpu/ops/hist_adaptive.py:500",
             "leaf_totals": "h2o3_tpu/ops/hist_adaptive.py:365",
+            "segment_totals": "h2o3_tpu/ops/hist_adaptive.py:365",
             "global_hist": "h2o3_tpu/ops/hist_pallas.py:47"}
-ALSO_REPLACES = {"adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
+ALSO_REPLACES = {"binned_level": "h2o3_tpu/ops/hist_adaptive.py:1014",
+                 "adaptive_level": "h2o3_tpu/ops/hist_adaptive.py:641",
                  "adaptive_route_only": "h2o3_tpu/ops/hist_adaptive.py:787"}
 # the three GBM paths: their parameters and the kernels each launches
+# (level: 6 a tree; route and the deepest level's totals: one a tree)
 PATHS = {
     "packed": {"params": dict(nbins=14, histogram_type="quantiles_global"),
                "level": "binned_level", "route": "binned_route_only",
-               "split_key": "split_bin"},
+               "totals": "segment_totals", "split_key": "split_bin"},
     "adaptive": {"params": dict(nbins=20, packed_codes=False),
                  "level": "adaptive_level", "route": "adaptive_route_only",
                  "split_key": "thr"},
     "global": {"params": dict(nbins=1024, histogram_type="quantiles_global"),
                "level": "global_hist", "route": None,
-               "split_key": "split_bin"},
+               "totals": "segment_totals", "split_key": "split_bin"},
     # the packed and adaptive paths with H2O3_HIST_I8 (int8 fixed-point
     # masses, one term: every level of a depth-6 tree at bf16)
     "packed_i8": {"params": dict(nbins=14, histogram_type="quantiles_global"),
                   "level": "binned_level_i8", "route": "binned_route_only",
-                  "split_key": "split_bin", "i8": 1},
+                  "totals": "segment_totals", "split_key": "split_bin",
+                  "i8": 1},
     "adaptive_i8": {"params": dict(nbins=20, packed_codes=False),
                     "level": "adaptive_level_i8",
                     "route": "adaptive_route_only", "split_key": "thr",
@@ -257,14 +277,25 @@ def level_inputs(rows, F, W, N, int_ghw, seed, dev):
     return codes, nid, ghw, tables, n_prev, base
 
 
-def check_level(rows, F, W, N, int_ghw, bf16, dev, seed):
-    import torch
+def binned_form(form):
+    """The launch of one form of binned_level: "picked" (the training
+    path's wrapper: the kernel picks from the shapes, node-grouped up to
+    W = 128), "grouped" or "tiled" (forced)."""
     from h2o3_tpu_torch.ops import kernels
+    if form == "picked":
+        return kernels.binned_level
+    return lambda *a: kernels.binned_level_form(*a, form == "grouped")
+
+
+def check_level(rows, F, W, N, int_ghw, bf16, dev, seed, form="picked",
+                inp=None):
+    import torch
     from h2o3_tpu_torch.ops.hist_adaptive import binned_level_plain
-    codes, nid, ghw, tables, n_prev, base = level_inputs(
-        rows, F, W, N, int_ghw, seed, dev)
-    nk, hk = kernels.binned_level(codes, nid, ghw, tables, n_prev, N, base,
-                                  W, bf16)
+    if inp is None:
+        inp = level_inputs(rows, F, W, N, int_ghw, seed, dev)
+    codes, nid, ghw, tables, n_prev, base = inp
+    nk, hk = binned_form(form)(codes, nid, ghw, tables, n_prev, N, base, W,
+                               bf16)
     # integer masses: the float32 plain version is exact in any order.
     # Float masses: the plain version accumulates in float64, and a bin
     # passes when |kernel - plain| <= 1e-4 + 1e-5 * (the bin's absolute
@@ -275,19 +306,20 @@ def check_level(rows, F, W, N, int_ghw, bf16, dev, seed):
                                  ghw if int_ghw else ghw.double(), tables,
                                  n_prev, N, base, W, bf16)
     torch.cuda.synchronize()
+    name = f"binned_level {form} W={W} N={N}"
     if not torch.equal(nk, npl):
-        raise AssertionError(f"binned_level W={W} N={N}: nid differs in "
+        raise AssertionError(f"{name}: nid differs in "
                              f"{int((nk != npl).sum())} rows")
     err = float((hk.double() - hp.double()).abs().max())
     if int_ghw:
         if not torch.equal(hk, hp):
-            raise AssertionError(f"binned_level W={W} N={N} integer ghw: "
-                                 f"histogram not bit-equal (max {err})")
+            raise AssertionError(f"{name} integer ghw: histogram not "
+                                 f"bit-equal (max {err})")
     else:
         _n, mass = binned_level_plain(codes, nid, ghw.double().abs(),
                                       tables, n_prev, N, base, W, bf16)
-        mass_check(f"binned_level W={W} N={N}", hk, hp, mass)
-    return err, (codes, nid, ghw, tables, n_prev, base)
+        mass_check(name, hk, hp, mass)
+    return err, inp
 
 
 def check_route(rows, F, W, N, dev, seed):
@@ -305,7 +337,8 @@ def check_route(rows, F, W, N, dev, seed):
 
 
 def phase_kernels(dev, rows=1_000_000, F=28):
-    """Phase 3: every instance against its plain version at 1M rows."""
+    """Phase 3: every instance against its plain version at 1M rows; the
+    packed level in the form the shapes pick and in both forms forced."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
@@ -315,22 +348,25 @@ def phase_kernels(dev, rows=1_000_000, F=28):
     for W in (16, 32, 256):
         for N in (1, 8, 32):
             seed += 1
-            check_level(rows, F, W, N, True, False, dev, seed)
+            for form in ("grouped", "tiled"):
+                check_level(rows, F, W, N, True, False, dev, seed, form)
             err, inp = check_level(rows, F, W, N, False, False, dev,
                                    seed + 100)
             err16, _ = check_level(rows, F, W, N, False, True, dev,
                                    seed + 200)
             codes, nid, ghw, tables, n_prev, base = inp
-            ms = time_cuda(lambda: kernels.binned_level(
+            for form in ("grouped", "tiled"):
+                check_level(rows, F, W, N, False, False, dev, 0, form, inp)
+            ms = {form: time_cuda(lambda: binned_form(form)(
                 codes, nid, ghw, tables, n_prev, N, base, W, False), 20,
-                flush)
+                flush) for form in ("grouped", "tiled")}
             pms = time_cuda(lambda: binned_level_plain(
                 codes, nid, ghw, tables, n_prev, N, base, W, False), 3,
                 flush)
             bound, by = level_bound_ms(rows, F, codes.element_size(), N, W,
                                        rows)
-            print(f"binned_level {rows}x{F} W={W} N={N}: {ms:.6g} ms "
-                  f"(plain {pms:.6g} ms, bound {bound:.6g} ms by {by}) "
+            print(f"binned_level {rows}x{F} W={W} N={N}: {json.dumps(ms)} "
+                  f"ms (plain {pms:.6g} ms, bound {bound:.6g} ms by {by}) "
                   f"max abs err f32 {err:.3g} bf16 {err16:.3g}", flush=True)
             del inp
     _err, (codes, nid, tables, n_prev, base) = check_route(
@@ -697,16 +733,51 @@ def check_totals(rows, F, n_prev, N, dev, seed):
     return float((tk.double() - tp).abs().max()), (x, nid, ghw, tables, base)
 
 
+def segment_inputs(rows, N, seed, dev):
+    """nid over the N nodes of a level at base N - 1, 5% of the rows off
+    it, float (g, h, w)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = N - 1
+    nid = base + torch.randint(0, N, (rows,), generator=g, device=dev)
+    ghw = torch.stack([torch.randn(rows, generator=g, device=dev),
+                       torch.rand(rows, generator=g, device=dev) * 0.25,
+                       torch.ones(rows, device=dev)]).contiguous()
+    return off_window(nid, seed), ghw, base
+
+
+def check_segment(rows, N, dev, seed):
+    """segment_totals (the leaf-totals kernel without a route) against
+    its plain version: within 1e-4 + 1e-5 x each node's absolute mass of
+    the float64 plain version, and five launches with the same bits."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.common import segment_totals_plain
+    nid, ghw, base = segment_inputs(rows, N, seed, dev)
+    runs = [kernels.segment_totals(nid, ghw, N, base) for _ in range(5)]
+    tp = segment_totals_plain(nid, ghw.double(), N, base)
+    mass = segment_totals_plain(nid, ghw.double().abs(), N, base)
+    torch.cuda.synchronize()
+    if not all(torch.equal(runs[0], r) for r in runs[1:]):
+        raise AssertionError(f"segment_totals N={N}: five launches differ")
+    mass_check(f"segment_totals N={N}", runs[0], tp, mass)
+    return float((runs[0].double() - tp).abs().max()), (nid, ghw, base)
+
+
 def phase_totals_kernel(dev, rows=1_000_000, F=28):
-    """Phase 3, leaf_totals at n_prev in {0, 32}, N in {1, 64}."""
+    """Phase 3, leaf_totals at n_prev in {0, 32}, N in {1, 64}, and its
+    instance without a route, segment_totals, at N in {1, 64, 512,
+    4096}."""
     errs = {}
     for n_prev in (0, 32):
         for N in (1, 64):
             errs[f"n_prev={n_prev} N={N}"] = check_totals(
                 rows, F, n_prev, N, dev, 1200 + n_prev + N)[0]
+    for N in (1, 64, 512, 4096):
+        errs[f"segment N={N}"] = check_segment(rows, N, dev, 1250 + N)[0]
     print(f"leaf_totals at {rows}x{F}: nid bit-equal, totals within "
-          f"1e-4 + 1e-5 x mass of float64; max abs err {json.dumps(errs)}",
-          flush=True)
+          f"1e-4 + 1e-5 x mass of float64; segment_totals five launches "
+          f"bit-equal; max abs err {json.dumps(errs)}", flush=True)
 
 
 # ------------------------------------------------------- main path
@@ -785,8 +856,9 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     launches = dict(kernels.LAUNCHES)
     expected = {k: 0 for k in launches}
     expected[PATHS[path]["level"]] = depth * ntrees
-    if PATHS[path]["route"]:
-        expected[PATHS[path]["route"]] = ntrees
+    for one in ("route", "totals"):
+        if PATHS[path].get(one):
+            expected[PATHS[path][one]] = ntrees
     if launches != expected:
         raise AssertionError(f"{path} path launched {launches}, expected "
                              f"{expected}")
@@ -956,12 +1028,18 @@ def phase_i8_record(dev, launches, rows=10_000_000, F=28):
     return rec
 
 
-def phase_totals_record(dev, rows=10_000_000, F=28, n_prev=32, N=64):
+def phase_totals_record(dev, launches, rows=10_000_000, F=28, n_prev=32,
+                        N=64):
     """leaf_totals at 10M x 28 after a depth-6 tree's last split level
     (n_prev = 32, N = 64): time, plain version's time, bound (nid in and
-    out, ghw, the one x value a row the route reads). No path launches
-    it, in either package."""
+    out, ghw, the one x value a row the route reads); no path launches it
+    with a route, in either package. Its instance without a route,
+    segment_totals, at the packed and global paths' deepest level (10M
+    rows, N = 64): time, plain version's time, one ``index_add_`` over the
+    rows' node index (library_ms), bound (nid and ghw read once)."""
+    import torch
     from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.common import segment_totals_plain
     from h2o3_tpu_torch.ops.hist_adaptive import leaf_totals_plain
     err, (x, nid, ghw, tables, base) = check_totals(rows, F, n_prev, N, dev,
                                                    1500)
@@ -969,52 +1047,150 @@ def phase_totals_record(dev, rows=10_000_000, F=28, n_prev=32, N=64):
                                                base), 20)
     pms = time_cuda(lambda: leaf_totals_plain(x, nid, ghw, tables, n_prev, N,
                                               base), 3)
+    del x
     nbytes = rows * (4 + 4 + 12 + 4)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
     bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
     print(f"leaf_totals at 10M x 28, n_prev={n_prev} N={N}: {ms!r} ms, plain "
           f"{pms!r} ms, bound {bound!r} ms by {by}, max abs err {err!r}",
           flush=True)
-    return [{"name": "leaf_totals", "route": "cuda",
-             "source": SRC["leaf_totals"], "replaces": REPLACES["leaf_totals"],
-             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-             "bound_ms": bound, "bound_by": by, "library_ms": None}]
+    rec = [{"name": "leaf_totals", "route": "cuda",
+            "source": SRC["leaf_totals"], "replaces": REPLACES["leaf_totals"],
+            "launches": launches["leaf_totals"], "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}]
+    serr, (nid, ghw, base) = check_segment(rows, N, dev, 1501)
+    sms = time_cuda(lambda: kernels.segment_totals(nid, ghw, N, base), 20)
+    spms = time_cuda(lambda: segment_totals_plain(nid, ghw, N, base), 3)
+    lid = nid.long() - base
+    live = (lid >= 0) & (lid < N)
+    idx = torch.where(live, lid, 0)
+    vals = (ghw * live).t().contiguous()
+    out = torch.zeros((N, 3), device=dev)
+    lib_ms = time_cuda(lambda: out.index_add_(0, idx, vals), 20)
+    del lid, live, idx, vals, out
+    t_b, t_o = rows * (4 + 12) / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
+    sbound, sby = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
+                                        else "operations")
+    print(f"segment_totals at 10M rows, N={N}: {sms!r} ms, plain {spms!r} "
+          f"ms, index_add_ {lib_ms!r} ms, bound {sbound!r} ms by {sby}, max "
+          f"abs err {serr!r}; five launches bit-equal", flush=True)
+    rec.append({"name": "segment_totals", "route": "cuda",
+                "source": SRC["segment_totals"],
+                "replaces": REPLACES["segment_totals"],
+                "launches": launches["segment_totals"], "max_abs_err": serr,
+                "ms": sms, "plain_ms": spms, "bound_ms": sbound,
+                "bound_by": sby, "library_ms": lib_ms})
+    return rec
+
+
+def index_add_ms(codes, nid_out, ghw, N, base, W, reps=5):
+    """The library yardstick of a level's histogram: one ``index_add_`` of
+    the bf16-rounded masses of the rows in the level's window over their
+    flat (node, feature, code) index, index and values built before the
+    timing. The port never calls it."""
+    import torch
+    F = codes.shape[1]
+    lid = nid_out.long() - base
+    live = (lid >= 0) & (lid < N)
+    flat = ((lid[live][:, None] * F + torch.arange(F, device=codes.device))
+            * W + codes[live].long()).reshape(-1)
+    vals = (ghw.t()[live].to(torch.bfloat16).float()[:, None, :]
+            .expand(-1, F, 3).reshape(-1, 3).contiguous())
+    out = torch.zeros((N * F * W, 3), device=codes.device)
+    ms = time_cuda(lambda: out.index_add_(0, flat, vals), reps)
+    del flat, vals, out
+    return ms
 
 
 def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
-    """Each kernel at the main path's deepest shapes (10M x 28 int8,
-    W=16, bfloat16-rounded (g, h, w) as histogram_precision='auto' picks
-    at this size): median time, plain version's time, bound."""
+    """The packed kernels at the packed main path's shapes (10M x 28 int8
+    codes, W = 16, bfloat16-rounded (g, h, w) as histogram_precision=
+    'auto' picks at this size). binned_level per level N = 1..32: the
+    form the path takes (node-grouped) and the tiled body forced, at bf16,
+    and the grouped form at float32, each level checked against the plain
+    version at 10M rows (both precisions, both forms at bf16) and launched
+    five times with the same bits; at N = 32 the plain version's time,
+    the bound, one ``index_add_`` (library_ms) and the grouping pass
+    alone. The same per level at W = 32, 64, 128 (int8) and 256 (int16),
+    bf16, both forms: the grouped form's rule in csrc/hist_binned.cu
+    (takes_grouped) rests on these. The route at N = 64."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
                                                   binned_route_only_plain)
-    W, N = 16, 32
-    err, (codes, nid, ghw, tables, n_prev, base) = check_level(
-        rows, F, W, N, False, True, dev, 1234)
-    ms = time_cuda(lambda: kernels.binned_level(
-        codes, nid, ghw, tables, n_prev, N, base, W, True), 20)
-    pms = time_cuda(lambda: binned_level_plain(
-        codes, nid, ghw, tables, n_prev, N, base, W, True), 3)
-    bound, by = level_bound_ms(rows, F, 1, N, W, rows)
-    per_level = {}
-    for n_lvl in (1, 2, 4, 8, 16):
-        _e, (c2, n2, g2, t2, p2, b2) = check_level(
-            rows, F, W, n_lvl, False, True, dev, 99 + n_lvl)
-        per_level[n_lvl] = time_cuda(lambda: kernels.binned_level(
-            c2, n2, g2, t2, p2, n_lvl, b2, W, True), 10)
-        del c2, n2, g2, t2
-    per_level[N] = ms
-    print(f"binned_level at 10M x 28, W=16, per level N: "
-          f"{json.dumps(per_level)} ms; sum per tree "
-          f"{sum(per_level.values())!r} ms", flush=True)
+    N = 32
+    sums, errs, by_w = {}, {}, {}
+    for W in (16, 32, 64, 128, 256):
+        per = {"grouped_bf16": {}, "tiled_bf16": {}}
+        if W == 16:
+            per["grouped_f32"] = {}
+        for n_lvl in (1, 2, 4, 8, 16, 32):
+            seed = 1234 + 7 * W + n_lvl
+            e, inp = check_level(rows, F, W, n_lvl, False, True, dev, seed,
+                                 "grouped")
+            errs[f"W={W} bf16 N={n_lvl}"] = e
+            check_level(rows, F, W, n_lvl, False, True, dev, 0, "tiled", inp)
+            codes, nid, ghw, tables, n_prev, base = inp
+            for form in ("grouped", "tiled"):
+                per[f"{form}_bf16"][n_lvl] = time_cuda(
+                    lambda: binned_form(form)(codes, nid, ghw, tables,
+                                              n_prev, n_lvl, base, W, True),
+                    10)
+            if W == 16:
+                e32, _ = check_level(rows, F, W, n_lvl, False, False, dev, 0,
+                                     "grouped", inp)
+                errs[f"W=16 f32 N={n_lvl}"] = e32
+                per["grouped_f32"][n_lvl] = time_cuda(
+                    lambda: binned_form("grouped")(
+                        codes, nid, ghw, tables, n_prev, n_lvl, base, W,
+                        False), 10)
+                outs = [binned_form("grouped")(codes, nid, ghw, tables,
+                                               n_prev, n_lvl, base, W, True)
+                        for _ in range(5)]
+                if not all(torch.equal(outs[0][1], o[1]) for o in outs[1:]):
+                    raise AssertionError(f"binned_level grouped N={n_lvl}: "
+                                         f"five launches differ")
+                if n_lvl == N:
+                    ms, err = per["grouped_bf16"][N], e
+                    pms = time_cuda(lambda: binned_level_plain(
+                        codes, nid, ghw, tables, n_prev, N, base, W, True),
+                        3)
+                    lib_ms = index_add_ms(codes, outs[0][0], ghw, N, base,
+                                          W)
+                    lp = nid.long() - (base - n_prev)
+                    keys = torch.where(
+                        tables[3][lp.clamp(0, n_prev - 1)] != 0, lp,
+                        -1).to(torch.int32)
+                    group_ms = time_cuda(lambda: kernels.group_rows(
+                        keys, n_prev + N, ghw), 10)
+                    del lp, keys
+                del outs
+            del inp, codes, nid, ghw
+        sums[W] = {k: sum(v.values()) for k, v in per.items()}
+        by_w[W] = per
+        dtype = "int8" if W <= 128 else "int16"
+        print(f"binned_level at 10M x 28, W={W} ({dtype} codes), "
+              f"per level N (grouped: the node-grouped tensor-core form; "
+              f"tiled: the tiled body forced): {json.dumps(per)} ms; sum per "
+              f"tree {json.dumps(sums[W])} ms", flush=True)
+    bound, by = level_bound_ms(rows, F, 1, N, 16, rows)
+    print(f"binned_level W=16 N={N}: {ms!r} ms, plain {pms!r} ms, "
+          f"index_add_ {lib_ms!r} ms, grouping pass alone {group_ms!r} ms, "
+          f"bound {bound!r} ms by {by}; five launches bit-equal at every "
+          f"level; max abs err vs plain {json.dumps(errs)}", flush=True)
     rec = [{"name": "binned_level", "route": "cuda",
             "source": SRC["binned_level"],
             "replaces": REPLACES["binned_level"],
+            "also_replaces": ALSO_REPLACES["binned_level"],
             "launches": launches["binned_level"], "max_abs_err": err,
-            "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}]
-    del codes, nid, ghw, tables
+            "ms": ms, "ms_tree": sums[16]["grouped_bf16"],
+            "ms_tree_tiled": sums[16]["tiled_bf16"],
+            "ms_tree_f32": sums[16]["grouped_f32"],
+            "ms_tree_by_w": {w: v for w, v in sums.items() if w != 16},
+            "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}]
+    W = 16
     _e, (codes, nid, tables, n_prev, base) = check_route(
         rows, F, W, 2 * N, dev, 4321)
     ms = time_cuda(lambda: kernels.binned_route_only(
@@ -1249,40 +1425,54 @@ def poison_allocator(dev, gib=8):
     del t
 
 
+def tree_diffs(a, b, split_key):
+    """Entries of two models' trees that differ, per key: split feature,
+    split key, NA direction and leaf value (bit for bit)."""
+    out = {}
+    for key in ("feat", split_key, "na_left", "value"):
+        x, y = np.asarray(a[key]), np.asarray(b[key])
+        if key == "value":
+            x, y = x.view(np.uint32), y.view(np.uint32)
+        out[key] = int((x != y).sum())
+    return out
+
+
+def check_repeats(runs, path, what):
+    """Every pair of ``runs`` (models of one path) must agree bit for bit
+    in every tree's splits and leaf values."""
+    key = PATHS[path]["split_key"]
+    pairs = {f"{i}-{j}": tree_diffs(runs[i].trees, runs[j].trees, key)
+             for i in range(len(runs)) for j in range(i + 1, len(runs))}
+    aucs = [r.training_metrics.auc for r in runs]
+    print(f"repeatability {path}, {what}: entries that differ "
+          f"{json.dumps(pairs)}, AUC {aucs!r}", flush=True)
+    bad = {p: d for p, d in pairs.items() if any(d.values())}
+    if bad:
+        raise AssertionError(f"{path} {what}: trains differ {bad}")
+
+
 def phase_repeatability(fr, path, dev):
     """The same train three times at float32 histograms in one process,
-    the first right after the allocator is filled with NaN: the float
-    [rows, F] level sums in a fixed order (no float atomics), so every
-    pair must agree in every split. Then the same path twice at 'auto'
-    (bf16 masses), recorded, not checked."""
+    the first right after the allocator is filled with NaN, then twice at
+    'auto' (bf16 masses): every float sum on the path comes in a fixed
+    order (no float atomics), so every pair must agree bit for bit in
+    every tree's splits and leaf values."""
     poison_allocator(dev)
     runs = [train(fr, 20, path, histogram_precision="float32")
             for _ in range(3)]
-    pairs = {f"{i}-{j}": split_flips(runs[i].trees, runs[j].trees)
-             for i, j in ((0, 1), (0, 2), (1, 2))}
-    aucs = [r.training_metrics.auc for r in runs]
-    print(f"repeatability {path}, float32 x3 (first after NaN-filling the "
-          f"allocator): {json.dumps(pairs)}, AUC {aucs!r}", flush=True)
-    for i, j in ((0, 1), (0, 2), (1, 2)):
-        for key in ("feat", PATHS[path]["split_key"], "na_left"):
-            if not np.array_equal(runs[i].trees[key], runs[j].trees[key]):
-                raise AssertionError(f"{path} float32 trains {i} and {j} "
-                                     f"differ in {key}: {pairs}")
+    check_repeats(runs, path, "float32 x3 (first after NaN-filling the "
+                              "allocator)")
     runs = [train(fr, 20, path) for _ in range(2)]
-    print(f"repeatability {path}, 'auto' (bf16) x2: "
-          f"{split_flips(runs[0].trees, runs[1].trees)}, AUC "
-          f"{runs[0].training_metrics.auc!r} vs "
-          f"{runs[1].training_metrics.auc!r}", flush=True)
+    check_repeats(runs, path, "'auto' (bf16) x2")
 
 
 def phase_repeatability_i8(fr):
-    """The adaptive path with H2O3_HIST_I8=1 trained twice at 'auto'
-    (bf16, every level an integer sum): how far the runs differ."""
-    runs = [train(fr, 20, "adaptive_i8") for _ in range(2)]
-    print(f"repeatability adaptive_i8, H2O3_HIST_I8=1 at 'auto' x2: "
-          f"{split_flips(runs[0].trees, runs[1].trees)}, AUC "
-          f"{runs[0].training_metrics.auc!r} vs "
-          f"{runs[1].training_metrics.auc!r}", flush=True)
+    """The packed and adaptive paths with H2O3_HIST_I8=1 trained twice at
+    'auto' (bf16, every level an integer sum): they must agree bit for
+    bit."""
+    for path in ("packed_i8", "adaptive_i8"):
+        runs = [train(fr, 20, path) for _ in range(2)]
+        check_repeats(runs, path, "H2O3_HIST_I8=1 at 'auto' x2")
 
 
 def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
@@ -1362,20 +1552,37 @@ def sass_atomics(lib_path):
 
 
 def check_sass(by_fn):
-    """The node-grouped float level's tensor-core instances (template
-    flag kMma, mangled ``Lb1E``): every one has HMMA and no shared float
-    CAS loop in its accumulation."""
-    mma = {n: c for n, c in by_fn.items()
-           if "adaptive_level_grouped_kernel" in n and "Lb1E" in n}
-    if not mma:
-        raise AssertionError("SASS: no tensor-core adaptive_level instance")
-    for name, counts in mma.items():
-        hmma = sum(v for k, v in counts.items() if k.startswith("HMMA"))
-        if hmma == 0 or "ATOMS.CAST.SPIN" in counts:
-            raise AssertionError(f"SASS of {name}: {counts}")
-    print(f"SASS check: {len(mma)} tensor-core adaptive_level instances, "
-          f"HMMA per instance {[sum(v for k, v in c.items() if k.startswith('HMMA')) for c in mma.values()]}, "
-          f"no ATOMS.CAST.SPIN", flush=True)
+    """The SASS of the kernels whose float sums must come in a fixed order:
+    every tensor-core instance of the node-grouped level (template flag
+    kMma, mangled ``Lb1E``), the adaptive level's (AdaptiveBins) and the
+    packed level's (CodeBins), has HMMA and no shared float CAS loop
+    (``ATOMS.CAST.SPIN``); the leaf-totals kernel (with and without a
+    route) and global_hist's node-grouped form have no atomics at all."""
+    def hmma(counts):
+        return sum(v for k, v in counts.items() if k.startswith("HMMA"))
+    per_src = {}
+    for src in ("AdaptiveBins", "CodeBins"):
+        mma = {n: c for n, c in by_fn.items()
+               if "level_grouped_kernel" in n and src in n and "Lb1E" in n}
+        if not mma:
+            raise AssertionError(f"SASS: no tensor-core {src} instance")
+        for name, counts in mma.items():
+            if hmma(counts) == 0 or "ATOMS.CAST.SPIN" in counts:
+                raise AssertionError(f"SASS of {name}: {counts}")
+        per_src[src] = [hmma(c) for c in mma.values()]
+    ordered = {n: c for n, c in by_fn.items()
+               if "leaf_totals_kernel" in n
+               or "global_hist_grouped_kernel" in n}
+    if len(ordered) < 4:
+        raise AssertionError(f"SASS: leaf_totals / global_hist grouped "
+                             f"instances missing: {sorted(ordered)}")
+    for name, counts in ordered.items():
+        if counts:
+            raise AssertionError(f"SASS of {name}: atomics {counts}")
+    print(f"SASS check: tensor-core grouped level instances, HMMA per "
+          f"instance {json.dumps(per_src)}, no ATOMS.CAST.SPIN; "
+          f"{len(ordered)} leaf_totals / global_hist grouped instances "
+          f"without atomics", flush=True)
 
 
 class PhaseClock:
@@ -1474,7 +1681,9 @@ def main() -> int:
     rec += phase_i8_record(dev, {
         "binned_level_i8": packed_i8["launches"]["binned_level_i8"],
         "adaptive_level_i8": adaptive_i8["launches"]["adaptive_level_i8"]})
-    rec += phase_totals_record(dev)
+    rec += phase_totals_record(dev, {
+        "leaf_totals": packed["launches"]["leaf_totals"],
+        "segment_totals": packed["launches"]["segment_totals"]})
     clock.lap("6 int8 + totals record")
 
     # 7. where the time goes: a warm, profiled retrain of each main path
@@ -1486,20 +1695,23 @@ def main() -> int:
     clock.lap("7 packed_i8 + adaptive_i8 profile")
     warm_s = phase_warm_profile(fr, card, "global", glob["trees"])
     clock.lap("7 global profile")
-    phase_repeatability(fr, "adaptive", dev)
+    for path in ("packed", "adaptive", "global"):
+        phase_repeatability(fr, path, dev)
     phase_repeatability_i8(fr)
     del fr
     clock.lap("7 repeatability")
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
-    print("kernels run: binned_level[W=16,32,256] binned_route_only "
+    print("kernels run: binned_level[W=16,32,64,128,256 x node-grouped, "
+          "tiled; W=16 node-grouped: bf16, float32] binned_route_only "
           "binned_level_i8[W=16,32,256 x terms=1,2] "
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
           "node-grouped: bf16, float32, shared-atomics ablation] "
           "adaptive_route_only[rows_f,f_rows] "
           "adaptive_level_i8[rows_f,f_rows x W=16,32,256 x terms=1,2] "
           "leaf_totals[n_prev=0,32 x N=1,64] "
+          "segment_totals[N=1,64,512,4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
           "atomics] group_rows[alone]", flush=True)
     print(card, flush=True)

@@ -10,21 +10,13 @@
 // node's range, b = floor(clip((x - lo) * inv, 0, W-2)) with NaN in lane
 // W-1, and adds its (g, h, w) into the (node, feature, bin) cell.
 //
-// K8 with float masses is node-grouped: the grouping pass of
-// level_common.cuh writes the rows of each parent (in the previous window,
-// can > 0.5) into one contiguous, stably ordered list of {row, g, h, w}
-// records, and a block owns a span of one parent's records, both children
-// and all F features, so its partial ([3][2][F][W]) needs no node or
-// feature tiles and no row is read by two blocks. The histogram is the TPU
-// kernel's one-hot contraction made narrow by the grouping: per 16 rows,
-// (bin one-hot, 16 bins x 16 rows) x (16 rows x (g, h, w) of each child),
-// with mma.sync m16n8k16 bf16 -> f32 on the tensor cores. The products are
-// exact: at bf16 every mass is a bf16 value; at float32 each mass is split
-// into three bf16 terms as the JAX package's _split3_bf16 does (hi, then
-// the residuals pre-scaled by 2^8 and 2^16) and the three sums are
-// recombined as its _unsplit3 does. Each block writes its partial into its
-// own slot and a second pass adds the slots in a fixed order: there are no
-// float atomics in the level, so the same inputs give the same bits.
+// K8 with float masses is node-grouped, on the body it shares with the
+// packed-code level (level_grouped.cuh): rows grouped by parent, a block
+// per span of one parent's rows with both children and all F features,
+// one-hot products on the tensor cores (mma.sync m16n8k16 bf16 -> f32;
+// three bf16 terms at float32), the blocks' partials merged in slot order.
+// Here its bin source re-bins raw x under the child's range
+// (AdaptiveBins). No float atomics: the same inputs give the same bits.
 // This replaced (an earlier port of K8) a scatter into per-block shared
 // partials with shared float atomics, a compare-and-swap loop on Hopper,
 // three a (row, feature), over node x feature tiles that each re-read
@@ -47,15 +39,19 @@
 //
 // leaf_totals replaces _totals_kernel (K10): route one level of x
 // [rows, F] (none when n_prev is 0), then sum float32 (g, h, w) per node
-// of the window into totals [3, n_nodes]. No grower calls it, in either
-// package. What bounds it: memory, rows * 24 bytes (nid in and out, ghw,
-// one x value a row); 3 adds a row. Design: one thread per row; each warp
-// sums the lanes of each node with 32 shuffles (the same lane order for
-// every key) and its lowest lane of the node adds the sums into the
-// block's [3, n_nodes] shared totals; each block then adds its nonzero
-// totals into the output with global float atomics. Float sums in another
-// order than the plain version's: held within 1e-4 + 1e-5 x |mass| of a
-// float64 plain version, as the other float checks are.
+// of the window into totals [3, n_nodes]. As in the JAX package, no grower
+// calls it with a route; its n_prev = 0 instance, segment_totals, sums the
+// deepest level of the packed and global-sketch growers (their
+// _segment_totals). What bounds it: memory, rows * 24 bytes (nid in and
+// out, ghw, one x value a row; rows * 16 without the route); 3 adds a row.
+// Design: one thread per row; each warp sums the lanes of each node with
+// 32 shuffles (the same lane order for every key), and the node's lowest
+// lane adds the sums into the warp's own shared totals; the block adds
+// its warps' totals in warp order into its own slot, and a second pass
+// adds the slots in block order. No float atomics: the same inputs give
+// the same bits. Float sums in another order than the plain version's:
+// held within 1e-4 + 1e-5 x |mass| of a float64 plain version, as the
+// other float checks are.
 //
 // Routing rule (both kernels, and the plain versions in
 // ops/hist_adaptive.py): tables are float32 [4, n_prev] (feat, thr,
@@ -78,10 +74,7 @@
 // products (2 * 16 * W * 8 per 16 rows and feature, 2 * W * F * 16 per
 // row at bf16, three times that at float32) far below the 989 TFLOP/s
 // bf16 rate. What bounds the grouped form in practice is instruction
-// issue: the bins (one per row and feature), the one-hot fragments (one
-// bf16x2 compare per two elements) and one barrier a 64-row chunk; the
-// staging of the next chunk (records, split values, x) is prefetched
-// into registers while the current chunk's products run.
+// issue (level_grouped.cuh).
 // adaptive_route_only moves rows * 12 bytes; adaptive_level_i8 reads
 // 3 * terms in place of 12 bytes of mass a row. The tiled body (K5, and
 // K7's integer instances), as binned_level's in hist_binned.cu: a block
@@ -99,7 +92,7 @@
 
 #include <math.h>
 
-#include "level_common.cuh"
+#include "level_grouped.cuh"
 
 namespace {
 
@@ -234,523 +227,41 @@ adaptive_level_kernel(const float* __restrict__ x,
 
 // ------------------------------------------- the node-grouped float level
 //
-// The float [rows, F] level (K8): rows grouped by parent (ParentKey), then
-// one block per span of a group's rows, then a merge of the blocks'
-// partials in a fixed order (level_common.cuh).
+// The float [rows, F] level (K8) on the grouped body of level_grouped.cuh,
+// its bins from raw x under the child's range.
 
-constexpr int kGrpThreads = 512;
-constexpr int kGrpWarps = kGrpThreads / 32;
-constexpr int kChunk = 64;                  // rows staged at a time
-constexpr int kSteps = kChunk / 16;         // mma k-steps a chunk
-constexpr int kBinStride = kChunk + 2;      // bf16 bins a feature: 33 words
-constexpr int kStageBufs = 3;               // row ids, slots, masses
-constexpr int kXPer = 4;                    // x values a thread prefetches
-// largest F the grouped level takes (its bins, ranges and row ids)
-constexpr int kMaxGroupedF = 512;
-
-// The grouping key of a row of the level: its parent's index in the
-// previous window when it is routed (can > 0.5); a row that keeps its node
-// id and lies in the level's window (level 0: the root) n_prev + its
-// level-local node; any other row is left out. Rows that are not routed
-// keep their node id (tag writes it); the histogram kernel routes the
-// others and writes theirs.
-struct ParentKey {
-  const int* __restrict__ nid;
+// K8's bin source: raw float32 x [rows, F] (NaN = NA), re-binned under the
+// child's (lo, inv); float32 split tables (feat, thr, na_left, can).
+template <int W>
+struct AdaptiveBins {
+  static constexpr int kW = W;
+  static constexpr bool kRanges = true;
+  using Val = float;
+  const float* __restrict__ x;
   const float* __restrict__ tables;
-  int n_prev, prev_base, level_base, n_nodes;
-  int* __restrict__ nid_out;
-  __device__ __forceinline__ int operator()(int64_t r) const {
-    const int id = nid[r];
-    const int lp = id - prev_base;
-    if (n_prev > 0 && lp >= 0 && lp < n_prev &&
-        __ldg(tables + 3 * n_prev + lp) > 0.5f)
-      return lp;
-    const int ln = id - level_base;
-    return (ln >= 0 && ln < n_nodes) ? n_prev + ln : -1;
+  const float* __restrict__ lo;
+  const float* __restrict__ inv;
+  __device__ __forceinline__ float load(int64_t r, int f, int F) const {
+    return x[r * F + f];
   }
-  __device__ __forceinline__ int tag(int64_t r, int k) const {
-    if (k < 0 || k >= n_prev) nid_out[r] = nid[r];
-    return static_cast<int>(r);
+  __device__ __forceinline__ bool can(int lp, int n_prev) const {
+    return __ldg(tables + 3 * n_prev + lp) > 0.5f;
   }
-};
-
-// Two bf16-valued floats as one bf16x2 register (exact: their low 16 bits
-// are zero), lo in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
-}
-
-// The bf16 one-hot of two bins against one lane's bin: each half of pair
-// and mm a bf16 integer; a half becomes bf16 1.0 where they are equal,
-// else 0 (one native bf16x2 compare on sm_90).
-__device__ __forceinline__ unsigned onehot2(unsigned pair, unsigned mm) {
-  unsigned d;
-  asm("set.eq.bf16x2.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(pair), "r"(mm));
-  return d;
-}
-
-// d += a (16 x 16 bf16, row-major fragment) x b (16 x 8 bf16, col-major
-// fragment), float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The exact three-term bf16 split of a float32 (the JAX package's
-// _split3_bf16): t == hi + (mid / 2^8 + lo / 2^16), each term bf16-valued,
-// the residuals pre-scaled so that they stay normal.
-__device__ __forceinline__ void split3(float t, float* hi, float* mid,
-                                       float* lo) {
-  *hi = h2o3::round_bf16(t);
-  const float r1 = __fmul_rn(__fsub_rn(t, *hi), 256.f);
-  *mid = h2o3::round_bf16(r1);
-  *lo = __fmul_rn(__fsub_rn(r1, *mid), 256.f);
-}
-
-template <int NT, bool kMma>
-struct GroupedShape {
-  // (feature, m-tile) units a warp accumulates in registers in one pass
-  static constexpr int kUnits = kMma ? 4 : 1;
-  // B fragments of a chunk, lane order: [kSteps][NT][32 lanes][2] words
-  static constexpr int kFragWords = kMma ? kSteps * NT * 64 : 0;
-  // masses of a chunk for the ablation's atomics: [3][kChunk]
-  static constexpr int kMassWords = kMma ? 0 : 3 * kChunk;
-};
-
-inline size_t grouped_smem(int F, int W, int NT, bool mma) {
-  const int words = mma ? kSteps * NT * 64 : 3 * kChunk;
-  size_t b = 2 * sizeof(uint16_t) * static_cast<size_t>(F) * kBinStride +
-             sizeof(unsigned) * kStageBufs * words +
-             2 * sizeof(int) * kStageBufs * kChunk +
-             4 * sizeof(float) * static_cast<size_t>(F);
-  if (!mma) b += sizeof(float) * 6 * static_cast<size_t>(F) * (W + 1);
-  return b;
-}
-
-// One block: the span of group k's records that block b owns (k from
-// bstart), both children of the parent (parent mode) or the one node
-// (direct mode), every feature; blockIdx.y picks the pass, a share of the
-// (feature, m-tile) units when they outgrow the registers. A chunk of 64
-// records goes through three steps, pipelined over the chunks with one
-// barrier a chunk:
-// (1) stage (64 threads, a record each, prefetched two chunks ahead and
-//     routed by the value of the split feature, prefetched one ahead):
-//     row id and slot (the child's side) into shared memory, and the
-//     masses (bf16-rounded, or three bf16 terms at float32) straight into
-//     the B fragments of the chunk, in lane order (three buffers);
-// (2) bins: every (row, feature) once under the child's (lo, inv), as a
-//     bf16 integer (two buffers); the x values are loaded into registers
-//     while the previous chunk's products run;
-// (3) kMma: each warp adds its units' one-hot products with mma.sync
-//     m16n8k16 (A: the bin one-hot, 16 bins x 16 rows, built in registers
-//     with bf16x2 compares; B: 16 rows x 8 columns, (g, h, w) of slot 0
-//     and of slot 1, two columns empty; one B per term), the chunk's four
-//     k-steps chained in the tensor core, then added into float32
-//     registers; else (the ablation): shared float atomics into a
-//     [3][2][F][W + 1] partial.
-// The block writes its partial, [3][2][F][W], into its own slot of part.
-template <int W, int NT, bool kMma>
-__global__ void __launch_bounds__(kGrpThreads, NT == 1 ? 2 : 1)
-adaptive_level_grouped_kernel(
-    const float* __restrict__ x, const float* __restrict__ tables,
-    const float* __restrict__ lo, const float* __restrict__ inv,
-    const float4* __restrict__ rec, const int* __restrict__ offsets,
-    const int* __restrict__ bstart, int G, int64_t span, int F, int n_prev,
-    int n_nodes, int level_base, int bf16, int* __restrict__ nid_out,
-    float* __restrict__ part) {
-  using Shape = GroupedShape<NT, kMma>;
-  constexpr int MT = W / 16;
-  constexpr int U = Shape::kUnits;
-  constexpr int kWords = kMma ? Shape::kFragWords : Shape::kMassWords;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x;
-  if (b >= __ldg(bstart + G)) return;
-  const int k = h2o3::span_group(bstart, G, b);
-  const int64_t i0 = __ldg(offsets + k) +
-                     static_cast<int64_t>(b - __ldg(bstart + k)) * span;
-  const int64_t i1 = h2o3::imin64(__ldg(offsets + k + 1), i0 + span);
-  const bool parent = k < n_prev;
-  const int pid = level_base - n_prev + k;  // the parent's node id
-  // level-local node of slot 0: the left child, or the node itself
-  const int c0 = parent ? 2 * pid + 1 - level_base : k - n_prev;
-
-  uint16_t* s_bin = reinterpret_cast<uint16_t*>(smem_raw);  // [2][F][stride]
-  unsigned* s_w = reinterpret_cast<unsigned*>(s_bin + 2 * F * kBinStride);
-  int* s_slot = reinterpret_cast<int*>(s_w + kStageBufs * kWords);
-  int* s_r = s_slot + kStageBufs * kChunk;               // [3][kChunk]
-  float* s_lo = reinterpret_cast<float*>(s_r + kStageBufs * kChunk);
-  float* s_inv = s_lo + 2 * F;                           // [2][F]
-  float* s_hist = s_inv + 2 * F;  // ablation: [3][2][F][W + 1]
-  const int hplane = 2 * F * (W + 1);
-  const int nbin = kChunk * F;
-
-  for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) {
-    const int s = i / F, f = i - s * F;
-    const int node = c0 + s;
-    const bool ok = (parent || s == 0) && node >= 0 && node < n_nodes;
-    const int64_t o = static_cast<int64_t>(ok ? node : 0) * F + f;
-    s_lo[i] = ok ? lo[o] : 0.f;
-    s_inv[i] = ok ? inv[o] : 0.f;
+  __device__ __forceinline__ void split(int k, int n_prev, int F, int* feat,
+                                        float* thr, int* na_right) const {
+    const int f = static_cast<int>(__ldg(tables + k));
+    *feat = f < 0 ? 0 : (f >= F ? F - 1 : f);
+    *thr = __ldg(tables + n_prev + k);
+    *na_right = __ldg(tables + 2 * n_prev + k) < 0.5f;
   }
-  if (!kMma)
-    for (int i = threadIdx.x; i < 3 * hplane; i += blockDim.x) s_hist[i] = 0.f;
-  int feat = 0;
-  float thr = 0.f;
-  int na_right = 0;
-  if (parent) {
-    feat = static_cast<int>(__ldg(tables + k));
-    feat = feat < 0 ? 0 : (feat >= F ? F - 1 : feat);
-    thr = __ldg(tables + n_prev + k);
-    na_right = __ldg(tables + 2 * n_prev + k) < 0.5f;
+  __device__ __forceinline__ int right(float v, float thr,
+                                       int na_right) const {
+    return isnan(v) ? na_right : (v >= thr);
   }
-
-  // (1) the record of row t of chunk c (t = threadIdx.x < kChunk), its
-  // split value v, into stage buffer sb
-  auto stage = [&](int64_t c, int sb, const float4& q, float v) {
-    const int t = threadIdx.x;
-    int slot = -1, r = 0;
-    float m[3] = {0.f, 0.f, 0.f};
-    if (c + t < i1) {
-      r = __float_as_int(q.x);
-      int side = 0;
-      if (parent) {
-        side = isnan(v) ? na_right : (v >= thr);
-        if (blockIdx.y == 0) nid_out[r] = 2 * pid + 1 + side;
-      }
-      slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
-      m[0] = q.y;
-      m[1] = q.z;
-      m[2] = q.w;
-    }
-    s_slot[sb * kChunk + t] = slot;
-    s_r[sb * kChunk + t] = r;
-    unsigned* w = s_w + sb * kWords;
-    if constexpr (kMma) {
-      // row t is B row kk of k-step ks: lane (column n, t4), register
-      // kk / 8, half kk % 2
-      const int ks = t >> 4, kk = t & 15;
-      const int t4 = (kk & 7) >> 1, reg = kk >> 3, half = kk & 1;
-      uint16_t* w16 = reinterpret_cast<uint16_t*>(w);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float term[3];
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          if constexpr (NT == 3) {
-            float hi, mid, lw;
-            split3(m[p], &hi, &mid, &lw);
-            term[p] = n == 0 ? hi : (n == 1 ? mid : lw);
-          } else {
-            term[p] = h2o3::round_bf16(m[p]);
-          }
-        }
-#pragma unroll
-        for (int col = 0; col < 8; ++col) {
-          const float val =
-              col < 6 && slot == col / 3 ? term[col % 3] : 0.f;
-          const int word = ((ks * NT + n) * 32 + col * 4 + t4) * 2 + reg;
-          w16[word * 2 + half] =
-              static_cast<uint16_t>(__float_as_uint(val) >> 16);
-        }
-      }
-    } else {
-      float* sm = reinterpret_cast<float*>(w);
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-        sm[p * kChunk + t] = bf16 ? h2o3::round_bf16(m[p]) : m[p];
-    }
-  };
-  // this thread's (row, feature)s of a chunk, as row * 1024 + feature
-  int rf[kXPer];
-#pragma unroll
-  for (int q = 0; q < kXPer; ++q) {
-    const int j = threadIdx.x + q * kGrpThreads;
-    rf[q] = j < nbin ? (j / F) * 1024 + (j % F) : -1;
-  }
-  // their x values
-  float xv[kXPer];
-  auto load_x = [&](int sb) {
-#pragma unroll
-    for (int q = 0; q < kXPer; ++q) {
-      xv[q] = 0.f;
-      if (rf[q] >= 0) {
-        const int row = rf[q] >> 10;
-        if (s_slot[sb * kChunk + row] >= 0)
-          xv[q] = x[static_cast<int64_t>(s_r[sb * kChunk + row]) * F +
-                    (rf[q] & 1023)];
-      }
-    }
-  };
-  // (2) bins of stage buffer sb into bin buffer bb, each as a bf16
-  // integer (exact: bins < 256); x from xv, past it from memory
-  auto bins = [&](int sb, int bb) {
-    uint16_t* sbin = s_bin + bb * F * kBinStride;
-    auto put = [&](int row, int f, float v) {
-      const int slot = s_slot[sb * kChunk + row];
-      const int bin = slot >= 0 ? adaptive_bin<W>(v, s_lo[slot * F + f],
-                                                  s_inv[slot * F + f])
-                                : 0;
-      sbin[f * kBinStride + row] = static_cast<uint16_t>(
-          __float_as_uint(static_cast<float>(bin)) >> 16);
-    };
-#pragma unroll
-    for (int q = 0; q < kXPer; ++q)
-      if (rf[q] >= 0) put(rf[q] >> 10, rf[q] & 1023, xv[q]);
-    for (int j = threadIdx.x + kXPer * kGrpThreads; j < nbin;
-         j += kGrpThreads) {
-      const int row = j / F, f = j - row * F;
-      const float v =
-          s_slot[sb * kChunk + row] >= 0
-              ? x[static_cast<int64_t>(s_r[sb * kChunk + row]) * F + f]
-              : 0.f;
-      put(row, f, v);
-    }
-  };
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int units = F * MT;
-  const int ubase = blockIdx.y * (kGrpWarps * U) + warp;  // + i * warps
-  float acc[U][NT][4];
-#pragma unroll
-  for (int i = 0; i < U; ++i)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-
-  // (3) the products of stage buffer sb, bin buffer bb
-  auto accumulate = [&](int sb, int bb) {
-    const uint16_t* sbin = s_bin + bb * F * kBinStride;
-    if constexpr (kMma) {
-      const uint2* frag = reinterpret_cast<const uint2*>(s_w + sb * kWords);
-      const unsigned* bw32 = reinterpret_cast<const unsigned*>(sbin);
-#pragma unroll
-      for (int i = 0; i < U; ++i) {
-        const int u = ubase + i * kGrpWarps;
-        if (u < units) {
-          const int f = u / MT, mt = u - f * MT;
-          // this lane's two bins of the m-tile as bf16 integers, twice
-          const unsigned m0 =
-              __float_as_uint(static_cast<float>(mt * 16 + g8)) >> 16;
-          const unsigned m8 =
-              __float_as_uint(static_cast<float>(mt * 16 + g8 + 8)) >> 16;
-          const unsigned mm0 = m0 * 0x10001u, mm8 = m8 * 0x10001u;
-          const unsigned* bw = bw32 + f * (kBinStride / 2);
-          float tmp[NT][4];
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) tmp[n][e] = 0.f;
-#pragma unroll
-          for (int ks = 0; ks < kSteps; ++ks) {
-            const unsigned p0 = bw[ks * 8 + t4], p1 = bw[ks * 8 + 4 + t4];
-            const unsigned a[4] = {onehot2(p0, mm0), onehot2(p0, mm8),
-                                   onehot2(p1, mm0), onehot2(p1, mm8)};
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-              const uint2 fb = frag[(ks * NT + n) * 32 + lane];
-              const unsigned bb2[2] = {fb.x, fb.y};
-              mma_bf16(tmp[n], a, bb2);
-            }
-          }
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][n][e] = __fadd_rn(acc[i][n][e], tmp[n][e]);
-        }
-      }
-    } else {
-      const int* sslot = s_slot + sb * kChunk;
-      const float* sm = reinterpret_cast<const float*>(s_w + sb * kWords);
-      for (int j = threadIdx.x; j < nbin; j += kGrpThreads) {
-        const int row = j / F, f = j - row * F;
-        const int slot = sslot[row];
-        if (slot < 0) continue;
-        const int bin = static_cast<int>(
-            __uint_as_float(static_cast<unsigned>(sbin[f * kBinStride + row])
-                            << 16));
-        const int cell = (slot * F + f) * (W + 1) + bin;
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-          atomicAdd(s_hist + p * hplane + cell, sm[p * kChunk + row]);
-      }
-    }
-  };
-
-  // the pipeline: stage(c + 1) and the x loads of c + 1 overlap the
-  // products of c; a stager holds the record of chunk c + 2 in flight and
-  // that of c + 1 with its split value. Buffers: stage c % 3, bins c % 2.
-  const bool stager = threadIdx.x < kChunk;
-  const int64_t t = threadIdx.x;
-  auto fetch = [&](int64_t c) {
-    return stager && c + t < i1 ? rec[c + t]
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto split_value = [&](int64_t c, const float4& q) {
-    return stager && parent && c + t < i1
-               ? x[static_cast<int64_t>(__float_as_int(q.x)) * F + feat]
-               : 0.f;
-  };
-  float4 qa = fetch(i0);
-  float va = split_value(i0, qa);
-  __syncthreads();  // ranges staged
-  if (stager) stage(i0, 0, qa, va);
-  qa = fetch(i0 + kChunk);
-  va = split_value(i0 + kChunk, qa);
-  float4 qb = fetch(i0 + 2 * kChunk);
-  __syncthreads();
-  load_x(0);
-  int ci = 0;
-  for (int64_t c = i0; c < i1; c += kChunk, ++ci) {
-    const int sb = ci % kStageBufs, bb = ci & 1;
-    bins(sb, bb);
-    const bool more = c + kChunk < i1;
-    if (more && stager) {
-      stage(c + kChunk, (ci + 1) % kStageBufs, qa, va);
-      qa = qb;
-      va = split_value(c + 2 * kChunk, qa);
-      qb = fetch(c + 3 * kChunk);
-    }
-    __syncthreads();
-    if (more) load_x((ci + 1) % kStageBufs);
-    accumulate(sb, bb);
-  }
-
-  // the block's partial into its slot: part[b][3][2][F][W]
-  float* pb = part + static_cast<int64_t>(b) * 6 * F * W;
-  if constexpr (kMma) {
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const int u = ubase + i * kGrpWarps;
-      if (u >= units) continue;
-      const int f = u / MT, mt = u - f * MT;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 2 * t4 + (e & 1);
-        if (col >= 6) continue;
-        float v = acc[i][0][e];
-        if constexpr (NT == 3)  // the JAX package's _unsplit3
-          v = __fadd_rn(v, __fadd_rn(__fmul_rn(acc[i][1][e], 1.f / 256.f),
-                                     __fmul_rn(acc[i][2][e], 1.f / 65536.f)));
-        const int bin = mt * 16 + g8 + (e >> 1) * 8;
-        pb[((col % 3) * 2 + col / 3) * F * W + f * W + bin] = v;
-      }
-    }
-  } else {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 6 * F * W; i += kGrpThreads) {
-      const int cs = i / (F * W), fb = i - cs * F * W;
-      const int f = fb / W, bin = fb - f * W;
-      pb[i] = s_hist[cs * F * (W + 1) + f * (W + 1) + bin];
-    }
-  }
-}
-
-// The sources of hist cell i ([3, n_nodes, F, W]) in the blocks'
-// [3][2][F][W] partials: the parent's group at the cell's side, then the
-// node's direct group.
-struct AdaptiveSrc {
-  int n_nodes, n_prev, level_base;
-  int64_t fw;  // F * W
-  __device__ __forceinline__ int operator()(int64_t i, int* g,
-                                            int64_t* o) const {
-    const int c = static_cast<int>(i / (n_nodes * fw));
-    const int64_t rem = i - c * n_nodes * fw;
-    const int j = static_cast<int>(rem / fw);
-    const int64_t within = rem - j * fw;
-    int ns = 0;
-    const int cid = level_base + j;
-    if (n_prev > 0 && cid >= 1) {
-      const int lp = ((cid - 1) >> 1) - (level_base - n_prev);
-      if (lp >= 0 && lp < n_prev) {
-        g[ns] = lp;
-        o[ns++] = (2 * c + ((cid - 1) & 1)) * fw + within;
-      }
-    }
-    g[ns] = n_prev + j;
-    o[ns++] = 2 * c * fw + within;
-    return ns;
+  __device__ __forceinline__ int bin(float v, float lo, float inv) const {
+    return adaptive_bin<W>(v, lo, inv);
   }
 };
-
-// How the grouped level runs at these shapes: groups, passes, the span
-// of rows a block owns, the blocks, shared memory and workspace bytes.
-struct GroupedPlan {
-  int G, passes;
-  int64_t span, nblk;
-  size_t smem, bytes;
-};
-
-template <int W, int NT, bool kMma>
-int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
-                 GroupedPlan* p) {
-  using Shape = GroupedShape<NT, kMma>;
-  p->G = n_prev + n_nodes;
-  if (F < 1 || F > kMaxGroupedF || p->G > h2o3::kMaxGroups)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int units = F * (W / 16);
-  // the ablation's atomics take every unit in one pass
-  p->passes = kMma ? (units + kGrpWarps * Shape::kUnits - 1) /
-                         (kGrpWarps * Shape::kUnits)
-                   : 1;
-  p->smem = grouped_smem(F, W, NT, kMma);
-  auto kern = adaptive_level_grouped_kernel<W, NT, kMma>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p->smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      kGrpThreads, p->smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // about two waves of blocks over the card, in whole chunks
-  int64_t target = static_cast<int64_t>(h2o3::sm_count()) * per_sm * 2 /
-                   p->passes;
-  if (target < 1) target = 1;
-  int64_t span = (rows + target - 1) / target;
-  span = (span + kChunk - 1) / kChunk * kChunk;
-  p->span = span < kChunk ? kChunk : span;
-  p->nblk = h2o3::span_blocks(rows, p->G, p->span);
-  p->bytes = h2o3::grouping_bytes(rows, p->G) +
-             h2o3::align256(sizeof(float) * 6 * static_cast<size_t>(F) * W *
-                            p->nblk);
-  return 0;
-}
-
-template <int W, int NT, bool kMma>
-int launch_grouped(const float* x, const int* nid, const float* ghw,
-                   const float* tables, const float* lo, const float* inv,
-                   int64_t rows, int F, int n_prev, int n_nodes,
-                   int level_base, int bf16, int* nid_out, float* hist,
-                   void* ws, cudaStream_t stream) {
-  GroupedPlan p;
-  int rc = plan_grouped<W, NT, kMma>(rows, F, n_prev, n_nodes, &p);
-  if (rc != 0) return rc;
-  h2o3::Grouping g;
-  float* part = reinterpret_cast<float*>(
-      h2o3::carve_grouping(static_cast<char*>(ws), rows, p.G, &g));
-  const ParentKey key{nid, tables, n_prev, level_base - n_prev, level_base,
-                      n_nodes, nid_out};
-  rc = h2o3::launch_grouping(key, ghw, rows, p.G, p.span, g, stream);
-  if (rc != 0) return rc;
-  dim3 grid(static_cast<unsigned>(p.nblk), static_cast<unsigned>(p.passes));
-  adaptive_level_grouped_kernel<W, NT, kMma>
-      <<<grid, kGrpThreads, p.smem, stream>>>(
-          x, tables, lo, inv, g.rec, g.offsets, g.bstart, p.G, p.span, F,
-          n_prev, n_nodes, level_base, bf16, nid_out, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t fw = static_cast<int64_t>(F) * W;
-  return h2o3::launch_merge(AdaptiveSrc{n_nodes, n_prev, level_base, fw},
-                            part, 6 * fw, g.bstart, 3 * n_nodes * fw, hist,
-                            stream);
-}
 
 // The grouped level's instance: W, then the terms of the mass split (one
 // at bf16, three at float32) for the tensor-core form; kMma false is the
@@ -761,18 +272,19 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
               const float* lo, const float* inv, int64_t rows, int F,
               int n_prev, int n_nodes, int level_base, int bf16,
               int* nid_out, float* hist, void* ws, cudaStream_t s) {
-#define H2O3_GROUPED(WW, NT)                                                \
-  do {                                                                      \
-    if (plan_only) {                                                        \
-      GroupedPlan p;                                                        \
-      const int rc = plan_grouped<WW, NT, kMma>(rows, F, n_prev, n_nodes,   \
-                                                &p);                        \
-      *bytes = rc == 0 ? p.bytes : 0;                                       \
-      return rc;                                                            \
-    }                                                                       \
-    return launch_grouped<WW, NT, kMma>(x, nid, ghw, tables, lo, inv, rows, \
-                                        F, n_prev, n_nodes, level_base,     \
-                                        bf16, nid_out, hist, ws, s);        \
+#define H2O3_GROUPED(WW, NT)                                                 \
+  do {                                                                       \
+    using Src = AdaptiveBins<WW>;                                            \
+    if (plan_only) {                                                         \
+      h2o3::GroupedPlan p;                                                   \
+      const int rc = h2o3::plan_grouped<Src, NT, kMma>(rows, F, n_prev,      \
+                                                       n_nodes, &p);         \
+      *bytes = rc == 0 ? p.bytes : 0;                                        \
+      return rc;                                                             \
+    }                                                                        \
+    return h2o3::launch_grouped<Src, NT, kMma>(                              \
+        Src{x, tables, lo, inv}, nid, ghw, rows, F, n_prev, n_nodes,         \
+        level_base, bf16, nid_out, hist, ws, s);                             \
   } while (0)
 #define H2O3_GROUPED_W(WW)              \
   case WW:                              \
@@ -792,15 +304,13 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
 #undef H2O3_GROUPED
 }
 
-// Whether the float level takes the grouped form: the [rows, F] layout,
-// F up to kMaxGroupedF, at most kMaxGroups groups, under 2^30 rows; the
-// [F, rows] layout (K5, no path trains in it), deeper levels and wider
-// frames keep the tiled body.
+// Whether the float level takes the grouped form: the [rows, F] layout
+// and shapes the grouped body takes (level_grouped.cuh); the [F, rows]
+// layout (K5, no path trains in it), deeper levels and wider frames keep
+// the tiled body.
 inline bool takes_grouped(int feat_major, long long rows, int F, int n_prev,
                           int n_nodes) {
-  // a record carries 2 * row + side in an int
-  return !feat_major && F <= kMaxGroupedF &&
-         n_prev + n_nodes <= h2o3::kMaxGroups && rows < (1LL << 30);
+  return !feat_major && h2o3::grouped_fits(rows, F, n_prev, n_nodes);
 }
 
 template <bool kFeatMajor>
@@ -820,33 +330,47 @@ adaptive_route_only_kernel(const float* __restrict__ x,
   }
 }
 
+// The leaf totals: block b sums a contiguous range of rows (row_range),
+// warp w of it rows r0 + 32 w, + 512, ... in row order. In each step of
+// 32 rows every lane sums the lanes of its node in lane order (shuffles),
+// and the node's lowest lane adds the sums into the warp's own [3][n_nodes]
+// shared slot with a plain add; then the block adds its warps' slots in
+// warp order into its slot of part, and merge_slots_kernel adds the
+// blocks' slots in block order. No float atomics: one fixed order. kRoute
+// false: no route (n_prev 0, no x, no nid_out), the segment totals.
+template <bool kRoute>
 __global__ void __launch_bounds__(kThreads)
 leaf_totals_kernel(const float* __restrict__ x,
                    const int* __restrict__ nid_in,
                    const float* __restrict__ ghw,
                    const float* __restrict__ tables, int64_t rows, int F,
                    int n_prev, int n_nodes, int level_base,
-                   int* __restrict__ nid_out, float* __restrict__ totals) {
-  extern __shared__ float s_tot[];  // [3][n_nodes]
-  for (int i = threadIdx.x; i < 3 * n_nodes; i += blockDim.x) s_tot[i] = 0.f;
+                   int* __restrict__ nid_out, float* __restrict__ part,
+                   int* __restrict__ bstart) {
+  extern __shared__ float s_tot[];  // [warps][3][n_nodes]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int per = 3 * n_nodes;
+  for (int i = threadIdx.x; i < nw * per; i += blockDim.x) s_tot[i] = 0.f;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
+  float* mine = s_tot + warp * per;
   const int prev_base = level_base - n_prev;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t r0, r1;
+  h2o3::row_range(rows, gridDim.x, blockIdx.x, &r0, &r1);
   // the loop bound is the same for every lane of a warp, so the shuffles
   // below always run on the full warp
-  for (int64_t w0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    (threadIdx.x - lane);
-       w0 < rows; w0 += step) {
+  for (int64_t w0 = r0 + 32 * warp; w0 < r1; w0 += blockDim.x) {
     const int64_t r = w0 + lane;
     int key = -1;
     float g = 0.f, h = 0.f, w = 0.f;
-    if (r < rows) {
+    if (r < r1) {
       int nid = nid_in[r];
-      if (n_prev > 0)
-        nid = route_row<false>(x, r, rows, F, nid, tables, n_prev,
-                               prev_base);
-      nid_out[r] = nid;
+      if constexpr (kRoute) {
+        if (n_prev > 0)
+          nid = route_row<false>(x, r, rows, F, nid, tables, n_prev,
+                                 prev_base);
+        nid_out[r] = nid;
+      }
       const int ln = nid - level_base;
       if (ln >= 0 && ln < n_nodes) {
         key = ln;
@@ -865,22 +389,90 @@ leaf_totals_kernel(const float* __restrict__ x,
       const float vw = __shfl_sync(0xffffffffu, w, src);
       if (k == key) {
         if (src < lane) lowest = false;
-        sg += vg;
-        sh += vh;
-        sw += vw;
+        sg = __fadd_rn(sg, vg);
+        sh = __fadd_rn(sh, vh);
+        sw = __fadd_rn(sw, vw);
       }
     }
-    if (key >= 0 && lowest) {  // the node's lowest lane
-      atomicAdd(s_tot + key, sg);
-      atomicAdd(s_tot + n_nodes + key, sh);
-      atomicAdd(s_tot + 2 * n_nodes + key, sw);
+    if (key >= 0 && lowest) {  // the node's lowest lane, alone in the warp
+      mine[key] = __fadd_rn(mine[key], sg);
+      mine[n_nodes + key] = __fadd_rn(mine[n_nodes + key], sh);
+      mine[2 * n_nodes + key] = __fadd_rn(mine[2 * n_nodes + key], sw);
     }
+    __syncwarp();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 3 * n_nodes; i += blockDim.x) {
-    const float v = s_tot[i];
-    if (v != 0.f) atomicAdd(totals + i, v);
+  float* pb = part + static_cast<int64_t>(blockIdx.x) * per;
+  for (int i = threadIdx.x; i < per; i += blockDim.x) {
+    float t = 0.f;
+    for (int v = 0; v < nw; ++v) t = __fadd_rn(t, s_tot[v * per + i]);
+    pb[i] = t;
   }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    bstart[0] = 0;
+    bstart[1] = gridDim.x;
+  }
+}
+
+// The one source of totals cell i: every block's slot, at i.
+struct TotalsSrc {
+  __device__ __forceinline__ int operator()(int64_t i, int* g,
+                                            int64_t* o) const {
+    g[0] = 0;
+    o[0] = i;
+    return 1;
+  }
+};
+
+// How a leaf-totals launch runs: blocks (contiguous row ranges, at most
+// four an SM), warps a block (as many [3][n_nodes] warp slots as the
+// shared budget holds, at most 16), shared and workspace bytes.
+struct TotalsPlan {
+  int blocks, warps;
+  size_t smem, bytes;
+};
+
+// Refused (-1 blocks): fewer than one node, or one warp slot past the
+// budget (n_nodes above 8960).
+inline TotalsPlan plan_totals(int64_t rows, int n_nodes) {
+  TotalsPlan p{-1, 0, 0, 0};
+  const int64_t slot = 3 * static_cast<int64_t>(n_nodes) * sizeof(float);
+  if (n_nodes < 1 || rows < 0 || slot > h2o3::kHistBudget) return p;
+  const int64_t fit = h2o3::kHistBudget / slot;
+  p.warps = static_cast<int>(fit < kThreads / 32 ? fit : kThreads / 32);
+  p.smem = static_cast<size_t>(slot) * p.warps;
+  int64_t nb = (rows + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 4;
+  if (nb > cap) nb = cap;
+  p.blocks = nb < 1 ? 1 : static_cast<int>(nb);
+  p.bytes = h2o3::align256(static_cast<size_t>(slot) * p.blocks) +
+            h2o3::align256(2 * sizeof(int));
+  return p;
+}
+
+template <bool kRoute>
+int launch_totals(const float* x, const int* nid, const float* ghw,
+                  const float* tables, int64_t rows, int F, int n_prev,
+                  int n_nodes, int level_base, int* nid_out, float* totals,
+                  void* ws, cudaStream_t s) {
+  const TotalsPlan p = plan_totals(rows, n_nodes);
+  if (p.blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = leaf_totals_kernel<kRoute>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per = 3 * n_nodes;
+  float* part = static_cast<float*>(ws);
+  int* bstart = reinterpret_cast<int*>(
+      static_cast<char*>(ws) +
+      h2o3::align256(sizeof(float) * static_cast<size_t>(per) * p.blocks));
+  kern<<<p.blocks, 32 * p.warps, p.smem, s>>>(x, nid, ghw, tables, rows, F,
+                                              n_prev, n_nodes, level_base,
+                                              nid_out, part, bstart);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return h2o3::launch_merge(TotalsSrc{}, part, per, bstart, per, totals, s);
 }
 
 template <int W, bool kFeatMajor, int kTerms>
@@ -1119,26 +711,40 @@ int h2o3_adaptive_route_only(const float* x, int feat_major, const int* nid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The workspace bytes of h2o3_leaf_totals and h2o3_segment_totals at
+// these shapes (the blocks' slots); -1 where they are refused.
+long long h2o3_leaf_totals_workspace(long long rows, int n_nodes) {
+  const TotalsPlan p = plan_totals(rows, n_nodes);
+  return p.blocks < 0 ? -1 : static_cast<long long>(p.bytes);
+}
+
 // Route one level of x [rows, F] float32 (none when n_prev is 0) and ADD
 // each node's (g, h, w) sums into totals [3, n_nodes] float32, which the
 // caller zeroes; writes nid_out [rows] int32. tables [4, max(n_prev, 1)]
-// float32 as h2o3_adaptive_level's. Returns a cudaError_t value.
+// float32 as h2o3_adaptive_level's; ws, h2o3_leaf_totals_workspace bytes.
+// Returns a cudaError_t value.
 int h2o3_leaf_totals(const float* x, const int* nid, const float* ghw,
                      const float* tables, long long rows, int F, int n_prev,
                      int n_nodes, int level_base, int* nid_out,
-                     float* totals, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = 3 * static_cast<size_t>(n_nodes) * sizeof(float);
-  if (F < 1 || n_nodes < 1 || rows < 0 || smem > 48 * 1024)
+                     float* totals, void* ws, void* stream) {
+  if (F < 1 || n_prev < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks64 = (rows + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 4;
-  const unsigned blocks = static_cast<unsigned>(
-      blocks64 < 1 ? 1 : (blocks64 > cap ? cap : blocks64));
-  leaf_totals_kernel<<<blocks, kThreads, smem, s>>>(
-      x, nid, ghw, tables, rows, F, n_prev, n_nodes, level_base, nid_out,
-      totals);
-  return static_cast<int>(cudaGetLastError());
+  return launch_totals<true>(x, nid, ghw, tables, rows, F, n_prev, n_nodes,
+                             level_base, nid_out, totals, ws,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The segment totals: the n_prev = 0 instance of h2o3_leaf_totals, which
+// routes nothing and reads no x. ADDS each node's (g, h, w) sums over the
+// rows with nid in [level_base, level_base + n_nodes) into totals
+// [3, n_nodes] float32, which the caller zeroes. Returns a cudaError_t
+// value.
+int h2o3_segment_totals(const int* nid, const float* ghw, long long rows,
+                        int n_nodes, int level_base, float* totals, void* ws,
+                        void* stream) {
+  return launch_totals<false>(nullptr, nid, ghw, nullptr, rows, 1, 0,
+                              n_nodes, level_base, nullptr, totals, ws,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

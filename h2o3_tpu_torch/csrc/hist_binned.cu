@@ -4,55 +4,75 @@
 // its W=16 stripe form _kernel_bt_stripe, K3): one pass per tree level.
 // Each row steps through the previous level's split tables, writes its new
 // node id, and, when that node lies in the level's window, adds its
-// (g, h, w) into the (node, feature, code) bin of every feature.
+// (g, h, w) into the (node, feature, code) bin of every feature. Two forms:
+//
+// - Node-grouped (float masses at W <= 32, the packed path's W = 16 among
+//   them, and at any W from 32 nodes on: takes_grouped): the body it
+//   shares with the float adaptive level (level_grouped.cuh). Rows are
+//   grouped by parent (a row whose node lies in the previous window and
+//   can split, by that parent; a row of the level's window without a
+//   route, the root, by its node; any other row keeps its node id and
+//   adds nothing), then one 512-thread block per span of a group's
+//   records routes them (the code of the split feature against
+//   split_bin) and adds both children's (g, h, w) for all F features as
+//   one-hot products on the tensor cores (mma.sync m16n8k16 bf16 -> f32;
+//   the code is the bin, so there is no re-bin; three bf16 terms at
+//   float32), and the blocks' [3][2][F][W] partials are added in slot
+//   order. No node or feature tiles, no row read by two blocks, no float
+//   atomics: the same inputs give the same bits.
+// - Tiled (W >= 64 below 32 nodes, levels past kMaxGroups groups, wider
+//   frames, and the int8 instances): a block takes 512 rows at a time;
+//   phase 1 routes them (one thread per row) and stages node id and
+//   (g, h, w) in shared memory; phase 2 walks the chunk's codes
+//   contiguously (coalesced byte loads) and adds into a per-block
+//   histogram in shared memory. Each feature's W bins sit at a stride of
+//   W + 1 words, so the bins of neighbouring features start on different
+//   banks. At the end each block adds its nonzero partial cells into the
+//   output with global atomics. When the level's [planes, N, F, W]
+//   partial does not fit the shared budget (six int32 planes at
+//   terms = 2 take twice the float level's three), the grid's second
+//   dimension splits it into node x feature tiles; each tile re-reads the
+//   rows it needs (level_common.cuh). Its shared float adds are
+//   compare-and-swap loops on Hopper (ATOMS.CAST.SPIN) and its merge adds
+//   floats with global atomics, so float sums vary in the last bits from
+//   run to run.
+//
+// The tiled body loses to the grouped form at W = 16 on every level (10M x
+// 28, bf16, on an H100): its CAS loops contend most at the root, where
+// every row lands in 16 bins a feature, and it needs two tiles at N = 32.
+// h2o3_binned_level's form argument forces either form, for the tests and
+// chip_smoke.py.
 //
 // binned_level_i8 (replaces _kernel_bt_i8, K4): the same level with the
 // int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8): the integer-
-// mass instance (kTerms = 1 or 2) of the same kernel. It stages q (3 or 6
+// mass instance (kTerms = 1 or 2) of the tiled body. It stages q (3 or 6
 // bytes a row in place of 12), adds into an int32 shared partial with
-// native integer atomics, merges blocks into an int32 buffer with integer
-// atomics, and one flush pass writes the float32 histogram
+// native integer atomics (ATOMS.ADD), merges blocks into an int32 buffer
+// with integer atomics, and one flush pass writes the float32 histogram
 // (level_common.cuh). Sums of integers leave no room for order: the
 // histogram is bit-equal to the plain version and to the TPU kernel.
 //
 // binned_route_only (replaces _route_kernel_bt, K2): the deepest level's
 // route, one thread per row, no histogram.
 //
-// Routing rule (both kernels, and the plain versions in
+// Routing rule (all of them, and the plain versions in
 // ops/hist_adaptive.py): a row in the previous level's window whose node
 // can split reads code = codes[row, feat]; NA (code == W-1) goes right
 // unless na_left, any other code goes right when code >= split_bin; the
 // child is 2*nid + 1 + right. Tables are int32 [4, n_prev]: feat,
 // split_bin, na_left, can.
 //
-// What bounds them on an H100: memory. binned_level reads
+// What bounds them on an H100: memory, on paper. binned_level reads
 // rows * (F * itemsize + 16) bytes and writes rows * 4 (about
 // rows * (F * itemsize + 20) per level); its 3 * rows * F float adds are
-// far below the 67 TFLOP/s f32 rate; binned_level_i8 reads 3 * terms in
-// place of 12 bytes of mass a row. binned_route_only moves about
-// rows * 9 bytes. Design: a block takes 512 rows at a time; phase 1 routes
-// them (one thread per row) and stages node id and (g, h, w) in shared
-// memory; phase 2 walks the chunk's codes contiguously (coalesced byte
-// loads) and adds into a per-block histogram in shared memory. Each
-// feature's W bins sit at a stride of W + 1 words, so the bins of
-// neighbouring features start on different banks. At the end each block
-// adds its nonzero partial cells into the output with global atomics.
-// When the level's [planes, N, F, W] partial does not fit the shared
-// budget (six int32 planes at terms = 2 take twice the float level's
-// three), the grid's second dimension splits it into node x feature tiles;
-// each tile re-reads the rows it needs (level_common.cuh).
-//
-// What the simple design leaves on the table (later work): Hopper has no
-// native shared-memory float atomic add, so each shared atomicAdd is a
-// compare-and-swap loop (ATOMS.CAST.SPIN in the SASS) and the kernel is
-// bound by those loops, not by memory; the int8 instances take the native
-// ATOMS.ADD. The block-partial merge uses float atomics, so float sums vary
-// in the last bits from run to run (integer masses are exact); a
-// fixed-order merge would make them reproducible. No TMA or
-// cp.async staging of the codes; no wgmma one-hot contraction; feature
-// tiles re-read nid and ghw.
+// far below the 67 TFLOP/s f32 rate, and the grouped form's one-hot
+// products (2 * 16 * W * 8 per 16 rows and feature) far below the 989
+// TFLOP/s bf16 rate; binned_level_i8 reads 3 * terms in place of 12 bytes
+// of mass a row; binned_route_only moves about rows * 9 bytes. In practice
+// the grouped form is bound by instruction issue (level_grouped.cuh), the
+// tiled body by its shared-memory atomics.
 
-#include "level_common.cuh"
+#include "level_grouped.cuh"
 
 namespace {
 
@@ -240,23 +260,142 @@ int launch_level_w(const void* codes, int code_bytes, const int* nid,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------ the node-grouped float level
+//
+// The float packed level (K1/K3) on the grouped body of
+// level_grouped.cuh: the code is the bin.
+
+// K1's bin source: packed codes [rows, F] (int8, or int16 at W = 256; NA
+// in lane W-1), int32 split tables (feat, split_bin, na_left, can).
+template <typename CodeT, int W>
+struct CodeBins {
+  static constexpr int kW = W;
+  static constexpr bool kRanges = false;
+  using Val = int;
+  const CodeT* __restrict__ codes;
+  const int* __restrict__ tables;
+  __device__ __forceinline__ int load(int64_t r, int f, int F) const {
+    return static_cast<int>(codes[r * F + f]);
+  }
+  __device__ __forceinline__ bool can(int lp, int n_prev) const {
+    return __ldg(tables + 3 * n_prev + lp) != 0;
+  }
+  __device__ __forceinline__ void split(int k, int n_prev, int F, int* feat,
+                                        int* thr, int* na_right) const {
+    const int f = __ldg(tables + k);
+    *feat = f < 0 ? 0 : (f >= F ? F - 1 : f);
+    *thr = __ldg(tables + n_prev + k);
+    *na_right = __ldg(tables + 2 * n_prev + k) == 0;
+  }
+  __device__ __forceinline__ int right(int c, int thr, int na_right) const {
+    return c == W - 1 ? na_right : (c >= thr);
+  }
+  // a code outside [0, W) adds nothing, as in the tiled body
+  __device__ __forceinline__ int bin(int c, float, float) const {
+    return static_cast<unsigned>(c) < static_cast<unsigned>(W) ? c : -1;
+  }
+};
+
+// The grouped level's instance by code width and W, one bf16 term at
+// bf16, three at float32. plan_only: the workspace bytes alone.
+int grouped_w(int code_bytes, int W, bool plan_only, size_t* bytes,
+              const void* codes, const int* nid, const float* ghw,
+              const int* tables, int64_t rows, int F, int n_prev,
+              int n_nodes, int level_base, int bf16, int* nid_out,
+              float* hist, void* ws, cudaStream_t s) {
+#define H2O3_GROUPED(CT, WW, NT)                                             \
+  do {                                                                       \
+    using Src = CodeBins<CT, WW>;                                            \
+    if (plan_only) {                                                         \
+      h2o3::GroupedPlan p;                                                   \
+      const int rc = h2o3::plan_grouped<Src, NT, true>(rows, F, n_prev,      \
+                                                       n_nodes, &p);         \
+      *bytes = rc == 0 ? p.bytes : 0;                                        \
+      return rc;                                                             \
+    }                                                                        \
+    return h2o3::launch_grouped<Src, NT, true>(                              \
+        Src{static_cast<const CT*>(codes), tables}, nid, ghw, rows, F,       \
+        n_prev, n_nodes, level_base, bf16, nid_out, hist, ws, s);            \
+  } while (0)
+#define H2O3_GROUPED_W(CT, WW)           \
+  if (bf16) H2O3_GROUPED(CT, WW, 1);     \
+  H2O3_GROUPED(CT, WW, 3);
+  if (code_bytes == 1) {
+    switch (W) {
+      case 16: H2O3_GROUPED_W(int8_t, 16)
+      case 32: H2O3_GROUPED_W(int8_t, 32)
+      case 64: H2O3_GROUPED_W(int8_t, 64)
+      case 128: H2O3_GROUPED_W(int8_t, 128)
+      default: break;
+    }
+  } else if (code_bytes == 2 && W == 256) {
+    H2O3_GROUPED_W(int16_t, 256)
+  }
+#undef H2O3_GROUPED_W
+#undef H2O3_GROUPED
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The form a float level takes: form 1 (grouped) or 0 (tiled) forced, -1
+// picked from the shapes. At 10M x 28 on an H100 the grouped form is the
+// faster at W <= 32 on every level, and at any W from 32 nodes on, where
+// the tiled body's partial takes seven tiles or more (W = 64, 128, 256
+// below 32 nodes keep the tiled body: its 1-4 tiles beat the grouped
+// form's 2-7 unit passes); the grouped body must also take the shapes
+// (level_grouped.cuh).
+constexpr int kGroupedMaxW = 32;
+constexpr int kGroupedMinNodes = 32;
+
+inline bool takes_grouped(int form, int64_t rows, int F, int W, int n_prev,
+                          int n_nodes) {
+  if (form >= 0) return form == 1;
+  return (W <= kGroupedMaxW || n_nodes >= kGroupedMinNodes) &&
+         h2o3::grouped_fits(rows, F, n_prev, n_nodes);
+}
+
 }  // namespace
 
 extern "C" {
 
+// The workspace bytes of h2o3_binned_level at these shapes and form (the
+// grouped form's grouping and block partials; 0 for the tiled body), -1
+// where the shapes are refused.
+long long h2o3_binned_level_workspace(int code_bytes, long long rows, int F,
+                                      int W, int n_prev, int n_nodes,
+                                      int bf16, int form) {
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0) return -1;
+  if (!takes_grouped(form, rows, F, W, n_prev, n_nodes)) return 0;
+  size_t bytes = 0;
+  const int rc = grouped_w(code_bytes, W, true, &bytes, nullptr, nullptr,
+                           nullptr, nullptr, rows, F, n_prev, n_nodes, 0,
+                           bf16, nullptr, nullptr, nullptr, nullptr);
+  return rc == 0 ? static_cast<long long>(bytes) : -1;
+}
+
 // codes [rows, F] int8 (W <= 128) or int16 (W == 256), row-major; nid
-// [rows] int32; ghw [3, rows] float32; tables [4, max(n_prev, 1)] int32.
-// Writes nid_out [rows] int32 and ADDS into hist [3, n_nodes, F, W]
-// float32, which the caller zeroes. Returns a cudaError_t value.
+// [rows] int32; ghw [3, rows] float32; tables [4, max(n_prev, 1)] int32;
+// form -1 (picked from the shapes), 0 (tiled body) or 1 (node-grouped,
+// an error where it does not fit); ws, h2o3_binned_level_workspace bytes
+// for the same form. Writes nid_out [rows] int32 and ADDS into hist
+// [3, n_nodes, F, W] float32, which the caller zeroes. Returns a
+// cudaError_t value.
 int h2o3_binned_level(const void* codes, int code_bytes, const int* nid,
                       const float* ghw, const int* tables, long long rows,
                       int F, int W, int n_prev, int n_nodes, int level_base,
-                      int bf16, int* nid_out, float* hist, void* stream) {
-  if (F < 1 || n_nodes < 1 || rows < 0)
+                      int bf16, int form, int* nid_out, float* hist,
+                      void* ws, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (takes_grouped(form, rows, F, W, n_prev, n_nodes)) {
+    size_t unused = 0;
+    return grouped_w(code_bytes, W, false, &unused, codes, nid, ghw, tables,
+                     rows, F, n_prev, n_nodes, level_base, bf16, nid_out,
+                     hist, ws, s);
+  }
   return launch_level_w<0>(codes, code_bytes, nid, ghw, tables, rows, F, W,
                            n_prev, n_nodes, level_base, bf16, nid_out, hist,
-                           static_cast<cudaStream_t>(stream));
+                           s);
 }
 
 // The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]

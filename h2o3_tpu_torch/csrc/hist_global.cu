@@ -24,14 +24,18 @@
 //   ordered list of 16-byte records. A block owns (node, feature slice,
 //   span of that node's records): it keeps [3][fs][B1 | 1] float partials
 //   in shared memory (fs features, as many as the 105 KB budget allows,
-//   evened out over the slices: 7 of 28 at B1 = 1025), reads each record
-//   once and its row's fs codes (one or two 32-byte sectors), and adds
-//   with shared float atomics. No block reads a row outside its node and
-//   no code is read twice. Each block writes its partial into its own slot
-//   of a scratch buffer; a second pass sums each cell's slots in slot
-//   order, so no float chain runs across blocks.
+//   evened out over the slices: 7 of 28 at B1 = 1025), and gives each
+//   feature of the slice to one warp, which adds 256 records at a time in
+//   record order while the block's other warps stage the next 256 with
+//   their rows' fs codes (one or two 32-byte sectors a row): the lanes of
+//   a bin found through a tag a bin and five ballots, their masses summed
+//   in lane order, one plain add a bin. No block reads a row outside its
+//   node, no code is read twice and no float add depends on the schedule.
+//   Each block writes its partial into its own slot of a scratch buffer; a
+//   second pass sums each cell's slots in slot order, so no float chain
+//   runs across blocks.
 // - Global atomics (one (node, feature) cell past the shared budget, B1
-//   above 8959, or more than kMaxGroups nodes: no training path at its
+//   above 8191, or more than kMaxGroups nodes: no training path at its
 //   default sizes): one pass over the rows adds straight into a float64
 //   copy of hist with double atomicAdd (L2 REDG.E.ADD.F64), a second adds
 //   it, rounded once, into hist. The sum is float64 because one global sum
@@ -42,7 +46,9 @@
 // feature tiles, every tile re-reading every row's seg and its rows' codes
 // at a 112-byte stride, with global atomics from 4 tiles on: 4.85 ms at the
 // global path's N = 16 build on an H100, against 3.38 ms for one
-// index_add_. h2o3_global_hist_form forces one form (grouped 1, global
+// index_add_; and then (the first grouped form) shared float atomics
+// within a block, compare-and-swap loops whose order followed the warps'
+// schedule: 1.83 ms. h2o3_global_hist_form forces one form (grouped 1, global
 // atomics 0), for the tests and chip_smoke.py; the training path calls
 // h2o3_global_hist.
 //
@@ -50,10 +56,12 @@
 // seg and the codes and ghw of the rows it adds, rows * 4 + added *
 // (F * itemsize + 12) bytes, and write 3 * N * F * B1 * 4; its
 // 3 * added * F float adds are far below the 67 TFLOP/s f32 rate. In
-// practice the shared-memory float atomic add, a compare-and-swap loop on
-// Hopper (ATOMS.CAST.SPIN), bounds the grouped form: three a (row,
-// feature). Within a block their order follows the warps' schedule, so
-// the last bits of a float histogram can still differ between runs.
+// practice the grouped form is bound by the consumers' walk over the
+// staged records (a shared load, a tag store and load and five ballots a
+// 32 records and feature, the sums of a bin's lanes) and by the producers'
+// loads of the records and their rows' codes. The global-atomics form
+// adds float64 in L2 in the schedule's order; its one rounding to float32
+// can still differ in the last bit between runs.
 
 #include "level_common.cuh"
 
@@ -61,65 +69,152 @@ namespace {
 
 using h2o3::kThreads;
 
+// Records a chunk of the grouped form holds, and the warps of a block
+// that add them (consumers); the others stage the next chunk (producers,
+// at least kChunkRecs threads).
+constexpr int kChunkRecs = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxConsumers = kWarps - kChunkRecs / 32;
+
 // Node-grouped form: block (b, slice) adds the records of span b (of the
 // node bstart assigns it) over features [slice * fs, + fs) into its
-// shared partial, then writes the partial into part[b][3][F][B1].
+// shared partial, then writes the partial into part[b][3][F][B1]. The
+// block's warps split into consumers (one a feature of the slice, at most
+// kMaxConsumers; a warp takes features w, w + consumers, ...) and
+// producers. Chunks of 256 records pass through two shared buffers: while
+// the consumers add chunk c from one, the producers stage chunk c + 1 into
+// the other (a record a thread: its masses, and its row's fs codes as
+// uint16, 0xFFFF where out of range), one barrier a chunk. A consumer
+// walks the chunk in record order, 32 at a time: the lanes whose codes
+// fall in the same bin are found through a tag a bin in shared memory and
+// five ballots, their masses summed in lane order by the lowest of them,
+// which adds the sums into the bin with a plain add. No other warp
+// touches the feature's bins, so every add comes in one fixed order.
 template <typename CodeT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 global_hist_grouped_kernel(const CodeT* __restrict__ codes,
                            const float4* __restrict__ rec,
                            const int* __restrict__ offsets,
                            const int* __restrict__ bstart, int G,
                            int64_t span, int F, int B1, int stride, int fs,
                            int bf16, float* __restrict__ part) {
-  extern __shared__ float s_hist[];  // [3][fs][stride]
-  const int b = blockIdx.x;
-  if (b >= __ldg(bstart + G)) return;
-  const int f0 = blockIdx.y * fs;
-  const int ft = min(fs, F - f0);
+  extern __shared__ float4 s_raw[];
+  float* s_hist = reinterpret_cast<float*>(s_raw);  // [3][fs][stride]
   const int plane = fs * stride;
+  // [2][kChunkRecs] masses (g, h, w, 0), [2][fs][kChunkRecs] codes, then
+  // a consumer warp's lane tags, [consumers][B1] bytes
+  float4* s_m = s_raw + (3 * plane + 3) / 4;
+  uint16_t* s_c = reinterpret_cast<uint16_t*>(s_m + 2 * kChunkRecs);
+  uint8_t* s_tag = reinterpret_cast<uint8_t*>(s_c + 2 * fs * kChunkRecs);
+  // the slices of a span are neighbouring blocks, so that they read its
+  // records and rows from L2 at about the same time
+  const int b = blockIdx.y;
+  if (b >= __ldg(bstart + G)) return;
+  const int f0 = blockIdx.x * fs;
+  const int ft = min(fs, F - f0);
   for (int i = threadIdx.x; i < 3 * plane; i += blockDim.x) s_hist[i] = 0.f;
-  __syncthreads();
   const int k = h2o3::span_group(bstart, G, b);
   const int64_t i0 = __ldg(offsets + k) +
                      static_cast<int64_t>(b - __ldg(bstart + k)) * span;
   const int64_t i1 =
       h2o3::imin64(__ldg(offsets + k + 1), i0 + span);
-  for (int64_t i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    const float4 q = rec[i];
-    float g = q.y, h = q.z, w = q.w;
-    if (bf16) {
-      g = h2o3::round_bf16(g);
-      h = h2o3::round_bf16(h);
-      w = h2o3::round_bf16(w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int consumers = ft < kMaxConsumers ? ft : kMaxConsumers;
+  const bool consumer = warp < consumers;
+  const int p = threadIdx.x - 32 * consumers;  // producer thread's record
+  // (producers) record p of chunk c into buffer buf
+  auto stage = [&](int64_t c, int buf) {
+    if (p >= kChunkRecs) return;
+    float g = 0.f, h = 0.f, w = 0.f;
+    int row = -1;
+    if (c + p < i1) {
+      const float4 q = rec[c + p];
+      row = __float_as_int(q.x);
+      g = q.y;
+      h = q.z;
+      w = q.w;
+      if (bf16) {
+        g = h2o3::round_bf16(g);
+        h = h2o3::round_bf16(h);
+        w = h2o3::round_bf16(w);
+      }
     }
-    const CodeT* row =
-        codes + static_cast<int64_t>(__float_as_int(q.x)) * F + f0;
+    s_m[buf * kChunkRecs + p] = make_float4(g, h, w, 0.f);
+    uint16_t* sc = s_c + buf * fs * kChunkRecs;
+    const CodeT* rp = codes + static_cast<int64_t>(row < 0 ? 0 : row) * F + f0;
     for (int f8 = 0; f8 < ft; f8 += 8) {
       int cv[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        cv[j] = f8 + j < ft ? static_cast<int>(row[f8 + j]) : -1;
+        cv[j] = row >= 0 && f8 + j < ft ? static_cast<int>(rp[f8 + j]) : -1;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (static_cast<unsigned>(cv[j]) >= static_cast<unsigned>(B1))
-          continue;
-        float* cell = s_hist + (f8 + j) * stride + cv[j];
-        atomicAdd(cell, g);
-        atomicAdd(cell + plane, h);
-        atomicAdd(cell + 2 * plane, w);
+      for (int j = 0; j < 8; ++j)
+        if (f8 + j < ft)
+          sc[(f8 + j) * kChunkRecs + p] = static_cast<uint16_t>(
+              static_cast<unsigned>(cv[j]) < static_cast<unsigned>(B1)
+                  ? cv[j]
+                  : 0xFFFF);
+    }
+  };
+  // (consumers) the chunk in buffer buf into the warp's features. The
+  // lanes of a bin: each lane writes its id into its bin's tag, and the
+  // lanes that read back the same id (whichever lane's store landed) are
+  // matched with one ballot a bit of the id; far less issue than
+  // __match_any_sync, a slow instruction on Hopper. Only the membership
+  // matters, and it does not depend on which store landed.
+  uint8_t* tag = s_tag + warp * B1;
+  auto consume = [&](int buf) {
+    const float4* sm = s_m + buf * kChunkRecs;
+    for (int fl = warp; fl < ft; fl += consumers) {
+      const uint16_t* sc = s_c + (buf * fs + fl) * kChunkRecs;
+      float* cell0 = s_hist + fl * stride;
+      for (int j0 = 0; j0 < kChunkRecs; j0 += 32) {
+        const int key = sc[j0 + lane];
+        const bool live = key < B1;
+        if (live) tag[key] = static_cast<uint8_t>(lane);
+        __syncwarp();
+        const int id = live ? tag[key] : lane;
+        unsigned peers = 0xffffffffu;
+#pragma unroll
+        for (int bit = 0; bit < 5; ++bit) {
+          const bool on = (id >> bit) & 1;
+          const unsigned m = __ballot_sync(0xffffffffu, on);
+          peers &= on ? m : ~m;
+        }
+        if (live && lane == __ffs(peers) - 1) {
+          float sg = 0.f, sh = 0.f, sw = 0.f;
+          for (unsigned m = peers; m != 0u; m &= m - 1u) {
+            const float4 v = sm[j0 + __ffs(m) - 1];
+            sg = __fadd_rn(sg, v.x);
+            sh = __fadd_rn(sh, v.y);
+            sw = __fadd_rn(sw, v.z);
+          }
+          float* cell = cell0 + key;
+          cell[0] = __fadd_rn(cell[0], sg);
+          cell[plane] = __fadd_rn(cell[plane], sh);
+          cell[2 * plane] = __fadd_rn(cell[2 * plane], sw);
+        }
       }
     }
+  };
+  if (!consumer) stage(i0, 0);
+  __syncthreads();  // chunk 0 staged, the partial zeroed
+  int buf = 0;
+  for (int64_t c = i0; c < i1; c += kChunkRecs, buf ^= 1) {
+    if (consumer)
+      consume(buf);
+    else if (c + kChunkRecs < i1)
+      stage(c + kChunkRecs, buf ^ 1);
+    __syncthreads();  // chunk c added, chunk c + 1 staged
   }
-  __syncthreads();
   float* pb = part + static_cast<int64_t>(b) * 3 * F * B1;
   const int per = ft * B1;
   for (int j = threadIdx.x; j < 3 * per; j += blockDim.x) {
-    const int p = j / per;
-    const int rem = j - p * per;
+    const int q = j / per;
+    const int rem = j - q * per;
     const int fl = rem / B1, bin = rem - fl * B1;
-    pb[(static_cast<int64_t>(p) * F + f0 + fl) * B1 + bin] =
-        s_hist[p * plane + fl * stride + bin];
+    pb[(static_cast<int64_t>(q) * F + f0 + fl) * B1 + bin] =
+        s_hist[q * plane + fl * stride + bin];
   }
 }
 
@@ -208,8 +303,12 @@ struct GlobalPlan {
 template <typename CodeT>
 int plan(int64_t rows, int F, int n_nodes, int B1, int form, GlobalPlan* p) {
   const int stride = B1 | 1;  // odd: neighbouring cells on other banks
+  // a feature of a block's slice: its three partial planes, its staged
+  // uint16 codes, twice, and (at most) a consumer's tags
   const int64_t fs_max =
-      h2o3::kHistBudget / (3 * static_cast<int64_t>(stride) * sizeof(float));
+      h2o3::kHistBudget /
+      (3 * static_cast<int64_t>(stride) * sizeof(float) +
+       2 * kChunkRecs * sizeof(uint16_t) + B1);
   const bool fits = fs_max >= 1 && n_nodes <= h2o3::kMaxGroups &&
                     rows < (int64_t{1} << 31);
   p->grouped = form == kPick ? fits : form == kGrouped;
@@ -220,7 +319,13 @@ int plan(int64_t rows, int F, int n_nodes, int B1, int form, GlobalPlan* p) {
   if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   p->slices = static_cast<int>((F + fs_max - 1) / fs_max);
   p->fs = (F + p->slices - 1) / p->slices;
-  p->smem = 3 * static_cast<size_t>(p->fs) * stride * sizeof(float);
+  // the partial (to a float4), two chunks' staged masses and uint16 codes,
+  // the consumers' tags
+  const int consumers = p->fs < kMaxConsumers ? p->fs : kMaxConsumers;
+  p->smem = (3 * static_cast<size_t>(p->fs) * stride + 3) / 4 * 16 +
+            2 * kChunkRecs * (sizeof(float4) +
+                              static_cast<size_t>(p->fs) * sizeof(uint16_t)) +
+            static_cast<size_t>(consumers) * B1;
   auto kern = global_hist_grouped_kernel<CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -238,6 +343,7 @@ int plan(int64_t rows, int F, int n_nodes, int B1, int form, GlobalPlan* p) {
   const int64_t span = (rows + target - 1) / target;
   p->span = span < kThreads ? kThreads : span;
   p->nblk = h2o3::span_blocks(rows, n_nodes, p->span);
+  if (p->nblk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   p->bytes = h2o3::grouping_bytes(rows, n_nodes) +
              h2o3::align256(sizeof(float) * 3 * static_cast<size_t>(F) * B1 *
                             p->nblk);
@@ -273,7 +379,7 @@ int launch(const void* codes_v, const int* seg, const float* ghw,
   rc = h2o3::launch_grouping(h2o3::SegKey{seg, n_nodes}, ghw, rows, n_nodes,
                              p.span, g, stream);
   if (rc != 0) return rc;
-  dim3 grid(static_cast<unsigned>(p.nblk), static_cast<unsigned>(p.slices));
+  dim3 grid(static_cast<unsigned>(p.slices), static_cast<unsigned>(p.nblk));
   global_hist_grouped_kernel<CodeT><<<grid, kThreads, p.smem, stream>>>(
       codes, g.rec, g.offsets, g.bstart, n_nodes, p.span, F, B1, B1 | 1,
       p.fs, bf16, part);

@@ -32,6 +32,7 @@ from h2o3_tpu_torch.ops.hist_adaptive import (I8_MAX_ROWS, adaptive_level,
                                               make_tables, pick_W,
                                               quantize_ghw_i8,
                                               rows_features)
+from h2o3_tpu_torch.ops.common import segment_totals
 from h2o3_tpu_torch.ops.histogram import build_histograms
 
 NEG_INF = -1e30
@@ -90,6 +91,18 @@ def _leaf_value(g, h, cfg: TreeConfig):
     return -_soft(g, cfg) / (h + cfg.reg_lambda + 1e-12)
 
 
+def _cumsum_bins(x):
+    """Cumulative sums over the last axis, in one fixed order on every
+    device. Torch scans each row of a CUDA tensor with more than one row
+    in a fixed order, but a tensor that is one row long (one node, one
+    feature) goes to CUB's device-wide scan, whose float sums follow the
+    schedule; such a row is scanned beside a row of zeros."""
+    if x.numel() == x.shape[-1]:
+        two = torch.stack([x.reshape(-1), torch.zeros_like(x.reshape(-1))])
+        return torch.cumsum(two, dim=-1)[0].reshape(x.shape)
+    return torch.cumsum(x, dim=-1)
+
+
 def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None):
     """Best split per node from a (g, h, w) histogram triple, each
     [N, F', B'] with F' >= n_features and B' >= n_bins+1 (lane n_bins is
@@ -104,9 +117,9 @@ def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None):
     h = trip[1][:, :F, :]
     w = trip[2][:, :F, :]
     g_na, h_na, w_na = g[..., B], h[..., B], w[..., B]
-    cg = torch.cumsum(g[..., :B], dim=-1)
-    ch = torch.cumsum(h[..., :B], dim=-1)
-    cw = torch.cumsum(w[..., :B], dim=-1)
+    cg = _cumsum_bins(g[..., :B])
+    ch = _cumsum_bins(h[..., :B])
+    cw = _cumsum_bins(w[..., :B])
     g_tot = cg[..., -1] + g_na
     h_tot = ch[..., -1] + h_na
     w_tot = cw[..., -1] + w_na
@@ -197,16 +210,13 @@ def _hist_i8(ghw, bf16: bool, rows: int):
     return None
 
 
-def _segment_totals(lid, valid, g, h, w, n_seg: int):
-    """Per-node (g, h, w) sums over rows, in one weighted bincount."""
-    zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    vals = torch.stack([torch.where(valid, g, zero),
-                        torch.where(valid, h, zero),
-                        torch.where(valid, w, zero)], dim=1)
-    idx = lid.long()[:, None] * 3 + torch.arange(3, device=g.device)
-    tot = torch.bincount(idx.reshape(-1), weights=vals.reshape(-1),
-                         minlength=3 * n_seg).reshape(n_seg, 3)
-    return tot[:, 0], tot[:, 1], tot[:, 2]
+def _segment_totals(nid, ghw, n_seg: int, base: int):
+    """Per-node (g, h, w) sums of the rows whose ``nid`` lies in ``[base,
+    base + n_seg)`` (``ghw`` [3, rows] float32): on the card the
+    leaf-totals kernel, whose sums come in a fixed order
+    (``ops/common.segment_totals``)."""
+    tot = segment_totals(nid, ghw, n_seg, base)
+    return tot[0], tot[1], tot[2]
 
 
 def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
@@ -273,10 +283,7 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     ND = 2 ** D
     baseD = ND - 1
     nid = binned_route_only(codes, nid, tables, ND // 2, baseD, W)
-    localD = nid - baseD
-    inD = (localD >= 0) & (localD < ND)
-    lidD = localD.clamp(0, ND - 1)
-    gD, hD, wD = _segment_totals(lidD, inD, g, h, w, ND)
+    gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
     value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
     node_w[baseD:] = wD
     return tree(), nid
@@ -360,9 +367,7 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     # deepest level: leaf values from per-leaf totals
     ND = 2 ** D
     baseD = ND - 1
-    localD = nid - baseD
-    inD = (localD >= 0) & (localD < ND)
-    gD, hD, wD = _segment_totals(localD.clamp(0, ND - 1), inD, g, h, w, ND)
+    gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
     value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
     node_w[baseD:] = wD
     return {"feat": feat, "split_bin": split_bin, "na_left": na_left,

@@ -1,12 +1,15 @@
 """What the dispatching modules (``ops/hist_adaptive.py``,
 ``ops/histogram.py``) share: the device dispatch, the scatter-add
 histogram that every plain version of a histogram kernel ends in, in
-its float and its int8 fixed-point form, and the plain versions of two
-pieces of the node-grouped kernels: the row grouping and the exact
-three-term bf16 split of float32 masses."""
+its float and its int8 fixed-point form, the plain versions of two
+pieces of the node-grouped kernels (the row grouping and the exact
+three-term bf16 split of float32 masses), and the per-node segment
+totals of a tree's deepest level with their dispatcher."""
 from __future__ import annotations
 
 import torch
+
+from h2o3_tpu_torch.ops import kernels
 
 
 def level_hist_plain(nid, bins, ghw, n_nodes: int, level_base: int, W: int,
@@ -113,3 +116,27 @@ def split3_bf16(t):
     mid = r1.to(torch.bfloat16).to(torch.float32)
     lo = (r1 - mid) * 256.0
     return torch.stack([hi, mid, lo])
+
+
+def segment_totals_plain(nid, ghw, n_nodes: int, level_base: int):
+    """Plain version of the segment-totals kernel (``kernels.segment_totals``,
+    the leaf-totals kernel without a route): the (g, h, w) sums of the
+    rows whose ``nid`` lies in ``[level_base, level_base + n_nodes)``, per
+    node, in one weighted bincount in ghw's dtype. ``ghw`` is [3, rows].
+    Returns totals [3, n_nodes]."""
+    local = nid - level_base
+    valid = (local >= 0) & (local < n_nodes)
+    lid = local.clamp(0, n_nodes - 1).long()
+    vals = torch.where(valid[None, :], ghw, 0.0).t()
+    idx = lid[:, None] * 3 + torch.arange(3, device=ghw.device)
+    tot = torch.bincount(idx.reshape(-1), weights=vals.reshape(-1),
+                         minlength=3 * n_nodes).reshape(n_nodes, 3)
+    return tot.t().to(ghw.dtype).contiguous()
+
+
+def segment_totals(nid, ghw, n_nodes: int, level_base: int):
+    """Per-node (g, h, w) sums of a level's rows: the plain version for
+    CPU tensors, the CUDA kernel (sums in a fixed order) for CUDA
+    tensors."""
+    return dispatch("segment_totals", nid, segment_totals_plain,
+                    kernels.segment_totals, nid, ghw, n_nodes, level_base)

@@ -43,7 +43,9 @@ for order: kernel, plain version and the TPU kernel give the same bits.
 
 **Leaf totals** (``leaf_totals``): route one adaptive level and sum
 float32 (g, h, w) per node of the window. As in the JAX package, no
-grower calls it.
+grower calls it with a route; its instance without one
+(``common.segment_totals``) sums the packed and global-sketch growers'
+deepest level.
 
 The dispatchers send CPU tensors to the plain versions and CUDA tensors
 to the hand-written kernels (``ops/kernels.py``); anything else raises.
@@ -268,7 +270,9 @@ def takes_i8(qs, n_nodes: int, bf16: bool) -> bool:
 def binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                  level_base: int, W: int, bf16: bool = False, qs=None):
     """One packed-code tree level: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors. ``qs`` (q, scales) from
+    CUDA kernel for CUDA tensors (float masses at W <= 32 and from 32
+    nodes on: rows grouped by parent, sums in a fixed order). ``qs`` (q,
+    scales) from
     ``quantize_ghw_i8`` sends the level to the int8 form where
     ``takes_i8`` holds."""
     if takes_i8(qs, n_nodes, bf16):

@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
             "binned_level_i8": 0, "adaptive_level": 0,
             "adaptive_route_only": 0, "adaptive_level_i8": 0,
-            "leaf_totals": 0, "global_hist": 0}
+            "leaf_totals": 0, "segment_totals": 0, "global_hist": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -48,8 +48,11 @@ _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # returns a cudaError_t as int
 _SIGNATURES = {
     "hist_binned": {
+        "h2o3_binned_level_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
+                                        _INT, _INT],
         "h2o3_binned_level": [_VP, _INT, _VP, _VP, _VP, _LL, _INT, _INT,
-                              _INT, _INT, _INT, _INT, _VP, _VP, _VP],
+                              _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
+                              _VP],
         "h2o3_binned_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                    _INT, _INT, _VP, _VP],
         "h2o3_binned_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _LL,
@@ -72,8 +75,10 @@ _SIGNATURES = {
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
                                    _VP, _LL, _INT, _INT, _INT, _INT, _INT,
                                    _VP, _VP, _VP, _VP],
+        "h2o3_leaf_totals_workspace": [_LL, _INT],
         "h2o3_leaf_totals": [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT,
-                             _VP, _VP, _VP],
+                             _VP, _VP, _VP, _VP],
+        "h2o3_segment_totals": [_VP, _VP, _LL, _INT, _INT, _VP, _VP, _VP],
     },
     "hist_global": {
         "h2o3_global_hist_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
@@ -86,8 +91,10 @@ _SIGNATURES = {
 }
 # the workspace queries return a byte count (-1: shapes refused); every
 # other function a cudaError_t
-_RETURNS_BYTES = ("h2o3_adaptive_level_workspace",
-                  "h2o3_group_rows_workspace", "h2o3_global_hist_workspace")
+_RETURNS_BYTES = ("h2o3_binned_level_workspace",
+                  "h2o3_adaptive_level_workspace",
+                  "h2o3_group_rows_workspace", "h2o3_leaf_totals_workspace",
+                  "h2o3_global_hist_workspace")
 
 
 def _nvcc() -> str:
@@ -248,26 +255,55 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
-                 tables: torch.Tensor, n_prev: int, n_nodes: int,
-                 level_base: int, W: int, bf16: bool):
-    """Launch the fused route + histogram level kernel. Same contract as
-    ``hist_adaptive.binned_level_plain``; ``tables`` is int32
-    [4, max(n_prev, 1)] (feat, split_bin, na_left, can)."""
+def _binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
+                  level_base: int, W: int, bf16: bool, form: int):
     rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
     _check("ghw", ghw, torch.float32, (3, rows), dev)
     lib = build()["hist_binned"]
     nid_out = torch.empty_like(nid)
     hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # the grouped form's grouping and block partials (none for the
+        # tiled body); -1: a forced grouped form that does not fit, which
+        # its launch refuses
+        ws = _workspace(max(lib.h2o3_binned_level_workspace(
+            codes.element_size(), rows, F, W, n_prev, n_nodes, int(bf16),
+            form), 0), "binned_level", dev)
         rc = lib.h2o3_binned_level(
             codes.data_ptr(), codes.element_size(), nid.data_ptr(),
             ghw.data_ptr(), tables.data_ptr(), rows, F, W, n_prev, n_nodes,
-            level_base, int(bf16), nid_out.data_ptr(), hist.data_ptr(),
-            _stream(dev))
+            level_base, int(bf16), form, nid_out.data_ptr(), hist.data_ptr(),
+            ws.data_ptr(), _stream(dev))
     _raise_on(rc, "binned_level")
     LAUNCHES["binned_level"] += 1
     return nid_out, hist
+
+
+def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
+                 tables: torch.Tensor, n_prev: int, n_nodes: int,
+                 level_base: int, W: int, bf16: bool):
+    """Launch the fused route + histogram level kernel. Same contract as
+    ``hist_adaptive.binned_level_plain``; ``tables`` is int32
+    [4, max(n_prev, 1)] (feat, split_bin, na_left, can). The kernel
+    picks its form from the shapes (``csrc/hist_binned.cu``): rows
+    grouped by parent and one-hot products on the tensor cores, summed in
+    a fixed order, at W <= 32 and from 32 nodes on; the tiled body
+    otherwise."""
+    return _binned_level(codes, nid, ghw, tables, n_prev, n_nodes,
+                         level_base, W, bf16, -1)
+
+
+def binned_level_form(codes: torch.Tensor, nid: torch.Tensor,
+                      ghw: torch.Tensor, tables: torch.Tensor, n_prev: int,
+                      n_nodes: int, level_base: int, W: int, bf16: bool,
+                      grouped: bool):
+    """``binned_level`` with one form of the kernel forced: ``grouped``
+    True, the node-grouped tensor-core form (raises where the shapes do
+    not fit it); False, the tiled body. For the tests and
+    ``chip_smoke.py``'s timing of both forms; the training path calls
+    ``binned_level``."""
+    return _binned_level(codes, nid, ghw, tables, n_prev, n_nodes,
+                         level_base, W, bf16, int(bool(grouped)))
 
 
 def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
@@ -434,27 +470,57 @@ def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
     return nid_out, hist
 
 
+def _totals_workspace(lib, rows: int, n_nodes: int, name: str, dev):
+    if not 1 <= n_nodes <= 4096:
+        raise ValueError(f"{name}: n_nodes {n_nodes} outside [1, 4096]")
+    return _workspace(lib.h2o3_leaf_totals_workspace(rows, n_nodes), name,
+                      dev)
+
+
 def leaf_totals(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
                 tables: torch.Tensor, n_prev: int, n_nodes: int,
                 level_base: int):
     """Launch the leaf-totals kernel. Same contract as
     ``hist_adaptive.leaf_totals_plain`` (x [rows, F] float32); returns
-    (nid', totals [3, n_nodes] float32)."""
+    (nid', totals [3, n_nodes] float32), summed in a fixed order."""
     rows, F, dev = _check_adaptive(x, nid, tables, n_prev, "rows_f")
     _check("ghw", ghw, torch.float32, (3, rows), dev)
-    if not 1 <= n_nodes <= 4096:
-        raise ValueError(f"n_nodes {n_nodes} outside [1, 4096]")
     lib = build()["hist_adaptive"]
     nid_out = torch.empty_like(nid)
     totals = torch.zeros((3, n_nodes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        ws = _totals_workspace(lib, rows, n_nodes, "leaf_totals", dev)
         rc = lib.h2o3_leaf_totals(
             x.data_ptr(), nid.data_ptr(), ghw.data_ptr(), tables.data_ptr(),
             rows, F, n_prev, n_nodes, level_base, nid_out.data_ptr(),
-            totals.data_ptr(), _stream(dev))
+            totals.data_ptr(), ws.data_ptr(), _stream(dev))
     _raise_on(rc, "leaf_totals")
     LAUNCHES["leaf_totals"] += 1
     return nid_out, totals
+
+
+def segment_totals(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
+                   level_base: int) -> torch.Tensor:
+    """Launch the leaf-totals kernel's instance without a route: the
+    (g, h, w) sums of the rows whose ``nid`` lies in ``[level_base,
+    level_base + n_nodes)``, per node, in a fixed order. Same contract as
+    ``common.segment_totals_plain``; returns totals [3, n_nodes]
+    float32."""
+    _check_cuda(nid)
+    rows = nid.shape[0]
+    dev = nid.device
+    _check("nid", nid, torch.int32, (rows,), dev)
+    _check("ghw", ghw, torch.float32, (3, rows), dev)
+    lib = build()["hist_adaptive"]
+    totals = torch.zeros((3, n_nodes), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        ws = _totals_workspace(lib, rows, n_nodes, "segment_totals", dev)
+        rc = lib.h2o3_segment_totals(
+            nid.data_ptr(), ghw.data_ptr(), rows, n_nodes, level_base,
+            totals.data_ptr(), ws.data_ptr(), _stream(dev))
+    _raise_on(rc, "segment_totals")
+    LAUNCHES["segment_totals"] += 1
+    return totals
 
 
 def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,

@@ -123,3 +123,25 @@ def test_pick_w_and_code_dtype_match_jax():
             (jha.code_dtype(W) == jnp.int8)
     with pytest.raises(ValueError):
         tha.pick_W(255)
+
+
+@pytest.mark.parametrize("W,N", [(16, 32), (32, 1), (64, 8), (128, 32),
+                                 (256, 1), (256, 8), (256, 32)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_binned_level_plain_matches_pallas_interpret_levels(W, N, bf16):
+    """The plain version (which the CUDA kernel's grouped and tiled forms
+    are held against) against the TPU kernel in interpret mode at the
+    lane widths and levels the grouped form's tests cover."""
+    codes, nid, ghw, tables, n_prev, base = _inputs(
+        rows=2048, F=5, W=W, N=N, seed=N + W, int_ghw=False)
+    tc, tn, tg, tt = _torch_args(codes, nid, ghw, tables, W)
+    nid_t, hist_t = tha.binned_level_plain(tc, tn, tg, tt, n_prev, N, base,
+                                           W, bf16=bf16)
+    jct = jnp.asarray(codes.T.astype(np.int8 if W <= 128 else np.int16))
+    _c, jn, jg, jt = _jax_args(codes, nid, ghw, tables)
+    nid_p, hist_p = jha.binned_level_tpu_t(
+        jct, jn, jg, jt, n_prev, N, base, W, tile=1024, interpret=True,
+        mxu_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    np.testing.assert_array_equal(nid_t.numpy(), np.asarray(nid_p))
+    np.testing.assert_allclose(hist_t.numpy(), np.asarray(hist_p),
+                               rtol=1e-5, atol=1e-4)

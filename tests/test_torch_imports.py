@@ -116,6 +116,24 @@ def test_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
                          (torch.zeros((3, 8), dtype=torch.int8), xm))
 
 
+def test_segment_totals_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
+    from h2o3_tpu_torch.ops import common
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    calls = []
+    monkeypatch.setattr(common, "segment_totals_plain", refuse)
+    monkeypatch.setattr(kernels, "segment_totals",
+                        lambda *a: calls.append("segment_totals"))
+    t = _FakeCuda()
+    common.segment_totals(t, t, 2, 1)
+    assert calls == ["segment_totals"]
+    xm = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        common.segment_totals(xm, xm, 2, 1)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     codes = torch.zeros((8, 2), dtype=torch.int8)
     nid = torch.zeros(8, dtype=torch.int32)
@@ -143,6 +161,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.binned_level_i8(codes, nid, q, scales, tables, 0, 1, 0, 16)
     with pytest.raises(ValueError, match="CUDA kernel"):
         kernels.leaf_totals(x, nid, torch.zeros((3, 8)), ftab, 1, 2, 1)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.segment_totals(nid, torch.zeros((3, 8)), 2, 1)
 
 
 @pytest.fixture
@@ -162,21 +182,21 @@ def _launches(**nonzero):
 @pytest.mark.gpu
 @pytest.mark.parametrize("params,i8,launches", [
     (dict(nbins=14, histogram_type="quantiles_global"), "0",
-     _launches(binned_level=6, binned_route_only=2)),
+     _launches(binned_level=6, binned_route_only=2, segment_totals=2)),
     (dict(nbins=20, packed_codes=False), "0",
      _launches(adaptive_level=6, adaptive_route_only=2)),
     (dict(nbins=1024, histogram_type="quantiles_global"), "0",
-     _launches(global_hist=6)),
+     _launches(global_hist=6, segment_totals=2)),
     # H2O3_HIST_I8 at bf16: every level of a depth-3 tree at one term
     (dict(nbins=14, histogram_type="quantiles_global",
           histogram_precision="bfloat16"), "1",
-     _launches(binned_level_i8=6, binned_route_only=2)),
+     _launches(binned_level_i8=6, binned_route_only=2, segment_totals=2)),
     (dict(nbins=20, packed_codes=False, histogram_precision="bfloat16"),
      "1", _launches(adaptive_level_i8=6, adaptive_route_only=2)),
     # at float32 histograms the switch is not read
     (dict(nbins=14, histogram_type="quantiles_global",
           histogram_precision="float32"), "1",
-     _launches(binned_level=6, binned_route_only=2))])
+     _launches(binned_level=6, binned_route_only=2, segment_totals=2))])
 def test_cuda_training_launches_the_kernels(cuda, monkeypatch, params, i8,
                                             launches):
     monkeypatch.setenv("H2O3_HIST_I8", i8)

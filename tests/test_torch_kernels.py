@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-binned_level / binned_route_only on packed codes, adaptive_level /
-adaptive_route_only on raw features in both layouts, global_hist on
-unpacked global-sketch codes, the int8 fixed-point levels
-binned_level_i8 / adaptive_level_i8 and leaf_totals.
+binned_level (both forms) / binned_route_only on packed codes,
+adaptive_level / adaptive_route_only on raw features in both layouts,
+global_hist on unpacked global-sketch codes, the int8 fixed-point levels
+binned_level_i8 / adaptive_level_i8, leaf_totals and segment_totals; and
+the kernels whose float sums come in a fixed order launched five times
+on inputs where any change of order would show.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -439,3 +441,169 @@ def test_i8_and_totals_wrappers_check_their_operands(cuda):
         kernels.leaf_totals(x.t().contiguous(), n, g, t, n_prev, 4, base)
     with pytest.raises(TypeError):
         kernels.leaf_totals(x, n, g.double(), t, n_prev, 4, base)
+
+
+# ------------------------------ the grouped packed level, fixed-order sums
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+def test_binned_level_forms_integer_mass_bit_equal(cuda, grouped, W, N):
+    c, n, g, t, n_prev, base = _inputs(60_000, 9, W, N, 7 * N + W, True, cuda)
+    n = _off_window(n, N, N)
+    before = kernels.LAUNCHES["binned_level"]
+    nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, N, base, W,
+                                              False, grouped)
+    assert kernels.LAUNCHES["binned_level"] == before + 1
+    nid_p, hist_p = tha.binned_level_plain(c, n, g, t, n_prev, N, base, W)
+    assert torch.equal(nid_k, nid_p)
+    assert torch.equal(hist_k, hist_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,N", [(16, 1), (16, 32), (32, 8), (256, 8)])
+def test_binned_level_forms_float_mass_close(cuda, grouped, bf16, W, N):
+    c, n, g, t, n_prev, base = _inputs(200_000, 28, W, N, N + 1, False, cuda)
+    nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, N, base, W,
+                                              bf16, grouped)
+    nid_p, hist_p = tha.binned_level_plain(c, n, g.double(), t, n_prev, N,
+                                           base, W, bf16)
+    _n, mass = tha.binned_level_plain(c, n, g.double().abs(), t, n_prev, N,
+                                      base, W, bf16)
+    assert torch.equal(nid_k, nid_p)
+    assert bool(((hist_k.double() - hist_p).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W", [16, 32, 256])
+def test_binned_level_grouped_and_tiled_agree(cuda, bf16, W):
+    """The two forms against each other: the same node ids, each bin
+    within twice the float tolerance (each is within it of the plain
+    version)."""
+    c, n, g, t, n_prev, base = _inputs(300_000, 28, W, 16, W, False, cuda)
+    nid_g, hist_g = kernels.binned_level_form(c, n, g, t, n_prev, 16, base,
+                                              W, bf16, True)
+    nid_t, hist_t = kernels.binned_level_form(c, n, g, t, n_prev, 16, base,
+                                              W, bf16, False)
+    _n, mass = tha.binned_level_plain(c, n, g.double().abs(), t, n_prev, 16,
+                                      base, W, bf16)
+    assert torch.equal(nid_g, nid_t)
+    assert bool(((hist_g.double() - hist_t.double()).abs()
+                 <= 2 * (1e-4 + 1e-5 * mass)).all())
+
+
+def _adversarial_masses(rows, seed, dev):
+    """(g, h, w) whose float sums change with any change of order: g of
+    either sign and h from 2^-20 to 2^20."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.random(rows) < 0.5, -1.0, 1.0)
+    g = sign * 2.0 ** rng.integers(-20, 21, rows)
+    h = 2.0 ** rng.integers(-20, 21, rows)
+    return torch.as_tensor(np.stack([g, h, np.ones(rows)]).astype(np.float32),
+                           device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,N", [(16, 1), (16, 8), (32, 32)])
+def test_binned_level_grouped_repeats_bit_for_bit(cuda, bf16, W, N):
+    """Five launches of the grouped form give the same bits, with every
+    row of one node in one bin of every feature."""
+    c, n, _g, t, n_prev, base = _inputs(400_000, 28, W, N, 9, False, cuda)
+    first = n == (base - n_prev)
+    c[first] = 3
+    g = _adversarial_masses(n.shape[0], 9, cuda)
+    runs = [kernels.binned_level_form(c, n, g, t, n_prev, N, base, W, bf16,
+                                      True) for _ in range(5)]
+    assert all(torch.equal(runs[0][0], r[0]) for r in runs[1:])
+    assert all(torch.equal(runs[0][1], r[1]) for r in runs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B1,N", [(15, 1), (1025, 16)])
+def test_global_hist_grouped_repeats_bit_for_bit(cuda, bf16, B1, N):
+    """Five launches of the node-grouped form give the same bits, with
+    every row of one node in one bin of every feature."""
+    c, s, _g = _global_inputs(400_000, 28, B1, N, 4, False, cuda)
+    c[s == 0] = 7
+    g = _adversarial_masses(s.shape[0], 4, cuda)
+    runs = [kernels.global_hist_form(c, s, g, N, B1, bf16, True)
+            for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+    mass = build_histograms_plain(c, s, g.double().abs(), N, B1, bf16)
+    want = build_histograms_plain(c, s, g.double(), N, B1, bf16)
+    assert bool(((runs[0].double() - want).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 2, 64, 512, 4096])
+def test_segment_totals_close(cuda, N):
+    from h2o3_tpu_torch.ops.common import segment_totals, segment_totals_plain
+    rng = np.random.default_rng(N)
+    rows, base = 300_000, N - 1
+    n = torch.as_tensor((base + rng.integers(0, N, rows)).astype(np.int32),
+                        device=cuda)
+    n = _off_window(n, N, N)
+    g = torch.as_tensor(np.stack([rng.normal(size=rows),
+                                  rng.random(rows) * 0.25,
+                                  np.ones(rows)]).astype(np.float32),
+                        device=cuda)
+    before = kernels.LAUNCHES["segment_totals"]
+    tot = segment_totals(n, g, N, base)
+    assert kernels.LAUNCHES["segment_totals"] == before + 1
+    want = segment_totals_plain(n, g.double(), N, base)
+    mass = segment_totals_plain(n, g.double().abs(), N, base)
+    assert tot.shape == (3, N) and tot.dtype == torch.float32
+    assert bool(((tot.double() - want).abs() <= 1e-4 + 1e-5 * mass).all())
+    gi = torch.as_tensor(rng.integers(-8, 9, (3, rows)).astype(np.float32),
+                         device=cuda)
+    assert torch.equal(segment_totals(n, gi, N, base),
+                       segment_totals_plain(n, gi, N, base))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [False, True])
+def test_totals_repeat_bit_for_bit(cuda, route):
+    """Five launches of the leaf-totals kernel (with a route, and its
+    segment-totals instance) give the same bits, most rows in one node."""
+    from h2o3_tpu_torch.ops.common import segment_totals
+    rows, N = 400_000, 64
+    x, _n, _g, t, _lo, _inv, _p, _b = _adaptive_inputs(
+        rows, 9, 16, 64, 8, False, "rows_f", cuda)
+    rng = np.random.default_rng(8)
+    n = rng.integers(0, N, rows)
+    n[rng.random(rows) < 0.8] = 5
+    g = _adversarial_masses(rows, 8, cuda)
+    if route:
+        n = torch.as_tensor((31 + n // 2).astype(np.int32), device=cuda)
+        runs = [kernels.leaf_totals(x, n, g, t, 32, N, N - 1)
+                for _ in range(5)]
+        assert all(torch.equal(runs[0][0], r[0]) for r in runs[1:])
+        runs = [r[1] for r in runs]
+    else:
+        n = torch.as_tensor((N - 1 + n).astype(np.int32), device=cuda)
+        runs = [segment_totals(n, g, N, N - 1) for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.gpu
+def test_binned_form_and_segment_wrappers_check_their_operands(cuda):
+    c, n, g, t, n_prev, base = _inputs(1000, 4, 16, 4, 1, False, cuda)
+    with pytest.raises(ValueError):
+        kernels.binned_level_form(c.t(), n, g, t, n_prev, 4, base, 16, False,
+                                  True)
+    with pytest.raises(ValueError):
+        kernels.segment_totals(n[:-1], g, 4, base)
+    with pytest.raises(TypeError):
+        kernels.segment_totals(n, g.double(), 4, base)
+    with pytest.raises(ValueError):
+        kernels.segment_totals(n, g, 5000, base)

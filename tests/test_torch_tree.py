@@ -118,10 +118,69 @@ def test_predict_binned_and_raw_stacked_match_jax():
 
 
 def test_segment_totals_sum_per_leaf():
-    lid = torch.tensor([0, 2, 2, 1, 0])
-    valid = torch.tensor([True, True, False, True, True])
+    # level base 3: the rows' nodes 3, 5, 5 and 4, and one row (node 1)
+    # off the level's window
+    nid = torch.tensor([3, 5, 1, 4, 3], dtype=torch.int32)
     g = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0])
-    gs, hs, ws = ttree._segment_totals(lid, valid, g, g * 2, g * 3, 4)
+    gs, hs, ws = ttree._segment_totals(nid, torch.stack([g, g * 2, g * 3]),
+                                       4, 3)
     assert gs.tolist() == [17.0, 8.0, 2.0, 0.0]
     assert hs.tolist() == [34.0, 16.0, 4.0, 0.0]
     assert ws.tolist() == [51.0, 24.0, 6.0, 0.0]
+
+
+@pytest.mark.parametrize("n_seg", [1, 64, 512, 4096])
+@pytest.mark.parametrize("int_ghw", [True, False])
+def test_segment_totals_plain_matches_jax(n_seg, int_ghw):
+    """The deepest level's per-leaf sums (the plain version of the
+    segment-totals kernel) against the JAX package's ``_segment_totals``
+    (a one-hot product up to 256 leaves, a scatter beyond): bit-equal on
+    integer masses, within 1e-6 of each leaf's absolute mass on floats."""
+    from h2o3_tpu.models.tree import _segment_totals as jax_totals
+    from h2o3_tpu_torch.ops.common import segment_totals_plain
+    rng = np.random.default_rng(n_seg)
+    rows, base = 20_000, n_seg - 1
+    nid = (base + rng.integers(0, n_seg, rows)).astype(np.int32)
+    nid[rng.random(rows) < 0.05] = base - 1       # off the deepest level
+    if int_ghw:
+        ghw = np.stack([rng.integers(-8, 9, rows), rng.integers(0, 4, rows),
+                        rng.integers(0, 2, rows)]).astype(np.float32)
+    else:
+        ghw = np.stack([rng.normal(size=rows), rng.random(rows) * 0.25,
+                        np.ones(rows)]).astype(np.float32)
+    got = segment_totals_plain(torch.as_tensor(nid), torch.as_tensor(ghw),
+                               n_seg, base).numpy()
+    local = nid - base
+    valid = (local >= 0) & (local < n_seg)
+    want = np.stack([np.asarray(a) for a in jax_totals(
+        jnp.asarray(np.clip(local, 0, n_seg - 1)), jnp.asarray(valid),
+        *(jnp.asarray(v) for v in ghw), n_seg)])
+    assert got.dtype == np.float32 and got.shape == (3, n_seg)
+    if int_ghw:
+        np.testing.assert_array_equal(got, want)
+    else:
+        mass = np.stack([np.bincount(local[valid], np.abs(v[valid]),
+                                     minlength=n_seg) for v in ghw])
+        assert (np.abs(got.astype(np.float64) - want) <= 1e-6 * mass).all()
+
+
+def test_find_splits_one_node_one_feature_matches_jax():
+    """A histogram that is one scan long (one node, one feature: the root
+    of a one-feature frame) takes the fixed-order scan path."""
+    rng = np.random.default_rng(4)
+    W = 16
+    trip = (rng.normal(size=(1, 1, W)).astype(np.float32),
+            rng.uniform(0.1, 1.0, size=(1, 1, W)).astype(np.float32),
+            rng.integers(1, 9, size=(1, 1, W)).astype(np.float32))
+    jc, tc = _cfgs(max_depth=2, n_bins=W - 1, n_features=1, min_rows=1.0)
+    js = jtree._find_splits(tuple(jnp.asarray(a) for a in trip), jc,
+                            jnp.ones(1, bool))
+    ts = ttree._find_splits(tuple(torch.as_tensor(a) for a in trip), tc,
+                            torch.ones(1, dtype=torch.bool))
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(ts[i].numpy(), np.asarray(js[i]))
+    for i in (0, 4, 5, 6, 7, 8, 9, 10):
+        np.testing.assert_allclose(ts[i].numpy(), np.asarray(js[i]),
+                                   rtol=1e-5, atol=1e-6)
+    x = torch.as_tensor(trip[0])
+    assert torch.equal(ttree._cumsum_bins(x), torch.cumsum(x, dim=-1))
