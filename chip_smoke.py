@@ -19,11 +19,12 @@ fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
-   nvcc per source, in parallel); print each kernel's atomic and HMMA
-   opcodes from its SASS and require HMMA and no shared float CAS loop
-   (``ATOMS.CAST.SPIN``) in every tensor-core instance of the
-   node-grouped level (adaptive and packed), and no atomics at all in
-   the leaf-totals kernel and global_hist's node-grouped form;
+   nvcc per source, in parallel); print each kernel's atomic, HMMA and
+   IMMA opcodes from its SASS and require HMMA and no shared float CAS
+   loop (``ATOMS.CAST.SPIN``) in every float tensor-core instance of the
+   node-grouped level (adaptive and packed), IMMA and no atomics in every
+   int8 instance of it, and no atomics at all in the leaf-totals kernel
+   and global_hist's node-grouped form;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
    at W=16 (int8), W=32 (int8) and W=256 (int16), in the form the shapes
    pick and in both forms forced (node-grouped, tiled), binned_route_only at
@@ -37,9 +38,11 @@ fatal on failure:
    each histogram bin within 1e-4 + 1e-5 x (its absolute mass) of the
    plain version accumulated in float64, for float32 and for
    bfloat16-rounded masses. binned_level_i8 and adaptive_level_i8 (both
-   layouts) at W in {16, 32, 256}, one term at N in {1, 8, 32}, two at
-   N in {1, 8, 16}, NA codes / NaN features, 5% of the rows off the
-   window: nid and histogram bit-equal to the plain version.
+   layouts) at W in {16, 32, 256}, one term at N = 1..32, two at N =
+   1..16, NA codes / NaN features, 5% of the rows off the window, in
+   every form (node-grouped and tiled forced, and the one the kernel
+   picks; [F, rows] has no grouped form): nid and histogram bit-equal to
+   the plain version, the [rows, F] forms timed.
    leaf_totals at n_prev in {0, 32}, N in {1, 64}: nid bit-equal, totals
    within the float tolerance against float64; segment_totals at N in
    {1, 64, 512, 4096}, also five launches with the same bits;
@@ -77,9 +80,12 @@ fatal on failure:
    the six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, each
    checked at 10M rows, node-grouped and with global atomics forced; the
    grouping pass alone) against its plain version and its bound
-   (global_hist also against one ``index_add_``); the
-   int8 levels per level N = 1..32 at one term and N = 1..16 at two,
-   beside the float level on the same inputs in the same run;
+   (binned_level at W = 16, 32 and 256, adaptive_level and global_hist
+   also against one ``index_add_``); the int8 levels per level N = 1..32
+   at one term and N = 1..16 at two, W = 16, 32 and 256, in each form
+   (node-grouped, tiled, picked), each checked bit-equal at 10M rows,
+   beside the float level on the same inputs in the same run, and one
+   ``index_add_`` of the widened q into int32;
    leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64 beside
    one ``index_add_``; the global_hist record comes
    last, after phase 7, whose warm global loop it is set against;
@@ -100,6 +106,7 @@ two lines of stdout are the kernel record and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -248,6 +255,13 @@ def mass_check(name, hk, hp, mass):
 # ------------------------------------------------- kernel vs plain
 
 
+def torch_flush(dev):
+    """A 96 MB buffer whose zeroing evicts the 50 MB L2 between timed
+    launches."""
+    import torch
+    return torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+
+
 def level_inputs(rows, F, W, N, int_ghw, seed, dev):
     import torch
     from h2o3_tpu_torch.ops.hist_adaptive import code_dtype, make_tables
@@ -343,7 +357,7 @@ def phase_kernels(dev, rows=1_000_000, F=28):
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
                                                   binned_route_only_plain)
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = torch_flush(dev)
     seed = 0
     for W in (16, 32, 256):
         for N in (1, 8, 32):
@@ -478,7 +492,7 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
     plain version at 1M rows, timed with the L2 flushed."""
     import torch
     from h2o3_tpu_torch.ops import kernels
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = torch_flush(dev)
     seed = 500
     for layout in LAYOUTS:
         for W in (16, 32, 64, 128, 256):
@@ -580,7 +594,7 @@ def phase_global_kernels(dev, rows=1_000_000, F=28):
     global atomics forced."""
     from h2o3_tpu_torch.ops.histogram import build_histograms_plain
     import torch
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = torch_flush(dev)
     seed = 700
     for B1 in (15, 257, 1025):
         for N in (1, 8, 16, 32):
@@ -615,17 +629,26 @@ def off_window(nid, seed):
     return torch.where(out, 1 << 20, nid).to(torch.int32).contiguous()
 
 
-def i8_level(kind, inp, qs, N, W, layout="rows_f"):
+I8_FORMS = ("grouped", "tiled", "picked")
+
+
+def i8_level(kind, inp, qs, N, W, layout="rows_f", form="picked"):
     """One int8 level launch (kind "binned" or "adaptive") on the inputs
-    of level_inputs / adaptive_inputs and ``qs`` = (q, scales)."""
+    of level_inputs / adaptive_inputs and ``qs`` = (q, scales), in one
+    form: "picked" (the training path's wrapper: the kernel picks from the
+    shapes), "grouped" or "tiled" (forced)."""
     from h2o3_tpu_torch.ops import kernels
     if kind == "binned":
         codes, nid, _g, tables, n_prev, base = inp
-        return kernels.binned_level_i8(codes, nid, *qs, tables, n_prev, N,
-                                       base, W)
+        args = (codes, nid, *qs, tables, n_prev, N, base, W)
+        if form == "picked":
+            return kernels.binned_level_i8(*args)
+        return kernels.binned_level_i8_form(*args, form == "grouped")
     x, nid, _g, tables, lo, inv, n_prev, base = inp
-    return kernels.adaptive_level_i8(x, nid, *qs, tables, lo, inv, n_prev, N,
-                                     base, W, layout)
+    args = (x, nid, *qs, tables, lo, inv, n_prev, N, base, W, layout)
+    if form == "picked":
+        return kernels.adaptive_level_i8(*args)
+    return kernels.adaptive_level_i8_form(*args, form == "grouped")
 
 
 def i8_plain(kind, inp, qs, N, W, layout="rows_f"):
@@ -650,48 +673,77 @@ def i8_inputs(kind, rows, F, W, N, seed, dev, layout="rows_f"):
     return (inp[0], off_window(inp[1], seed)) + tuple(inp[2:])
 
 
-def check_i8(kind, rows, F, W, N, terms, dev, seed, layout="rows_f"):
-    """An int8 level against its plain version: nid and histogram
-    bit-equal (integer sums, the same float32 flush)."""
+def i8_forms(kind, layout):
+    """The forms of an int8 level: the grouped one reads [rows, F] only."""
+    return I8_FORMS if layout == "rows_f" else ("tiled", "picked")
+
+
+def check_i8(kind, rows, F, W, N, terms, dev, seed, layout="rows_f",
+             inp=None):
+    """An int8 level against its plain version in each of its forms: nid
+    and histogram bit-equal (integer sums, the same float32 flush)."""
     import torch
     from h2o3_tpu_torch.ops.hist_adaptive import quantize_ghw_i8
-    inp = i8_inputs(kind, rows, F, W, N, seed, dev, layout)
+    if inp is None:
+        inp = i8_inputs(kind, rows, F, W, N, seed, dev, layout)
     qs = quantize_ghw_i8(inp[2], terms)
-    nk, hk = i8_level(kind, inp, qs, N, W, layout)
     npl, hp = i8_plain(kind, inp, qs, N, W, layout)
-    torch.cuda.synchronize()
-    name = f"{kind}_level_i8 {layout} W={W} N={N} terms={terms}"
-    if not torch.equal(nk, npl):
-        raise AssertionError(f"{name}: nid differs in "
-                             f"{int((nk != npl).sum())} rows")
-    if not torch.equal(hk, hp):
-        err = float((hk.double() - hp.double()).abs().max())
-        raise AssertionError(f"{name}: histogram not bit-equal (max {err})")
+    for form in i8_forms(kind, layout):
+        nk, hk = i8_level(kind, inp, qs, N, W, layout, form)
+        torch.cuda.synchronize()
+        name = f"{kind}_level_i8 {form} {layout} W={W} N={N} terms={terms}"
+        if not torch.equal(nk, npl):
+            raise AssertionError(f"{name}: nid differs in "
+                                 f"{int((nk != npl).sum())} rows")
+        if not torch.equal(hk, hp):
+            err = float((hk.double() - hp.double()).abs().max())
+            raise AssertionError(f"{name}: histogram not bit-equal (max "
+                                 f"{err})")
+        del nk, hk
     return inp, qs
 
 
-I8_LEVELS = ((1, (1, 8, 32)), (2, (1, 8, 16)))   # (terms, N) checked
+I8_LEVELS = ((1, (1, 2, 4, 8, 16, 32)), (2, (1, 2, 4, 8, 16)))  # (terms, N)
+
+
+def time_i8_forms(kind, inp, qs, N, W, reps, flush=None):
+    """Median ms of each form of an int8 level on the same inputs."""
+    return {form: time_cuda(lambda: i8_level(kind, inp, qs, N, W, "rows_f",
+                                             form), reps, flush)
+            for form in I8_FORMS}
 
 
 def phase_i8_kernels(dev, rows=1_000_000, F=28):
     """Phase 3, int8 levels: binned_level_i8 and adaptive_level_i8 (both
-    layouts) at W in {16, 32, 256}, one term at N in {1, 8, 32}, two at
-    N in {1, 8, 16}, with NA codes / NaN features and 5% of the rows off
-    the window: bit-equal to the plain version."""
+    layouts) at W in {16, 32, 256}, one term at N = 1..32, two at N =
+    1..16, with NA codes / NaN features and 5% of the rows off the window,
+    in every form (grouped and tiled forced, and the one the kernel
+    picks; [F, rows] has no grouped form): bit-equal to the plain version;
+    the [rows, F] forms timed with the L2 flushed."""
+    flush = torch_flush(dev)
     seed, n = 1100, 0
     for W in (16, 32, 256):
         for terms, levels in I8_LEVELS:
+            per = {"binned": {}, "adaptive": {}}
             for N in levels:
                 seed += 1
-                check_i8("binned", rows, F, W, N, terms, dev, seed)
-                for layout in LAYOUTS:
-                    check_i8("adaptive", rows, F, W, N, terms, dev,
-                             seed + 500, layout)
-                n += 3
-    print(f"int8 levels at {rows}x{F}: {n} cases (binned_level_i8, "
-          f"adaptive_level_i8 rows_f and f_rows; W 16/32/256; terms 1 at N "
-          f"1/8/32, terms 2 at N 1/8/16) bit-equal to the plain version",
-          flush=True)
+                for kind in ("binned", "adaptive"):
+                    inp, qs = check_i8(kind, rows, F, W, N, terms, dev,
+                                       seed + (500 if kind == "adaptive"
+                                               else 0))
+                    per[kind][N] = time_i8_forms(kind, inp, qs, N, W, 20,
+                                                 flush)
+                    del inp, qs
+                    n += 3
+                check_i8("adaptive", rows, F, W, N, terms, dev, seed + 500,
+                         "f_rows")
+                n += 2
+            print(f"int8 levels {rows}x{F} W={W} terms={terms}, per level N "
+                  f"and form (ms): {json.dumps(per)}", flush=True)
+    print(f"int8 levels at {rows}x{F}: {n} (level, form) cases "
+          f"(binned_level_i8, adaptive_level_i8 rows_f and f_rows; W "
+          f"16/32/256; terms 1 at N 1..32, terms 2 at N 1..16; grouped, "
+          f"tiled, picked) bit-equal to the plain version", flush=True)
 
 
 def totals_inputs(rows, F, n_prev, N, seed, dev):
@@ -956,75 +1008,100 @@ def i8_level_bound_ms(kind, rows, F, N, W, terms, rows_in_level,
 
 def phase_i8_record(dev, launches, rows=10_000_000, F=28):
     """The int8 levels at the main paths' shapes (10M x 28; packed int8
-    codes at W=16, adaptive float32 features at W=32 in the training
-    layout), per level N = 1..32: one term at every level, two up to
-    N = 16, and the float kernel of the same level (bfloat16 masses, as
-    the path takes it without the switch) on the same inputs in the same
-    run; at N = 32 (one term) the plain version, the bound and, for the
-    adaptive kernel, the other layout."""
-    from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
+    codes, int16 at W = 256; adaptive float32 features in the training
+    layout), per level: one term at N = 1..32 and two at N = 1..16, at W =
+    16, 32 and 256, every form (grouped and tiled forced, and the one the
+    kernel picks) checked bit-equal to the plain version at 10M rows and
+    timed on the same inputs. At the path's own W (16 packed, 32 adaptive)
+    the float kernel of the same level (bfloat16 masses, as the path takes
+    it without the switch) on the same inputs in the same run; at N = 32
+    (one term) the plain version, one ``index_add_`` of the rows' q
+    widened to int32 into int32 over a precomputed flat (node, feature,
+    bin) index (library_ms), the bound and, for the adaptive kernel, the
+    [F, rows] layout (the tiled body). Prints, per level, where the picked
+    form took more than 5% above the faster forced form."""
     from h2o3_tpu_torch.ops import kernels
-    from h2o3_tpu_torch.ops.hist_adaptive import quantize_ghw_i8
+    from h2o3_tpu_torch.ops.hist_adaptive import adaptive_bins_plain
     rec = []
-    for kind, W in (("binned", 16), ("adaptive", 32)):
+    for kind, w_path in (("binned", 16), ("adaptive", 32)):
         name = f"{kind}_level_i8"
-        per = {"float_bf16": {}, "i8_terms1": {}, "i8_terms2": {}}
-        for N in (1, 2, 4, 8, 16, 32):
-            inp, qs1 = check_i8(kind, rows, F, W, N, 1, dev, 1400 + N,
-                                ADAPTIVE_LAYOUT)
-            if kind == "binned":
-                codes, nid, ghw, tables, n_prev, base = inp
-                per["float_bf16"][N] = time_cuda(lambda: kernels.binned_level(
-                    codes, nid, ghw, tables, n_prev, N, base, W, True), 10)
-            else:
-                x, nid, ghw, tables, lo, inv, n_prev, base = inp
-                per["float_bf16"][N] = time_cuda(
-                    lambda: kernels.adaptive_level(
-                        x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
-                        True, ADAPTIVE_LAYOUT), 10)
-            per["i8_terms1"][N] = time_cuda(lambda: i8_level(
-                kind, inp, qs1, N, W, ADAPTIVE_LAYOUT), 10)
-            if N <= 16:
-                qs2 = quantize_ghw_i8(inp[2], 2)
-                hist2 = i8_level(kind, inp, qs2, N, W, ADAPTIVE_LAYOUT)[1]
-                if not hist2.equal(i8_plain(kind, inp, qs2, N, W,
-                                            ADAPTIVE_LAYOUT)[1]):
-                    raise AssertionError(f"{name} N={N} terms=2 at 10M: "
-                                         f"histogram not bit-equal")
-                per["i8_terms2"][N] = time_cuda(lambda: i8_level(
-                    kind, inp, qs2, N, W, ADAPTIVE_LAYOUT), 10)
-                del qs2, hist2
-            if N == 32:
-                pms = time_cuda(lambda: i8_plain(kind, inp, qs1, N, W,
-                                                 ADAPTIVE_LAYOUT), 3)
-                other = None
-                if kind == "adaptive":
-                    # the other layout, same values
-                    xo = inp[0].t().contiguous()
-                    lay = "f_rows" if ADAPTIVE_LAYOUT == "rows_f" else \
-                        "rows_f"
-                    inp_o = (xo,) + tuple(inp[1:])
-                    other = {lay: time_cuda(lambda: i8_level(
-                        kind, inp_o, qs1, N, W, lay), 10)}
-                    del xo, inp_o
-            del inp, qs1
-        sums = {k: sum(v.values()) for k, v in per.items()}
-        bound, by = i8_level_bound_ms(kind, rows, F, 32, W, 1, rows)
-        form = ADAPTIVE_LAYOUT if kind == "adaptive" else "int8 codes"
-        print(f"{name} at 10M x 28, W={W} ({form}), "
-              f"per level N: {json.dumps(per)} ms; sum per tree "
-              f"{json.dumps(sums)} ms; N=32: plain {pms!r} ms, bound "
+        times, float_ms, slow = {}, {}, []
+        for W in (16, 32, 256):
+            for terms, levels in I8_LEVELS:
+                per = {form: {} for form in I8_FORMS}
+                for N in levels:
+                    seed = 1400 + 10 * W + 100 * terms + N
+                    inp, qs = check_i8(kind, rows, F, W, N, terms, dev, seed)
+                    for form, ms in time_i8_forms(kind, inp, qs, N, W,
+                                                  10).items():
+                        per[form][N] = ms
+                    best = min(per["grouped"][N], per["tiled"][N])
+                    if per["picked"][N] > 1.05 * best:
+                        slow.append(f"W={W} terms={terms} N={N}")
+                    if W == w_path and terms == 1:
+                        if kind == "binned":
+                            codes, nid, ghw, tables, n_prev, base = inp
+                            float_ms[N] = time_cuda(
+                                lambda: kernels.binned_level(
+                                    codes, nid, ghw, tables, n_prev, N, base,
+                                    W, True), 10)
+                        else:
+                            x, nid, ghw, tables, lo, inv, n_prev, base = inp
+                            float_ms[N] = time_cuda(
+                                lambda: kernels.adaptive_level(
+                                    x, nid, ghw, tables, lo, inv, n_prev, N,
+                                    base, W, True, "rows_f"), 10)
+                        if N == 32:
+                            pms = time_cuda(lambda: i8_plain(
+                                kind, inp, qs, N, W), 3)
+                            nid_out = i8_level(kind, inp, qs, N, W)[0]
+                            bins = (inp[0] if kind == "binned" else
+                                    adaptive_bins_plain(inp[0], nid_out,
+                                                        inp[4], inp[5], N,
+                                                        inp[7], W))
+                            lib_ms = index_add_ms(bins, nid_out,
+                                                  qs[0].t().int(), N,
+                                                  inp[-1], W)
+                            del bins, nid_out
+                            other = None
+                            if kind == "adaptive":
+                                # the same values in [F, rows]
+                                inp_o = (inp[0].t().contiguous(),) + \
+                                    tuple(inp[1:])
+                                other = {"f_rows": time_cuda(
+                                    lambda: i8_level(kind, inp_o, qs, N, W,
+                                                     "f_rows"), 10)}
+                                del inp_o
+                    del inp, qs
+                times.setdefault(W, {})[terms] = per
+                sums = {form: sum(v.values()) for form, v in per.items()}
+                print(f"{name} at 10M x 28, W={W}, terms={terms}, per level "
+                      f"N and form: {json.dumps(per)} ms; sum per tree "
+                      f"{json.dumps(sums)} ms", flush=True)
+        bound, by = i8_level_bound_ms(kind, rows, F, 32, w_path, 1, rows)
+        tree = {t: {form: sum(v.values()) for form, v in per.items()}
+                for t, per in times[w_path].items()}
+        print(f"{name} at 10M x 28, W={w_path} (the path's): sum per tree "
+              f"one term {json.dumps(tree[1])} ms, float level (bf16) "
+              f"{sum(float_ms.values())!r} ms ({json.dumps(float_ms)}); "
+              f"N=32: plain {pms!r} ms, index_add_ {lib_ms!r} ms, bound "
               f"{bound!r} ms by {by}"
-              + (f", other layout {json.dumps(other)} ms" if other else ""),
-              flush=True)
+              + (f", other layout {json.dumps(other)} ms" if other else "")
+              + f"; picked form more than 5% above the faster one at "
+              f"{slow or 'no level'}", flush=True)
         rec.append({"name": name, "route": "cuda", "source": SRC[name],
                     "replaces": REPLACES[name],
                     "launches": launches[name], "max_abs_err": 0.0,
-                    "ms": per["i8_terms1"][32],
-                    "float_level_ms": per["float_bf16"][32],
-                    "ms_terms2_n16": per["i8_terms2"][16],
+                    "ms": times[w_path][1]["picked"][32],
+                    "ms_tree": tree[1], "ms_tree_terms2": tree[2],
+                    "ms_tree_by_w": {
+                        w: {t: {form: sum(v.values())
+                                for form, v in per.items()}
+                            for t, per in by_t.items()}
+                        for w, by_t in times.items() if w != w_path},
+                    "float_level_ms_tree": sum(float_ms.values()),
                     "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-                    "library_ms": None})
+                    "library_ms": lib_ms})
     return rec
 
 
@@ -1084,23 +1161,33 @@ def phase_totals_record(dev, launches, rows=10_000_000, F=28, n_prev=32,
     return rec
 
 
-def index_add_ms(codes, nid_out, ghw, N, base, W, reps=5):
+def index_add_ms(bins, nid_out, vals, N, base, W, reps=5):
     """The library yardstick of a level's histogram: one ``index_add_`` of
-    the bf16-rounded masses of the rows in the level's window over their
-    flat (node, feature, code) index, index and values built before the
-    timing. The port never calls it."""
+    the values ``vals`` [rows, C] of the rows in the level's window over
+    their flat (node, feature, bin) index (``bins`` [rows, F], the codes
+    or the adaptive bins), index and values built before the timing:
+    float values into float32, int32 into int32. The port never calls
+    it."""
     import torch
-    F = codes.shape[1]
+    F = bins.shape[1]
     lid = nid_out.long() - base
     live = (lid >= 0) & (lid < N)
-    flat = ((lid[live][:, None] * F + torch.arange(F, device=codes.device))
-            * W + codes[live].long()).reshape(-1)
-    vals = (ghw.t()[live].to(torch.bfloat16).float()[:, None, :]
-            .expand(-1, F, 3).reshape(-1, 3).contiguous())
-    out = torch.zeros((N * F * W, 3), device=codes.device)
-    ms = time_cuda(lambda: out.index_add_(0, flat, vals), reps)
-    del flat, vals, out
+    flat = ((lid[live][:, None] * F + torch.arange(F, device=bins.device))
+            * W + bins[live].long()).reshape(-1)
+    v = vals[live]
+    v = v[:, None, :].expand(-1, F, v.shape[1]).reshape(-1, v.shape[1])
+    v = v.contiguous()
+    out = torch.zeros((N * F * W, v.shape[1]), dtype=v.dtype,
+                      device=bins.device)
+    ms = time_cuda(lambda: out.index_add_(0, flat, v), reps)
+    del flat, v, out
     return ms
+
+
+def bf16_rows(ghw):
+    """(g, h, w) a row, bf16-rounded, as float32 [rows, 3]."""
+    import torch
+    return ghw.t().to(torch.bfloat16).float()
 
 
 def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
@@ -1120,7 +1207,7 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
                                                   binned_route_only_plain)
     N = 32
-    sums, errs, by_w = {}, {}, {}
+    sums, errs, by_w, lib_by_w = {}, {}, {}, {}
     for W in (16, 32, 64, 128, 256):
         per = {"grouped_bf16": {}, "tiled_bf16": {}}
         if W == 16:
@@ -1137,6 +1224,12 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
                     lambda: binned_form(form)(codes, nid, ghw, tables,
                                               n_prev, n_lvl, base, W, True),
                     10)
+            if W in (32, 256) and n_lvl == N:
+                nid_out = binned_form("picked")(codes, nid, ghw, tables,
+                                                n_prev, N, base, W, True)[0]
+                lib_by_w[W] = index_add_ms(codes, nid_out, bf16_rows(ghw), N,
+                                           base, W)
+                del nid_out
             if W == 16:
                 e32, _ = check_level(rows, F, W, n_lvl, False, False, dev, 0,
                                      "grouped", inp)
@@ -1156,8 +1249,8 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
                     pms = time_cuda(lambda: binned_level_plain(
                         codes, nid, ghw, tables, n_prev, N, base, W, True),
                         3)
-                    lib_ms = index_add_ms(codes, outs[0][0], ghw, N, base,
-                                          W)
+                    lib_ms = index_add_ms(codes, outs[0][0], bf16_rows(ghw),
+                                          N, base, W)
                     lp = nid.long() - (base - n_prev)
                     keys = torch.where(
                         tables[3][lp.clamp(0, n_prev - 1)] != 0, lp,
@@ -1176,7 +1269,8 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
               f"tree {json.dumps(sums[W])} ms", flush=True)
     bound, by = level_bound_ms(rows, F, 1, N, 16, rows)
     print(f"binned_level W=16 N={N}: {ms!r} ms, plain {pms!r} ms, "
-          f"index_add_ {lib_ms!r} ms, grouping pass alone {group_ms!r} ms, "
+          f"index_add_ {lib_ms!r} ms (W=32, 256: {json.dumps(lib_by_w)}), "
+          f"grouping pass alone {group_ms!r} ms, "
           f"bound {bound!r} ms by {by}; five launches bit-equal at every "
           f"level; max abs err vs plain {json.dumps(errs)}", flush=True)
     rec = [{"name": "binned_level", "route": "cuda",
@@ -1189,7 +1283,8 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
             "ms_tree_f32": sums[16]["grouped_f32"],
             "ms_tree_by_w": {w: v for w, v in sums.items() if w != 16},
             "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib_ms}]
+            "bound_by": by, "library_ms": lib_ms,
+            "library_ms_by_w": lib_by_w}]
     W = 16
     _e, (codes, nid, tables, n_prev, base) = check_route(
         rows, F, W, 2 * N, dev, 4321)
@@ -1220,7 +1315,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     import torch
     from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
     from h2o3_tpu_torch.ops import kernels
-    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level_plain,
+    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_bins_plain,
+                                                  adaptive_level_plain,
                                                   adaptive_route_only_plain)
     W, N = 32, 32
     level_ms, route_ms = {}, {}
@@ -1265,6 +1361,14 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
                 group_ms = time_cuda(lambda: kernels.group_rows(
                     keys, n_prev + N, ghw), 10)
                 del keys, lp
+                # the library yardstick on the level's adaptive bins
+                nid_out = kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
+                                                 n_prev, N, base, W, True,
+                                                 "rows_f")[0]
+                bins = adaptive_bins_plain(x, nid_out, lo, inv, N, base, W)
+                lib_ms = index_add_ms(bins, nid_out, bf16_rows(ghw), N, base,
+                                      W)
+                del nid_out, bins
             del inp, x, nid, ghw
         e, inp = check_adaptive_level(rows, F, W, n_lvl, False, True, dev,
                                       900 + n_lvl, "f_rows")
@@ -1280,7 +1384,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
           f"node-grouped tensor-core form, and its shared-atomics ablation; "
           f"f_rows: the tiled body): {json.dumps(per)} ms; sum per tree "
           f"{json.dumps(sums)} ms; grouping pass alone at N=32 "
-          f"{group_ms!r} ms; max abs err vs plain {json.dumps(errs)}",
+          f"{group_ms!r} ms; index_add_ on the adaptive bins at N=32 "
+          f"{lib_ms!r} ms; max abs err vs plain {json.dumps(errs)}",
           flush=True)
     for layout in LAYOUTS:
         x, nid, tables, n_prev, base = check_adaptive_route(rows, F, 2 * N,
@@ -1305,7 +1410,7 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "ms_tree": sums["bf16"], "ms_tree_f32": sums["f32"],
              "ms_tree_atomics_ablation": sums["atomics_bf16"],
              "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
-             "bound_by": by, "library_ms": None},
+             "bound_by": by, "library_ms": lib_ms},
             {"name": "adaptive_route_only", "route": "cuda",
              "source": SRC["adaptive_route_only"],
              "replaces": REPLACES["adaptive_route_only"],
@@ -1543,7 +1648,7 @@ def sass_atomics(lib_path):
     lines, by_fn = [], {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split(chr(10))[0].strip()
-        ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|HMMA)\."
+        ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|HMMA|IMMA)\."
                          r"[A-Z0-9_.]+)", fn)
         counts = {op: ops.count(op) for op in sorted(set(ops))}
         by_fn[name] = counts
@@ -1553,23 +1658,37 @@ def sass_atomics(lib_path):
 
 def check_sass(by_fn):
     """The SASS of the kernels whose float sums must come in a fixed order:
-    every tensor-core instance of the node-grouped level (template flag
-    kMma, mangled ``Lb1E``), the adaptive level's (AdaptiveBins) and the
-    packed level's (CodeBins), has HMMA and no shared float CAS loop
-    (``ATOMS.CAST.SPIN``); the leaf-totals kernel (with and without a
-    route) and global_hist's node-grouped form have no atomics at all."""
-    def hmma(counts):
-        return sum(v for k, v in counts.items() if k.startswith("HMMA"))
+    every float tensor-core instance of the node-grouped level (mass
+    policy FloatMass with kMma, mangled ``9FloatMass`` and ``Lb1E``), the
+    adaptive level's (AdaptiveBins) and the packed level's (CodeBins), has
+    HMMA and no shared float CAS loop (``ATOMS.CAST.SPIN``); every int8
+    instance (``I8Mass``) of both has IMMA and no shared or global atomics
+    at all; the leaf-totals kernel (with and without a route) and
+    global_hist's node-grouped form have no atomics at all."""
+    def mma(counts, op):
+        return sum(v for k, v in counts.items() if k.startswith(op))
+
+    def atomics(counts):
+        return {k: v for k, v in counts.items()
+                if k.startswith(("ATOM", "RED"))}
     per_src = {}
     for src in ("AdaptiveBins", "CodeBins"):
-        mma = {n: c for n, c in by_fn.items()
-               if "level_grouped_kernel" in n and src in n and "Lb1E" in n}
-        if not mma:
-            raise AssertionError(f"SASS: no tensor-core {src} instance")
-        for name, counts in mma.items():
-            if hmma(counts) == 0 or "ATOMS.CAST.SPIN" in counts:
+        grouped = {n: c for n, c in by_fn.items()
+                   if "level_grouped_kernel" in n and src in n}
+        fmma = {n: c for n, c in grouped.items()
+                if "9FloatMass" in n and "Lb1E" in n}
+        imma = {n: c for n, c in grouped.items() if "6I8Mass" in n}
+        if not fmma or not imma:
+            raise AssertionError(f"SASS: no float or no int8 tensor-core "
+                                 f"{src} instance")
+        for name, counts in fmma.items():
+            if mma(counts, "HMMA") == 0 or "ATOMS.CAST.SPIN" in counts:
                 raise AssertionError(f"SASS of {name}: {counts}")
-        per_src[src] = [hmma(c) for c in mma.values()]
+        for name, counts in imma.items():
+            if mma(counts, "IMMA") == 0 or atomics(counts):
+                raise AssertionError(f"SASS of {name}: {counts}")
+        per_src[src] = {"HMMA": [mma(c, "HMMA") for c in fmma.values()],
+                        "IMMA": [mma(c, "IMMA") for c in imma.values()]}
     ordered = {n: c for n, c in by_fn.items()
                if "leaf_totals_kernel" in n
                or "global_hist_grouped_kernel" in n}
@@ -1580,7 +1699,8 @@ def check_sass(by_fn):
         if counts:
             raise AssertionError(f"SASS of {name}: atomics {counts}")
     print(f"SASS check: tensor-core grouped level instances, HMMA per "
-          f"instance {json.dumps(per_src)}, no ATOMS.CAST.SPIN; "
+          f"float instance (no ATOMS.CAST.SPIN) and IMMA per int8 instance "
+          f"(no atomics) {json.dumps(per_src)}; "
           f"{len(ordered)} leaf_totals / global_hist grouped instances "
           f"without atomics", flush=True)
 
@@ -1686,7 +1806,11 @@ def main() -> int:
         "segment_totals": packed["launches"]["segment_totals"]})
     clock.lap("6 int8 + totals record")
 
-    # 7. where the time goes: a warm, profiled retrain of each main path
+    # 7. where the time goes: a warm, profiled retrain of each main path,
+    # after giving back the cached blocks of phase 6's large inputs (the
+    # trains then grow the allocator's cache again in their first run)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_warm_profile(fr, card, "packed", packed["trees"])
     phase_warm_profile(fr, card, "adaptive", adaptive["trees"])
     clock.lap("7 packed + adaptive profile")
@@ -1705,15 +1829,20 @@ def main() -> int:
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32,64,128,256 x node-grouped, "
           "tiled; W=16 node-grouped: bf16, float32] binned_route_only "
-          "binned_level_i8[W=16,32,256 x terms=1,2] "
+          "binned_level_i8[W=16,32,256 x terms=1,2 x node-grouped, "
+          "tiled, picked] "
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
           "node-grouped: bf16, float32, shared-atomics ablation] "
           "adaptive_route_only[rows_f,f_rows] "
-          "adaptive_level_i8[rows_f,f_rows x W=16,32,256 x terms=1,2] "
+          "adaptive_level_i8[rows_f x W=16,32,256 x terms=1,2 x "
+          "node-grouped, tiled, picked; f_rows x W=16,32,256 x terms=1,2 x "
+          "tiled, picked] "
           "leaf_totals[n_prev=0,32 x N=1,64] "
           "segment_totals[N=1,64,512,4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
-          "atomics] group_rows[alone]", flush=True)
+          "atomics] group_rows[alone]; index_add_ beside binned_level "
+          "(W=16,32,256), adaptive_level, binned_level_i8, "
+          "adaptive_level_i8, segment_totals, global_hist", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,12 +27,16 @@
 // tiled body, adaptive_level_kernel.
 //
 // adaptive_level_i8 replaces _kernel_t_i8 (K7): the same level with the
-// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), as the
-// integer-mass instance (kTerms = 1 or 2) of the same kernel, in both
+// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in both
 // layouts (the TPU kernel exists only in [F, rows]; the port trains in
-// [rows, F]). Staging, int32 shared partial with native integer atomics,
-// int32 merge and float32 flush as binned_level_i8 (hist_binned.cu); the
-// histogram is bit-equal to the plain version.
+// [rows, F]). Two forms, as binned_level_i8's (hist_binned.cu): in
+// [rows, F] the integer-mass instance of the grouped body (I8Mass: int8
+// records, mma.sync m16n8k32 s8 products, one pass merging the blocks'
+// int32 partials and flushing to float32) where takes_grouped_i8 picks it;
+// otherwise, and always in [F, rows], the integer-mass instance (kTerms =
+// 1 or 2) of the tiled body: int32 shared partial with native integer
+// atomics, int32 merge and a float32 flush. Integer sums: the histogram is
+// bit-equal to the plain version in either form.
 //
 // adaptive_route_only replaces _route_kernel_t (K6) and _route_kernel
 // (K9): the deepest level's route, one thread per row, no histogram.
@@ -77,7 +81,8 @@
 // issue (level_grouped.cuh).
 // adaptive_route_only moves rows * 12 bytes; adaptive_level_i8 reads
 // 3 * terms in place of 12 bytes of mass a row. The tiled body (K5, and
-// K7's integer instances), as binned_level's in hist_binned.cu: a block
+// K7 where takes_grouped_i8 keeps it), as binned_level's in
+// hist_binned.cu: a block
 // takes 512 rows at a time; phase 1 routes them (one thread per row) and
 // stages node id and masses in shared memory; phase 2 walks the chunk's
 // features in the layout's own order (consecutive threads on consecutive
@@ -236,6 +241,8 @@ template <int W>
 struct AdaptiveBins {
   static constexpr int kW = W;
   static constexpr bool kRanges = true;
+  static constexpr int kBytes = sizeof(float);
+  static constexpr bool kByteCodes = false;
   using Val = float;
   const float* __restrict__ x;
   const float* __restrict__ tables;
@@ -243,6 +250,13 @@ struct AdaptiveBins {
   const float* __restrict__ inv;
   __device__ __forceinline__ float load(int64_t r, int f, int F) const {
     return x[r * F + f];
+  }
+  __device__ __forceinline__ const unsigned char* rows() const {
+    return reinterpret_cast<const unsigned char*>(x);
+  }
+  static __device__ __forceinline__ float at(const unsigned char* row,
+                                             int f) {
+    return reinterpret_cast<const float*>(row)[f];
   }
   __device__ __forceinline__ bool can(int lp, int n_prev) const {
     return __ldg(tables + 3 * n_prev + lp) > 0.5f;
@@ -275,16 +289,18 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
 #define H2O3_GROUPED(WW, NT)                                                 \
   do {                                                                       \
     using Src = AdaptiveBins<WW>;                                            \
+    using Mass = h2o3::FloatMass<NT, kMma>;                                  \
     if (plan_only) {                                                         \
       h2o3::GroupedPlan p;                                                   \
-      const int rc = h2o3::plan_grouped<Src, NT, kMma>(rows, F, n_prev,      \
-                                                       n_nodes, &p);         \
+      const int rc = h2o3::plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, \
+                                                   &p);                      \
       *bytes = rc == 0 ? p.bytes : 0;                                        \
       return rc;                                                             \
     }                                                                        \
-    return h2o3::launch_grouped<Src, NT, kMma>(                              \
-        Src{x, tables, lo, inv}, nid, ghw, rows, F, n_prev, n_nodes,         \
-        level_base, bf16, nid_out, hist, ws, s);                             \
+    return h2o3::launch_grouped<Src, Mass>(                                  \
+        Src{x, tables, lo, inv}, nid, h2o3::GhwRec{ghw, rows}, rows, F,      \
+        n_prev, n_nodes, level_base, bf16, nid_out, h2o3::MergeAdd{hist},    \
+        ws, s);                                                              \
   } while (0)
 #define H2O3_GROUPED_W(WW)              \
   case WW:                              \
@@ -311,6 +327,66 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
 inline bool takes_grouped(int feat_major, long long rows, int F, int n_prev,
                           int n_nodes) {
   return !feat_major && h2o3::grouped_fits(rows, F, n_prev, n_nodes);
+}
+
+// The int8 level (K7) on the grouped body: int8 records, m16n8k32 s8
+// products, the merge flushing to float32. plan_only: the workspace bytes
+// alone.
+int grouped_i8_w(int W, int terms, bool plan_only, size_t* bytes,
+                 const float* x, const int* nid, const int8_t* q,
+                 const float* scales, const float* tables, const float* lo,
+                 const float* inv, int64_t rows, int F, int n_prev,
+                 int n_nodes, int level_base, int* nid_out, float* hist,
+                 void* ws, cudaStream_t s) {
+#define H2O3_GROUPED_I8(WW, T)                                               \
+  do {                                                                       \
+    using Src = AdaptiveBins<WW>;                                            \
+    using Mass = h2o3::I8Mass<T>;                                            \
+    if (plan_only) {                                                         \
+      h2o3::GroupedPlan p;                                                   \
+      const int rc = h2o3::plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, \
+                                                   &p);                      \
+      *bytes = rc == 0 ? p.bytes : 0;                                        \
+      return rc;                                                             \
+    }                                                                        \
+    return h2o3::launch_grouped<Src, Mass>(                                  \
+        Src{x, tables, lo, inv}, nid, h2o3::QRec<T>{q, rows}, rows, F,       \
+        n_prev, n_nodes, level_base, 0, nid_out,                             \
+        h2o3::MergeFlushI8<T>{scales, static_cast<int64_t>(n_nodes) * F * WW,\
+                              hist},                                         \
+        ws, s);                                                              \
+  } while (0)
+#define H2O3_GROUPED_I8_W(WW)              \
+  case WW:                                 \
+    if (terms == 1) H2O3_GROUPED_I8(WW, 1); \
+    H2O3_GROUPED_I8(WW, 2);
+  switch (W) {
+    H2O3_GROUPED_I8_W(16)
+    H2O3_GROUPED_I8_W(32)
+    H2O3_GROUPED_I8_W(64)
+    H2O3_GROUPED_I8_W(128)
+    H2O3_GROUPED_I8_W(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef H2O3_GROUPED_I8_W
+#undef H2O3_GROUPED_I8
+}
+
+// The form an int8 level takes: form 1 (grouped) or 0 (tiled) forced, -1
+// picked by i8_grouped_rule (level_grouped.cuh) in [rows, F] where the
+// grouped body takes the shapes; [F, rows] keeps the tiled body. At 10M x
+// 28 on an H100 (ms a level, grouped / tiled, N = 1, 2, 4, 8, 16, 32):
+// W = 32, one term, 1.81 / 1.15, 1.81 / 1.20, 1.83 / 1.14, 1.86 / 1.63,
+// 1.89 / 1.86, 1.97 / 2.50; two terms (N <= 16), 2.28 / 1.41, 2.35 /
+// 1.53, 2.35 / 1.95, 2.35 / 2.40, 2.37 / 2.84; W = 16 alike (one term at
+// N = 32: 1.70 / 1.88); W = 256, 18-38 / 1.6-14.2 at every level.
+inline bool takes_grouped_i8(int form, int feat_major, int64_t rows, int F,
+                             int W, int terms, int n_prev, int n_nodes) {
+  if (form >= 0) return form == 1;
+  return !feat_major && h2o3::i8_grouped_rule(W, terms, n_nodes) &&
+         h2o3::grouped_i8_fits(rows, F, W, terms, sizeof(float), n_prev,
+                               n_nodes, true);
 }
 
 template <bool kFeatMajor>
@@ -472,7 +548,8 @@ int launch_totals(const float* x, const int* nid, const float* ghw,
                                               nid_out, part, bstart);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return h2o3::launch_merge(TotalsSrc{}, part, per, bstart, per, totals, s);
+  return h2o3::launch_merge(TotalsSrc{}, part, per, bstart, per,
+                            h2o3::MergeAdd{totals}, s);
 }
 
 template <int W, bool kFeatMajor, int kTerms>
@@ -634,9 +711,11 @@ int h2o3_adaptive_level_atomics(const float* x, const int* nid,
 
 // Rows grouped by key (level_common.cuh), alone, for the tests and
 // chip_smoke.py: keys [rows] int32 (a key outside [0, G) leaves its row
-// out), ghw [3, rows] float32 or null. Writes offsets [G + 1] int32 and
-// rec [rows, 4] float32 ({row id bits, g, h, w} a row; past offsets[G]
-// unwritten); ws holds h2o3_group_rows_workspace bytes (the counts and
+// out); the masses: ghw [3, rows] float32 or null (q null), or the int8 q
+// [3 * terms, rows] (terms 1 or 2). Writes offsets [G + 1] int32 and rec
+// (past offsets[G] unwritten): [rows, 4] float32 ({row id bits, g, h, w} a
+// row), or with q the int8 records, [rows, 2] int32 at one term, [rows, 4]
+// at two (QRec); ws holds h2o3_group_rows_workspace bytes (the counts and
 // span starts). Returns a cudaError_t value.
 long long h2o3_group_rows_workspace(long long rows, int G) {
   if (rows < 0 || G < 1 || G > h2o3::kMaxGroups) return -1;
@@ -645,9 +724,11 @@ long long h2o3_group_rows_workspace(long long rows, int G) {
       h2o3::align256(sizeof(int) * (static_cast<size_t>(G) + 1)));
 }
 
-int h2o3_group_rows(const int* keys, const float* ghw, long long rows, int G,
-                    int* offsets, float* rec, void* ws, void* stream) {
-  if (h2o3_group_rows_workspace(rows, G) < 0)
+int h2o3_group_rows(const int* keys, const float* ghw, const int8_t* q,
+                    int terms, long long rows, int G, int* offsets,
+                    void* rec, void* ws, void* stream) {
+  if (h2o3_group_rows_workspace(rows, G) < 0 ||
+      (q != nullptr && terms != 1 && terms != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   h2o3::Grouping g;
   g.nb = h2o3::group_blocks(rows);
@@ -655,26 +736,72 @@ int h2o3_group_rows(const int* keys, const float* ghw, long long rows, int G,
   g.bstart = reinterpret_cast<int*>(static_cast<char*>(ws) +
                                     h2o3::counts_bytes(rows, G));
   g.offsets = offsets;
-  g.rec = reinterpret_cast<float4*>(rec);
+  g.rec = rec;
   const h2o3::SegKey key{keys, G};
-  return h2o3::launch_grouping(key, ghw, rows, G, rows > 0 ? rows : 1, g,
-                               static_cast<cudaStream_t>(stream));
+  const int64_t span = rows > 0 ? rows : 1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q == nullptr)
+    return h2o3::launch_grouping(key, h2o3::GhwRec{ghw, rows}, rows, G, span,
+                                 g, s);
+  if (terms == 1)
+    return h2o3::launch_grouping(key, h2o3::QRec<1>{q, rows}, rows, G, span,
+                                 g, s);
+  return h2o3::launch_grouping(key, h2o3::QRec<2>{q, rows}, rows, G, span, g,
+                               s);
+}
+
+// The workspace bytes of h2o3_adaptive_level_i8 at these shapes and form:
+// the grouped form's grouping and block partials, or the tiled body's
+// int32 sums; -1 where the shapes are refused (a forced grouped form that
+// does not fit, or [F, rows]).
+long long h2o3_adaptive_level_i8_workspace(int feat_major, long long rows,
+                                           int F, int W, int n_prev,
+                                           int n_nodes, int terms, int form) {
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
+      (terms != 1 && terms != 2))
+    return -1;
+  if (!takes_grouped_i8(form, feat_major, rows, F, W, terms, n_prev,
+                        n_nodes))
+    return static_cast<long long>(h2o3::tiled_i8_bytes(terms, n_nodes, F, W));
+  if (feat_major) return -1;
+  size_t bytes = 0;
+  const int rc = grouped_i8_w(W, terms, true, &bytes, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr,
+                              rows, F, n_prev, n_nodes, 0, nullptr, nullptr,
+                              nullptr, nullptr);
+  return rc == 0 ? static_cast<long long>(bytes) : -1;
 }
 
 // The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]
-// float32 in place of ghw; acc [3 * terms, n_nodes, F, W] int32, which the
-// caller zeroes, takes the sums; writes nid_out and hist [3, n_nodes, F, W]
-// float32 (all of it, in the flush). Returns a cudaError_t value.
+// float32 in place of ghw; form -1 (picked: takes_grouped_i8), 0 (tiled
+// body, its int32 sums zeroed here, then flush_i8_kernel) or 1 (grouped,
+// merge and flush in one pass; an error in [F, rows] or where the shapes
+// do not fit); ws, h2o3_adaptive_level_i8_workspace bytes for the same
+// form. Writes nid_out [rows] int32 and hist [3, n_nodes, F, W] float32
+// (all of it). Returns a cudaError_t value.
 int h2o3_adaptive_level_i8(const float* x, int feat_major, const int* nid,
                            const int8_t* q, int terms, const float* scales,
                            const float* tables, const float* lo,
                            const float* inv, long long rows, int F, int W,
-                           int n_prev, int n_nodes, int level_base,
-                           int* nid_out, int* acc, float* hist,
+                           int n_prev, int n_nodes, int level_base, int form,
+                           int* nid_out, float* hist, void* ws,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F < 1 || n_nodes < 1 || rows < 0 || (terms != 1 && terms != 2))
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
+      (terms != 1 && terms != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (takes_grouped_i8(form, feat_major, rows, F, W, terms, n_prev,
+                       n_nodes)) {
+    if (feat_major) return static_cast<int>(cudaErrorInvalidValue);
+    size_t unused = 0;
+    return grouped_i8_w(W, terms, false, &unused, x, nid, q, scales, tables,
+                        lo, inv, rows, F, n_prev, n_nodes, level_base,
+                        nid_out, hist, ws, s);
+  }
+  int* acc = static_cast<int*>(ws);
+  const cudaError_t err =
+      cudaMemsetAsync(acc, 0, h2o3::tiled_i8_bytes(terms, n_nodes, F, W), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int rc =
       terms == 1
           ? launch_level_lw<1>(feat_major, W, x, nid, q, tables, lo, inv,

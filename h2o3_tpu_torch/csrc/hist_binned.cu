@@ -20,8 +20,9 @@
 //   float32), and the blocks' [3][2][F][W] partials are added in slot
 //   order. No node or feature tiles, no row read by two blocks, no float
 //   atomics: the same inputs give the same bits.
-// - Tiled (W >= 64 below 32 nodes, levels past kMaxGroups groups, wider
-//   frames, and the int8 instances): a block takes 512 rows at a time;
+// - Tiled (W >= 64 below 32 nodes, levels past kMaxGroups groups and
+//   wider frames; the int8 instances below where takes_grouped_i8 keeps
+//   them): a block takes 512 rows at a time;
 //   phase 1 routes them (one thread per row) and stages node id and
 //   (g, h, w) in shared memory; phase 2 walks the chunk's codes
 //   contiguously (coalesced byte loads) and adds into a per-block
@@ -44,13 +45,21 @@
 // chip_smoke.py.
 //
 // binned_level_i8 (replaces _kernel_bt_i8, K4): the same level with the
-// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8): the integer-
-// mass instance (kTerms = 1 or 2) of the tiled body. It stages q (3 or 6
-// bytes a row in place of 12), adds into an int32 shared partial with
-// native integer atomics (ATOMS.ADD), merges blocks into an int32 buffer
-// with integer atomics, and one flush pass writes the float32 histogram
-// (level_common.cuh). Sums of integers leave no room for order: the
-// histogram is bit-equal to the plain version and to the TPU kernel.
+// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in two forms
+// picked by takes_grouped_i8:
+// - Node-grouped: the integer-mass instance of the grouped body
+//   (level_grouped.cuh, I8Mass): the grouping pass writes int8 records
+//   ({row, q bytes}, 8 bytes at one term, 16 at two), the one-hot products
+//   run as mma.sync m16n8k32 s8 -> s32 (the TPU kernel's int8 x int8 ->
+//   int32 contraction), each block writes an int32 partial into its slot,
+//   and one pass merges the slots and flushes to float32.
+// - Tiled: the integer-mass instance (kTerms = 1 or 2) of the tiled body.
+//   It stages q (3 or 6 bytes a row in place of 12), adds into an int32
+//   shared partial with native integer atomics (ATOMS.ADD), merges blocks
+//   into a zeroed int32 buffer with integer atomics, and a flush pass
+//   writes the float32 histogram (level_common.cuh).
+// Sums of integers leave no room for order: in either form the histogram
+// is bit-equal to the plain version and to the TPU kernel.
 //
 // binned_route_only (replaces _route_kernel_bt, K2): the deepest level's
 // route, one thread per row, no histogram.
@@ -271,11 +280,20 @@ template <typename CodeT, int W>
 struct CodeBins {
   static constexpr int kW = W;
   static constexpr bool kRanges = false;
+  static constexpr int kBytes = sizeof(CodeT);
+  // byte codes: the code is the bin byte (the int8 body's SWAR bins)
+  static constexpr bool kByteCodes = sizeof(CodeT) == 1;
   using Val = int;
   const CodeT* __restrict__ codes;
   const int* __restrict__ tables;
   __device__ __forceinline__ int load(int64_t r, int f, int F) const {
     return static_cast<int>(codes[r * F + f]);
+  }
+  __device__ __forceinline__ const unsigned char* rows() const {
+    return reinterpret_cast<const unsigned char*>(codes);
+  }
+  static __device__ __forceinline__ int at(const unsigned char* row, int f) {
+    return static_cast<int>(reinterpret_cast<const CodeT*>(row)[f]);
   }
   __device__ __forceinline__ bool can(int lp, int n_prev) const {
     return __ldg(tables + 3 * n_prev + lp) != 0;
@@ -306,16 +324,18 @@ int grouped_w(int code_bytes, int W, bool plan_only, size_t* bytes,
 #define H2O3_GROUPED(CT, WW, NT)                                             \
   do {                                                                       \
     using Src = CodeBins<CT, WW>;                                            \
+    using Mass = h2o3::FloatMass<NT, true>;                                  \
     if (plan_only) {                                                         \
       h2o3::GroupedPlan p;                                                   \
-      const int rc = h2o3::plan_grouped<Src, NT, true>(rows, F, n_prev,      \
-                                                       n_nodes, &p);         \
+      const int rc = h2o3::plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, \
+                                                   &p);                      \
       *bytes = rc == 0 ? p.bytes : 0;                                        \
       return rc;                                                             \
     }                                                                        \
-    return h2o3::launch_grouped<Src, NT, true>(                              \
-        Src{static_cast<const CT*>(codes), tables}, nid, ghw, rows, F,       \
-        n_prev, n_nodes, level_base, bf16, nid_out, hist, ws, s);            \
+    return h2o3::launch_grouped<Src, Mass>(                                  \
+        Src{static_cast<const CT*>(codes), tables}, nid,                     \
+        h2o3::GhwRec{ghw, rows}, rows, F, n_prev, n_nodes, level_base, bf16, \
+        nid_out, h2o3::MergeAdd{hist}, ws, s);                               \
   } while (0)
 #define H2O3_GROUPED_W(CT, WW)           \
   if (bf16) H2O3_GROUPED(CT, WW, 1);     \
@@ -351,6 +371,69 @@ inline bool takes_grouped(int form, int64_t rows, int F, int W, int n_prev,
   if (form >= 0) return form == 1;
   return (W <= kGroupedMaxW || n_nodes >= kGroupedMinNodes) &&
          h2o3::grouped_fits(rows, F, n_prev, n_nodes);
+}
+
+// The int8 level (K4) on the grouped body: int8 records, m16n8k32 s8
+// products, the merge flushing to float32. plan_only: the workspace bytes
+// alone.
+int grouped_i8_w(int code_bytes, int W, int terms, bool plan_only,
+                 size_t* bytes, const void* codes, const int* nid,
+                 const int8_t* q, const float* scales, const int* tables,
+                 int64_t rows, int F, int n_prev, int n_nodes,
+                 int level_base, int* nid_out, float* hist, void* ws,
+                 cudaStream_t s) {
+#define H2O3_GROUPED_I8(CT, WW, T)                                           \
+  do {                                                                       \
+    using Src = CodeBins<CT, WW>;                                            \
+    using Mass = h2o3::I8Mass<T>;                                            \
+    if (plan_only) {                                                         \
+      h2o3::GroupedPlan p;                                                   \
+      const int rc = h2o3::plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, \
+                                                   &p);                      \
+      *bytes = rc == 0 ? p.bytes : 0;                                        \
+      return rc;                                                             \
+    }                                                                        \
+    return h2o3::launch_grouped<Src, Mass>(                                  \
+        Src{static_cast<const CT*>(codes), tables}, nid,                     \
+        h2o3::QRec<T>{q, rows}, rows, F, n_prev, n_nodes, level_base, 0,     \
+        nid_out,                                                             \
+        h2o3::MergeFlushI8<T>{scales, static_cast<int64_t>(n_nodes) * F * WW,\
+                              hist},                                         \
+        ws, s);                                                              \
+  } while (0)
+#define H2O3_GROUPED_I8_W(CT, WW)               \
+  if (terms == 1) H2O3_GROUPED_I8(CT, WW, 1);   \
+  H2O3_GROUPED_I8(CT, WW, 2);
+  if (code_bytes == 1) {
+    switch (W) {
+      case 16: H2O3_GROUPED_I8_W(int8_t, 16)
+      case 32: H2O3_GROUPED_I8_W(int8_t, 32)
+      case 64: H2O3_GROUPED_I8_W(int8_t, 64)
+      case 128: H2O3_GROUPED_I8_W(int8_t, 128)
+      default: break;
+    }
+  } else if (code_bytes == 2 && W == 256) {
+    H2O3_GROUPED_I8_W(int16_t, 256)
+  }
+#undef H2O3_GROUPED_I8_W
+#undef H2O3_GROUPED_I8
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The form an int8 level takes: form 1 (grouped) or 0 (tiled) forced, -1
+// picked by i8_grouped_rule (level_grouped.cuh) where the grouped body
+// takes the shapes. At 10M x 28 on an H100 (ms a level, grouped / tiled,
+// N = 1, 2, 4, 8, 16, 32): W = 16, one term, 1.18 / 0.96, 1.22 / 0.91,
+// 1.22 / 0.93, 1.21 / 0.94, 1.24 / 1.06, 1.30 / 1.37; two terms (N <=
+// 16), 1.69 / 1.31, 1.72 / 1.28, 1.74 / 1.32, 1.75 / 1.45, 1.72 / 1.77;
+// W = 32 alike (one term at N = 32: 1.48 / 1.76); W = 256 (int16 codes),
+// 18.6-29.7 / 1.5-11.6 at every level.
+inline bool takes_grouped_i8(int form, int64_t rows, int F, int W, int terms,
+                             int n_prev, int n_nodes) {
+  if (form >= 0) return form == 1;
+  return h2o3::i8_grouped_rule(W, terms, n_nodes) &&
+         h2o3::grouped_i8_fits(rows, F, W, terms, W == 256 ? 2 : 1, n_prev,
+                               n_nodes, false);
 }
 
 }  // namespace
@@ -398,18 +481,52 @@ int h2o3_binned_level(const void* codes, int code_bytes, const int* nid,
                            s);
 }
 
+// The workspace bytes of h2o3_binned_level_i8 at these shapes and form: the
+// grouped form's grouping and block partials, or the tiled body's int32
+// sums; -1 where the shapes are refused (a forced grouped form that does
+// not fit).
+long long h2o3_binned_level_i8_workspace(int code_bytes, long long rows,
+                                         int F, int W, int n_prev,
+                                         int n_nodes, int terms, int form) {
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
+      (terms != 1 && terms != 2))
+    return -1;
+  if (!takes_grouped_i8(form, rows, F, W, terms, n_prev, n_nodes))
+    return static_cast<long long>(h2o3::tiled_i8_bytes(terms, n_nodes, F, W));
+  size_t bytes = 0;
+  const int rc = grouped_i8_w(code_bytes, W, terms, true, &bytes, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, rows, F,
+                              n_prev, n_nodes, 0, nullptr, nullptr, nullptr,
+                              nullptr);
+  return rc == 0 ? static_cast<long long>(bytes) : -1;
+}
+
 // The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]
-// float32 in place of ghw; acc [3 * terms, n_nodes, F, W] int32, which the
-// caller zeroes, takes the sums; writes nid_out and hist [3, n_nodes, F, W]
-// float32 (all of it, in the flush). Returns a cudaError_t value.
+// float32 in place of ghw; form -1 (picked: takes_grouped_i8), 0 (tiled
+// body, its int32 sums zeroed here, then flush_i8_kernel) or 1 (grouped,
+// merge and flush in one pass; an error where the shapes do not fit); ws,
+// h2o3_binned_level_i8_workspace bytes for the same form. Writes nid_out
+// [rows] int32 and hist [3, n_nodes, F, W] float32 (all of it). Returns a
+// cudaError_t value.
 int h2o3_binned_level_i8(const void* codes, int code_bytes, const int* nid,
                          const int8_t* q, int terms, const float* scales,
                          const int* tables, long long rows, int F, int W,
-                         int n_prev, int n_nodes, int level_base,
-                         int* nid_out, int* acc, float* hist, void* stream) {
+                         int n_prev, int n_nodes, int level_base, int form,
+                         int* nid_out, float* hist, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F < 1 || n_nodes < 1 || rows < 0 || (terms != 1 && terms != 2))
+  if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
+      (terms != 1 && terms != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (takes_grouped_i8(form, rows, F, W, terms, n_prev, n_nodes)) {
+    size_t unused = 0;
+    return grouped_i8_w(code_bytes, W, terms, false, &unused, codes, nid, q,
+                        scales, tables, rows, F, n_prev, n_nodes, level_base,
+                        nid_out, hist, ws, s);
+  }
+  int* acc = static_cast<int*>(ws);
+  const cudaError_t err =
+      cudaMemsetAsync(acc, 0, h2o3::tiled_i8_bytes(terms, n_nodes, F, W), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int rc =
       terms == 1
           ? launch_level_w<1>(codes, code_bytes, nid, q, tables, rows, F, W,

@@ -376,18 +376,20 @@ int launch(const void* codes_v, const int* seg, const float* ghw,
   h2o3::Grouping g;
   float* part = reinterpret_cast<float*>(
       h2o3::carve_grouping(static_cast<char*>(ws), rows, n_nodes, &g));
-  rc = h2o3::launch_grouping(h2o3::SegKey{seg, n_nodes}, ghw, rows, n_nodes,
-                             p.span, g, stream);
+  rc = h2o3::launch_grouping(h2o3::SegKey{seg, n_nodes},
+                             h2o3::GhwRec{ghw, rows}, rows, n_nodes, p.span,
+                             g, stream);
   if (rc != 0) return rc;
   dim3 grid(static_cast<unsigned>(p.slices), static_cast<unsigned>(p.nblk));
   global_hist_grouped_kernel<CodeT><<<grid, kThreads, p.smem, stream>>>(
-      codes, g.rec, g.offsets, g.bstart, n_nodes, p.span, F, B1, B1 | 1,
+      codes, static_cast<const float4*>(g.rec), g.offsets, g.bstart,
+      n_nodes, p.span, F, B1, B1 | 1,
       p.fs, bf16, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t fb = static_cast<int64_t>(F) * B1;
   return h2o3::launch_merge(GlobalSrc{n_nodes, fb}, part, 3 * fb, g.bstart,
-                            cells, hist, stream);
+                            cells, h2o3::MergeAdd{hist}, stream);
 }
 
 bool valid(int code_bytes, long long rows, int F, int n_nodes, int B1) {

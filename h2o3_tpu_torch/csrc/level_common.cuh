@@ -4,8 +4,9 @@
 // node x feature tiles that fit it, the masses a level kernel adds (float
 // (g, h, w), or int8 fixed-point terms summed in int32), the merge of a
 // block's partial into the output, the int8 levels' float32 flush, and
-// the row grouping of the node-grouped kernels (global_hist and the float
-// [rows, F] adaptive level).
+// the row grouping of the node-grouped kernels (global_hist and the
+// grouped levels of level_grouped.cuh) with the fixed-order merge of their
+// blocks' partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -171,6 +172,11 @@ flush_i8_kernel(const int* __restrict__ acc, const float* __restrict__ scales,
   }
 }
 
+// Bytes of the tiled int8 level's int32 sums, [3 * terms, n_nodes, F, W].
+inline size_t tiled_i8_bytes(int terms, int n_nodes, int F, int W) {
+  return sizeof(int) * 3 * static_cast<size_t>(terms) * n_nodes * F * W;
+}
+
 inline int launch_flush_i8(const int* acc, const float* scales, int terms,
                            int64_t per_plane, float* hist,
                            cudaStream_t stream) {
@@ -187,11 +193,14 @@ inline int launch_flush_i8(const int* acc, const float* scales, int terms,
 //
 // Rows grouped by a key, the row partition of XGBoost's gpu_hist: for a
 // key in [0, G) per row (any other value: the row is left out), a stable
-// counting sort writes one record per kept row, {row id (int bits), g, h,
-// w} (zeros without ghw; a key may put another int than the row id, see
-// tag), into rec, the rows of key 0 first, each key's
-// rows in ascending row order, and offsets[k] .. offsets[k + 1] bound key
-// k's records. Three kernels, none of which waits on the host:
+// counting sort writes one record per kept row into rec, the rows of key 0
+// first, each key's rows in ascending row order, and offsets[k] ..
+// offsets[k + 1] bound key k's records. A record is the row id (a key may
+// put another int there, see tag) and the row's masses, by a record
+// policy: GhwRec, {row id (int bits), g, h, w} as a float4 from float ghw
+// (zeros without ghw); QRec<kTerms>, the int8 fixed-point q of the int8
+// levels packed after the row id (8 bytes a record at one term, 16 at
+// two). Three kernels, none of which waits on the host:
 //
 // 1. group_count: blocks take contiguous row ranges (block b the b-th);
 //    each counts its rows per key in shared memory (one warp-aggregated
@@ -208,7 +217,8 @@ inline int launch_flush_i8(const int* acc, const float* scales, int terms,
 //    scheduling.
 //
 // What bounds it: memory, keys (or what they are computed from) read
-// twice, ghw once, rec written once: about 36 bytes a row.
+// twice, the masses once, rec written once: about 36 bytes a row with
+// float ghw, 19 with one int8 term.
 
 constexpr int kGroupThreads = 256;
 constexpr int kGroupWarps = kGroupThreads / 32;
@@ -237,7 +247,7 @@ struct Grouping {
   int* counts;   // [G][nb]
   int* offsets;  // [G + 1]
   int* bstart;   // [G + 1]
-  float4* rec;   // [rows]
+  void* rec;     // [rows] records of rec_bytes each
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
@@ -246,15 +256,17 @@ inline size_t counts_bytes(int64_t rows, int G) {
   return align256(sizeof(int) * static_cast<size_t>(G) * group_blocks(rows));
 }
 
-inline size_t grouping_bytes(int64_t rows, int G) {
+inline size_t grouping_bytes(int64_t rows, int G,
+                             size_t rec_bytes = sizeof(float4)) {
   return counts_bytes(rows, G) +
          2 * align256(sizeof(int) * (static_cast<size_t>(G) + 1)) +
-         align256(sizeof(float4) * static_cast<size_t>(rows > 0 ? rows : 1));
+         align256(rec_bytes * static_cast<size_t>(rows > 0 ? rows : 1));
 }
 
 // Carve a grouping from ws (256-byte aligned); returns the first byte
 // after it.
-inline char* carve_grouping(char* ws, int64_t rows, int G, Grouping* g) {
+inline char* carve_grouping(char* ws, int64_t rows, int G, Grouping* g,
+                            size_t rec_bytes = sizeof(float4)) {
   g->nb = group_blocks(rows);
   g->counts = reinterpret_cast<int*>(ws);
   ws += counts_bytes(rows, G);
@@ -262,9 +274,69 @@ inline char* carve_grouping(char* ws, int64_t rows, int G, Grouping* g) {
   ws += align256(sizeof(int) * (static_cast<size_t>(G) + 1));
   g->bstart = reinterpret_cast<int*>(ws);
   ws += align256(sizeof(int) * (static_cast<size_t>(G) + 1));
-  g->rec = reinterpret_cast<float4*>(ws);
-  return ws + align256(sizeof(float4) * static_cast<size_t>(rows > 0 ? rows : 1));
+  g->rec = ws;
+  return ws + align256(rec_bytes * static_cast<size_t>(rows > 0 ? rows : 1));
 }
+
+// The float record: {row id (int bits), g, h, w} from ghw [3, rows]
+// float32, zeros without ghw.
+struct GhwRec {
+  using T = float4;
+  const float* __restrict__ ghw;
+  int64_t rows;
+  __device__ __forceinline__ T load(int64_t r) const {
+    return ghw != nullptr
+               ? make_float4(0.f, ghw[r], ghw[rows + r], ghw[2 * rows + r])
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ void set_row(T& v, int row) {
+    v.x = __int_as_float(row);
+  }
+};
+
+// The int8 record of q [3 * kTerms, rows] (quantize_ghw_i8's rows, one
+// term: g, h, w; two: a_g, b_g, a_h, b_h, a_w, b_w): the row id, then
+// byte p of the words after it is q[p, row] (two's complement). One term
+// fits 8 bytes (uint2 {row, q0 | q1 << 8 | q2 << 16}); the six bytes of two
+// terms do not fit beside the row id, so 16 (uint4 {row, q0..q3, q4 | q5
+// << 8, 0}).
+template <int kTerms> struct QRecWords;
+template <> struct QRecWords<1> { using T = uint2; };
+template <> struct QRecWords<2> { using T = uint4; };
+
+template <int kTerms>
+struct QRec {
+  using T = typename QRecWords<kTerms>::T;
+  const int8_t* __restrict__ q;
+  int64_t rows;
+  __device__ __forceinline__ T load(int64_t r) const {
+    unsigned w[2] = {0u, 0u};
+#pragma unroll
+    for (int p = 0; p < 3 * kTerms; ++p)
+      w[p >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(q[p * rows + r]))
+                   << (8 * (p & 3));
+    T v = zero();
+    v.y = w[0];
+    if constexpr (kTerms == 2) v.z = w[1];
+    return v;
+  }
+  static __device__ __forceinline__ T zero() { return T{}; }
+  static __device__ __forceinline__ void set_row(T& v, int row) {
+    v.x = static_cast<unsigned>(row);
+  }
+  static __device__ __forceinline__ int row(const T& v) {
+    return static_cast<int>(v.x);
+  }
+  // q[p] of the record's row
+  static __device__ __forceinline__ int mass(const T& v, int p) {
+    unsigned w = v.y;
+    if constexpr (kTerms == 2) w = p < 4 ? v.y : v.z;
+    return static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * (p & 3))));
+  }
+};
 
 // The key of a row read from an int32 array: in [0, G) or left out.
 struct SegKey {
@@ -387,11 +459,12 @@ group_scan_kernel(int* __restrict__ counts, int G, int nseg, int64_t span,
   }
 }
 
-template <class Key>
+template <class Key, class Rec>
 __global__ void __launch_bounds__(kGroupThreads)
-group_scatter_kernel(Key key, const float* __restrict__ ghw, int64_t rows,
-                     int G, const int* __restrict__ base,
-                     float4* __restrict__ rec) {
+group_scatter_kernel(Key key, Rec masses, int64_t rows, int G,
+                     const int* __restrict__ base,
+                     typename Rec::T* __restrict__ rec) {
+  using T = typename Rec::T;
   extern __shared__ int s_grp[];
   int* s_run = s_grp;      // [G]: where this block's next row of a key goes
   int* s_wcnt = s_grp + G;  // [warps][G]: a tile's rows per key and warp
@@ -404,23 +477,22 @@ group_scatter_kernel(Key key, const float* __restrict__ ghw, int64_t rows,
   int64_t r0, r1;
   row_range(rows, gridDim.x, blockIdx.x, &r0, &r1);
   // a row's key and masses, loaded a tile ahead of their use
-  auto fetch = [&](int64_t r, int* k, float4* v) {
+  auto fetch = [&](int64_t r, int* k, T* v) {
     *k = -1;
-    *v = make_float4(0.f, 0.f, 0.f, 0.f);
+    *v = Rec::zero();
     if (r < r1) {
       *k = key(r);
-      if (ghw != nullptr)
-        *v = make_float4(0.f, ghw[r], ghw[rows + r], ghw[2 * rows + r]);
+      *v = masses.load(r);
     }
   };
   int k_next;
-  float4 v_next;
+  T v_next;
   fetch(r0 + threadIdx.x, &k_next, &v_next);
   for (int64_t t0 = r0; t0 < r1; t0 += blockDim.x) {
     const int64_t r = t0 + threadIdx.x;
     const int k = k_next;
-    float4 v = v_next;
-    if (r < r1) v.x = __int_as_float(key.tag(r, k));  // every row: tag may write
+    T v = v_next;
+    if (r < r1) Rec::set_row(v, key.tag(r, k));  // every row: tag may write
     fetch(r + blockDim.x, &k_next, &v_next);
     const unsigned peers = __match_any_sync(0xffffffffu, k);
     const int rank = __popc(peers & ((1u << lane) - 1u));
@@ -442,8 +514,8 @@ group_scatter_kernel(Key key, const float* __restrict__ ghw, int64_t rows,
 
 // Launch the three passes. G in [1, kMaxGroups]; span >= 1. Returns a
 // cudaError_t value.
-template <class Key>
-int launch_grouping(Key key, const float* ghw, int64_t rows, int G,
+template <class Key, class Rec>
+int launch_grouping(Key key, Rec masses, int64_t rows, int G,
                     int64_t span, const Grouping& g, cudaStream_t stream) {
   if (G < 1 || G > kMaxGroups || span < 1 || rows >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -454,7 +526,7 @@ int launch_grouping(Key key, const float* ghw, int64_t rows, int G,
       group_count_kernel<Key>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_count));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(group_scatter_kernel<Key>,
+  err = cudaFuncSetAttribute(group_scatter_kernel<Key, Rec>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_scatter));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -462,63 +534,116 @@ int launch_grouping(Key key, const float* ghw, int64_t rows, int G,
       key, rows, G, g.counts);
   group_scan_kernel<<<1, 1024, 0, stream>>>(g.counts, G, g.nb, span,
                                             g.offsets, g.bstart);
-  group_scatter_kernel<Key><<<g.nb, kGroupThreads, smem_scatter, stream>>>(
-      key, ghw, rows, G, g.counts, g.rec);
+  group_scatter_kernel<Key, Rec><<<g.nb, kGroupThreads, smem_scatter,
+                                   stream>>>(
+      key, masses, rows, G, g.counts, static_cast<typename Rec::T*>(g.rec));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The merge of the blocks' partials: out[i] += for each source (g, o) of
-// cell i, in order, the sum over g's blocks b, in block order, of
-// part[b * bstride + o]. A CTA takes 32 consecutive cells; warp w of 8
-// adds blocks w, w + 8, ... of each source, and lane i's eight sums are
-// added in warp order: one fixed order whatever the schedule. Src gives a
-// cell's sources: int operator()(int64_t i, int* g, int64_t* o) (at most
-// two).
+// The merge of the blocks' partials: for each output cell i, for each of
+// the epilogue's kSums partial cells of i (Epi::cell), the sum over the
+// cell's sources (g, o), in order, and over g's blocks b, in block order,
+// of part[b * bstride + o]; then Epi::store(i, sums). A CTA takes 32
+// consecutive cells; warp w of 8 adds blocks w, w + 8, ... of each source,
+// and lane i's eight sums are added in warp order: one fixed order
+// whatever the schedule. Src gives a partial cell's sources: int
+// operator()(int64_t i, int* g, int64_t* o) (at most two).
 constexpr int kMergeWarps = 8;
 
-template <class Src>
+// The float epilogue: out[i] += the cell's sum (float adds, in the merge's
+// fixed order); the caller zeroes out.
+struct MergeAdd {
+  using T = float;
+  static constexpr int kSums = 1;
+  float* __restrict__ out;
+  __device__ __forceinline__ int64_t cell(int64_t i, int) const { return i; }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  __device__ __forceinline__ void store(int64_t i, const float (&t)[1]) const {
+    out[i] = __fadd_rn(out[i], t[0]);
+  }
+};
+
+// The int8 levels' epilogue, flush_i8_kernel's arithmetic: output cell i
+// of hist [3, per_plane] float32 from the int32 partial cells of its
+// component's kTerms planes ([3 * kTerms, per_plane]); written, not added.
+// Integer sums: the same bits in any order.
+template <int kTerms>
+struct MergeFlushI8 {
+  using T = int;
+  static constexpr int kSums = kTerms;
+  const float* __restrict__ scales;
+  int64_t per_plane;
+  float* __restrict__ hist;
+  __device__ __forceinline__ int64_t cell(int64_t i, int k) const {
+    const int64_t c = i / per_plane;
+    return (c * kTerms + k) * per_plane + (i - c * per_plane);
+  }
+  static __device__ __forceinline__ int add(int a, int b) { return a + b; }
+  __device__ __forceinline__ void store(int64_t i,
+                                        const int (&t)[kTerms]) const {
+    const int c = static_cast<int>(i / per_plane);
+    float v = __int2float_rn(t[0]);
+    if constexpr (kTerms == 2)
+      v = __fadd_rn(__fmul_rn(256.f, v), __int2float_rn(t[1]));
+    hist[i] = __fmul_rn(__ldg(scales + c), v);
+  }
+};
+
+template <class Src, class Epi>
 __global__ void __launch_bounds__(32 * kMergeWarps)
-merge_slots_kernel(Src src, const float* __restrict__ part, int64_t bstride,
-                   const int* __restrict__ bstart, int64_t n,
-                   float* __restrict__ out) {
-  __shared__ float s_p[kMergeWarps][33];
+merge_slots_kernel(Src src, const typename Epi::T* __restrict__ part,
+                   int64_t bstride, const int* __restrict__ bstart,
+                   int64_t n, Epi epi) {
+  using T = typename Epi::T;
+  constexpr int S = Epi::kSums;
+  __shared__ T s_p[S][kMergeWarps][33];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * 32; i0 < n;
        i0 += static_cast<int64_t>(gridDim.x) * 32) {
     const int64_t i = i0 + lane;
-    float s = 0.f;
-    if (i < n) {
-      int g[2];
-      int64_t o[2];
-      const int ns = src(i, g, o);
-      for (int q = 0; q < ns; ++q) {
-        const int b1 = __ldg(bstart + g[q] + 1);
-        for (int b = __ldg(bstart + g[q]) + warp; b < b1; b += kMergeWarps)
-          s = __fadd_rn(s, part[b * bstride + o[q]]);
+    T s[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      s[k] = T(0);
+      if (i < n) {
+        int g[2];
+        int64_t o[2];
+        const int ns = src(epi.cell(i, k), g, o);
+        for (int q = 0; q < ns; ++q) {
+          const int b1 = __ldg(bstart + g[q] + 1);
+          for (int b = __ldg(bstart + g[q]) + warp; b < b1; b += kMergeWarps)
+            s[k] = Epi::add(s[k], part[b * bstride + o[q]]);
+        }
       }
+      s_p[k][warp][lane] = s[k];
     }
-    s_p[warp][lane] = s;
     __syncthreads();
     if (warp == 0 && i < n) {
-      float t = 0.f;
+      T t[S];
 #pragma unroll
-      for (int w = 0; w < kMergeWarps; ++w) t = __fadd_rn(t, s_p[w][lane]);
-      out[i] = __fadd_rn(out[i], t);
+      for (int k = 0; k < S; ++k) {
+        t[k] = T(0);
+#pragma unroll
+        for (int w = 0; w < kMergeWarps; ++w)
+          t[k] = Epi::add(t[k], s_p[k][w][lane]);
+      }
+      epi.store(i, t);
     }
     __syncthreads();
   }
 }
 
-template <class Src>
-int launch_merge(Src src, const float* part, int64_t bstride,
-                 const int* bstart, int64_t n, float* out,
-                 cudaStream_t stream) {
+template <class Src, class Epi>
+int launch_merge(Src src, const typename Epi::T* part, int64_t bstride,
+                 const int* bstart, int64_t n, Epi epi, cudaStream_t stream) {
   int64_t ctas = (n + 31) / 32;
   const int64_t cap = static_cast<int64_t>(sm_count()) * 16;
   if (ctas > cap) ctas = cap;
-  merge_slots_kernel<Src><<<static_cast<unsigned>(ctas < 1 ? 1 : ctas),
-                            32 * kMergeWarps, 0, stream>>>(
-      src, part, bstride, bstart, n, out);
+  merge_slots_kernel<Src, Epi><<<static_cast<unsigned>(ctas < 1 ? 1 : ctas),
+                                 32 * kMergeWarps, 0, stream>>>(
+      src, part, bstride, bstart, n, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

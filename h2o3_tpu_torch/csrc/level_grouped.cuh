@@ -1,18 +1,22 @@
-// The node-grouped level on the tensor cores, shared by the float [rows, F]
-// adaptive level (K8, hist_adaptive.cu) and the float packed-code level
-// (K1/K3, hist_binned.cu): rows grouped by parent (ParentKey and the
-// grouping pass of level_common.cuh), then one block per span of a group's
-// rows with both children and all F features, then a merge of the blocks'
-// partials in a fixed order (merge_slots_kernel).
+// The node-grouped level on the tensor cores, shared by the [rows, F]
+// adaptive level (K8 with float masses, K7 with int8 ones;
+// hist_adaptive.cu) and the packed-code level (K1/K3 float, K4 int8;
+// hist_binned.cu): rows grouped by parent (ParentKey and the grouping pass
+// of level_common.cuh), then one block per span of a group's rows with
+// both children and all F features, then a merge of the blocks' partials
+// in a fixed order (merge_slots_kernel).
 //
-// The two kernels differ only in where a (row, feature)'s bin comes from,
-// a bin-source policy Src:
+// The kernels differ in where a (row, feature)'s bin comes from, a
+// bin-source policy Src:
 //
 //   static constexpr int kW;            lanes (bins) a feature, NA = kW - 1
 //   static constexpr bool kRanges;      bins need the child's (lo, inv)
+//   static constexpr int kBytes;        bytes of a value
 //   using Val;                          what a (row, feature) holds
 //   const float *lo, *inv;              [n_nodes, F] where kRanges
 //   Val load(int64_t r, int f, int F)   x[r, f] or codes[r, f]
+//   const unsigned char* rows()         x or codes, [rows, F] row-major
+//   static Val at(const unsigned char* row, int f)   value f of a row
 //   bool can(int lp, int n_prev)        parent lp of the window splits
 //   void split(k, n_prev, F, &feat, &thr, &na_right)   parent k's split
 //   int right(Val v, Val thr, int na_right)            the routing rule
@@ -21,23 +25,38 @@
 //
 // AdaptiveBins (raw float32 x re-binned under the child's range) and
 // CodeBins (int8 / int16 packed codes: the code is the bin) live beside
-// their launchers.
+// their launchers; and in what a row adds, a mass policy (FloatMass,
+// I8Mass, below): its record, its tensor-core product, its partial and
+// the merge's epilogue.
 //
 // The histogram is the TPU kernels' one-hot contraction made narrow by the
-// grouping: per 16 rows, (bin one-hot, 16 bins x 16 rows) x (16 rows x
-// (g, h, w) of each child), with mma.sync m16n8k16 bf16 -> f32. The products
-// are exact: at bf16 every mass is a bf16 value; at float32 each mass is
-// split into three bf16 terms as the JAX package's _split3_bf16 does (hi,
-// then the residuals pre-scaled by 2^8 and 2^16) and the three sums are
-// recombined as its _unsplit3 does. Each block writes its partial into its
-// own slot, and the merge adds the slots in a fixed order: there are no
-// float atomics in the level, so the same inputs give the same bits.
+// grouping. Float masses: per 16 rows, (bin one-hot, 16 bins x 16 rows) x
+// (16 rows x (g, h, w) of each child), with mma.sync m16n8k16 bf16 -> f32.
+// The products are exact: at bf16 every mass is a bf16 value; at float32
+// each mass is split into three bf16 terms as the JAX package's
+// _split3_bf16 does (hi, then the residuals pre-scaled by 2^8 and 2^16)
+// and the three sums are recombined as its _unsplit3 does. Each block
+// writes its partial into its own slot, and the merge adds the slots in a
+// fixed order: there are no float atomics in the level, so the same inputs
+// give the same bits. Int8 masses (H2O3_HIST_I8): per 32 rows, mma.sync
+// m16n8k32 s8 -> s32 on the q bytes, the TPU kernels' int8 x int8 -> int32
+// contraction, one n-tile per term; integer sums are exact in any order,
+// and the merge flushes them to float32 as flush_i8_kernel does, so the
+// histogram is bit-equal to the plain version and to the tiled body.
 //
-// What bounds it in practice is instruction issue: the bins (one per row
-// and feature), the one-hot fragments (one bf16x2 compare per two
-// elements) and one barrier a 64-row chunk; the staging of the next chunk
-// (records, split values, x or codes) is prefetched into registers while
-// the current chunk's products run.
+// Int32 bound of the int8 form: |q| <= 127 (a term of two: a in
+// [-127, 127], b in [-128, 127]), and the int8 levels take at most 16M
+// rows (I8_MAX_ROWS), so every partial (a block's span) and every merged
+// sum is at most 128 x 16M < 2^31 in magnitude.
+//
+// What bounds it in practice is instruction issue and the latency of each
+// chunk's dependent steps: the bins (one per row and feature), the one-hot
+// fragments (float: one bf16x2 compare per two elements; int8: one PRMT
+// per four) and one barrier a chunk; the staging of the next chunks is
+// prefetched (float: into registers; int8: cp.async into shared memory)
+// while the current chunk's products run. With the grouping pass's cost
+// each level, the int8 body beats the tiled int8 body only where that
+// one's partial outgrows a tile (i8_grouped_rule).
 #pragma once
 
 #include "level_common.cuh"
@@ -131,7 +150,8 @@ inline size_t grouped_smem(int F, int W, int NT, bool mma, bool ranges) {
   return b;
 }
 
-// One block: the span of group k's records that block b owns (k from
+// The float body (FloatMass): one block, the span of group k's records
+// that block b owns (k from
 // bstart), both children of the parent (parent mode) or the one node
 // (direct mode), every feature; blockIdx.y picks the pass, a share of the
 // (feature, m-tile) units when they outgrow the registers. A chunk of 64
@@ -154,8 +174,8 @@ inline size_t grouped_smem(int F, int W, int NT, bool mma, bool ranges) {
 //     atomics into a [3][2][F][W + 1] partial.
 // The block writes its partial, [3][2][F][W], into its own slot of part.
 template <class Src, int NT, bool kMma>
-__global__ void __launch_bounds__(kGrpThreads, NT == 1 ? 2 : 1)
-level_grouped_kernel(Src src, const float4* __restrict__ rec,
+__device__ __forceinline__ void
+grouped_float_body(Src src, const float4* __restrict__ rec,
                      const int* __restrict__ offsets,
                      const int* __restrict__ bstart, int G, int64_t span,
                      int F, int n_prev, int n_nodes, int level_base,
@@ -454,9 +474,525 @@ level_grouped_kernel(Src src, const float4* __restrict__ rec,
   }
 }
 
-// The sources of hist cell i ([3, n_nodes, F, W]) in the blocks'
-// [3][2][F][W] partials: the parent's group at the cell's side, then the
-// node's direct group.
+// ------------------------------------------------------ the int8 mass body
+
+// d += a (16 x 32 s8, row-major fragment) x b (32 x 8 s8, col-major
+// fragment), int32 accumulate: exact (no .satfinite; the int8 levels' row
+// cap keeps every sum within int32).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// PTX prmt.b32 (default mode): byte i of the result is byte (nibble i of
+// s) of {b, a}.
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b, unsigned s) {
+  unsigned d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// The s8 one-hot of four rows against one lane's bin, one PRMT: sel holds
+// four selector nibbles (bits 15:0, row i in nibble i), each the row's bin
+// within the lane's octet (0..7), or a nibble with bit 3 set when the
+// row's bin lies outside it; {hi, lo} is the lane's table, byte j = 1
+// where j is the lane's place in the octet, else 0. PRMT gives byte i =
+// table[nibble i] for a nibble below 8, and for one with its msb set
+// ("replicate the sign of the byte") 0x00, since every table byte is 0 or
+// 1: exact 0/1 bytes.
+__device__ __forceinline__ unsigned onehot4(unsigned sel, unsigned lo,
+                                            unsigned hi) {
+  return prmt(lo, hi, sel);
+}
+
+// The selector word (onehot4) of four rows' byte bins x (row i in byte i)
+// within one m-tile (x already XORed with 16 * mt in every byte), SWAR: a
+// byte below 16 lies in the m-tile, its low nibble in the lower octet's
+// half and that nibble ^ 8 in the upper's (a nibble with bit 3 set matches
+// no lane); any other byte gets bit 3 in both.
+__device__ __forceinline__ unsigned swar_selector(unsigned x) {
+  const unsigned h = (x >> 4) & 0x0F0F0F0Fu;  // a byte's high nibble
+  const unsigned out = ((h + 0x07070707u) | h) & 0x08080808u;  // h != 0
+  const unsigned n = x & 0x0F0F0F0Fu;
+  const unsigned lo = n | out, hi = (n ^ 0x08080808u) | out;
+  // the four nibbles of a half into its low 16 bits, rows in order
+  return prmt(lo | (lo >> 4), hi | (hi >> 4), 0x6420u);
+}
+
+// An asynchronous copy of N (4, 8 or 16) bytes from device to shared
+// memory, both N-aligned; the copies of a thread's committed group land
+// by cp_async_wait<n> (at most n later groups still in flight).
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(gmem), "n"(N));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// The mass policies of the grouped body. FloatMass<NT, kMma>: float32
+// (g, h, w) from ghw, NT bf16 terms (one at bf16, three at float32),
+// tensor-core products (kMma) or the ablation's shared atomics; the float
+// body above. I8Mass<kTerms>: the int8 q of quantize_ghw_i8, the int8
+// body below.
+template <int NT_, bool kMma_>
+struct FloatMass {
+  static constexpr bool kInt = false;
+  static constexpr int NT = NT_;
+  static constexpr bool kMma = kMma_;
+  static constexpr int kPlanes = 3;
+  using Rec = GhwRec;
+  using Part = float;
+};
+
+template <int kTerms>
+struct I8Mass {
+  static constexpr bool kInt = true;
+  static constexpr int NT = kTerms;  // one n-tile a term
+  static constexpr bool kMma = true;
+  static constexpr int kPlanes = 3 * kTerms;
+  using Rec = QRec<kTerms>;
+  using Part = int;
+};
+
+constexpr int kI8Chunk = 128;             // rows of a chunk
+constexpr int kI8Steps = kI8Chunk / 32;   // m16n8k32 k-steps a chunk
+constexpr int kI8Quads = kI8Chunk / 4;    // quads of rows a chunk
+constexpr int kI8Units = 4;               // (feature, m-tile) units a warp
+constexpr int kXAhead = 3;                // chunks of rows copied ahead
+constexpr int kRecAhead = 5;              // chunks of records copied ahead
+constexpr int kXRing = kXAhead + 1;
+constexpr int kRecRing = kRecAhead + 1;
+constexpr int kI8Items = 4;               // bin items a thread keeps
+
+// Words of one staged row of F values of `bytes` each: the row's words at
+// any byte offset (one more than it fills), in whole 16-byte units.
+__host__ __device__ __forceinline__ int i8_row_stride(int row_bytes) {
+  return ((row_bytes + 3) / 4 + 1 + 3) / 4 * 4;
+}
+
+// Words of one feature's selectors in a bin buffer: MT m-tiles of
+// kI8Quads words, one more so that the features' words start on different
+// banks; and of the two bin buffers, in whole 16-byte units.
+__host__ __device__ __forceinline__ int sel_stride(int W) {
+  return (W / 16) * kI8Quads + 1;
+}
+__host__ __device__ __forceinline__ int sel_words(int F, int W) {
+  return (2 * F * sel_stride(W) + 3) / 4 * 4;
+}
+
+// Shared bytes of a block of the int8 body.
+inline size_t grouped_i8_smem(int F, int W, int terms, int elem_bytes,
+                              bool ranges) {
+  const size_t rec_bytes = terms == 1 ? 8 : 16;
+  return sizeof(unsigned) * kXRing * kI8Chunk *
+             static_cast<size_t>(i8_row_stride(F * elem_bytes)) +
+         rec_bytes * kRecRing * kI8Chunk +
+         sizeof(unsigned) * static_cast<size_t>(sel_words(F, W)) +
+         sizeof(unsigned) * kStageBufs * kI8Steps * terms * 64 +
+         sizeof(int) * kStageBufs * kI8Chunk +
+         (ranges ? 4 * sizeof(float) * static_cast<size_t>(F) : 0);
+}
+
+// The int8 body: one block, the same span, children and passes as the
+// float body's, chunks of 128 records (half the barriers a row of the
+// float body's 64). A chunk's values are gathered from scattered rows;
+// here they come in asynchronously and far ahead, with no register to
+// hold them: the records of a chunk are copied into shared memory five
+// chunks ahead and the values of its rows (x or codes: the pass's
+// features and the split feature, cp.async) three ahead, from the
+// records' row ids; the split value of a row is read from its staged row.
+// A chunk goes through three steps, one barrier a chunk:
+// (1) stage (128 threads, a record each, one chunk ahead): the route, the
+//     slot (the child's side) and the row's byte offset in its staged
+//     row, and the q bytes of each term straight into the B fragments of
+//     the chunk, in lane order (three buffers);
+// (2) bins: a thread takes a quad of rows of one feature, bins the four
+//     values under the slot's range and writes the quad's selector words,
+//     one per m-tile: per row, a nibble of the octet its bin lies in (the
+//     bin's place) and 8 in every other (onehot4); a bin outside [0, W)
+//     has no octet. Byte codes go four features at a time: four row words
+//     transposed by PRMT, the selectors built SWAR (swar_selector) (two
+//     buffers);
+// (3) each warp adds its units' products, per 32 rows an m16n8k32 s8 mma
+//     (A: 16 bins x 32 rows from four PRMTs of two selector words; B: 32
+//     rows x 8 columns of q bytes, (g, h, w) of slot 0 and of slot 1, two
+//     empty; one n-tile a term) into int32 registers, exact.
+// The block writes its int32 partial, [3 * kTerms][2][F][W] (plane c *
+// kTerms + term), into its own slot of part.
+template <class Src, int kTerms>
+__device__ __forceinline__ void grouped_i8_body(
+    Src src, const typename QRec<kTerms>::T* __restrict__ rec,
+    const int* __restrict__ offsets, const int* __restrict__ bstart, int G,
+    int64_t span, int F, int n_prev, int n_nodes, int level_base,
+    int* __restrict__ nid_out, int* __restrict__ part) {
+  using Rec = QRec<kTerms>;
+  using RecT = typename Rec::T;
+  constexpr int NT = kTerms;
+  constexpr int W = Src::kW;
+  constexpr int MT = W / 16;
+  constexpr int U = kI8Units;
+  constexpr int kC = kI8Chunk;
+  constexpr int kWords = kI8Steps * NT * 64;  // B fragments of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  if (b >= __ldg(bstart + G)) return;
+  const int k = span_group(bstart, G, b);
+  const int64_t i0 = __ldg(offsets + k) +
+                     static_cast<int64_t>(b - __ldg(bstart + k)) * span;
+  const int64_t i1 = imin64(__ldg(offsets + k + 1), i0 + span);
+  const bool parent = k < n_prev;
+  const int pid = level_base - n_prev + k;  // the parent's node id
+  // level-local node of slot 0: the left child, or the node itself
+  const int c0 = parent ? 2 * pid + 1 - level_base : k - n_prev;
+
+  const int rb = F * Src::kBytes;  // bytes of a row of values
+  const int xstride = i8_row_stride(rb);
+  const int sstride = sel_stride(W);
+  unsigned* s_x = reinterpret_cast<unsigned*>(smem_raw);  // [ring][kC][xs]
+  RecT* s_rec = reinterpret_cast<RecT*>(s_x + kXRing * kC * xstride);
+  unsigned* s_sel = reinterpret_cast<unsigned*>(s_rec + kRecRing * kC);
+  unsigned* s_w = s_sel + sel_words(F, W);           // [3][kWords]
+  int* s_so = reinterpret_cast<int*>(s_w + kStageBufs * kWords);  // [3][kC]
+  float* s_lo = reinterpret_cast<float*>(s_so + kStageBufs * kC);
+  float* s_inv = s_lo + 2 * F;                        // [2][F]
+
+  if constexpr (Src::kRanges) {
+    for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) {
+      const int s = i / F, f = i - s * F;
+      const int node = c0 + s;
+      const bool ok = (parent || s == 0) && node >= 0 && node < n_nodes;
+      const int64_t o = static_cast<int64_t>(ok ? node : 0) * F + f;
+      s_lo[i] = ok ? src.lo[o] : 0.f;
+      s_inv[i] = ok ? src.inv[o] : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < kStageBufs * kWords; i += blockDim.x)
+    s_w[i] = 0u;
+  int feat = 0, na_right = 0;
+  typename Src::Val thr = 0;
+  if (parent) src.split(k, n_prev, F, &feat, &thr, &na_right);
+  // the features this pass bins (its units' share of F * MT), and the
+  // values of a row it stages: those and the split feature, from a
+  // multiple of four features
+  const int u0 = blockIdx.y * (kGrpWarps * U);
+  const int fa = u0 / MT;
+  const int fb = min(F, (u0 + kGrpWarps * U + MT - 1) / MT);
+  const int ca = (parent ? min(fa, feat) : fa) / 4 * 4;
+  const int cb = parent ? max(fb, feat + 1) : fb;
+  const int ba = ca * Src::kBytes, rbc = (cb - ca) * Src::kBytes;
+
+  // the copies: chunk j's records into ring slot j % kRecRing; the staged
+  // bytes [ba, ba + rbc) of its rows into slot j % kXRing, from its
+  // records (landed), in 16-byte units where they are 16-byte aligned in
+  // every row, else in the 4-byte words that hold them (the first at a
+  // byte offset, off, in them)
+  const unsigned char* gx = src.rows();
+  const bool vec16 = ((reinterpret_cast<uintptr_t>(gx) + ba) & 15) == 0 &&
+                     (rb & 15) == 0 && (rbc & 15) == 0;
+  const int per = vec16 ? rbc / 16 : (rbc + 3) / 4 + 1;  // copies a row
+  const int tstep = kGrpThreads / per;  // rows a pass of the block copies
+  const int my_t = threadIdx.x / per, my_u = threadIdx.x - my_t * per;
+  auto issue_recs = [&](int j) {
+    const int64_t c = i0 + static_cast<int64_t>(j) * kC;
+    const int t = threadIdx.x;
+    if (t < kC && c + t < i1)
+      cp_async<sizeof(RecT)>(s_rec + (j % kRecRing) * kC + t, rec + c + t);
+  };
+  auto issue_x = [&](int j) {
+    const int64_t c = i0 + static_cast<int64_t>(j) * kC;
+    if (c >= i1 || my_t >= tstep) return;
+    const int n = static_cast<int>(imin64(kC, i1 - c));
+    const RecT* rr = s_rec + (j % kRecRing) * kC;
+    unsigned* xs = s_x + (j % kXRing) * kC * xstride;
+    for (int t = my_t; t < n; t += tstep) {
+      const unsigned char* a =
+          gx + static_cast<int64_t>(Rec::row(rr[t])) * rb + ba;
+      if (vec16) {
+        cp_async<16>(xs + t * xstride + 4 * my_u, a + 16 * my_u);
+      } else {
+        const unsigned char* w0 = reinterpret_cast<const unsigned char*>(
+            reinterpret_cast<uintptr_t>(a) & ~uintptr_t{3});
+        if (w0 + 4 * my_u < a + rbc)
+          cp_async<4>(xs + t * xstride + my_u, w0 + 4 * my_u);
+      }
+    }
+  };
+  // the staged row t of chunk j (byte offset off), as a row of all F
+  // values: value f (in [ca, cb)) at byte f * kBytes
+  auto xrow = [&](int j, int t, int off) {
+    return reinterpret_cast<const unsigned char*>(
+               s_x + ((j % kXRing) * kC + t) * xstride) + off - ba;
+  };
+
+  // (1) stage chunk j (t = threadIdx.x < kC): route, slot and offset,
+  // B fragments
+  auto stage = [&](int j) {
+    const int64_t c = i0 + static_cast<int64_t>(j) * kC;
+    const int t = threadIdx.x, sb = j % kStageBufs;
+    int slot = -1, off = 0;
+    RecT q = Rec::zero();
+    if (c + t < i1) {
+      q = s_rec[(j % kRecRing) * kC + t];
+      const int r = Rec::row(q);
+      if (!vec16)
+        off = static_cast<int>((reinterpret_cast<uintptr_t>(gx) +
+                                static_cast<int64_t>(r) * rb + ba) &
+                               3);
+      int side = 0;
+      if (parent) {
+        side = src.right(Src::at(xrow(j, t, off), feat), thr, na_right);
+        if (blockIdx.y == 0) nid_out[r] = 2 * pid + 1 + side;
+      }
+      slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
+    }
+    s_so[sb * kC + t] = (slot & 0xFF) | (off << 8);
+    // row t is B row kk of k-step ks: lane (column n, t4), register
+    // kk / 16, byte kk % 4
+    const int ks = t >> 5, kk = t & 31;
+    const int t4 = (kk & 15) >> 2, reg = kk >> 4, byte = kk & 3;
+    uint8_t* w8 = reinterpret_cast<uint8_t*>(s_w + sb * kWords);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int col = 0; col < 6; ++col) {  // columns 6 and 7 stay 0
+        const int val = slot == col / 3 ? Rec::mass(q, (col % 3) * NT + n)
+                                        : 0;
+        const int word = ((ks * NT + n) * 32 + col * 4 + t4) * 2 + reg;
+        w8[word * 4 + byte] = static_cast<uint8_t>(val);
+      }
+  };
+
+  // (2) bins of chunk j into bin buffer j % 2. Bin items: (quad, feature)
+  // or, for byte codes, (quad, four features); this thread's first
+  // kI8Items as quad * 1024 + item-feature
+  constexpr bool kSwar = Src::kByteCodes;
+  // item-features of a quad: this pass's features, or their groups of
+  // four from fi0
+  const int fi0 = kSwar ? fa / 4 : fa;
+  const int fper = kSwar ? (fb + 3) / 4 - fi0 : fb - fa;
+  const int nitem = kI8Quads * fper;
+  int qf[kI8Items];
+#pragma unroll
+  for (int i = 0; i < kI8Items; ++i) {
+    const int it = threadIdx.x + i * kGrpThreads;
+    qf[i] = it < nitem ? (it / fper) * 1024 + fi0 + (it % fper) : -1;
+  }
+  auto bins = [&](int j) {
+    const int sb = j % kStageBufs;
+    unsigned* ssel = s_sel + (j & 1) * F * sstride;
+    auto put = [&](int q4, int fi) {
+      const int4 so = reinterpret_cast<const int4*>(s_so + sb * kC)[q4];
+      const int sos[4] = {so.x, so.y, so.z, so.w};
+      if constexpr (kSwar) {
+        // codes of features 4 fi .. 4 fi + 3 of the quad's rows, a word a
+        // row (0xFF: a row that adds nothing), transposed by PRMT into a
+        // word a feature (row i in byte i)
+        unsigned rw[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          rw[i] = 0xFFFFFFFFu;
+          if (static_cast<signed char>(sos[i] & 0xFF) >= 0) {
+            const unsigned char* p = xrow(j, 4 * q4 + i, sos[i] >> 8) + 4 * fi;
+            const unsigned* w = reinterpret_cast<const unsigned*>(
+                reinterpret_cast<uintptr_t>(p) & ~uintptr_t{3});
+            const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+            rw[i] = sh ? __funnelshift_r(w[0], w[1], 8 * sh) : w[0];
+          }
+        }
+        const unsigned a01 = prmt(rw[0], rw[1], 0x5140u);
+        const unsigned b01 = prmt(rw[0], rw[1], 0x7362u);
+        const unsigned a23 = prmt(rw[2], rw[3], 0x5140u);
+        const unsigned b23 = prmt(rw[2], rw[3], 0x7362u);
+        const unsigned tf[4] = {prmt(a01, a23, 0x5410u),
+                                prmt(a01, a23, 0x7632u),
+                                prmt(b01, b23, 0x5410u),
+                                prmt(b01, b23, 0x7632u)};
+#pragma unroll
+        for (int kf = 0; kf < 4; ++kf) {
+          const int f = 4 * fi + kf;
+          if (f < fa) continue;
+          if (f >= fb) break;
+          unsigned* dst = ssel + f * sstride + q4;
+#pragma unroll
+          for (int p = 0; p < MT; ++p)
+            dst[p * kI8Quads] = swar_selector(tf[kf] ^ (0x10101010u * p));
+        }
+      } else {
+        const int f = fi;
+        // the feature's range under either child (selected, not indexed:
+        // an indexed pair would live in local memory)
+        float lo0 = 0.f, inv0 = 0.f, lo1 = 0.f, inv1 = 0.f;
+        if constexpr (Src::kRanges) {
+          lo0 = s_lo[f];
+          inv0 = s_inv[f];
+          lo1 = s_lo[F + f];
+          inv1 = s_inv[F + f];
+        }
+        unsigned w[MT];
+#pragma unroll
+        for (int p = 0; p < MT; ++p) w[p] = 0x88888888u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int slot = static_cast<signed char>(sos[i] & 0xFF);
+          if (slot < 0) continue;
+          const int bin = src.bin(
+              Src::at(xrow(j, 4 * q4 + i, sos[i] >> 8), f),
+              slot ? lo1 : lo0, slot ? inv1 : inv0);
+          if (static_cast<unsigned>(bin) < static_cast<unsigned>(W)) {
+            const unsigned d = static_cast<unsigned>((bin & 7) ^ 8)
+                               << ((bin & 8) * 2 + 4 * i);
+#pragma unroll
+            for (int p = 0; p < MT; ++p)
+              if (p == (bin >> 4)) w[p] ^= d;
+          }
+        }
+        unsigned* dst = ssel + f * sstride + q4;
+#pragma unroll
+        for (int p = 0; p < MT; ++p) dst[p * kI8Quads] = w[p];
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < kI8Items; ++i)
+      if (qf[i] >= 0) put(qf[i] >> 10, qf[i] & 1023);
+    for (int it = threadIdx.x + kI8Items * kGrpThreads; it < nitem;
+         it += kGrpThreads)
+      put(it / fper, fi0 + it % fper);
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int units = F * MT;
+  const int ubase = blockIdx.y * (kGrpWarps * U) + warp;  // + i * warps
+  int acc[U][NT][4];
+#pragma unroll
+  for (int i = 0; i < U; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+  // this lane's one-hot table: byte g8 of {thi, tlo} is 1
+  const unsigned tlo = g8 < 4 ? 1u << (8 * g8) : 0u;
+  const unsigned thi = g8 < 4 ? 0u : 1u << (8 * (g8 - 4));
+
+  // (3) the products of chunk j: per k-step, every unit's selector words
+  // first, then its four PRMTs and mmas (the units' mmas interleave)
+  auto accumulate = [&](int j) {
+    const uint2* frag =
+        reinterpret_cast<const uint2*>(s_w + (j % kStageBufs) * kWords);
+    const unsigned* ssel = s_sel + (j & 1) * F * sstride;
+#pragma unroll
+    for (int ks = 0; ks < kI8Steps; ++ks) {
+      uint2 fb[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) fb[n] = frag[(ks * NT + n) * 32 + lane];
+      // rows 32 ks + 4 t4 .. + 3 and 16 rows further, of each unit
+      unsigned wa[U], wb[U];
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int u = ubase + i * kGrpWarps;
+        wa[i] = wb[i] = 0u;
+        if (u < units) {
+          const int f = u / MT, mt = u - f * MT;
+          const unsigned* sp = ssel + f * sstride + mt * kI8Quads + ks * 8;
+          wa[i] = sp[t4];
+          wb[i] = sp[4 + t4];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (ubase + i * kGrpWarps >= units) continue;
+        const unsigned a[4] = {onehot4(wa[i], tlo, thi),
+                               onehot4(wa[i] >> 16, tlo, thi),
+                               onehot4(wb[i], tlo, thi),
+                               onehot4(wb[i] >> 16, tlo, thi)};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const unsigned bb2[2] = {fb[n].x, fb[n].y};
+          mma_s8(acc[i][n], a, bb2);
+        }
+      }
+    }
+  };
+
+  // the pipeline: at chunk j, bins(j) and stage(j + 1) (their records and
+  // rows landed two barriers ago), the copies of rows j + 3 and records
+  // j + 5, one barrier, the products of j
+  const bool stager = threadIdx.x < kC;
+  const int nch = static_cast<int>((i1 - i0 + kC - 1) / kC);
+  for (int j = 0; j < kRecAhead; ++j) issue_recs(j);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // records 0..4, ranges
+  for (int j = 0; j < kXAhead; ++j) issue_x(j);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // rows 0..2
+  if (stager) stage(0);
+  __syncthreads();
+  for (int j = 0; j < nch; ++j) {
+    bins(j);
+    if (stager && j + 1 < nch) stage(j + 1);
+    issue_x(j + kXAhead);
+    issue_recs(j + kRecAhead);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of the previous chunk
+    __syncthreads();
+    accumulate(j);
+  }
+
+  // the block's partial into its slot: part[b][planes][2][F][W]
+  int* pb = part + static_cast<int64_t>(b) * 6 * NT * F * W;
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = ubase + i * kGrpWarps;
+    if (u >= units) continue;
+    const int f = u / MT, mt = u - f * MT;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 2 * t4 + (e & 1);
+      if (col >= 6) continue;
+      const int bin = mt * 16 + g8 + (e >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        pb[(((col % 3) * NT + n) * 2 + col / 3) * F * W + f * W + bin] =
+            acc[i][n][e];
+    }
+  }
+}
+
+// The grouped level's kernel: the float body or the int8 body by the mass
+// policy.
+template <class Src, class Mass>
+__global__ void __launch_bounds__(kGrpThreads, Mass::NT == 1 ? 2 : 1)
+level_grouped_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
+                     const int* __restrict__ offsets,
+                     const int* __restrict__ bstart, int G, int64_t span,
+                     int F, int n_prev, int n_nodes, int level_base,
+                     int bf16, int* __restrict__ nid_out,
+                     typename Mass::Part* __restrict__ part) {
+  if constexpr (Mass::kInt)
+    grouped_i8_body<Src, Mass::NT>(src, rec, offsets, bstart, G, span, F,
+                                   n_prev, n_nodes, level_base, nid_out,
+                                   part);
+  else
+    grouped_float_body<Src, Mass::NT, Mass::kMma>(
+        src, rec, offsets, bstart, G, span, F, n_prev, n_nodes, level_base,
+        bf16, nid_out, part);
+}
+
+// The sources of partial cell i ([planes, n_nodes, F, W]) in the blocks'
+// [planes][2][F][W] partials: the parent's group at the cell's side, then
+// the node's direct group.
 struct GroupedSrc {
   int n_nodes, n_prev, level_base;
   int64_t fw;  // F * W
@@ -496,21 +1032,62 @@ inline bool grouped_fits(int64_t rows, int F, int n_prev, int n_nodes) {
          rows < (int64_t{1} << 31);
 }
 
-template <class Src, int NT, bool kMma>
+// Shared bytes of a block of the grouped body for a bin source and mass.
+template <class Src, class Mass>
+size_t grouped_smem_of(int F) {
+  if constexpr (Mass::kInt)
+    return grouped_i8_smem(F, Src::kW, Mass::NT, Src::kBytes, Src::kRanges);
+  else
+    return grouped_smem(F, Src::kW, Mass::NT, Mass::kMma, Src::kRanges);
+}
+
+// The most shared memory a block can use (227 KB): the int8 body's staged
+// rows of a wide frame and the selectors of a wide W are not within it.
+constexpr size_t kMaxBlockSmem = 232448;
+
+// The int8 levels' form rule (both kernels, K7 and K4; the numbers that
+// set it beside takes_grouped_i8 in hist_adaptive.cu and hist_binned.cu):
+// the grouped int8 body at W <= 32 where 3 * terms * n_nodes >= 96, the
+// levels at which the tiled body's int32 partial (3 * terms planes of
+// n_nodes x F x (W + 1) words) outgrows one tile at 28 features and its
+// shared integer atomics crowd most; with the int8 gate (3 * terms *
+// n_nodes <= 128) that is the deepest int8 level: 32 nodes at one term,
+// 16 at two. Elsewhere, and at W >= 64, the tiled body.
+constexpr int kI8GroupedMaxW = 32;
+constexpr int kI8GroupedMinPlaneNodes = 96;
+
+inline bool i8_grouped_rule(int W, int terms, int n_nodes) {
+  return W <= kI8GroupedMaxW &&
+         3 * terms * n_nodes >= kI8GroupedMinPlaneNodes;
+}
+
+// grouped_fits for the int8 body of `terms` terms over values of
+// `elem_bytes` (x float32: 4; codes: their width), and its shared memory
+// within a block's.
+inline bool grouped_i8_fits(int64_t rows, int F, int W, int terms,
+                            int elem_bytes, int n_prev, int n_nodes,
+                            bool ranges) {
+  return grouped_fits(rows, F, n_prev, n_nodes) &&
+         grouped_i8_smem(F, W, terms, elem_bytes, ranges) <= kMaxBlockSmem;
+}
+
+template <class Src, class Mass>
 int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
                  GroupedPlan* p) {
-  using Shape = GroupedShape<NT, kMma>;
   constexpr int W = Src::kW;
+  constexpr int kUnits =
+      Mass::kInt ? kI8Units : GroupedShape<Mass::NT, Mass::kMma>::kUnits;
+  constexpr int kC = Mass::kInt ? kI8Chunk : kChunk;
   p->G = n_prev + n_nodes;
-  if (!grouped_fits(rows, F, n_prev, n_nodes))
+  p->smem = grouped_smem_of<Src, Mass>(F);
+  if (!grouped_fits(rows, F, n_prev, n_nodes) || p->smem > kMaxBlockSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const int units = F * (W / 16);
   // the ablation's atomics take every unit in one pass
-  p->passes = kMma ? (units + kGrpWarps * Shape::kUnits - 1) /
-                         (kGrpWarps * Shape::kUnits)
-                   : 1;
-  p->smem = grouped_smem(F, W, NT, kMma, Src::kRanges);
-  auto kern = level_grouped_kernel<Src, NT, kMma>;
+  p->passes = Mass::kMma ? (units + kGrpWarps * kUnits - 1) /
+                               (kGrpWarps * kUnits)
+                         : 1;
+  auto kern = level_grouped_kernel<Src, Mass>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p->smem));
@@ -525,41 +1102,48 @@ int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
                    p->passes;
   if (target < 1) target = 1;
   int64_t span = (rows + target - 1) / target;
-  span = (span + kChunk - 1) / kChunk * kChunk;
-  p->span = span < kChunk ? kChunk : span;
+  span = (span + kC - 1) / kC * kC;
+  p->span = span < kC ? kC : span;
   p->nblk = span_blocks(rows, p->G, p->span);
-  p->bytes = grouping_bytes(rows, p->G) +
-             align256(sizeof(float) * 6 * static_cast<size_t>(F) * W *
-                      p->nblk);
+  p->bytes = grouping_bytes(rows, p->G, sizeof(typename Mass::Rec::T)) +
+             align256(sizeof(typename Mass::Part) * 2 * Mass::kPlanes *
+                      static_cast<size_t>(F) * W * p->nblk);
   return 0;
 }
 
-// The grouped level: grouping, histogram blocks, merge. Writes nid_out
-// and ADDS into hist [3, n_nodes, F, W]; ws holds plan_grouped's bytes.
-template <class Src, int NT, bool kMma>
-int launch_grouped(const Src& src, const int* nid, const float* ghw,
-                   int64_t rows, int F, int n_prev, int n_nodes,
-                   int level_base, int bf16, int* nid_out, float* hist,
-                   void* ws, cudaStream_t stream) {
+// The grouped level: grouping (masses: the mass policy's record source,
+// GhwRec or QRec), histogram blocks, then the merge of their partials
+// with the epilogue epi over the 3 * n_nodes * F * W cells of hist
+// (MergeAdd: ADDS into the float levels' hist; MergeFlushI8: writes the
+// int8 levels' float32 hist). Writes nid_out; ws holds plan_grouped's
+// bytes.
+template <class Src, class Mass, class Epi>
+int launch_grouped(const Src& src, const int* nid,
+                   typename Mass::Rec masses, int64_t rows, int F,
+                   int n_prev, int n_nodes, int level_base, int bf16,
+                   int* nid_out, Epi epi, void* ws, cudaStream_t stream) {
+  using Part = typename Mass::Part;
+  using RecT = typename Mass::Rec::T;
   GroupedPlan p;
-  int rc = plan_grouped<Src, NT, kMma>(rows, F, n_prev, n_nodes, &p);
+  int rc = plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, &p);
   if (rc != 0) return rc;
   Grouping g;
-  float* part = reinterpret_cast<float*>(
-      carve_grouping(static_cast<char*>(ws), rows, p.G, &g));
+  Part* part = reinterpret_cast<Part*>(carve_grouping(
+      static_cast<char*>(ws), rows, p.G, &g, sizeof(RecT)));
   const ParentKey<Src> key{nid, src, n_prev, level_base - n_prev,
                            level_base, n_nodes, nid_out};
-  rc = launch_grouping(key, ghw, rows, p.G, p.span, g, stream);
+  rc = launch_grouping(key, masses, rows, p.G, p.span, g, stream);
   if (rc != 0) return rc;
   dim3 grid(static_cast<unsigned>(p.nblk), static_cast<unsigned>(p.passes));
-  level_grouped_kernel<Src, NT, kMma><<<grid, kGrpThreads, p.smem, stream>>>(
-      src, g.rec, g.offsets, g.bstart, p.G, p.span, F, n_prev, n_nodes,
-      level_base, bf16, nid_out, part);
+  level_grouped_kernel<Src, Mass><<<grid, kGrpThreads, p.smem, stream>>>(
+      src, static_cast<const RecT*>(g.rec), g.offsets, g.bstart, p.G,
+      p.span, F, n_prev, n_nodes, level_base, bf16, nid_out, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t fw = static_cast<int64_t>(F) * Src::kW;
   return launch_merge(GroupedSrc{n_nodes, n_prev, level_base, fw}, part,
-                      6 * fw, g.bstart, 3 * n_nodes * fw, hist, stream);
+                      2 * Mass::kPlanes * fw, g.bstart, 3 * n_nodes * fw,
+                      epi, stream);
 }
 
 }  // namespace h2o3

@@ -1,10 +1,11 @@
 """What the dispatching modules (``ops/hist_adaptive.py``,
 ``ops/histogram.py``) share: the device dispatch, the scatter-add
 histogram that every plain version of a histogram kernel ends in, in
-its float and its int8 fixed-point form, the plain versions of two
-pieces of the node-grouped kernels (the row grouping and the exact
-three-term bf16 split of float32 masses), and the per-node segment
-totals of a tree's deepest level with their dispatcher."""
+its float and its int8 fixed-point form, the plain versions of three
+pieces of the node-grouped kernels (the row grouping, the int8 levels'
+grouping records and the exact three-term bf16 split of float32
+masses), and the per-node segment totals of a tree's deepest level with
+their dispatcher."""
 from __future__ import annotations
 
 import torch
@@ -101,6 +102,27 @@ def group_rows_plain(keys, n_groups: int):
     idx = torch.where(torch.arange(rows, device=keys.device) < offsets[-1],
                       order, -1)
     return offsets.to(torch.int32), idx.to(torch.int32)
+
+
+def pack_i8_records_plain(q, idx):
+    """Plain version of the int8 levels' grouping records
+    (``kernels.group_rows`` with ``q``; ``QRec`` in
+    ``csrc/level_common.cuh``): for the row ids ``idx`` (int32 [n]), the
+    row id, then the row's ``q`` [3·terms, rows] int8 bytes packed four to
+    an int32 word, q[p] in byte p % 4 of word p // 4 (two's complement
+    bytes). Returns int32 [n, 2] at one term ({row, q0 | q1 << 8 | q2 <<
+    16}) and [n, 4] at two ({row, q0..q3, q4 | q5 << 8, 0})."""
+    terms = q.shape[0] // 3
+    rows = idx.long()
+    qb = q[:, rows].to(torch.int64) & 0xFF
+    words = torch.zeros(2 * terms, rows.shape[0], dtype=torch.int64,
+                        device=q.device)
+    words[0] = rows
+    for p in range(3 * terms):
+        words[1 + p // 4] |= qb[p] << (8 * (p % 4))
+    # as int32 bit patterns
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.t().to(torch.int32).contiguous()
 
 
 def split3_bf16(t):

@@ -55,9 +55,11 @@ _SIGNATURES = {
                               _VP],
         "h2o3_binned_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                    _INT, _INT, _VP, _VP],
+        "h2o3_binned_level_i8_workspace": [_INT, _LL, _INT, _INT, _INT,
+                                           _INT, _INT, _INT],
         "h2o3_binned_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _LL,
-                                 _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
-                                 _VP],
+                                 _INT, _INT, _INT, _INT, _INT, _INT, _VP,
+                                 _VP, _VP, _VP],
     },
     "hist_adaptive": {
         "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
@@ -69,12 +71,15 @@ _SIGNATURES = {
                                         _INT, _INT, _INT, _INT, _INT, _INT,
                                         _VP, _VP, _VP, _VP],
         "h2o3_group_rows_workspace": [_LL, _INT],
-        "h2o3_group_rows": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP],
+        "h2o3_group_rows": [_VP, _VP, _VP, _INT, _LL, _INT, _VP, _VP, _VP,
+                            _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
+        "h2o3_adaptive_level_i8_workspace": [_INT, _LL, _INT, _INT, _INT,
+                                             _INT, _INT, _INT],
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
                                    _VP, _LL, _INT, _INT, _INT, _INT, _INT,
-                                   _VP, _VP, _VP, _VP],
+                                   _INT, _VP, _VP, _VP, _VP],
         "h2o3_leaf_totals_workspace": [_LL, _INT],
         "h2o3_leaf_totals": [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT,
                              _VP, _VP, _VP, _VP],
@@ -92,7 +97,9 @@ _SIGNATURES = {
 # the workspace queries return a byte count (-1: shapes refused); every
 # other function a cudaError_t
 _RETURNS_BYTES = ("h2o3_binned_level_workspace",
+                  "h2o3_binned_level_i8_workspace",
                   "h2o3_adaptive_level_workspace",
+                  "h2o3_adaptive_level_i8_workspace",
                   "h2o3_group_rows_workspace", "h2o3_leaf_totals_workspace",
                   "h2o3_global_hist_workspace")
 
@@ -306,27 +313,53 @@ def binned_level_form(codes: torch.Tensor, nid: torch.Tensor,
                          level_base, W, bf16, int(bool(grouped)))
 
 
-def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
-                    scales: torch.Tensor, tables: torch.Tensor, n_prev: int,
-                    n_nodes: int, level_base: int, W: int):
-    """Launch the packed level kernel on int8 fixed-point masses, then its
-    flush. Same contract as ``hist_adaptive.binned_level_i8_plain``."""
+def _binned_level_i8(codes, nid, q, scales, tables, n_prev: int,
+                     n_nodes: int, level_base: int, W: int, form: int):
     rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
     terms = _check_qs(q, scales, rows, dev)
     lib = build()["hist_binned"]
     nid_out = torch.empty_like(nid)
-    acc = torch.zeros((3 * terms, n_nodes, F, W), dtype=torch.int32,
-                      device=dev)
     hist = torch.empty((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # the grouped form's grouping and block partials, or the tiled
+        # body's int32 sums; -1: a forced grouped form that does not fit,
+        # which its launch refuses
+        ws = _workspace(max(lib.h2o3_binned_level_i8_workspace(
+            codes.element_size(), rows, F, W, n_prev, n_nodes, terms, form),
+            0), "binned_level_i8", dev)
         rc = lib.h2o3_binned_level_i8(
             codes.data_ptr(), codes.element_size(), nid.data_ptr(),
             q.data_ptr(), terms, scales.data_ptr(), tables.data_ptr(), rows,
-            F, W, n_prev, n_nodes, level_base, nid_out.data_ptr(),
-            acc.data_ptr(), hist.data_ptr(), _stream(dev))
+            F, W, n_prev, n_nodes, level_base, form, nid_out.data_ptr(),
+            hist.data_ptr(), ws.data_ptr(), _stream(dev))
     _raise_on(rc, "binned_level_i8")
     LAUNCHES["binned_level_i8"] += 1
     return nid_out, hist
+
+
+def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
+                    scales: torch.Tensor, tables: torch.Tensor, n_prev: int,
+                    n_nodes: int, level_base: int, W: int):
+    """Launch the packed level kernel on int8 fixed-point masses. Same
+    contract as ``hist_adaptive.binned_level_i8_plain``. The kernel picks
+    its form from the shapes (``csrc/hist_binned.cu``
+    ``takes_grouped_i8``): rows grouped by parent and int8 one-hot
+    products on the tensor cores, merged and flushed in one pass, or the
+    tiled body with its flush."""
+    return _binned_level_i8(codes, nid, q, scales, tables, n_prev, n_nodes,
+                            level_base, W, -1)
+
+
+def binned_level_i8_form(codes: torch.Tensor, nid: torch.Tensor,
+                         q: torch.Tensor, scales: torch.Tensor,
+                         tables: torch.Tensor, n_prev: int, n_nodes: int,
+                         level_base: int, W: int, grouped: bool):
+    """``binned_level_i8`` with one form of the kernel forced: ``grouped``
+    True, the node-grouped tensor-core form (raises where the shapes do
+    not fit it); False, the tiled body. For the tests and
+    ``chip_smoke.py``; the training path calls ``binned_level_i8``."""
+    return _binned_level_i8(codes, nid, q, scales, tables, n_prev, n_nodes,
+                            level_base, W, int(bool(grouped)))
 
 
 def binned_route_only(codes: torch.Tensor, nid: torch.Tensor,
@@ -411,14 +444,17 @@ def adaptive_level_atomics(x: torch.Tensor, nid: torch.Tensor,
                            level_base, W, bf16, "rows_f", True)
 
 
-def group_rows(keys: torch.Tensor, n_groups: int, ghw=None):
+def group_rows(keys: torch.Tensor, n_groups: int, ghw=None, q=None):
     """Launch the row grouping of the node-grouped kernels alone (the
     level and histogram wrappers run it inside their launch): ``keys``
     int32 [rows], a key outside [0, n_groups) leaves its row out; ``ghw``
-    float32 [3, rows] or None. Returns (offsets int32 [n_groups + 1],
-    rec float32 [rows, 4]: per kept row, key 0's first and each key's in
-    ascending row order, its id (int32 bits) and its (g, h, w), zeros
-    without ghw; rows past offsets[-1] unwritten). Its plain version,
+    float32 [3, rows], or ``q`` int8 [3·terms, rows] (terms 1 or 2), or
+    neither. Returns (offsets int32 [n_groups + 1], rec: per kept row, key
+    0's first and each key's in ascending row order, rows past
+    offsets[-1] unwritten): float32 [rows, 4], its id (int32 bits) and its
+    (g, h, w), zeros without ghw; with ``q`` the int8 records, int32
+    [rows, 2] at one term and [rows, 4] at two, as
+    ``common.pack_i8_records_plain`` packs them. Its plain version,
     ``common.group_rows_plain``, gives the ids alone. It counts in no
     ``LAUNCHES`` entry: inside a level or histogram launch it is part of
     that kernel's one count."""
@@ -428,46 +464,89 @@ def group_rows(keys: torch.Tensor, n_groups: int, ghw=None):
     _check("keys", keys, torch.int32, (rows,), dev)
     if ghw is not None:
         _check("ghw", ghw, torch.float32, (3, rows), dev)
+    terms = 0
+    if q is not None:
+        if ghw is not None:
+            raise ValueError("group_rows takes ghw or q, not both")
+        if q.dim() != 2 or q.shape[0] not in (3, 6):
+            raise ValueError(f"q must be [3 or 6, rows], got "
+                             f"{tuple(q.shape)}")
+        _check("q", q, torch.int8, (q.shape[0], rows), dev)
+        terms = q.shape[0] // 3
     lib = build()["hist_adaptive"]
     offsets = torch.empty(n_groups + 1, dtype=torch.int32, device=dev)
-    rec = torch.empty((max(rows, 1), 4), dtype=torch.float32, device=dev)
+    if terms:
+        rec = torch.empty((max(rows, 1), 2 * terms), dtype=torch.int32,
+                          device=dev)
+    else:
+        rec = torch.empty((max(rows, 1), 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ws = _workspace(lib.h2o3_group_rows_workspace(rows, n_groups),
                         "group_rows", dev)
         rc = lib.h2o3_group_rows(
-            keys.data_ptr(), 0 if ghw is None else ghw.data_ptr(), rows,
-            n_groups, offsets.data_ptr(), rec.data_ptr(), ws.data_ptr(),
-            _stream(dev))
+            keys.data_ptr(), 0 if ghw is None else ghw.data_ptr(),
+            0 if q is None else q.data_ptr(), terms, rows, n_groups,
+            offsets.data_ptr(), rec.data_ptr(), ws.data_ptr(), _stream(dev))
     _raise_on(rc, "group_rows")
     return offsets, rec[:rows]
 
 
-def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
-                      scales: torch.Tensor, tables: torch.Tensor,
-                      lo: torch.Tensor, inv: torch.Tensor, n_prev: int,
-                      n_nodes: int, level_base: int, W: int, layout: str):
-    """Launch the adaptive level kernel on int8 fixed-point masses, then
-    its flush. Same contract as ``hist_adaptive.adaptive_level_i8_plain``."""
+def _adaptive_level_i8(x, nid, q, scales, tables, lo, inv, n_prev: int,
+                       n_nodes: int, level_base: int, W: int, layout: str,
+                       form: int):
     rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
     _check_W(W)
     terms = _check_qs(q, scales, rows, dev)
     _check("lo", lo, torch.float32, (n_nodes, F), dev)
     _check("inv", inv, torch.float32, (n_nodes, F), dev)
     lib = build()["hist_adaptive"]
+    feat_major = int(layout == "f_rows")
     nid_out = torch.empty_like(nid)
-    acc = torch.zeros((3 * terms, n_nodes, F, W), dtype=torch.int32,
-                      device=dev)
     hist = torch.empty((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # as in _binned_level_i8; -1 also for a grouped form forced in
+        # [F, rows]
+        ws = _workspace(max(lib.h2o3_adaptive_level_i8_workspace(
+            feat_major, rows, F, W, n_prev, n_nodes, terms, form), 0),
+            "adaptive_level_i8", dev)
         rc = lib.h2o3_adaptive_level_i8(
-            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
-            q.data_ptr(), terms, scales.data_ptr(), tables.data_ptr(),
-            lo.data_ptr(), inv.data_ptr(), rows, F, W, n_prev, n_nodes,
-            level_base, nid_out.data_ptr(), acc.data_ptr(), hist.data_ptr(),
-            _stream(dev))
+            x.data_ptr(), feat_major, nid.data_ptr(), q.data_ptr(), terms,
+            scales.data_ptr(), tables.data_ptr(), lo.data_ptr(),
+            inv.data_ptr(), rows, F, W, n_prev, n_nodes, level_base, form,
+            nid_out.data_ptr(), hist.data_ptr(), ws.data_ptr(), _stream(dev))
     _raise_on(rc, "adaptive_level_i8")
     LAUNCHES["adaptive_level_i8"] += 1
     return nid_out, hist
+
+
+def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
+                      scales: torch.Tensor, tables: torch.Tensor,
+                      lo: torch.Tensor, inv: torch.Tensor, n_prev: int,
+                      n_nodes: int, level_base: int, W: int, layout: str):
+    """Launch the adaptive level kernel on int8 fixed-point masses. Same
+    contract as ``hist_adaptive.adaptive_level_i8_plain``. The kernel
+    picks its form from the shapes (``csrc/hist_adaptive.cu``
+    ``takes_grouped_i8``): in ``"rows_f"`` the node-grouped int8
+    tensor-core form or the tiled body; in ``"f_rows"`` the tiled
+    body."""
+    return _adaptive_level_i8(x, nid, q, scales, tables, lo, inv, n_prev,
+                              n_nodes, level_base, W, layout, -1)
+
+
+def adaptive_level_i8_form(x: torch.Tensor, nid: torch.Tensor,
+                           q: torch.Tensor, scales: torch.Tensor,
+                           tables: torch.Tensor, lo: torch.Tensor,
+                           inv: torch.Tensor, n_prev: int, n_nodes: int,
+                           level_base: int, W: int, layout: str,
+                           grouped: bool):
+    """``adaptive_level_i8`` with one form of the kernel forced:
+    ``grouped`` True, the node-grouped tensor-core form (raises in
+    ``"f_rows"`` and where the shapes do not fit it); False, the tiled
+    body. For the tests and ``chip_smoke.py``; the training path calls
+    ``adaptive_level_i8``."""
+    return _adaptive_level_i8(x, nid, q, scales, tables, lo, inv, n_prev,
+                              n_nodes, level_base, W, layout,
+                              int(bool(grouped)))
 
 
 def _totals_workspace(lib, rows: int, n_nodes: int, name: str, dev):

@@ -1,14 +1,17 @@
 """The node-grouped kernels' pieces on the CPU: the row grouping
-(``common.group_rows_plain``) against numpy's stable argsort, the port's
+(``common.group_rows_plain``) against numpy's stable argsort, the int8
+grouping records (``common.pack_i8_records_plain``), the port's
 three-term bf16 split against the JAX package's ``_split3_bf16``, and
-torch models of the redesigned kernels held against the plain versions:
-the grouped level body (csrc/level_grouped.cuh) as one-hot products of
+models of the redesigned kernels held against the plain versions: the
+grouped level body (csrc/level_grouped.cuh) as one-hot products of
 bf16-valued operands grouped by parent, for the float [rows, F] adaptive
-level (K8) and the packed level (K1/K3), and the global-sketch histogram
-(K11) as per-span partials merged in slot order, with its fixed in-block
-order (record order per feature, a bin's lanes summed in lane order). The
-CUDA kernels are held against the plain versions in
-tests/test_torch_kernels.py."""
+level (K8) and the packed level (K1/K3); its int8 instance (K7, K4) with
+the kernel's PRMT one-hot selectors and m16n8k32 fragment layouts,
+bit-equal to the plain int8 levels and to the TPU kernels in interpret
+mode; and the global-sketch histogram (K11) as per-span partials merged
+in slot order, with its fixed in-block order (record order per feature,
+a bin's lanes summed in lane order). The CUDA kernels are held against
+the plain versions in tests/test_torch_kernels.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,8 @@ import torch
 
 from h2o3_tpu.ops import hist_adaptive as jha
 from h2o3_tpu_torch.ops import hist_adaptive as tha
-from h2o3_tpu_torch.ops.common import group_rows_plain, split3_bf16
+from h2o3_tpu_torch.ops.common import (flush_i8, group_rows_plain,
+                                       pack_i8_records_plain, split3_bf16)
 from h2o3_tpu_torch.ops.histogram import build_histograms_plain
 
 
@@ -466,3 +470,389 @@ def test_fixed_order_hist_model_matches_plain(B1, N, bf16):
     gi = torch.as_tensor(rng.integers(-8, 9, (3, rows)).astype(np.float32))
     assert torch.equal(_fixed_order_hist_model(c, s, gi, N, B1, False),
                        build_histograms_plain(c, s, gi, N, B1))
+
+
+# ------------------------------------ model of the grouped K7 and K4 (int8)
+
+
+def _prmt(lo, hi, sel):
+    """PTX ``prmt.b32`` in its default mode, elementwise on int64 arrays
+    of 32-bit values: byte i of the result is byte (nibble i & 7) of
+    {hi, lo} (lo the bytes 0..3), or, where nibble i has its msb set,
+    that byte's sign replicated over all eight bits."""
+    src = np.stack(np.broadcast_arrays(
+        *[(lo >> (8 * j)) & 0xFF for j in range(4)],
+        *[(hi >> (8 * j)) & 0xFF for j in range(4)], sel))[:8]
+    out = np.zeros(np.shape(src[0]), np.int64)
+    for i in range(4):
+        n = (sel >> (4 * i)) & 0xF
+        byte = np.take_along_axis(src, (n & 7)[None], 0)[0]
+        byte = np.where(n & 8, np.where(byte & 0x80, 0xFF, 0), byte)
+        out |= byte << (8 * i)
+    return out
+
+
+def _selectors(bins, W):
+    """The int8 body's bin buffer of one chunk: for bins [chunk, F] (any
+    value outside [0, W) adds nothing), per (feature, m-tile, quad of 4
+    rows) a word whose bits 15:0 hold each row's nibble in the m-tile's
+    lower octet and 31:16 in its upper: the bin's place in the octet, or
+    8 where the bin lies outside it."""
+    F, MT = bins.shape[1], W // 16
+    sel = np.full((F, MT, bins.shape[0] // 4), 0x88888888, np.int64)
+    for i in range(4):
+        b = bins[i::4].T                                # [F, quads]
+        ok = (b >= 0) & (b < W)
+        d = ((b & 7) ^ 8) << ((b & 8) * 2 + 4 * i)
+        for p in range(MT):
+            sel[:, p] ^= np.where(ok & (b >> 4 == p), d, 0)
+    return sel
+
+
+def _swar_selectors(bins, W):
+    """The int8 body's bin buffer of one chunk for byte codes, as its SWAR
+    path builds it: per (feature, quad) the four rows' code bytes (0xFF
+    for a row that adds nothing), per m-tile XORed with 16·mt; a byte
+    below 16 gives its low nibble to the lower octet's half and that
+    nibble ^ 8 to the upper's, any other byte bit 3 in both."""
+    F, MT = bins.shape[1], W // 16
+    byte = np.where(bins == -1, 0xFF, bins & 0xFF)     # [chunk, F]
+    x = sum(byte[i::4].T.astype(np.int64) << (8 * i) for i in range(4))
+    sel = np.zeros((F, MT, bins.shape[0] // 4), np.int64)
+    for p in range(MT):
+        xp = x ^ (0x10101010 * p)
+        h = (xp >> 4) & 0x0F0F0F0F
+        out = ((h + 0x07070707) | h) & 0x08080808
+        n = xp & 0x0F0F0F0F
+        lo, hi = n | out, (n ^ 0x08080808) | out
+        ylo, yhi = lo | (lo >> 4), hi | (hi >> 4)
+        sel[:, p] = (ylo & 0xFF) | ((ylo >> 8) & 0xFF00) | \
+            ((yhi & 0xFF) << 16) | ((yhi & 0xFF0000) << 8)
+    return sel
+
+
+def _rec_mass(recs, p):
+    """q[p] of int8 records (``pack_i8_records_plain``), as the kernel's
+    ``QRec::mass`` reads it: byte p % 4 of word 1 + p // 4."""
+    w = recs[:, 1 + p // 4].astype(np.int64) & 0xFFFFFFFF
+    return ((w >> (8 * (p % 4))) & 0xFF).astype(np.uint8).astype(np.int8)
+
+
+_LANE = np.arange(32)
+_G8, _T4 = _LANE >> 2, _LANE & 3
+# each lane's one-hot table: byte g8 of {hi, lo} is 1
+_TLO = np.where(_G8 < 4, 1 << (8 * np.minimum(_G8, 3)), 0).astype(np.int64)
+_THI = np.where(_G8 < 4, 0, 1 << (8 * np.maximum(_G8 - 4, 0))).astype(
+    np.int64)
+
+
+def _chunk_products(sel, frag, NT):
+    """One chunk's int8 products as the kernel's warps form them: per unit
+    (feature, m-tile) and k-step, the A fragment (16 bins x 32 rows) from
+    four PRMTs of each lane's two selector words, the B fragment (32 rows
+    x 8 columns) of each term from the staged bytes in lane order, the
+    s8 x s8 -> s32 product, read back in the C fragment's layout. Returns
+    [F, MT, NT, 32 lanes, 4] int64."""
+    F, MT = sel.shape[:2]
+    out = np.zeros((F, MT, NT, 32, 4), np.int64)
+    for ks in range(sel.shape[2] // 8):
+        wa = sel[:, :, ks * 8 + _T4]                   # [F, MT, 32]
+        wb = sel[:, :, ks * 8 + 4 + _T4]
+        regs = [_prmt(_TLO, _THI, wa & 0xFFFF), _prmt(_TLO, _THI, wa >> 16),
+                _prmt(_TLO, _THI, wb & 0xFFFF), _prmt(_TLO, _THI, wb >> 16)]
+        A = np.zeros((F, MT, 16, 32), np.int64)
+        for j, reg in enumerate(regs):
+            for i in range(4):
+                byte = ((reg >> (8 * i)) & 0xFF).astype(np.uint8)
+                A[:, :, _G8 + 8 * (j & 1), _T4 * 4 + i + 16 * (j >> 1)] = \
+                    byte.astype(np.int8)
+        for n in range(NT):
+            B = np.zeros((32, 8), np.int64)
+            for reg in range(2):
+                words = frag[((ks * NT + n) * 32 + _LANE) * 2 + reg]
+                for i in range(4):
+                    B[_T4 * 4 + i + 16 * reg, _G8] = words[:, i]
+            D = A @ B                                   # [F, MT, 16, 8]
+            for e in range(4):
+                out[:, :, n, :, e] += D[:, :, _G8 + (e >> 1) * 8,
+                                        2 * _T4 + (e & 1)]
+    return out
+
+
+def _grouped_i8_model(nid, q, scales, can, route, bins_of, n_prev, N, base,
+                      W, F, span=256, chunk=128, swar=False):
+    """What csrc/level_grouped.cuh computes with its int8 mass policy
+    (I8Mass), in numpy: rows grouped by parent (``can``: which parents
+    split), int8 records from the grouping pass, spans of a group's
+    records as blocks, chunks of 128 records routed (``route(r, k)``: the
+    side of parent k's rows r), their masses staged as bytes in the B
+    fragments' lane order (one n-tile per term), their bins
+    (``bins_of(r, node)``) as PRMT selectors, the chunk's m16n8k32 s8
+    products added into int32 registers, the blocks' [3·terms, 2, F, W]
+    int32 partials summed per node and flushed to float32. ``swar``: the
+    selectors of byte codes as the kernel's SWAR path builds them (a row
+    that adds nothing: bin -1, byte 0xFF)."""
+    NT = q.shape[0] // 3
+    MT = W // 16
+    prev_base = base - n_prev
+    G = n_prev + N
+    lp = nid - prev_base
+    lpc = lp.clamp(0, max(n_prev, 1) - 1).long()
+    routed = (n_prev > 0) & (lp >= 0) & (lp < n_prev) & can[lpc]
+    ln = nid - base
+    direct = (ln >= 0) & (ln < N)
+    key = torch.where(routed, lp, torch.where(direct, n_prev + ln, -1))
+    offsets, idx = group_rows_plain(key.to(torch.int32), G)
+    recs = pack_i8_records_plain(q, idx[:int(offsets[-1])]).numpy()
+    nid_out = nid.clone()
+    blocks = []
+    for k in range(G):
+        o0, o1 = int(offsets[k]), int(offsets[k + 1])
+        parent = k < n_prev
+        c0 = 2 * (prev_base + k) + 1 - base if parent else k - n_prev
+        for s0 in range(o0, o1, span):
+            acc = np.zeros((F, MT, NT, 32, 4), np.int64)
+            for ch in range(s0, min(s0 + span, o1), chunk):
+                rc = recs[ch:min(ch + chunk, s0 + span, o1)]
+                r = torch.as_tensor(rc[:, 0].astype(np.int64))
+                side = torch.zeros(len(r), dtype=torch.long)
+                if parent:
+                    side = route(r, k)
+                    nid_out[r] = (2 * (prev_base + k) + 1 + side).int()
+                node = c0 + side
+                live = ((node >= 0) & (node < N)).numpy()
+                slot = np.where(live, side.numpy(), -1)
+                # -1: a row that adds nothing (past the span, or its child
+                # off the window); a live code of -1 is kept apart as 255
+                # would be its byte anyway
+                bins = np.full((chunk, F), -1, np.int64)
+                bins[:len(r)] = np.where(
+                    live[:, None], bins_of(r, node.clamp(0, N - 1)).numpy(),
+                    -1)
+                frag = np.zeros((chunk // 32 * NT * 64, 4),
+                                np.int64)               # [words, bytes]
+                t = np.arange(len(r))
+                ks, kk = t >> 5, t & 31
+                t4, reg, byte = (kk & 15) >> 2, kk >> 4, kk & 3
+                for n in range(NT):
+                    for col in range(8):
+                        val = np.zeros(len(r), np.int64)
+                        if col < 6:
+                            val = np.where(slot == col // 3,
+                                           _rec_mass(rc, (col % 3) * NT + n),
+                                           0)
+                        word = ((ks * NT + n) * 32 + col * 4 + t4) * 2 + reg
+                        frag[word, byte] = val
+                sel = (_swar_selectors if swar else _selectors)(bins, W)
+                acc += _chunk_products(sel, frag, NT)
+            part = np.zeros((3 * NT, 2, F, W), np.int64)
+            for e in range(4):
+                col = 2 * _T4 + (e & 1)
+                keep = col < 6
+                row = _G8 + (e >> 1) * 8
+                for n in range(NT):
+                    for mt in range(MT):
+                        part[((col % 3) * NT + n)[keep], (col // 3)[keep], :,
+                             mt * 16 + row[keep]] = \
+                            acc[:, mt, n, keep, e].T
+            # the kernel's int32 partial holds it exactly
+            assert np.abs(part).max(initial=0) < 2 ** 31
+            blocks.append((k, part))
+    total = np.zeros((3 * NT, N, F, W), np.int64)
+    for j in range(N):
+        cid = base + j
+        srcs = []
+        lpj = (cid - 1) // 2 - prev_base
+        if n_prev > 0 and cid >= 1 and 0 <= lpj < n_prev:
+            srcs.append((lpj, (cid - 1) % 2))
+        srcs.append((n_prev + j, 0))
+        for kk_, sd in srcs:
+            for kb, part in blocks:
+                if kb == kk_:
+                    total[:, j] += part[:, sd]
+    return nid_out, flush_i8(torch.as_tensor(total), scales)
+
+
+def _grouped_i8_level_model(x, nid, q, scales, tables, lo, inv, n_prev, N,
+                            base, W):
+    """The grouped K7 (AdaptiveBins): routed by raw threshold, binned
+    under the child's range."""
+    F = x.shape[1]
+
+    def route(r, k):
+        f = int(tables[0][k].clamp(0, F - 1))
+        v = x[r, f]
+        return torch.where(torch.isnan(v), tables[2][k] < 0.5,
+                           v >= tables[1][k]).long()
+
+    def bins_of(r, node):
+        return tha.adaptive_bins_plain(x[r], node.int(), lo, inv, N, 0, W)
+
+    can = tables[3][:max(n_prev, 1)] > 0.5
+    return _grouped_i8_model(nid, q, scales, can, route, bins_of, n_prev, N,
+                             base, W, F)
+
+
+def _grouped_i8_binned_model(codes, nid, q, scales, tables, n_prev, N, base,
+                             W):
+    """The grouped K4 (CodeBins): the code of the split feature against
+    split_bin, the code itself the bin."""
+    F = codes.shape[1]
+    c = codes.long()
+
+    def route(r, k):
+        f = int(tables[0][k].clamp(0, F - 1))
+        v = c[r, f]
+        return torch.where(v == W - 1, tables[2][k] == 0,
+                           v >= tables[1][k]).long()
+
+    can = tables[3][:max(n_prev, 1)] != 0
+    return _grouped_i8_model(nid, q, scales, can, route, lambda r, node: c[r],
+                             n_prev, N, base, W, F,
+                             swar=codes.dtype == torch.int8)
+
+
+def _i8_case(kind, W, N, terms, seed, rows=1300, F=3):
+    """A level's inputs (rows off every window) with q from
+    quantize_ghw_i8; returns (model, plain) results."""
+    if kind == "binned":
+        c, nid, ghw, t, n_prev, base = _binned_inputs(rows, F, W, N, seed,
+                                                      False)
+        q, s = tha.quantize_ghw_i8(ghw, terms)
+        return (_grouped_i8_binned_model(c, nid, q, s, t, n_prev, N, base, W),
+                tha.binned_level_i8_plain(c, nid, q, s, t, n_prev, N, base,
+                                          W))
+    x, nid, ghw, t, lo, inv, n_prev, base = _level_inputs(rows, F, W, N,
+                                                          seed, False)
+    q, s = tha.quantize_ghw_i8(ghw, terms)
+    return (_grouped_i8_level_model(x, nid, q, s, t, lo, inv, n_prev, N, base,
+                                    W),
+            tha.adaptive_level_i8_plain(x, nid, q, s, t, lo, inv, n_prev, N,
+                                        base, W))
+
+
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+def test_grouped_i8_model_matches_plain_bit_for_bit(kind, terms, W, N):
+    """The int8 grouped body (its selectors, fragments and flush) gives
+    the plain int8 level's nid and histogram bit for bit."""
+    (nid_m, hist_m), (nid_p, hist_p) = _i8_case(kind, W, N, terms,
+                                                7 * W + N + terms)
+    assert torch.equal(nid_m, nid_p)
+    assert hist_m.dtype == torch.float32
+    assert torch.equal(hist_m, hist_p)
+
+
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("W,N", [(16, 8), (32, 1)])
+def test_grouped_i8_model_matches_pallas_interpret(kind, terms, W, N):
+    """The int8 grouped body against the TPU kernels (``_kernel_bt_i8``,
+    ``_kernel_t_i8``) run in interpret mode on the same inputs."""
+    rng = np.random.default_rng(11 * W + N + terms)
+    rows, F = 2048, 4
+    n_prev, base = N // 2, N - 1
+    m = max(n_prev, 1)
+    nid = (base - n_prev + rng.integers(0, m, rows)).astype(np.int32)
+    nid[rng.random(rows) < 0.05] = base + N + 7
+    ghw = np.stack([rng.normal(size=rows), rng.random(rows) * 0.25,
+                    np.ones(rows)]).astype(np.float32)
+    feat = rng.integers(0, F, m).astype(np.float32)
+    nal = (rng.random(m) < 0.5).astype(np.float32)
+    can = (rng.random(m) < 0.8).astype(np.float32)
+    can[0] = 1.0
+    qj, sj = jha.quantize_ghw_i8(jnp.asarray(ghw), terms=terms)
+    q, s = tha.quantize_ghw_i8(torch.as_tensor(ghw), terms)
+    if kind == "binned":
+        codes = rng.integers(0, W - 1, size=(rows, F)).astype(np.int8)
+        codes[rng.random((rows, F)) < 0.07] = W - 1
+        tab = (feat, rng.integers(1, W - 1, m).astype(np.float32), nal, can)
+        nid_j, hist_j = jha.binned_level_tpu_i8(
+            jnp.asarray(codes.T.copy()), jnp.asarray(nid), qj, sj,
+            tuple(jnp.asarray(v) for v in tab), n_prev, N, base, W,
+            tile=1024, interpret=True)
+        nid_m, hist_m = _grouped_i8_binned_model(
+            torch.as_tensor(codes), torch.as_tensor(nid), q, s,
+            tha.make_tables(*(torch.as_tensor(v) for v in tab)), n_prev, N,
+            base, W)
+    else:
+        x = rng.normal(size=(rows, F)).astype(np.float32)
+        x[rng.random((rows, F)) < 0.06] = np.nan
+        tab = (feat, rng.normal(size=m).astype(np.float32), nal, can)
+        lo = (rng.normal(size=(N, F)) - 3).astype(np.float32)
+        inv = np.full((N, F), (W - 2) / 6.0, np.float32)
+        nid_j, hist_j = jha.adaptive_level_tpu_i8(
+            jnp.asarray(x.T.copy()), jnp.asarray(nid), qj, sj,
+            tuple(jnp.asarray(v) for v in tab), jnp.asarray(lo),
+            jnp.asarray(inv), n_prev, N, base, W, tile=1024, interpret=True)
+        nid_m, hist_m = _grouped_i8_level_model(
+            torch.as_tensor(x), torch.as_tensor(nid), q, s,
+            tha.make_adaptive_tables(*(torch.as_tensor(v) for v in tab)),
+            torch.as_tensor(lo), torch.as_tensor(inv), n_prev, N, base, W)
+    np.testing.assert_array_equal(nid_m.numpy(), np.asarray(nid_j))
+    np.testing.assert_array_equal(hist_m.numpy(), np.asarray(hist_j))
+
+
+@pytest.mark.parametrize("W", [16, 256])
+def test_grouped_i8_model_leaves_out_codes_outside_the_lanes(W):
+    """A code outside [0, W) (negative, or past the lanes of int16 codes)
+    adds nothing in the int8 grouped form: its selector nibbles are all 8,
+    which match no lane."""
+    c, nid, ghw, t, n_prev, base = _binned_inputs(900, 3, W, 2, 5, False)
+    c[::7, 1] = -3
+    if W == 256:
+        c[3::11, 1] = 300
+    q, s = tha.quantize_ghw_i8(ghw, 1)
+    _n, hist_m = _grouped_i8_binned_model(c, nid, q, s, t, n_prev, 2, base, W)
+    keep = (c[:, 1] >= 0) & (c[:, 1] < W)
+    _n, hist_k = tha.binned_level_i8_plain(c[keep], nid[keep], q[:, keep], s,
+                                           t, n_prev, 2, base, W)
+    assert torch.equal(hist_m[:, :, 1], hist_k[:, :, 1])
+
+
+@pytest.mark.parametrize("build", ["nibbles", "swar"])
+def test_prmt_model_one_hot_exact(build):
+    """The one-hot selector against every lane: each of the 16 bins of an
+    m-tile, and 'nothing' (nibble 8; for byte codes any byte outside the
+    m-tile: -1 and 16..255), gives 1 on exactly the lane pair (g8, half)
+    of its bin and 0 elsewhere."""
+    make = _selectors if build == "nibbles" else _swar_selectors
+    others = [-1] if build == "nibbles" else [-1, 16, 31, 127, 128, 144,
+                                               253, 255]
+    for b in list(range(16)) + others:
+        sel = make(np.full((128, 1), b), 16)[0, 0, 0]
+        lo = _prmt(_TLO, _THI, np.full(32, sel & 0xFFFF))
+        hi = _prmt(_TLO, _THI, np.full(32, sel >> 16))
+        for half, reg in ((0, lo), (1, hi)):
+            want = np.where((b >= 0) & (_G8 + 8 * half == b), 0x01010101, 0)
+            np.testing.assert_array_equal(reg, want)
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_pack_i8_records_round_trip(terms):
+    """The int8 grouping records keep every q byte, negative ones and the
+    two-term low byte b over all of [-128, 127] included, after the row
+    id."""
+    rng = np.random.default_rng(terms)
+    rows = 700
+    ghw = np.stack([rng.normal(size=rows), rng.random(rows),
+                    np.ones(rows)]).astype(np.float32)
+    ghw[0, :3] = [-1e3, 1e3, 0.0]                  # at amax, both signs
+    q, _s = tha.quantize_ghw_i8(torch.as_tensor(ghw), terms)
+    if terms == 2:
+        # every b value and the a extremes occur
+        q[1, :256] = torch.arange(-128, 128, dtype=torch.int8)
+        q[0, :2] = torch.tensor([-127, 127], dtype=torch.int8)
+        assert int(q[1::2].min()) == -128 and int(q[1::2].max()) == 127
+    else:
+        q[0, :3] = torch.tensor([-127, 127, -1], dtype=torch.int8)
+    idx = torch.as_tensor(rng.permutation(rows)[:500].astype(np.int32))
+    recs = pack_i8_records_plain(q, idx)
+    assert recs.dtype == torch.int32 and recs.shape == (500, 2 * terms)
+    assert torch.equal(recs[:, 0], idx)
+    got = np.stack([_rec_mass(recs.numpy(), p) for p in range(3 * terms)])
+    np.testing.assert_array_equal(got, q[:, idx.long()].numpy())
+    if terms == 2:
+        assert not recs[:, 3].any()               # the pad word

@@ -272,6 +272,27 @@ def test_group_rows_matches_plain(cuda, rows, G):
     assert not rec0[:n, 1:].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("rows,G", [(100_000, 1), (300_000, 48), (1, 2)])
+def test_group_rows_i8_records_match_plain(cuda, terms, rows, G):
+    """The int8 records of the grouping pass: the row id, then every q
+    byte (negative ones and the two-term low byte over [-128, 127])."""
+    from h2o3_tpu_torch.ops.common import (group_rows_plain,
+                                           pack_i8_records_plain)
+    rng = np.random.default_rng(rows + G + terms)
+    keys = torch.as_tensor(rng.integers(-2, G + 2, rows).astype(np.int32),
+                           device=cuda)
+    q = torch.as_tensor(rng.integers(-128, 128, (3 * terms, rows))
+                        .astype(np.int8), device=cuda)
+    off_k, rec = kernels.group_rows(keys, G, q=q)
+    off_p, idx_p = group_rows_plain(keys, G)
+    assert torch.equal(off_k, off_p)
+    n = int(off_p[-1])
+    assert rec.dtype == torch.int32 and rec.shape == (rows, 2 * terms)
+    assert torch.equal(rec[:n], pack_i8_records_plain(q, idx_p[:n]))
+
+
 # ------------------------------------------------------------ global sketch
 
 
@@ -360,16 +381,21 @@ def _off_window(nid, N, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", ["picked", "grouped", "tiled"])
 @pytest.mark.parametrize("W", [16, 32, 256])
 @pytest.mark.parametrize("terms,N", [(1, 1), (1, 8), (1, 32), (2, 1),
                                      (2, 8), (2, 16)])
-def test_binned_level_i8_bit_equal(cuda, W, terms, N):
+def test_binned_level_i8_bit_equal(cuda, form, W, terms, N):
     c, n, g, t, n_prev, base = _inputs(50_000, 9, W, N, N + W, False, cuda)
     n = _off_window(n, N, W)
     q, s = tha.quantize_ghw_i8(g, terms)
     before = kernels.LAUNCHES["binned_level_i8"]
-    nid_k, hist_k = tha.binned_level(c, n, g, t, n_prev, N, base, W, True,
-                                     (q, s))
+    if form == "picked":
+        nid_k, hist_k = tha.binned_level(c, n, g, t, n_prev, N, base, W,
+                                         True, (q, s))
+    else:
+        nid_k, hist_k = kernels.binned_level_i8_form(
+            c, n, q, s, t, n_prev, N, base, W, form == "grouped")
     assert kernels.LAUNCHES["binned_level_i8"] == before + 1
     nid_p, hist_p = tha.binned_level_i8_plain(c, n, q, s, t, n_prev, N, base,
                                               W)
@@ -378,17 +404,56 @@ def test_binned_level_i8_bit_equal(cuda, W, terms, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("W", [16, 256])
+def test_binned_level_i8_codes_outside_the_lanes_add_nothing(cuda, grouped,
+                                                             W):
+    """Codes outside [0, W) (negative, and past the lanes of int16 codes)
+    add nothing in either form; the other features see every row."""
+    c, n, g, t, n_prev, base = _inputs(50_000, 6, W, 8, W, False, cuda)
+    c[::13, 2] = -4
+    if W == 256:
+        c[5::13, 2] = 300
+    q, s = tha.quantize_ghw_i8(g, 1)
+    nid_k, hist_k = kernels.binned_level_i8_form(c, n, q, s, t, n_prev, 8,
+                                                 base, W, grouped)
+    nid_p = tha.binned_route_only_plain(c, n, t, n_prev, base, W)
+    assert torch.equal(nid_k, nid_p)
+    keep = (c[:, 2] >= 0) & (c[:, 2] < W)
+    # the routed rows' histograms (no route: n_prev 0)
+    _n, hist_all = tha.binned_level_i8_plain(c.clamp(0, W - 1), nid_p, q, s,
+                                             t, 0, 8, base, W)
+    _n, hist_in = tha.binned_level_i8_plain(c[keep], nid_p[keep], q[:, keep],
+                                            s, t, 0, 8, base, W)
+    other = [0, 1, 3, 4, 5]
+    assert torch.equal(hist_k[:, :, other], hist_all[:, :, other])
+    assert torch.equal(hist_k[:, :, 2], hist_in[:, :, 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["picked", "grouped", "tiled"])
 @pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
 @pytest.mark.parametrize("W", [16, 32, 256])
-@pytest.mark.parametrize("terms,N", [(1, 8), (1, 32), (2, 16)])
-def test_adaptive_level_i8_bit_equal(cuda, layout, W, terms, N):
+@pytest.mark.parametrize("terms,N", [(1, 1), (1, 8), (1, 32), (2, 16)])
+def test_adaptive_level_i8_bit_equal(cuda, form, layout, W, terms, N):
     x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
         50_000, 9, W, N, N + W + terms, False, layout, cuda)
     n = _off_window(n, N, W)
     q, s = tha.quantize_ghw_i8(g, terms)
     before = kernels.LAUNCHES["adaptive_level_i8"]
-    nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, N, base,
-                                       W, True, layout, (q, s))
+    if form == "picked":
+        nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, N,
+                                           base, W, True, layout, (q, s))
+    elif form == "grouped" and layout == "f_rows":
+        # the grouped form reads [rows, F] only: forced, it refuses
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.adaptive_level_i8_form(x, n, q, s, t, lo, inv, n_prev, N,
+                                           base, W, layout, True)
+        return
+    else:
+        nid_k, hist_k = kernels.adaptive_level_i8_form(
+            x, n, q, s, t, lo, inv, n_prev, N, base, W, layout,
+            form == "grouped")
     assert kernels.LAUNCHES["adaptive_level_i8"] == before + 1
     nid_p, hist_p = tha.adaptive_level_i8_plain(x, n, q, s, t, lo, inv,
                                                 n_prev, N, base, W, layout)
