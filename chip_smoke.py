@@ -11,11 +11,14 @@ adaptive_route_only in the [rows, F] and [F, rows] layouts), the
 unpacked global sketch (nbins 1024, kernel global_hist), and the packed
 and adaptive paths again with int8 fixed-point masses
 (``H2O3_HIST_I8=1``, set around those trains only; kernels
-binned_level_i8 and adaptive_level_i8), and, on the packed and global
-paths, the deepest level's per-leaf sums (segment_totals, the
-leaf-totals kernel without a route). It also holds leaf_totals with a
-route, which no path launches, against its plain version. Phases, each
-fatal on failure:
+binned_level_i8 and adaptive_level_i8), the packed and adaptive paths at
+the wide lane widths (``packed_wide``: nbins 254, W = 256 int16 codes;
+``adaptive_wide``: nbins 62, W = 64; XGBoost's ``tree_method="hist"``
+and ``"auto"`` at max_bins 256; the wide body of binned_level and
+adaptive_level), and, on the packed and global paths, the deepest
+level's per-leaf sums (segment_totals, the leaf-totals kernel without a
+route). It also holds leaf_totals with a route, which no path launches,
+against its plain version. Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: compile the CUDA kernels from ``h2o3_tpu_torch/csrc`` (one
@@ -23,14 +26,19 @@ fatal on failure:
    IMMA opcodes from its SASS and require HMMA and no shared float CAS
    loop (``ATOMS.CAST.SPIN``) in every float tensor-core instance of the
    node-grouped level (adaptive and packed), IMMA and no atomics in every
-   int8 instance of it, and no atomics at all in the leaf-totals kernel
-   and global_hist's node-grouped form;
+   int8 instance of it, and no atomics at all in every instance of the
+   wide level (level_wide_kernel), the leaf-totals kernel and
+   global_hist's node-grouped form;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
-   at W=16 (int8), W=32 (int8) and W=256 (int16), in the form the shapes
-   pick and in both forms forced (node-grouped, tiled), binned_route_only at
-   N=64; adaptive_level at W in {16, 32, 64, 128, 256} and
-   adaptive_route_only at N=64, both layouts, plus a case with NaN, ±inf
-   and zero-span features; global_hist at B1 in {15 (uint8), 257, 1025
+   at W=16, 32, 64, 128 (int8) and 256 (int16), in the form the shapes
+   pick and in every form forced (tensor-core node-grouped, tiled, and
+   from W=32 on the wide body),
+   binned_route_only at N=64; adaptive_level at W in {16, 32, 64, 128,
+   256} and adaptive_route_only at N=64, both layouts (in [rows, F] from
+   W=32 on every grouped form forced too), plus a case with NaN, ±inf
+   and zero-span features; a grouped form forced where it does not fit
+   (600 features, [F, rows], the wide body at W=16) must raise;
+   global_hist at B1 in {15 (uint8), 257, 1025
    (int32)}, N in {1, 8, 16, 32}, about 10% of the rows outside [0, N),
    NA codes, in the node-grouped form and with global atomics. With
    integer-valued (g, h, w) node ids and histograms must be bit-equal to
@@ -58,15 +66,18 @@ fatal on failure:
    then packed_i8 and adaptive_i8 on the same frame
    (6 x 20 int8 level launches, 20 route launches, 0 float level
    launches), each AUC within 0.005 of its path's bf16 AUC of this run;
+   then packed_wide (nbins 254) and adaptive_wide (nbins 62) on the same
+   frame, with the same launch counts as packed and adaptive;
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
    histograms, 5 trees on each device (nbins 300 on the global path);
-   tree 0's splits equal, |dAUC| <= 1e-4; and packed vs global on the
+   every tree's splits equal, |dAUC| <= 1e-4; and packed vs global on the
    card (200k rows, nbins 14, ``quantiles_global``, float32,
    ``packed_codes`` True vs False): every tree's split features, bins
    and NA directions identical; the two int8 paths on card and CPU at
    200k rows, depth 6, 5 trees, bf16, ``H2O3_HIST_I8`` 1 and 2: |dAUC|
    <= 1e-4, and at one term (every level an integer sum) tree 0's
-   splits equal; the number of identical trees is printed;
+   splits equal; the number of identical trees is printed; the two wide
+   paths as packed and adaptive;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
    N = 1..32; the packed level at W = 16 node-grouped at bf16 and
    float32 beside the tiled body forced, each level checked against its
@@ -87,12 +98,17 @@ fatal on failure:
    beside the float level on the same inputs in the same run, and one
    ``index_add_`` of the widened q into int32;
    leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64 beside
-   one ``index_add_``; the global_hist record comes
+   one ``index_add_``; binned_level and adaptive_level at the wide
+   widths W = 64, 128, 256, per level N = 1..32, every form (tensor-core,
+   wide, tiled) checked against the plain version at
+   10M rows and timed, the wide one launched five times with the same
+   bits, the form the kernel picks, and at N = 32 the plain version, the
+   bound and one ``index_add_``; the global_hist record comes
    last, after phase 7, whose warm global loop it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
    plain, three times, then 5 trees under torch.profiler: device time by
-   kernel, device busy share); the packed, adaptive and global paths
-   each trained three times at float32, the first right after the
+   kernel, device busy share); the packed, adaptive, global, packed_wide
+   and adaptive_wide paths each trained three times at float32, the first right after the
    allocator is filled with NaN, then twice at 'auto', and packed_i8 and
    adaptive_i8 twice at 'auto', with every pair of a path's trains
    required to agree bit for bit in split features, split keys, NA
@@ -163,7 +179,21 @@ PATHS = {
                     "level": "adaptive_level_i8",
                     "route": "adaptive_route_only", "split_key": "thr",
                     "i8": 1},
+    # the wide lane widths: XGBoost's tree_method="hist" at max_bins=256
+    # (packed int16 codes, W = 256, the wide body of binned_level) and
+    # tree_method="auto" (uniform-adaptive bins at nbins 62, W = 64, the
+    # wide body of adaptive_level)
+    "packed_wide": {"params": dict(nbins=254,
+                                   histogram_type="quantiles_global"),
+                    "level": "binned_level", "route": "binned_route_only",
+                    "totals": "segment_totals", "split_key": "split_bin"},
+    "adaptive_wide": {"params": dict(nbins=62, packed_codes=False),
+                      "level": "adaptive_level",
+                      "route": "adaptive_route_only", "split_key": "thr"},
 }
+# the float levels' wide lane widths and the forms timed there
+WIDE_W = (64, 128, 256)
+WIDE_FORMS = ("grouped", "wide", "tiled")
 LAYOUTS = ("rows_f", "f_rows")
 
 
@@ -293,12 +323,21 @@ def level_inputs(rows, F, W, N, int_ghw, seed, dev):
 
 def binned_form(form):
     """The launch of one form of binned_level: "picked" (the training
-    path's wrapper: the kernel picks from the shapes, node-grouped up to
-    W = 128), "grouped" or "tiled" (forced)."""
+    path's wrapper: the kernel picks from the shapes), or one forced by
+    name (kernels.LEVEL_FORMS: "grouped", the tensor-core body; "wide";
+    "tiled")."""
     from h2o3_tpu_torch.ops import kernels
     if form == "picked":
         return kernels.binned_level
-    return lambda *a: kernels.binned_level_form(*a, form == "grouped")
+    return lambda *a: kernels.binned_level_form(*a, form)
+
+
+def adaptive_form(form):
+    """The launch of one form of adaptive_level, as ``binned_form``."""
+    from h2o3_tpu_torch.ops import kernels
+    if form == "picked":
+        return kernels.adaptive_level
+    return lambda *a: kernels.adaptive_level_form(*a, form)
 
 
 def check_level(rows, F, W, N, int_ghw, bf16, dev, seed, form="picked",
@@ -336,6 +375,43 @@ def check_level(rows, F, W, N, int_ghw, bf16, dev, seed, form="picked",
     return err, inp
 
 
+def check_forms(kind, inp, N, W, bf16, forms):
+    """Each of ``forms`` of a float level (kind "binned" on level_inputs,
+    or "adaptive" on adaptive_inputs in [rows, F]) against the plain
+    version on the same inputs, computed once in float64: nid bit-equal,
+    each bin within the float tolerance (mass_check). Returns the largest
+    absolute error of each form."""
+    import torch
+    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level_plain,
+                                                  binned_level_plain)
+    if kind == "binned":
+        codes, nid, ghw, tables, n_prev, base = inp
+        run = lambda f: binned_form(f)(codes, nid, ghw, tables, n_prev, N,
+                                       base, W, bf16)
+        plain = lambda g: binned_level_plain(codes, nid, g, tables, n_prev,
+                                             N, base, W, bf16)
+    else:
+        x, nid, ghw, tables, lo, inv, n_prev, base = inp
+        run = lambda f: adaptive_form(f)(x, nid, ghw, tables, lo, inv,
+                                         n_prev, N, base, W, bf16, "rows_f")
+        plain = lambda g: adaptive_level_plain(x, nid, g, tables, lo, inv,
+                                               n_prev, N, base, W, bf16)
+    npl, hp = plain(ghw.double())
+    _n, mass = plain(ghw.double().abs())
+    errs = {}
+    for form in forms:
+        nk, hk = run(form)
+        torch.cuda.synchronize()
+        name = f"{kind}_level {form} W={W} N={N}"
+        if not torch.equal(nk, npl):
+            raise AssertionError(f"{name}: nid differs in "
+                                 f"{int((nk != npl).sum())} rows")
+        mass_check(name, hk, hp, mass)
+        errs[form] = float((hk.double() - hp).abs().max())
+        del nk, hk
+    return errs
+
+
 def check_route(rows, F, W, N, dev, seed):
     import torch
     from h2o3_tpu_torch.ops import kernels
@@ -350,30 +426,37 @@ def check_route(rows, F, W, N, dev, seed):
     return 0.0, (codes, nid, tables, n_prev, base)
 
 
+def level_forms(W):
+    """The forced forms of a float level at lane width W: the wide ones
+    at the wide widths, and at W = 32, where the rule weighs them."""
+    return WIDE_FORMS if W >= 32 else ("grouped", "tiled")
+
+
 def phase_kernels(dev, rows=1_000_000, F=28):
     """Phase 3: every instance against its plain version at 1M rows; the
-    packed level in the form the shapes pick and in both forms forced."""
+    packed level in the form the shapes pick and in every form forced."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
                                                   binned_route_only_plain)
     flush = torch_flush(dev)
     seed = 0
-    for W in (16, 32, 256):
+    for W in (16, 32, 64, 128, 256):
+        forms = level_forms(W)
         for N in (1, 8, 32):
             seed += 1
-            for form in ("grouped", "tiled"):
+            for form in forms:
                 check_level(rows, F, W, N, True, False, dev, seed, form)
             err, inp = check_level(rows, F, W, N, False, False, dev,
                                    seed + 100)
             err16, _ = check_level(rows, F, W, N, False, True, dev,
                                    seed + 200)
             codes, nid, ghw, tables, n_prev, base = inp
-            for form in ("grouped", "tiled"):
+            for form in forms:
                 check_level(rows, F, W, N, False, False, dev, 0, form, inp)
             ms = {form: time_cuda(lambda: binned_form(form)(
                 codes, nid, ghw, tables, n_prev, N, base, W, False), 20,
-                flush) for form in ("grouped", "tiled")}
+                flush) for form in forms}
             pms = time_cuda(lambda: binned_level_plain(
                 codes, nid, ghw, tables, n_prev, N, base, W, False), 3,
                 flush)
@@ -392,6 +475,48 @@ def phase_kernels(dev, rows=1_000_000, F=28):
     bound, by = route_bound_ms(rows, 1)
     print(f"binned_route_only {rows}x{F} N=64: {ms:.6g} ms (plain "
           f"{pms:.6g} ms, bound {bound:.6g} ms by {by})", flush=True)
+    check_forms_refused(dev)
+
+
+def check_forms_refused(dev):
+    """A grouped form forced where it does not fit raises, and nothing
+    falls back: the packed level past 512 features, the adaptive level in
+    [F, rows], the wide body at W = 16 (no instance: the rule never picks
+    it there)."""
+    from h2o3_tpu_torch.ops import kernels
+    codes, nid, ghw, tables, n_prev, base = level_inputs(2048, 600, 64, 4,
+                                                         True, 3, dev)
+    x, nidx, ghwx, tabx, lo, inv, n_px, base_x = adaptive_inputs(
+        2048, 8, 64, 4, True, 3, dev, "f_rows")
+    c16, n16, g16, t16, p16, b16 = level_inputs(2048, 8, 16, 4, True, 3, dev)
+    x16, nx16, gx16, tx16, lo16, inv16, px16, bx16 = adaptive_inputs(
+        2048, 8, 16, 4, True, 3, dev, "rows_f")
+    launches = [(f"{kind} {form}", launch) for form in ("grouped", "wide")
+                for kind, launch in (
+                    ("binned_level 600 features",
+                     lambda: kernels.binned_level_form(
+                         codes, nid, ghw, tables, n_prev, 4, base, 64, True,
+                         form)),
+                    ("adaptive_level [F, rows]",
+                     lambda: kernels.adaptive_level_form(
+                         x, nidx, ghwx, tabx, lo, inv, n_px, 4, base_x, 64,
+                         True, "f_rows", form)))]
+    launches += [
+        ("binned_level W=16 wide", lambda: kernels.binned_level_form(
+            c16, n16, g16, t16, p16, 4, b16, 16, True, "wide")),
+        ("adaptive_level W=16 wide", lambda: kernels.adaptive_level_form(
+            x16, nx16, gx16, tx16, lo16, inv16, px16, 4, bx16, 16, True,
+            "rows_f", "wide"))]
+    for name, launch in launches:
+        try:
+            launch()
+        except (RuntimeError, ValueError):
+            continue
+        raise AssertionError(f"forced form {name} did not raise where it "
+                             f"does not fit")
+    print("forced grouped forms where they do not fit (600 features; "
+          "[F, rows]; the wide body at W = 16): every one raised",
+          flush=True)
 
 
 def adaptive_inputs(rows, F, W, N, int_ghw, seed, dev, layout,
@@ -442,20 +567,19 @@ def adaptive_inputs(rows, F, W, N, int_ghw, seed, dev, layout,
 
 
 def check_adaptive_level(rows, F, W, N, int_ghw, bf16, dev, seed, layout,
-                         specials=False):
+                         specials=False, form="picked"):
     import torch
-    from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import adaptive_level_plain
     inp = adaptive_inputs(rows, F, W, N, int_ghw, seed, dev, layout,
                           specials)
     x, nid, ghw, tables, lo, inv, n_prev, base = inp
-    nk, hk = kernels.adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, N,
-                                    base, W, bf16, layout)
+    nk, hk = adaptive_form(form)(x, nid, ghw, tables, lo, inv, n_prev, N,
+                                 base, W, bf16, layout)
     npl, hp = adaptive_level_plain(x, nid, ghw if int_ghw else ghw.double(),
                                    tables, lo, inv, n_prev, N, base, W, bf16,
                                    layout)
     torch.cuda.synchronize()
-    name = f"adaptive_level {layout} W={W} N={N}"
+    name = f"adaptive_level {form} {layout} W={W} N={N}"
     if not torch.equal(nk, npl):
         raise AssertionError(f"{name}: nid differs in "
                              f"{int((nk != npl).sum())} rows")
@@ -500,6 +624,12 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
                 seed += 1
                 check_adaptive_level(rows, F, W, N, True, False, dev, seed,
                                      layout)
+                if layout == "rows_f" and W >= 32:
+                    for form in WIDE_FORMS:
+                        check_adaptive_level(rows, F, W, N, True, False, dev,
+                                             seed, layout, form=form)
+                        check_adaptive_level(rows, F, W, N, False, True, dev,
+                                             seed + 300, layout, form=form)
                 err16, _ = check_adaptive_level(rows, F, W, N, False, True,
                                                 dev, seed + 100, layout)
                 err, inp = check_adaptive_level(rows, F, W, N, False, False,
@@ -942,23 +1072,33 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
 
 
 def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
+    """A float path on the card and on the CPU at float32 histograms:
+    every tree's splits (feature, split bin or threshold, NA side) must
+    be equal, and |dAUC| <= 1e-4."""
     X, y, _F = higgs_arrays(rows, seed=11)
     models = {}
     for dev in ("cuda", "cpu"):
         models[dev] = train(frame_of(X, y, dev), ntrees, path,
                             histogram_precision="float32", **kw)
     mc, mh = models["cuda"], models["cpu"]
-    for key in ("feat", PATHS[path]["split_key"]):
-        a = mc.trees[key][0]
-        b = mh.trees[key][0]
-        if not np.array_equal(a, b):
-            raise AssertionError(f"{path}: tree 0 {key} differs between "
-                                 f"cuda and cpu: {a} vs {b}")
+    keys = ("feat", PATHS[path]["split_key"], "na_left")
+    same = [all(np.array_equal(mc.trees[k][t], mh.trees[k][t])
+                for k in keys) for t in range(ntrees)]
+    if not all(same):
+        t = same.index(False)
+        raise AssertionError(
+            f"{path}: {sum(same)} of {ntrees} trees' splits equal between "
+            f"cuda and cpu, first differing: tree {t} "
+            f"({split_flips(mc.trees, mh.trees)}): "
+            + "; ".join(f"{k} {mc.trees[k][t]} vs {mh.trees[k][t]}"
+                        for k in keys))
     d_auc = abs(mc.training_metrics.auc - mh.training_metrics.auc)
     if d_auc > 1e-4:
         raise AssertionError(f"{path}: |dAUC| cuda vs cpu = {d_auc}")
     print(f"card vs cpu, {path} {json.dumps(kw)}: {rows} rows, {ntrees} "
-          f"trees, float32 histograms: tree 0 splits equal, AUC cuda "
+          f"trees, float32 histograms: {sum(same)} of "
+          f"{ntrees} trees' splits identical "
+          f"({split_flips(mc.trees, mh.trees)}), AUC cuda "
           f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
           f"|dAUC| {d_auc!r}", flush=True)
 
@@ -1038,6 +1178,20 @@ def phase_i8_record(dev, launches, rows=10_000_000, F=28):
                     best = min(per["grouped"][N], per["tiled"][N])
                     if per["picked"][N] > 1.05 * best:
                         slow.append(f"W={W} terms={terms} N={N}")
+                    if W == 256 and terms == 1 and N == 32:
+                        # the library yardstick at the wide width
+                        nid_out = i8_level(kind, inp, qs, N, W)[0]
+                        bins = (inp[0] if kind == "binned" else
+                                adaptive_bins_plain(inp[0], nid_out,
+                                                    inp[4], inp[5], N,
+                                                    inp[7], W))
+                        lib_256 = index_add_ms(bins, nid_out,
+                                               qs[0].t().int(), N, inp[-1],
+                                               W)
+                        bound_256 = i8_level_bound_ms(
+                            kind, rows, F, N, W, 1, rows,
+                            inp[0].element_size())
+                        del bins, nid_out
                     if W == w_path and terms == 1:
                         if kind == "binned":
                             codes, nid, ghw, tables, n_prev, base = inp
@@ -1087,6 +1241,9 @@ def phase_i8_record(dev, launches, rows=10_000_000, F=28):
               f"N=32: plain {pms!r} ms, index_add_ {lib_ms!r} ms, bound "
               f"{bound!r} ms by {by}"
               + (f", other layout {json.dumps(other)} ms" if other else "")
+              + f"; W=256 one term N=32: picked "
+              f"{times[256][1]['picked'][32]!r} ms, index_add_ {lib_256!r} "
+              f"ms, bound {bound_256[0]!r} ms by {bound_256[1]}"
               + f"; picked form more than 5% above the faster one at "
               f"{slow or 'no level'}", flush=True)
         rec.append({"name": name, "route": "cuda", "source": SRC[name],
@@ -1101,7 +1258,10 @@ def phase_i8_record(dev, launches, rows=10_000_000, F=28):
                         for w, by_t in times.items() if w != w_path},
                     "float_level_ms_tree": sum(float_ms.values()),
                     "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-                    "library_ms": lib_ms})
+                    "library_ms": lib_ms,
+                    "ms_w256": times[256][1]["picked"][32],
+                    "bound_ms_w256": bound_256[0],
+                    "library_ms_w256": lib_256})
     return rec
 
 
@@ -1199,32 +1359,35 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     version at 10M rows (both precisions, both forms at bf16) and launched
     five times with the same bits; at N = 32 the plain version's time,
     the bound, one ``index_add_`` (library_ms) and the grouping pass
-    alone. The same per level at W = 32, 64, 128 (int8) and 256 (int16),
-    bf16, both forms: the grouped form's rule in csrc/hist_binned.cu
-    (takes_grouped) rests on these. The route at N = 64."""
+    alone. The same per level at W = 32, bf16, in the tensor-core, the
+    wide and the tiled form, and one ``index_add_`` at N = 32 (the wide
+    widths: phase_wide_record): the form rule (level_form in
+    csrc/level_wide.cuh) rests on these. The route at N = 64."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
                                                   binned_route_only_plain)
     N = 32
     sums, errs, by_w, lib_by_w = {}, {}, {}, {}
-    for W in (16, 32, 64, 128, 256):
-        per = {"grouped_bf16": {}, "tiled_bf16": {}}
+    for W in (16, 32):
+        forms = ("grouped", "tiled") + (("wide",) if W == 32 else ())
+        per = {f"{form}_bf16": {} for form in forms}
         if W == 16:
             per["grouped_f32"] = {}
         for n_lvl in (1, 2, 4, 8, 16, 32):
             seed = 1234 + 7 * W + n_lvl
-            e, inp = check_level(rows, F, W, n_lvl, False, True, dev, seed,
-                                 "grouped")
-            errs[f"W={W} bf16 N={n_lvl}"] = e
-            check_level(rows, F, W, n_lvl, False, True, dev, 0, "tiled", inp)
+            inp = level_inputs(rows, F, W, n_lvl, False, seed, dev)
+            for form, e in check_forms("binned", inp, n_lvl, W, True,
+                                       forms).items():
+                errs[f"W={W} {form} bf16 N={n_lvl}"] = e
+            e = errs[f"W={W} grouped bf16 N={n_lvl}"]
             codes, nid, ghw, tables, n_prev, base = inp
-            for form in ("grouped", "tiled"):
+            for form in forms:
                 per[f"{form}_bf16"][n_lvl] = time_cuda(
                     lambda: binned_form(form)(codes, nid, ghw, tables,
                                               n_prev, n_lvl, base, W, True),
                     10)
-            if W in (32, 256) and n_lvl == N:
+            if W == 32 and n_lvl == N:
                 nid_out = binned_form("picked")(codes, nid, ghw, tables,
                                                 n_prev, N, base, W, True)[0]
                 lib_by_w[W] = index_add_ms(codes, nid_out, bf16_rows(ghw), N,
@@ -1262,14 +1425,14 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
             del inp, codes, nid, ghw
         sums[W] = {k: sum(v.values()) for k, v in per.items()}
         by_w[W] = per
-        dtype = "int8" if W <= 128 else "int16"
-        print(f"binned_level at 10M x 28, W={W} ({dtype} codes), "
+        print(f"binned_level at 10M x 28, W={W} (int8 codes), "
               f"per level N (grouped: the node-grouped tensor-core form; "
-              f"tiled: the tiled body forced): {json.dumps(per)} ms; sum per "
-              f"tree {json.dumps(sums[W])} ms", flush=True)
+              f"wide: the wide body; tiled: the tiled body; all forced): "
+              f"{json.dumps(per)} ms; sum per tree {json.dumps(sums[W])} ms",
+              flush=True)
     bound, by = level_bound_ms(rows, F, 1, N, 16, rows)
     print(f"binned_level W=16 N={N}: {ms!r} ms, plain {pms!r} ms, "
-          f"index_add_ {lib_ms!r} ms (W=32, 256: {json.dumps(lib_by_w)}), "
+          f"index_add_ {lib_ms!r} ms (W=32: {json.dumps(lib_by_w)}), "
           f"grouping pass alone {group_ms!r} ms, "
           f"bound {bound!r} ms by {by}; five launches bit-equal at every "
           f"level; max abs err vs plain {json.dumps(errs)}", flush=True)
@@ -1302,15 +1465,114 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
     return rec
 
 
+def phase_wide_record(dev, rows=10_000_000, F=28):
+    """The float levels at the wide lane widths (W = 64, 128 with int8
+    codes, 256 with int16 codes; K8 on float32 features in [rows, F]),
+    10M x 28, bfloat16-rounded masses as histogram_precision='auto' picks
+    at this size, per level N = 1..32: every form (the tensor-core
+    grouped body, the wide body, the tiled body) checked against the plain version at 10M rows and
+    timed on the same inputs, the wide form launched five times with the
+    same bits, and the form the kernel picks (``*_picks``); at N = 32 the
+    plain version's time, the bound and one ``index_add_`` over a
+    precomputed flat (node, feature, bin) index (library_ms). Returns,
+    per kind, the record fields the kernel line carries."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_bins_plain,
+                                                  adaptive_level_plain,
+                                                  binned_level_plain)
+    N = 32
+    out = {}
+    for kind in ("binned", "adaptive"):
+        picks = (kernels.binned_level_picks if kind == "binned"
+                 else kernels.adaptive_level_picks)
+        rec = {"ms_level": {}, "ms_tree": {}, "picked": {},
+               "ms_tree_picked": {}, "plain_ms": {}, "bound_ms": {},
+               "bound_by": {}, "library_ms": {}, "max_abs_err": {}}
+        for W in WIDE_W:
+            per = {form: {} for form in WIDE_FORMS}
+            picked = {}
+            err = 0.0
+            for n_lvl in (1, 2, 4, 8, 16, 32):
+                seed = 2600 + 7 * W + n_lvl + (0 if kind == "binned" else 50)
+                if kind == "binned":
+                    inp = level_inputs(rows, F, W, n_lvl, False, seed, dev)
+                    run = lambda f: binned_form(f)(
+                        *inp[:4], inp[4], n_lvl, inp[5], W, True)
+                    n_prev, base = inp[4], inp[5]
+                else:
+                    inp = adaptive_inputs(rows, F, W, n_lvl, False, seed,
+                                          dev, "rows_f")
+                    run = lambda f: adaptive_form(f)(
+                        *inp[:6], inp[6], n_lvl, inp[7], W, True, "rows_f")
+                    n_prev, base = inp[6], inp[7]
+                errs = check_forms(kind, inp, n_lvl, W, True, WIDE_FORMS)
+                err = max(err, errs["wide"])
+                outs = [run("wide") for _ in range(5)]
+                if not all(torch.equal(outs[0][1], o[1]) and
+                           torch.equal(outs[0][0], o[0]) for o in outs[1:]):
+                    raise AssertionError(f"{kind}_level wide W={W} "
+                                         f"N={n_lvl}: five launches differ")
+                for form in WIDE_FORMS:
+                    per[form][n_lvl] = time_cuda(lambda: run(form), 10)
+                picked[n_lvl] = picks(rows, F, W, n_prev, n_lvl)
+                if n_lvl == N:
+                    nid_out = outs[0][0]
+                    if kind == "binned":
+                        bins = inp[0]
+                        rec["plain_ms"][W] = time_cuda(
+                            lambda: binned_level_plain(
+                                *inp[:4], n_prev, N, base, W, True), 3)
+                        b = level_bound_ms(rows, F, inp[0].element_size(),
+                                           N, W, rows)
+                    else:
+                        bins = adaptive_bins_plain(inp[0], nid_out, inp[4],
+                                                   inp[5], N, base, W)
+                        rec["plain_ms"][W] = time_cuda(
+                            lambda: adaptive_level_plain(
+                                *inp[:6], n_prev, N, base, W, True), 3)
+                        b = adaptive_level_bound_ms(rows, F, N, W, rows)
+                    rec["bound_ms"][W], rec["bound_by"][W] = b
+                    rec["library_ms"][W] = index_add_ms(
+                        bins, nid_out, bf16_rows(inp[2]), N, base, W)
+                    del bins, nid_out
+                del outs, inp
+                torch.cuda.empty_cache()
+            sums = {form: sum(v.values()) for form, v in per.items()}
+            rec["ms_level"][W] = per
+            rec["ms_tree"][W] = sums
+            rec["picked"][W] = picked
+            rec["ms_tree_picked"][W] = sum(per[picked[n]][n] for n in per[
+                "wide"])
+            rec["max_abs_err"][W] = err
+            dtype = ("float32 x" if kind == "adaptive" else
+                     "int16 codes" if W == 256 else "int8 codes")
+            print(f"{kind}_level at 10M x 28, W={W} ({dtype}), bf16, per "
+                  f"level N and form (grouped: the tensor-core body; wide: "
+                  f"the wide body; tiled: the tiled body; all "
+                  f"forced and checked against the plain version; wide "
+                  f"five launches bit-equal): {json.dumps(per)} ms; sum per "
+                  f"tree {json.dumps(sums)} ms; picked {json.dumps(picked)}, "
+                  f"a tree {rec['ms_tree_picked'][W]!r} ms; N=32: plain "
+                  f"{rec['plain_ms'][W]!r} ms, index_add_ "
+                  f"{rec['library_ms'][W]!r} ms, bound "
+                  f"{rec['bound_ms'][W]!r} ms by {rec['bound_by'][W]}",
+                  flush=True)
+        out[kind] = rec
+    return out
+
+
 def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     """The adaptive kernels at the adaptive main path's shapes (10M x 28
     float32 features, W=32). In the training layout ([rows, F], the
     node-grouped tensor-core level): per level N = 1..32 at bfloat16
     (as histogram_precision='auto' picks at this size) and at float32,
     each checked against the plain version at 10M rows, and the grouped
-    kernel's shared-atomics ablation on the same inputs (checked too); the
-    grouping pass alone at N = 32; at N = 32 the plain version's time and
-    the bound. In [F, rows] (K5, the tiled body) per level at bfloat16.
+    kernel's shared-atomics ablation on the same inputs (checked too), and
+    the wide body forced at bfloat16 (checked: the form rule keeps the
+    tensor-core body at this W); the grouping pass alone at N = 32; at
+    N = 32 the plain version's time and the bound. In [F, rows] (K5, the
+    tiled body) per level at bfloat16.
     The route at N = 64 in both layouts."""
     import torch
     from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
@@ -1321,7 +1583,7 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     W, N = 32, 32
     level_ms, route_ms = {}, {}
     per = {"bf16": {}, "f32": {}, "atomics_bf16": {}, "atomics_f32": {},
-           "f_rows_bf16": {}}
+           "f_rows_bf16": {}, "wide_bf16": {}}
     errs = {}
     for n_lvl in (1, 2, 4, 8, 16, 32):
         for bf16 in (True, False):
@@ -1334,6 +1596,14 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
                 lambda: kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
                                                n_prev, n_lvl, base, W, bf16,
                                                "rows_f"), 10)
+            if bf16:
+                # the wide body at the path's W, where the rule keeps the
+                # tensor-core body
+                check_forms("adaptive", inp, n_lvl, W, True, ("wide",))
+                per["wide_bf16"][n_lvl] = time_cuda(
+                    lambda: adaptive_form("wide")(
+                        x, nid, ghw, tables, lo, inv, n_prev, n_lvl, base, W,
+                        True, "rows_f"), 10)
             _n, ha = kernels.adaptive_level_atomics(
                 x, nid, ghw, tables, lo, inv, n_prev, n_lvl, base, W, bf16)
             _n, hp = adaptive_level_plain(x, nid, ghw.double(), tables, lo,
@@ -1382,7 +1652,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     level_ms = {"rows_f": per["bf16"][N], "f_rows": per["f_rows_bf16"][N]}
     print(f"adaptive_level at 10M x 28, W=32, per level N (rows_f: "
           f"node-grouped tensor-core form, and its shared-atomics ablation; "
-          f"f_rows: the tiled body): {json.dumps(per)} ms; sum per tree "
+          f"wide: the wide body forced; f_rows: the tiled body): "
+          f"{json.dumps(per)} ms; sum per tree "
           f"{json.dumps(sums)} ms; grouping pass alone at N=32 "
           f"{group_ms!r} ms; index_add_ on the adaptive bins at N=32 "
           f"{lib_ms!r} ms; max abs err vs plain {json.dumps(errs)}",
@@ -1409,6 +1680,7 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "ms": level_ms[ADAPTIVE_LAYOUT], "ms_by_layout": level_ms,
              "ms_tree": sums["bf16"], "ms_tree_f32": sums["f32"],
              "ms_tree_atomics_ablation": sums["atomics_bf16"],
+             "ms_tree_wide": sums["wide_bf16"],
              "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
              "bound_by": by, "library_ms": lib_ms},
             {"name": "adaptive_route_only", "route": "cuda",
@@ -1663,8 +1935,9 @@ def check_sass(by_fn):
     adaptive level's (AdaptiveBins) and the packed level's (CodeBins), has
     HMMA and no shared float CAS loop (``ATOMS.CAST.SPIN``); every int8
     instance (``I8Mass``) of both has IMMA and no shared or global atomics
-    at all; the leaf-totals kernel (with and without a route) and
-    global_hist's node-grouped form have no atomics at all."""
+    at all; every instance of the wide level (``level_wide_kernel``, both
+    bin sources, every W), the leaf-totals kernel (with and without a
+    route) and global_hist's node-grouped form have no atomics at all."""
     def mma(counts, op):
         return sum(v for k, v in counts.items() if k.startswith(op))
 
@@ -1689,6 +1962,14 @@ def check_sass(by_fn):
                 raise AssertionError(f"SASS of {name}: {counts}")
         per_src[src] = {"HMMA": [mma(c, "HMMA") for c in fmma.values()],
                         "IMMA": [mma(c, "IMMA") for c in imma.values()]}
+    wide = {n: c for n, c in by_fn.items() if "level_wide_kernel" in n}
+    if len(wide) < 8:
+        raise AssertionError(f"SASS: wide level instances missing: "
+                             f"{sorted(wide)}")
+    wide_atomics = {n: atomics(c) for n, c in wide.items() if atomics(c)}
+    if wide_atomics:
+        raise AssertionError(f"SASS of the wide level: atomics "
+                             f"{wide_atomics}")
     ordered = {n: c for n, c in by_fn.items()
                if "leaf_totals_kernel" in n
                or "global_hist_grouped_kernel" in n}
@@ -1700,7 +1981,9 @@ def check_sass(by_fn):
             raise AssertionError(f"SASS of {name}: atomics {counts}")
     print(f"SASS check: tensor-core grouped level instances, HMMA per "
           f"float instance (no ATOMS.CAST.SPIN) and IMMA per int8 instance "
-          f"(no atomics) {json.dumps(per_src)}; "
+          f"(no atomics) {json.dumps(per_src)}; ATOMS/RED in the "
+          f"{len(wide)} wide level instances (level_wide_kernel): "
+          f"{sum(sum(atomics(c).values()) for c in wide.values())}; "
           f"{len(ordered)} leaf_totals / global_hist grouped instances "
           f"without atomics", flush=True)
 
@@ -1780,6 +2063,12 @@ def main() -> int:
                                   ref_auc=adaptive["auc"])
     del adaptive_i8["frame"]
     clock.lap("4 packed_i8 + adaptive_i8")
+    # the wide lane widths (XGBoost's max_bins 256 shapes)
+    packed_wide = phase_main_path(card, "packed_wide", fr)
+    del packed_wide["frame"]
+    adaptive_wide = phase_main_path(card, "adaptive_wide", fr)
+    del adaptive_wide["frame"]
+    clock.lap("4 packed_wide + adaptive_wide")
 
     # 5. card vs cpu; the two sketch paths against each other
     phase_card_vs_cpu("packed")
@@ -1793,6 +2082,9 @@ def main() -> int:
         for terms in (1, 2):
             phase_card_vs_cpu_i8(path, terms)
     clock.lap("5 int8 card vs cpu")
+    phase_card_vs_cpu("packed_wide")
+    phase_card_vs_cpu("adaptive_wide")
+    clock.lap("5 wide card vs cpu")
 
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
@@ -1805,6 +2097,19 @@ def main() -> int:
         "leaf_totals": packed["launches"]["leaf_totals"],
         "segment_totals": packed["launches"]["segment_totals"]})
     clock.lap("6 int8 + totals record")
+    wide = phase_wide_record(dev)
+    by_name = {r["name"]: r for r in rec}
+    by_name["binned_level"]["wide"] = wide["binned"]
+    by_name["adaptive_level"]["wide"] = wide["adaptive"]
+    for path, res in (("packed", packed), ("adaptive", adaptive),
+                      ("packed_wide", packed_wide),
+                      ("adaptive_wide", adaptive_wide)):
+        for k in ("level", "route", "totals"):
+            kernel = PATHS[path].get(k)
+            if kernel:
+                by_name[kernel].setdefault("launches_by_path", {})[path] = \
+                    res["launches"][kernel]
+    clock.lap("6 wide record")
 
     # 7. where the time goes: a warm, profiled retrain of each main path,
     # after giving back the cached blocks of phase 6's large inputs (the
@@ -1819,7 +2124,11 @@ def main() -> int:
     clock.lap("7 packed_i8 + adaptive_i8 profile")
     warm_s = phase_warm_profile(fr, card, "global", glob["trees"])
     clock.lap("7 global profile")
-    for path in ("packed", "adaptive", "global"):
+    phase_warm_profile(fr, card, "packed_wide", packed_wide["trees"])
+    phase_warm_profile(fr, card, "adaptive_wide", adaptive_wide["trees"])
+    clock.lap("7 packed_wide + adaptive_wide profile")
+    for path in ("packed", "adaptive", "global", "packed_wide",
+                 "adaptive_wide"):
         phase_repeatability(fr, path, dev)
     phase_repeatability_i8(fr)
     del fr
@@ -1828,11 +2137,13 @@ def main() -> int:
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32,64,128,256 x node-grouped, "
-          "tiled; W=16 node-grouped: bf16, float32] binned_route_only "
+          "tiled; W=32,64,128,256 x wide; W=16 "
+          "node-grouped: bf16, float32] binned_route_only "
           "binned_level_i8[W=16,32,256 x terms=1,2 x node-grouped, "
           "tiled, picked] "
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
-          "node-grouped: bf16, float32, shared-atomics ablation] "
+          "node-grouped: bf16, float32, shared-atomics ablation; rows_f x "
+          "W=32,64,128,256 x wide, node-grouped, tiled] "
           "adaptive_route_only[rows_f,f_rows] "
           "adaptive_level_i8[rows_f x W=16,32,256 x terms=1,2 x "
           "node-grouped, tiled, picked; f_rows x W=16,32,256 x terms=1,2 x "
@@ -1841,8 +2152,9 @@ def main() -> int:
           "segment_totals[N=1,64,512,4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
           "atomics] group_rows[alone]; index_add_ beside binned_level "
-          "(W=16,32,256), adaptive_level, binned_level_i8, "
-          "adaptive_level_i8, segment_totals, global_hist", flush=True)
+          "(W=16,32,64,128,256), adaptive_level (W=32,64,128,256), "
+          "binned_level_i8 and adaptive_level_i8 (W=path's, 256), "
+          "segment_totals, global_hist", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

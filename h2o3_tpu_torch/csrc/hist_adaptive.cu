@@ -10,13 +10,18 @@
 // node's range, b = floor(clip((x - lo) * inv, 0, W-2)) with NaN in lane
 // W-1, and adds its (g, h, w) into the (node, feature, bin) cell.
 //
-// K8 with float masses is node-grouped, on the body it shares with the
-// packed-code level (level_grouped.cuh): rows grouped by parent, a block
+// K8 with float masses is node-grouped, on the bodies it shares with the
+// packed-code level, picked per level by h2o3::level_form: below W = 64
+// the tensor-core body (level_grouped.cuh): rows grouped by parent, a block
 // per span of one parent's rows with both children and all F features,
 // one-hot products on the tensor cores (mma.sync m16n8k16 bf16 -> f32;
-// three bf16 terms at float32), the blocks' partials merged in slot order.
-// Here its bin source re-bins raw x under the child's range
-// (AdaptiveBins). No float atomics: the same inputs give the same bits.
+// three bf16 terms at float32), the blocks' partials merged in slot order;
+// at W = 64, 128, 256 (nbins 31-254, XGBoost's tree_method="auto" at
+// max_bins 256: W = 64) the wide body (level_wide.cuh): the same grouping,
+// a block per (span, slice of features) and one warp per feature adding
+// the records into a shared partial in record order, the same merge. Here
+// the bin source re-bins raw x under the child's range (AdaptiveBins). No
+// float atomics in either: the same inputs give the same bits.
 // This replaced (an earlier port of K8) a scatter into per-block shared
 // partials with shared float atomics, a compare-and-swap loop on Hopper,
 // three a (row, feature), over node x feature tiles that each re-read
@@ -97,7 +102,7 @@
 
 #include <math.h>
 
-#include "level_grouped.cuh"
+#include "level_wide.cuh"
 
 namespace {
 
@@ -320,13 +325,29 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
 #undef H2O3_GROUPED
 }
 
-// Whether the float level takes the grouped form: the [rows, F] layout
-// and shapes the grouped body takes (level_grouped.cuh); the [F, rows]
-// layout (K5, no path trains in it), deeper levels and wider frames keep
-// the tiled body.
-inline bool takes_grouped(int feat_major, long long rows, int F, int n_prev,
-                          int n_nodes) {
-  return !feat_major && h2o3::grouped_fits(rows, F, n_prev, n_nodes);
+// The wide body's instance (level_wide.cuh) by W (the wide widths, and
+// W = 32, where level_form weighs it). plan_only: the workspace bytes
+// alone.
+int wide_w(int W, bool plan_only, size_t* bytes, const float* x,
+           const int* nid, const float* ghw, const float* tables,
+           const float* lo, const float* inv, int64_t rows, int F,
+           int n_prev, int n_nodes, int level_base, int bf16, int* nid_out,
+           float* hist, void* ws, cudaStream_t s) {
+#define H2O3_WIDE(WW)                                                        \
+  case WW:                                                                   \
+    return h2o3::launch_wide(AdaptiveBins<WW>{x, tables, lo, inv},          \
+                             plan_only, bytes, nid, ghw, rows, F, n_prev,    \
+                             n_nodes, level_base, bf16, nid_out, hist, ws,   \
+                             s);
+  switch (W) {
+    H2O3_WIDE(32)
+    H2O3_WIDE(64)
+    H2O3_WIDE(128)
+    H2O3_WIDE(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef H2O3_WIDE
 }
 
 // The int8 level (K7) on the grouped body: int8 records, m16n8k32 s8
@@ -636,56 +657,99 @@ int launch_level_lw(int feat_major, int W, const float* x, const int* nid,
                                        nid_out, hist, s);
 }
 
+// The float level in form `form` (after h2o3::level_form; the grouped
+// forms read [rows, F] only). plan_only: the workspace bytes alone (0 for
+// the tiled body).
+int float_level(int form, bool plan_only, size_t* bytes, const float* x,
+                int feat_major, const int* nid, const float* ghw,
+                const float* tables, const float* lo, const float* inv,
+                int64_t rows, int F, int W, int n_prev, int n_nodes,
+                int level_base, int bf16, int* nid_out, float* hist, void* ws,
+                cudaStream_t s) {
+  if (form == h2o3::kTiledForm) {
+    if (plan_only) {
+      *bytes = 0;
+      return 0;
+    }
+    return launch_level_lw<0>(feat_major, W, x, nid, ghw, tables, lo, inv,
+                              rows, F, n_prev, n_nodes, level_base, bf16,
+                              nid_out, hist, s);
+  }
+  if (feat_major) return static_cast<int>(cudaErrorInvalidValue);
+  switch (form) {
+    case h2o3::kTensorForm:
+      return grouped_w<true>(W, plan_only, bytes, x, nid, ghw, tables, lo,
+                             inv, rows, F, n_prev, n_nodes, level_base, bf16,
+                             nid_out, hist, ws, s);
+    case h2o3::kWideForm:
+      return wide_w(W, plan_only, bytes, x, nid, ghw, tables, lo, inv, rows,
+                    F, n_prev, n_nodes, level_base, bf16, nid_out, hist, ws,
+                    s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // x float32 [rows, F] (feat_major 0) or [F, rows] (feat_major 1), NaN =
 // NA; nid [rows] int32; ghw [3, rows] float32; tables [4, max(n_prev, 1)]
-// float32; lo, inv [n_nodes, F] float32; ws, h2o3_adaptive_level_workspace
-// bytes (the grouped form's; none for the tiled body). Writes nid_out
+// float32; lo, inv [n_nodes, F] float32; form -1 (picked from the shapes,
+// h2o3::level_form) or forced: 0 (tiled body), 1 (tensor-core grouped
+// body), 2 (wide body); a grouped form forced in [F, rows] or where it
+// does not fit is an error; ws,
+// h2o3_adaptive_level_workspace bytes for the same form. Writes nid_out
 // [rows] int32 and ADDS into hist [3, n_nodes, F, W] float32, which the
 // caller zeroes. Returns a cudaError_t value.
 int h2o3_adaptive_level(const float* x, int feat_major, const int* nid,
                         const float* ghw, const float* tables,
                         const float* lo, const float* inv, long long rows,
                         int F, int W, int n_prev, int n_nodes, int level_base,
-                        int bf16, int* nid_out, float* hist, void* ws,
-                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                        int bf16, int form, int* nid_out, float* hist,
+                        void* ws, void* stream) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (takes_grouped(feat_major, rows, F, n_prev, n_nodes)) {
-    size_t unused = 0;
-    return grouped_w<true>(W, false, &unused, x, nid, ghw, tables, lo, inv,
-                           rows, F, n_prev, n_nodes, level_base, bf16,
-                           nid_out, hist, ws, s);
-  }
-  return launch_level_lw<0>(feat_major, W, x, nid, ghw, tables, lo, inv, rows,
-                            F, n_prev, n_nodes, level_base, bf16, nid_out,
-                            hist, s);
+  size_t unused = 0;
+  return float_level(
+      h2o3::level_form(form, feat_major, rows, F, W, n_prev, n_nodes), false,
+      &unused, x, feat_major, nid, ghw, tables, lo, inv, rows, F, W, n_prev,
+      n_nodes, level_base, bf16, nid_out, hist, ws,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The workspace bytes h2o3_adaptive_level (atomics 0) or
-// h2o3_adaptive_level_atomics (1) needs at these shapes: the grouping and
-// the blocks' partials of the grouped form, 0 for the tiled body. Returns
-// -1 where the shapes are refused.
+// The form h2o3_adaptive_level picks at these shapes (h2o3::level_form;
+// a LevelForm code).
+int h2o3_adaptive_level_picks(int feat_major, long long rows, int F, int W,
+                              int n_prev, int n_nodes) {
+  return h2o3::level_form(h2o3::kPickForm, feat_major, rows, F, W, n_prev,
+                          n_nodes);
+}
+
+// The workspace bytes h2o3_adaptive_level (atomics 0, in form `form`) or
+// h2o3_adaptive_level_atomics (atomics 1) needs at these shapes: the
+// grouping and the blocks' partials of a grouped form, 0 for the tiled
+// body. Returns -1 where the shapes are refused.
 long long h2o3_adaptive_level_workspace(int feat_major, long long rows, int F,
                                         int W, int n_prev, int n_nodes,
-                                        int bf16, int atomics) {
+                                        int bf16, int atomics, int form) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0) return -1;
-  if (!takes_grouped(feat_major, rows, F, n_prev, n_nodes)) return atomics ? -1 : 0;
   size_t bytes = 0;
-  const int rc =
-      atomics
-          ? grouped_w<false>(W, true, &bytes, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, nullptr, rows, F, n_prev,
-                             n_nodes, 0, bf16, nullptr, nullptr, nullptr,
-                             nullptr)
-          : grouped_w<true>(W, true, &bytes, nullptr, nullptr, nullptr,
-                            nullptr, nullptr, nullptr, rows, F, n_prev,
-                            n_nodes, 0, bf16, nullptr, nullptr, nullptr,
-                            nullptr);
+  int rc;
+  if (atomics) {
+    if (feat_major || !h2o3::grouped_fits(rows, F, n_prev, n_nodes))
+      return -1;
+    rc = grouped_w<false>(W, true, &bytes, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, rows, F, n_prev, n_nodes,
+                          0, bf16, nullptr, nullptr, nullptr, nullptr);
+  } else {
+    rc = float_level(
+        h2o3::level_form(form, feat_major, rows, F, W, n_prev, n_nodes),
+        true, &bytes, nullptr, feat_major, nullptr, nullptr, nullptr,
+        nullptr, nullptr, rows, F, W, n_prev, n_nodes, 0, bf16, nullptr,
+        nullptr, nullptr, nullptr);
+  }
   return rc == 0 ? static_cast<long long>(bytes) : -1;
 }
 
@@ -701,7 +765,7 @@ int h2o3_adaptive_level_atomics(const float* x, const int* nid,
                                 int* nid_out, float* hist, void* ws,
                                 void* stream) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
-      !takes_grouped(0, rows, F, n_prev, n_nodes))
+      !h2o3::grouped_fits(rows, F, n_prev, n_nodes))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t unused = 0;
   return grouped_w<false>(W, false, &unused, x, nid, ghw, tables, lo, inv,

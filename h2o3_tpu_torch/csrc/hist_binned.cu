@@ -4,25 +4,31 @@
 // its W=16 stripe form _kernel_bt_stripe, K3): one pass per tree level.
 // Each row steps through the previous level's split tables, writes its new
 // node id, and, when that node lies in the level's window, adds its
-// (g, h, w) into the (node, feature, code) bin of every feature. Two forms:
+// (g, h, w) into the (node, feature, code) bin of every feature. Three
+// forms, picked per level by h2o3::level_form (level_wide.cuh):
 //
-// - Node-grouped (float masses at W <= 32, the packed path's W = 16 among
-//   them, and at any W from 32 nodes on: takes_grouped): the body it
-//   shares with the float adaptive level (level_grouped.cuh). Rows are
-//   grouped by parent (a row whose node lies in the previous window and
-//   can split, by that parent; a row of the level's window without a
-//   route, the root, by its node; any other row keeps its node id and
-//   adds nothing), then one 512-thread block per span of a group's
-//   records routes them (the code of the split feature against
-//   split_bin) and adds both children's (g, h, w) for all F features as
-//   one-hot products on the tensor cores (mma.sync m16n8k16 bf16 -> f32;
-//   the code is the bin, so there is no re-bin; three bf16 terms at
-//   float32), and the blocks' [3][2][F][W] partials are added in slot
-//   order. No node or feature tiles, no row read by two blocks, no float
-//   atomics: the same inputs give the same bits.
-// - Tiled (W >= 64 below 32 nodes, levels past kMaxGroups groups and
-//   wider frames; the int8 instances below where takes_grouped_i8 keeps
-//   them): a block takes 512 rows at a time;
+// - Tensor-core node-grouped (float masses at W <= 32, the packed path's
+//   W = 16 among them): the body it shares with the float adaptive level
+//   (level_grouped.cuh). Rows are grouped by parent (a row whose node lies
+//   in the previous window and can split, by that parent; a row of the
+//   level's window without a route, the root, by its node; any other row
+//   keeps its node id and adds nothing), then one 512-thread block per
+//   span of a group's records routes them (the code of the split feature
+//   against split_bin) and adds both children's (g, h, w) for all F
+//   features as one-hot products on the tensor cores (mma.sync m16n8k16
+//   bf16 -> f32; the code is the bin, so there is no re-bin; three bf16
+//   terms at float32), and the blocks' [3][2][F][W] partials are added in
+//   slot order. Its work grows with W: a one-hot operand per 16 lanes.
+// - Wide node-grouped (float masses at W = 64, 128, 256: nbins 31-254
+//   with packed codes, XGBoost's max_bins = 256 at W = 256): the same
+//   grouping, then a block per (span, slice of features) stages 256
+//   records at a time (route, keys child * W + code) and one warp per
+//   feature adds them into a shared [3][fs][2W + 1] partial in record
+//   order, a key's lanes summed in lane order (level_wide.cuh); the same
+//   slot-ordered merge. Its work is per (record, feature) whatever W.
+// - Tiled (levels past kMaxGroups groups and frames past 512 features;
+//   the int8 instances below where takes_grouped_i8 keeps them): a block
+//   takes 512 rows at a time;
 //   phase 1 routes them (one thread per row) and stages node id and
 //   (g, h, w) in shared memory; phase 2 walks the chunk's codes
 //   contiguously (coalesced byte loads) and adds into a per-block
@@ -38,11 +44,9 @@
 //   floats with global atomics, so float sums vary in the last bits from
 //   run to run.
 //
-// The tiled body loses to the grouped form at W = 16 on every level (10M x
-// 28, bf16, on an H100): its CAS loops contend most at the root, where
-// every row lands in 16 bins a feature, and it needs two tiles at N = 32.
-// h2o3_binned_level's form argument forces either form, for the tests and
-// chip_smoke.py.
+// The two grouped forms add no float atomics: the same inputs give the
+// same bits. h2o3_binned_level's form argument forces any form, for the
+// tests and chip_smoke.py.
 //
 // binned_level_i8 (replaces _kernel_bt_i8, K4): the same level with the
 // int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in two forms
@@ -78,10 +82,11 @@
 // products (2 * 16 * W * 8 per 16 rows and feature) far below the 989
 // TFLOP/s bf16 rate; binned_level_i8 reads 3 * terms in place of 12 bytes
 // of mass a row; binned_route_only moves about rows * 9 bytes. In practice
-// the grouped form is bound by instruction issue (level_grouped.cuh), the
-// tiled body by its shared-memory atomics.
+// the tensor-core form is bound by instruction issue (level_grouped.cuh),
+// the wide form by its consumers' walk (level_wide.cuh), the tiled body by
+// its shared-memory atomics.
 
-#include "level_grouped.cuh"
+#include "level_wide.cuh"
 
 namespace {
 
@@ -356,21 +361,60 @@ int grouped_w(int code_bytes, int W, bool plan_only, size_t* bytes,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The form a float level takes: form 1 (grouped) or 0 (tiled) forced, -1
-// picked from the shapes. At 10M x 28 on an H100 the grouped form is the
-// faster at W <= 32 on every level, and at any W from 32 nodes on, where
-// the tiled body's partial takes seven tiles or more (W = 64, 128, 256
-// below 32 nodes keep the tiled body: its 1-4 tiles beat the grouped
-// form's 2-7 unit passes); the grouped body must also take the shapes
-// (level_grouped.cuh).
-constexpr int kGroupedMaxW = 32;
-constexpr int kGroupedMinNodes = 32;
+// The wide body's instance (level_wide.cuh) by code width and W (the
+// wide widths, and W = 32, where level_form weighs it). plan_only: the
+// workspace bytes alone.
+int wide_w(int code_bytes, int W, bool plan_only, size_t* bytes,
+           const void* codes, const int* nid, const float* ghw,
+           const int* tables, int64_t rows, int F, int n_prev, int n_nodes,
+           int level_base, int bf16, int* nid_out, float* hist, void* ws,
+           cudaStream_t s) {
+#define H2O3_WIDE(CT, WW)                                                    \
+  return h2o3::launch_wide(CodeBins<CT, WW>{static_cast<const CT*>(codes),  \
+                                            tables},                         \
+                           plan_only, bytes, nid, ghw, rows, F, n_prev,      \
+                           n_nodes, level_base, bf16, nid_out, hist, ws, s)
+  if (code_bytes == 1) {
+    switch (W) {
+      case 32: H2O3_WIDE(int8_t, 32);
+      case 64: H2O3_WIDE(int8_t, 64);
+      case 128: H2O3_WIDE(int8_t, 128);
+      default: break;
+    }
+  } else if (code_bytes == 2 && W == 256) {
+    H2O3_WIDE(int16_t, 256);
+  }
+#undef H2O3_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-inline bool takes_grouped(int form, int64_t rows, int F, int W, int n_prev,
-                          int n_nodes) {
-  if (form >= 0) return form == 1;
-  return (W <= kGroupedMaxW || n_nodes >= kGroupedMinNodes) &&
-         h2o3::grouped_fits(rows, F, n_prev, n_nodes);
+// The float level in form `form` (after h2o3::level_form). plan_only: the
+// workspace bytes alone (0 for the tiled body).
+int float_level(int form, bool plan_only, size_t* bytes, const void* codes,
+                int code_bytes, const int* nid, const float* ghw,
+                const int* tables, int64_t rows, int F, int W, int n_prev,
+                int n_nodes, int level_base, int bf16, int* nid_out,
+                float* hist, void* ws, cudaStream_t s) {
+  switch (form) {
+    case h2o3::kTiledForm:
+      if (plan_only) {
+        *bytes = 0;
+        return 0;
+      }
+      return launch_level_w<0>(codes, code_bytes, nid, ghw, tables, rows, F,
+                               W, n_prev, n_nodes, level_base, bf16, nid_out,
+                               hist, s);
+    case h2o3::kTensorForm:
+      return grouped_w(code_bytes, W, plan_only, bytes, codes, nid, ghw,
+                       tables, rows, F, n_prev, n_nodes, level_base, bf16,
+                       nid_out, hist, ws, s);
+    case h2o3::kWideForm:
+      return wide_w(code_bytes, W, plan_only, bytes, codes, nid, ghw, tables,
+                    rows, F, n_prev, n_nodes, level_base, bf16, nid_out,
+                    hist, ws, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The int8 level (K4) on the grouped body: int8 records, m16n8k32 s8
@@ -440,45 +484,50 @@ inline bool takes_grouped_i8(int form, int64_t rows, int F, int W, int terms,
 
 extern "C" {
 
-// The workspace bytes of h2o3_binned_level at these shapes and form (the
-// grouped form's grouping and block partials; 0 for the tiled body), -1
-// where the shapes are refused.
+// The workspace bytes of h2o3_binned_level at these shapes and form (-1
+// picked, or a LevelForm forced: the grouped forms' grouping and block
+// partials; 0 for the tiled body), -1 where the shapes are refused.
 long long h2o3_binned_level_workspace(int code_bytes, long long rows, int F,
                                       int W, int n_prev, int n_nodes,
                                       int bf16, int form) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0) return -1;
-  if (!takes_grouped(form, rows, F, W, n_prev, n_nodes)) return 0;
   size_t bytes = 0;
-  const int rc = grouped_w(code_bytes, W, true, &bytes, nullptr, nullptr,
-                           nullptr, nullptr, rows, F, n_prev, n_nodes, 0,
-                           bf16, nullptr, nullptr, nullptr, nullptr);
+  const int rc = float_level(
+      h2o3::level_form(form, false, rows, F, W, n_prev, n_nodes), true,
+      &bytes, nullptr, code_bytes, nullptr, nullptr, nullptr, rows, F, W,
+      n_prev, n_nodes, 0, bf16, nullptr, nullptr, nullptr, nullptr);
   return rc == 0 ? static_cast<long long>(bytes) : -1;
+}
+
+// The form h2o3_binned_level picks at these shapes (h2o3::level_form; a
+// LevelForm code).
+int h2o3_binned_level_picks(long long rows, int F, int W, int n_prev,
+                            int n_nodes) {
+  return h2o3::level_form(h2o3::kPickForm, false, rows, F, W, n_prev,
+                          n_nodes);
 }
 
 // codes [rows, F] int8 (W <= 128) or int16 (W == 256), row-major; nid
 // [rows] int32; ghw [3, rows] float32; tables [4, max(n_prev, 1)] int32;
-// form -1 (picked from the shapes), 0 (tiled body) or 1 (node-grouped,
-// an error where it does not fit); ws, h2o3_binned_level_workspace bytes
-// for the same form. Writes nid_out [rows] int32 and ADDS into hist
-// [3, n_nodes, F, W] float32, which the caller zeroes. Returns a
-// cudaError_t value.
+// form -1 (picked from the shapes, h2o3::level_form) or forced: 0 (tiled
+// body), 1 (tensor-core grouped body), 2 (wide body); a forced grouped
+// form that does not fit is an error; ws,
+// h2o3_binned_level_workspace bytes for the same form. Writes nid_out
+// [rows] int32 and ADDS into hist [3, n_nodes, F, W] float32, which the
+// caller zeroes. Returns a cudaError_t value.
 int h2o3_binned_level(const void* codes, int code_bytes, const int* nid,
                       const float* ghw, const int* tables, long long rows,
                       int F, int W, int n_prev, int n_nodes, int level_base,
                       int bf16, int form, int* nid_out, float* hist,
                       void* ws, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (takes_grouped(form, rows, F, W, n_prev, n_nodes)) {
-    size_t unused = 0;
-    return grouped_w(code_bytes, W, false, &unused, codes, nid, ghw, tables,
-                     rows, F, n_prev, n_nodes, level_base, bf16, nid_out,
-                     hist, ws, s);
-  }
-  return launch_level_w<0>(codes, code_bytes, nid, ghw, tables, rows, F, W,
-                           n_prev, n_nodes, level_base, bf16, nid_out, hist,
-                           s);
+  size_t unused = 0;
+  return float_level(
+      h2o3::level_form(form, false, rows, F, W, n_prev, n_nodes), false,
+      &unused, codes, code_bytes, nid, ghw, tables, rows, F, W, n_prev,
+      n_nodes, level_base, bf16, nid_out, hist, ws,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The workspace bytes of h2o3_binned_level_i8 at these shapes and form: the

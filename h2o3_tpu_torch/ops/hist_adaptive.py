@@ -270,9 +270,9 @@ def takes_i8(qs, n_nodes: int, bf16: bool) -> bool:
 def binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                  level_base: int, W: int, bf16: bool = False, qs=None):
     """One packed-code tree level: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (float masses at W <= 32 and from 32
-    nodes on: rows grouped by parent, sums in a fixed order). ``qs`` (q,
-    scales) from
+    CUDA kernel for CUDA tensors (float masses: rows grouped by parent,
+    sums in a fixed order, on the tensor cores below W = 64 and as the
+    wide body's scatter at W = 64, 128, 256). ``qs`` (q, scales) from
     ``quantize_ghw_i8`` sends the level to the int8 form where
     ``takes_i8`` holds."""
     if takes_i8(qs, n_nodes, bf16):

@@ -55,6 +55,7 @@ _SIGNATURES = {
                               _VP],
         "h2o3_binned_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                    _INT, _INT, _VP, _VP],
+        "h2o3_binned_level_picks": [_LL, _INT, _INT, _INT, _INT],
         "h2o3_binned_level_i8_workspace": [_INT, _LL, _INT, _INT, _INT,
                                            _INT, _INT, _INT],
         "h2o3_binned_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _LL,
@@ -63,10 +64,11 @@ _SIGNATURES = {
     },
     "hist_adaptive": {
         "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
-                                _INT, _INT, _INT, _INT, _INT, _INT, _VP,
-                                _VP, _VP, _VP],
+                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                _VP, _VP, _VP, _VP],
         "h2o3_adaptive_level_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
-                                          _INT, _INT],
+                                          _INT, _INT, _INT],
+        "h2o3_adaptive_level_picks": [_INT, _LL, _INT, _INT, _INT, _INT],
         "h2o3_adaptive_level_atomics": [_VP, _VP, _VP, _VP, _VP, _VP, _LL,
                                         _INT, _INT, _INT, _INT, _INT, _INT,
                                         _VP, _VP, _VP, _VP],
@@ -94,8 +96,9 @@ _SIGNATURES = {
                                   _INT, _INT, _INT, _VP, _VP, _VP],
     },
 }
-# the workspace queries return a byte count (-1: shapes refused); every
-# other function a cudaError_t
+# the workspace queries return a byte count (-1: shapes refused); the
+# form queries (*_picks) a form code (LEVEL_FORMS), every other function a
+# cudaError_t, as int
 _RETURNS_BYTES = ("h2o3_binned_level_workspace",
                   "h2o3_binned_level_i8_workspace",
                   "h2o3_adaptive_level_workspace",
@@ -262,6 +265,25 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# The forms of the float levels (binned_level, adaptive_level; the C
+# entries' form argument, csrc/level_wide.cuh LevelForm): the kernel's
+# pick from the shapes (level_form), or one forced by name. "grouped" is
+# the tensor-core node-grouped body, "wide" the fixed-order scatter over
+# rows grouped by parent (W = 32 and up), "tiled" the tiled body.
+LEVEL_FORMS = {"picked": -1, "tiled": 0, "grouped": 1, "wide": 2}
+_FORM_NAMES = {v: k for k, v in LEVEL_FORMS.items()}
+
+
+def _form_code(form) -> int:
+    """A form's code; True and False stand for "grouped" and "tiled"."""
+    if isinstance(form, bool):
+        return int(form)
+    if form not in LEVEL_FORMS:
+        raise ValueError(f"unknown level form {form!r}; expected one of "
+                         f"{sorted(LEVEL_FORMS)}")
+    return LEVEL_FORMS[form]
+
+
 def _binned_level(codes, nid, ghw, tables, n_prev: int, n_nodes: int,
                   level_base: int, W: int, bf16: bool, form: int):
     rows, F, dev = _check_common(codes, nid, tables, n_prev, W)
@@ -292,10 +314,11 @@ def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     """Launch the fused route + histogram level kernel. Same contract as
     ``hist_adaptive.binned_level_plain``; ``tables`` is int32
     [4, max(n_prev, 1)] (feat, split_bin, na_left, can). The kernel
-    picks its form from the shapes (``csrc/hist_binned.cu``): rows
-    grouped by parent and one-hot products on the tensor cores, summed in
-    a fixed order, at W <= 32 and from 32 nodes on; the tiled body
-    otherwise."""
+    picks its form from the shapes (``csrc/level_wide.cuh``
+    ``level_form``): rows grouped by parent, then one-hot products on the
+    tensor cores below W = 64 and the wide body's fixed-order scatter at
+    W = 64, 128, 256, both summed in a fixed order; the tiled body where
+    neither takes the shapes."""
     return _binned_level(codes, nid, ghw, tables, n_prev, n_nodes,
                          level_base, W, bf16, -1)
 
@@ -303,14 +326,23 @@ def binned_level(codes: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
 def binned_level_form(codes: torch.Tensor, nid: torch.Tensor,
                       ghw: torch.Tensor, tables: torch.Tensor, n_prev: int,
                       n_nodes: int, level_base: int, W: int, bf16: bool,
-                      grouped: bool):
-    """``binned_level`` with one form of the kernel forced: ``grouped``
-    True, the node-grouped tensor-core form (raises where the shapes do
-    not fit it); False, the tiled body. For the tests and
-    ``chip_smoke.py``'s timing of both forms; the training path calls
-    ``binned_level``."""
+                      form):
+    """``binned_level`` with one form of the kernel forced, by name
+    (``LEVEL_FORMS``: "grouped", "wide", "tiled"; True and False stand
+    for "grouped" and "tiled"). A grouped form where the shapes do not fit
+    it, or at a W it has no instance for (the wide body below W = 32),
+    raises. For the tests and ``chip_smoke.py``'s timing of the forms;
+    the training path calls ``binned_level``."""
     return _binned_level(codes, nid, ghw, tables, n_prev, n_nodes,
-                         level_base, W, bf16, int(bool(grouped)))
+                         level_base, W, bf16, _form_code(form))
+
+
+def binned_level_picks(rows: int, F: int, W: int, n_prev: int,
+                       n_nodes: int) -> str:
+    """The name of the form ``binned_level`` takes at these shapes (the
+    kernel's rule, ``level_form``); builds the libraries."""
+    return _FORM_NAMES[build()["hist_binned"].h2o3_binned_level_picks(
+        rows, F, W, n_prev, n_nodes)]
 
 
 def _binned_level_i8(codes, nid, q, scales, tables, n_prev: int,
@@ -390,7 +422,7 @@ def _workspace(nbytes: int, name: str, dev) -> torch.Tensor:
 
 def _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
                     level_base: int, W: int, bf16: bool, layout: str,
-                    atomics: bool):
+                    atomics: bool, form: int = -1):
     rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
     _check_W(W)
     _check("ghw", ghw, torch.float32, (3, rows), dev)
@@ -401,17 +433,23 @@ def _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
     nid_out = torch.empty_like(nid)
     hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        ws = _workspace(lib.h2o3_adaptive_level_workspace(
+        # -1: a grouped form forced where it does not fit (or in
+        # [F, rows]), which its launch refuses; the ablation raises here
+        nbytes = lib.h2o3_adaptive_level_workspace(
             feat_major, rows, F, W, n_prev, n_nodes, int(bf16),
-            int(atomics)), "adaptive_level", dev)
+            int(atomics), form)
+        ws = _workspace(nbytes if atomics or form < 0 else max(nbytes, 0),
+                        "adaptive_level", dev)
         args = (x.data_ptr(), nid.data_ptr(), ghw.data_ptr(),
                 tables.data_ptr(), lo.data_ptr(), inv.data_ptr(), rows, F, W,
-                n_prev, n_nodes, level_base, int(bf16), nid_out.data_ptr(),
-                hist.data_ptr(), ws.data_ptr(), _stream(dev))
+                n_prev, n_nodes, level_base, int(bf16))
+        out = (nid_out.data_ptr(), hist.data_ptr(), ws.data_ptr(),
+               _stream(dev))
         if atomics:
-            rc = lib.h2o3_adaptive_level_atomics(*args)
+            rc = lib.h2o3_adaptive_level_atomics(*args, *out)
         else:
-            rc = lib.h2o3_adaptive_level(args[0], feat_major, *args[1:])
+            rc = lib.h2o3_adaptive_level(args[0], feat_major, *args[1:],
+                                         form, *out)
     _raise_on(rc, "adaptive_level")
     LAUNCHES["adaptive_level"] += 1
     return nid_out, hist
@@ -425,10 +463,34 @@ def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     contract as ``hist_adaptive.adaptive_level_plain``; ``tables`` is
     float32 [4, max(n_prev, 1)] (feat, thr, na_left, can), ``lo``/``inv``
     float32 [n_nodes, F]. In ``"rows_f"`` (K8) the rows are grouped by
-    parent first and the histogram is a tensor-core one-hot product,
-    summed in a fixed order (``csrc/hist_adaptive.cu``)."""
+    parent first and the histogram is a tensor-core one-hot product below
+    W = 64 and the wide body's fixed-order scatter at W = 64, 128, 256,
+    both summed in a fixed order (``csrc/level_wide.cuh``
+    ``level_form``); ``"f_rows"`` (K5) takes the tiled body."""
     return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
                            level_base, W, bf16, layout, False)
+
+
+def adaptive_level_form(x: torch.Tensor, nid: torch.Tensor,
+                        ghw: torch.Tensor, tables: torch.Tensor,
+                        lo: torch.Tensor, inv: torch.Tensor, n_prev: int,
+                        n_nodes: int, level_base: int, W: int, bf16: bool,
+                        layout: str, form):
+    """``adaptive_level`` with one form of the kernel forced, by name as
+    in ``binned_level_form``. A grouped form in ``"f_rows"`` or where the
+    shapes do not fit it raises. For the tests and ``chip_smoke.py``; the
+    training path calls ``adaptive_level``."""
+    return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
+                           level_base, W, bf16, layout, False,
+                           _form_code(form))
+
+
+def adaptive_level_picks(rows: int, F: int, W: int, n_prev: int,
+                         n_nodes: int, layout: str = "rows_f") -> str:
+    """The name of the form ``adaptive_level`` takes at these shapes (the
+    kernel's rule, ``level_form``); builds the libraries."""
+    return _FORM_NAMES[build()["hist_adaptive"].h2o3_adaptive_level_picks(
+        int(layout == "f_rows"), rows, F, W, n_prev, n_nodes)]
 
 
 def adaptive_level_atomics(x: torch.Tensor, nid: torch.Tensor,

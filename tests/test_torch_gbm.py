@@ -13,6 +13,7 @@ import h2o3_tpu_torch as th2o
 from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as JaxGBM
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.gbm import H2OGradientBoostingEstimator as TorchGBM
+from h2o3_tpu_torch.ops.hist_adaptive import pick_W as tha_pick_W
 
 ROWS, F = 3000, 6
 PARAMS = dict(ntrees=3, max_depth=3, nbins=14, learn_rate=0.1,
@@ -282,3 +283,41 @@ def test_packed_and_global_give_the_same_splits():
     baseD = 2 ** kw["max_depth"] - 1
     np.testing.assert_array_equal(packed.trees["value"][:, baseD:],
                                   glob.trees["value"][:, baseD:])
+
+
+# ------------------------------------------------------- wide-bin shapes
+
+
+@pytest.mark.parametrize("params", [
+    # XGBoost's tree_method="hist" at max_bins=256: packed int16 codes,
+    # W = 256
+    dict(nbins=254, histogram_type="quantiles_global", packed_codes=True),
+    # nbins 62 packed (W = 64, int8 codes)
+    dict(nbins=62, histogram_type="quantiles_global", packed_codes=True),
+    # XGBoost's tree_method="auto": uniform-adaptive bins at W = 64
+    dict(nbins=62, packed_codes=False)],
+    ids=["packed_254", "packed_62", "adaptive_62"])
+def test_wide_bin_shapes_match_jax(params):
+    """The wide lane widths (W = 64 and 256) that the packed and adaptive
+    levels take at nbins 62 and 254: trees, AUC and predict equal the JAX
+    GBM's at float32 histograms."""
+    cols = _data(seed=13)
+    jfr = jh2o.Frame.from_numpy(cols)
+    tfr = th2o.Frame.from_numpy(cols, device="cpu")
+    kw = dict(GLOBAL, **params)
+    jm, tm = _train_both(jfr, tfr, **kw)
+    W = 256 if params["nbins"] == 254 else 64
+    assert tha_pick_W(tm.n_bins) == W
+    assert bool(tm.trees["is_split"].any())
+    assert tm.ntrees_built == jm.ntrees_built == kw["ntrees"]
+    for k, j in (("feat", jm._feat), ("thr", jm._thr),
+                 ("na_left", jm._na_left), ("is_split", jm._is_split)):
+        np.testing.assert_array_equal(tm.trees[k], np.asarray(j), err_msg=k)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
+    assert tm.output["packed_codes"] == jm.output["packed_codes"]
+    assert tm.output["packed_codes"]["enabled"] == params["packed_codes"]
+    assert abs(tm.training_metrics.auc - jm.training_metrics.auc) <= 1e-6
+    jp = jm.predict(jfr).vec("p1").to_numpy()
+    tp = tm.predict(tfr).vec("p1").to_numpy()
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)

@@ -182,10 +182,9 @@ def _grouped_model(nid, ghw, can, route, bins_of, n_prev, N, base, W, F,
     return nid_out, hist
 
 
-def _grouped_level_model(x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
-                         bf16, span=192, chunk=64):
-    """The grouped K8 (AdaptiveBins): routed by raw threshold, binned
-    under the child's range."""
+def _adaptive_src(x, tables, lo, inv, n_prev, W):
+    """K8's bin source (AdaptiveBins) for the models: which parents split,
+    the route by raw threshold, the bins under the child's range."""
     F = x.shape[1]
 
     def route(r, k):
@@ -200,16 +199,13 @@ def _grouped_level_model(x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
         bins = torch.floor(torch.clamp(t, 0.0, float(W - 2))).long()
         return torch.where(torch.isnan(x[r]), W - 1, bins)
 
-    can = tables[3][:max(n_prev, 1)] > 0.5
-    return _grouped_model(nid, ghw, can, route, bins_of, n_prev, N, base, W,
-                          F, bf16, span, chunk)
+    return tables[3][:max(n_prev, 1)] > 0.5, route, bins_of
 
 
-def _grouped_binned_model(codes, nid, ghw, tables, n_prev, N, base, W, bf16,
-                          span=192, chunk=64):
-    """The grouped K1/K3 (CodeBins): routed by the code of the split
-    feature against split_bin (NA = W-1 right unless na_left), the code
-    itself the bin."""
+def _binned_src(codes, tables, n_prev, W):
+    """K1's bin source (CodeBins) for the models: routed by the code of
+    the split feature against split_bin (NA = W-1 right unless na_left),
+    the code itself the bin."""
     F = codes.shape[1]
     c = codes.long()
 
@@ -219,9 +215,24 @@ def _grouped_binned_model(codes, nid, ghw, tables, n_prev, N, base, W, bf16,
         return torch.where(v == W - 1, tables[2][k] == 0,
                            v >= tables[1][k]).long()
 
-    can = tables[3][:max(n_prev, 1)] != 0
-    return _grouped_model(nid, ghw, can, route, lambda r, node: c[r],
-                          n_prev, N, base, W, F, bf16, span, chunk)
+    return tables[3][:max(n_prev, 1)] != 0, route, lambda r, node: c[r]
+
+
+def _grouped_level_model(x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
+                         bf16, span=192, chunk=64):
+    """The grouped K8 (AdaptiveBins): routed by raw threshold, binned
+    under the child's range."""
+    can, route, bins_of = _adaptive_src(x, tables, lo, inv, n_prev, W)
+    return _grouped_model(nid, ghw, can, route, bins_of, n_prev, N, base, W,
+                          x.shape[1], bf16, span, chunk)
+
+
+def _grouped_binned_model(codes, nid, ghw, tables, n_prev, N, base, W, bf16,
+                          span=192, chunk=64):
+    """The grouped K1/K3 (CodeBins): the code is the bin."""
+    can, route, bins_of = _binned_src(codes, tables, n_prev, W)
+    return _grouped_model(nid, ghw, can, route, bins_of, n_prev, N, base, W,
+                          codes.shape[1], bf16, span, chunk)
 
 
 def _level_inputs(rows, F, W, N, seed, int_ghw):
@@ -414,6 +425,190 @@ def test_grouped_binned_model_leaves_out_codes_outside_the_lanes():
     _n, hist_k = tha.binned_level_plain(c[keep], nid[keep], ghw[:, keep],
                                         t, n_prev, 2, base, 16)
     assert torch.equal(hist_m[:, :, 1], hist_k[:, :, 1])
+
+
+# ---------------------------------- model of the wide K1 and K8 (W >= 64)
+
+
+def _slot_merge(parts, warps=8):
+    """merge_slots_kernel's order over one cell's source blocks ``parts``
+    (in source, then block order): warp w sums blocks w, w + 8, ... of
+    each source into one float32 sum, the warps' sums are added in warp
+    order, and that total is added into the zeroed output."""
+    s = [np.zeros_like(parts[0]) if parts else None for _ in range(warps)]
+    if not parts:
+        return None
+    for i, p in enumerate(parts):
+        s[i % warps] = s[i % warps] + p
+    t = np.zeros_like(parts[0])
+    for w in range(warps):
+        t = t + s[w]
+    return np.zeros_like(t) + t
+
+
+def _wide_model(nid, ghw, can, route, bins_of, n_prev, N, base, W, F, bf16,
+                span=192, chunk=64, fs=3):
+    """What csrc/level_wide.cuh computes, in float32 and in its order, for
+    a bin source given as in ``_grouped_model``: rows grouped by parent
+    (ParentKey), spans of a group's records as blocks (``span`` records,
+    whole chunks), feature slices of ``fs`` features, chunks of
+    ``chunk`` records; per feature, 32 records at a time, each (child,
+    bin) key's masses summed in lane (record) order and added into the
+    cell; every other cell adds 0.0, which changes nothing. The blocks'
+    [3, 2, F, W] partials are merged per cell in merge_slots_kernel's
+    order (``_slot_merge``), the parent's group at the child's side
+    first, then the node's direct group."""
+    prev_base = base - n_prev
+    G = n_prev + N
+    lp = nid - prev_base
+    lpc = lp.clamp(0, max(n_prev, 1) - 1).long()
+    routed = (n_prev > 0) & (lp >= 0) & (lp < n_prev) & can[lpc]
+    ln = nid - base
+    direct = (ln >= 0) & (ln < N)
+    key = torch.where(routed, lp, torch.where(direct, n_prev + ln, -1))
+    offsets, idx = group_rows_plain(key.to(torch.int32), G)
+    nid_out = nid.clone()
+    m = ghw.to(torch.bfloat16).float() if bf16 else ghw.float()
+    m = m.numpy()
+    blocks = {k: [] for k in range(G)}
+    for k in range(G):
+        members = idx[offsets[k]:offsets[k + 1]].long()
+        parent = k < n_prev
+        c0 = 2 * (prev_base + k) + 1 - base if parent else k - n_prev
+        for s0 in range(0, len(members), span):
+            r = members[s0:s0 + span]
+            slot = torch.zeros(len(r), dtype=torch.long)
+            if parent:
+                slot = route(r, k)
+                nid_out[r] = (2 * (prev_base + k) + 1 + slot).int()
+            node = c0 + slot
+            live = (node >= 0) & (node < N)
+            bins = bins_of(r, node.clamp(0, N - 1))
+            keys = torch.where(live[:, None] & (bins >= 0) & (bins < W),
+                               slot[:, None] * W + bins, -1).numpy()
+            mr = m[:, r.numpy()]
+            part = np.zeros((3, F, 2 * W), np.float32)
+            for f0 in range(0, F, fs):                 # feature slices
+                fi = np.arange(f0, min(f0 + fs, F))
+                for c in range(0, len(r), chunk):
+                    for j0 in range(c, min(c + chunk, len(r)), 32):
+                        j1 = min(j0 + 32, c + chunk, len(r))
+                        tmp = np.zeros((3, len(fi), 2 * W), np.float32)
+                        for j in range(j0, j1):        # lane order
+                            kf = keys[j, fi]
+                            ok = kf >= 0
+                            sel = np.arange(len(fi))[ok]
+                            tmp[:, sel, kf[ok]] = (tmp[:, sel, kf[ok]]
+                                                   + mr[:, j][:, None])
+                        part[:, fi] = part[:, fi] + tmp
+            # [3, F, 2, W] -> the slot layout [3, 2, F, W]
+            blocks[k].append(part.reshape(3, F, 2, W).transpose(0, 2, 1, 3))
+    hist = np.zeros((3, N, F, W), np.float32)
+    for j in range(N):
+        cid = base + j
+        parts = []
+        lpj = (cid - 1) // 2 - prev_base
+        if n_prev > 0 and cid >= 1 and 0 <= lpj < n_prev:
+            parts += [p[:, (cid - 1) % 2] for p in blocks[lpj]]
+        parts += [p[:, 0] for p in blocks[n_prev + j]]
+        if parts:
+            hist[:, j] = _slot_merge(parts)
+    return nid_out, torch.as_tensor(hist)
+
+
+def _wide_case(kind, W, N, int_ghw, seed, bf16, rows=1800, F=4):
+    """One level's inputs (packed codes, int16 at W = 256, or raw
+    features), run through the wide model. Returns (nid_m, hist_m,
+    plain): ``plain(ghw)`` is the plain version of the level on masses
+    ``ghw``, and ghw the level's masses."""
+    if kind == "binned":
+        c, nid, ghw, t, n_prev, base = _binned_inputs(rows, F, W, N, seed,
+                                                      int_ghw)
+        assert c.dtype == (torch.int16 if W == 256 else torch.int8)
+        can, route, bins_of = _binned_src(c, t, n_prev, W)
+
+        def plain(g):
+            return tha.binned_level_plain(c, nid, g, t, n_prev, N, base, W,
+                                          bf16)
+    else:
+        x, nid, ghw, t, lo, inv, n_prev, base = _level_inputs(
+            rows, F, W, N, seed, int_ghw)
+        can, route, bins_of = _adaptive_src(x, t, lo, inv, n_prev, W)
+
+        def plain(g):
+            return tha.adaptive_level_plain(x, nid, g, t, lo, inv, n_prev,
+                                            N, base, W, bf16)
+    nid_m, hist_m = _wide_model(nid, ghw, can, route, bins_of, n_prev, N,
+                                base, W, F, bf16)
+    return nid_m, hist_m, ghw, plain
+
+
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_model_matches_plain(kind, W, N, bf16):
+    """The wide body's order within the kernels' float tolerance of the
+    plain version accumulated in float64 (float32 masses added unrounded,
+    bf16 masses rounded at staging)."""
+    nid_m, hist_m, ghw, plain = _wide_case(kind, W, N, False, 5 * W + N,
+                                           bf16)
+    nid_p, hist_p = plain(ghw.double())
+    _n, mass = plain(ghw.double().abs())
+    assert torch.equal(nid_m, nid_p)
+    assert float(mass.sum()) > 0
+    assert bool(((hist_m.double() - hist_p).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+def test_wide_model_integer_mass_bit_equal(kind, W, N):
+    nid_m, hist_m, ghw, plain = _wide_case(kind, W, N, True, 3 * N + W,
+                                           False)
+    nid_p, hist_p = plain(ghw)
+    assert torch.equal(nid_m, nid_p)
+    assert torch.equal(hist_m, hist_p)
+
+
+@pytest.mark.parametrize("W", [64, 256])
+def test_wide_model_leaves_out_codes_outside_the_lanes(W):
+    """A code outside [0, W) (negative int8 / int16) adds nothing in the
+    wide form, as in the other forms and the plain version's masked
+    add."""
+    c, nid, ghw, t, n_prev, base = _binned_inputs(900, 3, W, 2, 5, True)
+    c[::7, 1] = -3
+    can, route, bins_of = _binned_src(c, t, n_prev, W)
+    _n, hist_m = _wide_model(nid, ghw, can, route, bins_of, n_prev, 2, base,
+                             W, 3, False)
+    keep = c[:, 1] >= 0
+    _n, hist_k = tha.binned_level_plain(c[keep], nid[keep], ghw[:, keep],
+                                        t, n_prev, 2, base, W)
+    assert torch.equal(hist_m[:, :, 1], hist_k[:, :, 1])
+    _n, hist_all = tha.binned_level_plain(c.clamp(0), nid, ghw, t, n_prev,
+                                          2, base, W)
+    assert torch.equal(hist_m[:, :, 0], hist_all[:, :, 0])
+
+
+def test_slot_merge_order():
+    """The merge adds each warp's blocks, then the warps in order: with
+    masses whose float32 sum depends on the order, its result is that
+    order's and not the block order's."""
+    parts = [np.float32(v) for v in
+             (1e8, 1.0, -1e8, 1.0, 3.0, 0.5, 0.25, 7.0, 1.0, 1.0)]
+    want = [np.float32(0)] * 8
+    for i, p in enumerate(parts):
+        want[i % 8] = np.float32(want[i % 8] + p)
+    t = np.float32(0)
+    for w in want:
+        t = np.float32(t + w)
+    got = _slot_merge([np.array(p) for p in parts])
+    assert got == t
+    seq = np.float32(0)
+    for p in parts:
+        seq = np.float32(seq + p)
+    assert got != seq
 
 
 # ----------------------------------- model of K11's fixed in-block order

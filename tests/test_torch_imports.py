@@ -213,3 +213,22 @@ def test_cuda_training_launches_the_kernels(cuda, monkeypatch, params, i8,
         ntrees=2, max_depth=3, distribution="bernoulli", **params).train(
         y="label", training_frame=fr)
     assert kernels.LAUNCHES == launches
+
+
+def test_level_form_names():
+    """The float levels' forms by name, as the C entries number them
+    (csrc/level_wide.cuh LevelForm); True and False keep meaning the
+    tensor-core grouped and the tiled body; an unknown name raises before
+    any launch."""
+    assert kernels.LEVEL_FORMS == {"picked": -1, "tiled": 0, "grouped": 1,
+                                   "wide": 2}
+    assert kernels._form_code("wide") == 2
+    assert kernels._form_code(True) == 1 and kernels._form_code(False) == 0
+    with pytest.raises(ValueError, match="unknown level form"):
+        kernels._form_code("fastest")
+    text = (ROOT / "h2o3_tpu_torch" / "csrc" / "level_wide.cuh").read_text()
+    for name, code in (("kPickForm", -1), ("kTiledForm", 0),
+                       ("kTensorForm", 1), ("kWideForm", 2)):
+        assert f"{name} = {code}," in text
+    assert text.count(" = ", text.index("enum LevelForm"),
+                      text.index("};", text.index("enum LevelForm"))) == 4

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-binned_level (both forms) / binned_route_only on packed codes,
-adaptive_level / adaptive_route_only on raw features in both layouts,
+binned_level (every form: tensor-core grouped, wide, tiled) /
+binned_route_only on packed codes, adaptive_level (the wide form too) /
+adaptive_route_only on raw features in both layouts, the form rule and
+forced forms that do not fit,
 global_hist on unpacked global-sketch codes, the int8 fixed-point levels
 binned_level_i8 / adaptive_level_i8, leaf_totals and segment_totals; and
 the kernels whose float sums come in a fixed order launched five times
@@ -672,3 +674,136 @@ def test_binned_form_and_segment_wrappers_check_their_operands(cuda):
         kernels.segment_totals(n, g.double(), 4, base)
     with pytest.raises(ValueError):
         kernels.segment_totals(n, g, 5000, base)
+
+
+# ------------------------------------ the wide levels (W = 64, 128, 256)
+
+
+def _wide_level(kind, rows, F, W, N, seed, int_ghw, dev):
+    """One level's inputs (packed codes, int16 at W = 256; or raw features
+    in [rows, F]), 5% of the rows off every window; returns (launch of a
+    form by name, plain version on masses g, the masses)."""
+    if kind == "binned":
+        c, n, g, t, n_prev, base = _inputs(rows, F, W, N, seed, int_ghw, dev)
+        n = _off_window(n, N, seed)
+
+        def launch(form, bf16=False):
+            return kernels.binned_level_form(c, n, g, t, n_prev, N, base, W,
+                                             bf16, form)
+
+        def plain(gg, bf16=False):
+            return tha.binned_level_plain(c, n, gg, t, n_prev, N, base, W,
+                                          bf16)
+        return launch, plain, g
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        rows, F, W, N, seed, int_ghw, "rows_f", dev)
+    n = _off_window(n, N, seed)
+
+    def launch(form, bf16=False):
+        return kernels.adaptive_level_form(x, n, g, t, lo, inv, n_prev, N,
+                                           base, W, bf16, "rows_f", form)
+
+    def plain(gg, bf16=False):
+        return tha.adaptive_level_plain(x, n, gg, t, lo, inv, n_prev, N,
+                                        base, W, bf16)
+    return launch, plain, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+def test_wide_forms_integer_mass_bit_equal(cuda, kind, W, N):
+    launch, plain, g = _wide_level(kind, 60_000, 28, W, N, 11 * N + W, True,
+                                   cuda)
+    name = f"{kind}_level"
+    before = kernels.LAUNCHES[name]
+    nid_k, hist_k = launch("wide")
+    assert kernels.LAUNCHES[name] == before + 1
+    nid_p, hist_p = plain(g)
+    assert torch.equal(nid_k, nid_p)
+    assert torch.equal(hist_k, hist_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,N", [(64, 1), (64, 32), (128, 8), (256, 1),
+                                 (256, 32)])
+def test_wide_form_float_mass_close(cuda, kind, bf16, W, N):
+    launch, plain, g = _wide_level(kind, 200_000, 28, W, N, N + W, False,
+                                   cuda)
+    nid_k, hist_k = launch("wide", bf16)
+    nid_p, hist_p = plain(g.double(), bf16)
+    _n, mass = plain(g.double().abs(), bf16)
+    assert torch.equal(nid_k, nid_p)
+    assert bool(((hist_k.double() - hist_p).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,N", [(64, 1), (256, 8)])
+def test_wide_form_repeats_bit_for_bit(cuda, kind, bf16, W, N):
+    """Five launches of the wide form give the same bits on masses whose
+    float sums change with any change of order."""
+    launch, _plain, g = _wide_level(kind, 400_000, 28, W, N, 13, False, cuda)
+    g.copy_(_adversarial_masses(g.shape[1], 13, cuda))
+    runs = [launch("wide", bf16) for _ in range(5)]
+    assert all(torch.equal(runs[0][0], r[0]) for r in runs[1:])
+    assert all(torch.equal(runs[0][1], r[1]) for r in runs[1:])
+
+
+@pytest.mark.gpu
+def test_forced_forms_that_do_not_fit_raise(cuda):
+    """A grouped form forced where it does not fit raises (the packed
+    level past 512 features, the adaptive level in [F, rows], the wide
+    body at W = 16, which has no instance); the tiled body takes both; an
+    unknown form name is refused."""
+    c, n, g, t, n_prev, base = _inputs(4096, 600, 64, 4, 3, True, cuda)
+    x, nx, gx, tx, lo, inv, px, bx = _adaptive_inputs(4096, 8, 64, 4, 3,
+                                                      True, "f_rows", cuda)
+    c16, n16, g16, t16, p16, b16 = _inputs(4096, 8, 16, 4, 3, True, cuda)
+    x16, nx16, gx16, tx16, lo16, inv16, px16, bx16 = _adaptive_inputs(
+        4096, 8, 16, 4, 3, True, "rows_f", cuda)
+    with pytest.raises(RuntimeError):
+        kernels.binned_level_form(c16, n16, g16, t16, p16, 4, b16, 16, False,
+                                  "wide")
+    with pytest.raises(RuntimeError):
+        kernels.adaptive_level_form(x16, nx16, gx16, tx16, lo16, inv16, px16,
+                                    4, bx16, 16, False, "rows_f", "wide")
+    for form in ("grouped", "wide"):
+        with pytest.raises(RuntimeError):
+            kernels.binned_level_form(c, n, g, t, n_prev, 4, base, 64, False,
+                                      form)
+        with pytest.raises(RuntimeError):
+            kernels.adaptive_level_form(x, nx, gx, tx, lo, inv, px, 4, bx,
+                                        64, False, "f_rows", form)
+    nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, 4, base, 64,
+                                              False, "tiled")
+    assert torch.equal(hist_k, tha.binned_level_plain(c, n, g, t, n_prev, 4,
+                                                      base, 64)[1])
+    with pytest.raises(ValueError):
+        kernels.binned_level_form(c, n, g, t, n_prev, 4, base, 64, False,
+                                  "fastest")
+
+
+@pytest.mark.gpu
+def test_level_form_rule(cuda):
+    """The forms the kernels pick: the tensor-core body below W = 64, the
+    wide body at W = 64, 128, 256, the tiled body past 512 features and in
+    [F, rows]."""
+    rows = 10_000_000
+    for W in (16, 32):
+        assert kernels.binned_level_picks(rows, 28, W, 16, 32) == "grouped"
+        assert kernels.adaptive_level_picks(rows, 28, W, 16, 32) == "grouped"
+    for W in (64, 128, 256):
+        for N in (1, 32):
+            assert kernels.binned_level_picks(rows, 28, W, N // 2, N) \
+                == "wide"
+            assert kernels.adaptive_level_picks(rows, 28, W, N // 2, N) \
+                == "wide"
+        assert kernels.adaptive_level_picks(rows, 28, W, 16, 32,
+                                            "f_rows") == "tiled"
+        assert kernels.binned_level_picks(rows, 600, W, 16, 32) == "tiled"
