@@ -15,7 +15,10 @@ binned_level_i8 and adaptive_level_i8), the packed and adaptive paths at
 the wide lane widths (``packed_wide``: nbins 254, W = 256 int16 codes;
 ``adaptive_wide``: nbins 62, W = 64; XGBoost's ``tree_method="hist"``
 and ``"auto"`` at max_bins 256; the wide body of binned_level and
-adaptive_level), and, on the packed and global paths, the deepest
+adaptive_level), the same two with int8 masses (``packed_wide_i8``,
+``adaptive_wide_i8``: the wide body's int8 instance of
+binned_level_i8 and adaptive_level_i8), and, on the packed and global
+paths, the deepest
 level's per-leaf sums (segment_totals, the leaf-totals kernel without a
 route). It also holds leaf_totals with a route, which no path launches,
 against its plain version. Phases, each fatal on failure:
@@ -26,18 +29,21 @@ against its plain version. Phases, each fatal on failure:
    IMMA opcodes from its SASS and require HMMA and no shared float CAS
    loop (``ATOMS.CAST.SPIN``) in every float tensor-core instance of the
    node-grouped level (adaptive and packed), IMMA and no atomics in every
-   int8 instance of it, and no atomics at all in every instance of the
+   int8 instance of it, no atomics at all in every float instance of the
    wide level (level_wide_kernel), the leaf-totals kernel and
-   global_hist's node-grouped form;
+   global_hist's node-grouped form, and in every int8 instance of the
+   wide level shared integer adds (``ATOMS.ADD``) and no other atomic;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
    at W=16, 32, 64, 128 (int8) and 256 (int16), in the form the shapes
-   pick and in every form forced (tensor-core node-grouped, tiled, and
-   from W=32 on the wide body),
+   pick and in every form forced (tensor-core node-grouped up to W=32,
+   tiled, and from W=32 on the wide body),
    binned_route_only at N=64; adaptive_level at W in {16, 32, 64, 128,
    256} and adaptive_route_only at N=64, both layouts (in [rows, F] from
    W=32 on every grouped form forced too), plus a case with NaN, ±inf
    and zero-span features; a grouped form forced where it does not fit
-   (600 features, [F, rows], the wide body at W=16) must raise;
+   or has no instance (600 features, [F, rows], the wide body at W=16,
+   the int8 wide body at W=16 and 32, the tensor-core body of the float
+   and int8 levels at W=64, 128, 256) must raise;
    global_hist at B1 in {15 (uint8), 257, 1025
    (int32)}, N in {1, 8, 16, 32}, about 10% of the rows outside [0, N),
    NA codes, in the node-grouped form and with global atomics. With
@@ -46,11 +52,12 @@ against its plain version. Phases, each fatal on failure:
    each histogram bin within 1e-4 + 1e-5 x (its absolute mass) of the
    plain version accumulated in float64, for float32 and for
    bfloat16-rounded masses. binned_level_i8 and adaptive_level_i8 (both
-   layouts) at W in {16, 32, 256}, one term at N = 1..32, two at N =
-   1..16, NA codes / NaN features, 5% of the rows off the window, in
-   every form (node-grouped and tiled forced, and the one the kernel
-   picks; [F, rows] has no grouped form): nid and histogram bit-equal to
-   the plain version, the [rows, F] forms timed.
+   layouts) at W in {16, 32, 64, 128, 256}, one term at N = 1..32, two
+   at N = 1..16, NA codes / NaN features, 5% of the rows off the window,
+   in every form (tensor-core node-grouped at W <= 32, wide at W >= 64,
+   tiled, each forced, and the one the kernel picks; [F, rows] has no
+   grouped form): nid and histogram bit-equal to the plain version, the
+   [rows, F] forms timed.
    leaf_totals at n_prev in {0, 32}, N in {1, 64}: nid bit-equal, totals
    within the float tolerance against float64; segment_totals at N in
    {1, 64, 512, 4096}, also five launches with the same bits;
@@ -67,7 +74,10 @@ against its plain version. Phases, each fatal on failure:
    (6 x 20 int8 level launches, 20 route launches, 0 float level
    launches), each AUC within 0.005 of its path's bf16 AUC of this run;
    then packed_wide (nbins 254) and adaptive_wide (nbins 62) on the same
-   frame, with the same launch counts as packed and adaptive;
+   frame, with the same launch counts as packed and adaptive; then
+   packed_wide_i8 and adaptive_wide_i8 (the wide paths with
+   ``H2O3_HIST_I8=1``: 6 x 20 int8 level launches, 20 route launches, 0
+   float level launches), each AUC within 0.005 of its wide path's;
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
    histograms, 5 trees on each device (nbins 300 on the global path);
    every tree's splits equal, |dAUC| <= 1e-4; and packed vs global on the
@@ -77,43 +87,45 @@ against its plain version. Phases, each fatal on failure:
    200k rows, depth 6, 5 trees, bf16, ``H2O3_HIST_I8`` 1 and 2: |dAUC|
    <= 1e-4, and at one term (every level an integer sum) tree 0's
    splits equal; the number of identical trees is printed; the two wide
-   paths as packed and adaptive;
+   paths as packed and adaptive, the two wide int8 paths as the int8
+   ones;
 6. timing of each kernel at the main paths' shapes (10M x 28, per level
    N = 1..32; the packed level at W = 16 node-grouped at bf16 and
    float32 beside the tiled body forced, each level checked against its
    plain version at 10M rows and launched five times with the same bits,
-   with one ``index_add_`` and the grouping pass alone at N = 32, and
-   both forms at W = 32, 64, 128 and 256; the node-grouped adaptive
-   level at bf16
-   and float32, each
-   level checked against its plain version at 10M rows, beside its
-   shared-atomics ablation and the [F, rows] tiled body; global_hist at
-   the six build sizes N = 1, 1, 2, 4, 8, 16 of the global path, each
-   checked at 10M rows, node-grouped and with global atomics forced; the
-   grouping pass alone) against its plain version and its bound
-   (binned_level at W = 16, 32 and 256, adaptive_level and global_hist
-   also against one ``index_add_``); the int8 levels per level N = 1..32
-   at one term and N = 1..16 at two, W = 16, 32 and 256, in each form
-   (node-grouped, tiled, picked), each checked bit-equal at 10M rows,
-   beside the float level on the same inputs in the same run, and one
-   ``index_add_`` of the widened q into int32;
-   leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64 beside
-   one ``index_add_``; binned_level and adaptive_level at the wide
-   widths W = 64, 128, 256, per level N = 1..32, every form (tensor-core,
-   wide, tiled) checked against the plain version at
-   10M rows and timed, the wide one launched five times with the same
-   bits, the form the kernel picks, and at N = 32 the plain version, the
-   bound and one ``index_add_``; the global_hist record comes
-   last, after phase 7, whose warm global loop it is set against;
+   with one ``index_add_`` and the grouping pass alone at N = 32, and at
+   W = 32 the tensor-core, wide and tiled forms; the node-grouped
+   adaptive level at bf16 and float32, each level checked against its
+   plain version at 10M rows, beside its shared-atomics ablation and the
+   [F, rows] tiled body; global_hist at the six build sizes N = 1, 1, 2,
+   4, 8, 16 of the global path, each checked at 10M rows, node-grouped
+   and with global atomics forced; the grouping pass alone) against its
+   plain version and its bound (binned_level at W = 16, 32 and 256,
+   adaptive_level and global_hist also against one ``index_add_``); the
+   int8 levels per level N = 1..32 at one term and N = 1..16 at two, W =
+   16, 32, 64, 128 and 256, in each form (tensor-core or wide, tiled,
+   picked), each checked bit-equal at 10M rows, beside the float level
+   on the same inputs in the same run (at the path's W and at every wide
+   W), and at N = 32 one ``index_add_`` of the widened q into int32, the
+   plain version and the bound at each of those W; the levels where the
+   rule's form took more than 5% above the fastest forced form are
+   printed; leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64
+   beside one ``index_add_``; binned_level and adaptive_level at the wide
+   widths W = 64, 128, 256, per level N = 1..32, both forms (wide,
+   tiled) checked against the plain version at 10M rows and timed, the
+   wide one launched five times with the same bits, the form the kernel
+   picks, and at N = 32 the plain version, the bound and one
+   ``index_add_``; the global_hist record comes last, after phase 7,
+   whose warm global loop it is set against;
 7. where the time goes: each main path's train again, warm (20 trees
    plain, three times, then 5 trees under torch.profiler: device time by
    kernel, device busy share); the packed, adaptive, global, packed_wide
-   and adaptive_wide paths each trained three times at float32, the first right after the
-   allocator is filled with NaN, then twice at 'auto', and packed_i8 and
-   adaptive_i8 twice at 'auto', with every pair of a path's trains
-   required to agree bit for bit in split features, split keys, NA
-   directions and leaf values (every float sum on these paths comes in a
-   fixed order).
+   and adaptive_wide paths each trained three times at float32, the
+   first right after the allocator is filled with NaN, then twice at
+   'auto', and the four int8 paths twice at 'auto', with every pair of a
+   path's trains required to agree bit for bit in split features, split
+   keys, NA directions and leaf values (every float sum on these paths
+   comes in a fixed order; integer sums in any).
 
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
@@ -190,10 +202,21 @@ PATHS = {
     "adaptive_wide": {"params": dict(nbins=62, packed_codes=False),
                       "level": "adaptive_level",
                       "route": "adaptive_route_only", "split_key": "thr"},
+    # the wide paths with H2O3_HIST_I8 (one term: every level takes the
+    # int8 kernel, on its wide body)
+    "packed_wide_i8": {"params": dict(nbins=254,
+                                      histogram_type="quantiles_global"),
+                       "level": "binned_level_i8",
+                       "route": "binned_route_only",
+                       "totals": "segment_totals", "split_key": "split_bin",
+                       "i8": 1},
+    "adaptive_wide_i8": {"params": dict(nbins=62, packed_codes=False),
+                         "level": "adaptive_level_i8",
+                         "route": "adaptive_route_only", "split_key": "thr",
+                         "i8": 1},
 }
-# the float levels' wide lane widths and the forms timed there
+# the float levels' wide lane widths
 WIDE_W = (64, 128, 256)
-WIDE_FORMS = ("grouped", "wide", "tiled")
 LAYOUTS = ("rows_f", "f_rows")
 
 
@@ -427,9 +450,12 @@ def check_route(rows, F, W, N, dev, seed):
 
 
 def level_forms(W):
-    """The forced forms of a float level at lane width W: the wide ones
-    at the wide widths, and at W = 32, where the rule weighs them."""
-    return WIDE_FORMS if W >= 32 else ("grouped", "tiled")
+    """The forced forms of a float level at lane width W: the tensor-core
+    grouped body below W = 64, the wide body from W = 32 (at W = 32 the
+    rule weighs the two), the tiled body."""
+    if W >= 64:
+        return ("wide", "tiled")
+    return ("grouped", "wide", "tiled") if W == 32 else ("grouped", "tiled")
 
 
 def phase_kernels(dev, rows=1_000_000, F=28):
@@ -479,10 +505,12 @@ def phase_kernels(dev, rows=1_000_000, F=28):
 
 
 def check_forms_refused(dev):
-    """A grouped form forced where it does not fit raises, and nothing
-    falls back: the packed level past 512 features, the adaptive level in
-    [F, rows], the wide body at W = 16 (no instance: the rule never picks
-    it there)."""
+    """A grouped form forced where it does not fit or has no instance
+    raises, and nothing falls back: the packed level past 512 features,
+    the adaptive level in [F, rows] (the int8 one too), the wide body of
+    the float levels at W = 16 and of the int8 levels at W = 16 and 32,
+    the tensor-core body of all four at W = 64, 128, 256 (the rule picks
+    none of these)."""
     from h2o3_tpu_torch.ops import kernels
     codes, nid, ghw, tables, n_prev, base = level_inputs(2048, 600, 64, 4,
                                                          True, 3, dev)
@@ -507,6 +535,51 @@ def check_forms_refused(dev):
         ("adaptive_level W=16 wide", lambda: kernels.adaptive_level_form(
             x16, nx16, gx16, tx16, lo16, inv16, px16, 4, bx16, 16, True,
             "rows_f", "wide"))]
+    # the int8 levels: the wide body below W = 64 and in [F, rows]
+    from h2o3_tpu_torch.ops.hist_adaptive import quantize_ghw_i8
+    for W in (16, 32):
+        ci, ni, gi, ti, pi, bi = level_inputs(2048, 8, W, 4, True, 3, dev)
+        xi, nxi, gxi, txi, loi, invi, pxi, bxi = adaptive_inputs(
+            2048, 8, W, 4, True, 3, dev, "rows_f")
+        launches += [
+            (f"binned_level_i8 W={W} wide",
+             lambda ci=ci, ni=ni, gi=gi, ti=ti, pi=pi, bi=bi, W=W:
+             kernels.binned_level_i8_form(ci, ni, *quantize_ghw_i8(gi), ti,
+                                          pi, 4, bi, W, "wide")),
+            (f"adaptive_level_i8 W={W} wide",
+             lambda xi=xi, nxi=nxi, gxi=gxi, txi=txi, loi=loi, invi=invi,
+             pxi=pxi, bxi=bxi, W=W: kernels.adaptive_level_i8_form(
+                 xi, nxi, *quantize_ghw_i8(gxi), txi, loi, invi, pxi, 4, bxi,
+                 W, "rows_f", "wide"))]
+    launches.append(("adaptive_level_i8 [F, rows] wide",
+                     lambda: kernels.adaptive_level_i8_form(
+                         x, nidx, *quantize_ghw_i8(ghwx), tabx, lo, inv,
+                         n_px, 4, base_x, 64, "f_rows", "wide")))
+    # the tensor-core body at W >= 64 (no instance: the wide body wins
+    # every level there), float and int8
+    for W in WIDE_W:
+        cw, nw, gw, tw, pw, bw = level_inputs(2048, 8, W, 4, True, 3, dev)
+        xw, nxw, gxw, txw, low, invw, pxw, bxw = adaptive_inputs(
+            2048, 8, W, 4, True, 3, dev, "rows_f")
+        launches += [
+            (f"binned_level W={W} grouped",
+             lambda cw=cw, nw=nw, gw=gw, tw=tw, pw=pw, bw=bw, W=W:
+             kernels.binned_level_form(cw, nw, gw, tw, pw, 4, bw, W, True,
+                                       "grouped")),
+            (f"adaptive_level W={W} grouped",
+             lambda xw=xw, nxw=nxw, gxw=gxw, txw=txw, low=low, invw=invw,
+             pxw=pxw, bxw=bxw, W=W: kernels.adaptive_level_form(
+                 xw, nxw, gxw, txw, low, invw, pxw, 4, bxw, W, True,
+                 "rows_f", "grouped")),
+            (f"binned_level_i8 W={W} grouped",
+             lambda cw=cw, nw=nw, gw=gw, tw=tw, pw=pw, bw=bw, W=W:
+             kernels.binned_level_i8_form(cw, nw, *quantize_ghw_i8(gw), tw,
+                                          pw, 4, bw, W, "grouped")),
+            (f"adaptive_level_i8 W={W} grouped",
+             lambda xw=xw, nxw=nxw, gxw=gxw, txw=txw, low=low, invw=invw,
+             pxw=pxw, bxw=bxw, W=W: kernels.adaptive_level_i8_form(
+                 xw, nxw, *quantize_ghw_i8(gxw), txw, low, invw, pxw, 4,
+                 bxw, W, "rows_f", "grouped"))]
     for name, launch in launches:
         try:
             launch()
@@ -514,8 +587,10 @@ def check_forms_refused(dev):
             continue
         raise AssertionError(f"forced form {name} did not raise where it "
                              f"does not fit")
-    print("forced grouped forms where they do not fit (600 features; "
-          "[F, rows]; the wide body at W = 16): every one raised",
+    print(f"forced grouped forms where they do not fit or have no instance "
+          f"({len(launches)}: 600 features; [F, rows]; the wide body of the "
+          f"float levels at W = 16 and of the int8 levels at W = 16, 32; the "
+          f"tensor-core body at W = 64, 128, 256): every one raised",
           flush=True)
 
 
@@ -625,7 +700,7 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
                 check_adaptive_level(rows, F, W, N, True, False, dev, seed,
                                      layout)
                 if layout == "rows_f" and W >= 32:
-                    for form in WIDE_FORMS:
+                    for form in level_forms(W):
                         check_adaptive_level(rows, F, W, N, True, False, dev,
                                              seed, layout, form=form)
                         check_adaptive_level(rows, F, W, N, False, True, dev,
@@ -759,26 +834,35 @@ def off_window(nid, seed):
     return torch.where(out, 1 << 20, nid).to(torch.int32).contiguous()
 
 
-I8_FORMS = ("grouped", "tiled", "picked")
+def i8_forms(layout, W):
+    """The forms of an int8 level at lane width W, the forced ones first
+    and the one the kernel picks last: in [rows, F] the tensor-core
+    grouped body at W <= 32, the wide body at W >= 64, and the tiled
+    body; [F, rows] has the tiled body alone."""
+    if layout != "rows_f":
+        return ("tiled", "picked")
+    if W <= 32:
+        return ("grouped", "tiled", "picked")
+    return ("wide", "tiled", "picked")
 
 
 def i8_level(kind, inp, qs, N, W, layout="rows_f", form="picked"):
     """One int8 level launch (kind "binned" or "adaptive") on the inputs
     of level_inputs / adaptive_inputs and ``qs`` = (q, scales), in one
     form: "picked" (the training path's wrapper: the kernel picks from the
-    shapes), "grouped" or "tiled" (forced)."""
+    shapes), or one forced by name (kernels.LEVEL_FORMS)."""
     from h2o3_tpu_torch.ops import kernels
     if kind == "binned":
         codes, nid, _g, tables, n_prev, base = inp
         args = (codes, nid, *qs, tables, n_prev, N, base, W)
         if form == "picked":
             return kernels.binned_level_i8(*args)
-        return kernels.binned_level_i8_form(*args, form == "grouped")
+        return kernels.binned_level_i8_form(*args, form)
     x, nid, _g, tables, lo, inv, n_prev, base = inp
     args = (x, nid, *qs, tables, lo, inv, n_prev, N, base, W, layout)
     if form == "picked":
         return kernels.adaptive_level_i8(*args)
-    return kernels.adaptive_level_i8_form(*args, form == "grouped")
+    return kernels.adaptive_level_i8_form(*args, form)
 
 
 def i8_plain(kind, inp, qs, N, W, layout="rows_f"):
@@ -803,11 +887,6 @@ def i8_inputs(kind, rows, F, W, N, seed, dev, layout="rows_f"):
     return (inp[0], off_window(inp[1], seed)) + tuple(inp[2:])
 
 
-def i8_forms(kind, layout):
-    """The forms of an int8 level: the grouped one reads [rows, F] only."""
-    return I8_FORMS if layout == "rows_f" else ("tiled", "picked")
-
-
 def check_i8(kind, rows, F, W, N, terms, dev, seed, layout="rows_f",
              inp=None):
     """An int8 level against its plain version in each of its forms: nid
@@ -818,7 +897,7 @@ def check_i8(kind, rows, F, W, N, terms, dev, seed, layout="rows_f",
         inp = i8_inputs(kind, rows, F, W, N, seed, dev, layout)
     qs = quantize_ghw_i8(inp[2], terms)
     npl, hp = i8_plain(kind, inp, qs, N, W, layout)
-    for form in i8_forms(kind, layout):
+    for form in i8_forms(layout, W):
         nk, hk = i8_level(kind, inp, qs, N, W, layout, form)
         torch.cuda.synchronize()
         name = f"{kind}_level_i8 {form} {layout} W={W} N={N} terms={terms}"
@@ -837,22 +916,28 @@ I8_LEVELS = ((1, (1, 2, 4, 8, 16, 32)), (2, (1, 2, 4, 8, 16)))  # (terms, N)
 
 
 def time_i8_forms(kind, inp, qs, N, W, reps, flush=None):
-    """Median ms of each form of an int8 level on the same inputs."""
+    """Median ms of each [rows, F] form of an int8 level on the same
+    inputs."""
     return {form: time_cuda(lambda: i8_level(kind, inp, qs, N, W, "rows_f",
                                              form), reps, flush)
-            for form in I8_FORMS}
+            for form in i8_forms("rows_f", W)}
+
+
+I8_W = (16, 32, 64, 128, 256)
 
 
 def phase_i8_kernels(dev, rows=1_000_000, F=28):
     """Phase 3, int8 levels: binned_level_i8 and adaptive_level_i8 (both
-    layouts) at W in {16, 32, 256}, one term at N = 1..32, two at N =
-    1..16, with NA codes / NaN features and 5% of the rows off the window,
-    in every form (grouped and tiled forced, and the one the kernel
-    picks; [F, rows] has no grouped form): bit-equal to the plain version;
-    the [rows, F] forms timed with the L2 flushed."""
+    layouts) at W in {16, 32, 64, 128, 256}, one term at N = 1..32, two at
+    N = 1..16, with NA codes / NaN features and 5% of the rows off the
+    window, in every form (``i8_forms``: the tensor-core grouped body
+    below W = 64, the wide body from W = 64, the tiled body forced, and
+    the one the kernel picks; [F, rows] has no grouped form): bit-equal
+    to the plain version; the [rows, F] forms timed with the L2
+    flushed."""
     flush = torch_flush(dev)
     seed, n = 1100, 0
-    for W in (16, 32, 256):
+    for W in I8_W:
         for terms, levels in I8_LEVELS:
             per = {"binned": {}, "adaptive": {}}
             for N in levels:
@@ -864,7 +949,7 @@ def phase_i8_kernels(dev, rows=1_000_000, F=28):
                     per[kind][N] = time_i8_forms(kind, inp, qs, N, W, 20,
                                                  flush)
                     del inp, qs
-                    n += 3
+                    n += len(i8_forms("rows_f", W))
                 check_i8("adaptive", rows, F, W, N, terms, dev, seed + 500,
                          "f_rows")
                 n += 2
@@ -872,8 +957,9 @@ def phase_i8_kernels(dev, rows=1_000_000, F=28):
                   f"and form (ms): {json.dumps(per)}", flush=True)
     print(f"int8 levels at {rows}x{F}: {n} (level, form) cases "
           f"(binned_level_i8, adaptive_level_i8 rows_f and f_rows; W "
-          f"16/32/256; terms 1 at N 1..32, terms 2 at N 1..16; grouped, "
-          f"tiled, picked) bit-equal to the plain version", flush=True)
+          f"16/32/64/128/256; terms 1 at N 1..32, terms 2 at N 1..16; "
+          f"every form and the picked one) bit-equal to the plain version",
+          flush=True)
 
 
 def totals_inputs(rows, F, n_prev, N, seed, dev):
@@ -1150,118 +1236,117 @@ def phase_i8_record(dev, launches, rows=10_000_000, F=28):
     """The int8 levels at the main paths' shapes (10M x 28; packed int8
     codes, int16 at W = 256; adaptive float32 features in the training
     layout), per level: one term at N = 1..32 and two at N = 1..16, at W =
-    16, 32 and 256, every form (grouped and tiled forced, and the one the
-    kernel picks) checked bit-equal to the plain version at 10M rows and
-    timed on the same inputs. At the path's own W (16 packed, 32 adaptive)
-    the float kernel of the same level (bfloat16 masses, as the path takes
-    it without the switch) on the same inputs in the same run; at N = 32
-    (one term) the plain version, one ``index_add_`` of the rows' q
-    widened to int32 into int32 over a precomputed flat (node, feature,
-    bin) index (library_ms), the bound and, for the adaptive kernel, the
-    [F, rows] layout (the tiled body). Prints, per level, where the picked
-    form took more than 5% above the faster forced form."""
+    16, 32, 64, 128 and 256, every form (``i8_forms``: forced, and the one
+    the kernel picks, named by ``*_i8_picks``) checked bit-equal to the
+    plain version at 10M rows and timed on the same inputs. At one term,
+    at the path's own W (16 packed, 32 adaptive) and at every wide W, the
+    float kernel of the same level (bfloat16 masses, as the path takes it
+    without the switch; the wide body at the wide W) on the same inputs in
+    the same run, and at N = 32 the plain version, one ``index_add_`` of
+    the rows' q widened to int32 into int32 over a precomputed flat (node,
+    feature, bin) index (library_ms) and the bound; for the adaptive
+    kernel at its path's W the [F, rows] layout (the tiled body). Prints
+    the levels where the form the rule picks took more than 5% above the
+    fastest forced form (each timed forced, on the same inputs).""" 
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import adaptive_bins_plain
     rec = []
     for kind, w_path in (("binned", 16), ("adaptive", 32)):
         name = f"{kind}_level_i8"
-        times, float_ms, slow = {}, {}, []
-        for W in (16, 32, 256):
+        picks_fn = (kernels.binned_level_i8_picks if kind == "binned"
+                    else kernels.adaptive_level_i8_picks)
+        times, float_ms, picked, slow = {}, {}, {}, []
+        plain, lib, bound, other = {}, {}, {}, None
+        for W in I8_W:
+            forced = [f for f in i8_forms("rows_f", W) if f != "picked"]
             for terms, levels in I8_LEVELS:
-                per = {form: {} for form in I8_FORMS}
+                per = {form: {} for form in i8_forms("rows_f", W)}
                 for N in levels:
                     seed = 1400 + 10 * W + 100 * terms + N
                     inp, qs = check_i8(kind, rows, F, W, N, terms, dev, seed)
                     for form, ms in time_i8_forms(kind, inp, qs, N, W,
-                                                  10).items():
+                                                  20).items():
                         per[form][N] = ms
-                    best = min(per["grouped"][N], per["tiled"][N])
-                    if per["picked"][N] > 1.05 * best:
+                    # the rule's form against the fastest forced form, each
+                    # timed forced on these inputs
+                    fastest = min(per[f][N] for f in forced)
+                    rule = picks_fn(rows, F, W, N // 2, N, terms)
+                    picked.setdefault(W, {}).setdefault(terms, {})[N] = rule
+                    if per[rule][N] > 1.05 * fastest:
                         slow.append(f"W={W} terms={terms} N={N}")
-                    if W == 256 and terms == 1 and N == 32:
-                        # the library yardstick at the wide width
-                        nid_out = i8_level(kind, inp, qs, N, W)[0]
-                        bins = (inp[0] if kind == "binned" else
-                                adaptive_bins_plain(inp[0], nid_out,
-                                                    inp[4], inp[5], N,
-                                                    inp[7], W))
-                        lib_256 = index_add_ms(bins, nid_out,
-                                               qs[0].t().int(), N, inp[-1],
-                                               W)
-                        bound_256 = i8_level_bound_ms(
-                            kind, rows, F, N, W, 1, rows,
-                            inp[0].element_size())
-                        del bins, nid_out
-                    if W == w_path and terms == 1:
+                    if terms == 1 and (W == w_path or W >= 64):
                         if kind == "binned":
                             codes, nid, ghw, tables, n_prev, base = inp
-                            float_ms[N] = time_cuda(
+                            float_ms.setdefault(W, {})[N] = time_cuda(
                                 lambda: kernels.binned_level(
                                     codes, nid, ghw, tables, n_prev, N, base,
                                     W, True), 10)
                         else:
                             x, nid, ghw, tables, lo, inv, n_prev, base = inp
-                            float_ms[N] = time_cuda(
+                            float_ms.setdefault(W, {})[N] = time_cuda(
                                 lambda: kernels.adaptive_level(
                                     x, nid, ghw, tables, lo, inv, n_prev, N,
                                     base, W, True, "rows_f"), 10)
-                        if N == 32:
-                            pms = time_cuda(lambda: i8_plain(
-                                kind, inp, qs, N, W), 3)
-                            nid_out = i8_level(kind, inp, qs, N, W)[0]
-                            bins = (inp[0] if kind == "binned" else
-                                    adaptive_bins_plain(inp[0], nid_out,
-                                                        inp[4], inp[5], N,
-                                                        inp[7], W))
-                            lib_ms = index_add_ms(bins, nid_out,
-                                                  qs[0].t().int(), N,
-                                                  inp[-1], W)
-                            del bins, nid_out
-                            other = None
-                            if kind == "adaptive":
-                                # the same values in [F, rows]
-                                inp_o = (inp[0].t().contiguous(),) + \
-                                    tuple(inp[1:])
-                                other = {"f_rows": time_cuda(
-                                    lambda: i8_level(kind, inp_o, qs, N, W,
-                                                     "f_rows"), 10)}
-                                del inp_o
+                    if terms == 1 and N == 32 and (W == w_path or W >= 64):
+                        plain[W] = time_cuda(lambda: i8_plain(
+                            kind, inp, qs, N, W), 3)
+                        nid_out = i8_level(kind, inp, qs, N, W)[0]
+                        bins = (inp[0] if kind == "binned" else
+                                adaptive_bins_plain(inp[0], nid_out, inp[4],
+                                                    inp[5], N, inp[7], W))
+                        lib[W] = index_add_ms(bins, nid_out, qs[0].t().int(),
+                                              N, inp[-1], W)
+                        bound[W] = i8_level_bound_ms(
+                            kind, rows, F, N, W, 1, rows,
+                            inp[0].element_size())
+                        del bins, nid_out
+                        if kind == "adaptive" and W == w_path:
+                            # the same values in [F, rows]
+                            inp_o = (inp[0].t().contiguous(),) + \
+                                tuple(inp[1:])
+                            other = {"f_rows": time_cuda(
+                                lambda: i8_level(kind, inp_o, qs, N, W,
+                                                 "f_rows"), 10)}
+                            del inp_o
                     del inp, qs
                 times.setdefault(W, {})[terms] = per
                 sums = {form: sum(v.values()) for form, v in per.items()}
                 print(f"{name} at 10M x 28, W={W}, terms={terms}, per level "
                       f"N and form: {json.dumps(per)} ms; sum per tree "
-                      f"{json.dumps(sums)} ms", flush=True)
-        bound, by = i8_level_bound_ms(kind, rows, F, 32, w_path, 1, rows)
-        tree = {t: {form: sum(v.values()) for form, v in per.items()}
-                for t, per in times[w_path].items()}
-        print(f"{name} at 10M x 28, W={w_path} (the path's): sum per tree "
-              f"one term {json.dumps(tree[1])} ms, float level (bf16) "
-              f"{sum(float_ms.values())!r} ms ({json.dumps(float_ms)}); "
-              f"N=32: plain {pms!r} ms, index_add_ {lib_ms!r} ms, bound "
-              f"{bound!r} ms by {by}"
+                      f"{json.dumps(sums)} ms; picked "
+                      f"{json.dumps(picked[W][terms])}", flush=True)
+        tree = {w: {t: {form: sum(v.values()) for form, v in per.items()}
+                    for t, per in by_t.items()}
+                for w, by_t in times.items()}
+        float_tree = {w: sum(v.values()) for w, v in float_ms.items()}
+        by, rest = bound[w_path][1], {w: b[0] for w, b in bound.items()}
+        print(f"{name} at 10M x 28, one term, sum per tree by W (int8 "
+              f"forms) {json.dumps({w: t[1] for w, t in tree.items()})} ms, "
+              f"the float level (bf16, picked) {json.dumps(float_tree)} ms; "
+              f"N=32 by W: picked "
+              f"{json.dumps({w: times[w][1]['picked'][32] for w in plain})} "
+              f"ms, plain {json.dumps(plain)} ms, index_add_ "
+              f"{json.dumps(lib)} ms, bound {json.dumps(rest)} ms"
               + (f", other layout {json.dumps(other)} ms" if other else "")
-              + f"; W=256 one term N=32: picked "
-              f"{times[256][1]['picked'][32]!r} ms, index_add_ {lib_256!r} "
-              f"ms, bound {bound_256[0]!r} ms by {bound_256[1]}"
-              + f"; picked form more than 5% above the faster one at "
-              f"{slow or 'no level'}", flush=True)
+              + f"; picked form more than 5% above the fastest forced one "
+              f"at {slow or 'no level'}", flush=True)
         rec.append({"name": name, "route": "cuda", "source": SRC[name],
                     "replaces": REPLACES[name],
                     "launches": launches[name], "max_abs_err": 0.0,
                     "ms": times[w_path][1]["picked"][32],
-                    "ms_tree": tree[1], "ms_tree_terms2": tree[2],
-                    "ms_tree_by_w": {
-                        w: {t: {form: sum(v.values())
-                                for form, v in per.items()}
-                            for t, per in by_t.items()}
-                        for w, by_t in times.items() if w != w_path},
-                    "float_level_ms_tree": sum(float_ms.values()),
-                    "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-                    "library_ms": lib_ms,
-                    "ms_w256": times[256][1]["picked"][32],
-                    "bound_ms_w256": bound_256[0],
-                    "library_ms_w256": lib_256})
+                    "ms_tree": tree[w_path][1],
+                    "ms_tree_terms2": tree[w_path][2],
+                    "ms_tree_by_w": {w: t for w, t in tree.items()
+                                     if w != w_path},
+                    "float_level_ms_tree": float_tree[w_path],
+                    "float_level_ms_tree_by_w": float_tree,
+                    "plain_ms": plain[w_path], "bound_ms": rest[w_path],
+                    "bound_by": by, "library_ms": lib[w_path],
+                    "ms_by_w": {w: times[w][1]["picked"][32]
+                                for w in plain},
+                    "plain_ms_by_w": plain, "bound_ms_by_w": rest,
+                    "library_ms_by_w": lib, "picked_by_w": picked,
+                    "picked_slow": slow})
     return rec
 
 
@@ -1469,10 +1554,10 @@ def phase_wide_record(dev, rows=10_000_000, F=28):
     """The float levels at the wide lane widths (W = 64, 128 with int8
     codes, 256 with int16 codes; K8 on float32 features in [rows, F]),
     10M x 28, bfloat16-rounded masses as histogram_precision='auto' picks
-    at this size, per level N = 1..32: every form (the tensor-core
-    grouped body, the wide body, the tiled body) checked against the plain version at 10M rows and
-    timed on the same inputs, the wide form launched five times with the
-    same bits, and the form the kernel picks (``*_picks``); at N = 32 the
+    at this size, per level N = 1..32: every form (the wide body, the
+    tiled body) checked against the plain version at 10M rows and timed
+    on the same inputs, the wide form launched five times with the same
+    bits, and the form the kernel picks (``*_picks``); at N = 32 the
     plain version's time, the bound and one ``index_add_`` over a
     precomputed flat (node, feature, bin) index (library_ms). Returns,
     per kind, the record fields the kernel line carries."""
@@ -1490,7 +1575,7 @@ def phase_wide_record(dev, rows=10_000_000, F=28):
                "ms_tree_picked": {}, "plain_ms": {}, "bound_ms": {},
                "bound_by": {}, "library_ms": {}, "max_abs_err": {}}
         for W in WIDE_W:
-            per = {form: {} for form in WIDE_FORMS}
+            per = {form: {} for form in level_forms(W)}
             picked = {}
             err = 0.0
             for n_lvl in (1, 2, 4, 8, 16, 32):
@@ -1506,14 +1591,14 @@ def phase_wide_record(dev, rows=10_000_000, F=28):
                     run = lambda f: adaptive_form(f)(
                         *inp[:6], inp[6], n_lvl, inp[7], W, True, "rows_f")
                     n_prev, base = inp[6], inp[7]
-                errs = check_forms(kind, inp, n_lvl, W, True, WIDE_FORMS)
+                errs = check_forms(kind, inp, n_lvl, W, True, level_forms(W))
                 err = max(err, errs["wide"])
                 outs = [run("wide") for _ in range(5)]
                 if not all(torch.equal(outs[0][1], o[1]) and
                            torch.equal(outs[0][0], o[0]) for o in outs[1:]):
                     raise AssertionError(f"{kind}_level wide W={W} "
                                          f"N={n_lvl}: five launches differ")
-                for form in WIDE_FORMS:
+                for form in level_forms(W):
                     per[form][n_lvl] = time_cuda(lambda: run(form), 10)
                 picked[n_lvl] = picks(rows, F, W, n_prev, n_lvl)
                 if n_lvl == N:
@@ -1548,10 +1633,10 @@ def phase_wide_record(dev, rows=10_000_000, F=28):
             dtype = ("float32 x" if kind == "adaptive" else
                      "int16 codes" if W == 256 else "int8 codes")
             print(f"{kind}_level at 10M x 28, W={W} ({dtype}), bf16, per "
-                  f"level N and form (grouped: the tensor-core body; wide: "
-                  f"the wide body; tiled: the tiled body; all "
-                  f"forced and checked against the plain version; wide "
-                  f"five launches bit-equal): {json.dumps(per)} ms; sum per "
+                  f"level N and form (wide: the wide body; tiled: the tiled "
+                  f"body; both forced and checked against the plain "
+                  f"version; wide five launches bit-equal): "
+                  f"{json.dumps(per)} ms; sum per "
                   f"tree {json.dumps(sums)} ms; picked {json.dumps(picked)}, "
                   f"a tree {rec['ms_tree_picked'][W]!r} ms; N=32: plain "
                   f"{rec['plain_ms'][W]!r} ms, index_add_ "
@@ -1844,10 +1929,11 @@ def phase_repeatability(fr, path, dev):
 
 
 def phase_repeatability_i8(fr):
-    """The packed and adaptive paths with H2O3_HIST_I8=1 trained twice at
-    'auto' (bf16, every level an integer sum): they must agree bit for
-    bit."""
-    for path in ("packed_i8", "adaptive_i8"):
+    """The int8 paths (packed and adaptive, at their own and at the wide
+    lane widths, H2O3_HIST_I8=1) each trained twice at 'auto' (bf16, every
+    level an integer sum): they must agree bit for bit."""
+    for path in ("packed_i8", "adaptive_i8", "packed_wide_i8",
+                 "adaptive_wide_i8"):
         runs = [train(fr, 20, path) for _ in range(2)]
         check_repeats(runs, path, "H2O3_HIST_I8=1 at 'auto' x2")
 
@@ -1935,9 +2021,13 @@ def check_sass(by_fn):
     adaptive level's (AdaptiveBins) and the packed level's (CodeBins), has
     HMMA and no shared float CAS loop (``ATOMS.CAST.SPIN``); every int8
     instance (``I8Mass``) of both has IMMA and no shared or global atomics
-    at all; every instance of the wide level (``level_wide_kernel``, both
-    bin sources, every W), the leaf-totals kernel (with and without a
-    route) and global_hist's node-grouped form have no atomics at all."""
+    at all; every float instance of the wide level (``level_wide_kernel``,
+    both bin sources, every W), the leaf-totals kernel (with and without a
+    route) and global_hist's node-grouped form have no atomics at all;
+    every int8 instance of the wide level (``I8Mass``, both bin sources, W
+    = 64, 128, 256, one and two terms) has shared integer adds
+    (``ATOMS.ADD``) and no other atomic: no CAS loop, no float atomic, no
+    global atomic."""
     def mma(counts, op):
         return sum(v for k, v in counts.items() if k.startswith(op))
 
@@ -1962,7 +2052,8 @@ def check_sass(by_fn):
                 raise AssertionError(f"SASS of {name}: {counts}")
         per_src[src] = {"HMMA": [mma(c, "HMMA") for c in fmma.values()],
                         "IMMA": [mma(c, "IMMA") for c in imma.values()]}
-    wide = {n: c for n, c in by_fn.items() if "level_wide_kernel" in n}
+    wide = {n: c for n, c in by_fn.items()
+            if "level_wide_kernel" in n and "I8Mass" not in n}
     if len(wide) < 8:
         raise AssertionError(f"SASS: wide level instances missing: "
                              f"{sorted(wide)}")
@@ -1970,6 +2061,20 @@ def check_sass(by_fn):
     if wide_atomics:
         raise AssertionError(f"SASS of the wide level: atomics "
                              f"{wide_atomics}")
+    # the int8 wide instances: integer sums in any order, so native shared
+    # integer adds (ATOMS.ADD) are allowed; no CAS loop, no float atomic,
+    # no global atomic
+    wide_i8 = {n: c for n, c in by_fn.items()
+               if "level_wide_kernel" in n and "I8Mass" in n}
+    if len(wide_i8) < 12:
+        raise AssertionError(f"SASS: int8 wide level instances missing: "
+                             f"{sorted(wide_i8)}")
+    for name, counts in wide_i8.items():
+        bad = {k: v for k, v in atomics(counts).items()
+               if not k.startswith("ATOMS.ADD")
+               or any(t in k for t in ("F32", "F16", "F64", "FTZ", "CAS"))}
+        if bad:
+            raise AssertionError(f"SASS of {name}: atomics {bad}")
     ordered = {n: c for n, c in by_fn.items()
                if "leaf_totals_kernel" in n
                or "global_hist_grouped_kernel" in n}
@@ -1984,6 +2089,9 @@ def check_sass(by_fn):
           f"(no atomics) {json.dumps(per_src)}; ATOMS/RED in the "
           f"{len(wide)} wide level instances (level_wide_kernel): "
           f"{sum(sum(atomics(c).values()) for c in wide.values())}; "
+          f"shared integer ATOMS.ADD (and no other atomic) in the "
+          f"{len(wide_i8)} int8 wide instances: "
+          f"{sum(sum(atomics(c).values()) for c in wide_i8.values())}; "
           f"{len(ordered)} leaf_totals / global_hist grouped instances "
           f"without atomics", flush=True)
 
@@ -2069,6 +2177,14 @@ def main() -> int:
     adaptive_wide = phase_main_path(card, "adaptive_wide", fr)
     del adaptive_wide["frame"]
     clock.lap("4 packed_wide + adaptive_wide")
+    # the wide paths with int8 masses, against their float paths' AUC
+    packed_wide_i8 = phase_main_path(card, "packed_wide_i8", fr,
+                                     ref_auc=packed_wide["auc"])
+    del packed_wide_i8["frame"]
+    adaptive_wide_i8 = phase_main_path(card, "adaptive_wide_i8", fr,
+                                       ref_auc=adaptive_wide["auc"])
+    del adaptive_wide_i8["frame"]
+    clock.lap("4 packed_wide_i8 + adaptive_wide_i8")
 
     # 5. card vs cpu; the two sketch paths against each other
     phase_card_vs_cpu("packed")
@@ -2085,6 +2201,10 @@ def main() -> int:
     phase_card_vs_cpu("packed_wide")
     phase_card_vs_cpu("adaptive_wide")
     clock.lap("5 wide card vs cpu")
+    for path in ("packed_wide_i8", "adaptive_wide_i8"):
+        for terms in (1, 2):
+            phase_card_vs_cpu_i8(path, terms)
+    clock.lap("5 wide int8 card vs cpu")
 
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
@@ -2103,7 +2223,10 @@ def main() -> int:
     by_name["adaptive_level"]["wide"] = wide["adaptive"]
     for path, res in (("packed", packed), ("adaptive", adaptive),
                       ("packed_wide", packed_wide),
-                      ("adaptive_wide", adaptive_wide)):
+                      ("adaptive_wide", adaptive_wide),
+                      ("packed_i8", packed_i8), ("adaptive_i8", adaptive_i8),
+                      ("packed_wide_i8", packed_wide_i8),
+                      ("adaptive_wide_i8", adaptive_wide_i8)):
         for k in ("level", "route", "totals"):
             kernel = PATHS[path].get(k)
             if kernel:
@@ -2127,6 +2250,10 @@ def main() -> int:
     phase_warm_profile(fr, card, "packed_wide", packed_wide["trees"])
     phase_warm_profile(fr, card, "adaptive_wide", adaptive_wide["trees"])
     clock.lap("7 packed_wide + adaptive_wide profile")
+    phase_warm_profile(fr, card, "packed_wide_i8", packed_wide_i8["trees"])
+    phase_warm_profile(fr, card, "adaptive_wide_i8",
+                       adaptive_wide_i8["trees"])
+    clock.lap("7 packed_wide_i8 + adaptive_wide_i8 profile")
     for path in ("packed", "adaptive", "global", "packed_wide",
                  "adaptive_wide"):
         phase_repeatability(fr, path, dev)
@@ -2136,25 +2263,25 @@ def main() -> int:
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
-    print("kernels run: binned_level[W=16,32,64,128,256 x node-grouped, "
-          "tiled; W=32,64,128,256 x wide; W=16 "
-          "node-grouped: bf16, float32] binned_route_only "
-          "binned_level_i8[W=16,32,256 x terms=1,2 x node-grouped, "
-          "tiled, picked] "
+    print("kernels run: binned_level[W=16,32 x node-grouped, tiled; "
+          "W=32,64,128,256 x wide, tiled; W=16 node-grouped: bf16, "
+          "float32] binned_route_only "
+          "binned_level_i8[W=16,32,64,128,256 x terms=1,2 x node-grouped "
+          "(W<=32) or wide (W>=64), tiled, picked] "
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
           "node-grouped: bf16, float32, shared-atomics ablation; rows_f x "
-          "W=32,64,128,256 x wide, node-grouped, tiled] "
+          "W=32 x wide, node-grouped, tiled; W=64,128,256 x wide, tiled] "
           "adaptive_route_only[rows_f,f_rows] "
-          "adaptive_level_i8[rows_f x W=16,32,256 x terms=1,2 x "
-          "node-grouped, tiled, picked; f_rows x W=16,32,256 x terms=1,2 x "
-          "tiled, picked] "
+          "adaptive_level_i8[rows_f x W=16,32,64,128,256 x terms=1,2 x "
+          "node-grouped (W<=32) or wide (W>=64), tiled, picked; f_rows x "
+          "W=16,32,64,128,256 x terms=1,2 x tiled, picked] "
           "leaf_totals[n_prev=0,32 x N=1,64] "
           "segment_totals[N=1,64,512,4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
           "atomics] group_rows[alone]; index_add_ beside binned_level "
           "(W=16,32,64,128,256), adaptive_level (W=32,64,128,256), "
-          "binned_level_i8 and adaptive_level_i8 (W=path's, 256), "
-          "segment_totals, global_hist", flush=True)
+          "binned_level_i8 (W=16,64,128,256) and adaptive_level_i8 "
+          "(W=32,64,128,256), segment_totals, global_hist", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

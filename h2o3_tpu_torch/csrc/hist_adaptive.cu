@@ -34,14 +34,16 @@
 // adaptive_level_i8 replaces _kernel_t_i8 (K7): the same level with the
 // int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in both
 // layouts (the TPU kernel exists only in [F, rows]; the port trains in
-// [rows, F]). Two forms, as binned_level_i8's (hist_binned.cu): in
-// [rows, F] the integer-mass instance of the grouped body (I8Mass: int8
-// records, mma.sync m16n8k32 s8 products, one pass merging the blocks'
-// int32 partials and flushing to float32) where takes_grouped_i8 picks it;
-// otherwise, and always in [F, rows], the integer-mass instance (kTerms =
-// 1 or 2) of the tiled body: int32 shared partial with native integer
-// atomics, int32 merge and a float32 flush. Integer sums: the histogram is
-// bit-equal to the plain version in either form.
+// [rows, F]). Three forms, as binned_level_i8's (hist_binned.cu), picked
+// per level by h2o3::i8_level_form (level_wide.cuh): in [rows, F] the
+// integer-mass instances of the grouped bodies (I8Mass: int8 records; the
+// tensor-core body's m16n8k32 s8 products at W <= 32, the wide body's
+// shared integer atomics at W = 64, 128, 256; one pass merging the
+// blocks' int32 partials and flushing to float32); otherwise, and always
+// in [F, rows], the integer-mass instance (kTerms = 1 or 2) of the tiled
+// body: int32 shared partial with native integer atomics, int32 merge and
+// a float32 flush. Integer sums: the histogram is bit-equal to the plain
+// version in every form.
 //
 // adaptive_route_only replaces _route_kernel_t (K6) and _route_kernel
 // (K9): the deepest level's route, one thread per row, no histogram.
@@ -86,7 +88,7 @@
 // issue (level_grouped.cuh).
 // adaptive_route_only moves rows * 12 bytes; adaptive_level_i8 reads
 // 3 * terms in place of 12 bytes of mass a row. The tiled body (K5, and
-// K7 where takes_grouped_i8 keeps it), as binned_level's in
+// K7 where i8_level_form keeps it), as binned_level's in
 // hist_binned.cu: a block
 // takes 512 rows at a time; phase 1 routes them (one thread per row) and
 // stages node id and masses in shared memory; phase 2 walks the chunk's
@@ -282,9 +284,10 @@ struct AdaptiveBins {
   }
 };
 
-// The grouped level's instance: W, then the terms of the mass split (one
-// at bf16, three at float32) for the tensor-core form; kMma false is the
-// shared-atomics ablation. plan: only the workspace bytes (ws unused).
+// The grouped level's instance: W (W <= 32: the wide body takes the wider
+// levels), then the terms of the mass split (one at bf16, three at
+// float32) for the tensor-core form; kMma false is the shared-atomics
+// ablation. plan: only the workspace bytes (ws unused).
 template <bool kMma>
 int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
               const int* nid, const float* ghw, const float* tables,
@@ -315,9 +318,6 @@ int grouped_w(int W, bool plan_only, size_t* bytes, const float* x,
   switch (W) {
     H2O3_GROUPED_W(16)
     H2O3_GROUPED_W(32)
-    H2O3_GROUPED_W(64)
-    H2O3_GROUPED_W(128)
-    H2O3_GROUPED_W(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -335,10 +335,10 @@ int wide_w(int W, bool plan_only, size_t* bytes, const float* x,
            float* hist, void* ws, cudaStream_t s) {
 #define H2O3_WIDE(WW)                                                        \
   case WW:                                                                   \
-    return h2o3::launch_wide(AdaptiveBins<WW>{x, tables, lo, inv},          \
-                             plan_only, bytes, nid, ghw, rows, F, n_prev,    \
-                             n_nodes, level_base, bf16, nid_out, hist, ws,   \
-                             s);
+    return h2o3::launch_wide<AdaptiveBins<WW>, h2o3::WideFloat>(            \
+        AdaptiveBins<WW>{x, tables, lo, inv}, plan_only, bytes, nid,         \
+        h2o3::GhwRec{ghw, rows}, rows, F, n_prev, n_nodes, level_base, bf16, \
+        nid_out, h2o3::MergeAdd{hist}, ws, s);
   switch (W) {
     H2O3_WIDE(32)
     H2O3_WIDE(64)
@@ -350,9 +350,9 @@ int wide_w(int W, bool plan_only, size_t* bytes, const float* x,
 #undef H2O3_WIDE
 }
 
-// The int8 level (K7) on the grouped body: int8 records, m16n8k32 s8
-// products, the merge flushing to float32. plan_only: the workspace bytes
-// alone.
+// The int8 level (K7) on the tensor-core grouped body (W <= 32): int8
+// records, m16n8k32 s8 products, the merge flushing to float32.
+// plan_only: the workspace bytes alone.
 int grouped_i8_w(int W, int terms, bool plan_only, size_t* bytes,
                  const float* x, const int* nid, const int8_t* q,
                  const float* scales, const float* tables, const float* lo,
@@ -384,9 +384,6 @@ int grouped_i8_w(int W, int terms, bool plan_only, size_t* bytes,
   switch (W) {
     H2O3_GROUPED_I8_W(16)
     H2O3_GROUPED_I8_W(32)
-    H2O3_GROUPED_I8_W(64)
-    H2O3_GROUPED_I8_W(128)
-    H2O3_GROUPED_I8_W(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -394,20 +391,36 @@ int grouped_i8_w(int W, int terms, bool plan_only, size_t* bytes,
 #undef H2O3_GROUPED_I8
 }
 
-// The form an int8 level takes: form 1 (grouped) or 0 (tiled) forced, -1
-// picked by i8_grouped_rule (level_grouped.cuh) in [rows, F] where the
-// grouped body takes the shapes; [F, rows] keeps the tiled body. At 10M x
-// 28 on an H100 (ms a level, grouped / tiled, N = 1, 2, 4, 8, 16, 32):
-// W = 32, one term, 1.81 / 1.15, 1.81 / 1.20, 1.83 / 1.14, 1.86 / 1.63,
-// 1.89 / 1.86, 1.97 / 2.50; two terms (N <= 16), 2.28 / 1.41, 2.35 /
-// 1.53, 2.35 / 1.95, 2.35 / 2.40, 2.37 / 2.84; W = 16 alike (one term at
-// N = 32: 1.70 / 1.88); W = 256, 18-38 / 1.6-14.2 at every level.
-inline bool takes_grouped_i8(int form, int feat_major, int64_t rows, int F,
-                             int W, int terms, int n_prev, int n_nodes) {
-  if (form >= 0) return form == 1;
-  return !feat_major && h2o3::i8_grouped_rule(W, terms, n_nodes) &&
-         h2o3::grouped_i8_fits(rows, F, W, terms, sizeof(float), n_prev,
-                               n_nodes, true);
+// The int8 level (K7) on the wide body (W = 64, 128, 256): int8 records,
+// the masses added into int32 partials, the merge flushing to float32.
+// plan_only: the workspace bytes alone.
+int wide_i8_w(int W, int terms, bool plan_only, size_t* bytes,
+              const float* x, const int* nid, const int8_t* q,
+              const float* scales, const float* tables, const float* lo,
+              const float* inv, int64_t rows, int F, int n_prev, int n_nodes,
+              int level_base, int* nid_out, float* hist, void* ws,
+              cudaStream_t s) {
+#define H2O3_WIDE_I8(WW, T)                                                  \
+  return h2o3::launch_wide<AdaptiveBins<WW>, h2o3::I8Mass<T>>(              \
+      AdaptiveBins<WW>{x, tables, lo, inv}, plan_only, bytes, nid,           \
+      h2o3::QRec<T>{q, rows}, rows, F, n_prev, n_nodes, level_base, 0,       \
+      nid_out,                                                               \
+      h2o3::MergeFlushI8<T>{scales, static_cast<int64_t>(n_nodes) * F * WW,  \
+                            hist},                                           \
+      ws, s)
+#define H2O3_WIDE_I8_W(WW)              \
+  case WW:                              \
+    if (terms == 1) H2O3_WIDE_I8(WW, 1); \
+    H2O3_WIDE_I8(WW, 2);
+  switch (W) {
+    H2O3_WIDE_I8_W(64)
+    H2O3_WIDE_I8_W(128)
+    H2O3_WIDE_I8_W(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef H2O3_WIDE_I8_W
+#undef H2O3_WIDE_I8
 }
 
 template <bool kFeatMajor>
@@ -690,6 +703,60 @@ int float_level(int form, bool plan_only, size_t* bytes, const float* x,
   }
 }
 
+// The int8 level in form `form` (after h2o3::i8_level_form; the grouped
+// forms read [rows, F] only). The tiled body zeroes its int32 sums (in
+// ws) and flushes them after its launch. plan_only: the workspace bytes
+// alone.
+int i8_level(int form, bool plan_only, size_t* bytes, const float* x,
+             int feat_major, const int* nid, const int8_t* q, int terms,
+             const float* scales, const float* tables, const float* lo,
+             const float* inv, int64_t rows, int F, int W, int n_prev,
+             int n_nodes, int level_base, int* nid_out, float* hist,
+             void* ws, cudaStream_t s) {
+  if (form == h2o3::kTiledForm) {
+    const size_t nbytes = h2o3::tiled_i8_bytes(terms, n_nodes, F, W);
+    if (plan_only) {
+      *bytes = nbytes;
+      return 0;
+    }
+    int* acc = static_cast<int*>(ws);
+    const cudaError_t err = cudaMemsetAsync(acc, 0, nbytes, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc =
+        terms == 1
+            ? launch_level_lw<1>(feat_major, W, x, nid, q, tables, lo, inv,
+                                 rows, F, n_prev, n_nodes, level_base, 0,
+                                 nid_out, acc, s)
+            : launch_level_lw<2>(feat_major, W, x, nid, q, tables, lo, inv,
+                                 rows, F, n_prev, n_nodes, level_base, 0,
+                                 nid_out, acc, s);
+    if (rc != 0) return rc;
+    return h2o3::launch_flush_i8(acc, scales, terms,
+                                 static_cast<int64_t>(n_nodes) * F * W, hist,
+                                 s);
+  }
+  if (feat_major) return static_cast<int>(cudaErrorInvalidValue);
+  switch (form) {
+    case h2o3::kTensorForm:
+      return grouped_i8_w(W, terms, plan_only, bytes, x, nid, q, scales,
+                          tables, lo, inv, rows, F, n_prev, n_nodes,
+                          level_base, nid_out, hist, ws, s);
+    case h2o3::kWideForm:
+      return wide_i8_w(W, terms, plan_only, bytes, x, nid, q, scales, tables,
+                       lo, inv, rows, F, n_prev, n_nodes, level_base, nid_out,
+                       hist, ws, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The form of adaptive_level_i8 at these shapes (h2o3::i8_level_form).
+inline int i8_form(int form, int feat_major, int64_t rows, int F, int W,
+                   int terms, int n_prev, int n_nodes) {
+  return h2o3::i8_level_form(form, feat_major, rows, F, W, terms,
+                             sizeof(float), true, n_prev, n_nodes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -814,35 +881,44 @@ int h2o3_group_rows(const int* keys, const float* ghw, const int8_t* q,
                                s);
 }
 
-// The workspace bytes of h2o3_adaptive_level_i8 at these shapes and form:
-// the grouped form's grouping and block partials, or the tiled body's
-// int32 sums; -1 where the shapes are refused (a forced grouped form that
-// does not fit, or [F, rows]).
+// The workspace bytes of h2o3_adaptive_level_i8 at these shapes and
+// form (-1 picked, or a LevelForm forced): a grouped form's grouping and
+// block partials, or the tiled body's int32 sums; -1 where the shapes are
+// refused (a forced grouped form in [F, rows], or one that does not fit
+// or has no instance at W).
 long long h2o3_adaptive_level_i8_workspace(int feat_major, long long rows,
                                            int F, int W, int n_prev,
                                            int n_nodes, int terms, int form) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
       (terms != 1 && terms != 2))
     return -1;
-  if (!takes_grouped_i8(form, feat_major, rows, F, W, terms, n_prev,
-                        n_nodes))
-    return static_cast<long long>(h2o3::tiled_i8_bytes(terms, n_nodes, F, W));
-  if (feat_major) return -1;
   size_t bytes = 0;
-  const int rc = grouped_i8_w(W, terms, true, &bytes, nullptr, nullptr,
-                              nullptr, nullptr, nullptr, nullptr, nullptr,
-                              rows, F, n_prev, n_nodes, 0, nullptr, nullptr,
-                              nullptr, nullptr);
+  const int rc = i8_level(
+      i8_form(form, feat_major, rows, F, W, terms, n_prev, n_nodes), true,
+      &bytes, nullptr, feat_major, nullptr, nullptr, terms, nullptr, nullptr,
+      nullptr, nullptr, rows, F, W, n_prev, n_nodes, 0, nullptr, nullptr,
+      nullptr, nullptr);
   return rc == 0 ? static_cast<long long>(bytes) : -1;
 }
 
+// The form h2o3_adaptive_level_i8 picks at these shapes
+// (h2o3::i8_level_form; a LevelForm code).
+int h2o3_adaptive_level_i8_picks(int feat_major, long long rows, int F,
+                                 int W, int n_prev, int n_nodes, int terms) {
+  return i8_form(h2o3::kPickForm, feat_major, rows, F, W, terms, n_prev,
+                 n_nodes);
+}
+
 // The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]
-// float32 in place of ghw; form -1 (picked: takes_grouped_i8), 0 (tiled
-// body, its int32 sums zeroed here, then flush_i8_kernel) or 1 (grouped,
-// merge and flush in one pass; an error in [F, rows] or where the shapes
-// do not fit); ws, h2o3_adaptive_level_i8_workspace bytes for the same
-// form. Writes nid_out [rows] int32 and hist [3, n_nodes, F, W] float32
-// (all of it). Returns a cudaError_t value.
+// float32 in place of ghw; form -1 (picked from the shapes,
+// h2o3::i8_level_form) or forced: 0 (tiled body, its int32 sums zeroed
+// here, then flush_i8_kernel), 1 (tensor-core grouped body, W <= 32), 2
+// (wide body, W = 64, 128, 256), the grouped ones merging and flushing in
+// one pass; a grouped form forced in [F, rows], or where it does not fit
+// or has no instance at W, is an error; ws,
+// h2o3_adaptive_level_i8_workspace bytes for the same form. Writes
+// nid_out [rows] int32 and hist [3, n_nodes, F, W] float32 (all of it).
+// Returns a cudaError_t value.
 int h2o3_adaptive_level_i8(const float* x, int feat_major, const int* nid,
                            const int8_t* q, int terms, const float* scales,
                            const float* tables, const float* lo,
@@ -850,34 +926,15 @@ int h2o3_adaptive_level_i8(const float* x, int feat_major, const int* nid,
                            int n_prev, int n_nodes, int level_base, int form,
                            int* nid_out, float* hist, void* ws,
                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
       (terms != 1 && terms != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (takes_grouped_i8(form, feat_major, rows, F, W, terms, n_prev,
-                       n_nodes)) {
-    if (feat_major) return static_cast<int>(cudaErrorInvalidValue);
-    size_t unused = 0;
-    return grouped_i8_w(W, terms, false, &unused, x, nid, q, scales, tables,
-                        lo, inv, rows, F, n_prev, n_nodes, level_base,
-                        nid_out, hist, ws, s);
-  }
-  int* acc = static_cast<int*>(ws);
-  const cudaError_t err =
-      cudaMemsetAsync(acc, 0, h2o3::tiled_i8_bytes(terms, n_nodes, F, W), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc =
-      terms == 1
-          ? launch_level_lw<1>(feat_major, W, x, nid, q, tables, lo, inv,
-                               rows, F, n_prev, n_nodes, level_base, 0,
-                               nid_out, acc, s)
-          : launch_level_lw<2>(feat_major, W, x, nid, q, tables, lo, inv,
-                               rows, F, n_prev, n_nodes, level_base, 0,
-                               nid_out, acc, s);
-  if (rc != 0) return rc;
-  return h2o3::launch_flush_i8(acc, scales, terms,
-                               static_cast<int64_t>(n_nodes) * F * W, hist,
-                               s);
+  size_t unused = 0;
+  return i8_level(
+      i8_form(form, feat_major, rows, F, W, terms, n_prev, n_nodes), false,
+      &unused, x, feat_major, nid, q, terms, scales, tables, lo, inv, rows,
+      F, W, n_prev, n_nodes, level_base, nid_out, hist, ws,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The deepest level's route: same operands as h2o3_adaptive_level without

@@ -27,7 +27,7 @@
 //   order, a key's lanes summed in lane order (level_wide.cuh); the same
 //   slot-ordered merge. Its work is per (record, feature) whatever W.
 // - Tiled (levels past kMaxGroups groups and frames past 512 features;
-//   the int8 instances below where takes_grouped_i8 keeps them): a block
+//   the int8 instances below where i8_level_form keeps them): a block
 //   takes 512 rows at a time;
 //   phase 1 routes them (one thread per row) and stages node id and
 //   (g, h, w) in shared memory; phase 2 walks the chunk's codes
@@ -49,14 +49,19 @@
 // tests and chip_smoke.py.
 //
 // binned_level_i8 (replaces _kernel_bt_i8, K4): the same level with the
-// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in two forms
-// picked by takes_grouped_i8:
-// - Node-grouped: the integer-mass instance of the grouped body
-//   (level_grouped.cuh, I8Mass): the grouping pass writes int8 records
-//   ({row, q bytes}, 8 bytes at one term, 16 at two), the one-hot products
-//   run as mma.sync m16n8k32 s8 -> s32 (the TPU kernel's int8 x int8 ->
-//   int32 contraction), each block writes an int32 partial into its slot,
-//   and one pass merges the slots and flushes to float32.
+// int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in three
+// forms picked per level by h2o3::i8_level_form (level_wide.cuh):
+// - Tensor-core node-grouped (W <= 32): the integer-mass instance of the
+//   grouped body (level_grouped.cuh, I8Mass): the grouping pass writes
+//   int8 records ({row, q bytes}, 8 bytes at one term, 16 at two), the
+//   one-hot products run as mma.sync m16n8k32 s8 -> s32 (the TPU kernel's
+//   int8 x int8 -> int32 contraction), each block writes an int32 partial
+//   into its slot, and one pass merges the slots and flushes to float32.
+// - Wide node-grouped (W = 64, 128, 256): the integer-mass instance of
+//   the wide body (level_wide.cuh): the same int8 records, a block per
+//   (span, slice of features), each record's q bytes added into an int32
+//   shared partial with native integer atomics (no walk: integer sums
+//   need no order), the same merge and flush in one pass.
 // - Tiled: the integer-mass instance (kTerms = 1 or 2) of the tiled body.
 //   It stages q (3 or 6 bytes a row in place of 12), adds into an int32
 //   shared partial with native integer atomics (ATOMS.ADD), merges blocks
@@ -319,8 +324,9 @@ struct CodeBins {
   }
 };
 
-// The grouped level's instance by code width and W, one bf16 term at
-// bf16, three at float32. plan_only: the workspace bytes alone.
+// The grouped level's instance by code width and W (W <= 32: the wide
+// body takes the wider levels), one bf16 term at bf16, three at float32.
+// plan_only: the workspace bytes alone.
 int grouped_w(int code_bytes, int W, bool plan_only, size_t* bytes,
               const void* codes, const int* nid, const float* ghw,
               const int* tables, int64_t rows, int F, int n_prev,
@@ -349,12 +355,8 @@ int grouped_w(int code_bytes, int W, bool plan_only, size_t* bytes,
     switch (W) {
       case 16: H2O3_GROUPED_W(int8_t, 16)
       case 32: H2O3_GROUPED_W(int8_t, 32)
-      case 64: H2O3_GROUPED_W(int8_t, 64)
-      case 128: H2O3_GROUPED_W(int8_t, 128)
       default: break;
     }
-  } else if (code_bytes == 2 && W == 256) {
-    H2O3_GROUPED_W(int16_t, 256)
   }
 #undef H2O3_GROUPED_W
 #undef H2O3_GROUPED
@@ -370,10 +372,10 @@ int wide_w(int code_bytes, int W, bool plan_only, size_t* bytes,
            int level_base, int bf16, int* nid_out, float* hist, void* ws,
            cudaStream_t s) {
 #define H2O3_WIDE(CT, WW)                                                    \
-  return h2o3::launch_wide(CodeBins<CT, WW>{static_cast<const CT*>(codes),  \
-                                            tables},                         \
-                           plan_only, bytes, nid, ghw, rows, F, n_prev,      \
-                           n_nodes, level_base, bf16, nid_out, hist, ws, s)
+  return h2o3::launch_wide<CodeBins<CT, WW>, h2o3::WideFloat>(              \
+      CodeBins<CT, WW>{static_cast<const CT*>(codes), tables}, plan_only,    \
+      bytes, nid, h2o3::GhwRec{ghw, rows}, rows, F, n_prev, n_nodes,         \
+      level_base, bf16, nid_out, h2o3::MergeAdd{hist}, ws, s)
   if (code_bytes == 1) {
     switch (W) {
       case 32: H2O3_WIDE(int8_t, 32);
@@ -417,9 +419,9 @@ int float_level(int form, bool plan_only, size_t* bytes, const void* codes,
   }
 }
 
-// The int8 level (K4) on the grouped body: int8 records, m16n8k32 s8
-// products, the merge flushing to float32. plan_only: the workspace bytes
-// alone.
+// The int8 level (K4) on the tensor-core grouped body (W <= 32): int8
+// records, m16n8k32 s8 products, the merge flushing to float32.
+// plan_only: the workspace bytes alone.
 int grouped_i8_w(int code_bytes, int W, int terms, bool plan_only,
                  size_t* bytes, const void* codes, const int* nid,
                  const int8_t* q, const float* scales, const int* tables,
@@ -452,32 +454,96 @@ int grouped_i8_w(int code_bytes, int W, int terms, bool plan_only,
     switch (W) {
       case 16: H2O3_GROUPED_I8_W(int8_t, 16)
       case 32: H2O3_GROUPED_I8_W(int8_t, 32)
-      case 64: H2O3_GROUPED_I8_W(int8_t, 64)
-      case 128: H2O3_GROUPED_I8_W(int8_t, 128)
       default: break;
     }
-  } else if (code_bytes == 2 && W == 256) {
-    H2O3_GROUPED_I8_W(int16_t, 256)
   }
 #undef H2O3_GROUPED_I8_W
 #undef H2O3_GROUPED_I8
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The form an int8 level takes: form 1 (grouped) or 0 (tiled) forced, -1
-// picked by i8_grouped_rule (level_grouped.cuh) where the grouped body
-// takes the shapes. At 10M x 28 on an H100 (ms a level, grouped / tiled,
-// N = 1, 2, 4, 8, 16, 32): W = 16, one term, 1.18 / 0.96, 1.22 / 0.91,
-// 1.22 / 0.93, 1.21 / 0.94, 1.24 / 1.06, 1.30 / 1.37; two terms (N <=
-// 16), 1.69 / 1.31, 1.72 / 1.28, 1.74 / 1.32, 1.75 / 1.45, 1.72 / 1.77;
-// W = 32 alike (one term at N = 32: 1.48 / 1.76); W = 256 (int16 codes),
-// 18.6-29.7 / 1.5-11.6 at every level.
-inline bool takes_grouped_i8(int form, int64_t rows, int F, int W, int terms,
-                             int n_prev, int n_nodes) {
-  if (form >= 0) return form == 1;
-  return h2o3::i8_grouped_rule(W, terms, n_nodes) &&
-         h2o3::grouped_i8_fits(rows, F, W, terms, W == 256 ? 2 : 1, n_prev,
-                               n_nodes, false);
+// The int8 level (K4) on the wide body (W = 64, 128, 256): int8 records,
+// the masses added into int32 partials, the merge flushing to float32.
+// plan_only: the workspace bytes alone.
+int wide_i8_w(int code_bytes, int W, int terms, bool plan_only,
+              size_t* bytes, const void* codes, const int* nid,
+              const int8_t* q, const float* scales, const int* tables,
+              int64_t rows, int F, int n_prev, int n_nodes, int level_base,
+              int* nid_out, float* hist, void* ws, cudaStream_t s) {
+#define H2O3_WIDE_I8(CT, WW, T)                                              \
+  return h2o3::launch_wide<CodeBins<CT, WW>, h2o3::I8Mass<T>>(              \
+      CodeBins<CT, WW>{static_cast<const CT*>(codes), tables}, plan_only,    \
+      bytes, nid, h2o3::QRec<T>{q, rows}, rows, F, n_prev, n_nodes,          \
+      level_base, 0, nid_out,                                                \
+      h2o3::MergeFlushI8<T>{scales, static_cast<int64_t>(n_nodes) * F * WW,  \
+                            hist},                                           \
+      ws, s)
+#define H2O3_WIDE_I8_W(CT, WW)               \
+  if (terms == 1) H2O3_WIDE_I8(CT, WW, 1);   \
+  H2O3_WIDE_I8(CT, WW, 2);
+  if (code_bytes == 1) {
+    switch (W) {
+      case 64: H2O3_WIDE_I8_W(int8_t, 64)
+      case 128: H2O3_WIDE_I8_W(int8_t, 128)
+      default: break;
+    }
+  } else if (code_bytes == 2 && W == 256) {
+    H2O3_WIDE_I8_W(int16_t, 256)
+  }
+#undef H2O3_WIDE_I8_W
+#undef H2O3_WIDE_I8
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 level in form `form` (after h2o3::i8_level_form). The tiled
+// body zeroes its int32 sums (in ws) and flushes them after its launch.
+// plan_only: the workspace bytes alone.
+int i8_level(int form, bool plan_only, size_t* bytes, const void* codes,
+             int code_bytes, const int* nid, const int8_t* q, int terms,
+             const float* scales, const int* tables, int64_t rows, int F,
+             int W, int n_prev, int n_nodes, int level_base, int* nid_out,
+             float* hist, void* ws, cudaStream_t s) {
+  switch (form) {
+    case h2o3::kTiledForm: {
+      const size_t nbytes = h2o3::tiled_i8_bytes(terms, n_nodes, F, W);
+      if (plan_only) {
+        *bytes = nbytes;
+        return 0;
+      }
+      int* acc = static_cast<int*>(ws);
+      const cudaError_t err = cudaMemsetAsync(acc, 0, nbytes, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int rc =
+          terms == 1
+              ? launch_level_w<1>(codes, code_bytes, nid, q, tables, rows, F,
+                                  W, n_prev, n_nodes, level_base, 0, nid_out,
+                                  acc, s)
+              : launch_level_w<2>(codes, code_bytes, nid, q, tables, rows, F,
+                                  W, n_prev, n_nodes, level_base, 0, nid_out,
+                                  acc, s);
+      if (rc != 0) return rc;
+      return h2o3::launch_flush_i8(acc, scales, terms,
+                                   static_cast<int64_t>(n_nodes) * F * W,
+                                   hist, s);
+    }
+    case h2o3::kTensorForm:
+      return grouped_i8_w(code_bytes, W, terms, plan_only, bytes, codes, nid,
+                          q, scales, tables, rows, F, n_prev, n_nodes,
+                          level_base, nid_out, hist, ws, s);
+    case h2o3::kWideForm:
+      return wide_i8_w(code_bytes, W, terms, plan_only, bytes, codes, nid, q,
+                       scales, tables, rows, F, n_prev, n_nodes, level_base,
+                       nid_out, hist, ws, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The form of binned_level_i8 at these shapes (h2o3::i8_level_form).
+inline int i8_form(int form, int code_bytes, int64_t rows, int F, int W,
+                   int terms, int n_prev, int n_nodes) {
+  return h2o3::i8_level_form(form, false, rows, F, W, terms, code_bytes,
+                             false, n_prev, n_nodes);
 }
 
 }  // namespace
@@ -530,62 +596,55 @@ int h2o3_binned_level(const void* codes, int code_bytes, const int* nid,
       static_cast<cudaStream_t>(stream));
 }
 
-// The workspace bytes of h2o3_binned_level_i8 at these shapes and form: the
-// grouped form's grouping and block partials, or the tiled body's int32
-// sums; -1 where the shapes are refused (a forced grouped form that does
-// not fit).
+// The workspace bytes of h2o3_binned_level_i8 at these shapes and form
+// (-1 picked, or a LevelForm forced): a grouped form's grouping and block
+// partials, or the tiled body's int32 sums; -1 where the shapes are
+// refused (a forced grouped form that does not fit or has no instance).
 long long h2o3_binned_level_i8_workspace(int code_bytes, long long rows,
                                          int F, int W, int n_prev,
                                          int n_nodes, int terms, int form) {
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
       (terms != 1 && terms != 2))
     return -1;
-  if (!takes_grouped_i8(form, rows, F, W, terms, n_prev, n_nodes))
-    return static_cast<long long>(h2o3::tiled_i8_bytes(terms, n_nodes, F, W));
   size_t bytes = 0;
-  const int rc = grouped_i8_w(code_bytes, W, terms, true, &bytes, nullptr,
-                              nullptr, nullptr, nullptr, nullptr, rows, F,
-                              n_prev, n_nodes, 0, nullptr, nullptr, nullptr,
-                              nullptr);
+  const int rc = i8_level(
+      i8_form(form, code_bytes, rows, F, W, terms, n_prev, n_nodes), true,
+      &bytes, nullptr, code_bytes, nullptr, nullptr, terms, nullptr, nullptr,
+      rows, F, W, n_prev, n_nodes, 0, nullptr, nullptr, nullptr, nullptr);
   return rc == 0 ? static_cast<long long>(bytes) : -1;
 }
 
+// The form h2o3_binned_level_i8 picks at these shapes
+// (h2o3::i8_level_form; a LevelForm code).
+int h2o3_binned_level_i8_picks(int code_bytes, long long rows, int F, int W,
+                               int n_prev, int n_nodes, int terms) {
+  return i8_form(h2o3::kPickForm, code_bytes, rows, F, W, terms, n_prev,
+                 n_nodes);
+}
+
 // The int8 level: q [3 * terms, rows] int8 (terms 1 or 2), scales [3]
-// float32 in place of ghw; form -1 (picked: takes_grouped_i8), 0 (tiled
-// body, its int32 sums zeroed here, then flush_i8_kernel) or 1 (grouped,
-// merge and flush in one pass; an error where the shapes do not fit); ws,
-// h2o3_binned_level_i8_workspace bytes for the same form. Writes nid_out
-// [rows] int32 and hist [3, n_nodes, F, W] float32 (all of it). Returns a
-// cudaError_t value.
+// float32 in place of ghw; form -1 (picked from the shapes,
+// h2o3::i8_level_form) or forced: 0 (tiled body, its int32 sums zeroed
+// here, then flush_i8_kernel), 1 (tensor-core grouped body, W <= 32), 2
+// (wide body, W = 64, 128, 256), the grouped ones merging and flushing in
+// one pass; a forced grouped form that does not fit or has no instance at
+// W is an error; ws, h2o3_binned_level_i8_workspace bytes for the same
+// form. Writes nid_out [rows] int32 and hist [3, n_nodes, F, W] float32
+// (all of it). Returns a cudaError_t value.
 int h2o3_binned_level_i8(const void* codes, int code_bytes, const int* nid,
                          const int8_t* q, int terms, const float* scales,
                          const int* tables, long long rows, int F, int W,
                          int n_prev, int n_nodes, int level_base, int form,
                          int* nid_out, float* hist, void* ws, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_nodes < 1 || n_prev < 0 || rows < 0 ||
       (terms != 1 && terms != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (takes_grouped_i8(form, rows, F, W, terms, n_prev, n_nodes)) {
-    size_t unused = 0;
-    return grouped_i8_w(code_bytes, W, terms, false, &unused, codes, nid, q,
-                        scales, tables, rows, F, n_prev, n_nodes, level_base,
-                        nid_out, hist, ws, s);
-  }
-  int* acc = static_cast<int*>(ws);
-  const cudaError_t err =
-      cudaMemsetAsync(acc, 0, h2o3::tiled_i8_bytes(terms, n_nodes, F, W), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc =
-      terms == 1
-          ? launch_level_w<1>(codes, code_bytes, nid, q, tables, rows, F, W,
-                              n_prev, n_nodes, level_base, 0, nid_out, acc, s)
-          : launch_level_w<2>(codes, code_bytes, nid, q, tables, rows, F, W,
-                              n_prev, n_nodes, level_base, 0, nid_out, acc, s);
-  if (rc != 0) return rc;
-  return h2o3::launch_flush_i8(acc, scales, terms,
-                               static_cast<int64_t>(n_nodes) * F * W, hist,
-                               s);
+  size_t unused = 0;
+  return i8_level(
+      i8_form(form, code_bytes, rows, F, W, terms, n_prev, n_nodes), false,
+      &unused, codes, code_bytes, nid, q, terms, scales, tables, rows, F, W,
+      n_prev, n_nodes, level_base, nid_out, hist, ws,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The deepest level's route: same operands as h2o3_binned_level without

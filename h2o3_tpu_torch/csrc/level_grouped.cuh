@@ -56,8 +56,11 @@
 // prefetched (float: into registers; int8: cp.async into shared memory)
 // while the current chunk's products run. With the grouping pass's cost
 // each level, the int8 body beats the tiled int8 body only where that
-// one's partial outgrows a tile (i8_grouped_rule).
+// one's partial outgrows a tile at W <= 32 (i8_level_form,
+// level_wide.cuh).
 #pragma once
+
+#include <type_traits>
 
 #include "level_common.cuh"
 
@@ -562,6 +565,29 @@ struct I8Mass {
   static constexpr int kPlanes = 3 * kTerms;
   using Rec = QRec<kTerms>;
   using Part = int;
+  // the wide body (level_wide.cuh): a record's q bytes staged as the
+  // words after its row id (one at one term, two at two), summed in int32
+  using Stage = typename std::conditional<kTerms == 1, unsigned, uint2>::type;
+  static __device__ __forceinline__ int row(const typename Rec::T& v) {
+    return Rec::row(v);
+  }
+  static __device__ __forceinline__ Stage stage(const typename Rec::T& v,
+                                                int) {
+    if constexpr (kTerms == 1)
+      return v.y;
+    else
+      return make_uint2(v.y, v.z);
+  }
+  // q[p] of a staged record, each byte sign-extended on its own
+  static __device__ __forceinline__ int mass(const Stage& s, int p) {
+    unsigned w;
+    if constexpr (kTerms == 1)
+      w = s;
+    else
+      w = p < 4 ? s.x : s.y;
+    return static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * (p & 3))));
+  }
+  static __device__ __forceinline__ int add(int a, int b) { return a + b; }
 };
 
 constexpr int kI8Chunk = 128;             // rows of a chunk
@@ -1044,32 +1070,6 @@ size_t grouped_smem_of(int F) {
 // The most shared memory a block can use (227 KB): the int8 body's staged
 // rows of a wide frame and the selectors of a wide W are not within it.
 constexpr size_t kMaxBlockSmem = 232448;
-
-// The int8 levels' form rule (both kernels, K7 and K4; the numbers that
-// set it beside takes_grouped_i8 in hist_adaptive.cu and hist_binned.cu):
-// the grouped int8 body at W <= 32 where 3 * terms * n_nodes >= 96, the
-// levels at which the tiled body's int32 partial (3 * terms planes of
-// n_nodes x F x (W + 1) words) outgrows one tile at 28 features and its
-// shared integer atomics crowd most; with the int8 gate (3 * terms *
-// n_nodes <= 128) that is the deepest int8 level: 32 nodes at one term,
-// 16 at two. Elsewhere, and at W >= 64, the tiled body.
-constexpr int kI8GroupedMaxW = 32;
-constexpr int kI8GroupedMinPlaneNodes = 96;
-
-inline bool i8_grouped_rule(int W, int terms, int n_nodes) {
-  return W <= kI8GroupedMaxW &&
-         3 * terms * n_nodes >= kI8GroupedMinPlaneNodes;
-}
-
-// grouped_fits for the int8 body of `terms` terms over values of
-// `elem_bytes` (x float32: 4; codes: their width), and its shared memory
-// within a block's.
-inline bool grouped_i8_fits(int64_t rows, int F, int W, int terms,
-                            int elem_bytes, int n_prev, int n_nodes,
-                            bool ranges) {
-  return grouped_fits(rows, F, n_prev, n_nodes) &&
-         grouped_i8_smem(F, W, terms, elem_bytes, ranges) <= kMaxBlockSmem;
-}
 
 template <class Src, class Mass>
 int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,

@@ -2,7 +2,8 @@
 // the float [rows, F] adaptive level (K8, AdaptiveBins) at the wide lane
 // widths (W = 64, 128, 256; hist_binned.cu and hist_adaptive.cu pick it
 // per level), as a fixed-order scatter into shared memory over rows
-// grouped by parent. It is global_hist_grouped_kernel's design (K11,
+// grouped by parent; and their int8 levels (K4, K7) with integer masses
+// (below). It is global_hist_grouped_kernel's design (K11,
 // hist_global.cu) with the route fused into it.
 //
 // The grouping pass of level_common.cuh (ParentKey of level_grouped.cuh)
@@ -61,6 +62,28 @@
 // producers' gathers (a line per lane and load instruction) nearly as
 // much. Matching by ballots on the key bits alone, or __match_any_sync,
 // was slower than the tags.
+//
+// The int8 instance (mass policy I8Mass<terms>, level_grouped.cuh): the
+// int8 levels K4 (binned_level_i8, CodeBins) and K7 ([rows, F]
+// adaptive_level_i8, AdaptiveBins) at W = 64, 128, 256, on
+// quantize_ghw_i8's q (one or two terms). The grouping pass writes QRec
+// records ({row id, q bytes}: 8 bytes at one term, 16 at two); producers
+// stage a record's q words in place of the float4 of masses, with the
+// same route, nid_out and keys; the partial is int32, [3 * terms][fs][2W
+// + 1] (two terms take twice the float partial: about 7 features a slice
+// at W = 256). Integer sums come out the same in any order, so there is
+// no walk: the consumers are 256 threads, a record each, and each adds
+// its record's 3 * terms masses (bytes sign-extended one by one) into its
+// cells of every feature of the slice with shared integer atomics, native
+// ATOMS.ADD on Hopper (no CAS loop). The blocks write int32 slots
+// [b][3 * terms][2][F][W] and merge_slots_kernel with MergeFlushI8 sums
+// them and writes the float32 histogram in one pass (no flush kernel, no
+// zeroed sums): bit-equal to the plain version and to the TPU kernels. Its
+// int32 bound is the grouped int8 body's: |q| <= 128 over at most 16M rows.
+// Measured on an H100 (chip_smoke.py, PERF.md): this scatter took 40-78%
+// of the time of the float instance's walk with int32 sums at every level
+// (W = 64-256, one and two terms), and starting each thread's feature
+// loop at its own feature (against hot cells) changed nothing.
 #pragma once
 
 #include <type_traits>
@@ -79,17 +102,50 @@ constexpr uint16_t kNoKey = 0xFFFF;
 // KB reserved per block, halved
 constexpr size_t kWideTwoPerSm = (233472 - 2 * 1024) / 2;
 
+// The float mass of the wide body: {row id, g, h, w} records (GhwRec),
+// the masses staged as a float4 (rounded to bf16 at bf16), three float32
+// planes added in record order. The int8 mass is I8Mass<kTerms>
+// (level_grouped.cuh): QRec records, the q words staged, 3 * kTerms int32
+// planes.
+struct WideFloat {
+  static constexpr bool kInt = false;
+  static constexpr int kPlanes = 3;
+  using Rec = GhwRec;
+  using Stage = float4;
+  using Part = float;
+  static __device__ __forceinline__ int row(const float4& q) {
+    return __float_as_int(q.x);
+  }
+  static __device__ __forceinline__ float4 stage(const float4& q, int bf16) {
+    float g = q.y, h = q.z, w = q.w;
+    if (bf16) {
+      g = round_bf16(g);
+      h = round_bf16(h);
+      w = round_bf16(w);
+    }
+    return make_float4(g, h, w, 0.f);
+  }
+  static __device__ __forceinline__ float mass(const float4& m, int p) {
+    return p == 0 ? m.x : (p == 1 ? m.y : m.z);
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+
 // Shared bytes of a block of fs features at lane width W: the partial
-// (to a float4), two chunks' masses, the children's ranges (AdaptiveBins),
-// two chunks' keys, the consumers' tags.
-inline size_t wide_smem(int fs, int W, bool ranges) {
+// (planes of 4-byte sums, to a float4), two chunks' staged masses
+// (stage_bytes a record), the children's ranges (AdaptiveBins), two
+// chunks' keys, and the consumers' tags where they walk (the float mass).
+inline size_t wide_smem(int fs, int W, bool ranges, int planes,
+                        size_t stage_bytes, bool walk) {
   const size_t stride = 2 * static_cast<size_t>(W) + 1;
   const int consumers = fs < kWideConsumers ? fs : kWideConsumers;
-  return (3 * static_cast<size_t>(fs) * stride + 3) / 4 * 16 +
-         2 * kWideRecs * sizeof(float4) +
+  return (planes * static_cast<size_t>(fs) * stride + 3) / 4 * 16 +
+         2 * kWideRecs * stage_bytes +
          (ranges ? 4 * sizeof(float) * static_cast<size_t>(fs) : 0) +
          2 * static_cast<size_t>(fs) * kWideRecs * sizeof(uint16_t) +
-         static_cast<size_t>(consumers) * 2 * W;
+         (walk ? static_cast<size_t>(consumers) * 2 * W : 0);
 }
 
 // log2 of a power of two
@@ -113,22 +169,30 @@ __device__ __forceinline__ typename Src::Val word_value(uint32_t w, int q) {
 }
 
 // Block (slice, b): span b of the group bstart assigns it, features
-// [slice * fs, + fs); writes its partial into part[b][3][2][F][W].
-template <class Src>
+// [slice * fs, + fs); writes its partial into part[b][planes][2][F][W].
+template <class Src, class Mass>
 __global__ void __launch_bounds__(kWideThreads, 2)
-level_wide_kernel(Src src, const float4* __restrict__ rec,
+level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
                   const int* __restrict__ offsets,
                   const int* __restrict__ bstart, int G, int64_t span, int F,
                   int fs, int n_prev, int n_nodes, int level_base, int bf16,
-                  int* __restrict__ nid_out, float* __restrict__ part) {
+                  int* __restrict__ nid_out,
+                  typename Mass::Part* __restrict__ part) {
   constexpr int W = Src::kW;
   constexpr int kKeys = 2 * W;
   constexpr int stride = kKeys + 1;  // odd: neighbouring cells on other banks
+  constexpr int P = Mass::kPlanes;
+  // the float mass walks its records in a fixed order; integer sums come
+  // out the same in any order
+  constexpr bool kWalk = !Mass::kInt;
   using Val = typename Src::Val;
+  using Acc = typename Mass::Part;
+  using Stage = typename Mass::Stage;
+  using RecT = typename Mass::Rec::T;
   extern __shared__ float4 s_raw[];
-  float* s_hist = reinterpret_cast<float*>(s_raw);  // [3][fs][stride]
+  Acc* s_hist = reinterpret_cast<Acc*>(s_raw);  // [P][fs][stride]
   const int plane = fs * stride;
-  float4* s_m = s_raw + (3 * plane + 3) / 4;        // [2][kWideRecs]
+  Stage* s_m = reinterpret_cast<Stage*>(s_raw + (P * plane + 3) / 4);
   float* s_lo = reinterpret_cast<float*>(s_m + 2 * kWideRecs);  // [2][fs]
   float* s_inv = s_lo + (Src::kRanges ? 2 * fs : 0);            // [2][fs]
   uint16_t* s_k = reinterpret_cast<uint16_t*>(
@@ -140,7 +204,7 @@ level_wide_kernel(Src src, const float4* __restrict__ rec,
   if (b >= __ldg(bstart + G)) return;
   const int f0 = blockIdx.x * fs;
   const int ft = min(fs, F - f0);
-  for (int i = threadIdx.x; i < 3 * plane; i += blockDim.x) s_hist[i] = 0.f;
+  for (int i = threadIdx.x; i < P * plane; i += blockDim.x) s_hist[i] = Acc(0);
   const int k = span_group(bstart, G, b);
   const int64_t i0 = __ldg(offsets + k) +
                      static_cast<int64_t>(b - __ldg(bstart + k)) * span;
@@ -165,40 +229,35 @@ level_wide_kernel(Src src, const float4* __restrict__ rec,
   Val thr = Val(0);
   if (parent) src.split(k, n_prev, F, &feat, &thr, &na_right);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int consumers = ft < kWideConsumers ? ft : kWideConsumers;
+  // consumer warps: a warp a feature where they walk, else a thread a
+  // record of the chunk
+  const int consumers =
+      !kWalk ? kWideRecs / 32 : (ft < kWideConsumers ? ft : kWideConsumers);
   const bool consumer = warp < consumers;
   const int p = threadIdx.x - 32 * consumers;  // producer thread's record
 
   // (producers) the record of row p of chunk c, fetched a chunk before
   // it is staged
   auto fetch = [&](int64_t c) {
-    return p >= 0 && p < kWideRecs && c + p < i1
-               ? rec[c + p]
-               : make_float4(0.f, 0.f, 0.f, 0.f);
+    return p >= 0 && p < kWideRecs && c + p < i1 ? rec[c + p]
+                                                 : Mass::Rec::zero();
   };
   // (producers) record p of chunk c, q, into buffer buf
-  auto stage = [&](int64_t c, int buf, const float4& q) {
+  auto stage = [&](int64_t c, int buf, const RecT& q) {
     if (p >= kWideRecs) return;
-    float g = 0.f, h = 0.f, w = 0.f;
+    Stage m{};
     int row = 0, slot = -1;
     if (c + p < i1) {
-      row = __float_as_int(q.x);
+      row = Mass::row(q);
       int side = 0;
       if (parent) {
         side = src.right(src.load(row, feat, F), thr, na_right);
         if (blockIdx.x == 0) nid_out[row] = 2 * pid + 1 + side;
       }
       slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
-      g = q.y;
-      h = q.z;
-      w = q.w;
-      if (bf16) {
-        g = round_bf16(g);
-        h = round_bf16(h);
-        w = round_bf16(w);
-      }
+      m = Mass::stage(q, bf16);
     }
-    s_m[buf * kWideRecs + p] = make_float4(g, h, w, 0.f);
+    s_m[buf * kWideRecs + p] = m;
     uint16_t* sk = s_k + buf * fs * kWideRecs;
     if (slot < 0) {
       for (int fl = 0; fl < ft; ++fl) sk[fl * kWideRecs + p] = kNoKey;
@@ -264,17 +323,17 @@ level_wide_kernel(Src src, const float4* __restrict__ rec,
       }
     }
   };
-  // (consumers) the chunk in buffer buf into the warp's features. The
-  // lanes of a key: each lane writes its id into its key's tag, and the
-  // lanes that read back the same id (whichever lane's store landed) are
-  // matched with one ballot a bit of the id; only the membership matters,
-  // and it does not depend on which store landed.
+  // (consumers, kWalk) the chunk in buffer buf into the warp's features.
+  // The lanes of a key: each lane writes its id into its key's tag, and
+  // the lanes that read back the same id (whichever lane's store landed)
+  // are matched with one ballot a bit of the id; only the membership
+  // matters, and it does not depend on which store landed.
   uint8_t* tag = s_tag + warp * kKeys;
-  auto consume = [&](int buf) {
-    const float4* sm = s_m + buf * kWideRecs;
+  auto walk = [&](int buf) {
+    const Stage* sm = s_m + buf * kWideRecs;
     for (int fl = warp; fl < ft; fl += consumers) {
       const uint16_t* sk = s_k + (buf * fs + fl) * kWideRecs;
-      float* cell0 = s_hist + fl * stride;
+      Acc* cell0 = s_hist + fl * stride;
       for (int j0 = 0; j0 < kWideRecs; j0 += 32) {
         const int key = sk[j0 + lane];
         const bool live = key < kKeys;
@@ -289,25 +348,49 @@ level_wide_kernel(Src src, const float4* __restrict__ rec,
           peers &= on ? m : ~m;
         }
         if (live && lane == __ffs(peers) - 1) {
-          float sg = 0.f, sh = 0.f, sw = 0.f;
+          Acc s[P];
+#pragma unroll
+          for (int c = 0; c < P; ++c) s[c] = Acc(0);
           for (unsigned m = peers; m != 0u; m &= m - 1u) {
-            const float4 v = sm[j0 + __ffs(m) - 1];
-            sg = __fadd_rn(sg, v.x);
-            sh = __fadd_rn(sh, v.y);
-            sw = __fadd_rn(sw, v.z);
+            const Stage v = sm[j0 + __ffs(m) - 1];
+#pragma unroll
+            for (int c = 0; c < P; ++c)
+              s[c] = Mass::add(s[c], Mass::mass(v, c));
           }
-          float* cell = cell0 + key;
-          cell[0] = __fadd_rn(cell[0], sg);
-          cell[plane] = __fadd_rn(cell[plane], sh);
-          cell[2 * plane] = __fadd_rn(cell[2 * plane], sw);
+          Acc* cell = cell0 + key;
+#pragma unroll
+          for (int c = 0; c < P; ++c)
+            cell[c * plane] = Mass::add(cell[c * plane], s[c]);
         }
       }
     }
   };
+  // (consumers, integer masses) thread j of the chunk in buffer buf adds
+  // record j's masses into its cell of every feature of the slice with
+  // shared integer atomics (native ATOMS.ADD): integer sums come out the
+  // same in any order, so no warp owns a feature and none walks
+  auto scatter = [&](int buf) {
+    if constexpr (!kWalk) {
+      const int j = threadIdx.x;
+      const Stage v = s_m[buf * kWideRecs + j];
+      Acc m[P];
+#pragma unroll
+      for (int c = 0; c < P; ++c) m[c] = Mass::mass(v, c);
+      const uint16_t* sk = s_k + buf * fs * kWideRecs + j;
+      for (int fl = 0; fl < ft; ++fl) {
+        const int key = sk[fl * kWideRecs];
+        if (key >= kKeys) continue;
+        Acc* cell = s_hist + fl * stride + key;
+#pragma unroll
+        for (int c = 0; c < P; ++c)
+          if (m[c] != 0) atomicAdd(cell + c * plane, m[c]);
+      }
+    }
+  };
   __syncthreads();  // the ranges staged
-  float4 qn = make_float4(0.f, 0.f, 0.f, 0.f);  // a producer's next record
+  RecT qn = Mass::Rec::zero();  // a producer's next record
   if (!consumer) {
-    const float4 q = fetch(i0);
+    const RecT q = fetch(i0);
     qn = fetch(i0 + kWideRecs);
     stage(i0, 0, q);
   }
@@ -315,23 +398,26 @@ level_wide_kernel(Src src, const float4* __restrict__ rec,
   int buf = 0;
   for (int64_t c = i0; c < i1; c += kWideRecs, buf ^= 1) {
     if (consumer) {
-      consume(buf);
+      if constexpr (kWalk)
+        walk(buf);
+      else
+        scatter(buf);
     } else if (c + kWideRecs < i1) {
-      const float4 q = qn;
+      const RecT q = qn;
       qn = fetch(c + 2 * kWideRecs);
       stage(c + kWideRecs, buf ^ 1, q);
     }
     __syncthreads();  // chunk c added, chunk c + 1 staged
   }
-  // the partial into the block's slot, part[b][3][2][F][W], the slice's
+  // the partial into the block's slot, part[b][P][2][F][W], the slice's
   // features; consecutive threads on consecutive lanes
-  float* pb = part + static_cast<int64_t>(b) * 6 * F * W;
+  Acc* pb = part + static_cast<int64_t>(b) * 2 * P * F * W;
   const int per = 2 * ft * W;
-  for (int j = threadIdx.x; j < 3 * per; j += blockDim.x) {
+  for (int j = threadIdx.x; j < P * per; j += blockDim.x) {
     const int bin = j % W;
     const int t = j / W;
     const int fl = t % ft;
-    const int cs = t / ft;  // component * 2 + child
+    const int cs = t / ft;  // plane * 2 + child
     const int c = cs >> 1, s = cs & 1;
     pb[(static_cast<int64_t>(cs) * F + f0 + fl) * W + bin] =
         s_hist[c * plane + fl * stride + s * W + bin];
@@ -348,22 +434,25 @@ struct WidePlan {
 };
 
 // As many features a slice as let two blocks share an SM.
-template <class Src>
+template <class Src, class Mass>
 int plan_wide(int64_t rows, int F, int n_prev, int n_nodes, WidePlan* p) {
   constexpr int W = Src::kW;
+  constexpr int P = Mass::kPlanes;
+  constexpr size_t kStage = sizeof(typename Mass::Stage);
+  constexpr bool kWalk = !Mass::kInt;  // tags for the walk
   p->G = n_prev + n_nodes;
   if (!grouped_fits(rows, F, n_prev, n_nodes))
     return static_cast<int>(cudaErrorInvalidValue);
   int slices = 1;
   while (slices < F &&
-         wide_smem((F + slices - 1) / slices, W, Src::kRanges) >
-             kWideTwoPerSm)
+         wide_smem((F + slices - 1) / slices, W, Src::kRanges, P, kStage,
+                   kWalk) > kWideTwoPerSm)
     ++slices;
   p->fs = (F + slices - 1) / slices;
   p->slices = (F + p->fs - 1) / p->fs;
-  p->smem = wide_smem(p->fs, W, Src::kRanges);
+  p->smem = wide_smem(p->fs, W, Src::kRanges, P, kStage, kWalk);
   if (p->smem > kMaxBlockSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = level_wide_kernel<Src>;
+  auto kern = level_wide_kernel<Src, Mass>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p->smem));
@@ -386,44 +475,49 @@ int plan_wide(int64_t rows, int F, int n_prev, int n_nodes, WidePlan* p) {
   p->span = span < kWideRecs ? kWideRecs : span;
   p->nblk = span_blocks(rows, p->G, p->span);
   if (p->nblk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  p->bytes = grouping_bytes(rows, p->G) +
-             align256(sizeof(float) * 6 * static_cast<size_t>(F) * W *
-                      p->nblk);
+  p->bytes = grouping_bytes(rows, p->G, sizeof(typename Mass::Rec::T)) +
+             align256(sizeof(typename Mass::Part) * 2 * P *
+                      static_cast<size_t>(F) * W * p->nblk);
   return 0;
 }
 
-// The wide level: grouping, the blocks, then the merge of their partials
-// ADDED into hist [3, n_nodes, F, W] (MergeAdd). Writes nid_out; ws holds
-// plan_wide's bytes. plan_only: those bytes alone, into *bytes.
-template <class Src>
+// The wide level: grouping (masses: the mass policy's record source,
+// GhwRec or QRec), the blocks, then the merge of their partials with the
+// epilogue epi over the 3 * n_nodes * F * W cells of hist (MergeAdd: ADDS
+// into the float levels' hist; MergeFlushI8: writes the int8 levels'
+// float32 hist). Writes nid_out; ws holds plan_wide's bytes. plan_only:
+// those bytes alone, into *bytes.
+template <class Src, class Mass, class Epi>
 int launch_wide(const Src& src, bool plan_only, size_t* bytes,
-                const int* nid, const float* ghw, int64_t rows, int F,
-                int n_prev, int n_nodes, int level_base, int bf16,
-                int* nid_out, float* hist, void* ws, cudaStream_t stream) {
+                const int* nid, typename Mass::Rec masses, int64_t rows,
+                int F, int n_prev, int n_nodes, int level_base, int bf16,
+                int* nid_out, Epi epi, void* ws, cudaStream_t stream) {
+  using RecT = typename Mass::Rec::T;
+  using Part = typename Mass::Part;
   WidePlan p;
-  int rc = plan_wide<Src>(rows, F, n_prev, n_nodes, &p);
+  int rc = plan_wide<Src, Mass>(rows, F, n_prev, n_nodes, &p);
   if (plan_only) {
     *bytes = rc == 0 ? p.bytes : 0;
     return rc;
   }
   if (rc != 0) return rc;
   Grouping g;
-  float* part = reinterpret_cast<float*>(
-      carve_grouping(static_cast<char*>(ws), rows, p.G, &g));
+  Part* part = reinterpret_cast<Part*>(carve_grouping(
+      static_cast<char*>(ws), rows, p.G, &g, sizeof(RecT)));
   const ParentKey<Src> key{nid, src, n_prev, level_base - n_prev,
                            level_base, n_nodes, nid_out};
-  rc = launch_grouping(key, GhwRec{ghw, rows}, rows, p.G, p.span, g, stream);
+  rc = launch_grouping(key, masses, rows, p.G, p.span, g, stream);
   if (rc != 0) return rc;
   dim3 grid(static_cast<unsigned>(p.slices), static_cast<unsigned>(p.nblk));
-  level_wide_kernel<Src><<<grid, kWideThreads, p.smem, stream>>>(
-      src, static_cast<const float4*>(g.rec), g.offsets, g.bstart, p.G,
+  level_wide_kernel<Src, Mass><<<grid, kWideThreads, p.smem, stream>>>(
+      src, static_cast<const RecT*>(g.rec), g.offsets, g.bstart, p.G,
       p.span, F, p.fs, n_prev, n_nodes, level_base, bf16, nid_out, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t fw = static_cast<int64_t>(F) * Src::kW;
   return launch_merge(GroupedSrc{n_nodes, n_prev, level_base, fw}, part,
-                      6 * fw, g.bstart, 3 * n_nodes * fw, MergeAdd{hist},
-                      stream);
+                      2 * Mass::kPlanes * fw, g.bstart, 3 * n_nodes * fw,
+                      epi, stream);
 }
 
 // The forms of a float level (K1 and K8), the C entries' form argument:
@@ -436,20 +530,24 @@ enum LevelForm {
 };
 
 // The form a float level takes: a form >= 0 forced (a grouped form that
-// does not fit then fails at its launch), or picked (kPickForm): where a
-// grouped body takes the shapes ([rows, F], grouped_fits), the wide body
-// at W >= 64 and the tensor-core body below; else the tiled body, the
-// only form of [F, rows] (K5), of levels past kMaxGroups groups and of
-// frames past 512 features. chip_smoke.py at 10M x 28, bf16, on an H100
-// (NVIDIA H100 80GB HBM3, 700 W; ms a tree of six levels N = 1..32,
-// tensor-core / wide / tiled), K1: W = 32 11.31 / 13.96 / 13.34; W = 64
-// 20.30 / 13.34 / 17.36; W = 128 37.11 / 12.92 / 23.04; W = 256 72.48 /
-// 13.38 / 36.28 (at N = 32 the wide body 2.565 ms against one index_add_
-// of 5.868); K8: W = 32 14.31 / 18.50 / -; W = 64 26.08 / 16.89 / 22.17;
-// W = 128 50.04 / 16.40 / 30.52; W = 256 95.15 / 16.25 / 44.94. The wide
-// body wins every level at W >= 64, the tensor-core body at W = 32 and
-// below; the tiled body, faster at some levels below 8 nodes, adds floats
-// in schedule order and is no candidate where a grouped body fits.
+// does not fit, or has no instance at W, then fails at its launch), or
+// picked (kPickForm): where a grouped body takes the shapes ([rows, F],
+// grouped_fits), the wide body at W >= 64 and the tensor-core body below;
+// else the tiled body, the only form of [F, rows] (K5), of levels past
+// kMaxGroups groups and of frames past 512 features. chip_smoke.py at 10M
+// x 28, bf16, on an H100 (NVIDIA H100 80GB HBM3, 700 W; ms a tree of six
+// levels N = 1..32, tensor-core / wide / tiled), K1: W = 32 11.31 / 13.96
+// / 13.34; W = 64 20.30 / 13.34 / 17.36; W = 128 37.11 / 12.92 / 23.04; W
+// = 256 72.48 / 13.38 / 36.28 (at N = 32 the wide body 2.565 ms against
+// one index_add_ of 5.868); K8: W = 32 14.31 / 18.50 / -; W = 64 26.08 /
+// 16.89 / 22.17; W = 128 50.04 / 16.40 / 30.52; W = 256 95.15 / 16.25 /
+// 44.94. The wide body wins every level at W >= 64, where the tensor-core
+// body has no instance any more (its last times, K1 19.94 / 36.87 / 71.97
+// and K8 25.58 / 49.56 / 94.56 a tree at W = 64 / 128 / 256, beside the
+// wide body's 12.76 / 12.59 / 13.08 and 16.43 / 16.26 / 15.90 in one run),
+// the tensor-core body at W = 32 and below; the tiled body, faster at
+// some levels below 8 nodes, adds floats in schedule order and is no
+// candidate where a grouped body fits.
 constexpr int kWideMinW = 64;
 
 inline int level_form(int form, bool feat_major, int64_t rows, int F, int W,
@@ -458,6 +556,72 @@ inline int level_form(int form, bool feat_major, int64_t rows, int F, int W,
   if (feat_major || !grouped_fits(rows, F, n_prev, n_nodes))
     return kTiledForm;
   return W >= kWideMinW ? kWideForm : kTensorForm;
+}
+
+// The form an int8 level (K4, K7) takes: a form >= 0 forced (a grouped
+// form that does not fit, or has no instance at W, then fails at its
+// launch), or picked (kPickForm). Every form gives the same bits (integer
+// sums), so the rule picks by measured time alone. In [F, rows] (K5's
+// layout), past kMaxGroups groups or 512 features: the tiled body. At
+// W <= 32 the tensor-core body where 3 * terms * n_nodes >= 96 (the
+// levels at which the tiled body's int32 partial outgrows one tile at 28
+// features; with the int8 gate 3 * terms * n_nodes <= 128 that is the
+// deepest int8 level, 32 nodes at one term, 16 at two) and its staged
+// rows fit a block, else the tiled body. At W >= 64 the wide body, but
+// for the tiled body where its whole partial (tiled_i8_partial) is at
+// most 48 KB and the level is adaptive or of two terms: there the
+// grouping pass and, at two terms, the 16-byte records and two feature
+// slices cost the wide body more than the tiled body's one tile does.
+// chip_smoke.py at 10M x 28 on an H100 (NVIDIA H100 80GB HBM3, 700.00 W),
+// ms a tree of six levels at one term, wide / tiled / tensor-core (its
+// instances at W >= 64 are gone): K4 W = 64 4.88 / 8.10 / 9.55, W = 128
+// 6.40 / 14.02 / 28.08, W = 256 8.55 / 25.35 / 127.85; K7 W = 64 9.86 /
+// 13.29 / 22.24, W = 128 10.11 / 19.41 / 53.95, W = 256 10.52 / 31.74 /
+// 139.11; at N = 32 the wide body K4 1.383, 1.331, 1.919 ms and K7 1.981,
+// 2.103, 2.241 against one index_add_ of 6.436, 5.215, 6.005 and 6.100,
+// 5.994, 6.471. The shallow levels, wide / tiled: K7 one term W = 64 N =
+// 1, 2, 4 1.271 / 1.036, 1.400 / 1.096, 1.570 / 1.570, W = 128 N = 1, 2
+// 1.325 / 1.021, 1.513 / 1.531, W = 256 N = 1 1.358 / 1.562; two terms W =
+// 64 N = 1, 2 1.598 / 1.335, 1.747 / 1.866, W = 128 N = 1 1.612 / 1.843;
+// K4 one term N = 1 at W = 64, 128, 256 0.838 / 0.889, 0.886 / 0.912,
+// 1.022 / 1.419; two terms W = 64 N = 1, 2 1.371 / 1.237, 1.362 / 1.284,
+// W = 128 N = 1 1.471 / 1.728. At W <= 32, tensor-core / tiled, N = 1, 2,
+// 4, 8, 16, 32: K4 at W = 16, one term, 1.18 / 0.96, 1.22 / 0.91, 1.22 /
+// 0.93, 1.21 / 0.94, 1.24 / 1.06, 1.30 / 1.37; two terms (N <= 16), 1.69 /
+// 1.31, 1.72 / 1.28, 1.74 / 1.32, 1.75 / 1.45, 1.72 / 1.77; W = 32 alike
+// (one term at N = 32: 1.48 / 1.76); K7 at W = 32, one term, 1.81 / 1.15,
+// 1.81 / 1.20, 1.83 / 1.14, 1.86 / 1.63, 1.89 / 1.86, 1.97 / 2.50; two
+// terms, 2.28 / 1.41, 2.35 / 1.53, 2.35 / 1.95, 2.35 / 2.40, 2.37 / 2.84;
+// W = 16 alike (one term at N = 32: 1.70 / 1.88).
+constexpr int kI8GroupedMinPlaneNodes = 96;
+constexpr int64_t kI8TiledMaxPartial = 48 * 1024;
+
+// Shared bytes of the tiled int8 body's whole partial at these shapes:
+// 3 * terms int32 planes of n_nodes x F x (W + 1) sums, and the nodes'
+// ranges where the bins need them.
+inline int64_t tiled_i8_partial(int terms, int n_nodes, int F, int W,
+                                bool ranges) {
+  const int64_t cells = static_cast<int64_t>(n_nodes) * F;
+  return 4 * 3 * terms * cells * (W + 1) + (ranges ? 8 * cells : 0);
+}
+
+inline int i8_level_form(int form, bool feat_major, int64_t rows, int F,
+                         int W, int terms, int elem_bytes, bool ranges,
+                         int n_prev, int n_nodes) {
+  if (form >= 0) return form;
+  if (feat_major || !grouped_fits(rows, F, n_prev, n_nodes))
+    return kTiledForm;
+  if (W >= kWideMinW)
+    return (ranges || terms == 2) &&
+                   tiled_i8_partial(terms, n_nodes, F, W, ranges) <=
+                       kI8TiledMaxPartial
+               ? kTiledForm
+               : kWideForm;
+  return 3 * terms * n_nodes >= kI8GroupedMinPlaneNodes &&
+                 grouped_i8_smem(F, W, terms, elem_bytes, ranges) <=
+                     kMaxBlockSmem
+             ? kTensorForm
+             : kTiledForm;
 }
 
 }  // namespace h2o3

@@ -61,6 +61,8 @@ _SIGNATURES = {
         "h2o3_binned_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _LL,
                                  _INT, _INT, _INT, _INT, _INT, _INT, _VP,
                                  _VP, _VP, _VP],
+        "h2o3_binned_level_i8_picks": [_INT, _LL, _INT, _INT, _INT, _INT,
+                                       _INT],
     },
     "hist_adaptive": {
         "h2o3_adaptive_level": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _LL,
@@ -82,6 +84,8 @@ _SIGNATURES = {
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
                                    _VP, _LL, _INT, _INT, _INT, _INT, _INT,
                                    _INT, _VP, _VP, _VP, _VP],
+        "h2o3_adaptive_level_i8_picks": [_INT, _LL, _INT, _INT, _INT, _INT,
+                                         _INT],
         "h2o3_leaf_totals_workspace": [_LL, _INT],
         "h2o3_leaf_totals": [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT,
                              _VP, _VP, _VP, _VP],
@@ -265,11 +269,13 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-# The forms of the float levels (binned_level, adaptive_level; the C
-# entries' form argument, csrc/level_wide.cuh LevelForm): the kernel's
-# pick from the shapes (level_form), or one forced by name. "grouped" is
-# the tensor-core node-grouped body, "wide" the fixed-order scatter over
-# rows grouped by parent (W = 32 and up), "tiled" the tiled body.
+# The forms of the levels (binned_level, adaptive_level and their int8
+# instances; the C entries' form argument, csrc/level_wide.cuh
+# LevelForm): the kernel's pick from the shapes (level_form,
+# i8_level_form), or one forced by name. "grouped" is the tensor-core
+# node-grouped body (W <= 32), "wide" the scatter over rows grouped by
+# parent (float levels at W = 32 and up, int8 ones at W = 64 and up),
+# "tiled" the tiled body.
 LEVEL_FORMS = {"picked": -1, "tiled": 0, "grouped": 1, "wide": 2}
 _FORM_NAMES = {v: k for k, v in LEVEL_FORMS.items()}
 
@@ -353,9 +359,9 @@ def _binned_level_i8(codes, nid, q, scales, tables, n_prev: int,
     nid_out = torch.empty_like(nid)
     hist = torch.empty((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        # the grouped form's grouping and block partials, or the tiled
-        # body's int32 sums; -1: a forced grouped form that does not fit,
-        # which its launch refuses
+        # a grouped form's grouping and block partials, or the tiled
+        # body's int32 sums; -1: a forced grouped form that does not fit
+        # or has no instance at W, which its launch refuses
         ws = _workspace(max(lib.h2o3_binned_level_i8_workspace(
             codes.element_size(), rows, F, W, n_prev, n_nodes, terms, form),
             0), "binned_level_i8", dev)
@@ -374,10 +380,11 @@ def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
                     n_nodes: int, level_base: int, W: int):
     """Launch the packed level kernel on int8 fixed-point masses. Same
     contract as ``hist_adaptive.binned_level_i8_plain``. The kernel picks
-    its form from the shapes (``csrc/hist_binned.cu``
-    ``takes_grouped_i8``): rows grouped by parent and int8 one-hot
-    products on the tensor cores, merged and flushed in one pass, or the
-    tiled body with its flush."""
+    its form from the shapes (``csrc/level_wide.cuh`` ``i8_level_form``):
+    rows grouped by parent, then int8 one-hot products on the tensor
+    cores (W <= 32) or the wide body's integer scatter (W = 64, 128,
+    256), merged and flushed in one pass; or the tiled body with its
+    flush. Every form gives the same bits."""
     return _binned_level_i8(codes, nid, q, scales, tables, n_prev, n_nodes,
                             level_base, W, -1)
 
@@ -385,13 +392,24 @@ def binned_level_i8(codes: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
 def binned_level_i8_form(codes: torch.Tensor, nid: torch.Tensor,
                          q: torch.Tensor, scales: torch.Tensor,
                          tables: torch.Tensor, n_prev: int, n_nodes: int,
-                         level_base: int, W: int, grouped: bool):
-    """``binned_level_i8`` with one form of the kernel forced: ``grouped``
-    True, the node-grouped tensor-core form (raises where the shapes do
-    not fit it); False, the tiled body. For the tests and
+                         level_base: int, W: int, form):
+    """``binned_level_i8`` with one form of the kernel forced, by name as
+    in ``binned_level_form`` ("grouped" at W <= 32, "wide" at W = 64,
+    128, 256, "tiled"). A grouped form where the shapes do not fit it, or
+    at a W it has no instance for, raises. For the tests and
     ``chip_smoke.py``; the training path calls ``binned_level_i8``."""
     return _binned_level_i8(codes, nid, q, scales, tables, n_prev, n_nodes,
-                            level_base, W, int(bool(grouped)))
+                            level_base, W, _form_code(form))
+
+
+def binned_level_i8_picks(rows: int, F: int, W: int, n_prev: int,
+                          n_nodes: int, terms: int) -> str:
+    """The name of the form ``binned_level_i8`` takes at these shapes
+    (the kernel's rule, ``i8_level_form``; int8 codes, int16 at W = 256);
+    builds the libraries."""
+    from h2o3_tpu_torch.ops.hist_adaptive import code_dtype
+    return _FORM_NAMES[build()["hist_binned"].h2o3_binned_level_i8_picks(
+        code_dtype(W).itemsize, rows, F, W, n_prev, n_nodes, terms)]
 
 
 def binned_route_only(codes: torch.Tensor, nid: torch.Tensor,
@@ -587,10 +605,10 @@ def adaptive_level_i8(x: torch.Tensor, nid: torch.Tensor, q: torch.Tensor,
                       n_nodes: int, level_base: int, W: int, layout: str):
     """Launch the adaptive level kernel on int8 fixed-point masses. Same
     contract as ``hist_adaptive.adaptive_level_i8_plain``. The kernel
-    picks its form from the shapes (``csrc/hist_adaptive.cu``
-    ``takes_grouped_i8``): in ``"rows_f"`` the node-grouped int8
-    tensor-core form or the tiled body; in ``"f_rows"`` the tiled
-    body."""
+    picks its form from the shapes (``csrc/level_wide.cuh``
+    ``i8_level_form``): in ``"rows_f"`` the node-grouped int8 forms
+    (tensor-core at W <= 32, wide at W = 64, 128, 256) or the tiled body;
+    in ``"f_rows"`` the tiled body."""
     return _adaptive_level_i8(x, nid, q, scales, tables, lo, inv, n_prev,
                               n_nodes, level_base, W, layout, -1)
 
@@ -599,16 +617,24 @@ def adaptive_level_i8_form(x: torch.Tensor, nid: torch.Tensor,
                            q: torch.Tensor, scales: torch.Tensor,
                            tables: torch.Tensor, lo: torch.Tensor,
                            inv: torch.Tensor, n_prev: int, n_nodes: int,
-                           level_base: int, W: int, layout: str,
-                           grouped: bool):
-    """``adaptive_level_i8`` with one form of the kernel forced:
-    ``grouped`` True, the node-grouped tensor-core form (raises in
-    ``"f_rows"`` and where the shapes do not fit it); False, the tiled
-    body. For the tests and ``chip_smoke.py``; the training path calls
+                           level_base: int, W: int, layout: str, form):
+    """``adaptive_level_i8`` with one form of the kernel forced, by name
+    as in ``binned_level_i8_form``. A grouped form in ``"f_rows"``, where
+    the shapes do not fit it or at a W it has no instance for raises. For
+    the tests and ``chip_smoke.py``; the training path calls
     ``adaptive_level_i8``."""
     return _adaptive_level_i8(x, nid, q, scales, tables, lo, inv, n_prev,
                               n_nodes, level_base, W, layout,
-                              int(bool(grouped)))
+                              _form_code(form))
+
+
+def adaptive_level_i8_picks(rows: int, F: int, W: int, n_prev: int,
+                            n_nodes: int, terms: int,
+                            layout: str = "rows_f") -> str:
+    """The name of the form ``adaptive_level_i8`` takes at these shapes
+    (the kernel's rule, ``i8_level_form``); builds the libraries."""
+    return _FORM_NAMES[build()["hist_adaptive"].h2o3_adaptive_level_i8_picks(
+        int(layout == "f_rows"), rows, F, W, n_prev, n_nodes, terms)]
 
 
 def _totals_workspace(lib, rows: int, n_nodes: int, name: str, dev):

@@ -611,6 +611,209 @@ def test_slot_merge_order():
     assert got != seq
 
 
+# ------------------------- model of the int8 wide K4 and K7 (W >= 64)
+
+_WIDE_TWO_PER_SM = (233472 - 2 * 1024) // 2   # kWideTwoPerSm
+
+
+def _wide_smem(fs, W, ranges, planes, stage_bytes, walk):
+    """csrc/level_wide.cuh ``wide_smem``: the partial (4-byte sums, to 16
+    bytes), two chunks' staged masses, the children's ranges, two chunks'
+    keys, the walking consumers' tags."""
+    stride = 2 * W + 1
+    return ((planes * fs * stride + 3) // 4 * 16 + 2 * 256 * stage_bytes
+            + (16 * fs if ranges else 0) + 2 * fs * 256 * 2
+            + (min(fs, 8) * 2 * W if walk else 0))
+
+
+def _wide_plan_fs(F, W, ranges, terms=0):
+    """``plan_wide``'s features a slice: as many as let two blocks share
+    an SM; ``terms`` 0 is the float mass (three planes, a float4 staged a
+    record, tags), 1 or 2 the int8 mass (3·terms planes, the q words
+    staged, no walk)."""
+    planes, stage, walk = ((3, 16, True) if terms == 0
+                           else (3 * terms, 4 * terms, False))
+    slices = 1
+    while slices < F and _wide_smem(-(-F // slices), W, ranges, planes,
+                                    stage, walk) > _WIDE_TWO_PER_SM:
+        slices += 1
+    return -(-F // slices)
+
+
+@pytest.mark.parametrize("W,terms,ranges,fs", [
+    (256, 0, False, 14), (128, 0, False, 14), (64, 0, False, 28),
+    (256, 1, False, 14), (256, 2, False, 7), (128, 2, False, 14),
+    (64, 1, True, 28), (64, 2, True, 14), (256, 2, True, 7)])
+def test_wide_plan_slices(W, terms, ranges, fs):
+    """The wide body's slices at 28 features: the float mass and the int8
+    one at one term take 6,156 bytes a feature at W = 256, so 14 features
+    a slice keep two blocks an SM; two terms double the planes (7)."""
+    assert _wide_plan_fs(28, W, ranges, terms) == fs
+    planes, stage = (3, 16) if terms == 0 else (3 * terms, 4 * terms)
+    assert _wide_smem(fs, W, ranges, planes, stage,
+                      terms == 0) <= _WIDE_TWO_PER_SM
+
+
+def _wide_i8_model(nid, q, scales, can, route, bins_of, n_prev, N, base, W,
+                   F, fs, span=512, chunk=256):
+    """What csrc/level_wide.cuh computes with the int8 mass (I8Mass), in
+    numpy: rows grouped by parent (``can``: which parents split), the
+    grouping pass's int8 records (row id, then the q bytes), spans of a
+    group's records as blocks, each with slices of ``fs`` features;
+    chunks of 256 records routed (``route(r, k)``: the side of parent k's
+    rows r) and keyed child * W + bin (``bins_of(r, node)``; no key off
+    the window or outside [0, W)), each record's 3·terms q bytes,
+    sign-extended one by one, added into its cells of an int32 partial
+    [3·terms][fs][2W + 1] (integer sums: any order). Each (span, slice)
+    block writes its features into its span's slot of the flat buffer
+    [b][3·terms][2][F][W], and the merge (GroupedSrc over the slots, in
+    bstart's spans) sums a cell's slots, the parent's group at the
+    child's side and then the node's direct group, and flushes to float32
+    as MergeFlushI8 does."""
+    P = q.shape[0]
+    terms = P // 3
+    prev_base = base - n_prev
+    G = n_prev + N
+    lp = nid - prev_base
+    lpc = lp.clamp(0, max(n_prev, 1) - 1).long()
+    routed = (n_prev > 0) & (lp >= 0) & (lp < n_prev) & can[lpc]
+    ln = nid - base
+    direct = (ln >= 0) & (ln < N)
+    key = torch.where(routed, lp, torch.where(direct, n_prev + ln, -1))
+    offsets, idx = group_rows_plain(key.to(torch.int32), G)
+    recs = pack_i8_records_plain(q, idx[:int(offsets[-1])]).numpy()
+    nid_out = nid.clone()
+    fw = F * W
+    bstride = 2 * P * fw
+    bstart, spans = [], []
+    for k in range(G):
+        o0, o1 = int(offsets[k]), int(offsets[k + 1])
+        bstart.append(len(spans))
+        spans += [(k, s0, min(s0 + span, o1)) for s0 in range(o0, o1, span)]
+    bstart.append(len(spans))
+    part = np.zeros(max(len(spans), 1) * bstride, np.int64)
+    for b, (k, s0, s1) in enumerate(spans):
+        rc = recs[s0:s1]
+        r = torch.as_tensor(rc[:, 0].astype(np.int64))
+        parent = k < n_prev
+        c0 = 2 * (prev_base + k) + 1 - base if parent else k - n_prev
+        side = torch.zeros(len(r), dtype=torch.long)
+        if parent:
+            side = route(r, k)
+            nid_out[r] = (2 * (prev_base + k) + 1 + side).int()
+        node = c0 + side
+        live = ((node >= 0) & (node < N)).numpy()
+        bins = bins_of(r, node.clamp(0, N - 1)).numpy()
+        keys = np.where(live[:, None] & (bins >= 0) & (bins < W),
+                        side.numpy()[:, None] * W + bins, -1)
+        m = np.stack([_rec_mass(rc, p) for p in range(P)]).astype(np.int64)
+        for f0 in range(0, F, fs):                   # the span's slices
+            ft = min(fs, F - f0)
+            s_hist = np.zeros((P, fs, 2 * W + 1), np.int64)
+            for c in range(0, len(r), chunk):
+                for fl in range(ft):
+                    kf = keys[c:c + chunk, f0 + fl]
+                    ok = kf >= 0
+                    for p in range(P):
+                        np.add.at(s_hist[p, fl], kf[ok],
+                                  m[p, c:c + chunk][ok])
+            assert np.abs(s_hist).max(initial=0) < 2 ** 31
+            # pb[(cs * F + f0 + fl) * W + bin], cs = plane * 2 + child
+            for cs in range(2 * P):
+                for fl in range(ft):
+                    o = b * bstride + (cs * F + f0 + fl) * W
+                    part[o:o + W] = s_hist[cs >> 1, fl,
+                                           (cs & 1) * W:(cs & 1) * W + W]
+    total = np.zeros((P, N * fw), np.int64)
+    for plane in range(P):
+        for j in range(N):
+            cid = base + j
+            srcs = []
+            lpj = (cid - 1) // 2 - prev_base
+            if n_prev > 0 and cid >= 1 and 0 <= lpj < n_prev:
+                srcs.append((lpj, (2 * plane + (cid - 1) % 2) * fw))
+            srcs.append((n_prev + j, 2 * plane * fw))
+            for g, o in srcs:
+                for b in range(bstart[g], bstart[g + 1]):
+                    total[plane, j * fw:(j + 1) * fw] += \
+                        part[b * bstride + o:b * bstride + o + fw]
+    assert np.abs(total).max(initial=0) < 2 ** 31
+    # MergeFlushI8: s_c * f32(t0), or s_c * (256 * f32(t0) + f32(t1))
+    t = total.astype(np.float32).reshape(3, terms, N, F, W)
+    v = t[:, 0] if terms == 1 else np.float32(256.0) * t[:, 0] + t[:, 1]
+    s = scales.numpy().astype(np.float32).reshape(3, 1, 1, 1)
+    return nid_out, torch.as_tensor((s * v).astype(np.float32))
+
+
+def _wide_i8_case(kind, W, N, terms, seed, rows=1300, F=5, fs=2):
+    """A level's inputs (rows off every window; packed codes, int16 at
+    W = 256, or raw features) with q from quantize_ghw_i8; returns the
+    int8 wide model's and the plain int8 level's (nid, hist)."""
+    if kind == "binned":
+        c, nid, ghw, t, n_prev, base = _binned_inputs(rows, F, W, N, seed,
+                                                      False)
+        can, route, bins_of = _binned_src(c, t, n_prev, W)
+        q, s = tha.quantize_ghw_i8(ghw, terms)
+        plain = tha.binned_level_i8_plain(c, nid, q, s, t, n_prev, N, base,
+                                          W)
+    else:
+        x, nid, ghw, t, lo, inv, n_prev, base = _level_inputs(
+            rows, F, W, N, seed, False)
+        can, route, _b = _adaptive_src(x, t, lo, inv, n_prev, W)
+
+        def bins_of(r, node):
+            return tha.adaptive_bins_plain(x[r], node.int(), lo, inv, N, 0,
+                                           W)
+        q, s = tha.quantize_ghw_i8(ghw, terms)
+        plain = tha.adaptive_level_i8_plain(x, nid, q, s, t, lo, inv, n_prev,
+                                            N, base, W)
+    model = _wide_i8_model(nid, q, s, can, route, bins_of, n_prev, N, base,
+                           W, F, fs)
+    return model, plain
+
+
+@pytest.mark.parametrize("kind", ["binned", "adaptive"])
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("N", [1, 8, 32])
+def test_wide_i8_model_matches_plain_bit_for_bit(kind, terms, W, N):
+    """The int8 wide body (slices, the slot layout, the merge and its
+    flush) gives the plain int8 level's nid and histogram bit for bit."""
+    (nid_m, hist_m), (nid_p, hist_p) = _wide_i8_case(kind, W, N, terms,
+                                                     13 * W + N + terms)
+    assert torch.equal(nid_m, nid_p)
+    assert hist_m.dtype == torch.float32
+    assert float(hist_p.abs().sum()) > 0
+    assert torch.equal(hist_m, hist_p)
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_wide_i8_model_leaves_out_codes_outside_the_lanes(terms):
+    """A code outside [0, W) (negative, or past the lanes of int16 codes)
+    adds nothing in the int8 wide form, as in the other forms; the other
+    features see every row."""
+    W = 256
+    c, nid, ghw, t, n_prev, base = _binned_inputs(900, 3, W, 2, 5, False)
+    c[::7, 1] = -3
+    c[3::11, 1] = 300
+    q, s = tha.quantize_ghw_i8(ghw, terms)
+    can, route, bins_of = _binned_src(c, t, n_prev, W)
+    _n, hist_m = _wide_i8_model(nid, q, s, can, route, bins_of, n_prev, 2,
+                                base, W, 3, 2)
+    keep = (c[:, 1] >= 0) & (c[:, 1] < W)
+    _n, hist_k = tha.binned_level_i8_plain(c[keep], nid[keep], q[:, keep], s,
+                                           t, n_prev, 2, base, W)
+    assert torch.equal(hist_m[:, :, 1], hist_k[:, :, 1])
+    # the same routes (feature 1 may be the split feature), codes in lanes
+    c_in = c.clone()
+    c_in[:, 1] = torch.where(c[:, 1] < 0, 0, torch.where(c[:, 1] >= W, W - 2,
+                                                        c[:, 1]))
+    _n, hist_all = tha.binned_level_i8_plain(c_in, nid, q, s, t, n_prev, 2,
+                                             base, W)
+    assert torch.equal(hist_m[:, :, 0], hist_all[:, :, 0])
+    assert torch.equal(hist_m[:, :, 2], hist_all[:, :, 2])
+
+
 # ----------------------------------- model of K11's fixed in-block order
 
 

@@ -67,11 +67,13 @@ def test_quantize_ghw_i8_bit_equal_to_jax(terms, case):
 
 
 def _level_inputs(W, N, seed, F=6):
-    """Codes (NA = W-1), raw features (NaN) with per-node ranges, nid in
+    """Codes (NA = W-1; int8, int16 at W = 256), raw features (NaN) with
+    per-node ranges, nid in
     the previous level's window with 5% of the rows outside every window,
     float (g, h, w) and both kinds of split tables."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, W - 1, size=(ROWS, F)).astype(np.int8)
+    codes = rng.integers(0, W - 1, size=(ROWS, F)).astype(
+        np.int16 if W > 128 else np.int8)
     codes[rng.random((ROWS, F)) < 0.07] = W - 1
     x = rng.normal(size=(ROWS, F)).astype(np.float32)
     x[rng.random((ROWS, F)) < 0.06] = np.nan
@@ -90,7 +92,7 @@ def _level_inputs(W, N, seed, F=6):
     return codes, x, nid, ghw, btab, atab, lo, inv, n_prev, base
 
 
-@pytest.mark.parametrize("W", [16, 32])
+@pytest.mark.parametrize("W", [16, 32, 64, 256])
 @pytest.mark.parametrize("terms", [1, 2])
 @pytest.mark.parametrize("N", [1, 8])
 def test_binned_level_i8_plain_matches_pallas_interpret(W, terms, N):
@@ -116,7 +118,7 @@ def test_binned_level_i8_plain_matches_pallas_interpret(W, terms, N):
     assert torch.equal(nid_d, nid_t) and torch.equal(hist_d, hist_t)
 
 
-@pytest.mark.parametrize("W", [16, 32])
+@pytest.mark.parametrize("W", [16, 32, 64, 256])
 @pytest.mark.parametrize("terms", [1, 2])
 @pytest.mark.parametrize("N", [1, 8])
 def test_adaptive_level_i8_plain_matches_pallas_interpret(W, terms, N):
@@ -190,20 +192,27 @@ def test_leaf_totals_plain_matches_jax(n_prev, N):
 # ------------------------------------------------------------- growers
 
 
-def _grow_inputs(rows=3000, F=6, W=16, seed=0):
-    """Codes and raw features of one frame with a signal, and bernoulli
+def _grow_inputs(rows=3000, F=6, W=16, seed=0, w_anchor=False):
+    """Codes (int8, int16 at W = 256) and raw features of one frame with a
+    signal, and bernoulli
     (g, h, w) with 10% zero weights. g and h lie on a 2^-15 (2^-17) grid
     below 2^-4 (2^-8), but for one row each at 32639 quanta (= 127 x
     257): the int8 scales are then 2^-15 (2^-17) at two terms and 257
     quanta at one, and every histogram sum, int8 or bf16, is exact in any
     order. Candidates that split off the same rows then tie exactly in
-    both packages, as the float32 parity tests make them tie."""
+    both packages, as the float32 parity tests make them tie. With
+    ``w_anchor`` the weights are exact too: row 1 (g = h = 0) weighs 32639
+    x 2^-14, so the w scale is 2^-14 at two terms and 257 x 2^-14 at one,
+    and the split search's cumulative weight sums (the children's node_w)
+    do not depend on their order either (the int8 levels' sums; no bf16
+    level may run then, where that row's weight would round)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(rows, F)).astype(np.float32)
     X[rng.random((rows, F)) < 0.05] = np.nan
     edges = np.linspace(-2.5, 2.5, W - 3)
     codes = np.where(np.isnan(X), W - 1,
-                     np.digitize(np.nan_to_num(X), edges)).astype(np.int8)
+                     np.digitize(np.nan_to_num(X), edges)).astype(
+        np.int16 if W > 128 else np.int8)
     signal = np.nan_to_num(X[:, 0]) - 0.5 * np.nan_to_num(X[:, 1]) \
         + 0.5 * rng.normal(size=rows)
     p = 1.0 / (1.0 + np.exp(-signal))
@@ -212,6 +221,8 @@ def _grow_inputs(rows=3000, F=6, W=16, seed=0):
     g[0], h[0] = 32639 * 2.0 ** -15, 32639 * 2.0 ** -17
     w = np.ones(rows, np.float32)
     w[1:][rng.random(rows - 1) < 0.1] = 0.0
+    if w_anchor:
+        g[1], h[1], w[1] = 0.0, 0.0, 32639 * 2.0 ** -14
     return (codes, X, (g * w).astype(np.float32), (h * w).astype(np.float32),
             w)
 
@@ -312,6 +323,72 @@ def test_grow_tree_adaptive_i8_matches_jax(interpret, monkeypatch, terms):
             nb_f=torch.as_tensor(nb_f), layout=layout)
         assert calls == [1, 2, 4, 8]
         _assert_same_tree(tt, tnid, jt, jnid, "thr")
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_grow_tree_binned_i8_wide_matches_jax(interpret, monkeypatch, terms):
+    """The packed grower at nbins 254 (W = 256, int16 codes), XGBoost's
+    max_bins 256 shape, depth 6, against the JAX grower in interpret mode:
+    the same int8 level calls per level and the same tree."""
+    monkeypatch.setenv("H2O3_HIST_I8", str(terms))
+    codes, _X, g, h, w = _grow_inputs(W=256, seed=30 + terms)
+    assert codes.dtype == np.int16
+    F = codes.shape[1]
+    kw = dict(max_depth=6, n_bins=254, n_features=F, min_rows=1.0,
+              histogram_precision="bfloat16")
+    levels = [1, 2, 4, 8, 16, 32] if terms == 1 else [1, 2, 4, 8, 16]
+    jcalls = _count(monkeypatch, jha, "binned_level_tpu_i8", 6)
+    grow = jax.jit(lambda *a: jtree.grow_tree_binned(*a),
+                   static_argnums=(4,))
+    jt, jnid = grow(
+        jnp.asarray(codes), jnp.asarray(g), jnp.asarray(h), jnp.asarray(w),
+        jtree.TreeConfig(**kw), jnp.ones(F, bool))
+    assert jcalls == levels
+    calls = _count(monkeypatch, tha, "binned_level_i8_plain", 6)
+    tt, tnid = ttree.grow_tree_binned(
+        torch.as_tensor(codes), torch.as_tensor(g), torch.as_tensor(h),
+        torch.as_tensor(w), ttree.TreeConfig(**kw))
+    assert calls == levels
+    _assert_same_tree(tt, tnid, jt, jnid, "split_bin")
+    assert bool(tt["is_split"][31:].any())
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_grow_tree_adaptive_i8_wide_matches_jax(interpret, monkeypatch,
+                                                terms):
+    """The adaptive grower at nbins 62 (W = 64), XGBoost's
+    tree_method="auto" shape, against the JAX grower (K7 in interpret
+    mode), in both layouts: the same int8 level calls and the same
+    tree."""
+    monkeypatch.setenv("H2O3_HIST_I8", str(terms))
+    # every level (N <= 16) takes the int8 level at both terms
+    _c, X, g, h, w = _grow_inputs(seed=40 + terms, w_anchor=True)
+    F = X.shape[1]
+    kw = dict(max_depth=5, n_bins=62, n_features=F, min_rows=1.0,
+              histogram_precision="bfloat16")
+    lo = np.nanmin(X, axis=0)
+    hi = np.nanmax(X, axis=0)
+    nb_f = np.full(F, 62.0, np.float32)
+    jcalls = _count(monkeypatch, jha, "adaptive_level_tpu_i8", 8)
+    grow = jax.jit(lambda *a, **k: jtree.grow_tree_adaptive(*a, **k),
+                   static_argnums=(4,))
+    jt, jnid = grow(jnp.asarray(X), jnp.asarray(g), jnp.asarray(h),
+                    jnp.asarray(w),
+                    jtree.TreeConfig(hist_method="pallas", **kw),
+                    jnp.ones(F, bool), jnp.asarray(lo), jnp.asarray(hi),
+                    nb_f=jnp.asarray(nb_f))
+    assert jcalls == [1, 2, 4, 8, 16]
+    calls = _count(monkeypatch, tha, "adaptive_level_i8_plain", 8)
+    for layout in tha.LAYOUTS:
+        calls.clear()
+        x = torch.as_tensor(X if layout == "rows_f" else X.T.copy())
+        tt, tnid = ttree.grow_tree_adaptive(
+            x, torch.as_tensor(g), torch.as_tensor(h), torch.as_tensor(w),
+            ttree.TreeConfig(**kw), torch.as_tensor(lo), torch.as_tensor(hi),
+            nb_f=torch.as_tensor(nb_f), layout=layout)
+        assert calls == [1, 2, 4, 8, 16]
+        _assert_same_tree(tt, tnid, jt, jnid, "thr")
+    assert bool(tt["is_split"][15:].any())
 
 
 def test_growers_ignore_the_switch_at_float32(monkeypatch):

@@ -382,12 +382,21 @@ def _off_window(nid, N, seed):
     return torch.where(out, 2 * N + 7, nid).to(torch.int32).contiguous()
 
 
+def _i8_instance(form, W):
+    """Whether a forced int8 form has an instance at lane width W: the
+    tensor-core grouped body at W <= 32, the wide body at W >= 64."""
+    return not ((form == "grouped" and W >= 64) or
+                (form == "wide" and W <= 32))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["picked", "grouped", "tiled"])
-@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("form", ["picked", "grouped", "wide", "tiled"])
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("terms,N", [(1, 1), (1, 8), (1, 32), (2, 1),
                                      (2, 8), (2, 16)])
 def test_binned_level_i8_bit_equal(cuda, form, W, terms, N):
+    """Every int8 form bit-equal to the plain version; a grouped form
+    forced at a W it has no instance for raises."""
     c, n, g, t, n_prev, base = _inputs(50_000, 9, W, N, N + W, False, cuda)
     n = _off_window(n, N, W)
     q, s = tha.quantize_ghw_i8(g, terms)
@@ -395,9 +404,14 @@ def test_binned_level_i8_bit_equal(cuda, form, W, terms, N):
     if form == "picked":
         nid_k, hist_k = tha.binned_level(c, n, g, t, n_prev, N, base, W,
                                          True, (q, s))
+    elif not _i8_instance(form, W):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.binned_level_i8_form(c, n, q, s, t, n_prev, N, base, W,
+                                         form)
+        return
     else:
         nid_k, hist_k = kernels.binned_level_i8_form(
-            c, n, q, s, t, n_prev, N, base, W, form == "grouped")
+            c, n, q, s, t, n_prev, N, base, W, form)
     assert kernels.LAUNCHES["binned_level_i8"] == before + 1
     nid_p, hist_p = tha.binned_level_i8_plain(c, n, q, s, t, n_prev, N, base,
                                               W)
@@ -406,19 +420,18 @@ def test_binned_level_i8_bit_equal(cuda, form, W, terms, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grouped", [True, False])
-@pytest.mark.parametrize("W", [16, 256])
-def test_binned_level_i8_codes_outside_the_lanes_add_nothing(cuda, grouped,
-                                                             W):
+@pytest.mark.parametrize("W,form", [(16, "grouped"), (16, "tiled"),
+                                    (256, "wide"), (256, "tiled")])
+def test_binned_level_i8_codes_outside_the_lanes_add_nothing(cuda, W, form):
     """Codes outside [0, W) (negative, and past the lanes of int16 codes)
-    add nothing in either form; the other features see every row."""
+    add nothing in any form; the other features see every row."""
     c, n, g, t, n_prev, base = _inputs(50_000, 6, W, 8, W, False, cuda)
     c[::13, 2] = -4
     if W == 256:
         c[5::13, 2] = 300
     q, s = tha.quantize_ghw_i8(g, 1)
     nid_k, hist_k = kernels.binned_level_i8_form(c, n, q, s, t, n_prev, 8,
-                                                 base, W, grouped)
+                                                 base, W, form)
     nid_p = tha.binned_route_only_plain(c, n, t, n_prev, base, W)
     assert torch.equal(nid_k, nid_p)
     keep = (c[:, 2] >= 0) & (c[:, 2] < W)
@@ -433,11 +446,13 @@ def test_binned_level_i8_codes_outside_the_lanes_add_nothing(cuda, grouped,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["picked", "grouped", "tiled"])
+@pytest.mark.parametrize("form", ["picked", "grouped", "wide", "tiled"])
 @pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
-@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("terms,N", [(1, 1), (1, 8), (1, 32), (2, 16)])
 def test_adaptive_level_i8_bit_equal(cuda, form, layout, W, terms, N):
+    """Every int8 form bit-equal to the plain version; a grouped form
+    forced in [F, rows] or at a W it has no instance for raises."""
     x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
         50_000, 9, W, N, N + W + terms, False, layout, cuda)
     n = _off_window(n, N, W)
@@ -446,16 +461,16 @@ def test_adaptive_level_i8_bit_equal(cuda, form, layout, W, terms, N):
     if form == "picked":
         nid_k, hist_k = tha.adaptive_level(x, n, g, t, lo, inv, n_prev, N,
                                            base, W, True, layout, (q, s))
-    elif form == "grouped" and layout == "f_rows":
-        # the grouped form reads [rows, F] only: forced, it refuses
+    elif form != "tiled" and (layout == "f_rows"
+                              or not _i8_instance(form, W)):
+        # the grouped forms read [rows, F] only: forced, they refuse
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernels.adaptive_level_i8_form(x, n, q, s, t, lo, inv, n_prev, N,
-                                           base, W, layout, True)
+                                           base, W, layout, form)
         return
     else:
         nid_k, hist_k = kernels.adaptive_level_i8_form(
-            x, n, q, s, t, lo, inv, n_prev, N, base, W, layout,
-            form == "grouped")
+            x, n, q, s, t, lo, inv, n_prev, N, base, W, layout, form)
     assert kernels.LAUNCHES["adaptive_level_i8"] == before + 1
     nid_p, hist_p = tha.adaptive_level_i8_plain(x, n, q, s, t, lo, inv,
                                                 n_prev, N, base, W, layout)
@@ -514,15 +529,16 @@ def test_i8_and_totals_wrappers_check_their_operands(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grouped", [True, False])
-@pytest.mark.parametrize("W", [16, 32, 256])
+@pytest.mark.parametrize("W,form", [(16, "grouped"), (16, "tiled"),
+                                    (32, "grouped"), (32, "tiled"),
+                                    (256, "tiled")])
 @pytest.mark.parametrize("N", [1, 8, 32])
-def test_binned_level_forms_integer_mass_bit_equal(cuda, grouped, W, N):
+def test_binned_level_forms_integer_mass_bit_equal(cuda, W, form, N):
     c, n, g, t, n_prev, base = _inputs(60_000, 9, W, N, 7 * N + W, True, cuda)
     n = _off_window(n, N, N)
     before = kernels.LAUNCHES["binned_level"]
     nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, N, base, W,
-                                              False, grouped)
+                                              False, form)
     assert kernels.LAUNCHES["binned_level"] == before + 1
     nid_p, hist_p = tha.binned_level_plain(c, n, g, t, n_prev, N, base, W)
     assert torch.equal(nid_k, nid_p)
@@ -530,13 +546,15 @@ def test_binned_level_forms_integer_mass_bit_equal(cuda, grouped, W, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grouped", [True, False])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("W,N", [(16, 1), (16, 32), (32, 8), (256, 8)])
-def test_binned_level_forms_float_mass_close(cuda, grouped, bf16, W, N):
+@pytest.mark.parametrize("W,N,form", [
+    (16, 1, "grouped"), (16, 1, "tiled"), (16, 32, "grouped"),
+    (16, 32, "tiled"), (32, 8, "grouped"), (32, 8, "tiled"),
+    (256, 8, "tiled")])
+def test_binned_level_forms_float_mass_close(cuda, bf16, W, N, form):
     c, n, g, t, n_prev, base = _inputs(200_000, 28, W, N, N + 1, False, cuda)
     nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, N, base, W,
-                                              bf16, grouped)
+                                              bf16, form)
     nid_p, hist_p = tha.binned_level_plain(c, n, g.double(), t, n_prev, N,
                                            base, W, bf16)
     _n, mass = tha.binned_level_plain(c, n, g.double().abs(), t, n_prev, N,
@@ -550,12 +568,14 @@ def test_binned_level_forms_float_mass_close(cuda, grouped, bf16, W, N):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("W", [16, 32, 256])
 def test_binned_level_grouped_and_tiled_agree(cuda, bf16, W):
-    """The two forms against each other: the same node ids, each bin
-    within twice the float tolerance (each is within it of the plain
+    """A node-grouped form (tensor-core at W <= 32, wide at W = 256) and
+    the tiled body against each other: the same node ids, each bin within
+    twice the float tolerance (each is within it of the plain
     version)."""
     c, n, g, t, n_prev, base = _inputs(300_000, 28, W, 16, W, False, cuda)
     nid_g, hist_g = kernels.binned_level_form(c, n, g, t, n_prev, 16, base,
-                                              W, bf16, True)
+                                              W, bf16,
+                                              "grouped" if W <= 32 else "wide")
     nid_t, hist_t = kernels.binned_level_form(c, n, g, t, n_prev, 16, base,
                                               W, bf16, False)
     _n, mass = tha.binned_level_plain(c, n, g.double().abs(), t, n_prev, 16,
@@ -759,8 +779,9 @@ def test_wide_form_repeats_bit_for_bit(cuda, kind, bf16, W, N):
 def test_forced_forms_that_do_not_fit_raise(cuda):
     """A grouped form forced where it does not fit raises (the packed
     level past 512 features, the adaptive level in [F, rows], the wide
-    body at W = 16, which has no instance); the tiled body takes both; an
-    unknown form name is refused."""
+    body at W = 16 and the tensor-core body at W >= 64, which have no
+    instance); the tiled body takes both; an unknown form name is
+    refused."""
     c, n, g, t, n_prev, base = _inputs(4096, 600, 64, 4, 3, True, cuda)
     x, nx, gx, tx, lo, inv, px, bx = _adaptive_inputs(4096, 8, 64, 4, 3,
                                                       True, "f_rows", cuda)
@@ -780,6 +801,17 @@ def test_forced_forms_that_do_not_fit_raise(cuda):
         with pytest.raises(RuntimeError):
             kernels.adaptive_level_form(x, nx, gx, tx, lo, inv, px, 4, bx,
                                         64, False, "f_rows", form)
+    # the tensor-core body has no instance at W >= 64
+    for W in (64, 128, 256):
+        cw, nw, gw, tw, pw, bw = _inputs(4096, 8, W, 4, 3, True, cuda)
+        xw, nxw, gxw, txw, low, invw, pxw, bxw = _adaptive_inputs(
+            4096, 8, W, 4, 3, True, "rows_f", cuda)
+        with pytest.raises(RuntimeError):
+            kernels.binned_level_form(cw, nw, gw, tw, pw, 4, bw, W, False,
+                                      "grouped")
+        with pytest.raises(RuntimeError):
+            kernels.adaptive_level_form(xw, nxw, gxw, txw, low, invw, pxw, 4,
+                                        bxw, W, False, "rows_f", "grouped")
     nid_k, hist_k = kernels.binned_level_form(c, n, g, t, n_prev, 4, base, 64,
                                               False, "tiled")
     assert torch.equal(hist_k, tha.binned_level_plain(c, n, g, t, n_prev, 4,
@@ -807,3 +839,38 @@ def test_level_form_rule(cuda):
         assert kernels.adaptive_level_picks(rows, 28, W, 16, 32,
                                             "f_rows") == "tiled"
         assert kernels.binned_level_picks(rows, 600, W, 16, 32) == "tiled"
+
+
+@pytest.mark.gpu
+def test_i8_level_form_rule(cuda):
+    """The forms the int8 levels pick: below W = 64 the tensor-core body
+    at 3·terms·N >= 96, else the tiled body; from W = 64 the wide body,
+    but for the tiled body where its whole partial is at most 48 KB on an
+    adaptive or two-term level; the tiled body past 512 features and in
+    [F, rows]."""
+    rows = 10_000_000
+    for W in (16, 32):
+        for kind in ("binned", "adaptive"):
+            picks = getattr(kernels, f"{kind}_level_i8_picks")
+            assert picks(rows, 28, W, 16, 32, 1) == "grouped"
+            assert picks(rows, 28, W, 8, 16, 2) == "grouped"
+            assert picks(rows, 28, W, 8, 16, 1) == "tiled"
+    for W in (64, 128, 256):
+        for N in (8, 32):
+            assert kernels.binned_level_i8_picks(rows, 28, W, N // 2, N,
+                                                 1) == "wide"
+            assert kernels.adaptive_level_i8_picks(rows, 28, W, N // 2, N,
+                                                   1) == "wide"
+        assert kernels.binned_level_i8_picks(rows, 28, W, 0, 1, 1) == "wide"
+        assert kernels.adaptive_level_i8_picks(rows, 28, W, 16, 32, 1,
+                                               "f_rows") == "tiled"
+        assert kernels.binned_level_i8_picks(rows, 600, W, 16, 32,
+                                             1) == "tiled"
+    # the shallow levels whose tiled partial fits 48 KB
+    assert kernels.adaptive_level_i8_picks(rows, 28, 64, 1, 2, 1) == "tiled"
+    assert kernels.adaptive_level_i8_picks(rows, 28, 64, 2, 4, 1) == "wide"
+    assert kernels.adaptive_level_i8_picks(rows, 28, 128, 0, 1, 1) == "tiled"
+    assert kernels.adaptive_level_i8_picks(rows, 28, 256, 0, 1, 1) == "wide"
+    assert kernels.binned_level_i8_picks(rows, 28, 64, 0, 1, 2) == "tiled"
+    assert kernels.binned_level_i8_picks(rows, 28, 64, 1, 2, 2) == "wide"
+    assert kernels.binned_level_i8_picks(rows, 28, 128, 0, 1, 2) == "wide"
