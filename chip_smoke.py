@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and the repository; without either it exits non-zero and
-prints no result. It drives the port's three GBM paths: packed codes
+prints no result. It drives the port's GBM paths from ``Frame.from_numpy`` and from a
+CSV file through ``import_file``: packed codes
 (``histogram_type="quantiles_global"``, kernels binned_level and
 binned_route_only), adaptive bins (``packed_codes=False``, H2O's
 default ``uniform_adaptive``, kernels adaptive_level and
@@ -78,6 +79,24 @@ against its plain version. Phases, each fatal on failure:
    packed_wide_i8 and adaptive_wide_i8 (the wide paths with
    ``H2O3_HIST_I8=1``: 6 x 20 int8 level launches, 20 route launches, 0
    float level launches), each AUC within 0.005 of its wide path's;
+   from a file (after phase 5): CSV -> ``import_file(device="cuda")`` ->
+   GBM -> AUC -> predict, the counters set to 0 before each import. The
+   HIGGS shape at 1M rows (nine significant digits, so that every
+   float32 comes back exactly): every column bit-equal to
+   ``Frame.from_numpy`` of the same arrays and the packed train's trees
+   and AUC bit-equal to that frame's (6 x 20 binned_level, 20
+   binned_route_only, 20 segment_totals). The airlines shape at 10M rows
+   (the column layout of the public airline benchmark's train-10m.csv,
+   drawn from a seed; enum columns of 12, 31, 7, 22 and 300 levels, NA
+   cells in DepTime and UniqueCarrier): types, domain sizes and NA
+   counts as drawn; H2O's default bernoulli GBM (depth 6, 20 trees) on
+   adaptive bins at W = 256 (6 x 20 adaptive_level, 20
+   adaptive_route_only, 0 of any other), AUC above 0.5; two float32
+   trains bit for bit; a warm, profiled retrain; card vs CPU on the
+   file's first 200k rows (every split equal, |dAUC| <= 1e-4). Each
+   file's write and import seconds, MB/s, rows/s, H2D seconds and the
+   host's cores are printed; the files are kept in the temporary
+   directory, keyed by their parameters;
 5. card vs CPU, same code, each path: 200k rows, depth 6, float32
    histograms, 5 trees on each device (nbins 300 on the global path);
    every tree's splits equal, |dAUC| <= 1e-4; and packed vs global on the
@@ -214,6 +233,18 @@ PATHS = {
                          "level": "adaptive_level_i8",
                          "route": "adaptive_route_only", "split_key": "thr",
                          "i8": 1},
+    # from a CSV file through import_file: the HIGGS shape on the packed
+    # path, and the airlines shape (enum columns of about 300 levels, so
+    # no packing: adaptive bins at W = 256, the wide adaptive level) with
+    # H2O's defaults (nbins 20, min_rows 10)
+    "higgs_csv": {"params": dict(nbins=14,
+                                 histogram_type="quantiles_global"),
+                  "level": "binned_level", "route": "binned_route_only",
+                  "totals": "segment_totals", "split_key": "split_bin"},
+    "airlines_csv": {"params": dict(min_rows=10.0),
+                     "level": "adaptive_level",
+                     "route": "adaptive_route_only", "split_key": "thr",
+                     "y": "dep_delayed_15min"},
 }
 # the float levels' wide lane widths
 WIDE_W = (64, 128, 256)
@@ -266,10 +297,14 @@ def level_bound_ms(rows, F, itemsize, N, W, rows_in_level):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def route_bound_ms(rows, itemsize):
+def route_bound_ms(rows, F, itemsize, layout="rows_f"):
     """The route reads one code (or raw value), one nid and writes one
-    nid per row."""
-    return rows * (itemsize + 8) / HBM_BYTES_PER_S * 1e3, "bytes"
+    nid per row. In [rows, F] a row's codes are contiguous, so gathering
+    one code a row moves the whole 32-byte sector that holds it:
+    min(F x itemsize, 32) bytes a row; in [F, rows] a warp's rows read
+    one feature's contiguous run, itemsize bytes a row."""
+    code = min(F * itemsize, 32) if layout == "rows_f" else itemsize
+    return rows * (code + 8) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def adaptive_level_bound_ms(rows, F, N, W, rows_in_level):
@@ -498,7 +533,7 @@ def phase_kernels(dev, rows=1_000_000, F=28):
         codes, nid, tables, n_prev, base, 16), 20, flush)
     pms = time_cuda(lambda: binned_route_only_plain(
         codes, nid, tables, n_prev, base, 16), 3, flush)
-    bound, by = route_bound_ms(rows, 1)
+    bound, by = route_bound_ms(rows, F, 1)
     print(f"binned_route_only {rows}x{F} N=64: {ms:.6g} ms (plain "
           f"{pms:.6g} ms, bound {bound:.6g} ms by {by})", flush=True)
     check_forms_refused(dev)
@@ -724,8 +759,8 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
         ms = time_cuda(lambda: kernels.adaptive_route_only(*r, layout), 20,
                        flush)
         print(f"adaptive_route_only {layout} {rows}x{F} N=64: {ms:.6g} ms "
-              f"(bound {route_bound_ms(rows, 4)[0]:.6g} ms); NaN/±inf/"
-              f"zero-span case bit-equal", flush=True)
+              f"(bound {route_bound_ms(rows, F, 4, layout)[0]:.6g} ms); "
+              f"NaN/±inf/zero-span case bit-equal", flush=True)
 
 
 def global_inputs(rows, F, B1, N, int_ghw, seed, dev, left_only=False):
@@ -1070,6 +1105,187 @@ def frame_of(X, y, device):
     return h2o.Frame.from_numpy(cols, device=device)
 
 
+# ------------------------------------------------------------ CSV files
+
+# the 22 carriers of the public airline on-time data, 2005-2007
+CARRIERS = ("AA", "AQ", "AS", "B6", "CO", "DH", "DL", "EV", "F9", "FL", "HA",
+            "HP", "MQ", "NW", "OH", "OO", "TZ", "UA", "US", "WN", "XE", "YV")
+AIRLINES_NAMES = ("Month", "DayofMonth", "DayOfWeek", "DepTime",
+                  "UniqueCarrier", "Origin", "Dest", "Distance",
+                  "dep_delayed_15min")
+
+
+def _table(labels):
+    """A column's cell texts as a [k, width] uint8 matrix and lengths."""
+    b = [lab.encode() for lab in labels]
+    mat = np.zeros((len(b), max(len(x) for x in b)), np.uint8)
+    for i, x in enumerate(b):
+        mat[i, :len(x)] = np.frombuffer(x, np.uint8)
+    return mat, np.array([len(x) for x in b], np.int64)
+
+
+def _take(table, idx):
+    return table[0][idx], table[1][idx]
+
+
+def _sci9(x):
+    """float32 values (finite) as nine-significant-digit e-notation
+    cells, ``[-]d.dddddddde±XX``: a [rows, 15] uint8 matrix and lengths.
+    Nine significant digits bring every float32 back exactly."""
+    a = np.abs(x.astype(np.float64))
+    nz = a > 0
+    e = np.zeros(len(a), np.int64)
+    e[nz] = np.floor(np.log10(a[nz])).astype(np.int64)
+    m = np.rint(a / 10.0 ** (e - 8)).astype(np.int64)
+    for fix, de in ((m >= 10 ** 9, 1), (nz & (m < 10 ** 8), -1)):
+        e[fix] += de                      # log10 landed a decade off
+        m[fix] = np.rint(a[fix] / 10.0 ** (e[fix] - 8)).astype(np.int64)
+    body = np.empty((len(a), 14), np.uint8)
+    for k in range(9):
+        body[:, k + (k > 0)] = 48 + (m // 10 ** (8 - k)) % 10
+    body[:, 1] = ord(".")
+    body[:, 10] = ord("e")
+    body[:, 11] = np.where(e < 0, ord("-"), ord("+"))
+    body[:, 12] = 48 + np.abs(e) // 10
+    body[:, 13] = 48 + np.abs(e) % 10
+    neg = np.signbit(x)
+    mat = np.zeros((len(a), 15), np.uint8)
+    mat[neg, 0] = ord("-")
+    mat[neg, 1:] = body[neg]
+    mat[~neg, :14] = body[~neg]
+    return mat, 14 + neg.astype(np.int64)
+
+
+def _csv_block(cols) -> bytes:
+    """CSV text of one block of rows: ``cols`` holds, per column, a
+    [rows, width] uint8 matrix of the cells' bytes and the cells'
+    lengths; cells are joined by commas, each row ends in a newline."""
+    row_len = sum(ln for _m, ln in cols) + len(cols)
+    pos = np.cumsum(row_len) - row_len
+    out = np.empty(int(row_len.sum()), np.uint8)
+    for j, (mat, ln) in enumerate(cols):
+        short = int(ln.min())
+        for k in range(mat.shape[1]):
+            if k < short:
+                out[pos + k] = mat[:, k]
+            else:
+                m = ln > k
+                out[pos[m] + k] = mat[m, k]
+        pos += ln
+        out[pos] = ord("\n") if j == len(cols) - 1 else ord(",")
+        pos += 1
+    return out.tobytes()
+
+
+def _write_csv(path, header, nrow, block_cols, block=1 << 18):
+    """Write a CSV file by blocks of rows (``block_cols(lo, hi)`` gives a
+    block's cells), to a file of its own first and then into place."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write((",".join(header) + "\n").encode())
+        for lo in range(0, nrow, block):
+            f.write(_csv_block(block_cols(lo, min(lo + block, nrow))))
+    os.replace(tmp, path)
+
+
+def write_higgs_csv(path, X, y):
+    """The HIGGS-shaped arrays as a CSV file: features f0..f{F-1} in
+    nine-digit e-notation, the 0/1 label as an integer."""
+    F = X.shape[1]
+    digits = _table(["0", "1"])
+    _write_csv(path, [f"f{i}" for i in range(F)] + ["label"], len(y),
+               lambda lo, hi: [_sci9(X[lo:hi, i]) for i in range(F)]
+               + [_take(digits, y[lo:hi])])
+
+
+def airlines_columns(rows, seed=2024):
+    """A synthetic table in the column layout of the public airline
+    benchmark's train-10m.csv (szilard/benchm-ml), drawn from ``seed``:
+    Month, DayofMonth and DayOfWeek as "c-N" strings, DepTime (hhmm) and
+    Distance as integers, UniqueCarrier (22 levels), Origin and Dest
+    (300 airport codes each, drawn with a skew), the label
+    dep_delayed_15min as Y/N, depending on the hour, the month, the
+    carrier, the airports and the distance. About 0.2% of DepTime and
+    0.1% of UniqueCarrier are NA. Returns the columns as table indices
+    (``tables``, ``idx``) and what a parse must find (``expect``)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(26 ** 3, size=300, replace=False)
+    airports = ["".join(chr(65 + (c // 26 ** k) % 26) for k in (2, 1, 0))
+                for c in codes]
+    p_air = 1.0 / (np.arange(300) + 30.0)
+    p_air /= p_air.sum()
+    month = rng.integers(0, 12, rows)
+    dom = rng.integers(0, 31, rows)
+    dow = rng.integers(0, 7, rows)
+    hour = np.clip(rng.normal(13.5, 4.5, rows), 0, 23).astype(np.int64)
+    dep = hour * 100 + rng.integers(0, 60, rows)
+    carrier = rng.integers(0, 22, rows)
+    origin = rng.choice(300, size=rows, p=p_air)
+    dest = rng.choice(300, size=rows, p=p_air)
+    dist = np.clip(rng.lognormal(6.4, 0.6, rows), 30, 4962).astype(np.int64)
+    dep_na = rng.random(rows) < 0.002
+    car_na = rng.random(rows) < 0.001
+    air_eff = rng.normal(0, 0.4, 300)
+    car_eff = rng.normal(0, 0.3, 22)
+    mon_eff = np.array([0.1, 0, -0.1, -0.2, -0.1, 0.3, 0.35, 0.2, -0.3,
+                        -0.2, -0.1, 0.4])
+    logit = (-1.7 + 0.1 * (np.where(dep_na, 13, hour) - 12)
+             + mon_eff[month] + np.where(car_na, 0, car_eff[carrier])
+             + air_eff[origin] + 0.5 * air_eff[dest]
+             + 0.1 * (dow >= 4) + 0.05 * np.log(dist / 600))
+    label = (rng.random(rows) < 1 / (1 + np.exp(-logit))).astype(np.int64)
+    tables = [_table([f"c-{i + 1}" for i in range(12)]),
+              _table([f"c-{i + 1}" for i in range(31)]),
+              _table([f"c-{i + 1}" for i in range(7)]),
+              _table([str(i) for i in range(2400)] + ["NA"]),
+              _table(list(CARRIERS) + ["NA"]), _table(airports),
+              _table(airports), _table([str(i) for i in range(4963)]),
+              _table(["N", "Y"])]
+    idx = [month, dom, dow, np.where(dep_na, 2400, dep),
+           np.where(car_na, 22, carrier), origin, dest, dist, label]
+    expect = {"types": {n: ("int" if n in ("DepTime", "Distance")
+                            else "enum") for n in AIRLINES_NAMES},
+              "cards": {"Month": len(np.unique(month)),
+                        "DayofMonth": len(np.unique(dom)),
+                        "DayOfWeek": len(np.unique(dow)),
+                        "UniqueCarrier": len(np.unique(carrier[~car_na])),
+                        "Origin": len(np.unique(origin)),
+                        "Dest": len(np.unique(dest)),
+                        "dep_delayed_15min": len(np.unique(label))},
+              "na": {n: 0 for n in AIRLINES_NAMES},
+              "positives": int(label.sum())}
+    expect["na"].update(DepTime=int(dep_na.sum()),
+                        UniqueCarrier=int(car_na.sum()))
+    return tables, idx, expect
+
+
+def write_airlines_csv(path, tables, idx):
+    _write_csv(path, AIRLINES_NAMES, len(idx[0]),
+               lambda lo, hi: [_take(t, i[lo:hi])
+                               for t, i in zip(tables, idx)])
+
+
+def cached_csv(name, write):
+    """A CSV file of the temporary directory, keyed by ``name`` (its
+    parameters), written by ``write(path)`` unless it is there. Returns
+    the path and the seconds the writing took (0 when cached)."""
+    import tempfile
+    path = os.path.join(tempfile.gettempdir(), f"h2o3_smoke_{name}.csv")
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        write(path)
+    return path, time.perf_counter() - t0
+
+
+def csv_prefix(src, dst, rows):
+    """The header and the first ``rows`` rows of ``src`` as a file."""
+    with open(src, "rb") as f:
+        head = f.read(64 * (rows + 1) + (1 << 20))
+    nl = np.flatnonzero(np.frombuffer(head, np.uint8) == 10)
+    with open(dst, "wb") as f:
+        f.write(head[:int(nl[rows]) + 1])
+
+
 @contextlib.contextmanager
 def hist_i8(terms):
     """``H2O3_HIST_I8`` set to ``terms`` (None: unset) for the trains
@@ -1086,22 +1302,24 @@ def hist_i8(terms):
 
 
 def train(fr, ntrees, path="packed", i8=None, **kw):
-    """A GBM of ``path``'s parameters (and ``kw``); ``H2O3_HIST_I8`` is
-    ``i8`` or the path's own setting, for this train only."""
+    """A GBM of ``path``'s parameters (and ``kw``) on ``path``'s response;
+    ``H2O3_HIST_I8`` is ``i8`` or the path's own setting, for this train
+    only."""
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     est = H2OGradientBoostingEstimator(
-        ntrees=ntrees, max_depth=6, learn_rate=0.1,
-        distribution="bernoulli", seed=7, min_rows=1.0,
-        **{**PATHS[path]["params"], **kw})
+        ntrees=ntrees, max_depth=6, distribution="bernoulli",
+        **{"learn_rate": 0.1, "seed": 7, "min_rows": 1.0,
+           **PATHS[path]["params"], **kw})
     with hist_i8(i8 if i8 is not None else PATHS[path].get("i8")):
-        est.train(y="label", training_frame=fr)
+        est.train(y=PATHS[path].get("y", "label"), training_frame=fr)
     return est.model
 
 
 def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
-                    depth=6, ref_auc=None):
+                    depth=6, ref_auc=None, reset=True):
     """One GBM path at full width, launch counters set to 0 just before
-    and read just after; the frame is made here unless given. With
+    and read just after (``reset=False``: the caller set them to 0 before
+    it made the frame); the frame is made here unless given. With
     ``ref_auc`` (the float path's AUC from this run) the AUC must lie
     within 0.005 of it."""
     import torch
@@ -1115,8 +1333,9 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
             f"{time.perf_counter() - t0:.2f} s")
     F = fr.ncol - 1
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    if reset:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
     model = train(fr, ntrees, path)
     auc = model.training_metrics.auc
     pred = model.predict(fr)
@@ -1136,7 +1355,7 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     if ref_auc is not None and abs(auc - ref_auc) > 0.005:
         raise AssertionError(f"{path}: AUC {auc} is more than 0.005 from "
                              f"the float path's {ref_auc}")
-    p1 = pred.vec("p1").to_numpy()
+    p1 = pred.vec(pred.names[-1]).to_numpy()   # the positive class
     if p1.shape != (rows,) or not np.all(np.isfinite(p1)) \
             or p1.min() < 0 or p1.max() > 1:
         raise AssertionError("predict: p1 is not a finite probability per "
@@ -1147,14 +1366,16 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     print(f"main path {path}: {rows}x{F} bernoulli GBM depth {depth} "
           f"{json.dumps(PATHS[path]['params'])}{i8} {ntrees} trees: AUC "
           f"{auc!r} "
-          f"training_loop_seconds {loop_s!r} rows/s {rps!r} packed_codes "
+          f"training_loop_seconds {loop_s!r} rows/s {rps!r} n_bins "
+          f"{model.n_bins} packed_codes "
           f"{json.dumps(model.output['packed_codes'])} train_profile "
           f"{json.dumps(model.output['train_profile'])} launches "
           f"{launches} peak device memory in the train "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]",
           flush=True)
     return {"auc": auc, "loop_s": loop_s, "rows_per_s": rps,
-            "launches": launches, "frame": fr, "trees": model.trees}
+            "launches": launches, "frame": fr, "trees": model.trees,
+            "n_bins": model.n_bins}
 
 
 def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
@@ -1162,9 +1383,16 @@ def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
     every tree's splits (feature, split bin or threshold, NA side) must
     be equal, and |dAUC| <= 1e-4."""
     X, y, _F = higgs_arrays(rows, seed=11)
+    card_vs_cpu(path, lambda dev: frame_of(X, y, dev), rows, ntrees, **kw)
+
+
+def card_vs_cpu(path, frame, rows, ntrees, **kw):
+    """``path`` trained at float32 histograms on ``frame("cuda")`` and on
+    ``frame("cpu")``: every tree's splits must be equal, and |dAUC| <=
+    1e-4."""
     models = {}
     for dev in ("cuda", "cpu"):
-        models[dev] = train(frame_of(X, y, dev), ntrees, path,
+        models[dev] = train(frame(dev), ntrees, path,
                             histogram_precision="float32", **kw)
     mc, mh = models["cuda"], models["cpu"]
     keys = ("feat", PATHS[path]["split_key"], "na_left")
@@ -1187,6 +1415,220 @@ def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
           f"({split_flips(mc.trees, mh.trees)}), AUC cuda "
           f"{mc.training_metrics.auc!r} cpu {mh.training_metrics.auc!r} "
           f"|dAUC| {d_auc!r}", flush=True)
+
+
+def frames_differ(a, b):
+    """The columns of two frames that differ in name, type, domain or any
+    bit of their device values (NaN payloads included)."""
+    import torch
+    if a.names != b.names:
+        return [f"names {a.names} vs {b.names}"]
+    out = []
+    for n in a.names:
+        va, vb = a.vec(n), b.vec(n)
+        if not (va.type == vb.type and va.domain == vb.domain
+                and va.data.dtype == vb.data.dtype
+                and torch.equal(va.data.view(torch.int32),
+                                vb.data.view(torch.int32))):
+            out.append(f"{n} ({va.type} vs {vb.type})")
+    return out
+
+
+def timed_import(name, path, rows, write_s, card):
+    """``import_file(path, device="cuda")``, timed, with the parse's
+    profile printed: write and parse seconds, MB/s, rows/s, the
+    host-to-device seconds and the host's core count."""
+    import torch
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ingest import parse as parse_mod
+    t0 = time.perf_counter()
+    fr = h2o.import_file(path, device="cuda")
+    torch.cuda.synchronize()
+    parse_s = time.perf_counter() - t0
+    prof = dict(parse_mod.LAST_PROFILE)
+    mb = os.path.getsize(path) / 1e6
+    if fr.nrow != rows or prof["fallback_ranges"]:
+        raise AssertionError(f"csv {name}: {fr.nrow} rows (want {rows}), "
+                             f"profile {prof}")
+    print(f"csv {name}: {rows} rows, {fr.ncol} columns, {mb!r} MB; write "
+          f"{write_s!r} s (0: cached); import_file {parse_s!r} s = "
+          f"{mb / parse_s!r} MB/s, {rows / parse_s!r} rows/s, of it H2D "
+          f"{prof['device_put_s']!r} s; {prof['chunks']} ranges on "
+          f"{prof['workers']} threads, host cores {os.cpu_count()}; "
+          f"profile {json.dumps(prof)} [{card}]", flush=True)
+    return fr
+
+
+@contextlib.contextmanager
+def recorded_adaptive_calls(calls):
+    """The adaptive grower's level and deepest-route calls, passed on and
+    recorded into ``calls`` as (name, args) with every tensor but the
+    feature matrix copied (the grower replaces nid and the tables level
+    by level)."""
+    import torch
+    from h2o3_tpu_torch.models import tree
+    names = ("adaptive_level", "adaptive_route_only")
+    orig = {n: getattr(tree, n) for n in names}
+
+    def recorder(name):
+        def call(x, *a):
+            calls.append((name, (x,) + tuple(
+                t.clone() if torch.is_tensor(t) else t for t in a)))
+            return orig[name](x, *a)
+        return call
+    for n in names:
+        setattr(tree, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(tree, n, orig[n])
+
+
+def check_train_levels(fr, path, card, flush):
+    """K8 and K9 at the inputs a train of ``path`` on ``fr`` hands them:
+    one tree trained with its calls recorded, then every level's
+    adaptive_level (the form the training path picks, which must be the
+    wide body) against adaptive_level_plain on the recorded inputs within
+    the float tolerance (check_forms), and the deepest route against
+    adaptive_route_only_plain bit for bit; each timed beside its plain
+    version. Returns the kernels' ms for the tree."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_level_plain,
+                                                  adaptive_route_only_plain)
+    calls = []
+    with recorded_adaptive_calls(calls):
+        train(fr, 1, path)
+    tree_ms = 0.0
+    for name, a in calls:
+        if name == "adaptive_level":
+            (x, nid, ghw, tables, lo, inv, n_prev, N, base, W, bf16,
+             layout, _qs) = a
+            rows, F = x.shape
+            pick = kernels.adaptive_level_picks(rows, F, W, n_prev, N,
+                                                layout)
+            if layout != "rows_f" or pick != "wide":
+                raise AssertionError(f"{path}: level N={N} W={W} in "
+                                     f"{layout} takes the {pick} form, "
+                                     f"not the wide body in [rows, F]")
+            inp = (x, nid, ghw, tables, lo, inv, n_prev, base)
+            err = check_forms("adaptive", inp, N, W, bf16,
+                              ("picked",))["picked"]
+            ms = time_cuda(lambda: kernels.adaptive_level(
+                x, nid, ghw, tables, lo, inv, n_prev, N, base, W, bf16,
+                layout), 5, flush)
+            pms = time_cuda(lambda: adaptive_level_plain(
+                x, nid, ghw, tables, lo, inv, n_prev, N, base, W, bf16,
+                layout), 3, flush)
+            what = (f"adaptive_level {pick} W={W} N={N} bf16={bf16} "
+                    f"max_abs_err {err!r}")
+        else:
+            x, nid, tables, n_prev, base, layout = a
+            rk = kernels.adaptive_route_only(x, nid, tables, n_prev, base,
+                                             layout)
+            rp = adaptive_route_only_plain(x, nid, tables, n_prev, base,
+                                           layout)
+            if not torch.equal(rk, rp):
+                raise AssertionError(f"{path}: adaptive_route_only differs "
+                                     f"from its plain version in "
+                                     f"{int((rk != rp).sum())} rows")
+            del rk, rp
+            ms = time_cuda(lambda: kernels.adaptive_route_only(
+                x, nid, tables, n_prev, base, layout), 5, flush)
+            pms = time_cuda(lambda: adaptive_route_only_plain(
+                x, nid, tables, n_prev, base, layout), 3, flush)
+            what = f"adaptive_route_only n_prev={n_prev} bit-equal"
+        tree_ms += ms
+        print(f"{path} train inputs [{x.shape[0]}, {x.shape[1]}]: {what}; "
+              f"ms {ms!r} plain_ms {pms!r} [{card}]", flush=True)
+    if [n for n, _a in calls].count("adaptive_level") != 6 \
+            or calls[-1][0] != "adaptive_route_only":
+        raise AssertionError(f"{path}: a tree made the calls "
+                             f"{[n for n, _a in calls]}")
+    print(f"{path}: the tree's 6 levels and route against their plain "
+          f"versions on its own inputs; kernels {tree_ms!r} ms a tree "
+          f"[{card}]", flush=True)
+    return tree_ms
+
+
+def phase_csv(card, higgs_rows=1_000_000, air_rows=10_000_000,
+              cpu_rows=200_000):
+    """The main path from a file: CSV -> ``import_file(device="cuda")``
+    -> GBM -> AUC -> predict, the launch counters set to 0 before each
+    import and read after its predict. The HIGGS shape at ``higgs_rows``
+    (the 10M-row train already runs from ``from_numpy``): every column
+    bit-equal to ``Frame.from_numpy`` of the same arrays, and the packed
+    GBM's trees and AUC bit-equal to the same train from that frame. The
+    airlines shape at ``air_rows``: types, domain sizes and NA counts as
+    drawn, the default bernoulli GBM (depth 6, 20 trees) on adaptive bins
+    at W = 256 (254 bins) with its launch counts, K8's wide body and K9
+    held against their plain versions on a tree's own inputs
+    (check_train_levels), two float32 trains bit for bit,
+    its warm loop and profile, and card vs CPU on the file's first
+    ``cpu_rows`` rows. Returns each path's launches, the airlines warm
+    loop's seconds and its kernels' ms a tree."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    X, y, F = higgs_arrays(higgs_rows)
+    path, write_s = cached_csv(f"higgs_{higgs_rows}_42",
+                               lambda p: write_higgs_csv(p, X, y))
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    fr = timed_import("higgs", path, higgs_rows, write_s, card)
+    higgs = phase_main_path(card, "higgs_csv", fr, rows=higgs_rows,
+                            reset=False)
+    cols = {f"f{i}": X[:, i] for i in range(F)}
+    cols["label"] = y
+    ref_fr = h2o.Frame.from_numpy(cols, device="cuda")
+    diffs = frames_differ(fr, ref_fr)
+    ref = train(ref_fr, 20, "higgs_csv")
+    trees = tree_diffs(higgs["trees"], ref.trees, "split_bin")
+    print(f"csv higgs against from_numpy: columns that differ {diffs}; "
+          f"tree entries that differ {json.dumps(trees)}; AUC "
+          f"{higgs['auc']!r} vs {ref.training_metrics.auc!r}", flush=True)
+    if diffs or any(trees.values()) or higgs["auc"] !=             ref.training_metrics.auc:
+        raise AssertionError("csv higgs: the CSV frame or its train differs "
+                             "from the from_numpy one")
+    del fr, ref_fr, ref, cols, X, y, higgs["frame"]
+    tables, idx, expect = airlines_columns(air_rows)
+    path, write_s = cached_csv(
+        f"airlines_{air_rows}_2024",
+        lambda p: write_airlines_csv(p, tables, idx))
+    del tables, idx
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    fr = timed_import("airlines", path, air_rows, write_s, card)
+    got = {"types": fr.types,
+           "cards": {n: fr.vec(n).cardinality for n in expect["cards"]},
+           "na": {n: fr.vec(n).na_count() for n in fr.names},
+           "positives": int((fr.vec("dep_delayed_15min").data == 1).sum())}
+    if any(got[k] != expect[k] for k in expect):
+        raise AssertionError(f"csv airlines: parsed {got}, drawn {expect}")
+    air = phase_main_path(card, "airlines_csv", fr, rows=air_rows,
+                          reset=False)
+    if air["n_bins"] != 254:
+        raise AssertionError(f"airlines_csv: n_bins {air['n_bins']}, not "
+                             f"the 254 identity bins of the enum columns "
+                             f"(W = 256)")
+    level_ms = check_train_levels(fr, "airlines_csv", card,
+                                  torch_flush("cuda"))
+    runs = [train(fr, 20, "airlines_csv", histogram_precision="float32")
+            for _ in range(2)]
+    check_repeats(runs, "airlines_csv", "float32 x2")
+    del runs
+    warm_s = phase_warm_profile(fr, card, "airlines_csv", air["trees"])
+    del fr, air["frame"]
+    small = path[:-len(".csv")] + f"_head{cpu_rows}.csv"
+    csv_prefix(path, small, cpu_rows)
+    card_vs_cpu("airlines_csv",
+                lambda dev: h2o.import_file(small, device=dev), cpu_rows, 5)
+    print(f"csv phase: {time.perf_counter() - t_phase!r} s wall, parsed "
+          f"{json.dumps(got['cards'])} levels, NA {json.dumps(got['na'])}",
+          flush=True)
+    return {"higgs_csv": higgs["launches"], "airlines_csv": air["launches"],
+            "airlines_warm_s": warm_s, "airlines_kernel_ms_tree": level_ms}
 
 
 def phase_card_vs_cpu_i8(path, terms, rows=200_000, ntrees=5):
@@ -1540,7 +1982,7 @@ def phase_kernel_record(dev, launches, rows=10_000_000, F=28):
         codes, nid, tables, n_prev, base, W), 20)
     pms = time_cuda(lambda: binned_route_only_plain(
         codes, nid, tables, n_prev, base, W), 3)
-    bound, by = route_bound_ms(rows, 1)
+    bound, by = route_bound_ms(rows, F, 1)
     rec.append({"name": "binned_route_only", "route": "cuda",
                 "source": SRC["binned_route_only"],
                 "replaces": REPLACES["binned_route_only"],
@@ -1756,7 +2198,7 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
           f" level N=32 {json.dumps(level_ms)} ms, route N=64 "
           f"{json.dumps(route_ms)} ms", flush=True)
     bound, by = adaptive_level_bound_ms(rows, F, N, W, rows)
-    rbound, rby = route_bound_ms(rows, 4)
+    rbound, rby = route_bound_ms(rows, F, 4, ADAPTIVE_LAYOUT)
     return [{"name": "adaptive_level", "route": "cuda",
              "source": SRC["adaptive_level"],
              "replaces": REPLACES["adaptive_level"],
@@ -2206,6 +2648,10 @@ def main() -> int:
             phase_card_vs_cpu_i8(path, terms)
     clock.lap("5 wide int8 card vs cpu")
 
+    # 4-5 from a file: CSV -> import_file -> GBM, HIGGS and airlines shapes
+    csv = phase_csv(card)
+    clock.lap("4-5 csv (files, parse, trains, profile, card vs cpu)")
+
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
     rec += phase_adaptive_record(dev, adaptive["launches"])
@@ -2226,7 +2672,9 @@ def main() -> int:
                       ("adaptive_wide", adaptive_wide),
                       ("packed_i8", packed_i8), ("adaptive_i8", adaptive_i8),
                       ("packed_wide_i8", packed_wide_i8),
-                      ("adaptive_wide_i8", adaptive_wide_i8)):
+                      ("adaptive_wide_i8", adaptive_wide_i8),
+                      ("higgs_csv", {"launches": csv["higgs_csv"]}),
+                      ("airlines_csv", {"launches": csv["airlines_csv"]})):
         for k in ("level", "route", "totals"):
             kernel = PATHS[path].get(k)
             if kernel:

@@ -8,18 +8,22 @@ tensors. Entry points run on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``device="cpu"`` per frame); without a CUDA
 device and without that request they raise.
 
-The port covers training a bernoulli or gaussian GBM on packed bin
-codes, on per-node adaptive bins (H2O's ``UniformAdaptive``) or on the
-unpacked global sketch (more than 254 bins), its training metrics and
+The port covers CSV import (``import_file``: the port's own copy of the
+native tokenizer, typed columns with enum domains built from the data)
+and training a bernoulli or gaussian GBM on packed bin codes, on
+per-node adaptive bins (H2O's ``UniformAdaptive``) or on the unpacked
+global sketch (more than 254 bins), its training metrics and
 ``predict``; ROADMAP.md queues the rest.
 """
 from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import Vec
+from h2o3_tpu_torch.ingest.parse import import_file, parse_setup
 
 __version__ = "0.1.0"
 
-__all__ = ["Frame", "Vec", "init", "upload_numpy"]
+__all__ = ["Frame", "Vec", "import_file", "init", "parse_setup",
+           "upload_numpy"]
 
 
 def upload_numpy(data, names=None, device=None) -> Frame:

@@ -80,4 +80,4 @@ def get_distribution(name) -> Distribution:
         return _FAMILIES[name]()
     raise NotImplementedError(
         f"distribution '{name}' is not ported yet (ROADMAP.md, queue 1, "
-        f"item 4: the rest of get_distribution); have {sorted(_FAMILIES)}")
+        f"item A6: the other distributions); have {sorted(_FAMILIES)}")

@@ -126,9 +126,11 @@ class GBMModel(Model):
 
     def __init__(self, key, params, names, nclasses, dist_name, f0,
                  trees_host, edges, n_bins, max_depth, ntrees_built,
-                 device, response=None, response_domain=None):
+                 device, response=None, response_domain=None, is_cat=None,
+                 cat_domains=None):
         super().__init__(key, params, names, nclasses, response=response,
-                         response_domain=response_domain)
+                         response_domain=response_domain, is_cat=is_cat,
+                         cat_domains=cat_domains)
         self.dist_name = dist_name
         self.f0 = np.array(f0, np.float32)
         self.edges = edges
@@ -151,7 +153,9 @@ class GBMModel(Model):
         """A model from the JAX package's ``GBMModel._save_arrays()``
         dict (feat, thr, na_left, is_split, value, node_w, f0, edge_i)
         and ``meta`` (dist_name, n_bins, max_depth, ntrees_built,
-        nclasses, names, response_domain)."""
+        nclasses, names, response_domain; optional is_cat and
+        cat_domains, which ``predict`` needs to remap the enum codes of a
+        frame with other domains)."""
         if int(meta["nclasses"]) > 2:
             raise NotImplementedError(
                 "multinomial GBM is not ported yet (ROADMAP.md queue 1, "
@@ -167,7 +171,9 @@ class GBMModel(Model):
                    [np.asarray(arrays[f"edge_{i}"]) for i in range(n_edges)],
                    int(meta["n_bins"]), int(meta["max_depth"]),
                    int(meta["ntrees_built"]), _device.resolve(device),
-                   response_domain=meta.get("response_domain"))
+                   response_domain=meta.get("response_domain"),
+                   is_cat=meta.get("is_cat"),
+                   cat_domains=meta.get("cat_domains"))
 
     def _margin_matrix(self, X: torch.Tensor) -> torch.Tensor:
         contribs = predict_raw_stacked(X, self._feat, self._thr,
@@ -338,7 +344,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                          spec.nclasses, dist_name, f0.cpu().numpy(),
                          trees_host, edges, cfg.n_bins, cfg.max_depth, T,
                          dev, response=spec.response,
-                         response_domain=spec.response_domain)
+                         response_domain=spec.response_domain,
+                         is_cat=spec.is_cat, cat_domains=spec.cat_domains)
         vi = np.zeros(len(spec.names))
         live = th["feat"] >= 0
         np.add.at(vi, th["feat"][live], th["gain"][live])

@@ -124,7 +124,8 @@ def compute_metrics(scores, y, w, nclasses, deviance=None):
     if nclasses == 2:
         return metrics_mod.make_binomial_metrics(scores[:, 1], y, w)
     raise NotImplementedError(
-        "multinomial metrics are not ported yet (ROADMAP.md, queue 1)")
+        "multinomial metrics are not ported yet (ROADMAP.md, queue 1, "
+        "item A1: the multinomial GBM)")
 
 
 class Model:
@@ -209,7 +210,7 @@ class ModelBuilder:
         if validation_frame is not None:
             raise NotImplementedError(
                 "validation_frame is not ported yet (ROADMAP.md, queue 1, "
-                "item 5: scoring during training)")
+                "item A2: scoring during training)")
         spec = build_training_spec(
             training_frame, y, x,
             ignored_columns=self.params.get("ignored_columns"),

@@ -321,3 +321,21 @@ def test_wide_bin_shapes_match_jax(params):
     jp = jm.predict(jfr).vec("p1").to_numpy()
     tp = tm.predict(tfr).vec("p1").to_numpy()
     np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
+
+
+def test_refusals_name_their_roadmap_labels():
+    """Each refusal names the ROADMAP.md queue-1 label that ports it:
+    validation frames A2, the other distributions A6, multinomial
+    metrics A1."""
+    from h2o3_tpu_torch.models.distributions import get_distribution
+    from h2o3_tpu_torch.models.model_base import compute_metrics
+    fr = th2o.Frame.from_numpy(_data(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item A2: scoring"):
+        TorchGBM(ntrees=1).train(y="label", training_frame=fr,
+                                 validation_frame=fr)
+    with pytest.raises(NotImplementedError, match="item A6: the other"):
+        get_distribution("poisson")
+    scores = torch.full((4, 3), 1.0 / 3)
+    with pytest.raises(NotImplementedError, match="item A1: the multi"):
+        compute_metrics(scores, torch.zeros(4, dtype=torch.int32),
+                        torch.ones(4), 3)

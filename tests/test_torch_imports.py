@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and nothing of h2o3_tpu in
-h2o3_tpu_torch or chip_smoke.py; entry points run on CUDA unless the
-CPU is asked for; a CUDA tensor never reaches a plain version."""
+h2o3_tpu_torch or chip_smoke.py; the native tokenizer builds from the
+port's own source into the port's build directory; entry points run on
+CUDA unless the CPU is asked for; a CUDA tensor never reaches a plain
+version."""
 import ast
 import os
 import subprocess
@@ -51,6 +53,69 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_tokenizer_build_stays_in_the_port(monkeypatch):
+    """Building the tokenizer compiles only the port's copy of
+    fast_csv.cpp (the JAX package's code, comment for comment but for two
+    that named the reference's change history) and writes only under
+    h2o3_tpu_torch/_build/; the JAX package's library and its hash
+    sidecar are byte-unchanged."""
+    from h2o3_tpu_torch import native
+    ref = ROOT / "h2o3_tpu" / "native"
+    theirs = {p: p.read_bytes() for p in (ref / "libfastcsv.so",
+                                          ref / "libfastcsv.so.srchash")}
+    assert native.SRC == ROOT / "h2o3_tpu_torch" / "native" / "fast_csv.cpp"
+    ours = native.SRC.read_text().splitlines()
+    theirs_src = (ref / "fast_csv.cpp").read_text().splitlines()
+    assert len(ours) == len(theirs_src)
+    differ = [(a, b) for a, b in zip(ours, theirs_src) if a != b]
+    assert [a for a, _b in differ] == [
+        "// Scope: separator-delimited rows, '\\n'/'\\r\\n'",
+        "// ---- nogil encode plane " + "-" * 45]
+    assert all(b.startswith("// ") for _a, b in differ)
+    assert native.library_path().parent == ROOT / "h2o3_tpu_torch" / "_build"
+    calls = []
+    run = subprocess.run
+
+    def record(cmd, *a, **k):
+        calls.append(list(cmd))
+        return run(cmd, *a, **k)
+
+    monkeypatch.setattr(native.subprocess, "run", record)
+    so = native.BUILD_DIR / f"libfastcsv_buildtest_{os.getpid()}.so"
+    try:
+        native.build(so)
+        import ctypes
+        assert hasattr(ctypes.CDLL(str(so)), "csv_parse")
+    finally:
+        so.unlink(missing_ok=True)
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == native.COMPILER == "g++"
+    assert [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))] == \
+        [str(native.SRC)]
+    out = Path(cmd[cmd.index("-o") + 1])
+    assert out.parent == native.BUILD_DIR and out.suffix == ".tmp"
+    assert not any("h2o3_tpu/" in a for a in cmd)
+    assert {p: p.read_bytes() for p in theirs} == theirs
+
+
+def test_failed_tokenizer_build_raises(monkeypatch, tmp_path):
+    """No toolchain, or a source the compiler refuses: the build raises
+    with the compiler's message (the port has no quiet fallback)."""
+    from h2o3_tpu_torch import native
+    so = tmp_path / "lib.so"
+    monkeypatch.setattr(native, "COMPILER", "no-such-compiler-h2o3")
+    with pytest.raises(RuntimeError, match="could not run"):
+        native.build(so)
+    monkeypatch.setattr(native, "COMPILER", "g++")
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++;\n")
+    monkeypatch.setattr(native, "SRC", bad)
+    with pytest.raises(RuntimeError, match="exited 1 compiling bad.cpp"):
+        native.build(so)
+    assert not so.exists()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
