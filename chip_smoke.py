@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and the repository; without either it exits non-zero and
 prints no result. It drives the port's GBM paths from ``Frame.from_numpy`` and from a
-CSV file through ``import_file``: packed codes
+CSV file through ``import_file``, and the XGBoost estimator (BASELINE
+config #2) with a validation frame and early stopping: packed codes
 (``histogram_type="quantiles_global"``, kernels binned_level and
 binned_route_only), adaptive bins (``packed_codes=False``, H2O's
 default ``uniform_adaptive``, kernels adaptive_level and
@@ -13,10 +14,10 @@ unpacked global sketch (nbins 1024, kernel global_hist), and the packed
 and adaptive paths again with int8 fixed-point masses
 (``H2O3_HIST_I8=1``, set around those trains only; kernels
 binned_level_i8 and adaptive_level_i8), the packed and adaptive paths at
-the wide lane widths (``packed_wide``: nbins 254, W = 256 int16 codes;
-``adaptive_wide``: nbins 62, W = 64; XGBoost's ``tree_method="hist"``
-and ``"auto"`` at max_bins 256; the wide body of binned_level and
-adaptive_level), the same two with int8 masses (``packed_wide_i8``,
+the wide lane widths (``packed_wide``: nbins 254, W = 256 int16 codes,
+XGBoost's ``tree_method="hist"`` at max_bins 256; ``adaptive_wide``:
+nbins 62 adaptive, W = 64, the bin count of its ``"auto"``, which itself
+packs; the wide body of binned_level and adaptive_level), the same two with int8 masses (``packed_wide_i8``,
 ``adaptive_wide_i8``: the wide body's int8 instance of
 binned_level_i8 and adaptive_level_i8), and, on the packed and global
 paths, the deepest
@@ -146,6 +147,29 @@ against its plain version. Phases, each fatal on failure:
    keys, NA directions and leaf values (every float sum on these paths
    comes in a fixed order; integer sums in any).
 
+8. XGBoost, BASELINE config #2 (``phase_xgboost``): the
+   ``H2OXGBoostEstimator`` on the 10M x 28 frame with a 500k-row
+   validation frame (another seed; HIGGS's own held-out size), the launch
+   counters set to 0 just before each train and read just after.
+   ``tree_method="hist"`` at XGBoost's defaults (50 trees, depth 6, eta
+   0.3, min_child_weight 1, reg_lambda 1, max_bins 256): nbins 254 at
+   W = 256, exactly 6 binned_level, 1 binned_route_only and 1
+   segment_totals a tree, finite better-than-chance training and
+   validation AUCs, cold and warm loop seconds and rows/s, the
+   validation walk's ms a tree (its margins checked against
+   ``predict``), the scoring's ms an interval, the AUC's bits equal over
+   five calls and on the CPU, the peak device memory.
+   ``tree_method="auto"`` (nbins 62 at W = 64) with early stopping on
+   the validation AUC (3 rounds, an interval of 5 trees, tolerance
+   1e-3, at most 500 trees): it stops at a multiple of 5 with one
+   history entry an interval, the stopping rule recomputed here from the
+   printed history says stop at the last entry and at no earlier one,
+   the launch counts as above at its tree count; trained twice more at
+   float32: the tree count, every tree array and every history value bit
+   for bit. Card vs CPU at 200k rows (validation 50k), both tree
+   methods with early stopping at float32: the same tree count and
+   history, every split equal, |dAUC| <= 1e-6 (min_child_weight 10).
+
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
 ``{"ok": true, "device": {...}}``.
@@ -210,10 +234,11 @@ PATHS = {
                     "level": "adaptive_level_i8",
                     "route": "adaptive_route_only", "split_key": "thr",
                     "i8": 1},
-    # the wide lane widths: XGBoost's tree_method="hist" at max_bins=256
-    # (packed int16 codes, W = 256, the wide body of binned_level) and
-    # tree_method="auto" (uniform-adaptive bins at nbins 62, W = 64, the
-    # wide body of adaptive_level)
+    # the wide lane widths: nbins 254 packed (int16 codes, W = 256, the
+    # wide body of binned_level; XGBoost's tree_method="hist" at
+    # max_bins=256) and nbins 62 on adaptive bins (W = 64, the wide body
+    # of adaptive_level; XGBoost's "auto" takes nbins 62 too, but packs
+    # them: phase_xgboost)
     "packed_wide": {"params": dict(nbins=254,
                                    histogram_type="quantiles_global"),
                     "level": "binned_level", "route": "binned_route_only",
@@ -2433,6 +2458,280 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
     return w_loop
 
 
+# ------------------------------------------------------------- XGBoost
+
+# BASELINE config #2: H2OXGBoost on HIGGS-10M at XGBoost's defaults (50
+# trees, depth 6, eta 0.3, min_child_weight 1, reg_lambda 1, max_bins
+# 256), tree_method "hist" (packed quantile codes, nbins 254, W = 256)
+# and "auto" (packed uniform edges, nbins 62, W = 64), with a validation
+# frame of HIGGS's own held-out size (UCI keeps the last 500k rows)
+XGB_VALID_ROWS = 500_000
+XGB_PATHS = {"hist": (254, 256), "auto": (62, 64)}
+# train B: early stopping on the validation AUC at H2O's tolerance
+XGB_STOP = dict(ntrees=500, stopping_rounds=3, score_tree_interval=5,
+                stopping_metric="AUC")
+
+
+def xgb_train(fr, vfr, **kw):
+    """The XGBoost estimator (bernoulli, seed 7) on ``fr`` with ``vfr``
+    as its validation frame."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    est = H2OXGBoostEstimator(distribution="bernoulli", seed=7, **kw)
+    est.train(y="label", training_frame=fr, validation_frame=vfr)
+    return est.model
+
+
+def xgb_check_launches(launches, built, what):
+    """A packed XGBoost train launches six binned_level, one
+    binned_route_only and one segment_totals a tree, and nothing else."""
+    expected = {k: 0 for k in launches}
+    expected.update(binned_level=6 * built, binned_route_only=built,
+                    segment_totals=built)
+    if launches != expected:
+        raise AssertionError(f"{what}: launched {launches}, expected "
+                             f"{expected} for {built} trees")
+
+
+def xgb_check_model(m, tree_method, what):
+    """The path the tree method takes, and finite better-than-chance
+    training and validation AUCs."""
+    n_bins, W = XGB_PATHS[tree_method]
+    pc = m.output["packed_codes"]
+    if m.n_bins != n_bins or not pc["enabled"] or pc["W"] != W:
+        raise AssertionError(f"{what}: n_bins {m.n_bins}, packed_codes "
+                             f"{pc}; expected n_bins {n_bins} at W {W}")
+    for name, mm in (("training", m.training_metrics),
+                     ("validation", m.validation_metrics)):
+        if not np.isfinite(mm.auc) or not 0.5 < mm.auc <= 1.0:
+            raise AssertionError(f"{what}: {name} AUC {mm.auc} is not a "
+                                 f"finite better-than-chance value")
+
+
+def stop_decisions(scores, rounds, tol, less_is_better):
+    """H2O's stopping rule, recomputed here from a scoring history: after
+    each entry, whether the mean of the last ``rounds`` scores fails to
+    beat the mean of the ``rounds`` before them by ``tol`` relative."""
+    out = []
+    for i in range(1, len(scores) + 1):
+        if i < 2 * rounds:
+            out.append(False)
+            continue
+        recent = float(np.mean(scores[i - rounds:i]))
+        prev = float(np.mean(scores[i - 2 * rounds:i - rounds]))
+        margin = tol * abs(prev)
+        out.append(recent >= prev - margin if less_is_better
+                   else recent <= prev + margin)
+    return out
+
+
+def xgb_walk_and_score_ms(m, fr, vfr):
+    """On train A's model: the validation walk of one tree over the
+    validation rows (packed codes, six gathers) plus its margin update,
+    in ms a tree, checked against ``predict`` over all trees; and one
+    interval's scoring (deviance and AUC on the device, one copy to the
+    host) in ms."""
+    import torch
+    from types import SimpleNamespace
+    from h2o3_tpu_torch.models.distributions import Bernoulli
+    from h2o3_tpu_torch.models.gbm import score_entry, valid_walk
+    from h2o3_tpu_torch.models.metrics import auc_device
+    from h2o3_tpu_torch.models.model_base import (build_training_spec,
+                                                  build_validation_spec)
+    from h2o3_tpu_torch.ops.hist_adaptive import pick_W
+    spec = build_training_spec(fr, "label", classification=True)
+    vspec = build_validation_spec(vfr, spec)
+    walk = valid_walk(vspec.X, SimpleNamespace(edges=m.edges,
+                                               n_bins=m.n_bins),
+                      SimpleNamespace(W=pick_W(m.n_bins)), m.max_depth)
+    trees = [{k: torch.as_tensor(m.trees[k][t], device=vfr.device)
+              for k in ("feat", "split_bin", "na_left", "is_split",
+                        "value")} for t in range(m.ntrees_built)]
+    vm = torch.full((vfr.nrow,), float(m.f0), device=vfr.device)
+    for t in trees:
+        vm = vm + walk(t)
+    p1 = m.predict(vfr).vec("p1").data
+    err = float((torch.sigmoid(vm) - p1).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"validation walk: p1 {err} from predict's")
+    walk_ms = time_cuda(lambda: vm + walk(trees[-1]), 20)
+    dist = Bernoulli()
+    score_ms = time_cuda(lambda: score_entry(vm, vspec, dist, 5,
+                                             want_auc=True), 20)
+    # the AUC that decides early stopping: the same bits in five calls on
+    # the card, and on the CPU
+    args = (dist.predict(vm), vspec.y.to(torch.float32), vspec.w)
+    bits = {auc_device(*args).view(torch.int32).item() for _ in range(5)}
+    cpu = auc_device(*(t.cpu() for t in args)).view(torch.int32).item()
+    if bits != {cpu}:
+        raise AssertionError(f"auc_device bits: card {bits}, cpu {cpu}")
+    return walk_ms, score_ms, err
+
+
+def phase_xgboost(card, fr, cpu_rows=200_000, cpu_valid_rows=50_000):
+    """BASELINE config #2 on the card: the XGBoost estimator on the 10M x
+    28 HIGGS-shaped frame ``fr`` with a 500k-row validation frame (another
+    seed), the launch counters set to 0 just before each train and read
+    just after. Train A: tree_method "hist" at XGBoost's defaults: n_bins
+    254 at W = 256, 6 binned_level, 1 binned_route_only and 1
+    segment_totals a tree and nothing else, finite better-than-chance
+    training and validation AUCs; again twice warm (loop seconds,
+    rows/s); the validation walk's ms a tree (checked against predict)
+    and the scoring's ms an interval. Train B: tree_method "auto" (n_bins
+    62 at W = 64) with early stopping on the validation AUC
+    (``XGB_STOP``): it stops, at a multiple of 5 trees, with one history
+    entry an interval, where the stopping rule recomputed here from the
+    printed history says stop at the last entry and at no earlier one;
+    its launches as A's at its tree count. B twice more at float32
+    histograms: tree counts, every tree array and every history value bit
+    for bit. Card vs CPU at ``cpu_rows`` (validation ``cpu_valid_rows``),
+    both tree methods with early stopping at float32 and
+    min_child_weight 10: the same tree count, every split equal, the same
+    history, |dAUC| <= 1e-6."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    rows = fr.nrow
+    Xv, yv, _F = higgs_arrays(XGB_VALID_ROWS, seed=43)
+    vfr = frame_of(Xv, yv, "cuda")
+    out = {}
+
+    # train A: tree_method="hist" at the defaults
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    a = xgb_train(fr, vfr, tree_method="hist")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    xgb_check_launches(launches, a.ntrees_built, "xgboost hist")
+    xgb_check_model(a, "hist", "xgboost hist")
+    if a.ntrees_built != 50:
+        raise AssertionError(f"xgboost hist built {a.ntrees_built} trees")
+    out["hist"] = launches
+    loops = [a.output["training_loop_seconds"]]
+    for _ in range(2):
+        loops.append(xgb_train(fr, vfr, tree_method="hist").output[
+            "training_loop_seconds"])
+    warm = float(np.median(loops[1:]))
+    walk_ms, score_ms, walk_err = xgb_walk_and_score_ms(a, fr, vfr)
+    print(f"xgboost hist: {rows}x{fr.ncol - 1} train, {vfr.nrow} "
+          f"validation rows, 50 trees depth 6 eta 0.3 min_child_weight 1 "
+          f"reg_lambda 1 max_bins 256: n_bins {a.n_bins} packed_codes "
+          f"{json.dumps(a.output['packed_codes'])} launches {launches}; "
+          f"training AUC {a.training_metrics.auc!r} validation AUC "
+          f"{a.validation_metrics.auc!r} logloss "
+          f"{a.validation_metrics.logloss!r}; training_loop_seconds cold "
+          f"{loops[0]!r} warm {loops[1:]!r} median {warm!r} (rows/s "
+          f"{rows * a.ntrees_built / warm!r}); train_profile "
+          f"{json.dumps(a.output['train_profile'])}; validation walk "
+          f"{walk_ms!r} ms a tree (p1 within {walk_err!r} of predict's); "
+          f"scoring {score_ms!r} ms an interval (deviance + AUC over "
+          f"{vfr.nrow} rows, one copy to the host; the AUC's bits equal in "
+          f"five calls and on the CPU); peak device memory "
+          f"{peak:.3f} GiB [{card}]", flush=True)
+    del a
+
+    # train B: tree_method="auto" with early stopping on the AUC
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    b = xgb_train(fr, vfr, tree_method="auto", **XGB_STOP)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    built = b.ntrees_built
+    hist = json.loads(json.dumps(b.scoring_history))
+    tol = b.params["stopping_tolerance"]
+    rounds = XGB_STOP["stopping_rounds"]
+    step = XGB_STOP["score_tree_interval"]
+    print(f"xgboost auto, early stopping {json.dumps(XGB_STOP)} at "
+          f"stopping_tolerance {tol!r}: {built} trees of "
+          f"{XGB_STOP['ntrees']}; training_loop_seconds "
+          f"{b.output['training_loop_seconds']!r} (rows/s "
+          f"{rows * built / b.output['training_loop_seconds']!r}); "
+          f"train_profile {json.dumps(b.output['train_profile'])}; "
+          f"validation AUC {b.validation_metrics.auc!r}; launches "
+          f"{launches}; scoring history {json.dumps(hist)} [{card}]",
+          flush=True)
+    xgb_check_launches(launches, built, "xgboost auto")
+    xgb_check_model(b, "auto", "xgboost auto")
+    if not (built < XGB_STOP["ntrees"] and built % step == 0
+            and [e["ntrees"] for e in hist]
+            == list(range(step, built + 1, step))):
+        raise AssertionError(f"xgboost auto: {built} trees, history at "
+                             f"{[e['ntrees'] for e in hist]}")
+    rule = stop_decisions([e["auc"] for e in hist], rounds, tol, False)
+    if rule != [False] * (len(hist) - 1) + [True]:
+        raise AssertionError(f"xgboost auto: the stopping rule on the "
+                             f"history says {rule}")
+    out["auto"] = launches
+
+    # B again twice at float32: bit for bit
+    runs = [xgb_train(fr, vfr, tree_method="auto",
+                      histogram_precision="float32", **XGB_STOP)
+            for _ in range(2)]
+    h0, h1 = runs[0].scoring_history, runs[1].scoring_history
+    diffs = tree_diffs(runs[0].trees, runs[1].trees, "split_bin") \
+        if runs[0].ntrees_built == runs[1].ntrees_built else "tree counts"
+    same_hist = json.dumps(h0) == json.dumps(h1)
+    print(f"repeatability xgboost auto with early stopping, float32 x2: "
+          f"{runs[0].ntrees_built} and {runs[1].ntrees_built} trees, "
+          f"entries that differ {diffs}, histories "
+          f"{'equal' if same_hist else 'differ'}, validation AUC "
+          f"{runs[0].validation_metrics.auc!r} "
+          f"{runs[1].validation_metrics.auc!r}", flush=True)
+    if isinstance(diffs, str) or any(diffs.values()) or not same_hist \
+            or any(not np.array_equal(runs[0].trees[k], runs[1].trees[k])
+                   for k in runs[0].trees):
+        raise AssertionError("xgboost auto: float32 trains differ")
+    del b, runs
+
+    # card vs CPU at 200k rows, both tree methods, early stopping
+    X, y, _F = higgs_arrays(cpu_rows, seed=11)
+    Xv, yv, _F = higgs_arrays(cpu_valid_rows, seed=12)
+    # min_child_weight 10, as the parity tests' min_rows: at XGBoost's 1
+    # the card and the CPU took other splits from tree 11 of 30 on (|dAUC|
+    # 2.3e-6), a float32 near-tie decided by each device's order of adds
+    stop = dict(ntrees=60, stopping_rounds=2, score_tree_interval=3,
+                stopping_metric="AUC", stopping_tolerance=3e-3,
+                min_child_weight=10.0, histogram_precision="float32")
+    for tree_method in ("hist", "auto"):
+        ms = {dev: xgb_train(frame_of(X, y, dev), frame_of(Xv, yv, dev),
+                             tree_method=tree_method, **stop)
+              for dev in ("cuda", "cpu")}
+        mc, mh = ms["cuda"], ms["cpu"]
+        keys = ("feat", "split_bin", "na_left")
+        same = (mc.ntrees_built == mh.ntrees_built
+                and all(np.array_equal(mc.trees[k], mh.trees[k])
+                        for k in keys))
+        hc, hh = mc.scoring_history, mh.scoring_history
+        d_hist = max((abs(a["auc"] - b["auc"]) for a, b in zip(hc, hh)),
+                     default=0.0)
+        d_auc = max(abs(mc.training_metrics.auc - mh.training_metrics.auc),
+                    abs(mc.validation_metrics.auc
+                        - mh.validation_metrics.auc))
+        print(f"card vs cpu, xgboost {tree_method} {json.dumps(stop)}: "
+              f"{cpu_rows} rows, validation {cpu_valid_rows}: trees cuda "
+              f"{mc.ntrees_built} cpu {mh.ntrees_built}, splits "
+              f"{'equal' if same else 'differ'} "
+              f"({split_flips(mc.trees, mh.trees)}), |dAUC| training / "
+              f"validation max {d_auc!r}, history |dAUC| max {d_hist!r}, "
+              f"validation AUC cuda {mc.validation_metrics.auc!r} cpu "
+              f"{mh.validation_metrics.auc!r}", flush=True)
+        if not same or d_auc > 1e-6 or d_hist > 1e-6 \
+                or [e["ntrees"] for e in hc] != [e["ntrees"] for e in hh]:
+            n = min(mc.ntrees_built, mh.ntrees_built)
+            diff = np.argwhere(mc.trees["feat"][:n] != mh.trees["feat"][:n])
+            at = ("" if not len(diff) else
+                  f"; first differing split: tree {diff[0][0]} node "
+                  f"{diff[0][1]}, node weight cuda "
+                  f"{mc.trees['node_w'][tuple(diff[0])]!r} cpu "
+                  f"{mh.trees['node_w'][tuple(diff[0])]!r}")
+            raise AssertionError(f"xgboost {tree_method}: card and cpu "
+                                 f"differ{at}")
+        if mc.ntrees_built >= stop["ntrees"]:
+            raise AssertionError(f"xgboost {tree_method}: no early stop "
+                                 f"at {cpu_rows} rows")
+    return out
+
+
 def sass_atomics(lib_path):
     """The atomic and tensor-core opcodes in each built kernel's SASS
     (``cuobjdump``), e.g. whether a shared-memory float add is native or
@@ -2613,7 +2912,7 @@ def main() -> int:
                                   ref_auc=adaptive["auc"])
     del adaptive_i8["frame"]
     clock.lap("4 packed_i8 + adaptive_i8")
-    # the wide lane widths (XGBoost's max_bins 256 shapes)
+    # the wide lane widths (nbins 254 packed, 62 adaptive)
     packed_wide = phase_main_path(card, "packed_wide", fr)
     del packed_wide["frame"]
     adaptive_wide = phase_main_path(card, "adaptive_wide", fr)
@@ -2706,8 +3005,17 @@ def main() -> int:
                  "adaptive_wide"):
         phase_repeatability(fr, path, dev)
     phase_repeatability_i8(fr)
-    del fr
     clock.lap("7 repeatability")
+
+    # 8. XGBoost (BASELINE config #2): validation frame, early stopping
+    xgb = phase_xgboost(card, fr)
+    del fr
+    for path, launches in xgb.items():
+        for kernel in ("binned_level", "binned_route_only",
+                       "segment_totals"):
+            by_name[kernel].setdefault("launches_by_path", {})[
+                f"xgboost_{path}"] = launches[kernel]
+    clock.lap("8 xgboost")
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)

@@ -10,10 +10,12 @@ device and without that request they raise.
 
 The port covers CSV import (``import_file``: the port's own copy of the
 native tokenizer, typed columns with enum domains built from the data)
-and training a bernoulli or gaussian GBM on packed bin codes, on
-per-node adaptive bins (H2O's ``UniformAdaptive``) or on the unpacked
-global sketch (more than 254 bins), its training metrics and
-``predict``; ROADMAP.md queues the rest.
+and training a bernoulli or gaussian GBM, or the XGBoost estimator over
+it, on packed bin codes, on per-node adaptive bins (H2O's
+``UniformAdaptive``) or on the unpacked global sketch (more than 254
+bins), with a validation frame, interval scoring and early stopping,
+its training and validation metrics and ``predict``; ROADMAP.md queues
+the rest.
 """
 from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame

@@ -12,8 +12,13 @@ bins); or the global sketch's codes unpacked, where neither holds them
 (more than 254 bins) or ``quantiles_global`` is asked for without
 packing. Per tree: (g, h) from the distribution at the current margin, one
 tree grown, and the tree's leaf values folded back into the margin
-through the leaf ids the grower already routed. Trees are fetched to the
-host once, at the end.
+through the leaf ids the grower already routed. With a validation frame
+each tree is also walked over the validation rows in the path's own
+representation. With early stopping or a ``score_tree_interval`` the
+loop scores every interval of trees (validation rows where there are
+some) with one device-to-host copy of the interval's scalars, and stops
+where ``ScoreKeeper`` says so; it builds no tree past the stop. Trees
+are fetched to the host once, at the end.
 
 Parameters the port does not support yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them; none is silently ignored.
@@ -21,16 +26,17 @@ naming the ROADMAP.md item that brings them; none is silently ignored.
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from h2o3_tpu_torch import _device
 from h2o3_tpu_torch.models.distributions import get_distribution, sigmoid
+from h2o3_tpu_torch.models.metrics import auc_device
 from h2o3_tpu_torch.models.model_base import (BUILDER_PARAMS, Model,
-                                              ModelBuilder, TrainingSpec,
-                                              compute_metrics)
+                                              ModelBuilder, ScoreKeeper,
+                                              TrainingSpec, compute_metrics)
 from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         adaptive_feasible, adaptive_setup,
                                         binned_feasible,
@@ -39,9 +45,11 @@ from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         grow_tree_binned,
                                         packed_bins_upper_bound,
                                         packed_codes_requested,
-                                        predict_raw_stacked, tree_config)
-from h2o3_tpu_torch.ops.binning import (bin_matrix_device, pack_codes,
-                                        packed_codes_record)
+                                        predict_binned, predict_raw_stacked,
+                                        predict_raw_tree, tree_config)
+from h2o3_tpu_torch.ops.binning import (bin_matrix_device,
+                                        digitize_with_edges, pack_codes,
+                                        pack_codes_for, packed_codes_record)
 
 # feature layout of the adaptive level kernels on the training path:
 # "rows_f" ([rows, F], the training matrix as it is) or "f_rows"
@@ -78,10 +86,6 @@ _UNSUPPORTED = (
         "auto", "bernoulli", "binomial", "gaussian", "multinomial"),
      "item A6, the other distributions and offsets"),
     ("offset_column", bool, "item A6, the other distributions and offsets"),
-    ("stopping_rounds", lambda v: int(v or 0) > 0,
-     "item A2, scoring during training"),
-    ("score_tree_interval", lambda v: int(v or 0) > 0,
-     "item A2, scoring during training"),
     ("checkpoint", lambda v: v is not None, "item A3, checkpoints"),
     ("in_training_checkpoints_dir", bool, "item A3, checkpoints"),
     ("sample_rate", lambda v: float(v) != 1.0, "item A4, sampling"),
@@ -119,6 +123,48 @@ def check_params(params: Dict) -> None:
             raise NotImplementedError(
                 f"gbm: {name}={params[name]!r} is not ported yet "
                 f"(ROADMAP.md queue 1, {item})")
+
+
+def valid_walk(X, bm, pc, max_depth: int):
+    """The validation rows' walk of one tree, made once per train: the
+    validation matrix in the training path's representation (packed
+    codes with NA in lane W-1, the global sketch's codes with NA =
+    n_bins, or the raw features on the adaptive path) and a function of
+    a grown tree returning its leaf value per validation row."""
+    if bm is None:
+        return lambda tree: predict_raw_tree(X, tree, max_depth)[0]
+    if pc is not None:
+        codes, na_bin = pack_codes_for(X, bm, pc.W), pc.W - 1
+    else:
+        codes = digitize_with_edges(X, bm.edges, bm.n_bins)
+        na_bin = bm.n_bins
+    return lambda tree: predict_binned(codes, tree, max_depth, na_bin)[0]
+
+
+def score_entry(margin, sc_spec: TrainingSpec, dist, built: int,
+                want_auc: bool = False) -> Dict:
+    """An interval's scoring-history entry (the JAX package's
+    ``_score_entry_dev`` and ``_score_entry_fetch``): the scalars stay on
+    the device until one copy to the host. ntrees and deviance; for
+    bernoulli logloss (deviance / 2) and, where the stopping metric is
+    the AUC, the AUC; for gaussian mse and rmse."""
+    w = sc_spec.w
+    yf = sc_spec.y.to(torch.float32)
+    mu = dist.predict(margin)
+    vals = [dist.deviance(w, yf, mu)]
+    if dist.name == "bernoulli" and want_auc:
+        vals.append(auc_device(mu, yf, w))
+    h = torch.stack(vals).cpu().tolist()
+    dev = h[0]
+    entry = {"ntrees": built, "deviance": dev}
+    if dist.name == "gaussian":
+        entry["mse"] = dev
+        entry["rmse"] = float(np.sqrt(max(dev, 0)))
+    if dist.name == "bernoulli":
+        entry["logloss"] = dev / 2.0
+        if want_auc:
+            entry["auc"] = h[1]
+    return entry
 
 
 class GBMModel(Model):
@@ -219,7 +265,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             return False
         return None
 
-    def _train_impl(self, spec: TrainingSpec) -> GBMModel:
+    def _train_impl(self, spec: TrainingSpec,
+                    valid: Optional[TrainingSpec] = None) -> GBMModel:
         p = self.params
         dist_name = self._distribution(spec)
         dev = spec.device
@@ -235,29 +282,70 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         ntrees = int(p["ntrees"])
         if ntrees < 1:
             raise ValueError(f"gbm: ntrees must be >= 1, got {ntrees}")
-        lr = np.float32(p["learn_rate"])
-        anneal = np.float32(p["learn_rate_annealing"])
+        anneal = float(p["learn_rate_annealing"])
+        task = "binomial" if spec.nclasses == 2 else "regression"
+        keeper = ScoreKeeper(p.get("stopping_rounds", 0),
+                             p.get("stopping_metric"),
+                             p.get("stopping_tolerance", 1e-3), task)
+        # the JAX loop's cadence: an entry after every ``interval`` trees
+        # and after the last (partial) chunk, when early stopping or an
+        # explicit score_tree_interval asks for scoring
+        interval = max(int(p.get("score_tree_interval") or 5), 1)
+        score_each = (keeper.rounds > 0
+                      or int(p.get("score_tree_interval") or 0) > 0)
+        chunk = interval if score_each else min(ntrees, 50)
+        sc_spec = valid if valid is not None else spec
+        want_auc = keeper.metric == "auc"
+        walk = None
+        if valid is not None:
+            walk = valid_walk(valid.X, bm, pc, cfg.max_depth)
+            vmargin = f0.expand(valid.nrow).contiguous()
         trees: List[dict] = []
+        score_s = 0.0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop0 = time.monotonic()
-        for _ in range(ntrees):
-            g, h = dist.grad_hess(margin, yf)
-            tree, nid = grow(g * w, h * w, w)
-            margin = margin + float(lr) * tree["value"][nid.long()]
-            trees.append(tree)
-            lr = np.float32(lr * anneal)
+        lr_chunk = float(p["learn_rate"])
+        while len(trees) < ntrees:
+            c = min(chunk, ntrees - len(trees))
+            # within a chunk the rate is annealed in float32, across
+            # chunks in float64, as the JAX chunk body and its driver do
+            lr = np.float32(lr_chunk)
+            for _ in range(c):
+                g, h = dist.grad_hess(margin, yf)
+                tree, nid = grow(g * w, h * w, w)
+                margin = margin + float(lr) * tree["value"][nid.long()]
+                if walk is not None:
+                    vmargin = vmargin + float(lr) * walk(tree)
+                trees.append(tree)
+                lr = np.float32(lr * np.float32(anneal))
+            lr_chunk *= anneal ** c
+            if score_each:
+                t_s0 = time.monotonic()
+                keeper.record(score_entry(
+                    vmargin if valid is not None else margin, sc_spec,
+                    dist, len(trees), want_auc))
+                score_s += time.monotonic() - t_s0
+                # the JAX loop checks before it commits a further chunk:
+                # the last chunk stands whatever the rule says
+                if len(trees) < ntrees and keeper.should_stop():
+                    break
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop = time.monotonic() - t_loop0
 
         t_fin0 = time.monotonic()
         model = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev)
+        model.scoring_history = keeper.history
         model.training_metrics = self._metrics_from_margin(margin, spec,
                                                            dist)
+        if valid is not None:
+            model.validation_metrics = self._metrics_from_margin(
+                vmargin, valid, dist)
         t_fin = time.monotonic() - t_fin0
         model.output["training_loop_seconds"] = t_loop
         model.output["train_profile"] = {"bin_s": t_bin, "loop_s": t_loop,
+                                         "score_s": score_s,
                                          "finalize_s": t_fin}
         model.output["packed_codes"] = packed_codes_record(
             pc, bm.n_bins if pc is not None else None)

@@ -4,7 +4,8 @@ Counterpart of the regression and binomial parts of
 ``h2o3_tpu/models/metrics.py``. The AUC curve is exact (device sort,
 host chord rule) up to ``_EXACT_SWEEP_ROWS`` rows; above that it uses an
 order-preserving 2^17-bucket histogram of the float32 score bits, so
-nothing O(n) crosses to the host.
+nothing O(n) crosses to the host. The bucket sums and ``auc_device`` add
+in a fixed order (no float atomics), so they repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -88,37 +89,82 @@ def _sorted_sweep_kernel(score, y, w):
     return s, tp, fp
 
 
+def _run_scan(vals, keys=None):
+    """Inclusive sums of ``vals`` [n, C] down the rows, restarted where
+    ``keys`` (sorted; None: one run) changes, in a fixed order: a
+    Hillis-Steele scan, whose step k adds row i-k into row i. Elementwise
+    adds only, so the same inputs give the same bits on every device and
+    in every call (no atomics, no scan whose association follows the
+    schedule)."""
+    n = vals.shape[0]
+    k = 1
+    while k < n:
+        add = vals[:-k]
+        if keys is not None:
+            add = torch.where((keys[k:] == keys[:-k])[:, None], add, 0.0)
+        vals = torch.cat([vals[:k], vals[k:] + add])
+        k *= 2
+    return vals
+
+
+def _fixed_sum(x):
+    """Sum of a power-of-two-long vector by halving, in a fixed order."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = x[:h] + x[h:]
+    return x[0]
+
+
+def _bucket_sums(b, vals):
+    """Per-bucket sums [_AUC_BINS, C] of ``vals`` [n, C] over bucket ids
+    ``b``, in a fixed order: a stable sort groups each bucket's rows in
+    row order, a run-restarted scan sums them, and each run's last row
+    is written to its bucket (one writer a bucket)."""
+    bs, order = torch.sort(b, stable=True)
+    run = _run_scan(vals[order], bs)
+    last = torch.ones_like(bs, dtype=torch.bool)
+    last[:-1] = bs[1:] != bs[:-1]
+    out = torch.zeros((_AUC_BINS, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    out[bs[last]] = run[last]
+    return out
+
+
 def _binned_curve_kernel(score, y, w):
     """Order-preserving float32-bit bucketisation into 2^17 bins plus
-    scatter-add histograms: negatives flip all bits, positives set the
-    sign bit, so unsigned keys follow score order."""
+    per-bucket sums of w·y and w·(1-y) in a fixed order (negatives flip
+    all bits, positives set the sign bit, so unsigned keys follow score
+    order) and each bucket's largest score."""
     s32 = score.to(torch.float32)
     bits = s32.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     key = torch.where((bits >> 31) == 1, (~bits) & 0xFFFFFFFF,
                       bits | 0x80000000)
     b = key >> (32 - _AUC_BIN_BITS)
-    hp = torch.zeros(_AUC_BINS, dtype=torch.float32,
-                     device=score.device).index_add_(0, b, w * y)
-    hn = torch.zeros(_AUC_BINS, dtype=torch.float32,
-                     device=score.device).index_add_(0, b, w * (1.0 - y))
+    h = _bucket_sums(b, torch.stack([w * y, w * (1.0 - y)], dim=1))
     smax = torch.full((_AUC_BINS,), -torch.inf, dtype=torch.float32,
                       device=score.device).scatter_reduce_(
                           0, b, s32, reduce="amax", include_self=True)
-    return hp, hn, smax
+    return h[:, 0], h[:, 1], smax
 
 
 def auc_device(score, y, w):
-    """Scalar AUC on the device from the 2^17-bucket curve (empty buckets
-    add zero-width chords)."""
+    """Scalar float32 AUC on the device from the 2^17-bucket curve (empty
+    buckets add zero-width chords). Every float sum comes in a fixed
+    order, so the same inputs give the same bits in every call: the
+    early-stopping rule reads it. The float32 bucket sums are carried
+    through the curve and the chord sum in float64 and rounded once at
+    the end, where a float32 pass drifts by a few units in the last
+    place with the order of its adds."""
     hp, hn, _ = _binned_curve_kernel(score, y, w)
-    tp = torch.cumsum(hp.flip(0), dim=0)
-    fp = torch.cumsum(hn.flip(0), dim=0)
+    cum = _run_scan(torch.stack([hp, hn], dim=1).flip(0).double())
+    tp, fp = cum[:, 0], cum[:, 1]
     P, N = tp[-1], fp[-1]
     z = torch.zeros(1, dtype=tp.dtype, device=tp.device)
     tp_prev = torch.cat([z, tp[:-1]])
     fp_prev = torch.cat([z, fp[:-1]])
-    return ((fp - fp_prev) * (tp + tp_prev)).sum() * 0.5 \
+    auc = _fixed_sum((fp - fp_prev) * (tp + tp_prev)) * 0.5 \
         / torch.clamp(P * N, min=1e-30)
+    return auc.to(torch.float32)
 
 
 def _binary_curve(prob, y, w):

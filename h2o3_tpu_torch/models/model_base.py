@@ -3,8 +3,10 @@
 Counterpart of ``h2o3_tpu/models/model_base.py`` without jobs, the
 keyed store, telemetry, recovery, streaming or cross-validation. A
 builder resolves a ``TrainingSpec`` from the training frame on the
-frame's device, trains there, and returns a ``Model`` whose ``predict``
-scores a frame on that frame's device.
+frame's device (and one from a validation frame, adapted to it), trains
+there, and returns a ``Model`` whose ``predict`` scores a frame on that
+frame's device. ``ScoreKeeper`` keeps the scoring history and decides
+early stopping.
 """
 from __future__ import annotations
 
@@ -89,14 +91,19 @@ def build_training_spec(frame: Frame, y: str,
 def adapt_test_matrix(model: "Model", frame: Frame) -> torch.Tensor:
     """Columns in training order; enum codes remapped through the
     training domain (unseen -> NA); missing columns all-NA."""
+    return _adapt_matrix(frame, model.feature_names, model.feature_is_cat,
+                         model.cat_domains)
+
+
+def _adapt_matrix(frame: Frame, names, is_cat, cat_domains) -> torch.Tensor:
     cols = []
-    for n, is_cat in zip(model.feature_names, model.feature_is_cat):
+    for n, cat in zip(names, is_cat):
         if n not in frame:
             cols.append(None)
             continue
         v = frame.vec(n)
-        train_dom = model.cat_domains.get(n)
-        if is_cat and v.type == T_ENUM and train_dom and v.domain != train_dom:
+        train_dom = cat_domains.get(n)
+        if cat and v.type == T_ENUM and train_dom and v.domain != train_dom:
             lut = {lab: i for i, lab in enumerate(train_dom)}
             remap = np.array([lut.get(lab, -1) for lab in v.domain] + [-1],
                              dtype=np.int32)
@@ -111,6 +118,116 @@ def adapt_test_matrix(model: "Model", frame: Frame) -> torch.Tensor:
                        device=frame.device) if c is None else c
             for c in cols]
     return torch.stack(cols, dim=1)
+
+
+def response_codes_in_domain(frame: Frame, response: str, domain):
+    """A test frame's response codes mapped through a training response
+    domain, on the frame's device: (codes, w), where a label unseen in
+    training and NA take weight 0 (and code 0). A numeric response is
+    read as labels as ``Vec.asfactor`` spells them."""
+    v = frame.vec(response)
+    if v.type != T_ENUM:
+        v = v.asfactor()
+    lut = {lab: i for i, lab in enumerate(domain)}
+    # the trailing -1 is the NA code's entry: NA indexes it through an
+    # explicit mask, never through a negative index
+    remap = torch.tensor([lut.get(lab, -1) for lab in v.domain] + [-1],
+                         dtype=torch.int32, device=v.data.device)
+    codes = v.data.long()
+    mapped = remap[torch.where(codes < 0, len(v.domain), codes)]
+    ok = mapped >= 0
+    return torch.where(ok, mapped, 0), ok.to(torch.float32)
+
+
+def build_validation_spec(frame: Frame, train_spec: TrainingSpec,
+                          weights_column: Optional[str] = None
+                          ) -> TrainingSpec:
+    """A validation frame's spec adapted to a training spec: columns in
+    training order, enum codes remapped through the training domains
+    (unseen and NA -> NA), response codes mapped through the training
+    response domain (unseen and NA -> weight 0). A spec from the
+    validation frame's own domains would misroute enum splits and class
+    indices."""
+    if frame.device != train_spec.device:
+        raise ValueError(f"validation frame lives on {frame.device}, the "
+                         f"training frame on {train_spec.device}")
+    if train_spec.response not in frame:
+        raise ValueError(f"validation frame lacks the response column "
+                         f"'{train_spec.response}'")
+    X = _adapt_matrix(frame, train_spec.names, train_spec.is_cat,
+                      train_spec.cat_domains)
+    if train_spec.nclasses > 1:
+        y_dev, w = response_codes_in_domain(frame, train_spec.response,
+                                            train_spec.response_domain)
+        y_dev = y_dev.to(torch.int32)
+    else:
+        yf = frame.vec(train_spec.response).as_float()
+        resp_ok = torch.isfinite(yf)
+        y_dev = torch.where(resp_ok, yf, 0.0)
+        w = resp_ok.to(torch.float32)
+    if weights_column:
+        if weights_column not in frame:
+            raise ValueError(f"validation frame lacks weights_column "
+                             f"'{weights_column}'")
+        wv = frame.vec(weights_column).as_float()
+        w = w * torch.where(torch.isnan(wv), 0.0, wv)
+    return TrainingSpec(X=X, y=y_dev, w=w, names=train_spec.names,
+                        is_cat=train_spec.is_cat,
+                        cat_domains=train_spec.cat_domains, nrow=frame.nrow,
+                        response=train_spec.response,
+                        response_domain=train_spec.response_domain,
+                        nclasses=train_spec.nclasses)
+
+
+class ScoreKeeper:
+    """Scoring history and early stopping, copied from the JAX package
+    (H2O's ScoreKeeper semantics): stop when the mean of the last
+    ``stopping_rounds`` scores is no better than the mean of the
+    ``stopping_rounds`` before them by the relative tolerance. A metric
+    the entries do not carry falls back to the deviance."""
+
+    LESS_IS_BETTER = {"logloss", "mse", "rmse", "mae", "deviance",
+                      "mean_per_class_error", "rmsle", "anomaly_score"}
+
+    def __init__(self, stopping_rounds=0, stopping_metric="auto",
+                 stopping_tolerance=1e-3, task="regression"):
+        self.rounds = int(stopping_rounds or 0)
+        metric = (stopping_metric or "auto").lower()
+        if metric == "auto":
+            metric = ("logloss" if task in ("binomial", "multinomial")
+                      else "deviance")
+        self.metric = metric
+        self.tol = stopping_tolerance
+        self.history: List[Dict] = []
+
+    def record(self, entry: Dict):
+        self.history.append(entry)
+
+    def should_stop(self) -> bool:
+        if self.rounds <= 0:
+            return False
+        k = self.rounds
+        metric = self.metric
+        if self.history and all(e.get(metric) is None for e in self.history):
+            metric = "deviance"  # requested metric unavailable for this family
+        scores = [e.get(metric) for e in self.history
+                  if e.get(metric) is not None]
+        if metric == "deviance" and self.metric != "deviance":
+            return self._stop_on(scores, k, less_is_better=True)
+        return self._stop_on(scores, k,
+                             less_is_better=metric in self.LESS_IS_BETTER)
+
+    def _stop_on(self, scores, k, less_is_better):
+        if len(scores) < 2 * k:
+            return False
+        recent = np.mean(scores[-k:])
+        prev = np.mean(scores[-2 * k:-k])
+        # relative improvement scaled by |prev|, so that a metric crossing
+        # zero keeps its band
+        margin = self.tol * abs(prev)
+        if less_is_better:
+            return recent >= prev - margin
+        return recent <= prev + margin
 
 
 def compute_metrics(scores, y, w, nclasses, deviance=None):
@@ -150,6 +267,8 @@ class Model:
         self.nclasses = nclasses
         self.output: Dict[str, Any] = {}
         self.training_metrics = None
+        self.validation_metrics = None
+        self.scoring_history: List[Dict] = []
 
     def _predict_matrix(self, X: torch.Tensor) -> torch.Tensor:
         """[rows] predictions (regression) or [rows, K] class
@@ -192,7 +311,8 @@ class ModelBuilder:
         mid = self.params.get("model_id")
         return str(mid) if mid else f"{self.algo}_{id(self) & 0xffffff:x}"
 
-    def _train_impl(self, spec: TrainingSpec) -> Model:
+    def _train_impl(self, spec: TrainingSpec,
+                    valid: Optional[TrainingSpec] = None) -> Model:
         raise NotImplementedError
 
     def _classification(self) -> Optional[bool]:
@@ -207,14 +327,15 @@ class ModelBuilder:
                           else self.params.get("training_frame"))
         if training_frame is None or y is None:
             raise ValueError("train() needs training_frame and y")
-        if validation_frame is not None:
-            raise NotImplementedError(
-                "validation_frame is not ported yet (ROADMAP.md, queue 1, "
-                "item A2: scoring during training)")
         spec = build_training_spec(
             training_frame, y, x,
             ignored_columns=self.params.get("ignored_columns"),
             weights_column=self.params.get("weights_column"),
             classification=self._classification())
-        self.model = self._train_impl(spec)
+        valid = None
+        if validation_frame is not None:
+            valid = build_validation_spec(
+                validation_frame, spec,
+                weights_column=self.params.get("weights_column"))
+        self.model = self._train_impl(spec, valid)
         return self

@@ -658,26 +658,35 @@ def predict_binned(codes, tree, max_depth: int, na_bin: int):
     return tree["value"][nid], nid.to(torch.int32)
 
 
+def predict_raw_tree(X, tree, max_depth: int):
+    """Leaf values and leaf ids of one tree (a dict of [M] tensors with
+    raw thresholds ``thr``) walked over raw features (float32, NaN =
+    NA): one gather per level."""
+    nid = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
+    for _ in range(max_depth):
+        f = tree["feat"][nid]
+        s = tree["is_split"][nid]
+        th = tree["thr"][nid]
+        nl = tree["na_left"][nid]
+        x = X.gather(1, f.clamp(min=0).long()[:, None])[:, 0]
+        right = torch.where(torch.isnan(x), ~nl, x >= th)
+        nid = torch.where(s, 2 * nid + 1 + right.long(), nid)
+    return tree["value"][nid], nid.to(torch.int32)
+
+
 def predict_raw_stacked(X, feat, thr, na_left, is_split, value,
                         max_depth: int):
     """Per-tree contributions ``[rows, T]`` of a stack of T trees
     (``feat``/``thr``/... are [T, M]) walked over raw features (float32,
     NaN = NA)."""
-    rows = X.shape[0]
-    out = []
-    for t in range(feat.shape[0]):
-        nid = torch.zeros(rows, dtype=torch.int64, device=X.device)
-        for _ in range(max_depth):
-            f = feat[t][nid]
-            s = is_split[t][nid]
-            th = thr[t][nid]
-            nl = na_left[t][nid]
-            x = X.gather(1, f.clamp(min=0).long()[:, None])[:, 0]
-            right = torch.where(torch.isnan(x), ~nl, x >= th)
-            nid = torch.where(s, 2 * nid + 1 + right.long(), nid)
-        out.append(value[t][nid])
+    out = [predict_raw_tree(X, {"feat": feat[t], "thr": thr[t],
+                                "na_left": na_left[t],
+                                "is_split": is_split[t],
+                                "value": value[t]}, max_depth)[0]
+           for t in range(feat.shape[0])]
     if not out:
-        return torch.zeros((rows, 0), dtype=torch.float32, device=X.device)
+        return torch.zeros((X.shape[0], 0), dtype=torch.float32,
+                           device=X.device)
     return torch.stack(out, dim=1)
 
 

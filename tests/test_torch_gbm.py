@@ -104,7 +104,7 @@ def test_gaussian_regression_trains_on_cpu():
 @pytest.mark.parametrize("param", [
     {"histogram_type": "random"},
     {"distribution": "multinomial"}, {"distribution": "poisson"},
-    {"stopping_rounds": 3}, {"checkpoint": "gbm_1"},
+    {"col_sample_rate_per_tree": 0.5}, {"checkpoint": "gbm_1"},
     {"sample_rate": 0.8}, {"col_sample_rate": 0.5}, {"mtries": 3},
     {"monotone_constraints": {"f0": 1}},
     {"interaction_constraints": [["f0", "f1"]]},
@@ -115,12 +115,16 @@ def test_unsupported_parameters_raise(param):
 
 
 def test_unknown_parameter_and_validation_frame_raise():
+    """An unknown parameter raises ValueError; a validation frame trains
+    now, and what is still refused around it (a checkpoint) raises."""
     with pytest.raises(ValueError, match="unknown parameter"):
         TorchGBM(hist_kernel="pallas")
     fr = th2o.Frame.from_numpy(_data(), device="cpu")
+    m = TorchGBM(ntrees=1, max_depth=2, distribution="bernoulli").train(
+        y="label", training_frame=fr, validation_frame=fr).model
+    assert m.validation_metrics.auc == m.training_metrics.auc
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchGBM(ntrees=1).train(y="label", training_frame=fr,
-                                 validation_frame=fr)
+        TorchGBM(ntrees=1, checkpoint=m.key)
 
 
 # ------------------------------------------------------------ adaptive path
@@ -325,14 +329,14 @@ def test_wide_bin_shapes_match_jax(params):
 
 def test_refusals_name_their_roadmap_labels():
     """Each refusal names the ROADMAP.md queue-1 label that ports it:
-    validation frames A2, the other distributions A6, multinomial
-    metrics A1."""
+    checkpoints A3, the other distributions A6, multinomial metrics
+    A1."""
     from h2o3_tpu_torch.models.distributions import get_distribution
     from h2o3_tpu_torch.models.model_base import compute_metrics
-    fr = th2o.Frame.from_numpy(_data(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item A2: scoring"):
-        TorchGBM(ntrees=1).train(y="label", training_frame=fr,
-                                 validation_frame=fr)
+    with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
+        TorchGBM(ntrees=1, checkpoint="gbm_1")
+    with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
+        TorchGBM(ntrees=1, in_training_checkpoints_dir="ckpt")
     with pytest.raises(NotImplementedError, match="item A6: the other"):
         get_distribution("poisson")
     scores = torch.full((4, 3), 1.0 / 3)

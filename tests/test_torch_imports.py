@@ -43,9 +43,17 @@ def test_no_jax_or_reference_import(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def test_sources_cover_every_model_module():
+    """The no-JAX rule above reads every module of the port, the XGBoost
+    estimator among them."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("gbm", "model_base", "metrics", "tree", "xgboost"):
+        assert f"h2o3_tpu_torch/models/{mod}.py" in names
+
+
 def test_import_leaves_jax_out():
     code = ("import sys; import h2o3_tpu_torch, h2o3_tpu_torch.estimators, "
-            "h2o3_tpu_torch.ops.binning; "
+            "h2o3_tpu_torch.models.xgboost, h2o3_tpu_torch.ops.binning; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o3_tpu')))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
