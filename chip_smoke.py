@@ -170,6 +170,38 @@ against its plain version. Phases, each fatal on failure:
    methods with early stopping at float32: the same tree count and
    history, every split equal, |dAUC| <= 1e-6 (min_child_weight 10).
 
+9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
+   Hopper counterparts of the JAX package's TPU probes P1-P6, their
+   kernels in ``tools/csrc/probes.cu``, built in phase 2 beside the
+   training path's, whose SASS check also holds every knock-out
+   instance to its body's production instance: no fewer shared loads
+   but the phase's own (``PHASE_LOADS``), the grouped body's HMMA/IMMA in
+   every one but the adds knock-out). At a small size every probe kernel
+   against its plain version: P1 (``mxu_probe``, bf16 within 1e-5 x the
+   absolute mass, int8 exact), P5 (``gather_probe``, ``onehot_probe``,
+   bit-equal, indices outside the table among them), and every
+   knock-out (route, ranges, bins, adds, walk, gather) of every probed
+   body (the tensor-core grouped body at W = 16 packed and W = 32
+   adaptive, the wide body at W = 64 adaptive and W = 256 packed, both
+   with float and with int8 masses, and the tiled [F, rows] body) at N =
+   2 and 32 with integer masses, bit-equal, its production instance also
+   bit-equal to the training path's wrapper, the walk again on float
+   masses within the mass tolerance. Then each tool's entry point at the
+   JAX tools' sizes with the launch counters set to 0 just before and
+   read just after (each must launch its kernels): P1 at M = 6, 24, 96,
+   128, 256 (bf16 and int8 at FW 896, bf16 at 448, bf16 chained L = 4),
+   eager and as a CUDA graph, beside one torch product; P5 beside
+   ``index_select``; P2 as the attribution of every probed body at N = 32
+   and N = 2 (10M x 28: each knock-out's ms and share, the grouping pass
+   and merge alone, the residual, bound, ``index_add_``); P3 (2.5M rows,
+   L = 1, 2, 4, eager against one CUDA graph); P4; P6 (the deepest
+   adaptive level in every form). Each tool holds each kernel's first
+   output on its timed inputs to the plain version (P1 at every M, P5 at
+   2.5M rows, every knock-out at 10M rows: int8 bit for bit, float
+   within the mass tolerance) and times the device alone, its reps
+   queued back to back (P3's eager chains keep the host's launch time on
+   purpose; its shares are of the graph's times).
+
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
 ``{"ok": true, "device": {...}}``.
@@ -182,6 +214,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2732,26 +2765,394 @@ def phase_xgboost(card, fr, cpu_rows=200_000, cpu_valid_rows=50_000):
     return out
 
 
-def sass_atomics(lib_path):
-    """The atomic and tensor-core opcodes in each built kernel's SASS
-    (``cuobjdump``), e.g. whether a shared-memory float add is native or
-    a CAS loop. Returns (the printable summary, {function: {opcode:
-    count}})."""
+# ------------------------------------------------- 9. the probe tools
+
+PROBE_SRC = "h2o3_tpu_torch/tools/csrc/probes.cu"
+# the probe tools' kernels: the TPU probe each replaces, and the tool
+# module (h2o3_tpu_torch/tools) that is its entry point
+PROBES = {
+    "mxu_probe": ("tools/kern_mxu_probe.py:47", "kern_mxu_probe"),
+    "gather_probe": ("tools/kern_gather_probe.py:45", "kern_gather_probe"),
+    "onehot_probe": ("tools/kern_gather_probe.py:45", "kern_gather_probe"),
+    "level_knockouts_P2": ("tools/kern_ablate.py:129", "kern_ablate"),
+    "level_knockouts_P3": ("tools/kern_ablate.py:233", "kern_ablate"),
+    "level_knockouts_P4": ("tools/kern_ablate_t.py:120", "kern_ablate_t"),
+    "level_variants_P6": ("tools/kern_variants.py:130", "kern_variants"),
+}
+
+
+# Shared loads (LDS, LDSM) that a knock-out instance may have fewer of
+# than its body's production instance (kNone), because the phase it
+# removes owns them: (body, knock-out) -> loads, as nvcc 12 for sm_90a
+# counts them in the probes libraries. Any other knock-out keeps at least
+# the production instance's shared loads; in the tensor-core grouped body
+# it also keeps its HMMA or IMMA, which only kAdds removes.
+PHASE_LOADS = {
+    # the tiled body: the cell's lo and inv (ranges; bins does no re-bin),
+    # the old value that each shared-add CAS loop reads (adds)
+    ("tiled_adaptive", "ranges"): 2,
+    ("tiled_adaptive", "bins"): 2,
+    ("tiled_adaptive", "adds"): 3,
+    # the grouped body: the children's lo and inv (ranges); bins also
+    # drops the staged row ids and slots that the value or code loads read
+    ("grouped_adaptive", "ranges"): 6,
+    ("grouped_adaptive", "bins"): 18,
+    ("grouped_packed", "bins"): 12,
+    # its int8 instance: the children's lo and inv, and the staged split
+    # feature's value that the route reads
+    ("grouped_i8_adaptive", "route"): 2,
+    ("grouped_i8_adaptive", "ranges"): 20,
+    ("grouped_i8_adaptive", "bins"): 20,
+    ("grouped_i8_packed", "route"): 2,
+    # the wide body: the slot's lo and inv, a pair for each value of the
+    # unrolled load window (ranges; bins does no re-bin)
+    ("wide_adaptive", "ranges"): 32,
+    ("wide_adaptive", "bins"): 32,
+    ("wide_i8_adaptive", "ranges"): 32,
+    ("wide_i8_adaptive", "bins"): 32,
+}
+
+
+def check_probe_sass(by_fn):
+    """The knock-out instances of the probes libraries (mangled
+    ``6AblateE<k>E``, k the Ablate value) against the production instance
+    (k = 0) of the same body: no fewer shared loads (LDS, LDSM) than it,
+    apart from the phase's own (``PHASE_LOADS``), so that the compiler
+    dropped nothing upstream of the knocked-out phase; in the tensor-core
+    grouped body no fewer HMMA (float) or IMMA (int8) products, and none
+    under kAdds (4), which removes them. Prints every instance's counts
+    beside the production instance's; raises with every instance that
+    fails."""
     import re
+    from h2o3_tpu_torch.tools._probes import ABLATES, BODIES
+    names = {v: k for k, v in ABLATES.items()}
+
+    def ops(c, *prefixes):
+        return sum(v for k, v in c.items() if k.startswith(prefixes))
+    inst = {}
+    for name, c in by_fn.items():
+        m = re.search(r"6AblateE(\d)E", name)
+        form = next((f for f, k in (("grouped", "level_grouped_kernel"),
+                                     ("wide", "level_wide_kernel"),
+                                     ("tiled", "adaptive_level_kernel"))
+                     if k in name), None)
+        if m is None or form is None:
+            continue
+        kind = "packed" if "CodeBins" in name else "adaptive"
+        body = f"{form}{'_i8' if 'I8Mass' in name else ''}_{kind}"
+        key = (body, names[int(m.group(1))])
+        if key in inst:
+            raise AssertionError(f"SASS: two instances of {key}")
+        inst[key] = (ops(c, "LDS"), ops(c, "HMMA", "IMMA"))
+    want = {(b, a) for b, body in BODIES.items() for a in body.ablates}
+    if set(inst) != want:
+        raise AssertionError(f"SASS: knock-out instances missing "
+                             f"{sorted(want - set(inst))} or unknown "
+                             f"{sorted(set(inst) - want)}")
+    rows, bad = [], []
+    for (b, a), (lds, mma) in sorted(inst.items()):
+        if a == "none":
+            continue
+        lds0, mma0 = inst[(b, "none")]
+        rows.append(f"{b} {a} LDS {lds}/{lds0} MMA {mma}/{mma0}")
+        if lds < lds0 - PHASE_LOADS.get((b, a), 0):
+            bad.append(f"{b} {a}: {lds} shared loads against {lds0}")
+        if b.startswith("grouped") and (
+                (a == "adds" and mma) or (a != "adds" and mma < mma0)
+                or not mma0):
+            bad.append(f"{b} {a}: {mma} tensor-core products against "
+                       f"{mma0}")
+    print("SASS of the knock-out instances against their production "
+          "instance (knock-out/production): " + "; ".join(rows),
+          flush=True)
+    if bad:
+        raise AssertionError("SASS of the knock-out instances: "
+                             + "; ".join(bad))
+
+
+def probe_level_checks(dev, rows=3000, F=28):
+    """Every knock-out of every probed body against its plain version at
+    N = 2 and 32: integer-valued masses (every float sum exact) with nid
+    and histogram bit-equal; the production instance ("none") also
+    bit-equal to the training path's wrapper in the same form; the walk
+    knock-out again on float masses, each bin within 1e-4 + 1e-5 x its
+    absolute mass of the float64 plain version. Returns {body: max abs
+    err}."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.tools import kern_ablate
+    from h2o3_tpu_torch.tools._probes import BODIES
+    errs = {}
+    for body_name, body in BODIES.items():
+        errs[body_name] = 0.0
+        for N in (2, 32):
+            inp = kern_ablate.level_inputs(body_name, rows, F, N, 90 + N, dev,
+                                           int_ghw=True)
+            for ab in body.ablates:
+                nk, hk = kern_ablate.knockout(body_name, ab, inp)
+                npl, hp = kern_ablate.knockout_plain(body_name, ab, inp)
+                torch.cuda.synchronize()
+                what = f"{body_name} {ab} N={N}"
+                if not torch.equal(nk, npl):
+                    raise AssertionError(f"{what}: nid differs in "
+                                         f"{int((nk != npl).sum())} rows")
+                if not torch.equal(hk, hp.float()):
+                    raise AssertionError(
+                        f"{what}: histogram not bit-equal (max "
+                        f"{float((hk - hp.float()).abs().max())})")
+            # the probes' production instance is the training path's
+            if body.kind == "adaptive" and body.mass == "float":
+                ref = kernels.adaptive_level_form(
+                    inp.vals, inp.nid, inp.ghw, inp.tables, inp.lo, inp.inv,
+                    inp.n_prev, N, inp.level_base, body.W, True, body.layout,
+                    body.form)
+            elif body.kind == "adaptive":
+                ref = kernels.adaptive_level_i8_form(
+                    inp.vals, inp.nid, inp.q, inp.scales, inp.tables, inp.lo,
+                    inp.inv, inp.n_prev, N, inp.level_base, body.W,
+                    body.layout, body.form)
+            elif body.mass == "float":
+                ref = kernels.binned_level_form(
+                    inp.vals, inp.nid, inp.ghw, inp.tables, inp.n_prev, N,
+                    inp.level_base, body.W, True, body.form)
+            else:
+                ref = kernels.binned_level_i8_form(
+                    inp.vals, inp.nid, inp.q, inp.scales, inp.tables,
+                    inp.n_prev, N, inp.level_base, body.W, body.form)
+            mine = kern_ablate.knockout(body_name, "none", inp)
+            if not (torch.equal(ref[0], mine[0])
+                    and torch.equal(ref[1], mine[1])):
+                raise AssertionError(f"{body_name} N={N}: the probes' "
+                                     f"production instance differs from "
+                                     f"the training path's")
+            if "walk" in body.ablates:
+                fin = kern_ablate.level_inputs(body_name, rows, F, N, 190 + N,
+                                               dev)
+                _n, hk = kern_ablate.knockout(body_name, "walk", fin)
+                g64 = fin.ghw
+                fin.ghw = g64.double()
+                _n, hp = kern_ablate.knockout_plain(body_name, "walk", fin)
+                fin.ghw = g64.double().abs()
+                _n, mass = kern_ablate.knockout_plain(body_name, "walk", fin)
+                mass_check(f"{body_name} walk N={N}", hk, hp, mass)
+                errs[body_name] = max(errs[body_name], float(
+                    (hk.double() - hp).abs().max()))
+            del inp
+    return errs
+
+
+def probe_kernel_checks(dev):
+    """P1 and P5 against their plain versions at small sizes (the tools
+    check them again at their own sizes): P1 at M = 6 and 24, FW 64 and
+    128, K 1024, n_tiles 3, int8 exact and bf16 within 1e-5 x the absolute
+    mass (``kern_mxu_probe.check``); P5 at 10,001 rows with indices outside
+    [0, N) among them, bit-equal. Returns the largest absolute errors."""
+    from h2o3_tpu_torch.tools import kern_gather_probe, kern_mxu_probe
+    errs = {"mxu_probe": 0.0}
+    for dt in ("bf16", "i8"):
+        for M, FW in ((6, 64), (24, 128)):
+            L, R = kern_mxu_probe.operands(M, FW, 1024, dt, dev)
+            errs["mxu_probe"] = max(errs["mxu_probe"], kern_mxu_probe.check(
+                L, R, 3, kern_mxu_probe.mxu(L, R, 3)))
+    tab, idx = kern_gather_probe.operands(10_001, dev)
+    idx[::97] = -1
+    idx[5::89] = 32
+    for name, onehot in (("gather_probe", False), ("onehot_probe", True)):
+        errs[name] = kern_gather_probe.check(
+            tab, idx, onehot, kern_gather_probe.lookup(tab, idx, onehot))
+    return errs
+
+
+def driven(tool, argv, need):
+    """Run a probe tool's entry point (``tool.main(argv)``) with every
+    launch count set to 0 just before and read just after; fails where a
+    kernel of ``need`` was launched no time. Returns (result, counts)."""
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.tools import _probes
+    for counts in (kernels.LAUNCHES, _probes.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    res = tool.main(argv)
+    got = {**{k: v for k, v in kernels.LAUNCHES.items() if v},
+           **{k: v for k, v in _probes.LAUNCHES.items() if v}}
+    missing = [k for k in need if not got.get(k)]
+    if missing:
+        raise AssertionError(f"{tool.__name__} {argv}: no launch of "
+                             f"{missing} ({got})")
+    return res, got
+
+
+def phase_probes(card, dev):
+    """9. The probe tools (h2o3_tpu_torch/tools), P1-P6: every probe
+    kernel and every knock-out instance held to its plain version at a
+    small size, then each tool's entry point driven at the JAX tools' own
+    sizes with the launch counts read around it, each tool holding every
+    kernel's first output on its timed inputs to the plain version (the
+    records' max_abs_err is the largest of both sizes): P1 at M = 6, 24, 96, 128,
+    256 (bf16 and int8 at FW 896, bf16 at FW 448, bf16 chained L = 4), P5,
+    P2 as the attribution of every probed body at N = 32 and N = 2 (10M x
+    28), P3 at L = 1, 2, 4, P4, P6. Returns the kernel records."""
+    import torch
+    from h2o3_tpu_torch.tools import (kern_ablate, kern_ablate_t,
+                                      kern_gather_probe, kern_mxu_probe,
+                                      kern_variants)
+    errs = probe_kernel_checks(dev)
+    level_errs = probe_level_checks(dev)
+    print(f"probes vs plain at small sizes (again at the timed sizes "
+          f"below): P1 and P5 {json.dumps(errs)}; "
+          f"every knock-out of every body bit-equal (integer masses), the "
+          f"walk within the mass tolerance (float masses, max abs err "
+          f"{json.dumps(level_errs)}); [{card}]", flush=True)
+    recs = []
+
+    def rec(name, launches, err, ms, plain_ms, bound_ms, bound_by,
+            library_ms, **extra):
+        replaces, tool = PROBES[name]
+        r = {"name": name, "route": "cuda", "source": PROBE_SRC,
+             "replaces": replaces, "tool": f"h2o3_tpu_torch.tools.{tool}",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms, **extra}
+        recs.append(r)
+        return r
+
+    # P1
+    mxu, launches, err = {}, 0, errs["mxu_probe"]
+    for argv in (["--dt", "bf16"], ["--dt", "i8"], ["--fw", "448"],
+                 ["--L", "4", "--reps", "10"]):
+        res, got = driven(kern_mxu_probe, argv, ["mxu_probe"])
+        launches += got["mxu_probe"]
+        mxu[" ".join(argv)] = res["mxu"]
+        err = max([err, *(r["max_abs_err"] for r in res["mxu"])])
+    top = mxu["--dt bf16"][-1]
+    L, R = kern_mxu_probe.operands(top["M"], top["FW"], kern_mxu_probe.TILE,
+                                   "bf16", dev)
+    n_tiles = kern_mxu_probe.ROWS // kern_mxu_probe.TILE
+    plain_ms = time_cuda(lambda: kern_mxu_probe.mxu_plain(L, R, n_tiles), 3)
+    del L, R
+    rec("mxu_probe", launches, err, top["ms"], plain_ms,
+        top["bound_ms"], "operations", top["library_ms"], by_run=mxu)
+    print(f"P1 mxu_probe: M=256 bf16 FW 896 {top['ms']:.4f} ms a "
+          f"contraction ({top['rate']:.1f} TFLOP/s, bound "
+          f"{top['bound_ms']:.4f} ms) ; every M, dt, FW, L: "
+          f"{json.dumps(mxu, default=float)} [{card}]", flush=True)
+
+    # P5
+    res, got = driven(kern_gather_probe, [],
+                      ["gather_probe", "onehot_probe"])
+    tab, idx = kern_gather_probe.operands(kern_gather_probe.ROWS, dev)
+    for name, key, plain in (
+            ("gather_probe", "lane-gather", kern_gather_probe.gather_plain),
+            ("onehot_probe", "onehot-matmul",
+             kern_gather_probe.onehot_plain)):
+        pms = time_cuda(lambda: plain(tab, idx), 3)
+        lib = res["library_ms"]
+        if name == "onehot_probe":
+            tb = tab.to(torch.bfloat16).float()
+            lib = time_cuda(lambda: torch.index_select(tb, 1, idx), 10)
+        rec(name, got[name], max(errs[name], res[f"{key} max_abs_err"]),
+            res[key], pms, res["bound_ms"], "bytes", lib)
+    del tab, idx
+    print(f"P5 gather_probe / onehot_probe at {res['rows']} rows: "
+          f"{res['lane-gather']:.4f} / {res['onehot-matmul']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms, index_select {res['library_ms']:.4f} "
+          f"ms [{card}]", flush=True)
+
+    # P2: the attribution of every probed body at N = 32 and N = 2
+    res, got = driven(kern_ablate, ["--bodies", "all", "--nodes", "32,2"],
+                      ["level_knockout"])
+    att = res["attribution"]
+    # P2's own level: the [rows, F] adaptive one on the grouped body, N = 32
+    p2 = next(a for a in att
+              if a["body"] == "grouped_adaptive" and a["N"] == 32)
+    rec("level_knockouts_P2", got["level_knockout"],
+        max([*level_errs.values(),
+             *(e for a in att for e in a["errs"].values())]),
+        p2["ms"]["none"], p2["plain_ms"],
+        p2["bound_ms"], p2["bound_by"], p2["library_ms"], attribution=att)
+    print(f"P2 attribution (10M x 28; ms a level, shares of the base) "
+          f"[{card}]: {json.dumps(att, default=float)}", flush=True)
+
+    # P3: chained packed levels, eager against one CUDA graph
+    res, got = driven(kern_ablate, ["--levels", "1,2,4"], ["level_knockout"])
+    lv = res["levels"]
+    inp = kern_ablate.level_inputs("grouped_packed", kern_ablate.LROWS, 28,
+                                   32, 77, dev)
+    pms = time_cuda(lambda: kern_ablate.knockout_plain(
+        "grouped_packed", "none", inp), 3)
+    lib, in_level = kern_ablate.index_add_ms("grouped_packed", inp, dev)
+    bound, by = kern_ablate.level_bound_ms("grouped_packed",
+                                           kern_ablate.LROWS, 28, 32,
+                                           in_level)
+    del inp
+    rec("level_knockouts_P3", got["level_knockout"],
+        max([level_errs["grouped_packed"], level_errs["wide_packed"],
+             *(r["max_abs_err"] for r in lv)]),
+        lv[0]["graph"]["none"], pms, bound, by, lib, levels=lv)
+    print(f"P3 chained levels (2.5M x 28, N=32) [{card}]: "
+          f"{json.dumps(lv, default=float)}", flush=True)
+
+    # P4: the tiled [F, rows] body
+    res, got = driven(kern_ablate_t, [], ["level_knockout"])
+    rec("level_knockouts_P4", got["level_knockout"],
+        max(level_errs["tiled_adaptive"], *res["errs"].values()),
+        res["ms"]["none"], res["plain_ms"],
+        res["bound_ms"], res["bound_by"], res["library_ms"], attribution=res)
+    print(f"P4 tiled [F, rows] body (2.5M x 28, N=32) [{card}]: "
+          f"{json.dumps(res, default=float)}", flush=True)
+
+    # P6: the deepest adaptive level's forms
+    res, got = driven(kern_variants, [], ["level_knockout", "adaptive_level"])
+    inp = kern_ablate.level_inputs("grouped_adaptive", kern_variants.ROWS,
+                                   28, 32, 1600, dev)
+    pms = time_cuda(lambda: kern_ablate.knockout_plain(
+        "grouped_adaptive", "none", inp), 3)
+    lib, in_level = kern_ablate.index_add_ms("grouped_adaptive", inp, dev)
+    bound, by = kern_ablate.level_bound_ms("grouped_adaptive",
+                                           kern_variants.ROWS, 28, 32,
+                                           in_level)
+    del inp
+    rec("level_variants_P6", got["level_knockout"] + got["adaptive_level"],
+        max(v["max_abs_err"] for v in res.values()), res["grouped"]["ms"],
+        pms, bound, by, lib, variants=res)
+    print(f"P6 variants (10M x 28, N=32) [{card}]: "
+          f"{json.dumps(res, default=float)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sass_functions(lib_path):
+    """{function: its SASS} of a built library (``cuobjdump``), None
+    without the tool."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return "cuobjdump not found: SASS summary not printed", {}
+        return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+    return {fn.split(chr(10))[0].strip(): fn
+            for fn in sass.split("Function : ")[1:]}
+
+
+def sass_atomics(lib_path):
+    """The atomic, tensor-core and shared-load (LDS, LDSM) opcodes in each
+    built kernel's SASS (``cuobjdump``), e.g. whether a shared-memory float
+    add is native or a CAS loop. Returns (the printable summary of the
+    atomic and tensor-core ones, {function: {opcode: count}})."""
+    import re
+    fns = sass_functions(lib_path)
+    if fns is None:
+        return "cuobjdump not found: SASS summary not printed", {}
     lines, by_fn = [], {}
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.split(chr(10))[0].strip()
+    for name, fn in fns.items():
         ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|HMMA|IMMA)\."
-                         r"[A-Z0-9_.]+)", fn)
+                         r"[A-Z0-9_.]+|LDSM?(?![A-Z0-9_])(?:\.[A-Z0-9_.]+)?)",
+                         fn)
         counts = {op: ops.count(op) for op in sorted(set(ops))}
         by_fn[name] = counts
-        lines.append(f"  {name[:80]}: {counts}")
+        shown = {k: v for k, v in counts.items() if not k.startswith("LDS")}
+        lines.append(f"  {name[:80]}: {shown}")
     return "SASS atomics per kernel:\n" + "\n".join(lines), by_fn
 
 
@@ -2823,7 +3224,7 @@ def check_sass(by_fn):
         raise AssertionError(f"SASS: leaf_totals / global_hist grouped "
                              f"instances missing: {sorted(ordered)}")
     for name, counts in ordered.items():
-        if counts:
+        if atomics(counts) or mma(counts, "HMMA") or mma(counts, "IMMA"):
             raise AssertionError(f"SASS of {name}: atomics {counts}")
     print(f"SASS check: tensor-core grouped level instances, HMMA per "
           f"float instance (no ATOMS.CAST.SPIN) and IMMA per int8 instance "
@@ -2859,6 +3260,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import h2o3_tpu_torch  # noqa: F401 — fails outside a checkout
     from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.tools import _probes
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -2869,11 +3271,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: the training path's libraries and the probe tools' (phase
+    # 9), every nvcc started together
     clock = PhaseClock()
     t0 = time.perf_counter()
+    probes_built = []
+
+    def build_probes():
+        try:
+            probes_built.append(_probes.build())
+        except BaseException as e:  # re-raised below, on this thread
+            probes_built.append(e)
+    probes_thread = threading.Thread(target=build_probes, daemon=True)
+    probes_thread.start()
     kernels.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}")
+    probes_thread.join()
+    if isinstance(probes_built[0], BaseException):
+        raise probes_built[0]
+    log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}\n"
+        f"{_probes.build_log()}")
     by_fn = {}
     for so in kernels.library_paths().values():
         text, counts = sass_atomics(so)
@@ -2881,6 +3297,11 @@ def main() -> int:
         by_fn.update(counts)
     if by_fn:
         check_sass(by_fn)
+    probe_fns = {}
+    for so in _probes.library_paths().values():
+        probe_fns.update(sass_atomics(so)[1])
+    if probe_fns:
+        check_probe_sass(probe_fns)
 
     clock.lap("2 build + SASS")
 
@@ -3016,6 +3437,9 @@ def main() -> int:
             by_name[kernel].setdefault("launches_by_path", {})[
                 f"xgboost_{path}"] = launches[kernel]
     clock.lap("8 xgboost")
+    # 9. the probe tools, P1-P6
+    rec += phase_probes(card, dev)
+    clock.lap("9 probes")
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
@@ -3037,7 +3461,13 @@ def main() -> int:
           "atomics] group_rows[alone]; index_add_ beside binned_level "
           "(W=16,32,64,128,256), adaptive_level (W=32,64,128,256), "
           "binned_level_i8 (W=16,64,128,256) and adaptive_level_i8 "
-          "(W=32,64,128,256), segment_totals, global_hist", flush=True)
+          "(W=32,64,128,256), segment_totals, global_hist; "
+          "probes: mxu_probe[M=6,24,96,128,256 x bf16,int8 x FW=896,448 x "
+          "L=1,4] gather_probe onehot_probe level_knockouts[grouped W=16,32 "
+          "x float,int8; wide W=64,256 x float,int8; tiled f_rows W=32 x "
+          "none,route,ranges,bins,adds,walk,gather x N=2,32; P3 L=1,2,4 "
+          "eager, graph] level_variants[grouped, wide, tiled, atomics, "
+          "noroute, noloinv]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -91,10 +91,12 @@
 // the wide form by its consumers' walk (level_wide.cuh), the tiled body by
 // its shared-memory atomics.
 
+#include "code_bins.cuh"
 #include "level_wide.cuh"
 
 namespace {
 
+using h2o3::CodeBins;
 using h2o3::kThreads;
 
 template <typename CodeT>
@@ -282,47 +284,7 @@ int launch_level_w(const void* codes, int code_bytes, const int* nid,
 // ------------------------------------------ the node-grouped float level
 //
 // The float packed level (K1/K3) on the grouped body of
-// level_grouped.cuh: the code is the bin.
-
-// K1's bin source: packed codes [rows, F] (int8, or int16 at W = 256; NA
-// in lane W-1), int32 split tables (feat, split_bin, na_left, can).
-template <typename CodeT, int W>
-struct CodeBins {
-  static constexpr int kW = W;
-  static constexpr bool kRanges = false;
-  static constexpr int kBytes = sizeof(CodeT);
-  // byte codes: the code is the bin byte (the int8 body's SWAR bins)
-  static constexpr bool kByteCodes = sizeof(CodeT) == 1;
-  using Val = int;
-  const CodeT* __restrict__ codes;
-  const int* __restrict__ tables;
-  __device__ __forceinline__ int load(int64_t r, int f, int F) const {
-    return static_cast<int>(codes[r * F + f]);
-  }
-  __device__ __forceinline__ const unsigned char* rows() const {
-    return reinterpret_cast<const unsigned char*>(codes);
-  }
-  static __device__ __forceinline__ int at(const unsigned char* row, int f) {
-    return static_cast<int>(reinterpret_cast<const CodeT*>(row)[f]);
-  }
-  __device__ __forceinline__ bool can(int lp, int n_prev) const {
-    return __ldg(tables + 3 * n_prev + lp) != 0;
-  }
-  __device__ __forceinline__ void split(int k, int n_prev, int F, int* feat,
-                                        int* thr, int* na_right) const {
-    const int f = __ldg(tables + k);
-    *feat = f < 0 ? 0 : (f >= F ? F - 1 : f);
-    *thr = __ldg(tables + n_prev + k);
-    *na_right = __ldg(tables + 2 * n_prev + k) == 0;
-  }
-  __device__ __forceinline__ int right(int c, int thr, int na_right) const {
-    return c == W - 1 ? na_right : (c >= thr);
-  }
-  // a code outside [0, W) adds nothing, as in the tiled body
-  __device__ __forceinline__ int bin(int c, float, float) const {
-    return static_cast<unsigned>(c) < static_cast<unsigned>(W) ? c : -1;
-  }
-};
+// level_grouped.cuh: the code is the bin (CodeBins, code_bins.cuh).
 
 // The grouped level's instance by code width and W (W <= 32: the wide
 // body takes the wider levels), one bf16 term at bf16, three at float32.

@@ -25,6 +25,51 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// ------------------------------------------------------------ knock-outs
+//
+// The phase knock-outs of the level bodies: a compile-time parameter of
+// level_grouped_kernel, level_wide_kernel and the tiled
+// adaptive_level_kernel. kNone, the default, is the production body; only
+// the probe tools (h2o3_tpu_torch/tools/csrc/probes.cu) instantiate the
+// others, and no form rule or launcher of the training path can reach
+// them. Each replaces one phase with a cheaper one and still computes a
+// defined function, whose plain version is in h2o3_tpu_torch/tools/
+// kern_ablate.py:
+// - kRoute: every parent sends every row left, without reading x;
+// - kRanges: the child's (lo, inv) are the constants -4 and (W - 2) / 8;
+// - kBins: the bin of (row, feature f) is (row + f) mod (W - 1), without
+//   loading the value for it and without the re-bin;
+// - kAdds: the mass products or shared adds are skipped: the histogram is
+//   zero, nid_out exact;
+// - kWalk (the wide float body): the consumers add with shared float
+//   atomics, a thread a record, in place of the keyed fixed-order walk;
+// - kGather (the wide body): producer p reads the values of row p of the
+//   frame in place of its record's row.
+// What a knock-out leaves unread (the operands of the skipped products or
+// adds) is folded into one word a thread and stored to ablate_sink on a
+// value no input is likely to give, so that the compiler keeps the work
+// upstream of the removed phase.
+enum class Ablate : int {
+  kNone = 0,
+  kRoute = 1,
+  kRanges = 2,
+  kBins = 3,
+  kAdds = 4,
+  kWalk = 5,
+  kGather = 6,
+};
+
+__device__ unsigned ablate_sink;
+
+__device__ __forceinline__ void sink_fold(unsigned fold) {
+  if (fold == 0x5EEDF00Du) ablate_sink = fold;
+}
+
+// The bin of a (row, feature) under kBins.
+__device__ __forceinline__ int ablate_bin(int row, int f, int W) {
+  return (row + f) % (W - 1);
+}
+
 inline int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);

@@ -176,7 +176,8 @@ inline size_t grouped_smem(int F, int W, int NT, bool mma, bool ranges) {
 //     registers; else (the adaptive level's ablation): shared float
 //     atomics into a [3][2][F][W + 1] partial.
 // The block writes its partial, [3][2][F][W], into its own slot of part.
-template <class Src, int NT, bool kMma>
+// kA: a phase knock-out (level_common.cuh; kMma instances only).
+template <class Src, int NT, bool kMma, Ablate kA = Ablate::kNone>
 __device__ __forceinline__ void
 grouped_float_body(Src src, const float4* __restrict__ rec,
                      const int* __restrict__ offsets,
@@ -238,7 +239,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
       r = __float_as_int(q.x);
       int side = 0;
       if (parent) {
-        side = src.right(v, thr, na_right);
+        if constexpr (kA != Ablate::kRoute) side = src.right(v, thr, na_right);
         if (blockIdx.y == 0) nid_out[r] = 2 * pid + 1 + side;
       }
       slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
@@ -297,7 +298,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
 #pragma unroll
     for (int q = 0; q < kXPer; ++q) {
       xv[q] = Val(0);
-      if (rf[q] >= 0) {
+      if (kA != Ablate::kBins && rf[q] >= 0) {
         const int row = rf[q] >> 10;
         if (s_slot[sb * kChunk + row] >= 0)
           xv[q] = src.load(s_r[sb * kChunk + row], rf[q] & 1023, F);
@@ -313,12 +314,19 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
       const int slot = s_slot[sb * kChunk + row];
       float lo = 0.f, inv = 0.f;
       if constexpr (Src::kRanges) {
-        if (slot >= 0) {
+        if (kA == Ablate::kRanges) {
+          lo = -4.f;
+          inv = (W - 2) / 8.f;
+        } else if (slot >= 0) {
           lo = s_lo[slot * F + f];
           inv = s_inv[slot * F + f];
         }
       }
-      const int bin = slot >= 0 ? src.bin(v, lo, inv) : 0;
+      int bin;
+      if constexpr (kA == Ablate::kBins)
+        bin = slot >= 0 ? ablate_bin(s_r[sb * kChunk + row], f, W) : 0;
+      else
+        bin = slot >= 0 ? src.bin(v, lo, inv) : 0;
       sbin[f * kBinStride + row] = static_cast<uint16_t>(
           __float_as_uint(static_cast<float>(bin)) >> 16);
     };
@@ -328,7 +336,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
     for (int j = threadIdx.x + kXPer * kGrpThreads; j < nbin;
          j += kGrpThreads) {
       const int row = j / F, f = j - row * F;
-      const Val v = s_slot[sb * kChunk + row] >= 0
+      const Val v = kA != Ablate::kBins && s_slot[sb * kChunk + row] >= 0
                         ? src.load(s_r[sb * kChunk + row], f, F)
                         : Val(0);
       put(row, f, v);
@@ -346,6 +354,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  unsigned fold = 0u;  // kAdds: the products' operands
 
   // (3) the products of stage buffer sb, bin buffer bb
   auto accumulate = [&](int sb, int bb) {
@@ -379,7 +388,10 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
             for (int n = 0; n < NT; ++n) {
               const uint2 fb = frag[(ks * NT + n) * 32 + lane];
               const unsigned bb2[2] = {fb.x, fb.y};
-              mma_bf16(tmp[n], a, bb2);
+              if constexpr (kA == Ablate::kAdds)
+                fold ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ bb2[0] ^ bb2[1];
+              else
+                mma_bf16(tmp[n], a, bb2);
             }
           }
 #pragma unroll
@@ -418,7 +430,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
                                 : make_float4(0.f, 0.f, 0.f, 0.f);
   };
   auto split_value = [&](int64_t c, const float4& q) {
-    return stager && parent && c + t < i1
+    return kA != Ablate::kRoute && stager && parent && c + t < i1
                ? src.load(__float_as_int(q.x), feat, F)
                : Val(0);
   };
@@ -447,6 +459,7 @@ grouped_float_body(Src src, const float4* __restrict__ rec,
     accumulate(sb, bb);
   }
 
+  if constexpr (kA == Ablate::kAdds) sink_fold(fold);
   // the block's partial into its slot: part[b][3][2][F][W]
   float* pb = part + static_cast<int64_t>(b) * 6 * F * W;
   if constexpr (kMma) {
@@ -654,8 +667,10 @@ inline size_t grouped_i8_smem(int F, int W, int terms, int elem_bytes,
 //     rows x 8 columns of q bytes, (g, h, w) of slot 0 and of slot 1, two
 //     empty; one n-tile a term) into int32 registers, exact.
 // The block writes its int32 partial, [3 * kTerms][2][F][W] (plane c *
-// kTerms + term), into its own slot of part.
-template <class Src, int kTerms>
+// kTerms + term), into its own slot of part. kA: a phase knock-out
+// (level_common.cuh); under kBins the rows' staged bytes are the split
+// feature's alone.
+template <class Src, int kTerms, Ablate kA = Ablate::kNone>
 __device__ __forceinline__ void grouped_i8_body(
     Src src, const typename QRec<kTerms>::T* __restrict__ rec,
     const int* __restrict__ offsets, const int* __restrict__ bstart, int G,
@@ -713,8 +728,12 @@ __device__ __forceinline__ void grouped_i8_body(
   const int u0 = blockIdx.y * (kGrpWarps * U);
   const int fa = u0 / MT;
   const int fb = min(F, (u0 + kGrpWarps * U + MT - 1) / MT);
-  const int ca = (parent ? min(fa, feat) : fa) / 4 * 4;
-  const int cb = parent ? max(fb, feat + 1) : fb;
+  int ca = (parent ? min(fa, feat) : fa) / 4 * 4;
+  int cb = parent ? max(fb, feat + 1) : fb;
+  if constexpr (kA == Ablate::kBins) {
+    ca = feat / 4 * 4;
+    cb = parent ? feat + 1 : ca;
+  }
   const int ba = ca * Src::kBytes, rbc = (cb - ca) * Src::kBytes;
 
   // the copies: chunk j's records into ring slot j % kRecRing; the staged
@@ -723,7 +742,8 @@ __device__ __forceinline__ void grouped_i8_body(
   // every row, else in the 4-byte words that hold them (the first at a
   // byte offset, off, in them)
   const unsigned char* gx = src.rows();
-  const bool vec16 = ((reinterpret_cast<uintptr_t>(gx) + ba) & 15) == 0 &&
+  const bool vec16 = (kA != Ablate::kBins || rbc > 0) &&
+                     ((reinterpret_cast<uintptr_t>(gx) + ba) & 15) == 0 &&
                      (rb & 15) == 0 && (rbc & 15) == 0;
   const int per = vec16 ? rbc / 16 : (rbc + 3) / 4 + 1;  // copies a row
   const int tstep = kGrpThreads / per;  // rows a pass of the block copies
@@ -776,7 +796,8 @@ __device__ __forceinline__ void grouped_i8_body(
                                3);
       int side = 0;
       if (parent) {
-        side = src.right(Src::at(xrow(j, t, off), feat), thr, na_right);
+        if constexpr (kA != Ablate::kRoute)
+          side = src.right(Src::at(xrow(j, t, off), feat), thr, na_right);
         if (blockIdx.y == 0) nid_out[r] = 2 * pid + 1 + side;
       }
       slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
@@ -801,7 +822,7 @@ __device__ __forceinline__ void grouped_i8_body(
   // (2) bins of chunk j into bin buffer j % 2. Bin items: (quad, feature)
   // or, for byte codes, (quad, four features); this thread's first
   // kI8Items as quad * 1024 + item-feature
-  constexpr bool kSwar = Src::kByteCodes;
+  constexpr bool kSwar = Src::kByteCodes && kA != Ablate::kBins;
   // item-features of a quad: this pass's features, or their groups of
   // four from fi0
   const int fi0 = kSwar ? fa / 4 : fa;
@@ -858,7 +879,10 @@ __device__ __forceinline__ void grouped_i8_body(
         // the feature's range under either child (selected, not indexed:
         // an indexed pair would live in local memory)
         float lo0 = 0.f, inv0 = 0.f, lo1 = 0.f, inv1 = 0.f;
-        if constexpr (Src::kRanges) {
+        if constexpr (Src::kRanges && kA == Ablate::kRanges) {
+          lo0 = lo1 = -4.f;
+          inv0 = inv1 = (W - 2) / 8.f;
+        } else if constexpr (Src::kRanges) {
           lo0 = s_lo[f];
           inv0 = s_inv[f];
           lo1 = s_lo[F + f];
@@ -871,9 +895,13 @@ __device__ __forceinline__ void grouped_i8_body(
         for (int i = 0; i < 4; ++i) {
           const int slot = static_cast<signed char>(sos[i] & 0xFF);
           if (slot < 0) continue;
-          const int bin = src.bin(
-              Src::at(xrow(j, 4 * q4 + i, sos[i] >> 8), f),
-              slot ? lo1 : lo0, slot ? inv1 : inv0);
+          int bin;
+          if constexpr (kA == Ablate::kBins)
+            bin = ablate_bin(
+                Rec::row(s_rec[(j % kRecRing) * kC + 4 * q4 + i]), f, W);
+          else
+            bin = src.bin(Src::at(xrow(j, 4 * q4 + i, sos[i] >> 8), f),
+                          slot ? lo1 : lo0, slot ? inv1 : inv0);
           if (static_cast<unsigned>(bin) < static_cast<unsigned>(W)) {
             const unsigned d = static_cast<unsigned>((bin & 7) ^ 8)
                                << ((bin & 8) * 2 + 4 * i);
@@ -906,6 +934,7 @@ __device__ __forceinline__ void grouped_i8_body(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+  unsigned fold = 0u;  // kAdds: the products' operands
   // this lane's one-hot table: byte g8 of {thi, tlo} is 1
   const unsigned tlo = g8 < 4 ? 1u << (8 * g8) : 0u;
   const unsigned thi = g8 < 4 ? 0u : 1u << (8 * (g8 - 4));
@@ -944,7 +973,10 @@ __device__ __forceinline__ void grouped_i8_body(
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const unsigned bb2[2] = {fb[n].x, fb[n].y};
-          mma_s8(acc[i][n], a, bb2);
+          if constexpr (kA == Ablate::kAdds)
+            fold ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ bb2[0] ^ bb2[1];
+          else
+            mma_s8(acc[i][n], a, bb2);
         }
       }
     }
@@ -976,6 +1008,7 @@ __device__ __forceinline__ void grouped_i8_body(
     accumulate(j);
   }
 
+  if constexpr (kA == Ablate::kAdds) sink_fold(fold);
   // the block's partial into its slot: part[b][planes][2][F][W]
   int* pb = part + static_cast<int64_t>(b) * 6 * NT * F * W;
 #pragma unroll
@@ -997,8 +1030,8 @@ __device__ __forceinline__ void grouped_i8_body(
 }
 
 // The grouped level's kernel: the float body or the int8 body by the mass
-// policy.
-template <class Src, class Mass>
+// policy; kA a phase knock-out (level_common.cuh), kNone in production.
+template <class Src, class Mass, Ablate kA = Ablate::kNone>
 __global__ void __launch_bounds__(kGrpThreads, Mass::NT == 1 ? 2 : 1)
 level_grouped_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
                      const int* __restrict__ offsets,
@@ -1007,11 +1040,11 @@ level_grouped_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
                      int bf16, int* __restrict__ nid_out,
                      typename Mass::Part* __restrict__ part) {
   if constexpr (Mass::kInt)
-    grouped_i8_body<Src, Mass::NT>(src, rec, offsets, bstart, G, span, F,
-                                   n_prev, n_nodes, level_base, nid_out,
-                                   part);
+    grouped_i8_body<Src, Mass::NT, kA>(src, rec, offsets, bstart, G, span,
+                                       F, n_prev, n_nodes, level_base,
+                                       nid_out, part);
   else
-    grouped_float_body<Src, Mass::NT, Mass::kMma>(
+    grouped_float_body<Src, Mass::NT, Mass::kMma, kA>(
         src, rec, offsets, bstart, G, span, F, n_prev, n_nodes, level_base,
         bf16, nid_out, part);
 }
@@ -1071,7 +1104,9 @@ size_t grouped_smem_of(int F) {
 // rows of a wide frame and the selectors of a wide W are not within it.
 constexpr size_t kMaxBlockSmem = 232448;
 
-template <class Src, class Mass>
+// A knock-out (kA) takes the production instance's plan: its span and
+// blocks come from that instance's occupancy.
+template <class Src, class Mass, Ablate kA = Ablate::kNone>
 int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
                  GroupedPlan* p) {
   constexpr int W = Src::kW;
@@ -1092,6 +1127,12 @@ int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p->smem));
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kA != Ablate::kNone) {
+    err = cudaFuncSetAttribute(level_grouped_kernel<Src, Mass, kA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p->smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       kGrpThreads, p->smem);
@@ -1117,7 +1158,7 @@ int plan_grouped(int64_t rows, int F, int n_prev, int n_nodes,
 // (MergeAdd: ADDS into the float levels' hist; MergeFlushI8: writes the
 // int8 levels' float32 hist). Writes nid_out; ws holds plan_grouped's
 // bytes.
-template <class Src, class Mass, class Epi>
+template <class Src, class Mass, class Epi, Ablate kA = Ablate::kNone>
 int launch_grouped(const Src& src, const int* nid,
                    typename Mass::Rec masses, int64_t rows, int F,
                    int n_prev, int n_nodes, int level_base, int bf16,
@@ -1125,7 +1166,7 @@ int launch_grouped(const Src& src, const int* nid,
   using Part = typename Mass::Part;
   using RecT = typename Mass::Rec::T;
   GroupedPlan p;
-  int rc = plan_grouped<Src, Mass>(rows, F, n_prev, n_nodes, &p);
+  int rc = plan_grouped<Src, Mass, kA>(rows, F, n_prev, n_nodes, &p);
   if (rc != 0) return rc;
   Grouping g;
   Part* part = reinterpret_cast<Part*>(carve_grouping(
@@ -1135,7 +1176,8 @@ int launch_grouped(const Src& src, const int* nid,
   rc = launch_grouping(key, masses, rows, p.G, p.span, g, stream);
   if (rc != 0) return rc;
   dim3 grid(static_cast<unsigned>(p.nblk), static_cast<unsigned>(p.passes));
-  level_grouped_kernel<Src, Mass><<<grid, kGrpThreads, p.smem, stream>>>(
+  level_grouped_kernel<Src, Mass, kA>
+      <<<grid, kGrpThreads, p.smem, stream>>>(
       src, static_cast<const RecT*>(g.rec), g.offsets, g.bstart, p.G,
       p.span, F, n_prev, n_nodes, level_base, bf16, nid_out, part);
   cudaError_t err = cudaGetLastError();

@@ -54,14 +54,14 @@
 //
 // What bounds it: memory, on paper (the records and the values of their
 // rows read once a slice, the partial slots written and merged). In
-// practice (a profile and ablations on an H100, PERF.md): the consumers'
-// walk at the shallow levels (per 32 records and feature a key load, a
+// practice (the phase knock-outs of chip_smoke.py phase 9 on an H100,
+// PERF.md): the consumers' walk (per 32 records and feature a key load, a
 // tag store and load, five ballots, the masses and three cell loads and
 // stores at random lanes: a dependent chain of shared-memory accesses),
-// and at the deep levels, where the records point at scattered rows, the
-// producers' gathers (a line per lane and load instruction) nearly as
-// much. Matching by ballots on the key bits alone, or __match_any_sync,
-// was slower than the tags.
+// 28-33% of a level at 32 nodes and over half at 2; the bins 13-31%; the
+// producers' gathers of scattered rows only 6-12% at 32 nodes. Matching
+// by ballots on the key bits alone, or __match_any_sync, was slower than
+// the tags; shared float atomics in place of the walk were 44-59% slower.
 //
 // The int8 instance (mass policy I8Mass<terms>, level_grouped.cuh): the
 // int8 levels K4 (binned_level_i8, CodeBins) and K7 ([rows, F]
@@ -168,9 +168,19 @@ __device__ __forceinline__ typename Src::Val word_value(uint32_t w, int q) {
   }
 }
 
+// The bits of a staged mass, folded (the knock-outs' sink, level_common.cuh).
+__device__ __forceinline__ unsigned stage_bits(const float4& m) {
+  return __float_as_uint(m.x) ^ __float_as_uint(m.y) ^ __float_as_uint(m.z);
+}
+__device__ __forceinline__ unsigned stage_bits(unsigned m) { return m; }
+__device__ __forceinline__ unsigned stage_bits(const uint2& m) {
+  return m.x ^ m.y;
+}
+
 // Block (slice, b): span b of the group bstart assigns it, features
 // [slice * fs, + fs); writes its partial into part[b][planes][2][F][W].
-template <class Src, class Mass>
+// kA: a phase knock-out (level_common.cuh), kNone in production.
+template <class Src, class Mass, Ablate kA = Ablate::kNone>
 __global__ void __launch_bounds__(kWideThreads, 2)
 level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
                   const int* __restrict__ offsets,
@@ -183,8 +193,8 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
   constexpr int stride = kKeys + 1;  // odd: neighbouring cells on other banks
   constexpr int P = Mass::kPlanes;
   // the float mass walks its records in a fixed order; integer sums come
-  // out the same in any order
-  constexpr bool kWalk = !Mass::kInt;
+  // out the same in any order (and the kWalk knock-out adds floats so)
+  constexpr bool kWalk = !Mass::kInt && kA != Ablate::kWalk;
   using Val = typename Src::Val;
   using Acc = typename Mass::Part;
   using Stage = typename Mass::Stage;
@@ -249,11 +259,15 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
     int row = 0, slot = -1;
     if (c + p < i1) {
       row = Mass::row(q);
+      // the row whose values the producer reads
+      const int vrow = kA == Ablate::kGather ? p : row;
       int side = 0;
       if (parent) {
-        side = src.right(src.load(row, feat, F), thr, na_right);
+        if constexpr (kA != Ablate::kRoute)
+          side = src.right(src.load(vrow, feat, F), thr, na_right);
         if (blockIdx.x == 0) nid_out[row] = 2 * pid + 1 + side;
       }
+      if constexpr (kA == Ablate::kGather) row = vrow;
       slot = c0 + side >= 0 && c0 + side < n_nodes ? side : -1;
       m = Mass::stage(q, bf16);
     }
@@ -261,6 +275,12 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
     uint16_t* sk = s_k + buf * fs * kWideRecs;
     if (slot < 0) {
       for (int fl = 0; fl < ft; ++fl) sk[fl * kWideRecs + p] = kNoKey;
+      return;
+    }
+    if constexpr (kA == Ablate::kBins) {
+      for (int fl = 0; fl < ft; ++fl)
+        sk[fl * kWideRecs + p] =
+            static_cast<uint16_t>(slot * W + ablate_bin(row, f0 + fl, W));
       return;
     }
     // the row's slice in aligned loads, 16 bytes for float32 values and 4
@@ -310,7 +330,10 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
           if (fb < 0 || fb >= nbytes) continue;
           const int fl = fb >> kLogB;
           float lo = 0.f, inv = 0.f;
-          if constexpr (Src::kRanges) {
+          if constexpr (Src::kRanges && kA == Ablate::kRanges) {
+            lo = -4.f;
+            inv = (W - 2) / 8.f;
+          } else if constexpr (Src::kRanges) {
             lo = s_lo[slot * fs + fl];
             inv = s_inv[slot * fs + fl];
           }
@@ -387,6 +410,16 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
       }
     }
   };
+  // (consumers, kAdds) the keys and masses the adds would read, folded
+  unsigned fold = 0u;
+  auto fold_chunk = [&](int buf) {
+    for (int j = threadIdx.x; j < kWideRecs; j += 32 * consumers) {
+      unsigned v = stage_bits(s_m[buf * kWideRecs + j]);
+      const uint16_t* sk = s_k + buf * fs * kWideRecs + j;
+      for (int fl = 0; fl < ft; ++fl) v ^= sk[fl * kWideRecs];
+      fold ^= v;
+    }
+  };
   __syncthreads();  // the ranges staged
   RecT qn = Mass::Rec::zero();  // a producer's next record
   if (!consumer) {
@@ -398,7 +431,9 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
   int buf = 0;
   for (int64_t c = i0; c < i1; c += kWideRecs, buf ^= 1) {
     if (consumer) {
-      if constexpr (kWalk)
+      if constexpr (kA == Ablate::kAdds)
+        fold_chunk(buf);
+      else if constexpr (kWalk)
         walk(buf);
       else
         scatter(buf);
@@ -409,6 +444,7 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
     }
     __syncthreads();  // chunk c added, chunk c + 1 staged
   }
+  if constexpr (kA == Ablate::kAdds) sink_fold(fold);
   // the partial into the block's slot, part[b][P][2][F][W], the slice's
   // features; consecutive threads on consecutive lanes
   Acc* pb = part + static_cast<int64_t>(b) * 2 * P * F * W;
@@ -433,8 +469,9 @@ struct WidePlan {
   size_t smem, bytes;
 };
 
-// As many features a slice as let two blocks share an SM.
-template <class Src, class Mass>
+// As many features a slice as let two blocks share an SM. A knock-out (kA)
+// takes the production instance's plan.
+template <class Src, class Mass, Ablate kA = Ablate::kNone>
 int plan_wide(int64_t rows, int F, int n_prev, int n_nodes, WidePlan* p) {
   constexpr int W = Src::kW;
   constexpr int P = Mass::kPlanes;
@@ -462,6 +499,15 @@ int plan_wide(int64_t rows, int F, int n_prev, int n_nodes, WidePlan* p) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              100);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kA != Ablate::kNone) {
+    auto ko = level_wide_kernel<Src, Mass, kA>;
+    err = cudaFuncSetAttribute(ko, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p->smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        ko, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       kWideThreads, p->smem);
@@ -487,7 +533,7 @@ int plan_wide(int64_t rows, int F, int n_prev, int n_nodes, WidePlan* p) {
 // into the float levels' hist; MergeFlushI8: writes the int8 levels'
 // float32 hist). Writes nid_out; ws holds plan_wide's bytes. plan_only:
 // those bytes alone, into *bytes.
-template <class Src, class Mass, class Epi>
+template <class Src, class Mass, class Epi, Ablate kA = Ablate::kNone>
 int launch_wide(const Src& src, bool plan_only, size_t* bytes,
                 const int* nid, typename Mass::Rec masses, int64_t rows,
                 int F, int n_prev, int n_nodes, int level_base, int bf16,
@@ -495,7 +541,7 @@ int launch_wide(const Src& src, bool plan_only, size_t* bytes,
   using RecT = typename Mass::Rec::T;
   using Part = typename Mass::Part;
   WidePlan p;
-  int rc = plan_wide<Src, Mass>(rows, F, n_prev, n_nodes, &p);
+  int rc = plan_wide<Src, Mass, kA>(rows, F, n_prev, n_nodes, &p);
   if (plan_only) {
     *bytes = rc == 0 ? p.bytes : 0;
     return rc;
@@ -509,7 +555,8 @@ int launch_wide(const Src& src, bool plan_only, size_t* bytes,
   rc = launch_grouping(key, masses, rows, p.G, p.span, g, stream);
   if (rc != 0) return rc;
   dim3 grid(static_cast<unsigned>(p.slices), static_cast<unsigned>(p.nblk));
-  level_wide_kernel<Src, Mass><<<grid, kWideThreads, p.smem, stream>>>(
+  level_wide_kernel<Src, Mass, kA>
+      <<<grid, kWideThreads, p.smem, stream>>>(
       src, static_cast<const RecT*>(g.rec), g.offsets, g.bstart, p.G,
       p.span, F, p.fs, n_prev, n_nodes, level_base, bf16, nid_out, part);
   cudaError_t err = cudaGetLastError();

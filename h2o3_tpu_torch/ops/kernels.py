@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -128,16 +128,71 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
-def library_paths() -> Dict[str, Path]:
-    """Where each library for the current sources and flags lives."""
+def _targets() -> Dict[str, Tuple[Path, Tuple[str, ...]]]:
+    return {stem: (src, ()) for stem, src in sources().items()}
+
+
+def target_paths(targets: Dict[str, Tuple[Path, Tuple[str, ...]]],
+                 hashed: Iterable[Path]) -> Dict[str, Path]:
+    """Where each library of ``targets`` ({stem: (source, extra nvcc
+    flags)}) lives: names that carry one hash of the ``hashed`` files (the
+    sources and the headers they include), the flags and the stems' own
+    flags."""
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(hashed):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    for stem, (_src, extra) in sorted(targets.items()):
+        h.update(f"{stem}:{' '.join(extra)}".encode())
     tag = h.hexdigest()[:16]
-    return {stem: BUILD_DIR / f"libh2o3_{stem}_{tag}.so"
-            for stem in sources()}
+    return {stem: BUILD_DIR / f"libh2o3_{stem}_{tag}.so" for stem in targets}
+
+
+def library_paths() -> Dict[str, Path]:
+    """Where each library for the current sources and flags lives."""
+    return target_paths(_targets(), CSRC.glob("*.cu*"))
+
+
+def build_libraries(targets: Dict[str, Tuple[Path, Tuple[str, ...]]],
+                    hashed: Iterable[Path], signatures,
+                    returns_bytes=()) -> Dict[str, ctypes.CDLL]:
+    """Compile the libraries of ``targets`` that are missing (one nvcc per
+    library, all started together; a failed build raises) and load them,
+    each function of ``signatures`` ({stem: {function: argtypes}}) bound
+    with its argtypes, returning long long where named in
+    ``returns_bytes``, else int. Returns the libraries by stem."""
+    paths = target_paths(targets, hashed)
+    todo = {s: so for s, so in paths.items() if not so.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for stem, so in todo.items():
+            src, extra = targets[stem]
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            procs[stem] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for stem, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            todo[stem].with_suffix(".log").write_text(out + err)
+            if proc.returncode != 0:
+                failed.append(f"{targets[stem][0].name} {stem} "
+                              f"({proc.returncode}):\n{err[-4000:]}")
+            else:
+                os.replace(tmp, todo[stem])
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    libs = {}
+    for stem, so in paths.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in signatures.get(stem, {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _LL if fn in returns_bytes else _INT
+        libs[stem] = lib
+    return libs
 
 
 def build() -> Dict[str, ctypes.CDLL]:
@@ -146,53 +201,29 @@ def build() -> Dict[str, ctypes.CDLL]:
     libraries, by stem."""
     global _libs
     with _lock:
-        if _libs is not None:
-            return _libs
-        paths, srcs = library_paths(), sources()
-        todo = {s: so for s, so in paths.items() if not so.exists()}
-        if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            nvcc = _nvcc()
-            procs = {}
-            for stem, so in todo.items():
-                tmp = so.with_suffix(f".{os.getpid()}.tmp")
-                procs[stem] = (tmp, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[stem])],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True))
-            failed = []
-            for stem, (tmp, proc) in procs.items():
-                out, err = proc.communicate()
-                todo[stem].with_suffix(".log").write_text(out + err)
-                if proc.returncode != 0:
-                    failed.append(f"{srcs[stem].name} "
-                                  f"({proc.returncode}):\n{err[-4000:]}")
-                else:
-                    os.replace(tmp, todo[stem])
-            if failed:
-                raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        libs = {}
-        for stem, so in paths.items():
-            lib = ctypes.CDLL(str(so))
-            for fn, argtypes in _SIGNATURES.get(stem, {}).items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = (_LL if fn in _RETURNS_BYTES
-                                            else _INT)
-            libs[stem] = lib
-        _libs = libs
-        return libs
+        if _libs is None:
+            _libs = build_libraries(_targets(), CSRC.glob("*.cu*"),
+                                    _SIGNATURES, _RETURNS_BYTES)
+        return _libs
+
+
+def library_log(paths: Dict[str, Path]) -> str:
+    """The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) from the build of the libraries at ``paths``, where this host
+    built them."""
+    logs = []
+    for stem, so in paths.items():
+        log = so.with_suffix(".log")
+        if log.exists():
+            logs.append(f"== {stem}\n{log.read_text()}")
+    return "\n".join(logs)
 
 
 def build_log() -> str:
     """The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills) from the build of the current libraries, if this host built
     them."""
-    logs = []
-    for stem, so in library_paths().items():
-        log = so.with_suffix(".log")
-        if log.exists():
-            logs.append(f"== {stem}\n{log.read_text()}")
-    return "\n".join(logs)
+    return library_log(library_paths())
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,

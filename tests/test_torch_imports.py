@@ -305,3 +305,31 @@ def test_level_form_names():
         assert f"{name} = {code}," in text
     assert text.count(" = ", text.index("enum LevelForm"),
                       text.index("};", text.index("enum LevelForm"))) == 4
+
+
+def _tool_sources():
+    return sorted((ROOT / "h2o3_tpu_torch" / "tools").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", _tool_sources(),
+                         ids=lambda p: p.name)
+def test_probe_tools_import_no_jax_reference_or_tpu_tools(path):
+    """The probe tools stand alone: no jax, nothing of h2o3_tpu and
+    nothing of the JAX package's tools/ (whose probes they port)."""
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN + ("tools",), f"{path.name} imports {mod}"
+
+
+def test_probe_tools_import_leaves_jax_out():
+    mods = ", ".join(f"h2o3_tpu_torch.tools.{p.stem}"
+                     for p in _tool_sources())
+    code = (f"import sys; import {mods}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'h2o3_tpu', 'tools')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert len(_tool_sources()) == 7   # __init__, _probes and five tools
