@@ -32,9 +32,12 @@ against its plain version. Phases, each fatal on failure:
    loop (``ATOMS.CAST.SPIN``) in every float tensor-core instance of the
    node-grouped level (adaptive and packed), IMMA and no atomics in every
    int8 instance of it, no atomics at all in every float instance of the
-   wide level (level_wide_kernel), the leaf-totals kernel and
-   global_hist's node-grouped form, and in every int8 instance of the
-   wide level shared integer adds (``ATOMS.ADD``) and no other atomic;
+   wide level (level_wide_kernel), the leaf-totals kernel (every form),
+   global_hist's node-grouped form and the route
+   (adaptive_route_only_kernel, with its loads-only floor), and in every
+   int8 instance of the wide level shared integer adds (``ATOMS.ADD``)
+   and no other atomic; print ``-Xptxas -v``'s registers, shared memory
+   and spills for the leaf-totals and route instances;
 3. kernel vs plain on the card at 1M x 28, N in {1, 8, 32}: binned_level
    at W=16, 32, 64, 128 (int8) and 256 (int16), in the form the shapes
    pick and in every form forced (tensor-core node-grouped up to W=32,
@@ -62,7 +65,13 @@ against its plain version. Phases, each fatal on failure:
    [rows, F] forms timed.
    leaf_totals at n_prev in {0, 32}, N in {1, 64}: nid bit-equal, totals
    within the float tolerance against float64; segment_totals at N in
-   {1, 64, 512, 4096}, also five launches with the same bits;
+   {1, 64, 512, 4096}, in both forms (lane columns, matched keys) at
+   row counts with rows % 4 in {1, 2, 3} and with every row in one node
+   at N in {1, 64}, picked with every row in one node at N = 4096, each
+   also five launches with the same bits; the [rows, F] route bit-equal
+   at a row count that is not a multiple of 4, at n_prev = 1, at
+   n_prev = 2048 and on an unaligned nid, its loads-only floor returning
+   nid unchanged;
 4. the main paths at full width: 10M x 28 HIGGS-shaped rows ->
    Frame.from_numpy(device="cuda") -> bernoulli GBM, depth 6, 20 trees,
    min_rows 1, seed 7 -> training AUC -> predict; packed at nbins 14,
@@ -130,7 +139,9 @@ against its plain version. Phases, each fatal on failure:
    plain version and the bound at each of those W; the levels where the
    rule's form took more than 5% above the fastest forced form are
    printed; leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64
-   beside one ``index_add_``; binned_level and adaptive_level at the wide
+   in each form beside one ``index_add_`` (these, the route's and its
+   floor's times are the device's, ``tools.time_ms``); the [rows, F]
+   route at 28 and 8 features beside its loads-only floor; binned_level and adaptive_level at the wide
    widths W = 64, 128, 256, per level N = 1..32, both forms (wide,
    tiled) checked against the plain version at 10M rows and timed, the
    wide one launched five times with the same bits, the form the kernel
@@ -779,6 +790,39 @@ def check_adaptive_route(rows, F, N, dev, seed, layout):
     return (x, nid, tables, n_prev, base)
 
 
+def check_route_cases(dev, F=28):
+    """K9 (the [rows, F] route) bit-equal to its plain version at a row
+    count that is not a multiple of 4, at n_prev = 1, at n_prev = 2048
+    and on an nid that is not 16-byte aligned; its loads-only floor
+    returns nid unchanged."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import adaptive_route_only_plain
+    cases = {"ragged": (1_000_003, 64, False), "n_prev=1": (1_000_000, 2,
+                                                            False),
+             "n_prev=2048": (1_000_001, 4096, False),
+             "unaligned": (1_000_002, 64, True)}
+    for seed, (name, (rows, N, shift)) in enumerate(cases.items()):
+        x, nid, _g, tables, _lo, _inv, n_prev, base = adaptive_inputs(
+            rows, F, 16, N, True, 4400 + seed, dev, "rows_f")
+        if shift:       # nid[1:]: a view whose start is 4 bytes past 16
+            x, nid = x[1:], nid[1:]
+        want = adaptive_route_only_plain(x, nid, tables, n_prev, base,
+                                         "rows_f")
+        got = kernels.adaptive_route_only(x, nid, tables, n_prev, base,
+                                          "rows_f")
+        floor = kernels.adaptive_route_floor(x, nid, tables, n_prev, base)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"adaptive_route_only rows_f {name}: nid "
+                                 f"differs in {int((got != want).sum())} "
+                                 f"rows")
+        if not torch.equal(floor, nid):
+            raise AssertionError(f"adaptive_route_floor {name}: nid changed")
+    print(f"adaptive_route_only rows_f bit-equal at {sorted(cases)}; "
+          f"loads-only floor keeps nid", flush=True)
+
+
 def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
     """Phase 3, adaptive half: every instance and layout against its
     plain version at 1M rows, timed with the L2 flushed."""
@@ -819,6 +863,7 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
         print(f"adaptive_route_only {layout} {rows}x{F} N=64: {ms:.6g} ms "
               f"(bound {route_bound_ms(rows, F, 4, layout)[0]:.6g} ms); "
               f"NaN/±inf/zero-span case bit-equal", flush=True)
+    check_route_cases(dev, F)
 
 
 def global_inputs(rows, F, B1, N, int_ghw, seed, dev, left_only=False):
@@ -1094,41 +1139,50 @@ def check_totals(rows, F, n_prev, N, dev, seed):
     return float((tk.double() - tp).abs().max()), (x, nid, ghw, tables, base)
 
 
-def segment_inputs(rows, N, seed, dev):
+def segment_inputs(rows, N, seed, dev, one_node=False):
     """nid over the N nodes of a level at base N - 1, 5% of the rows off
-    it, float (g, h, w)."""
+    it (``one_node``: every row in node N // 2), float (g, h, w)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     base = N - 1
-    nid = base + torch.randint(0, N, (rows,), generator=g, device=dev)
+    if one_node:
+        nid = torch.full((rows,), base + N // 2, dtype=torch.int32,
+                         device=dev)
+    else:
+        nid = off_window(base + torch.randint(0, N, (rows,), generator=g,
+                                              device=dev), seed)
     ghw = torch.stack([torch.randn(rows, generator=g, device=dev),
                        torch.rand(rows, generator=g, device=dev) * 0.25,
                        torch.ones(rows, device=dev)]).contiguous()
-    return off_window(nid, seed), ghw, base
+    return nid, ghw, base
 
 
-def check_segment(rows, N, dev, seed):
-    """segment_totals (the leaf-totals kernel without a route) against
-    its plain version: within 1e-4 + 1e-5 x each node's absolute mass of
-    the float64 plain version, and five launches with the same bits."""
+def check_segment(rows, N, dev, seed, form="picked", one_node=False):
+    """segment_totals (the leaf-totals kernel without a route; its form
+    picked or forced) against its plain version: within 1e-4 + 1e-5 x
+    each node's absolute mass of the float64 plain version, and five
+    launches with the same bits."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.common import segment_totals_plain
-    nid, ghw, base = segment_inputs(rows, N, seed, dev)
-    runs = [kernels.segment_totals(nid, ghw, N, base) for _ in range(5)]
+    nid, ghw, base = segment_inputs(rows, N, seed, dev, one_node)
+    runs = [kernels.segment_totals_form(nid, ghw, N, base, form)
+            for _ in range(5)]
     tp = segment_totals_plain(nid, ghw.double(), N, base)
     mass = segment_totals_plain(nid, ghw.double().abs(), N, base)
     torch.cuda.synchronize()
+    name = f"segment_totals {form} rows={rows} N={N} one_node={one_node}"
     if not all(torch.equal(runs[0], r) for r in runs[1:]):
-        raise AssertionError(f"segment_totals N={N}: five launches differ")
-    mass_check(f"segment_totals N={N}", runs[0], tp, mass)
+        raise AssertionError(f"{name}: five launches differ")
+    mass_check(name, runs[0], tp, mass)
     return float((runs[0].double() - tp).abs().max()), (nid, ghw, base)
 
 
 def phase_totals_kernel(dev, rows=1_000_000, F=28):
     """Phase 3, leaf_totals at n_prev in {0, 32}, N in {1, 64}, and its
     instance without a route, segment_totals, at N in {1, 64, 512,
-    4096}."""
+    4096}; in both forms at row counts that are not a multiple of 4, and
+    with every row in one node at N in {1, 64, 4096}."""
     errs = {}
     for n_prev in (0, 32):
         for N in (1, 64):
@@ -1136,6 +1190,15 @@ def phase_totals_kernel(dev, rows=1_000_000, F=28):
                 rows, F, n_prev, N, dev, 1200 + n_prev + N)[0]
     for N in (1, 64, 512, 4096):
         errs[f"segment N={N}"] = check_segment(rows, N, dev, 1250 + N)[0]
+    for form in ("lanes", "match"):
+        for extra in (1, 2, 3):
+            errs[f"segment {form} rows={rows + extra} N=64"] = check_segment(
+                rows + extra, 64, dev, 1260 + extra, form)[0]
+        for N in (1, 64):
+            errs[f"segment {form} N={N} one node"] = check_segment(
+                rows + 1, N, dev, 1270 + N, form, one_node=True)[0]
+    errs["segment N=4096 one node"] = check_segment(
+        rows + 3, 4096, dev, 1280, one_node=True)[0]
     print(f"leaf_totals at {rows}x{F}: nid bit-equal, totals within "
           f"1e-4 + 1e-5 x mass of float64; segment_totals five launches "
           f"bit-equal; max abs err {json.dumps(errs)}", flush=True)
@@ -1857,23 +1920,28 @@ def phase_totals_record(dev, launches, rows=10_000_000, F=28, n_prev=32,
     out, ghw, the one x value a row the route reads); no path launches it
     with a route, in either package. Its instance without a route,
     segment_totals, at the packed and global paths' deepest level (10M
-    rows, N = 64): time, plain version's time, one ``index_add_`` over the
-    rows' node index (library_ms), bound (nid and ghw read once)."""
+    rows, N = 64): time in each form, plain version's time, one
+    ``index_add_`` over the rows' node index (library_ms), bound (nid and
+    ghw read once). The kernels' and the library call's times are the
+    device's (``tools.time_ms``; ``ms_with_host`` beside segment_totals'
+    is one call between two events, the wrapper's host time included)."""
     import torch
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.common import segment_totals_plain
     from h2o3_tpu_torch.ops.hist_adaptive import leaf_totals_plain
+    from h2o3_tpu_torch import tools
     err, (x, nid, ghw, tables, base) = check_totals(rows, F, n_prev, N, dev,
                                                    1500)
-    ms = time_cuda(lambda: kernels.leaf_totals(x, nid, ghw, tables, n_prev, N,
-                                               base), 20)
+    ms = tools.time_ms(lambda: kernels.leaf_totals(x, nid, ghw, tables,
+                                                   n_prev, N, base), dev, 20)
     pms = time_cuda(lambda: leaf_totals_plain(x, nid, ghw, tables, n_prev, N,
                                               base), 3)
     del x
     nbytes = rows * (4 + 4 + 12 + 4)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
     bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
-    print(f"leaf_totals at 10M x 28, n_prev={n_prev} N={N}: {ms!r} ms, plain "
+    print(f"leaf_totals at 10M x 28, n_prev={n_prev} N={N}, device: {ms!r} "
+          f"ms, plain "
           f"{pms!r} ms, bound {bound!r} ms by {by}, max abs err {err!r}",
           flush=True)
     rec = [{"name": "leaf_totals", "route": "cuda",
@@ -1882,27 +1950,38 @@ def phase_totals_record(dev, launches, rows=10_000_000, F=28, n_prev=32,
             "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}]
     serr, (nid, ghw, base) = check_segment(rows, N, dev, 1501)
-    sms = time_cuda(lambda: kernels.segment_totals(nid, ghw, N, base), 20)
+    sms = tools.time_ms(lambda: kernels.segment_totals(nid, ghw, N, base),
+                        dev, 20)
+    host_ms = time_cuda(lambda: kernels.segment_totals(nid, ghw, N, base), 20)
+    # each form forced on the same inputs (the picked one among them)
+    form_ms = {}
+    for form in ("lanes", "match"):
+        check_segment(rows, N, dev, 1501, form)
+        form_ms[form] = tools.time_ms(lambda: kernels.segment_totals_form(
+            nid, ghw, N, base, form), dev, 20)
     spms = time_cuda(lambda: segment_totals_plain(nid, ghw, N, base), 3)
     lid = nid.long() - base
     live = (lid >= 0) & (lid < N)
     idx = torch.where(live, lid, 0)
     vals = (ghw * live).t().contiguous()
     out = torch.zeros((N, 3), device=dev)
-    lib_ms = time_cuda(lambda: out.index_add_(0, idx, vals), 20)
+    lib_ms = tools.time_ms(lambda: out.index_add_(0, idx, vals), dev, 20)
     del lid, live, idx, vals, out
     t_b, t_o = rows * (4 + 12) / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
     sbound, sby = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
                                         else "operations")
-    print(f"segment_totals at 10M rows, N={N}: {sms!r} ms, plain {spms!r} "
-          f"ms, index_add_ {lib_ms!r} ms, bound {sbound!r} ms by {sby}, max "
-          f"abs err {serr!r}; five launches bit-equal", flush=True)
+    print(f"segment_totals at 10M rows, N={N}, device: {sms!r} ms (forms "
+          f"{json.dumps(form_ms)} ms; with the host {host_ms!r} ms), plain "
+          f"{spms!r} ms, index_add_ {lib_ms!r} ms, bound {sbound!r} ms by "
+          f"{sby}, max abs err {serr!r}; five launches bit-equal",
+          flush=True)
     rec.append({"name": "segment_totals", "route": "cuda",
                 "source": SRC["segment_totals"],
                 "replaces": REPLACES["segment_totals"],
                 "launches": launches["segment_totals"], "max_abs_err": serr,
-                "ms": sms, "plain_ms": spms, "bound_ms": sbound,
-                "bound_by": sby, "library_ms": lib_ms})
+                "ms": sms, "ms_by_form": form_ms, "ms_with_host": host_ms,
+                "plain_ms": spms,
+                "bound_ms": sbound, "bound_by": sby, "library_ms": lib_ms})
     return rec
 
 
@@ -2158,8 +2237,11 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     tensor-core body at this W); the grouping pass alone at N = 32; at
     N = 32 the plain version's time and the bound. In [F, rows] (K5, the
     tiled body) per level at bfloat16.
-    The route at N = 64 in both layouts."""
+    The route at N = 64 in both layouts (device time, ``tools.time_ms``),
+    and in [rows, F] at 28 and 8 features beside its loads-only floor
+    (``route_rows_record``)."""
     import torch
+    from h2o3_tpu_torch import tools
     from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
     from h2o3_tpu_torch.ops import kernels
     from h2o3_tpu_torch.ops.hist_adaptive import (adaptive_bins_plain,
@@ -2246,8 +2328,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     for layout in LAYOUTS:
         x, nid, tables, n_prev, base = check_adaptive_route(rows, F, 2 * N,
                                                             dev, 4321, layout)
-        route_ms[layout] = time_cuda(lambda: kernels.adaptive_route_only(
-            x, nid, tables, n_prev, base, layout), 20)
+        route_ms[layout] = tools.time_ms(lambda: kernels.adaptive_route_only(
+            x, nid, tables, n_prev, base, layout), dev, 20)
         if layout == ADAPTIVE_LAYOUT:
             rpms = time_cuda(lambda: adaptive_route_only_plain(
                 x, nid, tables, n_prev, base, layout), 3)
@@ -2255,6 +2337,7 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     print(f"adaptive layouts at 10M x 28 (training path: {ADAPTIVE_LAYOUT}):"
           f" level N=32 {json.dumps(level_ms)} ms, route N=64 "
           f"{json.dumps(route_ms)} ms", flush=True)
+    route_rows = route_rows_record(dev, rows, (F, 8), 2 * N)
     bound, by = adaptive_level_bound_ms(rows, F, N, W, rows)
     rbound, rby = route_bound_ms(rows, F, 4, ADAPTIVE_LAYOUT)
     return [{"name": "adaptive_level", "route": "cuda",
@@ -2274,8 +2357,42 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "also_replaces": ALSO_REPLACES["adaptive_route_only"],
              "launches": launches["adaptive_route_only"], "max_abs_err": 0.0,
              "ms": route_ms[ADAPTIVE_LAYOUT], "ms_by_layout": route_ms,
+             "rows_f_by_F": route_rows,
              "plain_ms": rpms, "bound_ms": rbound, "bound_by": rby,
              "library_ms": None}]
+
+
+def route_rows_record(dev, rows, widths, N):
+    """K9 (the [rows, F] route) at each F of ``widths`` beside its
+    loads-only floor (the same nid, table and x loads and nid stores, no
+    compare), both checked on the timed inputs, and the bound; device
+    times (``tools.time_ms``: the calls queued behind a device-side wait,
+    the wrapper's host time out of the window)."""
+    import torch
+    from h2o3_tpu_torch import tools
+    from h2o3_tpu_torch.ops import kernels
+    out = {}
+    for F in widths:
+        x, nid, tables, n_prev, base = check_adaptive_route(
+            rows, F, N, dev, 4321 + F, "rows_f")
+        if not torch.equal(kernels.adaptive_route_floor(x, nid, tables,
+                                                        n_prev, base), nid):
+            raise AssertionError(f"adaptive_route_floor at {rows}x{F}: "
+                                 f"nid changed")
+        r = {"ms": tools.time_ms(lambda: kernels.adaptive_route_only(
+                 x, nid, tables, n_prev, base, "rows_f"), dev, 20),
+             "floor_ms": tools.time_ms(lambda: kernels.adaptive_route_floor(
+                 x, nid, tables, n_prev, base), dev, 20),
+             "ms_with_host": time_cuda(lambda: kernels.adaptive_route_only(
+                 x, nid, tables, n_prev, base, "rows_f"), 20),
+             "bound_ms": route_bound_ms(rows, F, 4)[0]}
+        out[str(F)] = r
+        del x, nid
+        print(f"adaptive_route_only rows_f at {rows}x{F}, n_prev={n_prev}, "
+              f"device: {r['ms']!r} ms, loads-only floor {r['floor_ms']!r} "
+              f"ms; with the host {r['ms_with_host']!r} ms; bound "
+              f"{r['bound_ms']!r} ms", flush=True)
+    return out
 
 
 def phase_packed_vs_global(rows=200_000, ntrees=5):
@@ -3164,8 +3281,9 @@ def check_sass(by_fn):
     HMMA and no shared float CAS loop (``ATOMS.CAST.SPIN``); every int8
     instance (``I8Mass``) of both has IMMA and no shared or global atomics
     at all; every float instance of the wide level (``level_wide_kernel``,
-    both bin sources, every W), the leaf-totals kernel (with and without a
-    route) and global_hist's node-grouped form have no atomics at all;
+    both bin sources, every W), the leaf-totals kernel (each of its eight
+    instances), global_hist's node-grouped form and the route (K9, its
+    loads-only floor, K6) have no atomics at all;
     every int8 instance of the wide level (``I8Mass``, both bin sources, W
     = 64, 128, 256, one and two terms) has shared integer adds
     (``ATOMS.ADD``) and no other atomic: no CAS loop, no float atomic, no
@@ -3220,11 +3338,24 @@ def check_sass(by_fn):
     ordered = {n: c for n, c in by_fn.items()
                if "leaf_totals_kernel" in n
                or "global_hist_grouped_kernel" in n}
-    if len(ordered) < 4:
-        raise AssertionError(f"SASS: leaf_totals / global_hist grouped "
-                             f"instances missing: {sorted(ordered)}")
+    # leaf_totals: route or not x lane columns or matched keys x 16-byte
+    # or scalar loads; global_hist grouped: uint8 and int32 codes
+    n_leaf = sum("leaf_totals_kernel" in n for n in ordered)
+    if n_leaf < 8 or len(ordered) - n_leaf < 2:
+        raise AssertionError(f"SASS: leaf_totals (8) / global_hist grouped "
+                             f"(2) instances missing: {sorted(ordered)}")
     for name, counts in ordered.items():
         if atomics(counts) or mma(counts, "HMMA") or mma(counts, "IMMA"):
+            raise AssertionError(f"SASS of {name}: atomics {counts}")
+    # the route (K9 in [rows, F] and its loads-only floor, K6 in
+    # [F, rows]): no atomics
+    route = {n: c for n, c in by_fn.items()
+             if "adaptive_route_only_kernel" in n}
+    if len(route) < 3:
+        raise AssertionError(f"SASS: adaptive_route_only instances missing: "
+                             f"{sorted(route)}")
+    for name, counts in route.items():
+        if atomics(counts):
             raise AssertionError(f"SASS of {name}: atomics {counts}")
     print(f"SASS check: tensor-core grouped level instances, HMMA per "
           f"float instance (no ATOMS.CAST.SPIN) and IMMA per int8 instance "
@@ -3235,7 +3366,23 @@ def check_sass(by_fn):
           f"{len(wide_i8)} int8 wide instances: "
           f"{sum(sum(atomics(c).values()) for c in wide_i8.values())}; "
           f"{len(ordered)} leaf_totals / global_hist grouped instances "
+          f"without atomics; {len(route)} adaptive_route_only instances "
           f"without atomics", flush=True)
+
+
+def ptxas_usage(log, names):
+    """What ``-Xptxas -v`` reported (registers, barriers, shared memory;
+    stack frame and spills) for each kernel of the build log whose mangled
+    name holds one of ``names``: {function: [its lines]}."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif cur and ("spill" in line or "Used " in line):
+            out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 class PhaseClock:
@@ -3290,6 +3437,14 @@ def main() -> int:
         raise probes_built[0]
     log(f"build: {time.perf_counter() - t0:.2f} s\n{kernels.build_log()}\n"
         f"{_probes.build_log()}")
+    usage = ptxas_usage(kernels.build_log(), ("leaf_totals_kernel",
+                                              "adaptive_route_only_kernel"))
+    if not usage:
+        raise AssertionError("ptxas -v: no leaf_totals / adaptive_route_only "
+                             "entry in the build log")
+    print("ptxas -v, leaf totals and route instances:\n" +
+          "\n".join(f"  {fn}: {'; '.join(lines)}"
+                    for fn, lines in sorted(usage.items())), flush=True)
     by_fn = {}
     for so in kernels.library_paths().values():
         text, counts = sass_atomics(so)
@@ -3451,12 +3606,14 @@ def main() -> int:
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
           "node-grouped: bf16, float32, shared-atomics ablation; rows_f x "
           "W=32 x wide, node-grouped, tiled; W=64,128,256 x wide, tiled] "
-          "adaptive_route_only[rows_f,f_rows] "
+          "adaptive_route_only[rows_f,f_rows; rows_f and its loads-only "
+          "floor x F=28,8; ragged, n_prev=1, n_prev=2048, unaligned] "
           "adaptive_level_i8[rows_f x W=16,32,64,128,256 x terms=1,2 x "
           "node-grouped (W<=32) or wide (W>=64), tiled, picked; f_rows x "
           "W=16,32,64,128,256 x terms=1,2 x tiled, picked] "
           "leaf_totals[n_prev=0,32 x N=1,64] "
-          "segment_totals[N=1,64,512,4096] "
+          "segment_totals[N=1,64,512,4096; lanes, match x rows%4=1,2,3, "
+          "one node at N=1,64; one node at N=4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
           "atomics] group_rows[alone]; index_add_ beside binned_level "
           "(W=16,32,64,128,256), adaptive_level (W=32,64,128,256), "

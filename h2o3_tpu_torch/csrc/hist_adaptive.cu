@@ -45,24 +45,51 @@
 // a float32 flush. Integer sums: the histogram is bit-equal to the plain
 // version in every form.
 //
-// adaptive_route_only replaces _route_kernel_t (K6) and _route_kernel
-// (K9): the deepest level's route, one thread per row, no histogram.
+// adaptive_route_only replaces _route_kernel (K9, [rows, F], the layout
+// the adaptive paths train in) and _route_kernel_t (K6, [F, rows]): the
+// deepest level's route, one thread per row, no histogram. What bounds K9
+// on an H100: bytes, an nid read and written and one x value a row, which
+// in [rows, F] moves the 32-byte sector that holds it (chip_smoke.py
+// route_bound_ms: 0.1194 ms at 10M rows). Each thread runs a chain of
+// dependent loads (nid, the node's table entries, x, then the store), so
+// a loads-only instance (kLoadsOnly: the same loads and store, no
+// compare) is its floor. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (device time, chip_smoke.py phase 6): 0.2164 ms at [10M, 28] against a
+// floor of 0.2159, 0.1347 ms at [10M, 8] against 0.1342. K9 sits on the
+// floor of its access pattern: 89% of the bound at 8 features; at 28,
+// 10M x 72 bytes in 0.216 ms is the card's 3.3 TB/s, as if each gather
+// in a 112-byte row fetched 64 bytes from DRAM, not one sector.
+// A redesign (tables in shared memory, four rows a thread, every gather
+// issued before the compares) measured no faster and was not kept.
 //
 // leaf_totals replaces _totals_kernel (K10): route one level of x
 // [rows, F] (none when n_prev is 0), then sum float32 (g, h, w) per node
 // of the window into totals [3, n_nodes]. As in the JAX package, no grower
 // calls it with a route; its n_prev = 0 instance, segment_totals, sums the
-// deepest level of the packed and global-sketch growers (their
-// _segment_totals). What bounds it: memory, rows * 24 bytes (nid in and
-// out, ghw, one x value a row; rows * 16 without the route); 3 adds a row.
-// Design: one thread per row; each warp sums the lanes of each node with
-// 32 shuffles (the same lane order for every key), and the node's lowest
-// lane adds the sums into the warp's own shared totals; the block adds
-// its warps' totals in warp order into its own slot, and a second pass
-// adds the slots in block order. No float atomics: the same inputs give
-// the same bits. Float sums in another order than the plain version's:
-// held within 1e-4 + 1e-5 x |mass| of a float64 plain version, as the
-// other float checks are.
+// deepest level of the packed and global-sketch growers and of XGBoost
+// (their _segment_totals). What bounds it on an H100: bytes, rows * 16
+// (nid, ghw; rows * 24 with the route's nid out and x value); 3 adds a
+// row. The first port took one row a lane and, for every 32 rows, had
+// each lane sum the lanes of its node with 32 steps of 4 shuffles: 128
+// warp shuffles a 32 rows whatever the keys, one row of loads in flight a
+// lane. The redesign: a lane takes eight rows a step (two quads of four,
+// 16-byte loads where nid and ghw are aligned and rows % 4 == 0, one load
+// a row otherwise), issues the next step's loads before this step's sums,
+// and folds its own rows with equal keys in row order; then, at up to 133
+// nodes, each lane adds into its own column of the warp's [3][n_nodes][32]
+// shared slot (no shuffles, no bank conflicts), or, past that,
+// __match_any_sync finds a key's lanes and its lowest lane adds their
+// values in lane order (max(peers) trips of 3 shuffles; one key on every
+// lane: a fixed xor butterfly). The block sums its warps' slots in warp
+// order and merge_slots_kernel the blocks' in block order. No atomics:
+// the same inputs give the same bits. With the route, a lane routes its
+// eight rows at once (route_rows). Measured with chip_smoke.py phase 6 on
+// an NVIDIA H100 80GB HBM3 at 700 W, 10M rows, N = 64: 0.080 ms device
+// time (60% of the 0.0478 ms bound; the matched-key form 0.147); one call
+// between two events, the wrapper's host time included, 0.116-0.158 ms
+// against the first port's 0.283-0.308 in the same run. Float sums in
+// another order than the plain version's: held within 1e-4 + 1e-5 x
+// |mass| of a float64 plain version, as the other float checks are.
 //
 // Routing rule (both kernels, and the plain versions in
 // ops/hist_adaptive.py): tables are float32 [4, n_prev] (feat, thr,
@@ -256,7 +283,26 @@ int wide_i8_w(int W, int terms, bool plan_only, size_t* bytes,
 #undef H2O3_WIDE_I8
 }
 
+// K9 ([rows, F]) and K6 ([F, rows]): the deepest level's route, one
+// thread per row. kLoadsOnly (K9's loads-only floor, for chip_smoke.py):
+// the same nid, table and x loads and nid_out store with no compare, all
+// four table entries read (the route reads three: thr or na_left by x);
+// nid_out = nid, the loaded values folded into ablate_sink.
 template <bool kFeatMajor>
+__device__ __forceinline__ unsigned route_row_loads(
+    const float* __restrict__ x, int64_t r, int64_t rows, int F, int nid,
+    const float* __restrict__ tables, int n_prev, int prev_base) {
+  const int lp = nid - prev_base;
+  if (lp < 0 || lp >= n_prev) return 0u;
+  if (!(__ldg(tables + 3 * n_prev + lp) > 0.5f)) return 0u;
+  int f = static_cast<int>(__ldg(tables + lp));
+  f = f < 0 ? 0 : (f >= F ? F - 1 : f);
+  const float v = h2o3::load_x<kFeatMajor>(x, r, f, rows, F);
+  return __float_as_uint(v) ^ __float_as_uint(__ldg(tables + n_prev + lp)) ^
+         __float_as_uint(__ldg(tables + 2 * n_prev + lp));
+}
+
+template <bool kFeatMajor, bool kLoadsOnly = false>
 __global__ void __launch_bounds__(kThreads)
 adaptive_route_only_kernel(const float* __restrict__ x,
                            const int* __restrict__ nid_in,
@@ -265,100 +311,319 @@ adaptive_route_only_kernel(const float* __restrict__ x,
                            int* __restrict__ nid_out) {
   const int prev_base = level_base - n_prev;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  unsigned fold = 0;
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        r < rows; r += step) {
-    nid_out[r] = route_row<kFeatMajor>(x, r, rows, F, nid_in[r], tables,
-                                       n_prev, prev_base);
+    if constexpr (kLoadsOnly) {
+      const int nid = nid_in[r];
+      fold ^= route_row_loads<kFeatMajor>(x, r, rows, F, nid, tables,
+                                          n_prev, prev_base);
+      nid_out[r] = nid;
+    } else {
+      nid_out[r] = route_row<kFeatMajor>(x, r, rows, F, nid_in[r], tables,
+                                         n_prev, prev_base);
+    }
+  }
+  if constexpr (kLoadsOnly) h2o3::sink_fold(fold);
+}
+
+template <bool kFeatMajor, bool kLoadsOnly>
+int launch_route_only(const float* x, const int* nid, const float* tables,
+                      int64_t rows, int F, int n_prev, int level_base,
+                      int* nid_out, cudaStream_t s) {
+  const int64_t blocks64 = (rows + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 32;
+  const unsigned blocks = static_cast<unsigned>(
+      blocks64 < 1 ? 1 : (blocks64 > cap ? cap : blocks64));
+  adaptive_route_only_kernel<kFeatMajor, kLoadsOnly>
+      <<<blocks, kThreads, 0, s>>>(x, nid, tables, rows, F, n_prev,
+                                   level_base, nid_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The nid of a row past the end: outside every window, so it neither
+// routes nor adds.
+constexpr int kOffRow = -(1 << 30);
+
+// route_row's rule on R rows of x [rows, F] at once (row r[i]; an nid
+// outside the previous level's window, such as kOffRow's, stays): every
+// table read first, then every x load, then the compares, so that a lane
+// of the leaf totals has R gathers in flight, not one.
+template <int R>
+__device__ __forceinline__ void route_rows(const float* __restrict__ x,
+                                           const int64_t (&r)[R], int F,
+                                           const float* __restrict__ tables,
+                                           int n_prev, int prev_base,
+                                           int (&nid)[R]) {
+  bool go[R];
+  int f[R];
+  float thr[R], na_left[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int lp = nid[i] - prev_base;
+    go[i] = lp >= 0 && lp < n_prev && __ldg(tables + 3 * n_prev + lp) > 0.5f;
+    int fi = 0;
+    thr[i] = na_left[i] = 0.f;
+    if (go[i]) {
+      fi = static_cast<int>(__ldg(tables + lp));
+      thr[i] = __ldg(tables + n_prev + lp);
+      na_left[i] = __ldg(tables + 2 * n_prev + lp);
+    }
+    f[i] = fi < 0 ? 0 : (fi >= F ? F - 1 : fi);
+  }
+  float v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = go[i] ? __ldg(x + r[i] * F + f[i]) : 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (!go[i]) continue;
+    const int right = isnan(v[i]) ? (na_left[i] < 0.5f) : (v[i] >= thr[i]);
+    nid[i] = 2 * nid[i] + 1 + right;
   }
 }
 
-// The leaf totals: block b sums a contiguous range of rows (row_range),
-// warp w of it rows r0 + 32 w, + 512, ... in row order. In each step of
-// 32 rows every lane sums the lanes of its node in lane order (shuffles),
-// and the node's lowest lane adds the sums into the warp's own [3][n_nodes]
-// shared slot with a plain add; then the block adds its warps' slots in
-// warp order into its slot of part, and merge_slots_kernel adds the
-// blocks' slots in block order. No float atomics: one fixed order. kRoute
-// false: no route (n_prev 0, no x, no nid_out), the segment totals.
-template <bool kRoute>
-__global__ void __launch_bounds__(kThreads)
+// --------------------------------------------------- K10: the leaf totals
+//
+// Block b sums a contiguous range of quads, four consecutive rows each
+// (row_range over quads, so a block's rows start on a multiple of 4); warp
+// w of it takes kTotalsQuads x 32 consecutive quads a step (lane l quads
+// l and l + 32), each quad's nid, g, h and w in one 16-byte load apiece
+// where aligned (h and w rows start aligned only when rows % 4 == 0), and
+// issues the next step's loads before this step's sums. Each lane first
+// folds its own rows with equal keys in row order (a row off the window
+// passes the run on). Then, by form:
+// - lanes (kLanes): lane l adds each run into its own column of the
+//   warp's [3][n_nodes][32] shared slot, no exchange between lanes; at the
+//   end each cell is the sum over warps in warp order, then over lanes by
+//   a fixed xor butterfly;
+// - match: per row slot, __match_any_sync finds the lanes of a key; one
+//   key on all 32 lanes adds by the xor butterfly, otherwise the key's
+//   lowest lane adds its peers' values in lane order, max(peers) trips of
+//   3 shuffles for the warp, and adds them into the warp's [3][n_nodes]
+//   slot; the block adds its warps' slots in warp order.
+// Each block writes its slot of part; merge_slots_kernel adds the blocks'
+// slots in block order. No atomics: one fixed order. kRoute false: no
+// route (n_prev 0, no x, no nid_out), the segment totals.
+constexpr int kTotalsQuads = 2;  // 8 rows a lane a step
+constexpr int kTotalsRows = 4 * kTotalsQuads;
+// lane columns: up to 8 warps a block in up to 200 KB of shared memory
+constexpr int kLaneWarps = 8;
+constexpr int64_t kLaneBudget = 200 * 1024;
+// forms: picked from n_nodes, lane columns, matched keys
+constexpr int kPickTotals = -1, kLaneTotals = 0, kMatchTotals = 1;
+
+// Lane `lane`'s rows of the step at quad q: nid (kOffRow past lim) and
+// (g, h, w) (0 past lim). kVec (nid, ghw and nid_out 16-byte aligned and
+// rows % 4 == 0, so that the h and w rows are too, and every quad before
+// lim is whole): one 16-byte load of each; otherwise one load a row.
+template <bool kVec>
+__device__ __forceinline__ void load_totals_rows(
+    const int* __restrict__ nid_in, const float* __restrict__ ghw,
+    int64_t rows, int64_t lim, int64_t q, int (&nid)[kTotalsRows],
+    float (&g)[kTotalsRows], float (&h)[kTotalsRows],
+    float (&w)[kTotalsRows]) {
+#pragma unroll
+  for (int u = 0; u < kTotalsQuads; ++u) {
+    const int64_t r0 = 4 * (q + 32 * u);
+    const int at = 4 * u;
+    if constexpr (kVec) {
+      if (r0 < lim) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(nid_in + r0));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(ghw + r0));
+        const float4 c =
+            __ldg(reinterpret_cast<const float4*>(ghw + rows + r0));
+        const float4 d =
+            __ldg(reinterpret_cast<const float4*>(ghw + 2 * rows + r0));
+        nid[at] = a.x, nid[at + 1] = a.y, nid[at + 2] = a.z;
+        nid[at + 3] = a.w;
+        g[at] = b.x, g[at + 1] = b.y, g[at + 2] = b.z, g[at + 3] = b.w;
+        h[at] = c.x, h[at + 1] = c.y, h[at + 2] = c.z, h[at + 3] = c.w;
+        w[at] = d.x, w[at + 1] = d.y, w[at + 2] = d.z, w[at + 3] = d.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          nid[at + j] = kOffRow;
+          g[at + j] = h[at + j] = w[at + j] = 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t r = r0 + j;
+        const bool in = r < lim;
+        nid[at + j] = in ? __ldg(nid_in + r) : kOffRow;
+        g[at + j] = in ? __ldg(ghw + r) : 0.f;
+        h[at + j] = in ? __ldg(ghw + rows + r) : 0.f;
+        w[at + j] = in ? __ldg(ghw + 2 * rows + r) : 0.f;
+      }
+    }
+  }
+}
+
+template <bool kRoute, bool kLanes, bool kVec>
+__global__ void __launch_bounds__(kLanes ? 32 * kLaneWarps : kThreads)
 leaf_totals_kernel(const float* __restrict__ x,
                    const int* __restrict__ nid_in,
                    const float* __restrict__ ghw,
                    const float* __restrict__ tables, int64_t rows, int F,
                    int n_prev, int n_nodes, int level_base,
-                   int* __restrict__ nid_out, float* __restrict__ part,
-                   int* __restrict__ bstart) {
-  extern __shared__ float s_tot[];  // [warps][3][n_nodes]
+                   int* __restrict__ nid_out, float* __restrict__ part) {
+  constexpr int R = kTotalsRows;
+  constexpr unsigned kFull = 0xffffffffu;
+  // kLanes: [warps][3][n_nodes][32]; else [warps][3][n_nodes]
+  extern __shared__ float s_tot[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int per = 3 * n_nodes;
-  for (int i = threadIdx.x; i < nw * per; i += blockDim.x) s_tot[i] = 0.f;
+  const int slot = kLanes ? 32 * per : per;
+  for (int i = threadIdx.x; i < nw * slot; i += blockDim.x) s_tot[i] = 0.f;
   __syncthreads();
-  float* mine = s_tot + warp * per;
+  float* mine = s_tot + warp * slot;
   const int prev_base = level_base - n_prev;
-  int64_t r0, r1;
-  h2o3::row_range(rows, gridDim.x, blockIdx.x, &r0, &r1);
-  // the loop bound is the same for every lane of a warp, so the shuffles
-  // below always run on the full warp
-  for (int64_t w0 = r0 + 32 * warp; w0 < r1; w0 += blockDim.x) {
-    const int64_t r = w0 + lane;
-    int key = -1;
-    float g = 0.f, h = 0.f, w = 0.f;
-    if (r < r1) {
-      int nid = nid_in[r];
-      if constexpr (kRoute) {
-        if (n_prev > 0)
-          nid = route_row<false>(x, r, rows, F, nid, tables, n_prev,
-                                 prev_base);
-        nid_out[r] = nid;
-      }
-      const int ln = nid - level_base;
-      if (ln >= 0 && ln < n_nodes) {
-        key = ln;
-        g = ghw[r];
-        h = ghw[rows + r];
-        w = ghw[2 * rows + r];
-      }
-    }
-    // each lane sums the lanes of its node in lane order
-    float sg = 0.f, sh = 0.f, sw = 0.f;
-    bool lowest = true;
-    for (int src = 0; src < 32; ++src) {
-      const int k = __shfl_sync(0xffffffffu, key, src);
-      const float vg = __shfl_sync(0xffffffffu, g, src);
-      const float vh = __shfl_sync(0xffffffffu, h, src);
-      const float vw = __shfl_sync(0xffffffffu, w, src);
-      if (k == key) {
-        if (src < lane) lowest = false;
-        sg = __fadd_rn(sg, vg);
-        sh = __fadd_rn(sh, vh);
-        sw = __fadd_rn(sw, vw);
+  int64_t q0, q1;
+  h2o3::row_range((rows + 3) >> 2, gridDim.x, blockIdx.x, &q0, &q1);
+  const int64_t lim = h2o3::imin64(4 * q1, rows);  // the block's rows end
+  const int64_t step = static_cast<int64_t>(nw) * 32 * kTotalsQuads;
+  int64_t qb = q0 + static_cast<int64_t>(warp) * 32 * kTotalsQuads;
+  int nid[R];
+  float g[R], h[R], w[R];
+  load_totals_rows<kVec>(nid_in, ghw, rows, lim, qb + lane, nid, g, h, w);
+  // the bound is the same for every lane of a warp, so the warp
+  // collectives below always run on the full warp
+  for (; qb < q1; qb += step) {
+    int nid2[R];
+    float g2[R], h2[R], w2[R];
+    load_totals_rows<kVec>(nid_in, ghw, rows, lim, qb + step + lane, nid2,
+                           g2, h2, w2);
+    if constexpr (kRoute) {
+      int64_t r[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        r[i] = 4 * (qb + lane + 32 * (i / 4)) + (i % 4);
+      if (n_prev > 0)
+        route_rows<R>(x, r, F, tables, n_prev, prev_base, nid);
+#pragma unroll
+      for (int u = 0; u < kTotalsQuads; ++u) {
+        const int64_t r0 = r[4 * u];
+        if constexpr (kVec) {
+          if (r0 < lim)
+            *reinterpret_cast<int4*>(nid_out + r0) = make_int4(
+                nid[4 * u], nid[4 * u + 1], nid[4 * u + 2], nid[4 * u + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (r0 + j < lim) nid_out[r0 + j] = nid[4 * u + j];
+        }
       }
     }
-    if (key >= 0 && lowest) {  // the node's lowest lane, alone in the warp
-      mine[key] = __fadd_rn(mine[key], sg);
-      mine[n_nodes + key] = __fadd_rn(mine[n_nodes + key], sh);
-      mine[2 * n_nodes + key] = __fadd_rn(mine[2 * n_nodes + key], sw);
+    int key[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int ln = nid[i] - level_base;
+      key[i] = ln >= 0 && ln < n_nodes ? ln : -1;
     }
-    __syncwarp();
+    // the lane's own runs, in row order: row i takes over row i - 1's sums
+    // when it is off the window or has the same key
+#pragma unroll
+    for (int i = 1; i < R; ++i) {
+      if (key[i] < 0 || key[i] == key[i - 1]) {
+        const bool add = key[i] >= 0;
+        g[i] = add ? __fadd_rn(g[i - 1], g[i]) : g[i - 1];
+        h[i] = add ? __fadd_rn(h[i - 1], h[i]) : h[i - 1];
+        w[i] = add ? __fadd_rn(w[i - 1], w[i]) : w[i - 1];
+        key[i] = key[i - 1];
+        key[i - 1] = -1;
+      }
+    }
+    if constexpr (kLanes) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (key[i] < 0) continue;
+        float* c = mine + key[i] * 32 + lane;
+        c[0] = __fadd_rn(c[0], g[i]);
+        c[32 * n_nodes] = __fadd_rn(c[32 * n_nodes], h[i]);
+        c[64 * n_nodes] = __fadd_rn(c[64 * n_nodes], w[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int k = key[i];
+        if (!__any_sync(kFull, k >= 0)) continue;
+        const unsigned peers = __match_any_sync(kFull, k);
+        float sg = g[i], sh = h[i], sw = w[i];
+        int leader = 0;
+        if (peers == kFull) {  // one key on every lane: a fixed butterfly
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            sg = __fadd_rn(sg, __shfl_xor_sync(kFull, sg, off));
+            sh = __fadd_rn(sh, __shfl_xor_sync(kFull, sh, off));
+            sw = __fadd_rn(sw, __shfl_xor_sync(kFull, sw, off));
+          }
+        } else {  // the key's lanes in lane order
+          const int cnt = __popc(peers);
+          const int trips = __reduce_max_sync(kFull, k >= 0 ? cnt : 0);
+          unsigned m = peers;
+          sg = sh = sw = 0.f;
+          for (int t = 0; t < trips; ++t) {
+            const int src = m ? __ffs(m) - 1 : lane;
+            m &= m - 1;
+            const float vg = __shfl_sync(kFull, g[i], src);
+            const float vh = __shfl_sync(kFull, h[i], src);
+            const float vw = __shfl_sync(kFull, w[i], src);
+            if (t < cnt) {
+              sg = __fadd_rn(sg, vg);
+              sh = __fadd_rn(sh, vh);
+              sw = __fadd_rn(sw, vw);
+            }
+          }
+          leader = __ffs(peers) - 1;
+        }
+        if (k >= 0 && lane == leader) {
+          mine[k] = __fadd_rn(mine[k], sg);
+          mine[n_nodes + k] = __fadd_rn(mine[n_nodes + k], sh);
+          mine[2 * n_nodes + k] = __fadd_rn(mine[2 * n_nodes + k], sw);
+        }
+        __syncwarp();  // the next slot's leader may add into the same cell
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      nid[i] = nid2[i];
+      g[i] = g2[i];
+      h[i] = h2[i];
+      w[i] = w2[i];
+    }
   }
   __syncthreads();
   float* pb = part + static_cast<int64_t>(blockIdx.x) * per;
-  for (int i = threadIdx.x; i < per; i += blockDim.x) {
-    float t = 0.f;
-    for (int v = 0; v < nw; ++v) t = __fadd_rn(t, s_tot[v * per + i]);
-    pb[i] = t;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    bstart[0] = 0;
-    bstart[1] = gridDim.x;
+  if constexpr (kLanes) {
+    for (int i = warp; i < per; i += nw) {
+      float t = 0.f;
+      for (int v = 0; v < nw; ++v)
+        t = __fadd_rn(t, s_tot[(v * per + i) * 32 + lane]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        t = __fadd_rn(t, __shfl_xor_sync(kFull, t, off));
+      if (lane == 0) pb[i] = t;
+    }
+  } else {
+    for (int i = threadIdx.x; i < per; i += blockDim.x) {
+      float t = 0.f;
+      for (int v = 0; v < nw; ++v) t = __fadd_rn(t, s_tot[v * per + i]);
+      pb[i] = t;
+    }
   }
 }
 
 // The one source of totals cell i: every block's slot, at i.
 struct TotalsSrc {
+  static constexpr bool kAllBlocks = true;
+  int nb;
   __device__ __forceinline__ int operator()(int64_t i, int* g,
                                             int64_t* o) const {
     g[0] = 0;
@@ -367,55 +632,85 @@ struct TotalsSrc {
   }
 };
 
-// How a leaf-totals launch runs: blocks (contiguous row ranges, at most
-// four an SM), warps a block (as many [3][n_nodes] warp slots as the
-// shared budget holds, at most 16), shared and workspace bytes.
+// How a leaf-totals launch runs: the form (lane columns or matched keys),
+// blocks (contiguous quad ranges, as many as are resident at once, at most
+// four an SM), warps a block (slots that fit the shared budget: at most
+// kLaneWarps lane-column slots in kLaneBudget, 16 matched-key slots in
+// kHistBudget), shared and workspace bytes.
 struct TotalsPlan {
   int blocks, warps;
+  bool lanes;
   size_t smem, bytes;
 };
 
-// Refused (-1 blocks): fewer than one node, or one warp slot past the
-// budget (n_nodes above 8960).
-inline TotalsPlan plan_totals(int64_t rows, int n_nodes) {
-  TotalsPlan p{-1, 0, 0, 0};
+// The picked form takes lane columns where four warps' of them fit
+// kLaneBudget (n_nodes <= 133). Refused (-1 blocks): fewer than one node,
+// one matched-key slot past kHistBudget (n_nodes above 8960), a forced
+// lane form whose one slot does not fit (n_nodes above 533), an unknown
+// form.
+inline TotalsPlan plan_totals(int64_t rows, int n_nodes, int form) {
+  TotalsPlan p{-1, 0, false, 0, 0};
   const int64_t slot = 3 * static_cast<int64_t>(n_nodes) * sizeof(float);
-  if (n_nodes < 1 || rows < 0 || slot > h2o3::kHistBudget) return p;
-  const int64_t fit = h2o3::kHistBudget / slot;
-  p.warps = static_cast<int>(fit < kThreads / 32 ? fit : kThreads / 32);
-  p.smem = static_cast<size_t>(slot) * p.warps;
-  int64_t nb = (rows + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 4;
-  if (nb > cap) nb = cap;
-  p.blocks = nb < 1 ? 1 : static_cast<int>(nb);
-  p.bytes = h2o3::align256(static_cast<size_t>(slot) * p.blocks) +
-            h2o3::align256(2 * sizeof(int));
+  if (n_nodes < 1 || rows < 0 || slot > h2o3::kHistBudget ||
+      form < kPickTotals || form > kMatchTotals)
+    return p;
+  const int64_t lane_fit = kLaneBudget / (32 * slot);
+  p.lanes = form == kLaneTotals || (form == kPickTotals && lane_fit >= 4);
+  if (p.lanes && lane_fit < 1) return p;
+  const int64_t fit = p.lanes ? lane_fit : h2o3::kHistBudget / slot;
+  const int64_t most = p.lanes ? kLaneWarps : kThreads / 32;
+  p.warps = static_cast<int>(fit < most ? fit : most);
+  p.smem = static_cast<size_t>(p.lanes ? 32 * slot : slot) * p.warps;
+  // the SM's 228 KB of shared memory, 1 KB of it reserved per block
+  int64_t per_sm = (228 * 1024) / static_cast<int64_t>(p.smem + 1024);
+  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  const int64_t per_block = static_cast<int64_t>(p.warps) * 32 * kTotalsQuads;
+  int64_t nb = ((rows + 3) / 4 + per_block - 1) / per_block;
+  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * per_sm;
+  nb = nb < 1 ? 1 : (nb > cap ? cap : nb);
+  p.blocks = static_cast<int>(nb);
+  p.bytes = h2o3::align256(static_cast<size_t>(slot) * p.blocks);
   return p;
+}
+
+template <bool kRoute, bool kLanes, bool kVec>
+int launch_totals_form(const TotalsPlan& p, const float* x, const int* nid,
+                       const float* ghw, const float* tables, int64_t rows,
+                       int F, int n_prev, int n_nodes, int level_base,
+                       int* nid_out, float* part, cudaStream_t s) {
+  auto kern = leaf_totals_kernel<kRoute, kLanes, kVec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<p.blocks, 32 * p.warps, p.smem, s>>>(x, nid, ghw, tables, rows, F,
+                                              n_prev, n_nodes, level_base,
+                                              nid_out, part);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kRoute>
 int launch_totals(const float* x, const int* nid, const float* ghw,
                   const float* tables, int64_t rows, int F, int n_prev,
-                  int n_nodes, int level_base, int* nid_out, float* totals,
-                  void* ws, cudaStream_t s) {
-  const TotalsPlan p = plan_totals(rows, n_nodes);
+                  int n_nodes, int level_base, int form, int* nid_out,
+                  float* totals, void* ws, cudaStream_t s) {
+  const TotalsPlan p = plan_totals(rows, n_nodes, form);
   if (p.blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = leaf_totals_kernel<kRoute>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = aligned16(nid) && aligned16(ghw) && rows % 4 == 0 &&
+                   (!kRoute || aligned16(nid_out));
   const int per = 3 * n_nodes;
   float* part = static_cast<float*>(ws);
-  int* bstart = reinterpret_cast<int*>(
-      static_cast<char*>(ws) +
-      h2o3::align256(sizeof(float) * static_cast<size_t>(per) * p.blocks));
-  kern<<<p.blocks, 32 * p.warps, p.smem, s>>>(x, nid, ghw, tables, rows, F,
-                                              n_prev, n_nodes, level_base,
-                                              nid_out, part, bstart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return h2o3::launch_merge(TotalsSrc{}, part, per, bstart, per,
+#define H2O3_TOTALS(LANES, VEC)                                            \
+  launch_totals_form<kRoute, LANES, VEC>(p, x, nid, ghw, tables, rows, F, \
+                                         n_prev, n_nodes, level_base,     \
+                                         nid_out, part, s)
+  const int rc = p.lanes ? (vec ? H2O3_TOTALS(true, true)
+                                : H2O3_TOTALS(true, false))
+                         : (vec ? H2O3_TOTALS(false, true)
+                                : H2O3_TOTALS(false, false));
+#undef H2O3_TOTALS
+  if (rc != 0) return rc;
+  return h2o3::launch_merge(TotalsSrc{p.blocks}, part, per, nullptr, per,
                             h2o3::MergeAdd{totals}, s);
 }
 
@@ -744,24 +1039,40 @@ int h2o3_adaptive_route_only(const float* x, int feat_major, const int* nid,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_prev < 1 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks64 = (rows + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(h2o3::sm_count()) * 32;
-  const unsigned blocks = static_cast<unsigned>(
-      blocks64 < 1 ? 1 : (blocks64 > cap ? cap : blocks64));
-  if (feat_major)
-    adaptive_route_only_kernel<true><<<blocks, kThreads, 0, s>>>(
-        x, nid, tables, rows, F, n_prev, level_base, nid_out);
-  else
-    adaptive_route_only_kernel<false><<<blocks, kThreads, 0, s>>>(
-        x, nid, tables, rows, F, n_prev, level_base, nid_out);
-  return static_cast<int>(cudaGetLastError());
+  return feat_major
+             ? launch_route_only<true, false>(x, nid, tables, rows, F, n_prev,
+                                              level_base, nid_out, s)
+             : launch_route_only<false, false>(x, nid, tables, rows, F,
+                                               n_prev, level_base, nid_out, s);
 }
 
-// The workspace bytes of h2o3_leaf_totals and h2o3_segment_totals at
-// these shapes (the blocks' slots); -1 where they are refused.
+// K9's loads-only floor in [rows, F]: the route's nid, table and x loads
+// and nid_out store, no compare, nid_out = nid. For chip_smoke.py and the
+// tests only; operands as h2o3_adaptive_route_only's in [rows, F].
+// Returns a cudaError_t value.
+int h2o3_adaptive_route_floor(const float* x, const int* nid,
+                              const float* tables, long long rows, int F,
+                              int n_prev, int level_base, int* nid_out,
+                              void* stream) {
+  if (F < 1 || n_prev < 1 || rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_route_only<false, true>(x, nid, tables, rows, F, n_prev,
+                                        level_base, nid_out,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// The workspace bytes of h2o3_leaf_totals, h2o3_segment_totals and
+// h2o3_segment_totals_form at these shapes, in any form (the blocks'
+// slots); -1 where every form is refused.
 long long h2o3_leaf_totals_workspace(long long rows, int n_nodes) {
-  const TotalsPlan p = plan_totals(rows, n_nodes);
-  return p.blocks < 0 ? -1 : static_cast<long long>(p.bytes);
+  long long most = -1;
+  const int forms[2] = {kLaneTotals, kMatchTotals};
+  for (int form : forms) {
+    const TotalsPlan p = plan_totals(rows, n_nodes, form);
+    if (p.blocks >= 0 && static_cast<long long>(p.bytes) > most)
+      most = static_cast<long long>(p.bytes);
+  }
+  return most;
 }
 
 // Route one level of x [rows, F] float32 (none when n_prev is 0) and ADD
@@ -776,7 +1087,7 @@ int h2o3_leaf_totals(const float* x, const int* nid, const float* ghw,
   if (F < 1 || n_prev < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_totals<true>(x, nid, ghw, tables, rows, F, n_prev, n_nodes,
-                             level_base, nid_out, totals, ws,
+                             level_base, kPickTotals, nid_out, totals, ws,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -789,7 +1100,18 @@ int h2o3_segment_totals(const int* nid, const float* ghw, long long rows,
                         int n_nodes, int level_base, float* totals, void* ws,
                         void* stream) {
   return launch_totals<false>(nullptr, nid, ghw, nullptr, rows, 1, 0,
-                              n_nodes, level_base, nullptr, totals, ws,
+                              n_nodes, level_base, kPickTotals, nullptr,
+                              totals, ws, static_cast<cudaStream_t>(stream));
+}
+
+// h2o3_segment_totals with its form forced: 0 lane columns (refused past
+// 533 nodes), 1 matched keys, -1 picked. For chip_smoke.py and the tests.
+int h2o3_segment_totals_form(const int* nid, const float* ghw,
+                             long long rows, int n_nodes, int level_base,
+                             int form, float* totals, void* ws,
+                             void* stream) {
+  return launch_totals<false>(nullptr, nid, ghw, nullptr, rows, 1, 0,
+                              n_nodes, level_base, form, nullptr, totals, ws,
                               static_cast<cudaStream_t>(stream));
 }
 

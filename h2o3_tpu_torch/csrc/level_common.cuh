@@ -636,6 +636,33 @@ struct MergeFlushI8 {
   }
 };
 
+// The blocks whose slots hold group g's partials: bstart[g] to
+// bstart[g + 1]; a source whose one group is every block of the launch
+// before it says so with kAllBlocks and its block count nb, and needs no
+// bstart (the leaf totals: a store of bstart inside their kernel made its
+// lane form markedly slower on an H100, for no reason the SASS shows).
+template <class S, class = void>
+struct AllBlocks {
+  static constexpr bool value = false;
+};
+template <class S>
+struct AllBlocks<S, decltype(void(S::kAllBlocks))> {
+  static constexpr bool value = S::kAllBlocks;
+};
+
+template <class Src>
+__device__ __forceinline__ void source_blocks(const Src& src,
+                                              const int* __restrict__ bstart,
+                                              int g, int* b0, int* b1) {
+  if constexpr (AllBlocks<Src>::value) {
+    *b0 = 0;
+    *b1 = src.nb;
+  } else {
+    *b0 = __ldg(bstart + g);
+    *b1 = __ldg(bstart + g + 1);
+  }
+}
+
 template <class Src, class Epi>
 __global__ void __launch_bounds__(32 * kMergeWarps)
 merge_slots_kernel(Src src, const typename Epi::T* __restrict__ part,
@@ -657,8 +684,9 @@ merge_slots_kernel(Src src, const typename Epi::T* __restrict__ part,
         int64_t o[2];
         const int ns = src(epi.cell(i, k), g, o);
         for (int q = 0; q < ns; ++q) {
-          const int b1 = __ldg(bstart + g[q] + 1);
-          for (int b = __ldg(bstart + g[q]) + warp; b < b1; b += kMergeWarps)
+          int b0, b1;
+          source_blocks(src, bstart, g[q], &b0, &b1);
+          for (int b = b0 + warp; b < b1; b += kMergeWarps)
             s[k] = Epi::add(s[k], part[b * bstride + o[q]]);
         }
       }

@@ -79,6 +79,8 @@ _SIGNATURES = {
                             _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
+        "h2o3_adaptive_route_floor": [_VP, _VP, _VP, _LL, _INT, _INT, _INT,
+                                      _VP, _VP],
         "h2o3_adaptive_level_i8_workspace": [_INT, _LL, _INT, _INT, _INT,
                                              _INT, _INT, _INT],
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
@@ -90,6 +92,8 @@ _SIGNATURES = {
         "h2o3_leaf_totals": [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT, _INT,
                              _VP, _VP, _VP, _VP],
         "h2o3_segment_totals": [_VP, _VP, _LL, _INT, _INT, _VP, _VP, _VP],
+        "h2o3_segment_totals_form": [_VP, _VP, _LL, _INT, _INT, _INT, _VP,
+                                     _VP, _VP],
     },
     "hist_global": {
         "h2o3_global_hist_workspace": [_INT, _LL, _INT, _INT, _INT, _INT,
@@ -697,13 +701,14 @@ def leaf_totals(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     return nid_out, totals
 
 
-def segment_totals(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
-                   level_base: int) -> torch.Tensor:
-    """Launch the leaf-totals kernel's instance without a route: the
-    (g, h, w) sums of the rows whose ``nid`` lies in ``[level_base,
-    level_base + n_nodes)``, per node, in a fixed order. Same contract as
-    ``common.segment_totals_plain``; returns totals [3, n_nodes]
-    float32."""
+# The forms of the leaf-totals kernel (csrc/hist_adaptive.cu
+# plan_totals): picked from n_nodes, lane columns (n_nodes <= 533), keys
+# matched across the warp.
+TOTALS_FORMS = {"picked": -1, "lanes": 0, "match": 1}
+
+
+def _segment_totals(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
+                    level_base: int, form: int) -> torch.Tensor:
     _check_cuda(nid)
     rows = nid.shape[0]
     dev = nid.device
@@ -713,12 +718,35 @@ def segment_totals(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
     totals = torch.zeros((3, n_nodes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ws = _totals_workspace(lib, rows, n_nodes, "segment_totals", dev)
-        rc = lib.h2o3_segment_totals(
-            nid.data_ptr(), ghw.data_ptr(), rows, n_nodes, level_base,
-            totals.data_ptr(), ws.data_ptr(), _stream(dev))
+        args = (nid.data_ptr(), ghw.data_ptr(), rows, n_nodes, level_base)
+        out = (totals.data_ptr(), ws.data_ptr(), _stream(dev))
+        rc = (lib.h2o3_segment_totals(*args, *out) if form == -1 else
+              lib.h2o3_segment_totals_form(*args, form, *out))
     _raise_on(rc, "segment_totals")
     LAUNCHES["segment_totals"] += 1
     return totals
+
+
+def segment_totals(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
+                   level_base: int) -> torch.Tensor:
+    """Launch the leaf-totals kernel's instance without a route: the
+    (g, h, w) sums of the rows whose ``nid`` lies in ``[level_base,
+    level_base + n_nodes)``, per node, in a fixed order. Same contract as
+    ``common.segment_totals_plain``; returns totals [3, n_nodes]
+    float32."""
+    return _segment_totals(nid, ghw, n_nodes, level_base, -1)
+
+
+def segment_totals_form(nid: torch.Tensor, ghw: torch.Tensor, n_nodes: int,
+                        level_base: int, form: str) -> torch.Tensor:
+    """``segment_totals`` with its form forced by name (``TOTALS_FORMS``);
+    "lanes" past 533 nodes raises. For the tests and ``chip_smoke.py``;
+    the training path calls ``segment_totals``."""
+    if form not in TOTALS_FORMS:
+        raise ValueError(f"unknown totals form {form!r}; expected one of "
+                         f"{sorted(TOTALS_FORMS)}")
+    return _segment_totals(nid, ghw, n_nodes, level_base,
+                           TOTALS_FORMS[form])
 
 
 def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
@@ -738,6 +766,26 @@ def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
             nid_out.data_ptr(), _stream(dev))
     _raise_on(rc, "adaptive_route_only")
     LAUNCHES["adaptive_route_only"] += 1
+    return nid_out
+
+
+def adaptive_route_floor(x: torch.Tensor, nid: torch.Tensor,
+                         tables: torch.Tensor, n_prev: int,
+                         level_base: int) -> torch.Tensor:
+    """The loads-only floor of the ``"rows_f"`` route's kernel: its nid,
+    table and x loads and its nid store, no compare (returns nid
+    unchanged). For ``chip_smoke.py`` and the tests; counts in no
+    ``LAUNCHES`` entry."""
+    if n_prev < 1:
+        raise ValueError("adaptive_route_floor needs a previous level")
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, "rows_f")
+    lib = build()["hist_adaptive"]
+    nid_out = torch.empty_like(nid)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_adaptive_route_floor(
+            x.data_ptr(), nid.data_ptr(), tables.data_ptr(), rows, F, n_prev,
+            level_base, nid_out.data_ptr(), _stream(dev))
+    _raise_on(rc, "adaptive_route_floor")
     return nid_out
 
 

@@ -103,9 +103,19 @@ def test_adaptive_level_plain_matches_pallas_interpret(layout, W, bf16):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
-def test_adaptive_route_only_plain_matches_xla_and_pallas(layout):
-    x, nid, _ghw, tables, lo, inv, n_prev, base = _inputs(rows=2048, N=16,
+@pytest.mark.parametrize(
+    "layout,rows,N,tile",
+    [pytest.param("rows_f", 2048, 16, 1024, id="rows_f"),
+     pytest.param("f_rows", 2048, 16, 1024, id="f_rows"),
+     # a row count that is not a multiple of 4 (the kernel's ragged quad)
+     pytest.param("rows_f", 3069, 16, 1023, id="rows_f-ragged"),
+     pytest.param("f_rows", 3069, 16, 1023, id="f_rows-ragged"),
+     # n_prev = 1
+     pytest.param("rows_f", 2048, 2, 1024, id="rows_f-n_prev=1"),
+     pytest.param("f_rows", 2048, 2, 1024, id="f_rows-n_prev=1")])
+def test_adaptive_route_only_plain_matches_xla_and_pallas(layout, rows, N,
+                                                          tile):
+    x, nid, _ghw, tables, lo, inv, n_prev, base = _inputs(rows=rows, N=N,
                                                           seed=5)
     targs = _torch_args(x, nid, _ghw, tables, lo, inv, layout)
     got = tha.adaptive_route_only_plain(targs[0], targs[1], targs[3],
@@ -115,10 +125,10 @@ def test_adaptive_route_only_plain_matches_xla_and_pallas(layout):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if layout == "f_rows":
         pal = jha.route_only_tpu_t(jnp.asarray(x.T.copy()), jn, jt, n_prev,
-                                   base, tile=1024, interpret=True)
+                                   base, tile=tile, interpret=True)
     else:
         pal = jha.route_only_tpu(jnp.asarray(x), jn, jt, n_prev, base,
-                                 tile=1024, interpret=True)
+                                 tile=tile, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
 
 

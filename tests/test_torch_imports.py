@@ -207,6 +207,31 @@ def test_segment_totals_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
         common.segment_totals(xm, xm, 2, 1)
 
 
+@pytest.mark.parametrize("case", ["floor_cpu", "floor_no_prev",
+                                  "form_cpu", "form_unknown"])
+def test_measurement_wrappers_refuse_bad_calls(case):
+    """K9's loads-only floor and the forced forms of segment_totals (for
+    chip_smoke.py and the tests) refuse CPU tensors, a missing previous
+    level and an unknown form before anything is built."""
+    nid = torch.zeros(8, dtype=torch.int32)
+    x = torch.zeros((8, 2), dtype=torch.float32)
+    ftab = torch.zeros((4, 1), dtype=torch.float32)
+    ghw = torch.zeros((3, 8))
+    call, err = {
+        "floor_cpu": (lambda: kernels.adaptive_route_floor(x, nid, ftab, 1,
+                                                           1), "CUDA kernel"),
+        "floor_no_prev": (lambda: kernels.adaptive_route_floor(
+            x, nid, ftab, 0, 1), "previous level"),
+        "form_cpu": (lambda: kernels.segment_totals_form(nid, ghw, 2, 1,
+                                                         "lanes"),
+                     "CUDA kernel"),
+        "form_unknown": (lambda: kernels.segment_totals_form(nid, ghw, 2, 1,
+                                                             "rows"),
+                         "unknown totals form")}[case]
+    with pytest.raises(ValueError, match=err):
+        call()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     codes = torch.zeros((8, 2), dtype=torch.int8)
     nid = torch.zeros(8, dtype=torch.int32)

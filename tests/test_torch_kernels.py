@@ -197,14 +197,27 @@ def test_adaptive_level_nan_inf_zero_span_bit_equal(cuda, layout):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
-def test_adaptive_route_only_bit_equal(cuda, layout):
+@pytest.mark.parametrize(
+    "rows,N,shift",
+    [(50_000, 64, False),
+     (50_003, 64, False),     # rows % 4 = 3
+     (50_000, 2, False),      # n_prev = 1
+     (50_001, 4096, False),   # n_prev 2048
+     (50_002, 64, True)])     # nid not 16-byte aligned (a view at row 1)
+def test_adaptive_route_only_bit_equal(cuda, layout, rows, N, shift):
     x, n, _g, t, _lo, _inv, n_prev, base = _adaptive_inputs(
-        50_000, 9, 16, 64, 5, True, layout, cuda)
+        rows, 9, 16, N, 5, True, layout, cuda)
+    if shift:
+        n = n[1:]
+        x = x[1:] if layout == "rows_f" else x[:, 1:].contiguous()
     before = kernels.LAUNCHES["adaptive_route_only"]
     got = tha.adaptive_route_only(x, n, t, n_prev, base, layout)
     assert kernels.LAUNCHES["adaptive_route_only"] == before + 1
-    assert torch.equal(got, tha.adaptive_route_only_plain(x, n, t, n_prev,
-                                                          base, layout))
+    want = tha.adaptive_route_only_plain(x, n, t, n_prev, base, layout)
+    assert torch.equal(got, want)
+    if layout == "rows_f":   # K9's loads-only floor keeps nid
+        assert torch.equal(kernels.adaptive_route_floor(x, n, t, n_prev,
+                                                        base), n)
 
 
 @pytest.mark.gpu
@@ -632,20 +645,41 @@ def test_global_hist_grouped_repeats_bit_for_bit(cuda, bf16, B1, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [1, 2, 64, 512, 4096])
-def test_segment_totals_close(cuda, N):
+@pytest.mark.parametrize("form", ["picked", "lanes", "match"])
+@pytest.mark.parametrize(
+    "N,rows,one_node",
+    [(1, 300_000, False), (2, 300_000, False), (64, 300_000, False),
+     (512, 300_000, False), (4096, 300_000, False),
+     # rows % 4 = 1, 2, 3: h and w start off a 16-byte boundary
+     (64, 300_001, False), (64, 300_002, False), (64, 300_003, False),
+     # every row in one node
+     (1, 300_001, True), (64, 300_002, True), (4096, 300_003, True)])
+def test_segment_totals_close(cuda, N, rows, one_node, form):
     from h2o3_tpu_torch.ops.common import segment_totals, segment_totals_plain
-    rng = np.random.default_rng(N)
-    rows, base = 300_000, N - 1
-    n = torch.as_tensor((base + rng.integers(0, N, rows)).astype(np.int32),
-                        device=cuda)
-    n = _off_window(n, N, N)
+    rng = np.random.default_rng(N + rows)
+    base = N - 1
+    if one_node:
+        n = torch.full((rows,), base + N // 2, dtype=torch.int32,
+                       device=cuda)
+    else:
+        n = torch.as_tensor((base + rng.integers(0, N, rows))
+                            .astype(np.int32), device=cuda)
+        n = _off_window(n, N, N)
     g = torch.as_tensor(np.stack([rng.normal(size=rows),
                                   rng.random(rows) * 0.25,
                                   np.ones(rows)]).astype(np.float32),
                         device=cuda)
+
+    def run(ghw):
+        if form == "picked":
+            return segment_totals(n, ghw, N, base)
+        return kernels.segment_totals_form(n, ghw, N, base, form)
+    if form == "lanes" and N > 533:      # one lane-column slot past budget
+        with pytest.raises(RuntimeError):
+            run(g)
+        return
     before = kernels.LAUNCHES["segment_totals"]
-    tot = segment_totals(n, g, N, base)
+    tot = run(g)
     assert kernels.LAUNCHES["segment_totals"] == before + 1
     want = segment_totals_plain(n, g.double(), N, base)
     mass = segment_totals_plain(n, g.double().abs(), N, base)
@@ -653,22 +687,24 @@ def test_segment_totals_close(cuda, N):
     assert bool(((tot.double() - want).abs() <= 1e-4 + 1e-5 * mass).all())
     gi = torch.as_tensor(rng.integers(-8, 9, (3, rows)).astype(np.float32),
                          device=cuda)
-    assert torch.equal(segment_totals(n, gi, N, base),
-                       segment_totals_plain(n, gi, N, base))
+    assert torch.equal(run(gi), segment_totals_plain(n, gi, N, base))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", [False, True])
-def test_totals_repeat_bit_for_bit(cuda, route):
+@pytest.mark.parametrize("route,form", [(False, "picked"), (False, "match"),
+                                        (True, "picked")])
+@pytest.mark.parametrize("share", [0.8, 1.0])
+def test_totals_repeat_bit_for_bit(cuda, route, form, share):
     """Five launches of the leaf-totals kernel (with a route, and its
-    segment-totals instance) give the same bits, most rows in one node."""
+    segment-totals instance in both forms) give the same bits, most rows
+    (share 0.8) or every row (1.0) in one node."""
     from h2o3_tpu_torch.ops.common import segment_totals
     rows, N = 400_000, 64
     x, _n, _g, t, _lo, _inv, _p, _b = _adaptive_inputs(
         rows, 9, 16, 64, 8, False, "rows_f", cuda)
     rng = np.random.default_rng(8)
     n = rng.integers(0, N, rows)
-    n[rng.random(rows) < 0.8] = 5
+    n[rng.random(rows) < share] = 5
     g = _adversarial_masses(rows, 8, cuda)
     if route:
         n = torch.as_tensor((31 + n // 2).astype(np.int32), device=cuda)
@@ -678,7 +714,9 @@ def test_totals_repeat_bit_for_bit(cuda, route):
         runs = [r[1] for r in runs]
     else:
         n = torch.as_tensor((N - 1 + n).astype(np.int32), device=cuda)
-        runs = [segment_totals(n, g, N, N - 1) for _ in range(5)]
+        runs = [segment_totals(n, g, N, N - 1) if form == "picked" else
+                kernels.segment_totals_form(n, g, N, N - 1, form)
+                for _ in range(5)]
     assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
