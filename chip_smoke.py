@@ -33,8 +33,10 @@ against its plain version. Phases, each fatal on failure:
    node-grouped level (adaptive and packed), IMMA and no atomics in every
    int8 instance of it, no atomics at all in every float instance of the
    wide level (level_wide_kernel), the leaf-totals kernel (every form),
-   global_hist's node-grouped form and the route
-   (adaptive_route_only_kernel, with its loads-only floor), and in every
+   global_hist's node-grouped form, the route
+   (adaptive_route_only_kernel in both layouts, with its loads-only
+   floors) and the column level (level_column_kernel, K5 in [F, rows],
+   its five instances counted on their own), and in every
    int8 instance of the wide level shared integer adds (``ATOMS.ADD``)
    and no other atomic; print ``-Xptxas -v``'s registers, shared memory
    and spills for the leaf-totals and route instances;
@@ -44,11 +46,15 @@ against its plain version. Phases, each fatal on failure:
    tiled, and from W=32 on the wide body),
    binned_route_only at N=64; adaptive_level at W in {16, 32, 64, 128,
    256} and adaptive_route_only at N=64, both layouts (in [rows, F] from
-   W=32 on every grouped form forced too), plus a case with NaN, ±inf
+   W=32 on every grouped form forced too; in [F, rows] the column body,
+   the form picked, and the tiled body forced, the column body launched
+   twice with the same bits), plus a case with NaN, ±inf
    and zero-span features; a grouped form forced where it does not fit
    or has no instance (600 features, [F, rows], the wide body at W=16,
    the int8 wide body at W=16 and 32, the tensor-core body of the float
-   and int8 levels at W=64, 128, 256) must raise;
+   and int8 levels at W=64, 128, 256) and the column body forced in
+   [rows, F], on the packed level or where one feature's block does not
+   fit (W = 256, N = 128) must raise;
    global_hist at B1 in {15 (uint8), 257, 1025
    (int32)}, N in {1, 8, 16, 32}, about 10% of the rows outside [0, N),
    NA codes, in the node-grouped form and with global atomics. With
@@ -140,8 +146,19 @@ against its plain version. Phases, each fatal on failure:
    rule's form took more than 5% above the fastest forced form are
    printed; leaf_totals at n_prev = 32, N = 64; segment_totals at N = 64
    in each form beside one ``index_add_`` (these, the route's and its
-   floor's times are the device's, ``tools.time_ms``); the [rows, F]
-   route at 28 and 8 features beside its loads-only floor; binned_level and adaptive_level at the wide
+   floor's times are the device's, ``tools.time_ms``); the route in each
+   layout (K9, K6) at 28 and 8 features beside its loads-only floor;
+   the [F, rows] level (K5) per level N = 1..32 at W = 32, bf16, in the
+   column body (the form picked) and the tiled body forced, both checked
+   against the plain version on the timed inputs, as device time and one
+   call, and at N = 32 at W = 32, 64, 128, 256 beside K6's route followed
+   by the column body on the routed ids (bit-equal), the plain version
+   and the bound; the [F, rows] grower (``phase_f_rows_grower``): at
+   W = 32 and 64, margin-0 bernoulli gradients, 200k rows float32 trees
+   equal split for split in both layouts on the card and on the CPU, two
+   10M-row float32 [F, rows] trees bit for bit (the first after NaN-filling
+   the allocator), and one 10M-row bf16 tree's six levels and route timed
+   in each layout on the same inputs; binned_level and adaptive_level at the wide
    widths W = 64, 128, 256, per level N = 1..32, both forms (wide,
    tiled) checked against the plain version at 10M rows and timed, the
    wide one launched five times with the same bits, the form the kernel
@@ -502,9 +519,9 @@ def check_level(rows, F, W, N, int_ghw, bf16, dev, seed, form="picked",
     return err, inp
 
 
-def check_forms(kind, inp, N, W, bf16, forms):
+def check_forms(kind, inp, N, W, bf16, forms, layout="rows_f"):
     """Each of ``forms`` of a float level (kind "binned" on level_inputs,
-    or "adaptive" on adaptive_inputs in [rows, F]) against the plain
+    or "adaptive" on adaptive_inputs in ``layout``) against the plain
     version on the same inputs, computed once in float64: nid bit-equal,
     each bin within the float tolerance (mass_check). Returns the largest
     absolute error of each form."""
@@ -520,16 +537,17 @@ def check_forms(kind, inp, N, W, bf16, forms):
     else:
         x, nid, ghw, tables, lo, inv, n_prev, base = inp
         run = lambda f: adaptive_form(f)(x, nid, ghw, tables, lo, inv,
-                                         n_prev, N, base, W, bf16, "rows_f")
+                                         n_prev, N, base, W, bf16, layout)
         plain = lambda g: adaptive_level_plain(x, nid, g, tables, lo, inv,
-                                               n_prev, N, base, W, bf16)
+                                               n_prev, N, base, W, bf16,
+                                               layout)
     npl, hp = plain(ghw.double())
     _n, mass = plain(ghw.double().abs())
     errs = {}
     for form in forms:
         nk, hk = run(form)
         torch.cuda.synchronize()
-        name = f"{kind}_level {form} W={W} N={N}"
+        name = f"{kind}_level {form} {layout} W={W} N={N}"
         if not torch.equal(nk, npl):
             raise AssertionError(f"{name}: nid differs in "
                                  f"{int((nk != npl).sum())} rows")
@@ -613,8 +631,10 @@ def check_forms_refused(dev):
     raises, and nothing falls back: the packed level past 512 features,
     the adaptive level in [F, rows] (the int8 one too), the wide body of
     the float levels at W = 16 and of the int8 levels at W = 16 and 32,
-    the tensor-core body of all four at W = 64, 128, 256 (the rule picks
-    none of these)."""
+    the tensor-core body of all four at W = 64, 128, 256; the column body
+    in [rows, F], on the packed level and in [F, rows] where one feature's
+    block does not fit (W = 256, N = 128) (the rule picks none of
+    these)."""
     from h2o3_tpu_torch.ops import kernels
     codes, nid, ghw, tables, n_prev, base = level_inputs(2048, 600, 64, 4,
                                                          True, 3, dev)
@@ -633,6 +653,21 @@ def check_forms_refused(dev):
                      lambda: kernels.adaptive_level_form(
                          x, nidx, ghwx, tabx, lo, inv, n_px, 4, base_x, 64,
                          True, "f_rows", form)))]
+    # the column body: [F, rows] only, and only where one feature's block
+    # fits shared memory (not at W = 256, N = 128)
+    xc, nxc, gxc, txc, loc, invc, pxc, bxc = adaptive_inputs(
+        2048, 8, 256, 128, True, 3, dev, "f_rows")
+    launches += [
+        ("adaptive_level [rows, F] column",
+         lambda: kernels.adaptive_level_form(
+             x16, nx16, gx16, tx16, lo16, inv16, px16, 4, bx16, 16, True,
+             "rows_f", "column")),
+        ("adaptive_level [F, rows] W=256 N=128 column",
+         lambda: kernels.adaptive_level_form(
+             xc, nxc, gxc, txc, loc, invc, pxc, 128, bxc, 256, True,
+             "f_rows", "column")),
+        ("binned_level column", lambda: kernels.binned_level_form(
+            c16, n16, g16, t16, p16, 4, b16, 16, True, "column"))]
     launches += [
         ("binned_level W=16 wide", lambda: kernels.binned_level_form(
             c16, n16, g16, t16, p16, 4, b16, 16, True, "wide")),
@@ -692,9 +727,11 @@ def check_forms_refused(dev):
         raise AssertionError(f"forced form {name} did not raise where it "
                              f"does not fit")
     print(f"forced grouped forms where they do not fit or have no instance "
-          f"({len(launches)}: 600 features; [F, rows]; the wide body of the "
-          f"float levels at W = 16 and of the int8 levels at W = 16, 32; the "
-          f"tensor-core body at W = 64, 128, 256): every one raised",
+          f"({len(launches)}: 600 features; [F, rows]; the column body in "
+          f"[rows, F], on the packed level and in [F, rows] at W = 256, N = "
+          f"128; the wide body of the float levels at W = 16 and of the int8 "
+          f"levels at W = 16, 32; the tensor-core body at W = 64, 128, 256): "
+          f"every one raised",
           flush=True)
 
 
@@ -836,17 +873,29 @@ def phase_adaptive_kernels(dev, rows=1_000_000, F=28):
                 seed += 1
                 check_adaptive_level(rows, F, W, N, True, False, dev, seed,
                                      layout)
-                if layout == "rows_f" and W >= 32:
-                    for form in level_forms(W):
-                        check_adaptive_level(rows, F, W, N, True, False, dev,
-                                             seed, layout, form=form)
-                        check_adaptive_level(rows, F, W, N, False, True, dev,
-                                             seed + 300, layout, form=form)
+                # every form forced: in [rows, F] from W = 32 on; in
+                # [F, rows] the column body (the form picked) and the tiled
+                for form in (level_forms(W) if layout == "rows_f"
+                             else ("column", "tiled")):
+                    if layout == "rows_f" and W < 32:
+                        break
+                    check_adaptive_level(rows, F, W, N, True, False, dev,
+                                         seed, layout, form=form)
+                    check_adaptive_level(rows, F, W, N, False, True, dev,
+                                         seed + 300, layout, form=form)
                 err16, _ = check_adaptive_level(rows, F, W, N, False, True,
                                                 dev, seed + 100, layout)
                 err, inp = check_adaptive_level(rows, F, W, N, False, False,
                                                 dev, seed + 200, layout)
                 x, nid, ghw, tables, lo, inv, n_prev, base = inp
+                if layout == "f_rows":   # the column body: the same bits
+                    runs = [kernels.adaptive_level(
+                        x, nid, ghw, tables, lo, inv, n_prev, N, base, W,
+                        False, layout)[1] for _ in range(2)]
+                    if not torch.equal(runs[0], runs[1]):
+                        raise AssertionError(f"adaptive_level f_rows W={W} "
+                                             f"N={N}: two launches differ")
+                    del runs
                 ms = time_cuda(lambda: kernels.adaptive_level(
                     x, nid, ghw, tables, lo, inv, n_prev, N, base, W, False,
                     layout), 20, flush)
@@ -2235,11 +2284,16 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     kernel's shared-atomics ablation on the same inputs (checked too), and
     the wide body forced at bfloat16 (checked: the form rule keeps the
     tensor-core body at this W); the grouping pass alone at N = 32; at
-    N = 32 the plain version's time and the bound. In [F, rows] (K5, the
-    tiled body) per level at bfloat16.
-    The route at N = 64 in both layouts (device time, ``tools.time_ms``),
-    and in [rows, F] at 28 and 8 features beside its loads-only floor
-    (``route_rows_record``)."""
+    N = 32 the plain version's time and the bound. In [F, rows] (K5) per
+    level at bfloat16 the column body (the form picked) and the tiled
+    body forced, both checked against the plain version on the timed
+    inputs, as device time (``tools.time_ms``) with the one-call time
+    beside; at N = 32 also at W = 64, 128, 256, beside K6's route
+    followed by the column body on the routed ids (the route taken out of
+    the level: checked bit-equal to the picked form), with the plain
+    version and the bound. The route at N = 64 in both layouts (device
+    time), and in each layout at 28 and 8 features beside its loads-only
+    floor (``route_rows_record``)."""
     import torch
     from h2o3_tpu_torch import tools
     from h2o3_tpu_torch.models.gbm import ADAPTIVE_LAYOUT
@@ -2250,7 +2304,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     W, N = 32, 32
     level_ms, route_ms = {}, {}
     per = {"bf16": {}, "f32": {}, "atomics_bf16": {}, "atomics_f32": {},
-           "f_rows_bf16": {}, "wide_bf16": {}}
+           "wide_bf16": {}, "f_rows_column": {}, "f_rows_tiled": {},
+           "f_rows_column_one_call": {}, "f_rows_tiled_one_call": {}}
     errs = {}
     for n_lvl in (1, 2, 4, 8, 16, 32):
         for bf16 in (True, False):
@@ -2307,24 +2362,34 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
                                       W)
                 del nid_out, bins
             del inp, x, nid, ghw
-        e, inp = check_adaptive_level(rows, F, W, n_lvl, False, True, dev,
-                                      900 + n_lvl, "f_rows")
-        x, nid, ghw, tables, lo, inv, n_prev, base = inp
-        per["f_rows_bf16"][n_lvl] = time_cuda(
-            lambda: kernels.adaptive_level(x, nid, ghw, tables, lo, inv,
-                                           n_prev, n_lvl, base, W, True,
-                                           "f_rows"), 10)
-        del inp, x, nid, ghw
+        per_f, err_f = f_rows_level_record(dev, rows, F, W, n_lvl,
+                                           900 + n_lvl, route_first=False)
+        for k, v in per_f.items():
+            per["f_rows_" + k][n_lvl] = v
+        errs[f"f_rows N={n_lvl}"] = err_f
     sums = {k: sum(v.values()) for k, v in per.items()}
-    level_ms = {"rows_f": per["bf16"][N], "f_rows": per["f_rows_bf16"][N]}
+    level_ms = {"rows_f": per["bf16"][N], "f_rows": per["f_rows_column"][N]}
     print(f"adaptive_level at 10M x 28, W=32, per level N (rows_f: "
           f"node-grouped tensor-core form, and its shared-atomics ablation; "
-          f"wide: the wide body forced; f_rows: the tiled body): "
-          f"{json.dumps(per)} ms; sum per tree "
+          f"wide: the wide body forced; f_rows: the column body, the form "
+          f"picked, and the tiled body forced, bf16, device time and one "
+          f"call): {json.dumps(per)} ms; sum per tree "
           f"{json.dumps(sums)} ms; grouping pass alone at N=32 "
           f"{group_ms!r} ms; index_add_ on the adaptive bins at N=32 "
           f"{lib_ms!r} ms; max abs err vs plain {json.dumps(errs)}",
           flush=True)
+    # [F, rows] at N = 32: the route taken out of the level (K6, then the
+    # column body on the routed ids) at every W, the tiled body beside
+    f_rows_n32 = {}
+    for Wf in (32,) + WIDE_W:
+        f_rows_n32[str(Wf)], _e = f_rows_level_record(
+            dev, rows, F, Wf, N, 950 + Wf, route_first=True)
+        f_rows_n32[str(Wf)]["bound_ms"] = adaptive_level_bound_ms(
+            rows, F, N, Wf, rows)[0]
+    print(f"adaptive_level f_rows at 10M x 28, N=32, bf16, device ms by W "
+          f"(column: the form picked, route in the level; route_first: K6's "
+          f"route, then the column body on the routed ids; tiled forced): "
+          f"{json.dumps(f_rows_n32)}", flush=True)
     for layout in LAYOUTS:
         x, nid, tables, n_prev, base = check_adaptive_route(rows, F, 2 * N,
                                                             dev, 4321, layout)
@@ -2337,7 +2402,8 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
     print(f"adaptive layouts at 10M x 28 (training path: {ADAPTIVE_LAYOUT}):"
           f" level N=32 {json.dumps(level_ms)} ms, route N=64 "
           f"{json.dumps(route_ms)} ms", flush=True)
-    route_rows = route_rows_record(dev, rows, (F, 8), 2 * N)
+    route_rows = {lay: route_rows_record(dev, rows, (F, 8), 2 * N, lay)
+                  for lay in LAYOUTS}
     bound, by = adaptive_level_bound_ms(rows, F, N, W, rows)
     rbound, rby = route_bound_ms(rows, F, 4, ADAPTIVE_LAYOUT)
     return [{"name": "adaptive_level", "route": "cuda",
@@ -2349,6 +2415,10 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "ms_tree": sums["bf16"], "ms_tree_f32": sums["f32"],
              "ms_tree_atomics_ablation": sums["atomics_bf16"],
              "ms_tree_wide": sums["wide_bf16"],
+             "forms": ["grouped", "wide", "tiled", "column"],
+             "f_rows": {"ms_tree_column": sums["f_rows_column"],
+                        "ms_tree_tiled": sums["f_rows_tiled"],
+                        "n32_by_W": f_rows_n32},
              "group_ms": group_ms, "plain_ms": pms, "bound_ms": bound,
              "bound_by": by, "library_ms": lib_ms},
             {"name": "adaptive_route_only", "route": "cuda",
@@ -2357,41 +2427,254 @@ def phase_adaptive_record(dev, launches, rows=10_000_000, F=28):
              "also_replaces": ALSO_REPLACES["adaptive_route_only"],
              "launches": launches["adaptive_route_only"], "max_abs_err": 0.0,
              "ms": route_ms[ADAPTIVE_LAYOUT], "ms_by_layout": route_ms,
-             "rows_f_by_F": route_rows,
+             "rows_f_by_F": route_rows["rows_f"],
+             "f_rows_by_F": route_rows["f_rows"],
              "plain_ms": rpms, "bound_ms": rbound, "bound_by": rby,
              "library_ms": None}]
 
 
-def route_rows_record(dev, rows, widths, N):
-    """K9 (the [rows, F] route) at each F of ``widths`` beside its
-    loads-only floor (the same nid, table and x loads and nid stores, no
-    compare), both checked on the timed inputs, and the bound; device
-    times (``tools.time_ms``: the calls queued behind a device-side wait,
-    the wrapper's host time out of the window)."""
+def f_rows_level_record(dev, rows, F, W, N, seed, route_first):
+    """K5 at one level in [F, rows], bf16: the column body (the form the
+    kernel picks, which must be "column") and the tiled body forced, both
+    checked against the plain version on the timed inputs (mass_check),
+    each timed as device time (``tools.time_ms``) and as one call between
+    two events (the host included). ``route_first``: also K6's route
+    followed by the column body on the routed ids (n_prev 0), which must
+    give the picked form's bits, and the plain version's time. Returns
+    ({name: ms}, the largest error against the plain version)."""
+    import torch
+    from h2o3_tpu_torch import tools
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.hist_adaptive import adaptive_level_plain
+    inp = adaptive_inputs(rows, F, W, N, False, seed, dev, "f_rows")
+    x, nid, ghw, tables, lo, inv, n_prev, base = inp
+    pick = kernels.adaptive_level_picks(rows, F, W, n_prev, N, "f_rows")
+    if pick != "column":
+        raise AssertionError(f"adaptive_level f_rows W={W} N={N} picks "
+                             f"{pick}, not the column body")
+    errs = check_forms("adaptive", inp, N, W, True, ("picked", "tiled"),
+                       "f_rows")
+    out = {}
+    for form in ("column", "tiled"):
+        def run(form=form):
+            return adaptive_form(form)(x, nid, ghw, tables, lo, inv, n_prev,
+                                       N, base, W, True, "f_rows")
+        out[form] = tools.time_ms(run, dev, 10)
+        out[form + "_one_call"] = time_cuda(run, 10)
+    if route_first:
+        root = tables[:, :1].contiguous()   # no route: one unused entry
+
+        def routed():
+            n1 = kernels.adaptive_route_only(x, nid, tables, n_prev, base,
+                                             "f_rows")
+            return adaptive_form("column")(x, n1, ghw, root, lo, inv, 0, N,
+                                           base, W, True, "f_rows")
+        a, b = routed(), kernels.adaptive_level(
+            x, nid, ghw, tables, lo, inv, n_prev, N, base, W, True, "f_rows")
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"adaptive_level f_rows W={W} N={N}: the "
+                                 f"route taken out of the level gives "
+                                 f"other bits")
+        del a, b
+        out["route_first"] = tools.time_ms(routed, dev, 10)
+        out["plain_ms"] = time_cuda(lambda: adaptive_level_plain(
+            x, nid, ghw, tables, lo, inv, n_prev, N, base, W, True,
+            "f_rows"), 3)
+    return out, max(errs.values())
+
+
+def route_rows_record(dev, rows, widths, N, layout="rows_f"):
+    """The route in ``layout`` (K9 in [rows, F], K6 in [F, rows]) at each
+    F of ``widths`` beside its loads-only floor (the same nid, table and
+    x loads and nid stores, no compare), both checked on the timed inputs,
+    and the bound; device times (``tools.time_ms``: the calls queued
+    behind a device-side wait, the wrapper's host time out of the
+    window)."""
     import torch
     from h2o3_tpu_torch import tools
     from h2o3_tpu_torch.ops import kernels
     out = {}
     for F in widths:
         x, nid, tables, n_prev, base = check_adaptive_route(
-            rows, F, N, dev, 4321 + F, "rows_f")
-        if not torch.equal(kernels.adaptive_route_floor(x, nid, tables,
-                                                        n_prev, base), nid):
-            raise AssertionError(f"adaptive_route_floor at {rows}x{F}: "
-                                 f"nid changed")
+            rows, F, N, dev, 4321 + F, layout)
+        if not torch.equal(kernels.adaptive_route_floor(
+                x, nid, tables, n_prev, base, layout), nid):
+            raise AssertionError(f"adaptive_route_floor {layout} at "
+                                 f"{rows}x{F}: nid changed")
         r = {"ms": tools.time_ms(lambda: kernels.adaptive_route_only(
-                 x, nid, tables, n_prev, base, "rows_f"), dev, 20),
+                 x, nid, tables, n_prev, base, layout), dev, 20),
              "floor_ms": tools.time_ms(lambda: kernels.adaptive_route_floor(
-                 x, nid, tables, n_prev, base), dev, 20),
+                 x, nid, tables, n_prev, base, layout), dev, 20),
              "ms_with_host": time_cuda(lambda: kernels.adaptive_route_only(
-                 x, nid, tables, n_prev, base, "rows_f"), 20),
-             "bound_ms": route_bound_ms(rows, F, 4)[0]}
+                 x, nid, tables, n_prev, base, layout), 20),
+             "bound_ms": route_bound_ms(rows, F, 4, layout)[0]}
         out[str(F)] = r
         del x, nid
-        print(f"adaptive_route_only rows_f at {rows}x{F}, n_prev={n_prev}, "
-              f"device: {r['ms']!r} ms, loads-only floor {r['floor_ms']!r} "
+        print(f"adaptive_route_only {layout} at {rows}x{F}, n_prev={n_prev},"
+              f" device: {r['ms']!r} ms, loads-only floor {r['floor_ms']!r} "
               f"ms; with the host {r['ms_with_host']!r} ms; bound "
               f"{r['bound_ms']!r} ms", flush=True)
+    return out
+
+
+GROWER_NBINS = {32: 20, 64: 62}   # W: the adaptive nbins that gives it
+
+
+def grower_inputs(X, y, nbins, precision, depth=6):
+    """The adaptive grower's inputs on the features X [rows, F] and the
+    response y of the adaptive cell: the gradients of a bernoulli GBM's
+    first tree at margin 0 (g = 0.5 - y, h = 0.25, w = 1), and the
+    TreeConfig, root ranges and bin counts ``adaptive_setup`` gives at
+    ``depth`` and ``nbins``."""
+    from types import SimpleNamespace
+
+    import torch
+    from h2o3_tpu_torch.models.tree import adaptive_setup
+    F = X.shape[1]
+    spec = SimpleNamespace(X=X, names=[f"f{i}" for i in range(F)],
+                           is_cat=[False] * F, cat_domains={}, n_features=F)
+    params = {"nbins": nbins, "nbins_cats": 1024, "min_rows": 1.0,
+              "min_split_improvement": 1e-5,
+              "histogram_precision": precision}
+    cfg, lo, hi, nb_f = adaptive_setup(spec, params, depth)
+    g = (0.5 - y).to(torch.float32)
+    return (g, torch.full_like(g, 0.25), torch.ones_like(g), cfg, lo, hi,
+            nb_f)
+
+
+def grow_layout(X, layout, inputs):
+    """One adaptive tree on X [rows, F] grown in ``layout`` (``"f_rows"``
+    on a transposed copy): (its arrays, every row's leaf id) as numpy."""
+    from h2o3_tpu_torch.models.tree import grow_tree_adaptive
+    g, h, w, cfg, lo, hi, nb_f = inputs
+    x = X if layout == "rows_f" else X.t().contiguous()
+    tree, nid = grow_tree_adaptive(x, g, h, w, cfg, lo, hi, nb_f=nb_f,
+                                   layout=layout)
+    return {k: v.cpu().numpy() for k, v in tree.items()}, nid.cpu().numpy()
+
+
+def grower_diffs(a, b, keys=("feat", "thr", "na_left", "is_split")):
+    """Entries of two grown trees that differ in any bit, per key, and in
+    the rows' leaf ids (``nid``)."""
+    (ta, na), (tb, nb) = a, b
+    out = {k: int((np.asarray(ta[k]).view(np.uint8).reshape(len(ta[k]), -1)
+                   != np.asarray(tb[k]).view(np.uint8).reshape(
+                       len(tb[k]), -1)).any(axis=1).sum()) for k in keys}
+    out["nid"] = int((na != nb).sum())
+    return out
+
+
+def phase_f_rows_grower(dev, fr, cpu_rows=200_000):
+    """The [F, rows] grower on the card: ``grow_tree_adaptive(...,
+    layout="f_rows")`` (the column body every level, K6 at the deepest)
+    on the adaptive cell's data (``fr``: the bench generator's 28
+    features, seed 42, 10M rows) with the gradients of a bernoulli GBM's
+    first tree at margin 0. Those masses (g = +-0.5, h = 0.25, w = 1)
+    make every histogram sum exact in float32 and in bf16 in any order,
+    so no split is a near-tie of summation order on this seed's data. At
+    W = 32 (nbins 20) and W = 64 (nbins 62):
+
+    - the first ``cpu_rows`` rows, float32: the [F, rows] tree on the
+      card equals the [rows, F] tree on the card and the CPU's plain
+      [F, rows] tree in every split feature, threshold, NA direction and
+      split flag (bit for bit), and every row's leaf id;
+    - 10M rows, float32: two [F, rows] trees, the first right after the
+      allocator is NaN-filled, bit for bit in every array and leaf id;
+    - 10M rows, bf16: one [rows, F] tree's six level calls and its route
+      recorded, each replayed in both layouts on the same inputs (the
+      [F, rows] ones on a transposed copy; the column body, the form
+      picked, checked against the plain version, and the tiled body
+      forced; K9 and K6 bit-equal): device ms of each and a tree's sum
+      (``tools.time_ms``), printed on one line per W.
+
+    Returns {W: the timings}."""
+    import torch
+    from h2o3_tpu_torch import tools
+    from h2o3_tpu_torch.models.model_base import build_training_spec
+    from h2o3_tpu_torch.ops import kernels
+    spec = build_training_spec(fr, "label")
+    X, y = spec.X, spec.y
+    Xc, yc = X[:cpu_rows].cpu(), y[:cpu_rows].cpu()
+    xt = X.t().contiguous()
+    out = {}
+    for W, nbins in GROWER_NBINS.items():
+        # card vs CPU at cpu_rows, float32
+        small = grower_inputs(X[:cpu_rows], y[:cpu_rows], nbins, "float32")
+        f_card = grow_layout(X[:cpu_rows], "f_rows", small)
+        r_card = grow_layout(X[:cpu_rows], "rows_f", small)
+        f_cpu = grow_layout(Xc, "f_rows", grower_inputs(Xc, yc, nbins,
+                                                        "float32"))
+        d = {"rows_f card": grower_diffs(f_card, r_card),
+             "f_rows cpu": grower_diffs(f_card, f_cpu)}
+        print(f"grower f_rows W={W} at {cpu_rows} rows, float32: entries "
+              f"that differ from the f_rows card tree {json.dumps(d)}; "
+              f"splits {int(f_card[0]['is_split'].sum())}", flush=True)
+        if any(v for dd in d.values() for v in dd.values()) \
+                or not f_card[0]["is_split"].any():
+            raise AssertionError(f"grower f_rows W={W}: trees differ {d}")
+        # 10M rows, float32, twice
+        full = grower_inputs(X, y, nbins, "float32")
+        poison_allocator(dev)
+        runs = [grow_layout(X, "f_rows", full) for _ in range(2)]
+        d = grower_diffs(runs[0], runs[1],
+                         ("feat", "thr", "na_left", "is_split", "value",
+                          "gain", "node_w"))
+        print(f"grower f_rows W={W} at {X.shape[0]} rows, float32, twice "
+              f"(first after NaN-filling the allocator): entries that "
+              f"differ {json.dumps(d)}", flush=True)
+        if any(d.values()):
+            raise AssertionError(f"grower f_rows W={W}: two trees differ {d}")
+        del runs, full
+        # 10M rows, bf16: a [rows, F] tree's calls replayed in both layouts
+        g, h, w, cfg, lo, hi, nb_f = grower_inputs(X, y, nbins, "bfloat16")
+        calls = []
+        with recorded_adaptive_calls(calls):
+            from h2o3_tpu_torch.models.tree import grow_tree_adaptive
+            grow_tree_adaptive(X, g, h, w, cfg, lo, hi, nb_f=nb_f,
+                               layout="rows_f")
+        ms = {"rows_f": [], "f_rows": [], "f_rows_tiled": []}
+        for name, a in calls:
+            if name == "adaptive_level":
+                (_x, nid, ghw, tables, lo_d, inv_d, n_prev, N, base, Wl,
+                 bf16, _lay, _qs) = a
+                rest = (nid, ghw, tables, lo_d, inv_d, n_prev, N, base, Wl,
+                        bf16)
+                check_forms("adaptive", (xt, nid, ghw, tables, lo_d, inv_d,
+                                         n_prev, base), N, Wl, bf16,
+                            ("picked",), "f_rows")
+                runs = {"rows_f": lambda: kernels.adaptive_level(
+                            X, *rest, "rows_f"),
+                        "f_rows": lambda: kernels.adaptive_level(
+                            xt, *rest, "f_rows"),
+                        "f_rows_tiled": lambda: kernels.adaptive_level_form(
+                            xt, *rest, "f_rows", "tiled")}
+            else:
+                _x, nid, tables, n_prev, base, _lay = a
+                rk = kernels.adaptive_route_only(X, nid, tables, n_prev,
+                                                 base, "rows_f")
+                if not torch.equal(rk, kernels.adaptive_route_only(
+                        xt, nid, tables, n_prev, base, "f_rows")):
+                    raise AssertionError(f"grower W={W}: K6 and K9 route "
+                                         f"the deepest level apart")
+                del rk
+                runs = {lay: lambda lay=lay: kernels.adaptive_route_only(
+                            X if lay == "rows_f" else xt, nid, tables,
+                            n_prev, base, lay) for lay in LAYOUTS}
+                runs["f_rows_tiled"] = runs["f_rows"]
+            for k, run in runs.items():
+                ms[k].append(tools.time_ms(run, dev, 10))
+        if [n for n, _a in calls] != ["adaptive_level"] * 6 + [
+                "adaptive_route_only"]:
+            raise AssertionError(f"grower W={W}: a tree made the calls "
+                                 f"{[n for n, _a in calls]}")
+        del calls
+        tree = {k: sum(v) for k, v in ms.items()}
+        out[str(W)] = {"levels_and_route_ms": ms, "tree_ms": tree}
+        print(f"grower at {X.shape[0]}x{X.shape[1]}, bf16, W={W}: device ms "
+              f"a tree (six levels + route, one [rows, F] tree's inputs in "
+              f"each layout): rows_f {tree['rows_f']!r}, f_rows (column) "
+              f"{tree['f_rows']!r}, f_rows tiled {tree['f_rows_tiled']!r}; "
+              f"per call {json.dumps(ms)}", flush=True)
     return out
 
 
@@ -3282,8 +3565,10 @@ def check_sass(by_fn):
     instance (``I8Mass``) of both has IMMA and no shared or global atomics
     at all; every float instance of the wide level (``level_wide_kernel``,
     both bin sources, every W), the leaf-totals kernel (each of its eight
-    instances), global_hist's node-grouped form and the route (K9, its
-    loads-only floor, K6) have no atomics at all;
+    instances), global_hist's node-grouped form, the route (K9, K6 and
+    their loads-only floors) and the column level (``level_column_kernel``,
+    K5 in [F, rows], all five W, counted on its own) have no atomics at
+    all;
     every int8 instance of the wide level (``I8Mass``, both bin sources, W
     = 64, 128, 256, one and two terms) has shared integer adds
     (``ATOMS.ADD``) and no other atomic: no CAS loop, no float atomic, no
@@ -3351,10 +3636,20 @@ def check_sass(by_fn):
     # [F, rows]): no atomics
     route = {n: c for n, c in by_fn.items()
              if "adaptive_route_only_kernel" in n}
-    if len(route) < 3:
+    if len(route) < 4:
         raise AssertionError(f"SASS: adaptive_route_only instances missing: "
                              f"{sorted(route)}")
     for name, counts in route.items():
+        if atomics(counts):
+            raise AssertionError(f"SASS of {name}: atomics {counts}")
+    # the column body (K5 in [F, rows]), its own family: one instance a W
+    # (16, 32, 64, 128, 256), no atomics at all (no shared CAS loop, no
+    # float RED or ATOM, no global atomics)
+    column = {n: c for n, c in by_fn.items() if "level_column_kernel" in n}
+    if len(column) != 5:
+        raise AssertionError(f"SASS: level_column_kernel instances: "
+                             f"{sorted(column)} (5 expected)")
+    for name, counts in column.items():
         if atomics(counts):
             raise AssertionError(f"SASS of {name}: atomics {counts}")
     print(f"SASS check: tensor-core grouped level instances, HMMA per "
@@ -3367,7 +3662,8 @@ def check_sass(by_fn):
           f"{sum(sum(atomics(c).values()) for c in wide_i8.values())}; "
           f"{len(ordered)} leaf_totals / global_hist grouped instances "
           f"without atomics; {len(route)} adaptive_route_only instances "
-          f"without atomics", flush=True)
+          f"without atomics; {len(column)} column level instances "
+          f"(level_column_kernel) without atomics", flush=True)
 
 
 def ptxas_usage(log, names):
@@ -3556,6 +3852,9 @@ def main() -> int:
                 by_name[kernel].setdefault("launches_by_path", {})[path] = \
                     res["launches"][kernel]
     clock.lap("6 wide record")
+    by_name["adaptive_level"]["f_rows"]["grower"] = phase_f_rows_grower(
+        dev, fr)
+    clock.lap("6 f_rows grower")
 
     # 7. where the time goes: a warm, profiled retrain of each main path,
     # after giving back the cached blocks of phase 6's large inputs (the
@@ -3605,8 +3904,10 @@ def main() -> int:
           "(W<=32) or wide (W>=64), tiled, picked] "
           "adaptive_level[rows_f,f_rows x W=16,32,64,128,256; rows_f "
           "node-grouped: bf16, float32, shared-atomics ablation; rows_f x "
-          "W=32 x wide, node-grouped, tiled; W=64,128,256 x wide, tiled] "
-          "adaptive_route_only[rows_f,f_rows; rows_f and its loads-only "
+          "W=32 x wide, node-grouped, tiled; W=64,128,256 x wide, tiled; "
+          "f_rows x column, tiled; f_rows N=32 x route first; f_rows "
+          "grower W=32,64] "
+          "adaptive_route_only[rows_f,f_rows; each with its loads-only "
           "floor x F=28,8; ragged, n_prev=1, n_prev=2048, unaligned] "
           "adaptive_level_i8[rows_f x W=16,32,64,128,256 x terms=1,2 x "
           "node-grouped (W<=32) or wide (W>=64), tiled, picked; f_rows x "

@@ -1,7 +1,8 @@
 // The adaptive level's pieces that the port's level kernels
-// (hist_adaptive.cu) and the probe tools (h2o3_tpu_torch/tools/csrc/
-// probes.cu) share: the raw-threshold route of one row, the re-bin under a
-// node's range, the tiled body (K5 in [F, rows], K7 where i8_level_form
+// (hist_adaptive.cu, level_column.cuh) and the probe tools
+// (h2o3_tpu_torch/tools/csrc/probes.cu) share: the raw-threshold route of
+// one row, the re-bin under a node's range, the tiled body (K5 in
+// [F, rows] where the column body does not fit, K7 where i8_level_form
 // keeps it, and its launch), and the bin source of the node-grouped bodies
 // (AdaptiveBins, K8 and K7 in [rows, F]). hist_adaptive.cu's header says
 // what each computes, what bounds it and why it is built so.
@@ -47,8 +48,9 @@ __device__ __forceinline__ int adaptive_bin(float v, float lo, float inv) {
       floorf(fminf(fmaxf(t, 0.f), static_cast<float>(W - 2))));
 }
 
-// The tiled body (K5, and K7 where i8_level_form keeps it); kA a phase
-// knock-out (level_common.cuh), kNone in production.
+// The tiled body (K5 where the column body does not fit, and K7 where
+// i8_level_form keeps it); kA a phase knock-out (level_common.cuh), kNone
+// in production.
 template <int W, bool kFeatMajor, int kTerms, Ablate kA = Ablate::kNone>
 __global__ void __launch_bounds__(kThreads)
 adaptive_level_kernel(const float* __restrict__ x,

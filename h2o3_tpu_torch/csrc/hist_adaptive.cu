@@ -27,9 +27,13 @@
 // three a (row, feature), over node x feature tiles that each re-read
 // every row: 2.03-3.78 ms a level at 10M x 28, W = 32, on an H100.
 // adaptive_level_atomics runs the grouped kernel with shared float atomics
-// in place of the products, the ablation it was measured against. K5 (no
-// path trains in [F, rows]) and levels past kMaxGroups groups keep the
-// tiled body, adaptive_level_kernel.
+// in place of the products, the ablation it was measured against. K5, the
+// float level in [F, rows], walks the feature columns with the rows in row
+// order (the column body, level_column.cuh, whose header has its design,
+// times and bound); the tiled body, adaptive_level_kernel, keeps the
+// [F, rows] levels where one feature's block of the column body does not
+// fit shared memory and the [rows, F] ones past kMaxGroups groups or 512
+// features.
 //
 // adaptive_level_i8 replaces _kernel_t_i8 (K7): the same level with the
 // int8 fixed-point masses of quantize_ghw_i8 (H2O3_HIST_I8), in both
@@ -45,22 +49,27 @@
 // a float32 flush. Integer sums: the histogram is bit-equal to the plain
 // version in every form.
 //
-// adaptive_route_only replaces _route_kernel (K9, [rows, F], the layout
-// the adaptive paths train in) and _route_kernel_t (K6, [F, rows]): the
-// deepest level's route, one thread per row, no histogram. What bounds K9
-// on an H100: bytes, an nid read and written and one x value a row, which
-// in [rows, F] moves the 32-byte sector that holds it (chip_smoke.py
-// route_bound_ms: 0.1194 ms at 10M rows). Each thread runs a chain of
-// dependent loads (nid, the node's table entries, x, then the store), so
-// a loads-only instance (kLoadsOnly: the same loads and store, no
-// compare) is its floor. Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (device time, chip_smoke.py phase 6): 0.2164 ms at [10M, 28] against a
-// floor of 0.2159, 0.1347 ms at [10M, 8] against 0.1342. K9 sits on the
-// floor of its access pattern: 89% of the bound at 8 features; at 28,
-// 10M x 72 bytes in 0.216 ms is the card's 3.3 TB/s, as if each gather
-// in a 112-byte row fetched 64 bytes from DRAM, not one sector.
-// A redesign (tables in shared memory, four rows a thread, every gather
-// issued before the compares) measured no faster and was not kept.
+// adaptive_route_only replaces _route_kernel (K9, [rows, F], the layout the
+// adaptive paths train in) and _route_kernel_t (K6, [F, rows]): the deepest
+// level's route, one thread per row, no histogram. What bounds K9 on an H100:
+// bytes, an nid read and written and one x value a row, which in [rows, F]
+// moves the 32-byte sector that holds it (chip_smoke.py route_bound_ms: 0.1194
+// ms at 10M rows); in [F, rows] the bound counts 4 bytes of x a row (0.0358
+// ms), reachable only where the 8 rows of a sector route on one feature: with
+// parents drawn at random a sector's rows name other features, and each gather
+// can cost a sector too. Each thread runs a chain of dependent loads (nid, the
+// node's table entries, x, then the store), so a loads-only instance
+// (kLoadsOnly: the same loads and store, no compare) is its floor, in both
+// layouts. Measured on an NVIDIA H100 80GB HBM3 at 700 W (device time,
+// chip_smoke.py phase 6): K9 0.2164 ms at [10M, 28] against a floor of 0.2159,
+// 0.1347 ms at [10M, 8] against 0.1342. K9 sits on the floor of its access
+// pattern: 89% of the bound at 8 features; at 28, 10M x 72 bytes in 0.216 ms
+// is the card's 3.3 TB/s, as if each gather in a 112-byte row fetched 64 bytes
+// from DRAM, not one sector. A redesign (tables in shared memory, four rows a
+// thread, every gather issued before the compares) measured no faster and was
+// not kept. K6 sits on its floor too (same phase and card): 0.1589 ms at [28,
+// 10M] against a floor of 0.1586, 0.1203 at [8, 10M] against 0.1195, so it
+// keeps this body.
 //
 // leaf_totals replaces _totals_kernel (K10): route one level of x
 // [rows, F] (none when n_prev is 0), then sum float32 (g, h, w) per node
@@ -114,9 +123,9 @@
 // bf16 rate. What bounds the grouped form in practice is instruction
 // issue (level_grouped.cuh).
 // adaptive_route_only moves rows * 12 bytes; adaptive_level_i8 reads
-// 3 * terms in place of 12 bytes of mass a row. The tiled body (K5, and
-// K7 where i8_level_form keeps it), as binned_level's in
-// hist_binned.cu: a block
+// 3 * terms in place of 12 bytes of mass a row. The tiled body (K5 where
+// the column body does not fit, and K7 where i8_level_form keeps it), as
+// binned_level's in hist_binned.cu: a block
 // takes 512 rows at a time; phase 1 routes them (one thread per row) and
 // stages node id and masses in shared memory; phase 2 walks the chunk's
 // features in the layout's own order (consecutive threads on consecutive
@@ -130,6 +139,7 @@
 // instances' integer adds are native.
 
 #include "adaptive_bins.cuh"
+#include "level_column.cuh"
 #include "level_wide.cuh"
 
 namespace {
@@ -208,6 +218,30 @@ int wide_w(int W, bool plan_only, size_t* bytes, const float* x,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef H2O3_WIDE
+}
+
+// The column body's instance (level_column.cuh; [F, rows], K5) by W.
+// plan_only: the workspace bytes alone.
+int column_w(int W, bool plan_only, size_t* bytes, const float* x,
+             const int* nid, const float* ghw, const float* tables,
+             const float* lo, const float* inv, int64_t rows, int F,
+             int n_prev, int n_nodes, int level_base, int bf16, int* nid_out,
+             float* hist, void* ws, cudaStream_t s) {
+#define H2O3_COLUMN(WW)                                                     \
+  case WW:                                                                  \
+    return h2o3::launch_column<WW>(plan_only, bytes, x, nid, ghw, tables,   \
+                                   lo, inv, rows, F, n_prev, n_nodes,       \
+                                   level_base, bf16, nid_out, hist, ws, s);
+  switch (W) {
+    H2O3_COLUMN(16)
+    H2O3_COLUMN(32)
+    H2O3_COLUMN(64)
+    H2O3_COLUMN(128)
+    H2O3_COLUMN(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef H2O3_COLUMN
 }
 
 // The int8 level (K7) on the tensor-core grouped body (W <= 32): int8
@@ -620,18 +654,6 @@ leaf_totals_kernel(const float* __restrict__ x,
   }
 }
 
-// The one source of totals cell i: every block's slot, at i.
-struct TotalsSrc {
-  static constexpr bool kAllBlocks = true;
-  int nb;
-  __device__ __forceinline__ int operator()(int64_t i, int* g,
-                                            int64_t* o) const {
-    g[0] = 0;
-    o[0] = i;
-    return 1;
-  }
-};
-
 // How a leaf-totals launch runs: the form (lane columns or matched keys),
 // blocks (contiguous quad ranges, as many as are resident at once, at most
 // four an SM), warps a block (slots that fit the shared budget: at most
@@ -710,7 +732,7 @@ int launch_totals(const float* x, const int* nid, const float* ghw,
                                 : H2O3_TOTALS(false, false));
 #undef H2O3_TOTALS
   if (rc != 0) return rc;
-  return h2o3::launch_merge(TotalsSrc{p.blocks}, part, per, nullptr, per,
+  return h2o3::launch_merge(h2o3::AllSlots{p.blocks}, part, per, nullptr, per,
                             h2o3::MergeAdd{totals}, s);
 }
 
@@ -764,8 +786,8 @@ int launch_level_lw(int feat_major, int W, const float* x, const int* nid,
 }
 
 // The float level in form `form` (after h2o3::level_form; the grouped
-// forms read [rows, F] only). plan_only: the workspace bytes alone (0 for
-// the tiled body).
+// forms read [rows, F] only, the column body [F, rows] only). plan_only:
+// the workspace bytes alone (0 for the tiled body).
 int float_level(int form, bool plan_only, size_t* bytes, const float* x,
                 int feat_major, const int* nid, const float* ghw,
                 const float* tables, const float* lo, const float* inv,
@@ -780,6 +802,12 @@ int float_level(int form, bool plan_only, size_t* bytes, const float* x,
     return launch_level_lw<0>(feat_major, W, x, nid, ghw, tables, lo, inv,
                               rows, F, n_prev, n_nodes, level_base, bf16,
                               nid_out, hist, s);
+  }
+  if (form == h2o3::kColumnForm) {
+    if (!feat_major) return static_cast<int>(cudaErrorInvalidValue);
+    return column_w(W, plan_only, bytes, x, nid, ghw, tables, lo, inv, rows,
+                    F, n_prev, n_nodes, level_base, bf16, nid_out, hist, ws,
+                    s);
   }
   if (feat_major) return static_cast<int>(cudaErrorInvalidValue);
   switch (form) {
@@ -858,8 +886,9 @@ extern "C" {
 // NA; nid [rows] int32; ghw [3, rows] float32; tables [4, max(n_prev, 1)]
 // float32; lo, inv [n_nodes, F] float32; form -1 (picked from the shapes,
 // h2o3::level_form) or forced: 0 (tiled body), 1 (tensor-core grouped
-// body), 2 (wide body); a grouped form forced in [F, rows] or where it
-// does not fit is an error; ws,
+// body), 2 (wide body), 3 (column body); a grouped form forced in
+// [F, rows], the column body in [rows, F], or either where it does not
+// fit is an error; ws,
 // h2o3_adaptive_level_workspace bytes for the same form. Writes nid_out
 // [rows] int32 and ADDS into hist [3, n_nodes, F, W] float32, which the
 // caller zeroes. Returns a cudaError_t value.
@@ -1046,19 +1075,22 @@ int h2o3_adaptive_route_only(const float* x, int feat_major, const int* nid,
                                                n_prev, level_base, nid_out, s);
 }
 
-// K9's loads-only floor in [rows, F]: the route's nid, table and x loads
-// and nid_out store, no compare, nid_out = nid. For chip_smoke.py and the
-// tests only; operands as h2o3_adaptive_route_only's in [rows, F].
-// Returns a cudaError_t value.
-int h2o3_adaptive_route_floor(const float* x, const int* nid,
+// The route's loads-only floor (K9 in [rows, F], K6 in [F, rows]): the
+// route's nid, table and x loads and nid_out store, no compare, nid_out =
+// nid. For chip_smoke.py and the tests only; operands as
+// h2o3_adaptive_route_only's. Returns a cudaError_t value.
+int h2o3_adaptive_route_floor(const float* x, int feat_major, const int* nid,
                               const float* tables, long long rows, int F,
                               int n_prev, int level_base, int* nid_out,
                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F < 1 || n_prev < 1 || rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_route_only<false, true>(x, nid, tables, rows, F, n_prev,
-                                        level_base, nid_out,
-                                        static_cast<cudaStream_t>(stream));
+  return feat_major
+             ? launch_route_only<true, true>(x, nid, tables, rows, F, n_prev,
+                                             level_base, nid_out, s)
+             : launch_route_only<false, true>(x, nid, tables, rows, F,
+                                              n_prev, level_base, nid_out, s);
 }
 
 // The workspace bytes of h2o3_leaf_totals, h2o3_segment_totals and

@@ -6,7 +6,8 @@
 // block's partial into the output, the int8 levels' float32 flush, and
 // the row grouping of the node-grouped kernels (global_hist and the
 // grouped levels of level_grouped.cuh) with the fixed-order merge of their
-// blocks' partials.
+// blocks' partials, and the keyed fixed-order walk of the float scatter
+// bodies (level_wide.cuh, level_column.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -718,6 +719,74 @@ int launch_merge(Src src, const typename Epi::T* part, int64_t bstride,
                                  32 * kMergeWarps, 0, stream>>>(
       src, part, bstride, bstart, n, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The one source of output cell i when every block of the launch wrote a
+// whole slot of the output's shape: each block's slot, at i, in block
+// order (the leaf totals, the column body of level_column.cuh).
+struct AllSlots {
+  static constexpr bool kAllBlocks = true;
+  int nb;
+  __device__ __forceinline__ int operator()(int64_t i, int* g,
+                                            int64_t* o) const {
+    g[0] = 0;
+    o[0] = i;
+    return 1;
+  }
+};
+
+// ------------------------------------------------------------- the walk
+//
+// The keyed fixed-order walk of the float scatter bodies (the wide body,
+// level_wide.cuh, and the column body, level_column.cuh): one warp adds
+// the n staged records of a chunk (n a multiple of 32) into one feature's
+// cells, 32 records at a time. sk: the records' keys for the feature (a
+// key >= nkeys adds nothing); sm: their staged masses (mass policy Mass:
+// WideFloat); cell: the feature's cells, `plane` apart from one mass
+// plane to the next; tag: the warp's nkeys bytes. The lanes whose records
+// share a key are found through the tags and five ballots: each live lane
+// writes its id into its key's tag, and the lanes that read back the same
+// id (whichever lane's store landed) are matched with one ballot a bit of
+// the id; only the membership matters, and it does not depend on which
+// store landed. The lowest of them sums their masses in lane order and
+// adds the sums into the cell with a plain add. No other warp touches the
+// feature's cells, so every add comes in one fixed order.
+template <class Mass>
+__device__ __forceinline__ void walk_keys(const uint16_t* sk,
+                                          const typename Mass::Stage* sm,
+                                          int n, int nkeys, uint8_t* tag,
+                                          typename Mass::Part* cell,
+                                          int plane, int lane) {
+  using Acc = typename Mass::Part;
+  constexpr int P = Mass::kPlanes;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int key = sk[j0 + lane];
+    const bool live = key < nkeys;
+    if (live) tag[key] = static_cast<uint8_t>(lane);
+    __syncwarp();
+    const int id = live ? tag[key] : lane;
+    unsigned peers = 0xffffffffu;
+#pragma unroll
+    for (int bit = 0; bit < 5; ++bit) {
+      const bool on = (id >> bit) & 1;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      peers &= on ? m : ~m;
+    }
+    if (live && lane == __ffs(peers) - 1) {
+      Acc s[P];
+#pragma unroll
+      for (int c = 0; c < P; ++c) s[c] = Acc(0);
+      for (unsigned m = peers; m != 0u; m &= m - 1u) {
+        const typename Mass::Stage v = sm[j0 + __ffs(m) - 1];
+#pragma unroll
+        for (int c = 0; c < P; ++c) s[c] = Mass::add(s[c], Mass::mass(v, c));
+      }
+      Acc* at = cell + key;
+#pragma unroll
+      for (int c = 0; c < P; ++c)
+        at[c * plane] = Mass::add(at[c * plane], s[c]);
+    }
+  }
 }
 
 // The key whose span holds histogram block b: the last k with bstart[k]

@@ -148,6 +148,29 @@ inline size_t wide_smem(int fs, int W, bool ranges, int planes,
          (walk ? static_cast<size_t>(consumers) * 2 * W : 0);
 }
 
+// Shared bytes of a block of the column body (level_column.cuh) of fs
+// features at lane width W and n_nodes nodes: the partial (three float
+// planes of fs x (n_nodes x W + 1) sums, to a float4), two chunks' staged
+// masses, the nodes' ranges, two chunks' keys and the consumers' tags
+// (n_nodes x W bytes a consumer warp).
+inline size_t column_smem(int fs, int W, int n_nodes) {
+  const size_t keys = static_cast<size_t>(n_nodes) * W;
+  const int consumers = fs < kWideConsumers ? fs : kWideConsumers;
+  return (3 * static_cast<size_t>(fs) * (keys + 1) + 3) / 4 * 16 +
+         2 * kWideRecs * sizeof(float4) +
+         2 * sizeof(float) * static_cast<size_t>(n_nodes) * fs +
+         2 * static_cast<size_t>(fs) * kWideRecs * sizeof(uint16_t) +
+         static_cast<size_t>(consumers) * keys;
+}
+
+// Whether the column body takes a level: one feature's block fits the
+// shared memory of a block, and every key n * W + bin lies below kNoKey.
+inline bool column_fits(int F, int W, int n_nodes) {
+  return F >= 1 && n_nodes >= 1 &&
+         static_cast<int64_t>(n_nodes) * W < kNoKey &&
+         column_smem(1, W, n_nodes) <= kMaxBlockSmem;
+}
+
 // log2 of a power of two
 __host__ __device__ constexpr int ilog2(int n) {
   return n <= 1 ? 0 : 1 + ilog2(n / 2);
@@ -346,47 +369,14 @@ level_wide_kernel(Src src, const typename Mass::Rec::T* __restrict__ rec,
       }
     }
   };
-  // (consumers, kWalk) the chunk in buffer buf into the warp's features.
-  // The lanes of a key: each lane writes its id into its key's tag, and
-  // the lanes that read back the same id (whichever lane's store landed)
-  // are matched with one ballot a bit of the id; only the membership
-  // matters, and it does not depend on which store landed.
+  // (consumers, kWalk) the chunk in buffer buf into the warp's features,
+  // each by the keyed fixed-order walk (walk_keys, level_common.cuh)
   uint8_t* tag = s_tag + warp * kKeys;
   auto walk = [&](int buf) {
     const Stage* sm = s_m + buf * kWideRecs;
-    for (int fl = warp; fl < ft; fl += consumers) {
-      const uint16_t* sk = s_k + (buf * fs + fl) * kWideRecs;
-      Acc* cell0 = s_hist + fl * stride;
-      for (int j0 = 0; j0 < kWideRecs; j0 += 32) {
-        const int key = sk[j0 + lane];
-        const bool live = key < kKeys;
-        if (live) tag[key] = static_cast<uint8_t>(lane);
-        __syncwarp();
-        const int id = live ? tag[key] : lane;
-        unsigned peers = 0xffffffffu;
-#pragma unroll
-        for (int bit = 0; bit < 5; ++bit) {
-          const bool on = (id >> bit) & 1;
-          const unsigned m = __ballot_sync(0xffffffffu, on);
-          peers &= on ? m : ~m;
-        }
-        if (live && lane == __ffs(peers) - 1) {
-          Acc s[P];
-#pragma unroll
-          for (int c = 0; c < P; ++c) s[c] = Acc(0);
-          for (unsigned m = peers; m != 0u; m &= m - 1u) {
-            const Stage v = sm[j0 + __ffs(m) - 1];
-#pragma unroll
-            for (int c = 0; c < P; ++c)
-              s[c] = Mass::add(s[c], Mass::mass(v, c));
-          }
-          Acc* cell = cell0 + key;
-#pragma unroll
-          for (int c = 0; c < P; ++c)
-            cell[c * plane] = Mass::add(cell[c * plane], s[c]);
-        }
-      }
-    }
+    for (int fl = warp; fl < ft; fl += consumers)
+      walk_keys<Mass>(s_k + (buf * fs + fl) * kWideRecs, sm, kWideRecs,
+                      kKeys, tag, s_hist + fl * stride, plane, lane);
   };
   // (consumers, integer masses) thread j of the chunk in buffer buf adds
   // record j's masses into its cell of every feature of the slice with
@@ -574,34 +564,49 @@ enum LevelForm {
   kTiledForm = 0,   // the tiled body
   kTensorForm = 1,  // the tensor-core grouped body (level_grouped.cuh)
   kWideForm = 2,    // the wide body
+  kColumnForm = 3,  // the column body ([F, rows], level_column.cuh)
 };
 
-// The form a float level takes: a form >= 0 forced (a grouped form that
-// does not fit, or has no instance at W, then fails at its launch), or
-// picked (kPickForm): where a grouped body takes the shapes ([rows, F],
-// grouped_fits), the wide body at W >= 64 and the tensor-core body below;
-// else the tiled body, the only form of [F, rows] (K5), of levels past
-// kMaxGroups groups and of frames past 512 features. chip_smoke.py at 10M
-// x 28, bf16, on an H100 (NVIDIA H100 80GB HBM3, 700 W; ms a tree of six
-// levels N = 1..32, tensor-core / wide / tiled), K1: W = 32 11.31 / 13.96
-// / 13.34; W = 64 20.30 / 13.34 / 17.36; W = 128 37.11 / 12.92 / 23.04; W
-// = 256 72.48 / 13.38 / 36.28 (at N = 32 the wide body 2.565 ms against
-// one index_add_ of 5.868); K8: W = 32 14.31 / 18.50 / -; W = 64 26.08 /
-// 16.89 / 22.17; W = 128 50.04 / 16.40 / 30.52; W = 256 95.15 / 16.25 /
-// 44.94. The wide body wins every level at W >= 64, where the tensor-core
-// body has no instance any more (its last times, K1 19.94 / 36.87 / 71.97
-// and K8 25.58 / 49.56 / 94.56 a tree at W = 64 / 128 / 256, beside the
-// wide body's 12.76 / 12.59 / 13.08 and 16.43 / 16.26 / 15.90 in one run),
-// the tensor-core body at W = 32 and below; the tiled body, faster at
-// some levels below 8 nodes, adds floats in schedule order and is no
-// candidate where a grouped body fits.
+// The form a float level takes: a form >= 0 forced (a grouped form that does
+// not fit or has no instance at W, or the column body in [rows, F] or where it
+// does not fit, then fails at its launch), or picked (kPickForm). In [F, rows]
+// (K5) the column body (level_column.cuh) wherever one feature's block fits
+// shared memory (column_fits: up to N = 1024 nodes at W = 16, 512 at W = 32,
+// 256 at W = 64, 128 at W = 128, 64 at W = 256), the tiled body past that. The
+// column body against the tiled body, chip_smoke.py phase 6 at 10M x 28, bf16,
+// on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; device ms): W = 32, N = 1..32:
+// 2.979 / 2.533, 2.798 / 2.661, 2.532 / 2.382, 2.493 / 2.915, 2.459 / 3.729,
+// 2.581 / 3.873, 15.84 / 18.09 a tree; at N = 32, W = 64 4.836 / 7.118, W =
+// 128 11.82 / 9.231, W = 256 10.60 / 12.75. The tiled body, faster at some
+// levels, adds floats in schedule order and is no candidate where the column
+// body fits. The route stays inside the level: K6's route first, then the
+// column body on the routed ids, took 2.638, 4.891, 11.84 and 10.65 ms at N =
+// 32, W = 32, 64, 128, 256 against the level's 2.562, 4.836, 11.82 and
+// 10.60: the gathers cost the level less than K6's separate pass.
+//
+// In [rows, F], where a grouped body takes the shapes (grouped_fits), the wide
+// body at W >= 64 and the tensor-core body below; else the tiled body (levels
+// past kMaxGroups groups, frames past 512 features). chip_smoke.py at 10M x
+// 28, bf16, on an H100 (NVIDIA H100 80GB HBM3, 700 W; ms a tree of six levels
+// N = 1..32, tensor-core / wide / tiled), K1: W = 32 11.31 / 13.96 / 13.34; W
+// = 64 20.30 / 13.34 / 17.36; W = 128 37.11 / 12.92 / 23.04; W = 256 72.48 /
+// 13.38 / 36.28 (at N = 32 the wide body 2.565 ms against one index_add_ of
+// 5.868); K8: W = 32 14.31 / 18.50 / -; W = 64 26.08 / 16.89 / 22.17; W = 128
+// 50.04 / 16.40 / 30.52; W = 256 95.15 / 16.25 / 44.94. The wide body wins
+// every level at W >= 64, where the tensor-core body has no instance any more
+// (its last times, K1 19.94 / 36.87 / 71.97 and K8 25.58 / 49.56 / 94.56 a
+// tree at W = 64 / 128 / 256, beside the wide body's 12.76 / 12.59 / 13.08 and
+// 16.43 / 16.26 / 15.90 in one run), the tensor-core body at W = 32 and below;
+// the tiled body, faster at some levels below 8 nodes, adds floats in schedule
+// order and is no candidate where a grouped body fits.
 constexpr int kWideMinW = 64;
 
 inline int level_form(int form, bool feat_major, int64_t rows, int F, int W,
                       int n_prev, int n_nodes) {
   if (form >= 0) return form;
-  if (feat_major || !grouped_fits(rows, F, n_prev, n_nodes))
-    return kTiledForm;
+  if (feat_major)
+    return column_fits(F, W, n_nodes) ? kColumnForm : kTiledForm;
+  if (!grouped_fits(rows, F, n_prev, n_nodes)) return kTiledForm;
   return W >= kWideMinW ? kWideForm : kTensorForm;
 }
 

@@ -79,8 +79,8 @@ _SIGNATURES = {
                             _VP],
         "h2o3_adaptive_route_only": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                      _INT, _VP, _VP],
-        "h2o3_adaptive_route_floor": [_VP, _VP, _VP, _LL, _INT, _INT, _INT,
-                                      _VP, _VP],
+        "h2o3_adaptive_route_floor": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
+                                      _INT, _VP, _VP],
         "h2o3_adaptive_level_i8_workspace": [_INT, _LL, _INT, _INT, _INT,
                                              _INT, _INT, _INT],
         "h2o3_adaptive_level_i8": [_VP, _INT, _VP, _VP, _INT, _VP, _VP, _VP,
@@ -310,8 +310,10 @@ def _stream(dev: torch.device) -> int:
 # i8_level_form), or one forced by name. "grouped" is the tensor-core
 # node-grouped body (W <= 32), "wide" the scatter over rows grouped by
 # parent (float levels at W = 32 and up, int8 ones at W = 64 and up),
-# "tiled" the tiled body.
-LEVEL_FORMS = {"picked": -1, "tiled": 0, "grouped": 1, "wide": 2}
+# "tiled" the tiled body, "column" the float adaptive level's walk down
+# the feature columns of [F, rows] (csrc/level_column.cuh).
+LEVEL_FORMS = {"picked": -1, "tiled": 0, "grouped": 1, "wide": 2,
+               "column": 3}
 _FORM_NAMES = {v: k for k, v in LEVEL_FORMS.items()}
 
 
@@ -486,8 +488,9 @@ def _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev: int, n_nodes: int,
     nid_out = torch.empty_like(nid)
     hist = torch.zeros((3, n_nodes, F, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        # -1: a grouped form forced where it does not fit (or in
-        # [F, rows]), which its launch refuses; the ablation raises here
+        # -1: a grouped or column form forced where it does not fit (or
+        # in the other layout), which its launch refuses; the ablation
+        # raises here
         nbytes = lib.h2o3_adaptive_level_workspace(
             feat_major, rows, F, W, n_prev, n_nodes, int(bf16),
             int(atomics), form)
@@ -519,7 +522,10 @@ def adaptive_level(x: torch.Tensor, nid: torch.Tensor, ghw: torch.Tensor,
     parent first and the histogram is a tensor-core one-hot product below
     W = 64 and the wide body's fixed-order scatter at W = 64, 128, 256,
     both summed in a fixed order (``csrc/level_wide.cuh``
-    ``level_form``); ``"f_rows"`` (K5) takes the tiled body."""
+    ``level_form``); in ``"f_rows"`` (K5) the column body walks the
+    feature columns with the rows in row order, summed in a fixed order
+    too (``csrc/level_column.cuh``), and the tiled body takes the levels
+    where one feature's block does not fit shared memory."""
     return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
                            level_base, W, bf16, layout, False)
 
@@ -530,7 +536,8 @@ def adaptive_level_form(x: torch.Tensor, nid: torch.Tensor,
                         n_nodes: int, level_base: int, W: int, bf16: bool,
                         layout: str, form):
     """``adaptive_level`` with one form of the kernel forced, by name as
-    in ``binned_level_form``. A grouped form in ``"f_rows"`` or where the
+    in ``binned_level_form``, or "column" (``"f_rows"`` only). A grouped
+    form in ``"f_rows"``, "column" in ``"rows_f"``, or a form where the
     shapes do not fit it raises. For the tests and ``chip_smoke.py``; the
     training path calls ``adaptive_level``."""
     return _adaptive_level(x, nid, ghw, tables, lo, inv, n_prev, n_nodes,
@@ -770,21 +777,25 @@ def adaptive_route_only(x: torch.Tensor, nid: torch.Tensor,
 
 
 def adaptive_route_floor(x: torch.Tensor, nid: torch.Tensor,
-                         tables: torch.Tensor, n_prev: int,
-                         level_base: int) -> torch.Tensor:
-    """The loads-only floor of the ``"rows_f"`` route's kernel: its nid,
-    table and x loads and its nid store, no compare (returns nid
-    unchanged). For ``chip_smoke.py`` and the tests; counts in no
-    ``LAUNCHES`` entry."""
+                         tables: torch.Tensor, n_prev: int, level_base: int,
+                         layout: str = "rows_f") -> torch.Tensor:
+    """The loads-only floor of the route's kernel in ``layout`` (K9 in
+    ``"rows_f"``, K6 in ``"f_rows"``): its nid, table and x loads and its
+    nid store, no compare (returns nid unchanged). For ``chip_smoke.py``
+    and the tests; counts in no ``LAUNCHES`` entry."""
+    if layout not in ("rows_f", "f_rows"):
+        raise ValueError(f"unknown layout {layout!r}; expected 'rows_f' or "
+                         f"'f_rows'")
     if n_prev < 1:
         raise ValueError("adaptive_route_floor needs a previous level")
-    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, "rows_f")
+    rows, F, dev = _check_adaptive(x, nid, tables, n_prev, layout)
     lib = build()["hist_adaptive"]
     nid_out = torch.empty_like(nid)
     with torch.cuda.device(dev):
         rc = lib.h2o3_adaptive_route_floor(
-            x.data_ptr(), nid.data_ptr(), tables.data_ptr(), rows, F, n_prev,
-            level_base, nid_out.data_ptr(), _stream(dev))
+            x.data_ptr(), int(layout == "f_rows"), nid.data_ptr(),
+            tables.data_ptr(), rows, F, n_prev, level_base,
+            nid_out.data_ptr(), _stream(dev))
     _raise_on(rc, "adaptive_route_floor")
     return nid_out
 

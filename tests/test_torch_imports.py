@@ -208,15 +208,20 @@ def test_segment_totals_dispatch_sends_cuda_to_the_kernel_only(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["floor_cpu", "floor_no_prev",
-                                  "form_cpu", "form_unknown"])
+                                  "form_cpu", "form_unknown",
+                                  "floor_f_rows_cpu", "floor_layout",
+                                  "column_cpu", "level_form_unknown"])
 def test_measurement_wrappers_refuse_bad_calls(case):
-    """K9's loads-only floor and the forced forms of segment_totals (for
-    chip_smoke.py and the tests) refuse CPU tensors, a missing previous
-    level and an unknown form before anything is built."""
+    """The route's loads-only floor (K9's, and K6's in [F, rows]), the
+    forced forms of segment_totals and the column form of adaptive_level
+    (for chip_smoke.py and the tests) refuse CPU tensors, a missing
+    previous level, an unknown layout and an unknown form before anything
+    is built."""
     nid = torch.zeros(8, dtype=torch.int32)
     x = torch.zeros((8, 2), dtype=torch.float32)
     ftab = torch.zeros((4, 1), dtype=torch.float32)
     ghw = torch.zeros((3, 8))
+    rng = torch.zeros((1, 2), dtype=torch.float32)
     call, err = {
         "floor_cpu": (lambda: kernels.adaptive_route_floor(x, nid, ftab, 1,
                                                            1), "CUDA kernel"),
@@ -227,7 +232,17 @@ def test_measurement_wrappers_refuse_bad_calls(case):
                      "CUDA kernel"),
         "form_unknown": (lambda: kernels.segment_totals_form(nid, ghw, 2, 1,
                                                              "rows"),
-                         "unknown totals form")}[case]
+                         "unknown totals form"),
+        "floor_f_rows_cpu": (lambda: kernels.adaptive_route_floor(
+            x.t().contiguous(), nid, ftab, 1, 1, "f_rows"), "CUDA kernel"),
+        "floor_layout": (lambda: kernels.adaptive_route_floor(
+            x, nid, ftab, 1, 1, "cols"), "unknown layout"),
+        "column_cpu": (lambda: kernels.adaptive_level_form(
+            x.t().contiguous(), nid, ghw, ftab, rng, rng, 0, 1, 0, 16, False,
+            "f_rows", "column"), "CUDA kernel"),
+        "level_form_unknown": (lambda: kernels.adaptive_level_form(
+            x.t().contiguous(), nid, ghw, ftab, rng, rng, 0, 1, 0, 16, False,
+            "f_rows", "columns"), "unknown level form")}[case]
     with pytest.raises(ValueError, match=err):
         call()
 
@@ -319,17 +334,18 @@ def test_level_form_names():
     tensor-core grouped and the tiled body; an unknown name raises before
     any launch."""
     assert kernels.LEVEL_FORMS == {"picked": -1, "tiled": 0, "grouped": 1,
-                                   "wide": 2}
+                                   "wide": 2, "column": 3}
     assert kernels._form_code("wide") == 2
     assert kernels._form_code(True) == 1 and kernels._form_code(False) == 0
     with pytest.raises(ValueError, match="unknown level form"):
         kernels._form_code("fastest")
     text = (ROOT / "h2o3_tpu_torch" / "csrc" / "level_wide.cuh").read_text()
     for name, code in (("kPickForm", -1), ("kTiledForm", 0),
-                       ("kTensorForm", 1), ("kWideForm", 2)):
+                       ("kTensorForm", 1), ("kWideForm", 2),
+                       ("kColumnForm", 3)):
         assert f"{name} = {code}," in text
     assert text.count(" = ", text.index("enum LevelForm"),
-                      text.index("};", text.index("enum LevelForm"))) == 4
+                      text.index("};", text.index("enum LevelForm"))) == 5
 
 
 def _tool_sources():

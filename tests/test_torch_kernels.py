@@ -215,9 +215,50 @@ def test_adaptive_route_only_bit_equal(cuda, layout, rows, N, shift):
     assert kernels.LAUNCHES["adaptive_route_only"] == before + 1
     want = tha.adaptive_route_only_plain(x, n, t, n_prev, base, layout)
     assert torch.equal(got, want)
-    if layout == "rows_f":   # K9's loads-only floor keeps nid
-        assert torch.equal(kernels.adaptive_route_floor(x, n, t, n_prev,
-                                                        base), n)
+    # the loads-only floor (K9's in [rows, F], K6's in [F, rows]) keeps nid
+    assert torch.equal(kernels.adaptive_route_floor(x, n, t, n_prev, base,
+                                                    layout), n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("N", [1, 2, 32])
+def test_column_level_close(cuda, bf16, W, N):
+    """The column body (K5 in [F, rows], the form the rule picks there)
+    against the plain version at a ragged row count: nid bit-equal, each
+    bin within 1e-4 + 1e-5 x its absolute mass of the float64 plain
+    version."""
+    x, n, g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        30_003, 28, W, N, 40 + W + N, False, "f_rows", cuda)
+    assert kernels.adaptive_level_picks(30_003, 28, W, n_prev, N,
+                                        "f_rows") == "column"
+    nid_k, hist_k = kernels.adaptive_level_form(x, n, g, t, lo, inv, n_prev,
+                                                N, base, W, bf16, "f_rows",
+                                                "column")
+    nid_p, hist_p = tha.adaptive_level_plain(x, n, g.double(), t, lo, inv,
+                                             n_prev, N, base, W, bf16,
+                                             "f_rows")
+    _n, mass = tha.adaptive_level_plain(x, n, g.double().abs(), t, lo, inv,
+                                        n_prev, N, base, W, bf16, "f_rows")
+    assert torch.equal(nid_k, nid_p)
+    assert bool(((hist_k.double() - hist_p).abs()
+                 <= 1e-4 + 1e-5 * mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,N", [(32, 32), (256, 8)])
+def test_column_level_repeats_bit_for_bit(cuda, bf16, W, N):
+    """No float atomics in the column body: two launches on the same
+    inputs give the same bits."""
+    x, n, _g, t, lo, inv, n_prev, base = _adaptive_inputs(
+        200_000, 28, W, N, 7, False, "f_rows", cuda)
+    g = _adversarial_masses(200_000, 8, cuda)
+    runs = [kernels.adaptive_level(x, n, g, t, lo, inv, n_prev, N, base, W,
+                                   bf16, "f_rows") for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.gpu
@@ -862,8 +903,9 @@ def test_forced_forms_that_do_not_fit_raise(cuda):
 @pytest.mark.gpu
 def test_level_form_rule(cuda):
     """The forms the kernels pick: the tensor-core body below W = 64, the
-    wide body at W = 64, 128, 256, the tiled body past 512 features and in
-    [F, rows]."""
+    wide body at W = 64, 128, 256, the tiled body past 512 features; in
+    [F, rows] the column body where one feature's block fits, else the
+    tiled body."""
     rows = 10_000_000
     for W in (16, 32):
         assert kernels.binned_level_picks(rows, 28, W, 16, 32) == "grouped"
@@ -875,8 +917,16 @@ def test_level_form_rule(cuda):
             assert kernels.adaptive_level_picks(rows, 28, W, N // 2, N) \
                 == "wide"
         assert kernels.adaptive_level_picks(rows, 28, W, 16, 32,
-                                            "f_rows") == "tiled"
+                                            "f_rows") == "column"
         assert kernels.binned_level_picks(rows, 600, W, 16, 32) == "tiled"
+    # [F, rows]: the column body wherever one feature's block fits shared
+    # memory, the tiled body past that (W = 256 at 128 nodes)
+    for W in (16, 32, 64, 128, 256):
+        for N in (1, 2, 8, 32):
+            assert kernels.adaptive_level_picks(rows, 28, W, N // 2, N,
+                                                "f_rows") == "column"
+    assert kernels.adaptive_level_picks(rows, 28, 256, 64, 128,
+                                        "f_rows") == "tiled"
 
 
 @pytest.mark.gpu

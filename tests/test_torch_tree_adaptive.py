@@ -99,11 +99,18 @@ def _setup(X, is_cat, card, nbins):
     return cfg, lo.numpy(), hi.numpy(), nb_f.numpy()
 
 
-@pytest.mark.parametrize("layout", ["rows_f", "f_rows"])
-@pytest.mark.parametrize("depth", [1, 3])
-def test_grow_tree_adaptive_numeric_matches_jax(layout, depth):
+# (depth, layout, nbins): nbins 20 (W = 32) at depths 1 and 3, and nbins
+# 62 (W = 64, the wide lane width) at depth 3, each in both layouts
+_NUMERIC = [(d, lay, 20) for d in (1, 3) for lay in ("rows_f", "f_rows")] \
+    + [(3, lay, 62) for lay in ("rows_f", "f_rows")]
+
+
+@pytest.mark.parametrize("depth,layout,nbins", _NUMERIC,
+                         ids=[f"{d}-{lay}" + ("" if nb == 20 else f"-nbins{nb}")
+                              for d, lay, nb in _NUMERIC])
+def test_grow_tree_adaptive_numeric_matches_jax(depth, layout, nbins):
     X, is_cat, g, h, w = _frame(seed=depth)
-    cfg, lo, hi, nb_f = _setup(X, is_cat, 0, 20)
+    cfg, lo, hi, nb_f = _setup(X, is_cat, 0, nbins)
     kw = dict(max_depth=depth, n_bins=cfg.n_bins, n_features=X.shape[1],
               min_rows=1.0, histogram_precision="float32")
     jt, jnid, tt, tnid = _grow_both(X, g, h, w, kw, lo, hi, nb_f,
@@ -112,16 +119,23 @@ def test_grow_tree_adaptive_numeric_matches_jax(layout, depth):
     _assert_trees_equal(jt, jnid, tt, tnid)
 
 
-@pytest.mark.parametrize("card", [12, 25])
-def test_grow_tree_adaptive_with_enum_matches_jax(card):
-    """An enum column gets identity bins through nb_f (its root span)."""
+_ENUM = [(card, lay) for lay in ("rows_f", "f_rows") for card in (12, 25)]
+
+
+@pytest.mark.parametrize("card,layout", _ENUM,
+                         ids=[f"{card}" + ("" if lay == "rows_f" else f"-{lay}")
+                              for card, lay in _ENUM])
+def test_grow_tree_adaptive_with_enum_matches_jax(card, layout):
+    """An enum column gets identity bins through nb_f (its root span), in
+    either layout of the port's features."""
     X, is_cat, g, h, w = _frame(seed=5, n_cat=1, card=card)
     cfg, lo, hi, nb_f = _setup(X, is_cat, card, 14)
     assert cfg.n_bins == max(14, card - 1)
     assert nb_f[-1] == card - 1
     kw = dict(max_depth=3, n_bins=cfg.n_bins, n_features=X.shape[1],
               min_rows=1.0, histogram_precision="float32")
-    jt, jnid, tt, tnid = _grow_both(X, g, h, w, kw, lo, hi, nb_f)
+    jt, jnid, tt, tnid = _grow_both(X, g, h, w, kw, lo, hi, nb_f,
+                                    layout=layout)
     assert (tt["feat"].numpy() == X.shape[1] - 1).any()   # the enum splits
     _assert_trees_equal(jt, jnid, tt, tnid)
 
