@@ -332,6 +332,8 @@ PATHS = {
                      "route": "adaptive_route_only", "split_key": "thr",
                      "y": "dep_delayed_15min"},
 }
+# the airlines file compressed (phase_ingest): the same train
+PATHS["airlines_gzip"] = PATHS["airlines_zstd"] = PATHS["airlines_csv"]
 # the float levels' wide lane widths
 WIDE_W = (64, 128, 256)
 LAYOUTS = ("rows_f", "f_rows")
@@ -1326,11 +1328,14 @@ def _sci9(x):
     return mat, 14 + neg.astype(np.int64)
 
 
-def _csv_block(cols) -> bytes:
+def _csv_block(cols, sep=b",") -> bytes:
     """CSV text of one block of rows: ``cols`` holds, per column, a
     [rows, width] uint8 matrix of the cells' bytes and the cells'
-    lengths; cells are joined by commas, each row ends in a newline."""
-    row_len = sum(ln for _m, ln in cols) + len(cols)
+    lengths; cells are joined by ``sep`` (none where it is empty), each
+    row ends in a newline (none where ``sep`` is empty: a record
+    stream)."""
+    seps = len(cols) if sep else 0
+    row_len = sum(ln for _m, ln in cols) + seps
     pos = np.cumsum(row_len) - row_len
     out = np.empty(int(row_len.sum()), np.uint8)
     for j, (mat, ln) in enumerate(cols):
@@ -1342,19 +1347,23 @@ def _csv_block(cols) -> bytes:
                 m = ln > k
                 out[pos[m] + k] = mat[m, k]
         pos += ln
-        out[pos] = ord("\n") if j == len(cols) - 1 else ord(",")
-        pos += 1
+        if sep:
+            out[pos] = ord("\n") if j == len(cols) - 1 else sep[0]
+            pos += 1
     return out.tobytes()
 
 
-def _write_csv(path, header, nrow, block_cols, block=1 << 18):
+def _write_csv(path, header, nrow, block_cols, block=1 << 18, sep=b",",
+               head=None):
     """Write a CSV file by blocks of rows (``block_cols(lo, hi)`` gives a
-    block's cells), to a file of its own first and then into place."""
+    block's cells), to a file of its own first and then into place;
+    ``head`` replaces the header line (ARFF's declarations)."""
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
-        f.write((",".join(header) + "\n").encode())
+        f.write(head if head is not None
+                else (",".join(header) + "\n").encode())
         for lo in range(0, nrow, block):
-            f.write(_csv_block(block_cols(lo, min(lo + block, nrow))))
+            f.write(_csv_block(block_cols(lo, min(lo + block, nrow)), sep))
     os.replace(tmp, path)
 
 
@@ -1451,7 +1460,10 @@ def csv_prefix(src, dst, rows):
     """The header and the first ``rows`` rows of ``src`` as a file."""
     with open(src, "rb") as f:
         head = f.read(64 * (rows + 1) + (1 << 20))
-    nl = np.flatnonzero(np.frombuffer(head, np.uint8) == 10)
+        nl = np.flatnonzero(np.frombuffer(head, np.uint8) == 10)
+        if len(nl) <= rows:                 # longer rows: read on
+            head += f.read()
+            nl = np.flatnonzero(np.frombuffer(head, np.uint8) == 10)
     with open(dst, "wb") as f:
         f.write(head[:int(nl[rows]) + 1])
 
@@ -1798,7 +1810,666 @@ def phase_csv(card, higgs_rows=1_000_000, air_rows=10_000_000,
           f"{json.dumps(got['cards'])} levels, NA {json.dumps(got['na'])}",
           flush=True)
     return {"higgs_csv": higgs["launches"], "airlines_csv": air["launches"],
-            "airlines_warm_s": warm_s, "airlines_kernel_ms_tree": level_ms}
+            "airlines_warm_s": warm_s, "airlines_kernel_ms_tree": level_ms,
+            "airlines_train": {"trees": air["trees"], "auc": air["auc"]}}
+
+
+# ------------------------------------------------------------ ingest (B1-B5)
+
+def _labels(table):
+    mat, ln = table
+    return [bytes(mat[i, :ln[i]]).decode() for i in range(len(ln))]
+
+
+def _zz(n: int) -> bytes:
+    """Avro's zigzag varint of ``n``."""
+    u = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while True:
+        b = u & 0x7F
+        u >>= 7
+        out.append(b | 0x80 if u else b)
+        if not u:
+            return bytes(out)
+
+
+NUMERIC_AIRLINES = ("DepTime", "Distance")
+
+
+def write_airlines_arff(path, tables, idx, declare=None):
+    """The airlines columns as ARFF: nominal attributes declared in the
+    table's order (or ``declare``'s levels, by column), DepTime and
+    Distance numeric, ``?`` for NA."""
+    head = ["@RELATION airlines"]
+    arff_tables = []
+    for n, t in zip(AIRLINES_NAMES, tables):
+        labs = ["?" if lab == "NA" else lab for lab in _labels(t)]
+        arff_tables.append(_table(labs))
+        if n in NUMERIC_AIRLINES:
+            head.append(f"@ATTRIBUTE {n} NUMERIC")
+        else:
+            levels = (declare or {}).get(n) or [x for x in labs if x != "?"]
+            head.append(f"@ATTRIBUTE {n} {{{','.join(levels)}}}")
+    head.append("@DATA\n")
+    _write_csv(path, None, len(idx[0]),
+               lambda lo, hi: [_take(t, i[lo:hi])
+                               for t, i in zip(arff_tables, idx)],
+               head="\n".join(head).encode())
+
+
+def write_airlines_avro(path, tables, idx, codec, block_rows=1 << 16):
+    """The airlines columns as an Avro object container file of records
+    of nullable strings (DepTime and Distance: nullable longs), ``codec``
+    null or deflate, ``block_rows`` records a block."""
+    import zlib
+    fields, enc = [], []
+    for n, t in zip(AIRLINES_NAMES, tables):
+        num = n in NUMERIC_AIRLINES
+        fields.append({"name": n, "type": ["null", "long" if num
+                                           else "string"]})
+        cells = [b"\x00" if lab == "NA" else b"\x02" + (
+            _zz(int(lab)) if num else _zz(len(lab)) + lab.encode())
+            for lab in _labels(t)]
+        mat = np.zeros((len(cells), max(map(len, cells))), np.uint8)
+        for k, c in enumerate(cells):
+            mat[k, :len(c)] = np.frombuffer(c, np.uint8)
+        enc.append((mat, np.array([len(c) for c in cells], np.int64)))
+    schema = {"type": "record", "name": "airlines", "fields": fields}
+    meta = {b"avro.schema": json.dumps(schema).encode(),
+            b"avro.codec": codec.encode()}
+    sync = b"h2o3_smoke_sync!"
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"Obj\x01" + _zz(len(meta)))
+        for k, v in meta.items():
+            f.write(_zz(len(k)) + k + _zz(len(v)) + v)
+        f.write(_zz(0) + sync)
+        nrow = len(idx[0])
+        for lo in range(0, nrow, block_rows):
+            hi = min(lo + block_rows, nrow)
+            payload = _csv_block([_take(e, i[lo:hi])
+                                  for e, i in zip(enc, idx)], sep=b"")
+            if codec == "deflate":
+                co = zlib.compressobj(6, zlib.DEFLATED, -15)
+                payload = co.compress(payload) + co.flush()
+            f.write(_zz(hi - lo) + _zz(len(payload)) + payload + sync)
+    os.replace(tmp, path)
+
+
+def write_airlines_xlsx(path, tables, idx):
+    """The airlines columns as an xlsx workbook: the names in the first
+    row, labels as shared strings, DepTime and Distance as numbers, an NA
+    cell left out."""
+    import zipfile
+    labels = [_labels(t) for t in tables]
+    shared, sidx = [], {}
+    for n, labs in zip(AIRLINES_NAMES, labels):
+        for lab in [n] + ([] if n in NUMERIC_AIRLINES else labs):
+            if lab != "NA" and lab not in sidx:
+                sidx[lab] = len(shared)
+                shared.append(lab)
+    letters = "ABCDEFGHI"
+    cell = []
+    for n, labs in zip(AIRLINES_NAMES, labels):
+        if n in NUMERIC_AIRLINES:
+            cell.append(["" if lab == "NA" else f"<v>{lab}</v></c>"
+                         for lab in labs])
+        else:
+            cell.append(["" if lab == "NA" else f'<v>{sidx[lab]}</v></c>'
+                         for lab in labs])
+    rows = ['<row r="1">' + "".join(
+        f'<c r="{letters[j]}1" t="s"><v>{sidx[n]}</v></c>'
+        for j, n in enumerate(AIRLINES_NAMES)) + "</row>"]
+    for r in range(len(idx[0])):
+        parts = [f'<row r="{r + 2}">']
+        for j, n in enumerate(AIRLINES_NAMES):
+            body = cell[j][idx[j][r]]
+            if body:
+                t = "" if n in NUMERIC_AIRLINES else ' t="s"'
+                parts.append(f'<c r="{letters[j]}{r + 2}"{t}>{body}')
+        parts.append("</row>")
+        rows.append("".join(parts))
+    ns = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+    sheet = (f'<?xml version="1.0"?><worksheet xmlns="{ns}"><sheetData>'
+             + "\n".join(rows) + "</sheetData></worksheet>")
+    sst = (f'<?xml version="1.0"?><sst xmlns="{ns}">' + "".join(
+        f"<si><t>{s}</t></si>" for s in shared) + "</sst>")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("xl/worksheets/sheet1.xml", sheet)
+        z.writestr("xl/sharedStrings.xml", sst)
+        z.writestr("[Content_Types].xml", "<Types/>")
+    os.replace(tmp, path)
+
+
+def svmlight_from_csv(src, dst, F):
+    """The HIGGS CSV file (features f0..f{F-1}, then the label) as
+    SVMLight: the label, then ``j:value`` for every feature (1-based; no
+    value is exactly 0, so none is left out), the cells' texts kept."""
+    pre = [f"{j + 1}:".encode() for j in range(F)]
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")[1:]
+    out = [c[-1] + b" " + b" ".join(map(bytes.__add__, pre, c[:-1]))
+           for c in (ln.split(b",") for ln in lines if ln)]
+    with open(dst + ".tmp", "wb") as f:
+        f.write(b"\n".join(out) + b"\n")
+    os.replace(dst + ".tmp", dst)
+
+
+def split_lines(src, dst_a, dst_b, n_a, n):
+    """The first ``n_a`` of the first ``n`` lines of ``src`` into
+    ``dst_a``, the rest of them into ``dst_b``."""
+    with open(src, "rb") as f:
+        data = f.read()
+    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)
+    cut, end = nl[n_a - 1] + 1, nl[n - 1] + 1
+    for dst, body in ((dst_a, data[:cut]), (dst_b, data[cut:end])):
+        with open(dst + ".tmp", "wb") as f:
+            f.write(body)
+        os.replace(dst + ".tmp", dst)
+
+
+def smoke_path(name):
+    """A file of the temporary directory, named by ``name``."""
+    import tempfile
+    return os.path.join(tempfile.gettempdir(), f"h2o3_smoke_{name}")
+
+
+def cached_file(name, write):
+    """``cached_csv`` for a file of any extension (``name`` carries it)."""
+    path = smoke_path(name)
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        write(path)
+    return path, time.perf_counter() - t0
+
+
+def values_differ(fr, ref, names=None):
+    """Columns of ``fr`` (named ``names``, by default as in ``ref``) whose
+    values differ from ``ref``'s: an enum's labels row by row, NA where
+    NA; a number's float32 value, NaN where NaN. A format may type a
+    column real where the CSV parse says int, and order a domain as
+    declared: only the values are held."""
+    import torch
+    out = []
+    for n, rn in zip(names or ref.names, ref.names):
+        a, b = fr.vec(n), ref.vec(rn)
+        if b.type == "enum":
+            if a.type != "enum":
+                out.append(f"{n}: {a.type}, not enum")
+                continue
+            pos = {lab: k for k, lab in enumerate(b.domain)}
+            lut = torch.tensor([pos.get(lab, -2) for lab in a.domain]
+                               + [-1], device=a.data.device)
+            ca = a.data.long()
+            mapped = lut[torch.where(ca < 0, len(a.domain), ca)]
+            if not torch.equal(mapped, b.data.long()):
+                out.append(f"{n}: {int((mapped != b.data.long()).sum())} "
+                           f"labels differ")
+            continue
+        x, z = a.as_float(), b.as_float()
+        nx, nz = torch.isnan(x), torch.isnan(z)
+        if not (torch.equal(nx, nz) and torch.equal(x[~nx], z[~nz])):
+            out.append(f"{n}: values differ")
+    return out
+
+
+def na_counts(fr):
+    return {n: fr.vec(n).na_count() for n in fr.names}
+
+
+def timed(fn):
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def ingest_profile_line(prof):
+    keys = ("tokenize_encode_s", "merge_s", "device_put_s",
+            "h2d_overlap_ratio", "add_seconds", "assemble_seconds",
+            "h2d_bytes", "ring_allocs", "fallback_cols", "chunks",
+            "decompress_s", "degrade_reasons")
+    return json.dumps({k: prof.get(k) for k in keys})
+
+
+def ingest_compressed(card, csv_path, air_rows, ref, ref_train,
+                      member_bytes=1 << 20):
+    """The 10M-row airlines file as a 1 MiB-member gzip and a store-mode
+    zstd: each import bit-equal to the CSV import in every column, type,
+    domain and NA count, and the default GBM on it bit-equal to the CSV
+    frame's in trees and AUC, with K8 (wide adaptive level) 120 and K9
+    20 launches. Returns the launches of each and the files."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ingest import compress
+    from h2o3_tpu_torch.ingest import parse as parse_mod
+    from h2o3_tpu_torch.ops import kernels
+    plain_mb = os.path.getsize(csv_path) / 1e6
+    ref_na = na_counts(ref)
+    out, paths = {}, {}
+    writers = {
+        "gzip": (".csv.gz", lambda d: compress.gzip_compress_members(
+            d, member_bytes, workers=os.cpu_count() or 4)),
+        "zstd": (".csv.zst", lambda d: compress.zstd_compress_store(
+            d, member_bytes))}
+    for kind, (ext, enc) in writers.items():
+        def write(p):
+            with open(csv_path, "rb") as f:
+                blob = enc(f.read())
+            with open(p + ".tmp", "wb") as f:
+                f.write(blob)
+            os.replace(p + ".tmp", p)
+        path, write_s = cached_file(
+            f"airlines_{air_rows}_2024_{member_bytes}{ext}", write)
+        paths[kind] = path
+        comp_mb = os.path.getsize(path) / 1e6
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        fr, s = timed(lambda: h2o.import_file(path, device="cuda"))
+        prof = dict(parse_mod.LAST_PROFILE)
+        (info,) = prof["compressed"]
+        diffs = frames_differ(fr, ref)
+        na = na_counts(fr)
+        print(f"ingest {kind}: {air_rows} rows, {comp_mb!r} MB compressed "
+              f"({info['members']} members, parallel {info['parallel']}, "
+              f"ratio {info['ratio']!r}), {plain_mb!r} MB plain; write "
+              f"{write_s!r} s (0: cached); import_file {s!r} s, of it "
+              f"decompress {prof['decompress_s']!r} s; "
+              f"{comp_mb / s!r} MB/s compressed, {plain_mb / s!r} MB/s "
+              f"plain, {air_rows / s!r} rows/s; profile "
+              f"{ingest_profile_line(prof)}; columns that differ from the "
+              f"CSV import {diffs} [{card}]", flush=True)
+        if diffs or na != ref_na or fr.types != ref.types \
+                or not info["parallel"] or prof["fallback_ranges"]:
+            raise AssertionError(f"ingest {kind}: the frame differs from "
+                                 f"the CSV import ({diffs}; NA {na} vs "
+                                 f"{ref_na}) or the inflate was serial "
+                                 f"({info})")
+        res = phase_main_path(card, f"airlines_{kind}", fr, rows=air_rows,
+                              reset=False)
+        trees = tree_diffs(res["trees"], ref_train["trees"], "thr")
+        print(f"ingest {kind}: GBM against the CSV frame's: tree entries "
+              f"that differ {json.dumps(trees)}; AUC {res['auc']!r} vs "
+              f"{ref_train['auc']!r}; launches {res['launches']} "
+              f"[{card}]", flush=True)
+        if any(trees.values()) or res["auc"] != ref_train["auc"] \
+                or res["launches"]["adaptive_level"] != 120 \
+                or res["launches"]["adaptive_route_only"] != 20:
+            raise AssertionError(f"ingest {kind}: the GBM differs from the "
+                                 f"CSV frame's")
+        out[f"airlines_{kind}"] = res["launches"]
+        del fr, res
+    return out, paths
+
+
+def ingest_stream_on_off(card, csv_path, air_rows, bound_s=0.36):
+    """The 10M-row CSV with ``H2O3_INGEST_STREAM`` 0 and 1, twice each,
+    alternating: every frame bit-equal, each run's profile printed, and
+    the saving against the bound of what streaming can hide."""
+    import torch
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ingest import parse as parse_mod
+    old = os.environ.get("H2O3_INGEST_STREAM")
+    runs = {"0": [], "1": []}
+    first = None
+    try:
+        for mode in ("0", "1", "0", "1"):
+            os.environ["H2O3_INGEST_STREAM"] = mode
+            fr, s = timed(lambda: h2o.import_file(csv_path, device="cuda"))
+            prof = dict(parse_mod.LAST_PROFILE)
+            if prof["streamed"] != (mode == "1") or prof["fallback_cols"]:
+                raise AssertionError(f"stream {mode}: profile {prof}")
+            diffs = [] if first is None else frames_differ(fr, first)
+            print(f"ingest stream={mode}: import_file {s!r} s; profile "
+                  f"{ingest_profile_line(prof)}; columns that differ from "
+                  f"the first import {diffs} [{card}]", flush=True)
+            if diffs:
+                raise AssertionError(f"stream {mode}: the frame differs")
+            first = first if first is not None else fr
+            runs[mode].append(s)
+            del fr
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("H2O3_INGEST_STREAM", None)
+        if old is not None:
+            os.environ["H2O3_INGEST_STREAM"] = old
+    off, on = min(runs["0"]), min(runs["1"])
+    print(f"ingest stream saving: off {runs['0']} s, on {runs['1']} s; "
+          f"best off - best on = {off - on!r} s against the bound of about "
+          f"{bound_s} s (the H2D and most of the numeric merge) "
+          f"[{card}]", flush=True)
+    return {"off_s": runs["0"], "on_s": runs["1"]}
+
+
+def write_fallback_csv(path, rows):
+    """id, a unique label a row (``u``), labels whose union is 160k
+    (``v``), wide ints past 2^53 (``w``) and a real column."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=rows)
+    with open(path + ".tmp", "w") as f:
+        f.write("id,u,v,w,x\n")
+        for lo in range(0, rows, 1 << 17):
+            hi = min(lo + (1 << 17), rows)
+            f.write("".join(
+                f"{k},u{k},v{(k // 2) % 160_000},{(1 << 53) + 2 * k},"
+                f"{x[k]:.6f}\n" for k in range(lo, hi)))
+    os.replace(path + ".tmp", path)
+
+
+def ingest_fallback_columns(card, rows=1_000_000):
+    """A CSV whose ``u`` blows the chunk-local enum cap, ``v`` the union
+    cap (the cap lowered to a tenth of the rows for the two imports) and
+    ``w`` holds wide ints: the streamed import hands those three to the
+    host merge and equals the unstreamed one bit for bit."""
+    card_cap = rows // 10
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ingest import chunk as chunk_mod
+    from h2o3_tpu_torch.ingest import parse as parse_mod
+    path, write_s = cached_csv(f"fallback_{rows}",
+                               lambda p: write_fallback_csv(p, rows))
+    old_cap = chunk_mod.MAX_ENUM_CARDINALITY
+    old_env = os.environ.get("H2O3_INGEST_STREAM")
+    frames = {}
+    try:
+        chunk_mod.MAX_ENUM_CARDINALITY = card_cap
+        for mode in ("0", "1"):
+            os.environ["H2O3_INGEST_STREAM"] = mode
+            frames[mode], s = timed(lambda: h2o.import_file(
+                path, device="cuda"))
+            prof = dict(parse_mod.LAST_PROFILE)
+            print(f"ingest fallback columns, stream={mode}: {rows} rows, "
+                  f"write {write_s!r} s; import_file {s!r} s; types "
+                  f"{frames[mode].types}; profile "
+                  f"{ingest_profile_line(prof)} [{card}]", flush=True)
+        fb = prof["fallback_cols"]
+    finally:
+        chunk_mod.MAX_ENUM_CARDINALITY = old_cap
+        os.environ.pop("H2O3_INGEST_STREAM", None)
+        if old_env is not None:
+            os.environ["H2O3_INGEST_STREAM"] = old_env
+    a, b = frames["0"], frames["1"]
+    diffs = [n for n in a.names if a.vec(n).type != "string"
+             and frames_differ(a[[n]], b[[n]])]
+    host = [n for n in a.names if not _same_host(a.vec(n), b.vec(n))]
+    print(f"ingest fallback columns: host merge took {fb}; device columns "
+          f"that differ {diffs}, host copies that differ {host} "
+          f"[{card}]", flush=True)
+    if fb != ["u", "v", "w"] or diffs or host or a.types != {
+            "id": "int", "u": "string", "v": "string", "w": "int",
+            "x": "real"}:
+        raise AssertionError("ingest fallback columns: streamed and "
+                             "unstreamed imports differ")
+
+
+def _same_host(va, vb):
+    if va.host_data is None or vb.host_data is None:
+        return va.host_data is None and vb.host_data is None
+    x, y = va.host_data, vb.host_data
+    if x.dtype == object:
+        return x.shape == y.shape and bool((x == y).all())
+    return x.dtype == y.dtype and np.array_equal(x.view(np.uint8),
+                                                 y.view(np.uint8))
+
+
+def ingest_formats(card, rows=1_000_000, xlsx_rows=100_000,
+                   higgs_rows=1_000_000):
+    """ARFF, Avro (null, deflate), Parquet and ORC (where pyarrow is
+    installed) of ``rows`` airlines-shaped rows, xlsx of ``xlsx_rows``
+    and SVMLight of the HIGGS arrays at ``higgs_rows``, each held to the
+    CSV import of the same rows; then each as a two-file list of a fifth
+    as many rows (``_rbind``), half from the first 11 carriers and half
+    from the rest, so that the files' carrier domains differ, held to
+    the CSV import of those rows. Returns each import's rows/s."""
+    import h2o3_tpu_torch as h2o
+    tables, idx, _expect = airlines_columns(rows, seed=77)
+    car = idx[4]
+    in_b = (car >= 11) & (car != 22)             # B: the last 11 carriers
+    perm = np.concatenate([np.flatnonzero(~in_b), np.flatnonzero(in_b)])
+    idx = [i[perm] for i in idx]
+    n_a = int((~in_b).sum())
+    k = rows // 10
+    car_labels = _labels(tables[4])
+    part = {"": idx, "a": [i[:k] for i in idx],
+            "b": [i[n_a:n_a + k] for i in idx]}
+    declare = {h: {"UniqueCarrier": [car_labels[c] for c in sorted(
+        set(part[h][4].tolist()) - {22})][::-1 if h == "b" else 1]}
+        for h in "ab"}
+    out = {}
+
+    def check(fmt, files, refs, names=None):
+        for what, fl, (ref_path, n) in (
+                ("one file", files[:1], refs[0]),
+                ("two files", files[1:], refs[1])):
+            fr, s = timed(lambda: h2o.import_file(
+                fl if len(fl) > 1 else fl[0], device="cuda"))
+            diffs = values_differ(fr, h2o.import_file(ref_path,
+                                                      device="cuda"), names)
+            mb = sum(os.path.getsize(p) for p in fl) / 1e6
+            print(f"ingest {fmt}, {what}: {n} rows, {fr.ncol} columns, "
+                  f"{mb!r} MB; import_file {s!r} s = {n / s!r} rows/s, "
+                  f"{mb / s!r} MB/s; columns that differ from the CSV "
+                  f"import {diffs}; domains "
+                  f"{json.dumps({c: fr.vec(c).cardinality for c in fr.names})}"
+                  f" [{card}]", flush=True)
+            if diffs or fr.nrow != n:
+                raise AssertionError(f"ingest {fmt} ({what}): {diffs}")
+            out[f"{fmt} {what}"] = n / s
+            del fr
+
+    csv_one, _ = cached_csv(f"airlines_fmt_{rows}_77", lambda p:
+                            write_airlines_csv(p, tables, idx))
+    lst = [np.concatenate([a, b]) for a, b in zip(part["a"], part["b"])]
+    csv_list, _ = cached_csv(f"airlines_fmt_{rows}_77_list", lambda p:
+                             write_airlines_csv(p, tables, lst))
+    refs = ((csv_one, rows), (csv_list, 2 * k))
+    for fmt, ext, write in (
+            ("arff", "arff", lambda p, h: write_airlines_arff(
+                p, tables, part[h], declare.get(h))),
+            ("avro null", "avro", lambda p, h: write_airlines_avro(
+                p, tables, part[h], "null")),
+            ("avro deflate", "avro", lambda p, h: write_airlines_avro(
+                p, tables, part[h], "deflate"))):
+        tag = fmt.replace(" ", "_")
+        files = [cached_file(f"airlines_fmt_{rows}_{tag}{h}.{ext}",
+                             lambda p, h=h: write(p, h))[0]
+                 for h in ("", "a", "b")]
+        check(fmt, files, refs)
+    # xlsx: half of the rows from each carrier group
+    half, kx = xlsx_rows // 2, xlsx_rows // 10
+    xi = [np.concatenate([i[:half], i[n_a:n_a + half]]) for i in idx]
+    xparts = (("all", xi), ("a", [i[:kx] for i in xi]),
+              ("b", [i[half:half + kx] for i in xi]))
+    files = [cached_file(f"airlines_fmt_{xlsx_rows}_{h}.xlsx",
+                         lambda p, ix=ix: write_airlines_xlsx(
+                             p, tables, ix))[0] for h, ix in xparts]
+    xrefs = [cached_csv(f"airlines_fmt_{xlsx_rows}_77_{h}_xlsx",
+                        lambda p, ix=ix: write_airlines_csv(p, tables, ix))[0]
+             for h, ix in (("all", xi), ("list", [np.concatenate(
+                 [a, b]) for a, b in zip(xparts[1][1], xparts[2][1])]))]
+    check("xlsx", files, ((xrefs[0], xlsx_rows), (xrefs[1], 2 * kx)))
+    F, kh = 28, higgs_rows // 10
+    higgs_path, _ = cached_csv(
+        f"higgs_{higgs_rows}_42",
+        lambda p: write_higgs_csv(p, *higgs_arrays(higgs_rows)[:2]))
+    svm, _ = cached_file(f"higgs_{higgs_rows}_42.svm",
+                         lambda p: svmlight_from_csv(higgs_path, p, F))
+    svm_list = [smoke_path(f"higgs_{higgs_rows}_42_{h}.svm") for h in "ab"]
+    higgs_list = smoke_path(f"higgs_{higgs_rows}_42_head{2 * kh}.csv")
+    if not all(os.path.exists(p) for p in svm_list + [higgs_list]):
+        split_lines(svm, *svm_list, kh, 2 * kh)
+        csv_prefix(higgs_path, higgs_list, 2 * kh)
+    check("svmlight", [svm] + svm_list,
+          ((higgs_path, higgs_rows), (higgs_list, 2 * kh)),
+          names=[f"C{j + 2}" for j in range(F)] + ["C1"])
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        print("ingest parquet, orc: not run, pyarrow is not installed on "
+              "this machine (import_file of such a file raises here; the "
+              "CPU tests hold both formats to the JAX package)", flush=True)
+        return out
+    import pyarrow as pa
+    import pyarrow.orc as po
+    import pyarrow.parquet as pq
+    cols = {}
+    for n, t, i in zip(AIRLINES_NAMES, tables, idx):
+        labs = np.asarray(_labels(t), dtype=object)
+        if n in NUMERIC_AIRLINES:
+            cols[n] = np.array([np.nan if lab == "NA" else float(lab)
+                                for lab in labs])[i]
+        else:
+            cols[n] = pa.array(np.where(labs == "NA", None, labs)[i]
+                               ).dictionary_encode()
+    table = pa.table(cols)
+    for fmt, save in (("parquet", pq.write_table), ("orc", po.write_table)):
+        def tbl(lo, n, fmt=fmt):
+            t = table.slice(lo, n)
+            if fmt == "orc":            # ORC has no dictionary type
+                t = pa.table({c: (t.column(c).cast(pa.string())
+                                  if pa.types.is_dictionary(t.column(c).type)
+                                  else t.column(c)) for c in t.column_names})
+            return t
+        files = [cached_file(f"airlines_fmt_{rows}{h}.{fmt}",
+                             lambda p, lo=lo, n=n: save(tbl(lo, n), p))[0]
+                 for h, lo, n in (("", 0, rows), ("_a", 0, k),
+                                  ("_b", n_a, k))]
+        check(fmt, files, refs)
+    return out
+
+
+def ingest_remote(card, gz_path, ref):
+    """The gzip file by ``file://`` and by an ``http://`` URL served from
+    a thread on 127.0.0.1: both bit-equal to the local import."""
+    import functools
+    import http.server
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ingest import persist_uri
+    root, name = os.path.split(gz_path)
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=root))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/{name}"
+    try:
+        for uri in (url, f"file://{gz_path}"):
+            fr, s = timed(lambda: h2o.import_file(uri, device="cuda"))
+            diffs = frames_differ(fr, ref)
+            print(f"ingest {uri.split(':')[0]}: {fr.nrow} rows, "
+                  f"import_file {s!r} s (download included); columns "
+                  f"that differ from the local import {diffs} [{card}]",
+                  flush=True)
+            if diffs:
+                raise AssertionError(f"ingest {uri}: the frame differs")
+            del fr
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join()
+        # The served port is random, so the cached download is never
+        # read again: leave no copy of it behind.
+        cached = persist_uri._cache_path(url)
+        if os.path.exists(cached):
+            os.unlink(cached)
+
+
+def ingest_sql(card, rows=1_000_000):
+    """An sqlite3 table of airlines-shaped rows (an integer key, TEXT
+    labels, INTEGER DepTime and Distance, NULL for NA) through
+    ``import_sql_table`` in key-range mode and without a key (one
+    fetch): both held to the source arrays. Two key ranges (three fetch
+    threads with the NULL keys'): sqlite3 gives up the GIL around every
+    row it steps, so fetch threads of an in-process database queue on
+    it (1M rows on the H100's 8-core host: 193 s at eight ranges against
+    7.6 s in one fetch; 16-24 s at two against 10-13 s in one fetch)."""
+    import sqlite3
+    import tempfile
+    import torch
+    import h2o3_tpu_torch as h2o
+    tables, idx, _e = airlines_columns(rows, seed=31)
+    labels = [_labels(t) for t in tables]
+    src = []
+    for n, labs, i in zip(AIRLINES_NAMES, labels, idx):
+        vals = [None if lab == "NA" else (int(lab) if n in NUMERIC_AIRLINES
+                                          else lab) for lab in labs]
+        src.append([vals[k] for k in i.tolist()])
+    db = os.path.join(tempfile.gettempdir(),
+                      f"h2o3_smoke_airlines_{rows}_{os.getpid()}.db")
+    t0 = time.perf_counter()
+    con = sqlite3.connect(db)
+    cols = ", ".join(f"{n} {'INTEGER' if n in NUMERIC_AIRLINES else 'TEXT'}"
+                     for n in AIRLINES_NAMES)
+    con.execute(f"CREATE TABLE air (id INTEGER, {cols})")
+    con.executemany(f"INSERT INTO air VALUES (?{', ?' * len(src)})",
+                    zip(range(rows), *src))
+    con.commit()
+    con.close()
+    write_s = time.perf_counter() - t0
+    try:
+        for mode, key in (("key range", "id"), ("one fetch", None)):
+            fr, s = timed(lambda: h2o.import_sql_table(
+                lambda: sqlite3.connect(db), "air", key_column=key,
+                fetch_chunks=2, device="cuda"))
+            bad = []
+            if not torch.equal(fr.vec("id").data.cpu(),
+                               torch.arange(rows, dtype=torch.float32)):
+                bad.append("id (row order)")
+            for n, labs, i, col in zip(AIRLINES_NAMES, labels, idx, src):
+                v = fr.vec(n)
+                if n in NUMERIC_AIRLINES:
+                    want = np.asarray([np.nan if x is None else x
+                                       for x in col], np.float32)
+                    got = v.data.cpu().numpy()
+                    if not np.array_equal(got, want, equal_nan=True):
+                        bad.append(n)
+                else:
+                    dom = np.asarray(list(v.domain) + [None], dtype=object)
+                    codes = v.data.cpu().numpy()
+                    got = dom[np.where(codes < 0, len(v.domain), codes)]
+                    if list(got) != col:
+                        bad.append(n)
+            print(f"ingest sql, {mode}: {rows} rows, {fr.ncol} columns; "
+                  f"table written in {write_s!r} s; import_sql_table "
+                  f"{s!r} s = {rows / s!r} rows/s; columns that differ "
+                  f"from the source {bad} [{card}]", flush=True)
+            if bad or fr.nrow != rows:
+                raise AssertionError(f"ingest sql ({mode}): {bad}")
+            del fr
+    finally:
+        os.unlink(db)
+
+
+def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=1_000_000,
+                 xlsx_rows=100_000, higgs_rows=1_000_000, fb_rows=1_000_000,
+                 sql_rows=1_000_000, member_bytes=1 << 20):
+    """The rest of ingest on the card (B1-B5), after ``phase_csv``, whose
+    10M-row airlines file and default-GBM train (``csv_ref``: its trees
+    and AUC) it reuses: gzip and zstd at full width through the GBM;
+    streaming on and off; the fallback columns; the formats; URIs; SQL.
+    Returns the compressed paths' launches."""
+    import h2o3_tpu_torch as h2o
+    t_phase = time.perf_counter()
+    tables, idx, _expect = airlines_columns(air_rows)
+    csv_path, _ = cached_csv(f"airlines_{air_rows}_2024",
+                             lambda p: write_airlines_csv(p, tables, idx))
+    del tables, idx
+    ref = h2o.import_file(csv_path, device="cuda")
+    launches, paths = ingest_compressed(card, csv_path, air_rows, ref,
+                                        csv_ref, member_bytes)
+    ingest_remote(card, paths["gzip"], ref)
+    del ref
+    ingest_stream_on_off(card, csv_path, air_rows)
+    ingest_fallback_columns(card, fb_rows)
+    ingest_formats(card, fmt_rows, xlsx_rows, higgs_rows=higgs_rows)
+    ingest_sql(card, sql_rows)
+    print(f"ingest phase: {time.perf_counter() - t_phase!r} s wall "
+          f"[{card}]", flush=True)
+    return launches
 
 
 def phase_card_vs_cpu_i8(path, terms, rows=200_000, ntrees=5):
@@ -3822,6 +4493,10 @@ def main() -> int:
     # 4-5 from a file: CSV -> import_file -> GBM, HIGGS and airlines shapes
     csv = phase_csv(card)
     clock.lap("4-5 csv (files, parse, trains, profile, card vs cpu)")
+    # the rest of ingest: compressed files through the GBM, streaming on
+    # and off, the formats, URIs, SQL
+    ingest = phase_ingest(card, csv["airlines_train"])
+    clock.lap("4-5 ingest (gzip, zstd, stream, formats, uri, sql)")
 
     # 6. kernels at the main paths' shapes
     rec = phase_kernel_record(dev, packed["launches"])
@@ -3845,7 +4520,10 @@ def main() -> int:
                       ("packed_wide_i8", packed_wide_i8),
                       ("adaptive_wide_i8", adaptive_wide_i8),
                       ("higgs_csv", {"launches": csv["higgs_csv"]}),
-                      ("airlines_csv", {"launches": csv["airlines_csv"]})):
+                      ("airlines_csv", {"launches": csv["airlines_csv"]}),
+                      ("airlines_gzip", {"launches": ingest["airlines_gzip"]}),
+                      ("airlines_zstd",
+                       {"launches": ingest["airlines_zstd"]})):
         for k in ("level", "route", "totals"):
             kernel = PATHS[path].get(k)
             if kernel:

@@ -8,12 +8,14 @@ tensors. Entry points run on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``device="cpu"`` per frame); without a CUDA
 device and without that request they raise.
 
-The port covers CSV import (``import_file``: the port's own copy of the
-native tokenizer, typed columns with enum domains built from the data)
-and training a bernoulli or gaussian GBM, or the XGBoost estimator over
-it, on packed bin codes, on per-node adaptive bins (H2O's
-``UniformAdaptive``) or on the unpacked global sketch (more than 254
-bins), with a validation frame, interval scoring and early stopping,
+The port covers import (``import_file``: CSV through the port's own copy
+of the native tokenizer, gzip and zstd inputs, ARFF, SVMLight, Parquet,
+ORC, Avro and xlsx, lists of files and remote URIs; ``import_sql_table``
+from a DB-API connection; numeric, time and enum columns streamed to
+the card a byte range at a time) and training a bernoulli or gaussian
+GBM, or the XGBoost estimator over it, on packed bin codes, on per-node
+adaptive bins (H2O's ``UniformAdaptive``) or on the unpacked global
+sketch (more than 254 bins), with a validation frame, interval scoring and early stopping,
 its training and validation metrics and ``predict``; ROADMAP.md queues
 the rest.
 """
@@ -21,11 +23,12 @@ from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.ingest.parse import import_file, parse_setup
+from h2o3_tpu_torch.ingest.sql import import_sql_table
 
 __version__ = "0.1.0"
 
-__all__ = ["Frame", "Vec", "import_file", "init", "parse_setup",
-           "upload_numpy"]
+__all__ = ["Frame", "Vec", "import_file", "import_sql_table", "init",
+           "parse_setup", "upload_numpy"]
 
 
 def upload_numpy(data, names=None, device=None) -> Frame:

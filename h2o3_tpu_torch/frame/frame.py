@@ -56,17 +56,25 @@ class Frame:
 
     @staticmethod
     def from_typed_columns(names: Sequence[str], cols, device=None,
-                           key: Optional[str] = None) -> "Frame":
+                           key: Optional[str] = None,
+                           preset: Optional[Dict[int, Vec]] = None
+                           ) -> "Frame":
         """A frame from typed columns (``.vtype``, ``.data``, ``.domain``;
         ``ingest/chunk.py`` ``EncodedColumn``): numeric and time columns
         go to the device as one float32 matrix, enum codes as one int32
         matrix, each packed column by column into pinned host memory and
-        copied in one transfer; string columns stay on the host."""
+        copied in one transfer; string columns stay on the host.
+        ``preset`` holds columns already built on the device (a streamed
+        parse's) by position; their entries of ``cols`` are None."""
         dev = _device.resolve(device)
         cols = list(cols)
         vecs: List[Optional[Vec]] = [None] * len(cols)
+        for i, v in (preset or {}).items():
+            vecs[i] = v
         f32, f32_meta, i32, i32_meta = [], [], [], []
         for i, c in enumerate(cols):
+            if c is None:
+                continue
             if c.vtype == T_STR:
                 vecs[i] = Vec(None, T_STR,
                               host_data=np.asarray(c.data, dtype=object),

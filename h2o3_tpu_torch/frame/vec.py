@@ -48,8 +48,8 @@ class Vec:
         self.type = vtype
         self.domain = tuple(domain) if domain is not None else None
         self.host_data = host_data
-        self._device = data.device if data is not None else torch.device(
-            device or "cpu")
+        self._device = data.device if data is not None else _indexed(
+            torch.device(device or "cpu"))
         self._rollups = None
 
     # ---------------------------------------------------------- construction
@@ -122,6 +122,10 @@ class Vec:
         return self._device
 
     @property
+    def is_numeric(self) -> bool:
+        return self.type in (T_REAL, T_INT)
+
+    @property
     def cardinality(self) -> int:
         return len(self.domain) if self.domain is not None else -1
 
@@ -190,6 +194,25 @@ class Vec:
         if self.host_data is not None:
             return self.host_data.copy()
         return self.data.cpu().numpy()
+
+    def to_strings(self) -> np.ndarray:
+        """An object array of labels: an enum's codes decoded (None for
+        NA), a string column's values, else the values."""
+        if self.type == T_STR:
+            return self.host_data.copy()
+        raw = self.to_numpy()
+        if self.type == T_ENUM:
+            dom = np.array(list(self.domain) + [None], dtype=object)
+            return dom[np.where(raw < 0, len(self.domain), raw)]
+        return raw.astype(object)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current card's index, as a tensor there reports
+    it (a string column has no tensor to ask)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _is_integral(f: np.ndarray) -> bool:

@@ -4,10 +4,10 @@ Counterpart of ``h2o3_tpu/ingest/chunk.py``. A byte-range worker returns
 finished typed numpy columns (never Python token lists): numeric float64
 (with an exact int64 shadow for integers past 2^53), time int64 epoch
 milliseconds, enum int32 codes against a sorted chunk-local domain, and
-strings as object arrays. ``merge_columns`` unions the chunk domains and
-remaps each chunk's codes through a lookup table (H2O's PackedDomains
-pass); an NA code (-1) is masked out of every such lookup, never clamped
-into it.
+strings as object arrays. ``merge_column`` unions one column's chunk
+domains and remaps each chunk's codes through a lookup table (H2O's
+PackedDomains pass); an NA code (-1) is masked out of every such lookup,
+never clamped into it.
 
 Per-cell Python loops survive only on rare edges (malformed time tokens,
 the wide-int re-parse); the hot paths are the native tokenizer
@@ -427,14 +427,3 @@ def merge_column(chunks: List[EncodedColumn], vt: str) -> EncodedColumn:
     return EncodedColumn(vt if vt == T_TIME else T_STR,
                          _concat([c.data for c in chunks]))
 
-
-def merge_columns(chunk_results: List[List[EncodedColumn]],
-                  column_types: Sequence[str],
-                  skipped: Sequence[int] = ()
-                  ) -> List[Optional[EncodedColumn]]:
-    """Union chunk-local columns into whole columns; columns in
-    ``skipped`` come back as None."""
-    skip = frozenset(skipped)
-    return [None if i in skip else
-            merge_column([cr[i] for cr in chunk_results], vt)
-            for i, vt in enumerate(column_types)]

@@ -1,16 +1,22 @@
-"""Two-phase CSV parse: guess the setup, then parse into a Frame.
+"""Two-phase parse: guess the setup, then parse into a Frame.
 
-Counterpart of ``h2o3_tpu/ingest/parse.py`` for CSV (H2O's
+Counterpart of ``h2o3_tpu/ingest/parse.py`` (H2O's
 ``ParseSetup.guessSetup`` and ``ParseDataset``). ``parse_setup`` samples
-the head of the first file and guesses the separator, the header and the
-column types. ``parse`` maps each file, cuts a large one into
-newline-aligned byte ranges (quote-aware where the head holds the quote
-character) and tokenizes the ranges on a thread pool with the native
-tokenizer (``native/fast_csv.cpp``; ctypes releases the GIL). Each range
-comes back as typed columns with chunk-local enum domains
-(``ingest/chunk.py``); the merge unions the domains and remaps the codes,
-and ``Frame.from_typed_columns`` copies each dtype group to the device
-in one transfer.
+the head of the first file (the inflated head of a compressed one) and
+guesses the separator, the header and the column types. ``parse`` maps
+each file, or inflates a gzip or zstd file into one host buffer
+(``ingest/compress.py``), cuts a large buffer into newline-aligned byte
+ranges (quote-aware where the head holds the quote character) and
+tokenizes the ranges on a thread pool with the native tokenizer
+(``native/fast_csv.cpp``; ctypes releases the GIL). Each range comes
+back as typed columns with chunk-local enum domains
+(``ingest/chunk.py``). With streaming on (``H2O3_INGEST_STREAM``: "1",
+"0", or "auto", on for a ``cuda`` frame), each range's numeric, time and
+enum columns go to the device as soon as the range is encoded
+(``ingest/stream.py``) and the rest merge on the host; without it the
+merge unions the domains and remaps the codes, and
+``Frame.from_typed_columns`` copies each dtype group to the device in
+one transfer.
 
 A range the native scan declines (ragged rows, an unterminated quote,
 bytes after a closing quote) is read again, alone, with the Python
@@ -18,7 +24,14 @@ tokenizer; so is every range of a setup with a numeric NA string, which
 the native scan cannot express. The native scan matches the Python
 tokenizer on every token class it accepts, so a column may mix the two
 across its ranges. Each such range is counted by reason in
-``LAST_PROFILE["fallback_reasons"]``.
+``LAST_PROFILE["fallback_reasons"]``, and a compressed input that
+inflates serially (a single-stream gzip) by reason in
+``LAST_PROFILE["degrade_reasons"]``.
+
+``import_file`` takes what the JAX package's does: a path, a list of
+paths or a URI (``ingest/persist_uri.py``); CSV, compressed or not, and
+the formats of ``ingest/formats.py``, a list of those joined by
+``_rbind``.
 """
 from __future__ import annotations
 
@@ -30,7 +43,6 @@ import mmap
 import os
 import re
 import time
-import urllib.parse
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -39,10 +51,15 @@ import torch
 
 from h2o3_tpu_torch import _device, native
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.frame.vec import T_ENUM, T_INT, T_REAL, T_STR, T_TIME
-from h2o3_tpu_torch.ingest.chunk import (SKIPPED, _skipped_set,
+from h2o3_tpu_torch.frame.vec import (T_ENUM, T_INT, T_REAL, T_STR, T_TIME,
+                                      Vec)
+from h2o3_tpu_torch.ingest import compress
+from h2o3_tpu_torch.ingest.chunk import (SKIPPED, EncodedColumn, _merge_enum,
+                                         _merge_numeric, _skipped_set,
                                          encode_chunk_native,
-                                         encode_token_column, merge_columns)
+                                         encode_token_column, merge_column)
+from h2o3_tpu_torch.ingest.persist_uri import localize
+from h2o3_tpu_torch.ingest.stream import ChunkDeviceStreamer, prepack_chunk
 
 DEFAULT_NA_STRINGS = {"", "NA", "N/A", "na", "NaN", "nan", "null", "NULL",
                       "None", "?"}
@@ -50,14 +67,6 @@ _SEP_CANDIDATES = [",", "\t", ";", "|", " "]
 
 # stage timings and range counts of the most recent parse()
 LAST_PROFILE: Dict[str, object] = {}
-
-_FORMATS = {".arff": "arff", ".svm": "svmlight", ".svmlight": "svmlight",
-            ".parquet": "parquet", ".pq": "parquet", ".orc": "orc",
-            ".avro": "avro", ".xls": "xls", ".xlsx": "xls"}
-_COMPRESSION_MAGIC = {b"\x1f\x8b": "gzip", b"\x28\xb5\x2f\xfd": "zstd",
-                      b"BZh": "bzip2", b"\xfd7zXZ\x00": "xz",
-                      b"PK\x03\x04": "zip"}
-
 
 @dataclass
 class ParseSetup:
@@ -97,35 +106,12 @@ def _looks_time(tok: str) -> bool:
         return False
 
 
-def _local_path(path: str) -> str:
-    """The local path of a CSV input; ``NotImplementedError``, naming its
-    ROADMAP.md item (queue 1), for an input the port does not read yet: a
-    remote URI, a format other than CSV or a compressed file."""
-    scheme = urllib.parse.urlparse(path).scheme
-    if scheme == "file":
-        path = urllib.parse.urlparse(path).path
-    elif len(scheme) > 1:
-        raise NotImplementedError(
-            f"{scheme}:// inputs are not ported yet (ROADMAP.md, queue 1, "
-            f"item B4: persist_uri.py)")
-    fmt = _FORMATS.get(os.path.splitext(path)[1].lower())
-    if fmt:
-        raise NotImplementedError(
-            f"{fmt} files are not ported yet (ROADMAP.md, queue 1, item B3: "
-            f"formats.py); the port reads CSV")
-    with open(path, "rb") as f:
-        head = f.read(8)
-    for magic, kind in _COMPRESSION_MAGIC.items():
-        if head.startswith(magic):
-            raise NotImplementedError(
-                f"{kind}-compressed input {os.path.basename(path)} is not "
-                f"ported yet (ROADMAP.md, queue 1, item B2: compress.py)")
-    return path
-
-
 def _read_head(path: str, nbytes: int = 1 << 16) -> str:
     with open(path, "rb") as f:
         raw = f.read(nbytes)
+    if compress.detect_bytes(raw[:8]):
+        # a compressed input: the setup guess reads the inflated head
+        raw = compress.head_bytes(path, nbytes)
     txt = raw.decode("utf-8", errors="replace")
     # drop a possibly truncated last line
     if len(raw) == nbytes and "\n" in txt:
@@ -173,8 +159,7 @@ def parse_setup(paths: Union[str, Sequence[str]],
     """Phase 1: sample the first file's head and guess the setup."""
     if isinstance(paths, str):
         paths = [paths]
-    first_path = _local_path(paths[0])
-    sample = _read_head(first_path)
+    sample = _read_head(localize(paths[0]))
     sep = separator or guess_separator(sample)
     nas = (set(na_strings) if na_strings is not None
            else set(DEFAULT_NA_STRINGS))
@@ -322,70 +307,147 @@ def _encode_range_python(buf, start: int, end: int, setup: ParseSetup,
             for j, (toks, vt) in enumerate(zip(tokens, setup.column_types))]
 
 
-def _tokenize_native(jobs, setup: ParseSetup, workers: int):
+def _stream_on(dev: torch.device) -> bool:
+    """``H2O3_INGEST_STREAM``: "0" off, "1" on, "auto" (the default) on
+    for a ``cuda`` frame."""
+    env = os.environ.get("H2O3_INGEST_STREAM", "auto")
+    if env in ("0", "false", ""):
+        return False
+    if env == "1":
+        return True
+    return dev.type == "cuda"
+
+
+def _encode_range_native(buf, start: int, end: int, setup: ParseSetup,
+                         skip_header: bool, pack_cols=None):
+    """One byte range on the native tokenizer, over a borrowed view of
+    the file's map or buffer: ``(typed columns, the streaming pack or
+    None)``, or the decline reason. ``pack_cols`` has the worker build
+    the range's float32 pack here, on the pool."""
+    out = encode_chunk_native(memoryview(buf)[start:end], setup,
+                              skip_header)
+    if isinstance(out, str):
+        return out
+    return out, (prepack_chunk(pack_cols, out) if pack_cols else None)
+
+
+def _tokenize_native(jobs, setup: ParseSetup, workers: int, stream_cols,
+                     dev: torch.device):
     """Native encode of every job ``(path, buf, start, end, skip_header)``
     on a thread pool: (typed columns or None per job, decline reason by
-    job)."""
-    def one(job):
-        _p, buf, s, e, skip = job
-        return encode_chunk_native(memoryview(buf)[s:e], setup, skip)
-
+    job, the streamer or None). With ``stream_cols`` and more than one
+    job, this thread hands each finished range to a
+    ``ChunkDeviceStreamer`` as it comes (keyed by its index, which is
+    row order)."""
+    results: List[Optional[list]] = [None] * len(jobs)
+    reasons: Dict[int, str] = {}
     if len(jobs) == 1:
-        outs = [one(jobs[0])]
-    else:
-        with cf.ThreadPoolExecutor(max_workers=min(len(jobs),
-                                                   workers)) as ex:
-            outs = list(ex.map(one, jobs))
-    reasons = {k: o for k, o in enumerate(outs) if isinstance(o, str)}
-    return [None if isinstance(o, str) else o for o in outs], reasons
+        _p, buf, s, e, skip = jobs[0]
+        out = _encode_range_native(buf, s, e, setup, skip)
+        if isinstance(out, str):
+            reasons[0] = out
+        else:
+            results[0] = out[0]
+        return results, reasons, None
+    strm = (ChunkDeviceStreamer(stream_cols, list(setup.column_types), dev)
+            if stream_cols else None)
+    with cf.ThreadPoolExecutor(max_workers=min(len(jobs), workers)) as ex:
+        futs = {ex.submit(_encode_range_native, buf, s, e, setup, skip,
+                          stream_cols or None): k
+                for k, (_p, buf, s, e, skip) in enumerate(jobs)}
+        for fu in cf.as_completed(futs):
+            k = futs[fu]
+            out = fu.result()
+            if isinstance(out, str):
+                reasons[k] = out
+                continue
+            results[k], pack = out
+            if strm is not None:
+                strm.add(k, results[k], pack)
+    return results, reasons, strm
+
+
+def _job_list(paths, setup: ParseSetup, nw: int, maps, mm_by_path,
+              comp_info):
+    """The parse's jobs in row order: a file of ``_PARALLEL_PARSE_BYTES``
+    or more is mapped, or inflated when it is compressed, and cut into
+    byte ranges; a smaller one is one job."""
+    jobs = []
+    for p in paths:
+        if compress.detect(p):
+            # one contiguous inflated buffer takes the map's place
+            data, info = compress.decompress_path(p, nw)
+            comp_info.append(info)
+            size = len(data)
+            if size >= _PARALLEL_PARSE_BYTES:
+                mm_by_path[p] = data
+                jobs += [(p, data, s, e, setup.header and s == 0)
+                         for s, e in _byte_ranges(data,
+                                                  _range_count(size, nw),
+                                                  setup)]
+            else:
+                jobs.append((p, data, 0, size, setup.header))
+            continue
+        size = os.path.getsize(p)
+        if size >= _PARALLEL_PARSE_BYTES:
+            f = open(p, "rb")
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            try:
+                mm.madvise(mmap.MADV_WILLNEED)
+            except (AttributeError, OSError):
+                pass
+            maps.append((f, mm))
+            mm_by_path[p] = mm
+            jobs += [(p, mm, s, e, setup.header and s == 0)
+                     for s, e in _byte_ranges(mm, _range_count(size, nw),
+                                              setup)]
+        else:
+            with open(p, "rb") as f:
+                jobs.append((p, f.read(), 0, size, setup.header))
+    return jobs
 
 
 def parse(paths: Union[str, Sequence[str]],
           setup: Optional[ParseSetup] = None, device=None,
           key: Optional[str] = None) -> Frame:
-    """Phase 2: parse CSV files into one Frame on ``device`` (the
-    ``init`` default, else ``cuda``). Files of ``_PARALLEL_PARSE_BYTES``
-    or more are mapped and cut into byte ranges that a thread pool
-    tokenizes in place; the job order is the row order."""
+    """Phase 2: parse CSV files, compressed or not, into one Frame on
+    ``device`` (the ``init`` default, else ``cuda``). Large inputs are
+    cut into byte ranges that a thread pool tokenizes in place; the job
+    order is the row order."""
     dev = _device.resolve(device)
     if isinstance(paths, str):
         paths = [paths]
-    paths = [_local_path(p) for p in paths]
+    paths = [localize(p) for p in paths]
     setup = setup or parse_setup(paths)
-    maps, mm_by_path = [], {}
+    maps, mm_by_path, comp_info = [], {}, []
     try:
         nw = ingest_workers()
         t_all0 = time.perf_counter()
-        jobs = []
-        for p in paths:
-            size = os.path.getsize(p)
-            if size >= _PARALLEL_PARSE_BYTES:
-                f = open(p, "rb")
-                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-                try:
-                    mm.madvise(mmap.MADV_WILLNEED)
-                except (AttributeError, OSError):
-                    pass
-                maps.append((f, mm))
-                mm_by_path[p] = mm
-                jobs += [(p, mm, s, e, setup.header and s == 0)
-                         for s, e in _byte_ranges(mm, _range_count(size, nw),
-                                                  setup)]
-            else:
-                with open(p, "rb") as f:
-                    jobs.append((p, f.read(), 0, size, setup.header))
+        jobs = _job_list(paths, setup, nw, maps, mm_by_path, comp_info)
         scan_s = time.perf_counter() - t_all0
         t0 = time.perf_counter()
         native_ok = _na_strings_native_safe(setup)
+        skipped = _skipped_set(setup)
+        active = [i for i in range(len(setup.column_names))
+                  if i not in skipped]
+        stream_cols = ([i for i in active if setup.column_types[i] in
+                        (T_REAL, T_INT, T_TIME, T_ENUM)]
+                       if _stream_on(dev) else [])
+        streamer, discarded = None, 0
         if native_ok:
-            results, reasons = _tokenize_native(jobs, setup, nw)
+            results, reasons, streamer = _tokenize_native(
+                jobs, setup, nw, stream_cols, dev)
             late = _late_quote_paths(jobs, reasons, mm_by_path, setup)
             if late:
                 # cut the files whose first quote lies past the probe again
                 # with the quote-aware pass, and tokenize every range again
+                if streamer is not None:
+                    streamer.discard()
+                    discarded += streamer.discarded_bytes
                 jobs = [j for p in paths for j in _rejob(
                     p, jobs, mm_by_path, setup, nw, p in late)]
-                results, reasons = _tokenize_native(jobs, setup, nw)
+                results, reasons, streamer = _tokenize_native(
+                    jobs, setup, nw, stream_cols, dev)
         else:
             results = [None] * len(jobs)
             reasons = {k: "numeric_na_sentinel" for k in range(len(jobs))}
@@ -393,20 +455,37 @@ def parse(paths: Union[str, Sequence[str]],
         for k in todo:
             _p, buf, s, e, skip = jobs[k]
             results[k] = _encode_range_python(buf, s, e, setup, skip)
+            if streamer is not None:
+                streamer.add(k, results[k])   # joins the stream late
         t1 = time.perf_counter()
-        skipped = _skipped_set(setup)
-        cols = merge_columns(results, setup.column_types, skipped)
-        t2 = time.perf_counter()
+        hidden_put_s = streamer.add_seconds if streamer is not None else 0.0
+        names = [setup.column_names[i] for i in active]
+        pos = {i: j for j, i in enumerate(active)}
+        vec_map = streamer.assemble() if streamer is not None else {}
+        tm = time.perf_counter()
+        cols = [None if i in vec_map else merge_column(
+            [cr[i] for cr in results], setup.column_types[i])
+            for i in active]
+        merge_s = time.perf_counter() - tm
         fr = Frame.from_typed_columns(
-            [n for i, n in enumerate(setup.column_names) if i not in skipped],
-            [c for c in cols if c is not None], device=dev,
-            key=key or os.path.basename(paths[0]))
+            names, cols, device=dev, key=key or os.path.basename(paths[0]),
+            preset={pos[i]: v for i, v in vec_map.items()})
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
+        put_s = hidden_put_s + (t3 - t1 - merge_s)
+        h2d = 0
+        if dev.type == "cuda":
+            h2d = (streamer.h2d_bytes if streamer is not None else 0) + sum(
+                4 * fr.nrow for c in cols
+                if c is not None and c.vtype != T_STR)
         fb: Dict[str, int] = {}
         for k in todo:
             fb[reasons[k]] = fb.get(reasons[k], 0) + 1
+        degrade: Dict[str, int] = {}
+        for info in comp_info:
+            if info.get("reason"):
+                degrade[info["reason"]] = degrade.get(info["reason"], 0) + 1
         LAST_PROFILE.clear()
         LAST_PROFILE.update({
             "rows": fr.nrow, "chunks": len(jobs), "bytes": sum(
@@ -414,8 +493,24 @@ def parse(paths: Union[str, Sequence[str]],
             "native": bool(native_ok and not todo),
             "native_ranges": len(jobs) - len(todo),
             "fallback_ranges": len(todo), "fallback_reasons": fb,
-            "workers": nw, "scan_s": scan_s, "tokenize_encode_s": t1 - t0,
-            "merge_s": t2 - t1, "device_put_s": t3 - t2})
+            "degrade_reasons": degrade,
+            "compressed": comp_info or None,
+            "decompress_s": sum(c["inflate_s"] for c in comp_info),
+            "workers": nw, "scan_s": scan_s,
+            "tokenize_encode_s": t1 - t0 - hidden_put_s,
+            "merge_s": merge_s, "device_put_s": put_s,
+            "streamed": streamer is not None,
+            "h2d_overlap_ratio": (hidden_put_s / put_s if streamer is not None
+                                  and put_s > 0 else None),
+            "add_seconds": hidden_put_s,
+            "assemble_seconds": (streamer.assemble_seconds
+                                 if streamer is not None else 0.0),
+            "h2d_bytes": h2d, "h2d_discarded_bytes": discarded,
+            "ring_allocs": (streamer.ring_allocs if streamer is not None
+                            else 0),
+            "fallback_cols": (sorted(setup.column_names[i]
+                                     for i in streamer.fallback_cols)
+                              if streamer is not None else [])})
         return fr
     finally:
         for f, mm in maps:
@@ -427,8 +522,9 @@ def parse(paths: Union[str, Sequence[str]],
 
 
 def _late_quote_paths(jobs, reasons, mm_by_path, setup) -> set:
-    """Mapped files with a declined range whose first quote lies past the
-    probe window: their cuts were placed blind to quotes."""
+    """Cut files (mapped or inflated) with a declined range whose first
+    quote lies past the probe window: their cuts were placed blind to
+    quotes."""
     if not reasons:
         return set()
     qb = (setup.quotechar or '"').encode()[0:1]
@@ -454,13 +550,72 @@ def import_file(path: Union[str, Sequence[str]],
                 col_types: Optional[Sequence[str]] = None,
                 na_strings: Optional[Sequence[str]] = None,
                 device=None) -> Frame:
-    """One-shot import of a CSV file or a list of CSV files with one
-    schema (``h2o.import_file``), onto ``device`` (the ``init`` default,
-    else ``cuda``). Other formats, compressed files and remote URIs raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
+    """One-shot import (``h2o.import_file``) onto ``device`` (the
+    ``init`` default, else ``cuda``): a path, a URI or a list of them.
+    A remote URI is localized first; the first file's extension picks
+    the parser (``formats.sniff_format``): CSV, gzip or zstd compressed
+    or not, through ``parse_setup`` and ``parse``; ARFF, SVMLight,
+    Parquet, ORC, Avro and xlsx through ``formats.FORMAT_PARSERS``, a
+    list of those joined row-wise by ``_rbind``."""
+    from h2o3_tpu_torch.ingest.formats import FORMAT_PARSERS, sniff_format
     dev = _device.resolve(device)
-    paths = [path] if isinstance(path, str) else list(path)
+    paths = ([localize(path)] if isinstance(path, str)
+             else [localize(p) for p in path])
+    fmt = sniff_format(paths[0])
+    if fmt != "csv":
+        fr = FORMAT_PARSERS[fmt](paths[0], device=dev, key=destination_frame)
+        for p in paths[1:]:
+            fr = _rbind(fr, FORMAT_PARSERS[fmt](p, device=dev))
+        if destination_frame:
+            fr.key = destination_frame
+        return fr
     setup = parse_setup(paths, separator=sep, header=header,
                         column_names=col_names, column_types=col_types,
                         na_strings=na_strings)
     return parse(paths, setup, device=dev, key=destination_frame)
+
+
+def _rbind(a: Frame, b: Frame) -> Frame:
+    """Two frames of one schema, row-wise (a multi-file import). Enum
+    columns union their domains and remap the codes (``_merge_enum``,
+    NA codes masked); wide ints stay exact (``_merge_numeric``); time
+    stays time; a column whose types differ between the files becomes
+    an enum of its labels. Raises ``ValueError`` where the names
+    differ."""
+    if a.names != b.names:
+        raise ValueError("multi-file import needs identical schemas")
+    dev = a.device
+
+    def num_chunk(v):
+        d = v.to_numpy()
+        if d.dtype == np.int64:        # the exact wide-int host copy
+            return EncodedColumn(T_INT, d.astype(np.float64), exact=d)
+        return EncodedColumn(v.type, d)
+
+    vecs = []
+    for n in a.names:
+        va, vb = a.vec(n), b.vec(n)
+        if va.type == T_ENUM and vb.type == T_ENUM:
+            col = _merge_enum([
+                EncodedColumn(T_ENUM, v.to_numpy().astype(np.int32),
+                              domain=list(v.domain or ()))
+                for v in (va, vb)])
+            vecs.append(Vec.from_numpy(col.data, dev, vtype=col.vtype,
+                                       domain=col.domain))
+        elif va.type == T_STR and vb.type == T_STR:
+            data = np.concatenate([va.to_strings(), vb.to_strings()])
+            vecs.append(Vec.from_numpy(np.asarray(data, dtype=object), dev,
+                                       vtype=T_STR))
+        elif va.type == T_TIME and vb.type == T_TIME:
+            ms = np.concatenate([va.to_numpy(), vb.to_numpy()])
+            vecs.append(Vec.from_numpy(ms.astype(np.int64), dev,
+                                       vtype=T_TIME))
+        elif va.is_numeric and vb.is_numeric:
+            vt = T_REAL if T_REAL in (va.type, vb.type) else T_INT
+            col = _merge_numeric([num_chunk(va), num_chunk(vb)], vt)
+            vecs.append(Vec.from_numpy(col.data, dev, vtype=col.vtype))
+        else:
+            data = np.concatenate([np.asarray(va.to_strings(), dtype=object),
+                                   np.asarray(vb.to_strings(), dtype=object)])
+            vecs.append(Vec.from_numpy(data, dev))
+    return Frame(list(a.names), vecs, key=a.key)

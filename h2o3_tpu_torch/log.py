@@ -1,0 +1,18 @@
+"""Logging of the port: warnings on the ``h2o3_tpu_torch`` logger.
+
+Counterpart of the warning half of ``h2o3_tpu/log.py`` (which logs on
+the logger ``h2o3_tpu``): a standard ``logging`` logger, so that an
+application's handlers and ``caplog`` see the port's warnings. The JAX
+module's ring buffer, timeline and phase profile are not ported yet
+(ROADMAP.md queue 1, item 21).
+"""
+from __future__ import annotations
+
+import logging
+
+logger = logging.getLogger("h2o3_tpu_torch")
+
+
+def warn(msg: str, *args) -> None:
+    """Log ``msg % args`` at WARNING."""
+    logger.warning(msg, *args)

@@ -22,6 +22,9 @@ are fetched to the host once, at the end.
 
 Parameters the port does not support yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them; none is silently ignored.
+The reference's compatibility-only parameters (``GBM_COMPAT_PARAMS``)
+are accepted, as the JAX package accepts them, with a warning at
+``train()`` for each one set away from its default.
 """
 from __future__ import annotations
 
@@ -75,6 +78,17 @@ GBM_DEFAULTS: Dict = dict(
     reg_alpha=0.0,
 )
 
+# the reference's GBM parameters that the JAX package accepts for API
+# compatibility and does not act on (h2o3_tpu/models/compat_params.py):
+# merged into every estimator's parameters; train() warns for each one
+# set away from its default
+GBM_COMPAT_PARAMS: Dict = dict(
+    max_confusion_matrix_size=20, nbins_top_level=1024, r2_stopping=None,
+    build_tree_one_node=False, pred_noise_bandwidth=0.0,
+    categorical_encoding="auto", custom_distribution_func=None,
+    check_constant_response=True, auto_rebalance=True,
+)
+
 # parameters of the JAX GBM the port refuses until the named ROADMAP.md
 # item (queue 1) lands: (name, predicate on its value, item)
 _UNSUPPORTED = (
@@ -115,6 +129,7 @@ def check_params(params: Dict) -> None:
     """Raise on a parameter the port does not know or does not support
     yet."""
     known = set(GBM_DEFAULTS) | BUILDER_PARAMS | _REFUSED_ONLY
+    known |= set(GBM_COMPAT_PARAMS)
     unknown = sorted(set(params) - known)
     if unknown:
         raise ValueError(f"gbm: unknown parameter(s) {unknown}")
@@ -237,10 +252,12 @@ class GBMModel(Model):
 
 class H2OGradientBoostingEstimator(ModelBuilder):
     algo = "gbm"
+    compat_params = GBM_COMPAT_PARAMS
 
     def __init__(self, **params):
         check_params(params)
         merged = dict(GBM_DEFAULTS)
+        merged.update(GBM_COMPAT_PARAMS)
         merged.update(params)
         super().__init__(**merged)
 

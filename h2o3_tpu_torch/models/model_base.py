@@ -18,6 +18,7 @@ import torch
 
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import T_ENUM, Vec
+from h2o3_tpu_torch.log import warn
 from h2o3_tpu_torch.models import metrics as metrics_mod
 
 
@@ -302,10 +303,20 @@ class ModelBuilder:
     calls ``_train_impl``."""
 
     algo = "base"
+    # parameters accepted for the reference API and not acted on, with
+    # their defaults: train() warns for each one set away from it
+    compat_params: Dict = {}
 
     def __init__(self, **params):
         self.params = dict(params)
         self.model: Optional[Model] = None
+
+    def _warn_compat_params(self) -> None:
+        for k, dflt in self.compat_params.items():
+            if self.params.get(k) != dflt:
+                warn(f"{self.algo}: parameter '{k}' is accepted for "
+                     f"reference API compatibility but NOT implemented — "
+                     f"value {self.params[k]!r} has no effect")
 
     def _model_key(self) -> str:
         mid = self.params.get("model_id")
@@ -322,6 +333,7 @@ class ModelBuilder:
               y: Optional[str] = None,
               training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None) -> "ModelBuilder":
+        self._warn_compat_params()
         y = y or self.params.get("response_column")
         training_frame = (training_frame if training_frame is not None
                           else self.params.get("training_frame"))

@@ -127,6 +127,52 @@ def test_unknown_parameter_and_validation_frame_raise():
         TorchGBM(ntrees=1, checkpoint=m.key)
 
 
+@pytest.mark.parametrize("key,away", [
+    ("categorical_encoding", "one_hot_explicit"),
+    ("nbins_top_level", 256), ("build_tree_one_node", True)])
+@pytest.mark.parametrize("at_default", [True, False])
+def test_compat_parameters_train_and_warn_away_from_default(
+        caplog, key, away, at_default):
+    """The reference's compatibility-only GBM parameters: both packages
+    take them and train the same trees; each warns, in the same words on
+    its own logger, only where the value is away from its default."""
+    import logging
+
+    from h2o3_tpu_torch.models.gbm import GBM_COMPAT_PARAMS
+    from h2o3_tpu.models.compat_params import COMPAT_PARAMS
+    assert GBM_COMPAT_PARAMS == COMPAT_PARAMS["gbm"]
+    value = GBM_COMPAT_PARAMS[key] if at_default else away
+    params = dict(PARAMS, ntrees=1, **{key: value})
+    cols = _data()
+    jlog = logging.getLogger("h2o3_tpu")
+    jlog.addHandler(caplog.handler)     # that logger does not propagate
+    try:
+        with caplog.at_level(logging.WARNING, logger="h2o3_tpu_torch"), \
+                caplog.at_level(logging.WARNING, logger="h2o3_tpu"):
+            jm = JaxGBM(**params).train(
+                y="label", training_frame=jh2o.Frame.from_numpy(cols)).model
+            tm = TorchGBM(**params).train(
+                y="label",
+                training_frame=th2o.Frame.from_numpy(cols, device="cpu")
+            ).model
+    finally:
+        jlog.removeHandler(caplog.handler)
+    said = {r.name: r.getMessage() for r in caplog.records
+            if f"parameter '{key}'" in r.getMessage()}
+    if at_default:
+        assert said == {}
+    else:
+        assert set(said) == {"h2o3_tpu", "h2o3_tpu_torch"}
+        assert said["h2o3_tpu"] == said["h2o3_tpu_torch"]
+        assert "NOT implemented" in said["h2o3_tpu_torch"]
+    assert tm.params[key] == value
+    ja = jm._save_arrays()
+    for k in ("feat", "is_split", "na_left"):
+        np.testing.assert_array_equal(np.asarray(ja[k]), tm.trees[k])
+    assert tm.training_metrics.auc == pytest.approx(
+        jm.training_metrics.auc, abs=1e-6)
+
+
 # ------------------------------------------------------------ adaptive path
 
 # min_rows 10: leaves of a few rows tie exactly between features that cut

@@ -51,9 +51,26 @@ def test_sources_cover_every_model_module():
         assert f"h2o3_tpu_torch/models/{mod}.py" in names
 
 
+INGEST_MODULES = ("h2o3_tpu_torch/resilience.py", "h2o3_tpu_torch/log.py",
+                  "h2o3_tpu_torch/ingest/compress.py",
+                  "h2o3_tpu_torch/ingest/stream.py",
+                  "h2o3_tpu_torch/ingest/formats.py",
+                  "h2o3_tpu_torch/ingest/persist_uri.py",
+                  "h2o3_tpu_torch/ingest/sql.py")
+
+
+def test_sources_cover_every_ingest_module():
+    """The no-JAX rule reads the ingest modules (compressed inputs,
+    streaming, formats, URIs, SQL) and the retry and log modules."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert set(INGEST_MODULES) <= names
+
+
 def test_import_leaves_jax_out():
+    mods = ", ".join(m[:-3].replace("/", ".") for m in INGEST_MODULES)
     code = ("import sys; import h2o3_tpu_torch, h2o3_tpu_torch.estimators, "
-            "h2o3_tpu_torch.models.xgboost, h2o3_tpu_torch.ops.binning; "
+            f"h2o3_tpu_torch.models.xgboost, h2o3_tpu_torch.ops.binning, "
+            f"{mods}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o3_tpu')))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

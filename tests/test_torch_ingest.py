@@ -6,8 +6,7 @@ int64, time in int64 ms), bit for bit. The cases are those of
 ``tests/test_ingest_pipeline.py``; each runs through the port's native
 tokenizer and its Python tokenizer, over one byte range and over many.
 Also: declined ranges are counted by reason, the chunk merge masks NA
-codes, and unsupported inputs raise naming their ROADMAP.md item."""
-import gzip
+codes, and legacy ``.xls`` is refused as the JAX package refuses it."""
 import importlib
 
 import numpy as np
@@ -284,16 +283,19 @@ def test_merge_enum_masks_na_codes(has_na):
     np.testing.assert_array_equal(lut, [6, -1, 5])
 
 
-def test_unsupported_inputs_raise_naming_their_item(tmp_path):
-    gz = tmp_path / "a.csv.gz"
-    gz.write_bytes(gzip.compress(b"a,b\n1,2\n"))
-    pq = tmp_path / "a.parquet"
-    pq.write_bytes(b"PAR1")
-    for path, item in ((str(gz), "B2"), (str(pq), "B3"),
-                       ("s3://bucket/a.csv", "B4")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md, queue 1, item {item}"):
-            th2o.import_file(path, device="cpu")
+def test_legacy_xls_is_refused_with_the_jax_message(tmp_path):
+    """Legacy BIFF ``.xls`` is the one input both packages refuse, for
+    want of ``xlrd``, with the same message; every other input reads
+    (``test_torch_ingest_compress.py``, ``_formats.py``, ``_remote.py``)."""
+    p = tmp_path / "old.xls"
+    p.write_bytes(b"\xd0\xcf\x11\xe0junk")
+    msgs = []
+    for imp in (lambda: th2o.import_file(str(p), device="cpu"),
+                lambda: jh2o.import_file(str(p))):
+        with pytest.raises(NotImplementedError, match="xlrd") as e:
+            imp()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_import_file_raises_without_cuda(tmp_path, monkeypatch):
