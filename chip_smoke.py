@@ -230,6 +230,24 @@ against its plain version. Phases, each fatal on failure:
    queued back to back (P3's eager chains keep the host's launch time on
    purpose; its shares are of the graph's times).
 
+10. scoring and serving (``phase_serve``, run after phase 8 on the
+   packed main path's model, XGBoost hist and the airlines model; no
+   K-kernel may launch in it): ``model.predict`` over the 10M x 28 frame
+   for the first two, cold and the warm median of 3, rows/s, peak device
+   memory and the bound (X read once, one 32-byte sector of X gathered
+   and a 4-byte leaf id read and written a row, level and tree); each
+   model deployed with the buckets 1/8/64/512/4096, one CUDA graph each:
+   the capture's seconds, the replay's device time (median of 100), the
+   eager predict at the same shape (median of 10), the device activities
+   of one eager call (torch.profiler), the replay bit-equal to eager;
+   4096 rows of each frame through ``predict_rows`` and
+   ``predict_columnar`` bit-equal to ``predict`` (the airlines rows with
+   string labels, one unknown level and a column missing, against
+   predict of a frame of the same values); 16 client threads x 256
+   requests of 1-64 rows at max_batch 512, every answer bit-equal to
+   predict, with no capture and no eager predict after deploy: rows/s,
+   requests/s, p50, p99, batches, live rows a batch, stage totals.
+
 Before its last lines it prints each phase's wall seconds. The last
 two lines of stdout are the kernel record and
 ``{"ok": true, "device": {...}}``.
@@ -1557,7 +1575,7 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
           flush=True)
     return {"auc": auc, "loop_s": loop_s, "rows_per_s": rps,
             "launches": launches, "frame": fr, "trees": model.trees,
-            "n_bins": model.n_bins}
+            "n_bins": model.n_bins, "model": model}
 
 
 def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
@@ -1801,6 +1819,9 @@ def phase_csv(card, higgs_rows=1_000_000, air_rows=10_000_000,
     check_repeats(runs, "airlines_csv", "float32 x2")
     del runs
     warm_s = phase_warm_profile(fr, card, "airlines_csv", air["trees"])
+    # rows of the frame for the serve phase (phase_serve)
+    air_sample = fr.rows(np.sort(np.random.default_rng(SERVE_SEED).choice(
+        fr.nrow, SERVE_ROWS, replace=False)))
     del fr, air["frame"]
     small = path[:-len(".csv")] + f"_head{cpu_rows}.csv"
     csv_prefix(path, small, cpu_rows)
@@ -1811,7 +1832,8 @@ def phase_csv(card, higgs_rows=1_000_000, air_rows=10_000_000,
           flush=True)
     return {"higgs_csv": higgs["launches"], "airlines_csv": air["launches"],
             "airlines_warm_s": warm_s, "airlines_kernel_ms_tree": level_ms,
-            "airlines_train": {"trees": air["trees"], "auc": air["auc"]}}
+            "airlines_train": {"trees": air["trees"], "auc": air["auc"]},
+            "airlines_model": air["model"], "airlines_sample": air_sample}
 
 
 # ------------------------------------------------------------ ingest (B1-B5)
@@ -3732,7 +3754,6 @@ def phase_xgboost(card, fr, cpu_rows=200_000, cpu_valid_rows=50_000):
           f"{vfr.nrow} rows, one copy to the host; the AUC's bits equal in "
           f"five calls and on the CPU); peak device memory "
           f"{peak:.3f} GiB [{card}]", flush=True)
-    del a
 
     # train B: tree_method="auto" with early stopping on the AUC
     for k in kernels.LAUNCHES:
@@ -3833,7 +3854,301 @@ def phase_xgboost(card, fr, cpu_rows=200_000, cpu_valid_rows=50_000):
         if mc.ntrees_built >= stop["ntrees"]:
             raise AssertionError(f"xgboost {tree_method}: no early stop "
                                  f"at {cpu_rows} rows")
-    return out
+    return out, a
+
+
+# ------------------------------------------------- 10. scoring and serving
+
+SERVE_SEED = 17           # the sampled rows and the load's request sizes
+SERVE_ROWS = 4096         # rows sampled from each frame for serve == predict
+LOAD = dict(clients=16, requests=256, min_rows=1, max_rows=64,
+            max_batch=512, max_delay_ms=2.0)
+
+
+def predict_bound_ms(rows, F, trees, depth):
+    """Least time of a predict over ``rows``: X read once, and per row,
+    level and tree one 32-byte sector of X gathered and a 4-byte leaf id
+    read and written, over the card's memory rate."""
+    nbytes = rows * F * 4 + rows * trees * depth * (32 + 4 + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def predict_at_scale(card, name, model, fr, reps=3):
+    """``model.predict(fr)`` at the frame's full size: the first call,
+    then the median of ``reps`` (each synchronised), rows/s, the peak
+    device memory above what was resident, and the bound. Returns the
+    predict frame of the last call."""
+    import torch
+    rows = fr.nrow
+    times = []
+    for i in range(reps + 1):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = model.predict(fr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    warm = float(np.median(times[1:]))
+    F = len(model.feature_names)
+    bound_ms, nbytes = predict_bound_ms(rows, F, model.ntrees_built,
+                                        model.max_depth)
+    print(f"predict {name}: {rows}x{F}, {model.ntrees_built} trees depth "
+          f"{model.max_depth}: cold {times[0]!r} s, warm median of {reps} "
+          f"{warm!r} s ({times[1:]!r}), rows/s {rows / warm!r}, peak "
+          f"device memory above the resident {peak:.3f} GiB; bound "
+          f"{bound_ms!r} ms ({nbytes} bytes: X read once, one 32-byte "
+          f"sector of X gathered and a 4-byte leaf id read and written a "
+          f"row, level and tree, at {HBM_BYTES_PER_S:.3g} B/s), "
+          f"{bound_ms / (warm * 1e3):.4f} of it [{card}]", flush=True)
+    return pred
+
+
+def eager_kernel_count(fn):
+    """Device activities (kernels, copies, fills) in one call of ``fn``,
+    as torch.profiler traces them; None where it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def bucket_record(card, name, dep, X_pool):
+    """Each bucket of a deployment on the card: the capture's seconds
+    (eager warm-ups and capture), the replay's device time (CUDA events,
+    median of 100), the eager masked predict at the same shape (median
+    of 10), the device activities of one eager call, and the replay
+    against eager bit for bit on rows of the frame, half the bucket
+    live."""
+    import torch
+    sc = dep.scorer
+    if not sc.graphed or sc.captures != len(sc.buckets):
+        raise AssertionError(f"serve {name}: graphed {sc.graphed}, "
+                             f"{sc.captures} captures for {sc.buckets}")
+    for b in sc.buckets:
+        bk = sc.bucket(b)
+        bk.x.copy_(X_pool[:b])
+        bk.n.fill_(b // 2 + 1)
+        bk.graph.replay()
+        got = bk.out.clone()
+        want = sc._masked(bk.x, bk.n)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"serve {name}: bucket {b}: the replay "
+                                 f"differs from the eager predict")
+        bk.n.fill_(b)
+        replay_ms = time_cuda(bk.graph.replay, 100)
+        eager_ms = time_cuda(lambda: sc._masked(bk.x, bk.n), 10)
+        kernels_n = eager_kernel_count(lambda: sc._masked(bk.x, bk.n))
+        print(f"serve {name} bucket {b}: capture (3 eager warm-ups and the "
+              f"capture) {sc.warm_seconds[b]!r} s, replay {replay_ms!r} ms "
+              f"(device, median of 100), eager {eager_ms!r} ms (median of "
+              f"10), device activities in one eager call "
+              f"{kernels_n if kernels_n else 'not measured'}, replay == "
+              f"eager bit for bit [{card}]", flush=True)
+
+
+def served_vs_predicted(name, dep, rows, labels, probs, domain):
+    """Rows through predict_rows and predict_columnar against predict's
+    labels and class probabilities of the same rows, bit for bit."""
+    served = dep.predict_rows(rows)
+    cols = dep.predict_columnar(rows)
+    lab = [domain[int(c)] for c in labels]
+    bad = [i for i, p in enumerate(served)
+           if p["label"] != lab[i]
+           or any(p["classProbabilities"][d] != float(probs[i, k])
+                  for k, d in enumerate(domain))]
+    bad_c = [i for i in range(len(rows))
+             if cols["predict"][i] != lab[i]
+             or any(cols[f"p{d}"][i] != float(probs[i, k])
+                    for k, d in enumerate(domain))]
+    if bad or bad_c or len(served) != len(rows):
+        raise AssertionError(f"serve {name}: {len(bad)} rows and {len(bad_c)} "
+                             f"columnar rows differ from predict (first "
+                             f"{(bad or bad_c)[:5]})")
+
+
+def host_rows(fr, names, idx):
+    """Rows ``idx`` of ``fr`` as request dicts: numbers as floats, enum
+    cells as their labels, NA as None."""
+    cols = {}
+    for n in names:
+        v = fr.vec(n)
+        if v.type == "enum":
+            cols[n] = v.to_strings()[idx]
+        else:
+            x = v.to_numpy()[idx].astype(np.float64)
+            cols[n] = [None if np.isnan(a) else float(a) for a in x]
+    return [{n: cols[n][i] for n in names} for i in range(len(idx))]
+
+
+def predict_probs(pred, domain):
+    return (pred.vec("predict").to_numpy(),
+            np.stack([pred.vec(f"p{d}").to_numpy() for d in domain], 1))
+
+
+def serve_load(card, dep, rows, labels, probs, domain):
+    """``LOAD["clients"]`` threads, each sending ``LOAD["requests"]``
+    requests of 1-64 rows (sizes and offsets drawn from SERVE_SEED) to
+    ``dep``; every answer held against predict's rows bit for bit."""
+    rng = np.random.default_rng(SERVE_SEED)
+    plans = [[(int(rng.integers(0, len(rows) - LOAD["max_rows"])),
+               int(rng.integers(LOAD["min_rows"], LOAD["max_rows"] + 1)))
+              for _ in range(LOAD["requests"])]
+             for _ in range(LOAD["clients"])]
+    lab = [domain[int(c)] for c in labels]
+    errs, bad = [], []
+
+    def client(plan):
+        try:
+            for off, n in plan:
+                got = dep.predict_rows(rows[off:off + n])
+                for i, p in enumerate(got):
+                    j = off + i
+                    if p["label"] != lab[j] or any(
+                            p["classProbabilities"][d] != float(probs[j, k])
+                            for k, d in enumerate(domain)):
+                        bad.append(j)
+        except Exception as e:  # re-raised below, on the main thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads) or bad:
+        raise AssertionError(f"serve load: clients alive "
+                             f"{sum(t.is_alive() for t in threads)}, "
+                             f"{len(bad)} rows differ from predict")
+    n_rows = sum(n for p in plans for _o, n in p)
+    n_req = LOAD["clients"] * LOAD["requests"]
+    snap = dep.stats.snapshot()
+    print(f"serve load: {LOAD['clients']} clients x {LOAD['requests']} "
+          f"requests of {LOAD['min_rows']}-{LOAD['max_rows']} rows (seed "
+          f"{SERVE_SEED}), max_batch {LOAD['max_batch']}, max_delay_ms "
+          f"{LOAD['max_delay_ms']}: {n_rows} rows in {wall!r} s, rows/s "
+          f"{n_rows / wall!r}, requests/s {n_req / wall!r}, p50 "
+          f"{snap['p50_ms']!r} ms p99 {snap['p99_ms']!r} ms, batches "
+          f"{snap['batches']}, mean live rows a batch "
+          f"{snap['mean_batch_occupancy']!r}, bucket fill "
+          f"{snap['bucket_fill']!r}, stage ms totals "
+          f"{json.dumps(snap['stage_ms'])} [{card}]", flush=True)
+    return snap
+
+
+def phase_serve(card, fr, packed, xgb, airlines, air_sample):
+    """Scoring and serving on the card. ``packed`` and ``xgb`` are the
+    packed main path's GBM and XGBoost "hist" (both on the 10M x 28
+    frame ``fr``), ``airlines`` the airlines GBM from the CSV phase and
+    ``air_sample`` rows of its frame. Predict over the whole frame for
+    the first two (timed, with its bound); each model deployed with the
+    buckets 1-4096, one CUDA graph each, per bucket its times and the
+    replay against eager bit for bit; SERVE_ROWS rows of each frame
+    served (rows and columnar) bit-equal to predict's (the airlines rows
+    with string labels, one unknown level and one column missing,
+    against predict of a frame of the same values); then a concurrent
+    load on the packed model with its own deployment (max_batch 512),
+    every answer checked, no capture and no eager predict after deploy.
+    The K-kernels' launch counters must not move in the whole phase."""
+    import h2o3_tpu_torch as h2o
+    import torch
+    from h2o3_tpu_torch import serve
+    from h2o3_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    launches0 = dict(kernels.LAUNCHES)
+    rng = np.random.default_rng(SERVE_SEED)
+    idx = np.sort(rng.choice(fr.nrow, SERVE_ROWS, replace=False))
+    names = packed.feature_names
+    rows = host_rows(fr, names, idx)
+    X_pool = fr.rows(idx).as_matrix(names)
+    for name, model in (("packed", packed), ("xgboost_hist", xgb)):
+        pred = predict_at_scale(card, name, model, fr)
+        dom = list(model.response_domain)
+        labels, probs = predict_probs(pred, dom)
+        labels, probs = labels[idx], probs[idx]
+        del pred
+        dep = serve.deploy(f"serve_{name}", model=model, max_batch=4096)
+        bucket_record(card, name, dep, X_pool)
+        caps, eager = dep.scorer.captures, dep.scorer.eager_calls
+        served_vs_predicted(name, dep, rows, labels, probs, dom)
+        if (dep.scorer.captures, dep.scorer.eager_calls) != (caps, eager):
+            raise AssertionError(f"serve {name}: served rows captured or "
+                                 f"ran an eager predict")
+        if name == "packed":
+            pool = (rows, labels, probs, dom)
+        serve.undeploy(f"serve_{name}")
+        print(f"serve {name}: {SERVE_ROWS} rows served (rows and columnar) "
+              f"bit-equal to predict over the whole frame [{card}]",
+              flush=True)
+
+    # airlines: string labels, one unknown level, one column missing
+    names = airlines.feature_names
+    dropped = "DayOfWeek"
+    arows = host_rows(air_sample, names, np.arange(air_sample.nrow))
+    arows[0]["Origin"] = "Z?Z"
+    for r in arows:
+        del r[dropped]
+    cols = {}
+    for n in names:
+        if n == dropped:
+            continue
+        vals = [r[n] for r in arows]
+        cols[n] = (np.array(vals, dtype=object)
+                   if air_sample.vec(n).type == "enum"
+                   else np.array([np.nan if v is None else v for v in vals],
+                                 np.float32))
+    afr = h2o.Frame.from_numpy(cols, device="cuda")
+    dom = list(airlines.response_domain)
+    labels, probs = predict_probs(airlines.predict(afr), dom)
+    dep = serve.deploy("serve_airlines", model=airlines, max_batch=4096)
+    bucket_record(card, "airlines", dep, air_sample.as_matrix(names))
+    served_vs_predicted("airlines", dep, arows, labels, probs, dom)
+    if dep.codec.unknown_categorical_levels_seen != {"Origin": 2}:
+        raise AssertionError(f"serve airlines: unknown levels seen "
+                             f"{dep.codec.unknown_categorical_levels_seen}")
+    serve.undeploy("serve_airlines")
+    print(f"serve airlines: {len(arows)} rows with string labels, Origin "
+          f"'Z?Z' unknown in one, {dropped} missing in all, served (rows "
+          f"and columnar) bit-equal to predict of a frame of the same "
+          f"values [{card}]", flush=True)
+
+    # the concurrent load, on its own deployment of the packed model
+    dep = serve.deploy("serve_load", model=packed,
+                       max_batch=LOAD["max_batch"],
+                       max_delay_ms=LOAD["max_delay_ms"])
+    caps, eager = dep.scorer.captures, dep.scorer.eager_calls
+    snap = serve_load(card, dep, *pool)
+    if (dep.scorer.captures, dep.scorer.eager_calls) != (caps, eager) \
+            or dep.scorer.replays != snap["batches"]:
+        raise AssertionError(
+            f"serve load: captures {dep.scorer.captures - caps}, eager "
+            f"{dep.scorer.eager_calls - eager}, replays "
+            f"{dep.scorer.replays} for {snap['batches']} batches")
+    serve.shutdown_all()
+    torch.cuda.synchronize()
+    if dict(kernels.LAUNCHES) != launches0:
+        raise AssertionError(f"serve: kernel launches moved: "
+                             f"{launches0} -> {dict(kernels.LAUNCHES)}")
+    print(f"serve phase: {time.perf_counter() - t_phase!r} s wall; no "
+          f"K-kernel launched [{card}]", flush=True)
 
 
 # ------------------------------------------------- 9. the probe tools
@@ -4561,14 +4876,19 @@ def main() -> int:
     clock.lap("7 repeatability")
 
     # 8. XGBoost (BASELINE config #2): validation frame, early stopping
-    xgb = phase_xgboost(card, fr)
-    del fr
+    xgb, xgb_hist = phase_xgboost(card, fr)
     for path, launches in xgb.items():
         for kernel in ("binned_level", "binned_route_only",
                        "segment_totals"):
             by_name[kernel].setdefault("launches_by_path", {})[
                 f"xgboost_{path}"] = launches[kernel]
     clock.lap("8 xgboost")
+    # 10. scoring and serving: predict at 10M rows, one CUDA graph a
+    # batch bucket, served rows against predict, a concurrent load
+    phase_serve(card, fr, packed["model"], xgb_hist,
+                csv["airlines_model"], csv["airlines_sample"])
+    del fr, xgb_hist, csv
+    clock.lap("10 serve")
     # 9. the probe tools, P1-P6
     rec += phase_probes(card, dev)
     clock.lap("9 probes")

@@ -16,7 +16,10 @@ the card a byte range at a time) and training a bernoulli or gaussian
 GBM, or the XGBoost estimator over it, on packed bin codes, on per-node
 adaptive bins (H2O's ``UniformAdaptive``) or on the unpacked global
 sketch (more than 254 bins), with a validation frame, interval scoring and early stopping,
-its training and validation metrics and ``predict``; ROADMAP.md queues
+its training and validation metrics and ``predict``, and serving a
+trained model's rows (``Model.deploy``, ``h2o3_tpu_torch.serve``: one
+CUDA graph of the predict a batch bucket, a micro-batcher) and the
+EasyPredict row API (``h2o3_tpu_torch.genmodel``); ROADMAP.md queues
 the rest.
 """
 from h2o3_tpu_torch._device import init

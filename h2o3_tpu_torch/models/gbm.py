@@ -48,7 +48,7 @@ from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         grow_tree_binned,
                                         packed_bins_upper_bound,
                                         packed_codes_requested,
-                                        predict_binned, predict_raw_stacked,
+                                        predict_binned, predict_raw_margin,
                                         predict_raw_tree, tree_config)
 from h2o3_tpu_torch.ops.binning import (bin_matrix_device,
                                         digitize_with_edges, pack_codes,
@@ -194,6 +194,9 @@ class GBMModel(Model):
                          cat_domains=cat_domains)
         self.dist_name = dist_name
         self.f0 = np.array(f0, np.float32)
+        # on the device once: predict adds no host copy, so that it can
+        # be captured in a CUDA graph
+        self._f0 = torch.tensor(self.f0, device=device)
         self.edges = edges
         self.n_bins = n_bins
         self.max_depth = max_depth
@@ -237,10 +240,9 @@ class GBMModel(Model):
                    cat_domains=meta.get("cat_domains"))
 
     def _margin_matrix(self, X: torch.Tensor) -> torch.Tensor:
-        contribs = predict_raw_stacked(X, self._feat, self._thr,
-                                       self._na_left, self._is_split,
-                                       self._value, self.max_depth)
-        return torch.as_tensor(self.f0, device=X.device) + contribs.sum(1)
+        return predict_raw_margin(X, self._f0, self._feat, self._thr,
+                                  self._na_left, self._is_split,
+                                  self._value, self.max_depth)
 
     def _predict_matrix(self, X: torch.Tensor) -> torch.Tensor:
         margin = self._margin_matrix(X.to(self.device))

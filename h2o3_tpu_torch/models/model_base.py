@@ -276,6 +276,25 @@ class Model:
         probabilities."""
         raise NotImplementedError
 
+    def _correct_probabilities(self, probs: torch.Tensor) -> torch.Tensor:
+        """balance_classes probability un-correction (hex/Model
+        correctProbabilities), copied from the JAX package: p_k ∝ p̂_k ·
+        prior_k / model_dist_k, so that a model trained on a rebalanced
+        distribution reports probabilities calibrated to the original
+        class priors. The identity until a train records both
+        distributions (ROADMAP.md queue 1, item A7)."""
+        prior_d = self.output.get("prior_class_dist")
+        model_d = self.output.get("model_class_dist")
+        if not prior_d or not model_d or probs.dim() != 2 \
+                or probs.shape[1] != len(prior_d):
+            return probs
+        ratio = (torch.tensor(prior_d, dtype=torch.float64)
+                 / torch.tensor(model_d, dtype=torch.float64).clamp(
+                     min=1e-12)).to(probs.device)
+        p = probs.to(torch.float64) * ratio[None, :]
+        return (p / p.sum(dim=1, keepdim=True).clamp(min=1e-12)).to(
+            probs.dtype)
+
     def predict(self, frame: Frame) -> Frame:
         """Score a frame on its device: regression -> 'predict';
         classification -> 'predict' plus one probability column per
@@ -283,11 +302,28 @@ class Model:
         out = self._predict_matrix(adapt_test_matrix(self, frame))
         if self.nclasses <= 1:
             return Frame(["predict"], [Vec(out.to(torch.float32))])
+        out = self._correct_probabilities(out)
         lbl = torch.argmax(out, dim=1).to(torch.int32)
         names = ["predict"] + [f"p{d}" for d in self.response_domain]
         vecs = [Vec(lbl, T_ENUM, self.response_domain)]
         vecs += [Vec(out[:, k].contiguous()) for k in range(self.nclasses)]
         return Frame(names, vecs)
+
+    def deploy(self, **serve_config):
+        """Deploy this model for row serving (``h2o3_tpu_torch.serve``):
+        the row codec's lookup tables, one CUDA graph of the predict a
+        batch bucket on the card, and a micro-batcher. Returns the
+        Deployment."""
+        from h2o3_tpu_torch import serve
+        return serve.deploy(self.key, model=self, **serve_config)
+
+    def predict_rows(self, rows, timeout_ms=None):
+        """Score a list of {column: value} dicts through the deployed
+        micro-batcher, deploying with the defaults on first use; an
+        existing deployment under this key is reused as it is."""
+        from h2o3_tpu_torch import serve
+        dep = serve.deployment(self.key) or self.deploy()
+        return dep.predict_rows(rows, timeout_ms=timeout_ms)
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.key}>"

@@ -658,36 +658,47 @@ def predict_binned(codes, tree, max_depth: int, na_bin: int):
     return tree["value"][nid], nid.to(torch.int32)
 
 
-def predict_raw_tree(X, tree, max_depth: int):
-    """Leaf values and leaf ids of one tree (a dict of [M] tensors with
-    raw thresholds ``thr``) walked over raw features (float32, NaN =
-    NA): one gather per level."""
+def _walk_raw(X, feat, thr, na_left, is_split, max_depth: int):
+    """Leaf ids (int64) of one tree's [M] arrays walked over raw
+    features (float32, NaN = NA): one gather per level. ``feat`` is
+    clamped only where ``is_split`` masks the result."""
     nid = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
     for _ in range(max_depth):
-        f = tree["feat"][nid]
-        s = tree["is_split"][nid]
-        th = tree["thr"][nid]
-        nl = tree["na_left"][nid]
+        f = feat[nid]
+        s = is_split[nid]
+        th = thr[nid]
+        nl = na_left[nid]
         x = X.gather(1, f.clamp(min=0).long()[:, None])[:, 0]
         right = torch.where(torch.isnan(x), ~nl, x >= th)
         nid = torch.where(s, 2 * nid + 1 + right.long(), nid)
+    return nid
+
+
+def predict_raw_tree(X, tree, max_depth: int):
+    """Leaf values and leaf ids of one tree (a dict of [M] tensors with
+    raw thresholds ``thr``) walked over raw features (float32, NaN =
+    NA)."""
+    nid = _walk_raw(X, tree["feat"], tree["thr"], tree["na_left"],
+                    tree["is_split"], max_depth)
     return tree["value"][nid], nid.to(torch.int32)
 
 
-def predict_raw_stacked(X, feat, thr, na_left, is_split, value,
-                        max_depth: int):
-    """Per-tree contributions ``[rows, T]`` of a stack of T trees
-    (``feat``/``thr``/... are [T, M]) walked over raw features (float32,
-    NaN = NA)."""
-    out = [predict_raw_tree(X, {"feat": feat[t], "thr": thr[t],
-                                "na_left": na_left[t],
-                                "is_split": is_split[t],
-                                "value": value[t]}, max_depth)[0]
-           for t in range(feat.shape[0])]
-    if not out:
-        return torch.zeros((X.shape[0], 0), dtype=torch.float32,
-                           device=X.device)
-    return torch.stack(out, dim=1)
+def predict_raw_margin(X, f0, feat, thr, na_left, is_split, value,
+                       max_depth: int):
+    """``f0`` plus the leaf values of a stack of T trees (``feat``/
+    ``thr``/... are [T, M]) walked over raw features, added one tree at a
+    time in tree order: each row's sum is the same sequence of float32
+    adds whatever the number of rows, so a one-row batch and a whole
+    frame give a row the same bits. ``f0`` is a 0-d tensor on X's
+    device."""
+    # clone, never contiguous(): a one-row expand is already contiguous,
+    # and the adds below would then write into f0 itself
+    margin = f0.expand(X.shape[0]).clone()
+    for t in range(feat.shape[0]):
+        nid = _walk_raw(X, feat[t], thr[t], na_left[t], is_split[t],
+                        max_depth)
+        margin += value[t][nid]
+    return margin
 
 
 def bins_to_thresholds_stacked(split_bin: np.ndarray, feat: np.ndarray,

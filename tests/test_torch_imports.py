@@ -80,6 +80,66 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
+SERVE_MODULES = ("h2o3_tpu_torch/genmodel.py",
+                 "h2o3_tpu_torch/telemetry/__init__.py",
+                 "h2o3_tpu_torch/telemetry/registry.py",
+                 "h2o3_tpu_torch/serve/__init__.py",
+                 "h2o3_tpu_torch/serve/batcher.py",
+                 "h2o3_tpu_torch/serve/circuit.py",
+                 "h2o3_tpu_torch/serve/codec.py",
+                 "h2o3_tpu_torch/serve/lanes.py",
+                 "h2o3_tpu_torch/serve/registry.py",
+                 "h2o3_tpu_torch/serve/service.py",
+                 "h2o3_tpu_torch/serve/stats.py")
+
+
+def test_sources_cover_every_serving_module():
+    """The no-JAX rule reads the scoring and serving modules: the
+    EasyPredict row API, the metrics registry and serve/."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert set(SERVE_MODULES) <= names
+
+
+def test_serving_import_leaves_jax_out():
+    code = ("import sys; import h2o3_tpu_torch.serve as s, "
+            "h2o3_tpu_torch.genmodel as g, h2o3_tpu_torch.telemetry; "
+            "from h2o3_tpu_torch.models.model_base import Model; "
+            "api = ('deploy', 'undeploy', 'deployment', 'deployments', "
+            "'predict_rows', 'predict_columnar', 'stats', 'shutdown_all', "
+            "'circuit_states'); "
+            "assert all(callable(getattr(s, n)) for n in api); "
+            "assert all(callable(getattr(g, n)) for n in ('rows_to_matrix', "
+            "'build_domain_luts', 'EasyPredictModelWrapper')); "
+            "assert callable(Model.deploy) and callable(Model.predict_rows); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'h2o3_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_deploy_of_a_cuda_model_raises_without_cuda(monkeypatch):
+    """serve.deploy runs where the model lives: a model on cuda without a
+    CUDA device raises, as the other entry points do, and nothing is
+    deployed."""
+    from h2o3_tpu_torch import serve
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    rng = np.random.default_rng(0)
+    fr = th2o.Frame.from_numpy({"a": rng.normal(size=200).astype(np.float32),
+                                "y": (rng.random(200) < 0.5).astype(
+                                    np.float32)}, device="cpu")
+    m = H2OGradientBoostingEstimator(ntrees=2, max_depth=2,
+                                     distribution="bernoulli").train(
+        y="y", training_frame=fr).model
+    m.device = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.deploy("cuda_model", model=m)
+    assert serve.deployment("cuda_model") is None
+
+
 def test_tokenizer_build_stays_in_the_port(monkeypatch):
     """Building the tokenizer compiles only the port's copy of
     fast_csv.cpp (the JAX package's code, comment for comment but for two

@@ -110,11 +110,24 @@ def test_predict_binned_and_raw_stacked_match_jax():
                                      jnp.asarray(thr), jnp.asarray(nal),
                                      jnp.asarray(spl), jnp.asarray(val),
                                      depth)
-    got = ttree.predict_raw_stacked(
-        torch.as_tensor(X), torch.as_tensor(feat).long(),
+    want = np.asarray(want)
+    for t in range(2):
+        got, _ = ttree.predict_raw_tree(
+            torch.as_tensor(X),
+            {"feat": torch.as_tensor(feat[t]).long(),
+             "thr": torch.as_tensor(thr[t]),
+             "na_left": torch.as_tensor(nal[t]),
+             "is_split": torch.as_tensor(spl[t]),
+             "value": torch.as_tensor(val[t])}, depth)
+        np.testing.assert_array_equal(got.numpy(), want[:, t])
+    # the margin: f0 and the trees' values added in tree order, float32
+    f0 = np.float32(0.375)
+    margin = ttree.predict_raw_margin(
+        torch.as_tensor(X), torch.tensor(f0), torch.as_tensor(feat).long(),
         torch.as_tensor(thr), torch.as_tensor(nal), torch.as_tensor(spl),
         torch.as_tensor(val), depth)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(margin.numpy(),
+                                  (f0 + want[:, 0]) + want[:, 1])
 
 
 def test_segment_totals_sum_per_leaf():
