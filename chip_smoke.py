@@ -198,6 +198,45 @@ against its plain version. Phases, each fatal on failure:
    methods with early stopping at float32: the same tree count and
    history, every split equal, |dAUC| <= 1e-6 (min_child_weight 10).
 
+8a. the multinomial GBM (``phase_multinomial``): a covertype-shaped
+   frame (the UCI Covertype data, H2O's ``covtype.data``: 581,012 rows,
+   10 integer terrain columns in its ranges, 4 wilderness and 40 soil
+   one-hot columns, 7 cover types at its class shares, drawn from a
+   seed) on the card and H2O's default GBM on it (multinomial by the
+   response; 50 iterations of 7 trees, depth 5, nbins 20, packed codes,
+   'auto' precision), the launch counters set to 0 just before and read
+   just after: exactly 5 x 50 x 7 binned_level and 350 each of
+   binned_route_only and segment_totals, each level's form (the rule's
+   pick) one that sums in a fixed order, the training logloss below the
+   class-prior model's and the error below the majority class's, each
+   row's probabilities summing to 1 within 1e-5 and predict's label
+   their argmax; logloss, error, mean per-class error, macro OVR AUC,
+   the loop's seconds, rows x iterations / s, trees / s and the peak
+   memory printed. Card vs CPU at 100k rows, 5 iterations, float32:
+   every tree's splits equal but below at most one node that split on
+   rounding alone on both devices, |dlogloss| <= 1e-4. Two float32 trains
+   and two 'auto' trains of the full frame, each pair bit for bit.
+
+8b. the other families (``phase_families``): a freMTPL2freq-shaped
+   frame (CASdatasets' French motor claims: 678,013 policies, VehPower,
+   VehAge, DrivAge, BonusMalus, Density, the enums VehBrand (11), VehGas
+   (2), Area (6) and Region (22), Exposure in (0, 1], ClaimNb a Poisson
+   count at about 0.10 claims a policy-year, ClaimAmount a gamma total
+   on the policies with claims) and H2O's default GBM (50 trees, depth
+   5) for poisson on ClaimNb and tweedie (power 1.5) on ClaimAmount,
+   both with offset_column log(Exposure), a custom poisson written in
+   torch on the poisson inputs (its trees equal the built-in's bit for
+   bit), and on the policies with claims gamma, gaussian, laplace,
+   quantile (alpha 0.9) and huber (alpha 0.9) on the mean claim: each
+   with exact launch counts (5 x 50, 50, 50), the rule's form a level,
+   the training deviance below the intercept-only model's (f0 plus the
+   offset), predictions finite (>= 0 for the log links); predict on a
+   frame without the offset column and deploy of the poisson model
+   raise. Card vs CPU at 100k policies, 5 trees, float32, for poisson
+   with the offset, huber and quantile: every tree's splits equal (but
+   below at most one such noise split), the training deviances within a
+   relative 1e-5.
+
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
    kernels in ``tools/csrc/probes.cu``, built in phase 2 beside the
@@ -230,9 +269,9 @@ against its plain version. Phases, each fatal on failure:
    queued back to back (P3's eager chains keep the host's launch time on
    purpose; its shares are of the graph's times).
 
-10. scoring and serving (``phase_serve``, run after phase 8 on the
-   packed main path's model, XGBoost hist and the airlines model; no
-   K-kernel may launch in it): ``model.predict`` over the 10M x 28 frame
+10. scoring and serving (``phase_serve``, run after phase 8b on the
+   packed main path's model, XGBoost hist, the multinomial model of 8a
+   and the airlines model; no K-kernel may launch in it): ``model.predict`` over the 10M x 28 frame
    for the first two, cold and the warm median of 3, rows/s, peak device
    memory and the bound (X read once, one 32-byte sector of X gathered
    and a 4-byte leaf id read and written a row, level and tree); each
@@ -243,7 +282,10 @@ against its plain version. Phases, each fatal on failure:
    4096 rows of each frame through ``predict_rows`` and
    ``predict_columnar`` bit-equal to ``predict`` (the airlines rows with
    string labels, one unknown level and a column missing, against
-   predict of a frame of the same values); 16 client threads x 256
+   predict of a frame of the same values; the multinomial rows in their
+   label and all 7 probabilities, its replays timed over 10 and its
+   eager calls over 2, its device activities counted at bucket 1); 16
+   client threads x 256
    requests of 1-64 rows at max_batch 512, every answer bit-equal to
    predict, with no capture and no eager predict after deploy: rows/s,
    requests/s, p50, p99, batches, live rows a batch, stage totals.
@@ -3540,9 +3582,6 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
     the whole train() call, and how the first warm retrain's trees
     differ from the cold run's. Returns the median warm 20-tree loop's
     seconds."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     loops = []
     for i in range(reps):
         warm = train(fr, 20, path)
@@ -3556,32 +3595,45 @@ def phase_warm_profile(fr, card, path, cold_trees, ntrees=5, reps=3):
           f"{fr.nrow * 20 / w_loop!r}), AUC {warm.training_metrics.auc!r} "
           f"[{card}]", flush=True)
     del warm
+    profiled_train(card, path, lambda: train(fr, ntrees, path), fr.nrow,
+                   ntrees)
+    return w_loop
+
+
+def profiled_train(card, what, fn, rows, trees):
+    """``fn()`` (a train) under torch.profiler: its loop seconds, the
+    train() call's wall, the device busy time and share of that wall,
+    the device activities, and the device time of the top 8 kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model = train(fr, ntrees, path)
+        model = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     loop_s = model.output["training_loop_seconds"]
-    by_name = {}
+    by_name, n_dev = {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+            n_dev += e.count
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"warm profile {path}: {fr.nrow} rows, {ntrees} trees: "
+    print(f"warm profile {what}: {rows} rows, {trees} trees: "
           f"training_loop_seconds {loop_s!r} "
-          f"(rows/s {fr.nrow * ntrees / loop_s!r}), train() wall "
+          f"(rows/s {rows * trees / loop_s!r}), train() wall "
           f"{wall * 1e3!r} ms, device busy {busy!r} ms "
-          f"({busy / (wall * 1e3)!r} of the wall), train_profile "
+          f"({busy / (wall * 1e3)!r} of the wall), device activities "
+          f"{n_dev} ({n_dev / trees:.1f} a tree), train_profile "
           f"{json.dumps(model.output['train_profile'])} [{card}]",
           flush=True)
     for k, v in top:
         print(f"  device ms {v:10.3f}  {k[:100]}", flush=True)
-    return w_loop
 
 
 # ------------------------------------------------------------- XGBoost
@@ -3857,6 +3909,579 @@ def phase_xgboost(card, fr, cpu_rows=200_000, cpu_valid_rows=50_000):
     return out, a
 
 
+# ------------------------ 8a-8b. the multinomial GBM and the other families
+
+# the UCI Covertype data (Blackard 1998; H2O's covtype.data): 581,012 rows,
+# 10 integer terrain columns (name, least, greatest), 4 wilderness and 40
+# soil one-hot columns, and the 7 cover types' shares of the rows
+COVTYPE_ROWS = 581_012
+COVTYPE_SEED = 23
+COVTYPE_TERRAIN = (("Elevation", 1859, 3858), ("Aspect", 0, 360),
+                   ("Slope", 0, 66),
+                   ("Horizontal_Distance_To_Hydrology", 0, 1397),
+                   ("Vertical_Distance_To_Hydrology", -173, 601),
+                   ("Horizontal_Distance_To_Roadways", 0, 7117),
+                   ("Hillshade_9am", 0, 254), ("Hillshade_Noon", 0, 254),
+                   ("Hillshade_3pm", 0, 254),
+                   ("Horizontal_Distance_To_Fire_Points", 0, 7173))
+COVTYPE_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
+COVTYPE_Y = "Cover_Type"
+
+
+def covtype_columns(rows, seed=COVTYPE_SEED):
+    """A covertype-shaped draw: the 10 terrain columns as integers in
+    covertype's ranges, one wilderness area and one soil type a row
+    (one-hot, skewed as in the data), and the cover type (codes 0..6 of
+    the labels "1".."7") from a seeded function of them: per-class scores
+    (elevation strongest), Gumbel noise, and class offsets fitted in a
+    few steps so that the shares come out as covertype's. Returns the
+    numeric columns {name: float32} and the label codes."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(rows, len(COVTYPE_TERRAIN)))
+    cols = {}
+    for j, (name, lo, hi) in enumerate(COVTYPE_TERRAIN):
+        u = 0.5 + 0.5 * np.tanh(0.8 * z[:, j])
+        cols[name] = np.round(lo + u * (hi - lo)).astype(np.float32)
+    wild = rng.choice(4, size=rows, p=(0.45, 0.05, 0.44, 0.06))
+    soil_p = rng.dirichlet(np.full(40, 0.4))
+    soil = rng.choice(40, size=rows, p=soil_p)
+    for k in range(4):
+        cols[f"Wilderness_Area{k + 1}"] = (wild == k).astype(np.float32)
+    for k in range(40):
+        cols[f"Soil_Type{k + 1}"] = (soil == k).astype(np.float32)
+    K = len(COVTYPE_SHARES)
+    A = rng.normal(size=(z.shape[1], K))
+    A[0] *= 3.0                                 # elevation leads
+    s = (z @ A + 1.5 * rng.normal(size=(4, K))[wild]
+         + rng.normal(size=(40, K))[soil])
+    s += rng.gumbel(size=(rows, K)) * 1.5
+    shares = np.asarray(COVTYPE_SHARES)
+    bias = np.log(shares)
+    for _ in range(12):
+        got = np.bincount(np.argmax(s + bias, axis=1), minlength=K) / rows
+        bias += np.log(shares / np.maximum(got, 1e-9))
+    y = np.argmax(s + bias, axis=1).astype(np.int32)
+    return cols, y
+
+
+def frame_with_enums(cols, enums, device):
+    """A frame of the float32 columns ``cols`` followed by enum columns
+    ``enums`` ({name: (codes, domain)})."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.vec import Vec
+    fr = h2o.Frame.from_numpy(cols, device=device)
+    return h2o.Frame(
+        fr.names + list(enums), [fr.vec(n) for n in fr.names] + [
+            Vec.from_numpy(c, fr.device, vtype="enum", domain=list(d))
+            for c, d in enums.values()])
+
+
+def covtype_frame(rows, device, seed=COVTYPE_SEED):
+    cols, y = covtype_columns(rows, seed)
+    domain = [str(k + 1) for k in range(len(COVTYPE_SHARES))]
+    return frame_with_enums(cols, {COVTYPE_Y: (y, domain)}, device), y
+
+
+def gbm_default(fr, y, **kw):
+    """H2O's default GBM (50 trees, depth 5, nbins 20, learn rate 0.1,
+    min_rows 10, distribution auto; packed codes on the card) with
+    ``kw`` on top, seed 7."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    x = kw.pop("x", None)
+    est = H2OGradientBoostingEstimator(**{"seed": 7, **kw})
+    est.train(x=x, y=y, training_frame=fr)
+    return est.model
+
+
+def launches_of(depth, trees):
+    """The launch counts a packed train of ``trees`` trees of ``depth``
+    makes: one binned_level a level, one binned_route_only and one
+    segment_totals a tree, no other kernel."""
+    from h2o3_tpu_torch.ops import kernels
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(binned_level=depth * trees, binned_route_only=trees,
+                segment_totals=trees)
+    return want
+
+
+def check_packed_picks(what, model, rows, F, depth):
+    """Every level of ``model``'s packed train took a form that sums in a
+    fixed order: the form rule (``kernels.binned_level_picks``) names
+    the node-grouped or the wide body at each level's shapes, never the
+    tiled body (whose float adds follow the schedule)."""
+    from h2o3_tpu_torch.ops import kernels
+    pc = model.output["packed_codes"]
+    if not pc.get("enabled"):
+        raise AssertionError(f"{what}: not on the packed path: {pc}")
+    W = int(pc["W"])
+    picks = [kernels.binned_level_picks(rows, F, W, 2 ** d // 2 if d else 0,
+                                        2 ** d) for d in range(depth)]
+    if any(p == "tiled" for p in picks):
+        raise AssertionError(f"{what}: the form rule picks {picks} at W "
+                             f"{W}")
+    return W, picks
+
+
+@contextlib.contextmanager
+def recorded_gains(store):
+    """The packed grower's split search (``tree._find_splits``, one call
+    a level) wrapped: each call appends to ``store`` the chosen gain and
+    the parent's score |G^2 / H| of every node, as host arrays."""
+    from h2o3_tpu_torch.models import tree
+    orig = tree._find_splits
+
+    def call(trip, cfg, col_mask, max_bin=None):
+        out = orig(trip, cfg, col_mask, max_bin)
+        parent = tree._leaf_score2(out[4], out[5], cfg)
+        store.append((out[0].cpu().numpy(), parent.abs().cpu().numpy()))
+        return out
+    tree._find_splits = call
+    try:
+        yield store
+    finally:
+        tree._find_splits = orig
+
+
+def noise_split(gains, t, m, depth):
+    """Whether node ``m`` of tree ``t`` split on rounding alone: its gain
+    at most 4 float32 ulps of its parent's score. A pure node's children
+    score exactly its own score, so in float32 its gain is a few ulps,
+    which pass min_split_improvement (1e-5, one ulp of a score past 128),
+    and the order of the histogram's adds picks the feature."""
+    d = int(np.log2(m + 1))
+    gain, parent = gains[t * depth + d]
+    n = m - (2 ** d - 1)
+    return bool(gain[n] <= 4 * np.spacing(np.float32(parent[n])))
+
+
+def card_vs_cpu_splits(what, mc, mh, gc, gh, n_trees, depth,
+                       max_noise=1):
+    """Every split of ``n_trees`` trees (feature, split bin, NA side)
+    equal between the card's model ``mc`` and the CPU's ``mh``, except
+    below a node that split on rounding alone on both devices
+    (``noise_split``; ``gc``, ``gh`` the recorded gains), and at most
+    ``max_noise`` such nodes in the train. Returns (trees identical,
+    nodes that differ, noise splits they lie below)."""
+    same, differ, roots = 0, 0, set()
+    M = 2 ** depth - 1                  # the split levels' nodes
+    for t in range(n_trees):
+        bad = [m for m in range(M) if any(
+            mc.trees[k][t][m] != mh.trees[k][t][m]
+            for k in ("feat", "split_bin", "na_left"))]
+        same += not bad
+        differ += len(bad)
+        for m in bad:
+            a = m
+            while a >= 0 and not (noise_split(gc, t, a, depth)
+                                  and noise_split(gh, t, a, depth)):
+                a = (a - 1) // 2 if a else -1
+            if a < 0:
+                raise AssertionError(
+                    f"{what}: card vs cpu: tree {t} node {m}: feat "
+                    f"{mc.trees['feat'][t][m]} vs {mh.trees['feat'][t][m]}, "
+                    f"split_bin {mc.trees['split_bin'][t][m]} vs "
+                    f"{mh.trees['split_bin'][t][m]}, not below a noise "
+                    f"split")
+            roots.add((t, a))
+    if len(roots) > max_noise:
+        raise AssertionError(f"{what}: card vs cpu: {len(roots)} noise "
+                             f"splits with differing nodes at or below "
+                             f"them (tree, node) {sorted(roots)}, more "
+                             f"than {max_noise}")
+    return same, differ, len(roots)
+
+
+def phase_multinomial(card, rows=COVTYPE_ROWS, ntrees=50, depth=5,
+                      cpu_rows=100_000, cpu_iters=5):
+    """A1 at full size: the covertype-shaped frame on the card, H2O's
+    default GBM (multinomial by the 7-level response; 50 iterations of 7
+    trees, depth 5, nbins 20, precision 'auto': bf16 at this size) with
+    the launch counters set to 0 just before and read just after. Exact
+    launches (5 x 50 x 7 binned_level, 350 binned_route_only and
+    segment_totals), every level's form one that sums in a fixed order,
+    the training logloss below the class-prior model's, the error below
+    the majority class's, every row's probabilities summing to 1 within
+    1e-5 and predict's label their argmax. Then card vs CPU at
+    ``cpu_rows`` rows, ``cpu_iters`` iterations, float32 (every tree's
+    splits equal but below at most one noise split, |dlogloss| <= 1e-4),
+    and two float32 trains and a
+    second 'auto' train on the full frame, each pair bit for bit."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    fr, y = covtype_frame(rows, "cuda")
+    torch.cuda.synchronize()
+    K = len(COVTYPE_SHARES)
+    F = fr.ncol - 1
+    share = np.bincount(y, minlength=K) / rows
+    log(f"multinomial: covtype-shaped frame {rows}x{F} on cuda in "
+        f"{time.perf_counter() - t0:.2f} s, class shares {share.tolist()}")
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    model = gbm_default(fr, COVTYPE_Y, ntrees=ntrees, max_depth=depth)
+    pred = model.predict(fr)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = launches_of(depth, ntrees * K)
+    if launches != want or model.ntrees_built != ntrees \
+            or model.trees["feat"].shape[0] != ntrees * K:
+        raise AssertionError(f"multinomial: launched {launches}, expected "
+                             f"{want}; {model.ntrees_built} iterations, "
+                             f"{model.trees['feat'].shape[0]} trees")
+    W, picks = check_packed_picks("multinomial", model, rows, F, depth)
+    m = model.training_metrics
+    prior_ll = float(-(share * np.log(np.maximum(share, 1e-9))).sum())
+    major_err = float(1.0 - share.max())
+    if not (np.isfinite(m.logloss) and m.logloss < prior_ll
+            and m.error < major_err):
+        raise AssertionError(f"multinomial: logloss {m.logloss} (class "
+                             f"prior {prior_ll}), error {m.error} "
+                             f"(majority {major_err})")
+    dom = list(model.response_domain)
+    labels, probs = predict_probs(pred, dom)
+    del pred
+    if probs.shape != (rows, K) or not np.all(np.isfinite(probs)) \
+            or np.abs(probs.sum(axis=1) - 1.0).max() > 1e-5 \
+            or not np.array_equal(labels, np.argmax(probs, axis=1)):
+        raise AssertionError(
+            f"multinomial predict: max |sum p - 1| "
+            f"{np.abs(probs.sum(axis=1) - 1.0).max()}, labels off argmax "
+            f"{int((labels != np.argmax(probs, axis=1)).sum())}")
+    loop_s = model.output["training_loop_seconds"]
+    print(f"multinomial_covtype: {rows}x{F} (10 terrain, 4 wilderness, 40 "
+          f"soil), {K} classes, H2O's default GBM {ntrees} iterations x "
+          f"{K} trees depth {depth} nbins 20 on packed codes W={W} (level "
+          f"forms {picks}): training logloss {m.logloss!r} (class prior "
+          f"{prior_ll!r}), error {m.error!r} (majority class "
+          f"{major_err!r}), mean per-class error "
+          f"{m.mean_per_class_error!r}, macro OVR AUC {m.auc!r}, hit "
+          f"ratios {m.hit_ratios.tolist()!r}; training_loop_seconds "
+          f"{loop_s!r}, rows x iterations / s {rows * ntrees / loop_s!r}, "
+          f"trees / s {ntrees * K / loop_s!r}, train_profile "
+          f"{json.dumps(model.output['train_profile'])}; launches "
+          f"{launches}; peak device memory in the train and predict "
+          f"{peak:.3f} GiB [{card}]", flush=True)
+
+    # card vs cpu at cpu_rows, float32 histograms
+    models, gains = {}, {}
+    for d in ("cuda", "cpu"):
+        with recorded_gains(gains.setdefault(d, [])):
+            models[d] = gbm_default(
+                covtype_frame(cpu_rows, d, seed=COVTYPE_SEED + 1)[0],
+                COVTYPE_Y, ntrees=cpu_iters, max_depth=depth,
+                histogram_precision="float32")
+    mc, mh = models["cuda"], models["cpu"]
+    same, differ, noise = card_vs_cpu_splits(
+        "multinomial", mc, mh, gains["cuda"], gains["cpu"], cpu_iters * K,
+        depth)
+    d_ll = abs(mc.training_metrics.logloss - mh.training_metrics.logloss)
+    print(f"card vs cpu, multinomial_covtype: {cpu_rows} rows, {cpu_iters} "
+          f"iterations x {K} trees, float32: {same} of {cpu_iters * K} "
+          f"trees' splits identical; {differ} split nodes differ, each at "
+          f"or below one of {noise} nodes that split on rounding alone on "
+          f"both devices (gain within 4 float32 ulps of the parent's "
+          f"score); logloss cuda {mc.training_metrics.logloss!r} cpu "
+          f"{mh.training_metrics.logloss!r} |dlogloss| {d_ll!r} [{card}]",
+          flush=True)
+    if d_ll > 1e-4:
+        raise AssertionError(f"multinomial: card vs cpu: |dlogloss| {d_ll}")
+    del models, mc, mh
+
+    # repeatability on the full frame
+    kw = dict(ntrees=ntrees, max_depth=depth)
+    runs = [gbm_default(fr, COVTYPE_Y, histogram_precision="float32", **kw)
+            for _ in range(2)]
+    check_repeats(runs, "packed", "multinomial_covtype float32 x2")
+    check_repeats([model, gbm_default(fr, COVTYPE_Y, **kw)], "packed",
+                  "multinomial_covtype 'auto' (bf16) x2")
+    # where the time goes: 2 iterations (14 trees) under the profiler
+    profiled_train(card, "multinomial_covtype", lambda: gbm_default(
+        fr, COVTYPE_Y, ntrees=2, max_depth=depth), rows, 2 * K)
+    return {"model": model, "frame": fr, "launches": launches,
+            "loop_s": loop_s}
+
+
+# the French motor third-party-liability claim-frequency data (CASdatasets
+# freMTPL2freq, with its claim amounts from freMTPL2sev): 678,013 policies;
+# the levels of its enum columns as in the data
+FREMTPL2_ROWS = 678_013
+FREMTPL2_SEED = 29
+FREMTPL2_ENUMS = {
+    "VehBrand": ("B1", "B10", "B11", "B12", "B13", "B14", "B2", "B3", "B4",
+                 "B5", "B6"),
+    "VehGas": ("Diesel", "Regular"),
+    "Area": ("A", "B", "C", "D", "E", "F"),
+    "Region": ("R11", "R21", "R22", "R23", "R24", "R25", "R26", "R31",
+               "R41", "R42", "R43", "R52", "R53", "R54", "R72", "R73",
+               "R74", "R82", "R83", "R91", "R93", "R94"),
+}
+FREMTPL2_X = ("VehPower", "VehAge", "DrivAge", "BonusMalus", "Density",
+              "VehBrand", "VehGas", "Area", "Region")
+
+
+def fremtpl2_columns(rows, seed=FREMTPL2_SEED):
+    """A freMTPL2freq-shaped draw: VehPower 4-15, VehAge 0-100, DrivAge
+    18-100, BonusMalus 50-230 (most at 50), Density 1-27,000 (log-normal),
+    the four enums (codes over ``FREMTPL2_ENUMS``), Exposure in (0, 1]
+    and its log, ClaimNb ~ Poisson(Exposure x 0.10 x exp(f(x))) (f
+    centred: about 0.10 claims a policy-year) and ClaimAmount, a gamma
+    total of ClaimNb claims (mean about 2,000 each, heavy in shape) on
+    the policies with claims, 0 elsewhere. Returns ({numeric column:
+    float32}, {enum column: codes})."""
+    rng = np.random.default_rng(seed)
+    veh_power = rng.choice(np.arange(4, 16), size=rows,
+                           p=np.array([17, 18, 22, 20, 10, 5, 3, 2, 1, 1,
+                                       0.5, 0.5]) / 100.0)
+    veh_age = np.minimum(np.round(rng.gamma(2.0, 3.5, rows)), 100)
+    drv_age = np.minimum(np.round(18 + rng.gamma(4.0, 7.0, rows)), 100)
+    bm = np.where(rng.random(rows) < 0.6, 50,
+                  np.minimum(np.round(50 + rng.gamma(1.5, 15.0, rows)), 230))
+    density = np.clip(np.round(np.exp(rng.normal(6.0, 2.0, rows))), 1,
+                      27_000)
+    enums = {n: rng.integers(0, len(d), rows).astype(np.int32)
+             for n, d in FREMTPL2_ENUMS.items()}
+    expo = np.where(rng.random(rows) < 0.25, 1.0,
+                    np.maximum(rng.beta(0.9, 1.3, rows), 1 / 365))
+    f = (0.02 * (bm - 50) + 0.15 * np.log(density) - 0.012 * (drv_age - 45)
+         + 0.03 * (veh_power - 6) + 0.2 * (enums["VehGas"] == 1)
+         + 0.1 * np.sin(enums["Region"]) - 0.015 * veh_age)
+    lam = 0.10 * np.exp(f) / np.exp(f).mean()
+    nb = np.minimum(rng.poisson(expo * lam), 16)
+    sev_mean = 2000.0 * np.exp(0.004 * (bm - 50) - 0.1 * (enums["Area"]
+                                                          - 2.5) / 2.5)
+    shape = 1.2
+    amount = np.where(nb > 0, rng.gamma(shape * np.maximum(nb, 1),
+                                        sev_mean / shape), 0.0)
+    num = {"VehPower": veh_power, "VehAge": veh_age, "DrivAge": drv_age,
+           "BonusMalus": bm, "Density": density, "Exposure": expo,
+           "LogExposure": np.log(expo), "ClaimNb": nb,
+           "ClaimAmount": amount}
+    return {k: np.asarray(v, np.float32) for k, v in num.items()}, enums
+
+
+def fremtpl2_frame(rows, device, seed=FREMTPL2_SEED, claims_only=False):
+    """The freMTPL2-shaped frame (``claims_only``: the policies with a
+    claim, with Severity = ClaimAmount / ClaimNb)."""
+    num, enums = fremtpl2_columns(rows, seed)
+    if claims_only:
+        keep = num["ClaimNb"] > 0
+        num = {k: v[keep] for k, v in num.items()}
+        enums = {k: v[keep] for k, v in enums.items()}
+        num["Severity"] = (num["ClaimAmount"] / num["ClaimNb"]).astype(
+            np.float32)
+    return frame_with_enums(
+        num, {n: (c, FREMTPL2_ENUMS[n]) for n, c in enums.items()}, device)
+
+
+class FremtplPoisson:
+    """A user's poisson family written in torch, registered as
+    ``custom:fremtpl2_poisson``: its trees must be the built-in
+    poisson's, bit for bit."""
+    name = "fremtpl2_poisson"
+
+    def init_f0(self, y, w):
+        import torch
+        return torch.log(torch.clamp((w * y).sum() / w.sum(), min=1e-9))
+
+    def grad_hess(self, f, y):
+        import torch
+        mu = torch.exp(f)
+        return mu - y, torch.clamp(mu, min=1e-9)
+
+    def predict(self, f):
+        import torch
+        return torch.exp(f)
+
+    def deviance(self, w, y, mu):
+        from h2o3_tpu_torch.models.distributions import Poisson
+        return Poisson().deviance(w, y, mu)
+
+
+# the families' trains: (distribution, response, offset, on the claim
+# rows only, the family's own parameters)
+FAMILY_TRAINS = {
+    "poisson": ("poisson", "ClaimNb", True, False, {}),
+    "tweedie": ("tweedie", "ClaimAmount", True, False,
+                {"tweedie_power": 1.5}),
+    "custom": ("custom:fremtpl2_poisson", "ClaimNb", True, False, {}),
+    "gamma": ("gamma", "Severity", False, True, {}),
+    "gaussian": ("gaussian", "Severity", False, True, {}),
+    "laplace": ("laplace", "Severity", False, True, {}),
+    "quantile": ("quantile", "Severity", False, True,
+                 {"quantile_alpha": 0.9}),
+    "huber": ("huber", "Severity", False, True, {"huber_alpha": 0.9}),
+}
+LOG_LINK = ("poisson", "tweedie", "custom", "gamma")
+# card vs CPU: the training deviances' relative difference (float32 sums
+# over 100k rows in two orders; 1e-7 measured on the H100)
+FAMILY_DEV_RTOL = 1e-5
+
+
+def family_train(fr, name, **kw):
+    dist, y, offset, _claims, extra = FAMILY_TRAINS[name]
+    if offset:
+        kw["offset_column"] = "LogExposure"
+    return gbm_default(fr, y, x=list(FREMTPL2_X), distribution=dist,
+                       **extra, **kw)
+
+
+def intercept_deviance(model, fr, name):
+    """The deviance of the intercept-only model: f0 plus the offset, on
+    the model's training rows."""
+    import torch
+    from h2o3_tpu_torch.models.distributions import get_distribution
+    dist_name, y, offset, _claims, extra = FAMILY_TRAINS[name]
+    dist = get_distribution(dist_name, extra.get("tweedie_power", 1.5),
+                            extra.get("quantile_alpha", 0.5),
+                            model.output.get("huber_delta", 1.0))
+    yv = fr.vec(y).as_float()
+    f = torch.full_like(yv, float(model.f0))
+    if offset:
+        f = f + fr.vec("LogExposure").as_float()
+    return float(dist.deviance(torch.ones_like(yv), yv, dist.predict(f)))
+
+
+def phase_families(card, rows=FREMTPL2_ROWS, ntrees=50, depth=5,
+                   cpu_rows=100_000, cpu_trees=5):
+    """A6 at full size: the freMTPL2-shaped frame on the card and H2O's
+    default GBM (50 trees, depth 5) on it for poisson on ClaimNb and
+    tweedie (power 1.5) on ClaimAmount, both with offset_column =
+    log(Exposure), a custom poisson (``FremtplPoisson``) on the poisson
+    inputs, and on the policies with claims gamma, gaussian, laplace,
+    quantile (alpha 0.9) and huber (alpha 0.9) on the mean claim amount.
+    Each with the launch counters set to 0 just before and read just
+    after (exact: 5 x 50 binned_level, 50 binned_route_only, 50
+    segment_totals), every level's form one that sums in a fixed order,
+    the training deviance below the intercept-only model's (f0 plus the
+    offset), predictions finite (and >= 0 for the log-link families).
+    The custom family's trees equal poisson's bit for bit; predict of
+    the poisson model on a frame without the offset column and its
+    deploy must raise. Then card vs CPU at ``cpu_rows`` policies,
+    ``cpu_trees`` trees, float32, for poisson with the offset, huber and
+    quantile: every tree's splits equal (but below at most one noise
+    split, ``card_vs_cpu_splits``) and the training deviances within
+    ``FAMILY_DEV_RTOL`` of each other. Returns each train's launches by
+    name."""
+    import torch
+    from h2o3_tpu_torch import serve
+    from h2o3_tpu_torch.models.distributions import (
+        _CUSTOM, register_custom_distribution)
+    from h2o3_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    frames = {False: fremtpl2_frame(rows, "cuda"),
+              True: fremtpl2_frame(rows, "cuda", claims_only=True)}
+    torch.cuda.synchronize()
+    pol = frames[False]
+    log(f"families: freMTPL2-shaped frame {pol.nrow} policies "
+        f"({frames[True].nrow} with claims, "
+        f"{float(pol.vec('ClaimNb').as_float().sum()) / float(pol.vec('Exposure').as_float().sum())!r} "
+        f"claims a policy-year) on cuda in {time.perf_counter() - t0:.2f} s")
+    register_custom_distribution("fremtpl2_poisson", FremtplPoisson())
+    out, models = {}, {}
+    try:
+        for name, (_d, y, offset, claims, _e) in FAMILY_TRAINS.items():
+            fr = frames[claims]
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            model = family_train(fr, name, ntrees=ntrees, max_depth=depth)
+            pred = model.predict(fr).vec("predict").to_numpy()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            want = launches_of(depth, ntrees)
+            if launches != want or model.ntrees_built != ntrees:
+                raise AssertionError(f"{name}: launched {launches}, "
+                                     f"expected {want}")
+            W, picks = check_packed_picks(name, model, fr.nrow,
+                                          len(FREMTPL2_X), depth)
+            dev = model.training_metrics.mean_residual_deviance
+            dev0 = intercept_deviance(model, fr, name)
+            if not (np.isfinite(dev) and dev < dev0):
+                raise AssertionError(f"{name}: deviance {dev}, intercept "
+                                     f"only {dev0}")
+            if not np.all(np.isfinite(pred)) or (
+                    name in LOG_LINK and pred.min() < 0):
+                raise AssertionError(f"{name}: predictions not finite or "
+                                     f"negative: min {np.nanmin(pred)}")
+            loop_s = model.output["training_loop_seconds"]
+            extra = ({"huber_delta": model.output["huber_delta"]}
+                     if "huber_delta" in model.output else {})
+            print(f"fremtpl2_{name}: {fr.nrow} rows x {len(FREMTPL2_X)} "
+                  f"features, {model.dist_name} on {y}"
+                  f"{' with offset log(Exposure)' if offset else ''}, "
+                  f"{ntrees} trees depth {depth} on packed codes W={W} "
+                  f"(level forms {picks}){' ' + json.dumps(extra) if extra else ''}: "
+                  f"f0 {float(model.f0)!r}, training deviance {dev!r} "
+                  f"(intercept only {dev0!r}), predict min "
+                  f"{float(pred.min())!r} mean {float(pred.mean())!r}; "
+                  f"training_loop_seconds {loop_s!r}, rows x trees / s "
+                  f"{fr.nrow * ntrees / loop_s!r}; launches {launches}; "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                  f"GiB [{card}]", flush=True)
+            out[name] = launches
+            models[name] = model
+        diffs = tree_diffs(models["custom"].trees, models["poisson"].trees,
+                           "split_bin")
+        if any(diffs.values()) or not np.array_equal(
+                models["custom"].f0, models["poisson"].f0):
+            raise AssertionError(f"custom poisson differs from poisson: "
+                                 f"{diffs}")
+        bare = [n for n in pol.names if n != "LogExposure"]
+        import h2o3_tpu_torch as h2o
+        for what, call in (
+                ("predict without the offset column", lambda: models[
+                    "poisson"].predict(h2o.Frame(bare, [pol.vec(n)
+                                                        for n in bare]))),
+                ("deploy", lambda: serve.deploy(
+                    "fremtpl2_poisson", model=models["poisson"],
+                    buckets=(1, 8), max_batch=8))):
+            try:
+                call()
+            except ValueError as e:
+                print(f"fremtpl2_poisson: {what} raises: {e}", flush=True)
+            else:
+                raise AssertionError(f"fremtpl2_poisson: {what} did not "
+                                     f"raise")
+        print(f"fremtpl2_custom: {ntrees} trees equal poisson's bit for "
+              f"bit", flush=True)
+        del models
+
+        # card vs cpu at cpu_rows policies, float32 histograms
+        for name in ("poisson", "huber", "quantile"):
+            claims = FAMILY_TRAINS[name][3]
+            models, gains = {}, {}
+            for d in ("cuda", "cpu"):
+                with recorded_gains(gains.setdefault(d, [])):
+                    models[d] = family_train(
+                        fremtpl2_frame(cpu_rows, d, seed=FREMTPL2_SEED + 1,
+                                       claims_only=claims), name,
+                        ntrees=cpu_trees, max_depth=depth,
+                        histogram_precision="float32")
+            mc, mh = models["cuda"], models["cpu"]
+            same, differ, noise = card_vs_cpu_splits(
+                name, mc, mh, gains["cuda"], gains["cpu"], cpu_trees, depth)
+            print(f"card vs cpu, fremtpl2_{name}: {cpu_rows} policies"
+                  f"{' (the claim rows)' if claims else ''}, {cpu_trees} "
+                  f"trees, float32: {same} of {cpu_trees} trees' splits "
+                  f"identical; {differ} split nodes differ, each at or "
+                  f"below one of {noise} nodes that split on rounding "
+                  f"alone on both devices; deviance cuda "
+                  f"{mc.training_metrics.mean_residual_deviance!r} cpu "
+                  f"{mh.training_metrics.mean_residual_deviance!r} "
+                  f"[{card}]", flush=True)
+            dc = mc.training_metrics.mean_residual_deviance
+            dh = mh.training_metrics.mean_residual_deviance
+            if not abs(dc - dh) <= FAMILY_DEV_RTOL * abs(dh):
+                raise AssertionError(
+                    f"{name}: card vs cpu: deviance {dc} vs {dh}, past "
+                    f"rtol {FAMILY_DEV_RTOL}")
+    finally:
+        _CUSTOM.pop("fremtpl2_poisson", None)
+    return out
+
+
 # ------------------------------------------------- 10. scoring and serving
 
 SERVE_SEED = 17           # the sampled rows and the load's request sizes
@@ -3926,13 +4551,16 @@ def same_bits(a, b) -> bool:
                                               b.view(torch.int32))
 
 
-def bucket_record(card, name, dep, X_pool):
+def bucket_record(card, name, dep, X_pool, reps=(100, 10),
+                  activities_once=False):
     """Each bucket of a deployment on the card: the capture's seconds
     (eager warm-ups and capture), the replay's device time (CUDA events,
-    median of 100), the eager masked predict at the same shape (median
-    of 10), the device activities of one eager call, and the replay
-    against eager bit for bit on rows of the frame, half the bucket
-    live."""
+    median of ``reps[0]``), the eager masked predict at the same shape
+    (median of ``reps[1]``), the device activities of one eager call (at
+    the first bucket only with ``activities_once``: the count does not
+    depend on the shape, and profiling a large model's call takes
+    seconds), and the replay against eager bit for bit on rows of the
+    frame, half the bucket live."""
     import torch
     sc = dep.scorer
     if not sc.graphed or sc.captures != len(sc.buckets):
@@ -3950,13 +4578,15 @@ def bucket_record(card, name, dep, X_pool):
             raise AssertionError(f"serve {name}: bucket {b}: the replay "
                                  f"differs from the eager predict")
         bk.n.fill_(b)
-        replay_ms = time_cuda(bk.graph.replay, 100)
-        eager_ms = time_cuda(lambda: sc._masked(bk.x, bk.n), 10)
-        kernels_n = eager_kernel_count(lambda: sc._masked(bk.x, bk.n))
+        replay_ms = time_cuda(bk.graph.replay, reps[0])
+        eager_ms = time_cuda(lambda: sc._masked(bk.x, bk.n), reps[1])
+        kernels_n = (eager_kernel_count(lambda: sc._masked(bk.x, bk.n))
+                     if b == sc.buckets[0] or not activities_once
+                     else "as the first bucket's")
         print(f"serve {name} bucket {b}: capture (3 eager warm-ups and the "
               f"capture) {sc.warm_seconds[b]!r} s, replay {replay_ms!r} ms "
-              f"(device, median of 100), eager {eager_ms!r} ms (median of "
-              f"10), device activities in one eager call "
+              f"(device, median of {reps[0]}), eager {eager_ms!r} ms "
+              f"(median of {reps[1]}), device activities in one eager call "
               f"{kernels_n if kernels_n else 'not measured'}, replay == "
               f"eager bit for bit [{card}]", flush=True)
 
@@ -4054,20 +4684,53 @@ def serve_load(card, dep, rows, labels, probs, domain):
     return snap
 
 
-def phase_serve(card, fr, packed, xgb, airlines, air_sample):
+def serve_multinomial(card, rng, mmodel, mfr):
+    """The multinomial model deployed at the buckets 1-4096: each
+    bucket's replay against eager bit for bit, and SERVE_ROWS rows of
+    its frame (drawn with ``rng``) served bit-equal to predict over the
+    whole frame, in the label and all K probabilities, with no capture
+    and no eager predict after deploy."""
+    from h2o3_tpu_torch import serve
+    names = mmodel.feature_names
+    midx = np.sort(rng.choice(mfr.nrow, SERVE_ROWS, replace=False))
+    dom = list(mmodel.response_domain)
+    labels, probs = predict_probs(mmodel.predict(mfr), dom)
+    labels, probs = labels[midx], probs[midx]
+    dep = serve.deploy("serve_multinomial", model=mmodel, max_batch=4096)
+    # 350 trees: a replay runs ~27,000 small kernels, so fewer reps
+    bucket_record(card, "multinomial", dep,
+                  mfr.rows(midx).as_matrix(names), reps=(10, 2),
+                  activities_once=True)
+    caps, eager = dep.scorer.captures, dep.scorer.eager_calls
+    served_vs_predicted("multinomial", dep, host_rows(mfr, names, midx),
+                        labels, probs, dom)
+    if (dep.scorer.captures, dep.scorer.eager_calls) != (caps, eager) \
+            or dep.scorer.out_k != len(dom):
+        raise AssertionError("serve multinomial: served rows captured or "
+                             "ran an eager predict, or the output is not "
+                             f"{len(dom)} wide")
+    serve.undeploy("serve_multinomial")
+    print(f"serve multinomial: {SERVE_ROWS} rows served (rows and "
+          f"columnar) bit-equal to predict over the whole frame, label and "
+          f"all {len(dom)} probabilities [{card}]", flush=True)
+
+
+def phase_serve(card, fr, packed, xgb, airlines, air_sample, multinomial):
     """Scoring and serving on the card. ``packed`` and ``xgb`` are the
     packed main path's GBM and XGBoost "hist" (both on the 10M x 28
     frame ``fr``), ``airlines`` the airlines GBM from the CSV phase and
-    ``air_sample`` rows of its frame. Predict over the whole frame for
-    the first two (timed, with its bound); each model deployed with the
-    buckets 1-4096, one CUDA graph each, per bucket its times and the
+    ``air_sample`` rows of its frame, ``multinomial`` the covertype
+    model and its frame (phase_multinomial). Predict over the whole frame
+    for the first two (timed, with its bound); each model deployed with
+    the buckets 1-4096, one CUDA graph each, per bucket its times and the
     replay against eager bit for bit; SERVE_ROWS rows of each frame
     served (rows and columnar) bit-equal to predict's (the airlines rows
     with string labels, one unknown level and one column missing,
-    against predict of a frame of the same values); then a concurrent
-    load on the packed model with its own deployment (max_batch 512),
-    every answer checked, no capture and no eager predict after deploy.
-    The K-kernels' launch counters must not move in the whole phase."""
+    against predict of a frame of the same values; the multinomial rows
+    in their label and all 7 probabilities); then a concurrent load on
+    the packed model with its own deployment (max_batch 512), every
+    answer checked, no capture and no eager predict after deploy. The
+    K-kernels' launch counters must not move in the whole phase."""
     import h2o3_tpu_torch as h2o
     import torch
     from h2o3_tpu_torch import serve
@@ -4098,6 +4761,9 @@ def phase_serve(card, fr, packed, xgb, airlines, air_sample):
         print(f"serve {name}: {SERVE_ROWS} rows served (rows and columnar) "
               f"bit-equal to predict over the whole frame [{card}]",
               flush=True)
+
+    # the multinomial model: [rows, 7] probabilities a batch
+    serve_multinomial(card, rng, *multinomial)
 
     # airlines: string labels, one unknown level, one column missing
     names = airlines.feature_names
@@ -4883,11 +5549,24 @@ def main() -> int:
             by_name[kernel].setdefault("launches_by_path", {})[
                 f"xgboost_{path}"] = launches[kernel]
     clock.lap("8 xgboost")
+    # 8a-8b. A1 and A6: the multinomial GBM on a covertype-shaped frame,
+    # the other families (with offsets) on a freMTPL2-shaped one
+    multi = phase_multinomial(card)
+    clock.lap("8a multinomial")
+    fams = phase_families(card)
+    clock.lap("8b families")
+    for path, launches in [("multinomial_covtype", multi["launches"])] + [
+            (f"fremtpl2_{n}", v) for n, v in fams.items()]:
+        for kernel in ("binned_level", "binned_route_only",
+                       "segment_totals"):
+            by_name[kernel].setdefault("launches_by_path", {})[path] = \
+                launches[kernel]
     # 10. scoring and serving: predict at 10M rows, one CUDA graph a
     # batch bucket, served rows against predict, a concurrent load
     phase_serve(card, fr, packed["model"], xgb_hist,
-                csv["airlines_model"], csv["airlines_sample"])
-    del fr, xgb_hist, csv
+                csv["airlines_model"], csv["airlines_sample"],
+                (multi["model"], multi["frame"]))
+    del fr, xgb_hist, csv, multi
     clock.lap("10 serve")
     # 9. the probe tools, P1-P6
     rec += phase_probes(card, dev)

@@ -2,23 +2,27 @@
 unpacked global sketch.
 
 Counterpart of ``h2o3_tpu/models/gbm.py``: the in-memory trainer
-(``_train_dense``) and the per-tree body of its boosting chunk (K = 1),
-as a Python loop. The trainer takes the JAX package's path for the same
+(``_train_dense``) and the per-iteration body of its boosting chunk, as
+a Python loop. The trainer takes the JAX package's path for the same
 parameters (``models/tree.py`` holds the rule): packed codes, binned once
 per train by the global sketch (``packed_codes`` 'auto' or True on every
 device); per-node adaptive bins on the raw features
 (``packed_codes=False``, and the fallback where packing cannot hold the
 bins); or the global sketch's codes unpacked, where neither holds them
 (more than 254 bins) or ``quantiles_global`` is asked for without
-packing. Per tree: (g, h) from the distribution at the current margin, one
-tree grown, and the tree's leaf values folded back into the margin
-through the leaf ids the grower already routed. With a validation frame
-each tree is also walked over the validation rows in the path's own
-representation. With early stopping or a ``score_tree_interval`` the
-loop scores every interval of trees (validation rows where there are
-some) with one device-to-host copy of the interval's scalars, and stops
-where ``ScoreKeeper`` says so; it builds no tree past the stop. Trees
-are fetched to the host once, at the end.
+packing. An iteration of a one-margin family grows one tree: (g, h) from
+the distribution at the current margin (which carries
+``offset_column``: the offset enters the margin, not the trees), and the
+tree's leaf values folded back into the margin through the leaf ids the
+grower already routed. A multinomial iteration grows K trees, all from
+the softmax of the margin at its start, each folded into its class's
+column. With a validation frame each tree is also walked over the
+validation rows in the path's own representation. With early stopping
+or a ``score_tree_interval`` the loop scores every interval of
+iterations (validation rows where there are some) with one
+device-to-host copy of the interval's scalars, and stops where
+``ScoreKeeper`` says so; it builds no tree past the stop. Trees are
+fetched to the host once, at the end.
 
 Parameters the port does not support yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them; none is silently ignored.
@@ -35,7 +39,10 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch import _device
-from h2o3_tpu_torch.models.distributions import get_distribution, sigmoid
+from h2o3_tpu_torch.models.distributions import (get_distribution,
+                                                 offset_adjusted_f0, sigmoid,
+                                                 softmax, weighted_median,
+                                                 weighted_quantile)
 from h2o3_tpu_torch.models.metrics import auc_device
 from h2o3_tpu_torch.models.model_base import (BUILDER_PARAMS, Model,
                                               ModelBuilder, ScoreKeeper,
@@ -89,17 +96,15 @@ GBM_COMPAT_PARAMS: Dict = dict(
     check_constant_response=True, auto_rebalance=True,
 )
 
+# the JAX package's refusal of an offset on a multinomial train
+MULTINOMIAL_OFFSET = ("offset_column is not supported for multinomial GBM "
+                      "(matching hex/tree/gbm/GBM.java offset restrictions)")
+
 # parameters of the JAX GBM the port refuses until the named ROADMAP.md
 # item (queue 1) lands: (name, predicate on its value, item)
 _UNSUPPORTED = (
     ("histogram_type", lambda v: str(v or "").lower() == "random",
      "item A4, sampling: the per-tree generator of the grid phase"),
-    ("distribution", lambda v: str(v or "auto").lower() == "multinomial",
-     "item A1, multinomial GBM"),
-    ("distribution", lambda v: str(v or "auto").lower() not in (
-        "auto", "bernoulli", "binomial", "gaussian", "multinomial"),
-     "item A6, the other distributions and offsets"),
-    ("offset_column", bool, "item A6, the other distributions and offsets"),
     ("checkpoint", lambda v: v is not None, "item A3, checkpoints"),
     ("in_training_checkpoints_dir", bool, "item A3, checkpoints"),
     ("sample_rate", lambda v: float(v) != 1.0, "item A4, sampling"),
@@ -121,7 +126,7 @@ _UNSUPPORTED = (
     ("calibrate_model", bool,
      "item A7, cross-validation, class balancing and calibration"),
 )
-_REFUSED_ONLY = {"offset_column", "mtries", "nfolds", "fold_column",
+_REFUSED_ONLY = {"mtries", "nfolds", "fold_column",
                  "balance_classes", "calibrate_model"}
 
 
@@ -160,10 +165,19 @@ def score_entry(margin, sc_spec: TrainingSpec, dist, built: int,
                 want_auc: bool = False) -> Dict:
     """An interval's scoring-history entry (the JAX package's
     ``_score_entry_dev`` and ``_score_entry_fetch``): the scalars stay on
-    the device until one copy to the host. ntrees and deviance; for
-    bernoulli logloss (deviance / 2) and, where the stopping metric is
-    the AUC, the AUC; for gaussian mse and rmse."""
+    the device until one copy to the host. For K classes ([rows, K]
+    margins, ``dist`` None) ntrees, logloss and deviance = logloss; for
+    one margin a row ntrees and deviance, plus for bernoulli logloss
+    (deviance / 2) and, where the stopping metric is the AUC, the AUC,
+    and for gaussian mse and rmse."""
     w = sc_spec.w
+    if dist is None:
+        eps = 1e-7  # f32-safe: 1-1e-15 rounds to 1.0f -> log1p(-1) = -inf
+        probs = softmax(margin)
+        py = torch.clamp(probs.gather(1, sc_spec.y.long()[:, None])[:, 0],
+                         eps, 1.0)
+        ll = float(-(w * torch.log(py)).sum() / w.sum())
+        return {"ntrees": built, "logloss": ll, "deviance": ll}
     yf = sc_spec.y.to(torch.float32)
     mu = dist.predict(margin)
     vals = [dist.deviance(w, yf, mu)]
@@ -193,7 +207,10 @@ class GBMModel(Model):
                          response_domain=response_domain, is_cat=is_cat,
                          cat_domains=cat_domains)
         self.dist_name = dist_name
+        # one margin a row (f0 a scalar) or K class margins (f0 [K], the
+        # tree stack in (tree, class) order)
         self.f0 = np.array(f0, np.float32)
+        self._K = nclasses if nclasses > 2 else 1
         # on the device once: predict adds no host copy, so that it can
         # be captured in a CUDA graph
         self._f0 = torch.tensor(self.f0, device=device)
@@ -215,21 +232,21 @@ class GBMModel(Model):
     def from_jax_arrays(cls, arrays: Dict[str, np.ndarray], meta: Dict,
                         device=None) -> "GBMModel":
         """A model from the JAX package's ``GBMModel._save_arrays()``
-        dict (feat, thr, na_left, is_split, value, node_w, f0, edge_i)
+        dict (feat, thr, na_left, is_split, value, node_w, f0, edge_i;
+        f0 [K] and the trees in (tree, class) order for K > 2 classes)
         and ``meta`` (dist_name, n_bins, max_depth, ntrees_built,
         nclasses, names, response_domain; optional is_cat and
         cat_domains, which ``predict`` needs to remap the enum codes of a
-        frame with other domains)."""
-        if int(meta["nclasses"]) > 2:
-            raise NotImplementedError(
-                "multinomial GBM is not ported yet (ROADMAP.md queue 1, "
-                "item A1, multinomial GBM)")
+        frame with other domains, and offset_column and tweedie_power,
+        the training parameters that predict reads)."""
+        params = {k: meta[k] for k in ("offset_column", "tweedie_power")
+                  if meta.get(k) is not None}
         n_edges = sum(1 for k in arrays if k.startswith("edge_"))
         trees = {k: np.asarray(arrays[k]) for k in
                  ("feat", "thr", "na_left", "is_split", "value")}
         if "node_w" in arrays:
             trees["node_w"] = np.asarray(arrays["node_w"])
-        return cls(f"gbm_{id(arrays) & 0xffffff:x}", {}, meta["names"],
+        return cls(f"gbm_{id(arrays) & 0xffffff:x}", params, meta["names"],
                    int(meta["nclasses"]), meta["dist_name"],
                    np.asarray(arrays["f0"], np.float32), trees,
                    [np.asarray(arrays[f"edge_{i}"]) for i in range(n_edges)],
@@ -239,17 +256,29 @@ class GBMModel(Model):
                    is_cat=meta.get("is_cat"),
                    cat_domains=meta.get("cat_domains"))
 
-    def _margin_matrix(self, X: torch.Tensor) -> torch.Tensor:
+    def _margin_matrix(self, X: torch.Tensor,
+                       offset: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        if offset is not None:
+            offset = offset.to(self.device)
         return predict_raw_margin(X, self._f0, self._feat, self._thr,
                                   self._na_left, self._is_split,
-                                  self._value, self.max_depth)
+                                  self._value, self.max_depth,
+                                  offset=offset if self._K == 1 else None)
 
-    def _predict_matrix(self, X: torch.Tensor) -> torch.Tensor:
-        margin = self._margin_matrix(X.to(self.device))
+    def _predict_matrix(self, X: torch.Tensor,
+                        offset: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        margin = self._margin_matrix(X.to(self.device), offset=offset)
         if self.nclasses <= 1:
-            return get_distribution(self.dist_name).predict(margin)
-        p1 = sigmoid(margin)
-        return torch.stack([1.0 - p1, p1], dim=1)
+            return get_distribution(
+                self.dist_name,
+                float(self.params.get("tweedie_power", 1.5))
+            ).predict(margin)
+        if self.nclasses == 2:
+            p1 = sigmoid(margin)
+            return torch.stack([1.0 - p1, p1], dim=1)
+        return softmax(margin)
 
 
 class H2OGradientBoostingEstimator(ModelBuilder):
@@ -266,15 +295,36 @@ class H2OGradientBoostingEstimator(ModelBuilder):
     def _distribution(self, spec: TrainingSpec) -> str:
         d = (self.params.get("distribution") or "auto").lower()
         if d in ("auto", ""):
+            if spec.nclasses == 2:
+                return "bernoulli"
             if spec.nclasses > 2:
-                d = "multinomial"
-            else:
-                d = "bernoulli" if spec.nclasses == 2 else "gaussian"
-        if d == "multinomial" or spec.nclasses > 2:
-            raise NotImplementedError(
-                "multinomial GBM is not ported yet (ROADMAP.md queue 1, "
-                "item A1, multinomial GBM)")
+                return "multinomial"
+            return "gaussian"
         return d
+
+    def _dist(self, dist_name: str, huber_delta=1.0):
+        """The family of a one-margin train: for ``custom``, an instance
+        given as custom_distribution_func wins over the registry."""
+        if str(dist_name).lower().startswith("custom"):
+            cdf = self.params.get("custom_distribution_func")
+            if cdf is not None and not isinstance(cdf, str):
+                return get_distribution(cdf)
+        return get_distribution(dist_name,
+                                float(self.params.get("tweedie_power", 1.5)),
+                                float(self.params.get("quantile_alpha", 0.5)),
+                                huber_delta)
+
+    def _huber_delta(self, spec: TrainingSpec):
+        """The huber transition point, computed once: the huber_alpha
+        weighted quantile of |r - median(r)| for the offset-adjusted
+        response r, at least 1e-10; a 0-d tensor on the device."""
+        r = spec.y.to(torch.float32)
+        if spec.offset is not None:
+            r = r - spec.offset
+        med = weighted_median(r, spec.w)
+        q = weighted_quantile(torch.abs(r - med), spec.w,
+                              float(self.params.get("huber_alpha", 0.9)))
+        return torch.clamp(q.to(torch.float32), min=1e-10)
 
     def _classification(self):
         d = (self.params.get("distribution") or "").lower()
@@ -288,27 +338,48 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                     valid: Optional[TrainingSpec] = None) -> GBMModel:
         p = self.params
         dist_name = self._distribution(spec)
+        K = spec.nclasses if spec.nclasses > 2 else 1
+        if spec.offset is not None and K > 1:
+            raise NotImplementedError(MULTINOMIAL_OFFSET)
         dev = spec.device
         t_bin0 = time.monotonic()
         cfg, grow, bm, pc = self._grower(spec)
         t_bin = time.monotonic() - t_bin0
 
-        dist = get_distribution(dist_name)
-        yf = spec.y.to(torch.float32)
         w = spec.w
-        f0 = dist.init_f0(yf, w).to(torch.float32)
-        margin = f0.expand(spec.nrow).contiguous()
+        dist = None
+        if K == 1:
+            delta = self._huber_delta(spec) if dist_name == "huber" else 1.0
+            dist = self._dist(dist_name, delta)
+            y = spec.y.to(torch.float32)
+            if spec.offset is not None:
+                # the initial margin on the offset-adjusted scale; the
+                # offset enters the margin, not the trees
+                f0 = offset_adjusted_f0(dist, y, w, spec.offset)
+            else:
+                f0 = dist.init_f0(y, w)
+            f0 = torch.as_tensor(f0, dtype=torch.float32, device=dev)
+            margin = f0.expand(spec.nrow).contiguous()
+            if spec.offset is not None:
+                margin = margin + spec.offset
+        else:
+            # log class priors; one fixed-order sum a class
+            y = spec.y.long()
+            pri = torch.stack([(w * (y == k)).sum() for k in range(K)])
+            f0 = torch.log(torch.clamp(pri / w.sum(), min=1e-9))
+            margin = f0.expand(spec.nrow, K).contiguous()
         ntrees = int(p["ntrees"])
         if ntrees < 1:
             raise ValueError(f"gbm: ntrees must be >= 1, got {ntrees}")
         anneal = float(p["learn_rate_annealing"])
-        task = "binomial" if spec.nclasses == 2 else "regression"
+        task = ("binomial" if spec.nclasses == 2
+                else "multinomial" if K > 1 else "regression")
         keeper = ScoreKeeper(p.get("stopping_rounds", 0),
                              p.get("stopping_metric"),
                              p.get("stopping_tolerance", 1e-3), task)
-        # the JAX loop's cadence: an entry after every ``interval`` trees
-        # and after the last (partial) chunk, when early stopping or an
-        # explicit score_tree_interval asks for scoring
+        # the JAX loop's cadence: an entry after every ``interval``
+        # iterations and after the last (partial) chunk, when early
+        # stopping or an explicit score_tree_interval asks for scoring
         interval = max(int(p.get("score_tree_interval") or 5), 1)
         score_each = (keeper.rounds > 0
                       or int(p.get("score_tree_interval") or 0) > 0)
@@ -318,43 +389,62 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         walk = None
         if valid is not None:
             walk = valid_walk(valid.X, bm, pc, cfg.max_depth)
-            vmargin = f0.expand(valid.nrow).contiguous()
+            vmargin = f0.expand((valid.nrow,) + tuple(f0.shape)).contiguous()
+            if valid.offset is not None and K == 1:
+                vmargin = vmargin + valid.offset
         trees: List[dict] = []
+        built = 0                      # iterations: K trees each
         score_s = 0.0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop0 = time.monotonic()
         lr_chunk = float(p["learn_rate"])
-        while len(trees) < ntrees:
-            c = min(chunk, ntrees - len(trees))
+        while built < ntrees:
+            c = min(chunk, ntrees - built)
             # within a chunk the rate is annealed in float32, across
             # chunks in float64, as the JAX chunk body and its driver do
             lr = np.float32(lr_chunk)
             for _ in range(c):
-                g, h = dist.grad_hess(margin, yf)
-                tree, nid = grow(g * w, h * w, w)
-                margin = margin + float(lr) * tree["value"][nid.long()]
-                if walk is not None:
-                    vmargin = vmargin + float(lr) * walk(tree)
-                trees.append(tree)
+                if K == 1:
+                    g, h = dist.grad_hess(margin, y)
+                    tree, nid = grow(g * w, h * w, w)
+                    margin = margin + float(lr) * tree["value"][nid.long()]
+                    if walk is not None:
+                        vmargin = vmargin + float(lr) * walk(tree)
+                    trees.append(tree)
+                else:
+                    # the K trees of an iteration share the softmax of
+                    # the margin at its start
+                    prob = softmax(margin)
+                    for k in range(K):
+                        pk = prob[:, k]
+                        g = pk - (y == k).to(torch.float32)
+                        h = torch.clamp(pk * (1.0 - pk), min=1e-9)
+                        tree, nid = grow(g * w, h * w, w)
+                        margin[:, k] += float(lr) * tree["value"][nid.long()]
+                        if walk is not None:
+                            vmargin[:, k] += float(lr) * walk(tree)
+                        trees.append(tree)
+                built += 1
                 lr = np.float32(lr * np.float32(anneal))
             lr_chunk *= anneal ** c
             if score_each:
                 t_s0 = time.monotonic()
                 keeper.record(score_entry(
                     vmargin if valid is not None else margin, sc_spec,
-                    dist, len(trees), want_auc))
+                    dist, built, want_auc))
                 score_s += time.monotonic() - t_s0
                 # the JAX loop checks before it commits a further chunk:
                 # the last chunk stands whatever the rule says
-                if len(trees) < ntrees and keeper.should_stop():
+                if built < ntrees and keeper.should_stop():
                     break
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop = time.monotonic() - t_loop0
 
         t_fin0 = time.monotonic()
-        model = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev)
+        model = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev, K,
+                               built)
         model.scoring_history = keeper.history
         model.training_metrics = self._metrics_from_margin(margin, spec,
                                                            dist)
@@ -368,6 +458,9 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                                          "finalize_s": t_fin}
         model.output["packed_codes"] = packed_codes_record(
             pc, bm.n_bins if pc is not None else None)
+        if dist is not None and dist.name == "huber":
+            # the transition point the trees were grown with
+            model.output["huber_delta"] = float(dist.delta)
         return model
 
     def _grower(self, spec: TrainingSpec):
@@ -420,19 +513,19 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         return (cfg, lambda g, h, w: grow_tree(codes, g, h, w, cfg), bm,
                 None)
 
-    def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev):
-        """One fetch of the stacked trees, raw thresholds (unbinned from
-        the sketch paths' split bins; the adaptive grower's as they are),
-        leaf values scaled by each tree's learning rate, variable
-        importances."""
+    def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev, K, built):
+        """One fetch of the stacked trees ([built·K, M] in (iteration,
+        class) order), raw thresholds (unbinned from the sketch paths'
+        split bins; the adaptive grower's as they are), leaf values scaled
+        by their iteration's learning rate, variable importances summed
+        over every tree."""
         keys = ("feat", "na_left", "is_split", "value", "gain", "node_w",
                 "thr" if bm is None else "split_bin")
         th = {k: torch.stack([t[k] for t in trees]).cpu().numpy()
               for k in keys}
-        T = len(trees)
         lr0 = float(self.params["learn_rate"])
         anneal = float(self.params["learn_rate_annealing"])
-        lrs = lr0 * anneal ** np.arange(T)
+        lrs = lr0 * anneal ** np.repeat(np.arange(built), K)
         trees_host = {
             "feat": th["feat"], "na_left": th["na_left"],
             "is_split": th["is_split"],
@@ -449,8 +542,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                 th["split_bin"], th["feat"], edges)
         model = GBMModel(self._model_key(), self.params, spec.names,
                          spec.nclasses, dist_name, f0.cpu().numpy(),
-                         trees_host, edges, cfg.n_bins, cfg.max_depth, T,
-                         dev, response=spec.response,
+                         trees_host, edges, cfg.n_bins, cfg.max_depth,
+                         built, dev, response=spec.response,
                          response_domain=spec.response_domain,
                          is_cat=spec.is_cat, cat_domains=spec.cat_domains)
         vi = np.zeros(len(spec.names))
@@ -471,6 +564,9 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             p1 = sigmoid(margin)
             probs = torch.stack([1.0 - p1, p1], dim=1)
             return compute_metrics(probs, spec.y, spec.w, 2)
+        if dist is None:
+            return compute_metrics(softmax(margin), spec.y, spec.w,
+                                   spec.nclasses)
         mu = dist.predict(margin)
         dev = float(dist.deviance(spec.w, spec.y.to(torch.float32), mu))
         return compute_metrics(mu, spec.y, spec.w, 1, deviance=dev)

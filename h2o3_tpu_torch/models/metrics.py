@@ -1,11 +1,14 @@
 """Model metrics: computed on the scores' device, finished on the host.
 
-Counterpart of the regression and binomial parts of
+Counterpart of the regression, binomial and multinomial parts of
 ``h2o3_tpu/models/metrics.py``. The AUC curve is exact (device sort,
 host chord rule) up to ``_EXACT_SWEEP_ROWS`` rows; above that it uses an
 order-preserving 2^17-bucket histogram of the float32 score bits, so
 nothing O(n) crosses to the host. The bucket sums and ``auc_device`` add
-in a fixed order (no float atomics), so they repeat bit for bit.
+in a fixed order (no float atomics), so they repeat bit for bit. The
+multinomial aggregates (confusion matrix, hit positions, one-vs-rest
+AUCs on the same bucket curve) are plain reductions too, fetched in one
+host copy.
 """
 from __future__ import annotations
 
@@ -115,16 +118,16 @@ def _fixed_sum(x):
     return x[0]
 
 
-def _bucket_sums(b, vals):
-    """Per-bucket sums [_AUC_BINS, C] of ``vals`` [n, C] over bucket ids
-    ``b``, in a fixed order: a stable sort groups each bucket's rows in
-    row order, a run-restarted scan sums them, and each run's last row
-    is written to its bucket (one writer a bucket)."""
+def _bucket_sums(b, vals, n_buckets=_AUC_BINS):
+    """Per-bucket sums [n_buckets, C] of ``vals`` [n, C] over bucket ids
+    ``b`` in [0, n_buckets), in a fixed order: a stable sort groups each
+    bucket's rows in row order, a run-restarted scan sums them, and each
+    run's last row is written to its bucket (one writer a bucket)."""
     bs, order = torch.sort(b, stable=True)
     run = _run_scan(vals[order], bs)
     last = torch.ones_like(bs, dtype=torch.bool)
     last[:-1] = bs[1:] != bs[:-1]
-    out = torch.zeros((_AUC_BINS, vals.shape[1]), dtype=vals.dtype,
+    out = torch.zeros((n_buckets, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
     out[bs[last]] = run[last]
     return out
@@ -147,15 +150,11 @@ def _binned_curve_kernel(score, y, w):
     return h[:, 0], h[:, 1], smax
 
 
-def auc_device(score, y, w):
-    """Scalar float32 AUC on the device from the 2^17-bucket curve (empty
-    buckets add zero-width chords). Every float sum comes in a fixed
-    order, so the same inputs give the same bits in every call: the
-    early-stopping rule reads it. The float32 bucket sums are carried
-    through the curve and the chord sum in float64 and rounded once at
-    the end, where a float32 pass drifts by a few units in the last
-    place with the order of its adds."""
-    hp, hn, _ = _binned_curve_kernel(score, y, w)
+def _curve_aucs(hp, hn):
+    """The chord-rule AUC and the step PR AUC of a 2^17-bucket curve
+    (per-bucket positive and negative weights in ascending score order),
+    each carried in float64 in a fixed order and rounded once to
+    float32."""
     cum = _run_scan(torch.stack([hp, hn], dim=1).flip(0).double())
     tp, fp = cum[:, 0], cum[:, 1]
     P, N = tp[-1], fp[-1]
@@ -164,7 +163,22 @@ def auc_device(score, y, w):
     fp_prev = torch.cat([z, fp[:-1]])
     auc = _fixed_sum((fp - fp_prev) * (tp + tp_prev)) * 0.5 \
         / torch.clamp(P * N, min=1e-30)
-    return auc.to(torch.float32)
+    prec = tp / torch.clamp(tp + fp, min=1e-30)
+    rec = tp / torch.clamp(P, min=1e-30)
+    rec_prev = tp_prev / torch.clamp(P, min=1e-30)
+    aucpr = _fixed_sum((rec - rec_prev) * prec)
+    return auc.to(torch.float32), aucpr.to(torch.float32)
+
+
+def auc_device(score, y, w):
+    """Scalar float32 AUC on the device from the 2^17-bucket curve (empty
+    buckets add zero-width chords). Every float sum comes in a fixed
+    order, so the same inputs give the same bits in every call: the
+    early-stopping rule reads it. The float32 bucket sums are carried
+    through the curve and the chord sum in float64 and rounded once at
+    the end, where a float32 pass drifts by a few units in the last
+    place with the order of its adds."""
+    return _curve_aucs(*_binned_curve_kernel(score, y, w)[:2])[0]
 
 
 def _binary_curve(prob, y, w):
@@ -340,3 +354,150 @@ def make_binomial_metrics(prob, actual, weights=None) -> ModelMetricsBinomial:
         f1_threshold=float(sb[bi]), max_f1=float(f1[bi]),
         confusion_matrix=cm, accuracy=float(acc), nobs=n,
         thresholds_and_metric_scores=table)
+
+
+# --------------------------------------------------------------- multinomial
+
+
+def _multinomial_kernel(probs, y, w):
+    """The multinomial aggregates on the scores' device: logloss, argmax
+    error, the confusion matrix [K, K] (weights summed in a fixed order
+    over the key y·K + pred), one-vs-all MSE (1 - p_actual) and the hit-position
+    histogram (each row's position of its true class in the stable
+    descending sort of its probabilities, counted over rows in a fixed
+    order)."""
+    eps = 1e-7  # f32-safe: 1-1e-15 rounds to 1.0f -> log1p(-1) = -inf
+    rows, K = probs.shape
+    yl = y.long()
+    # y is a class code >= 0 (the specs give an NA response code 0 and
+    # weight 0), so the gather needs no mask
+    py = probs.gather(1, yl[:, None])[:, 0]
+    wsum = w.sum()
+    ll = -(w * torch.log(torch.clamp(py, eps, 1.0))).sum() / wsum
+    pred = torch.argmax(probs, dim=1)
+    err = (w * (pred != yl)).sum() / wsum
+    cm = _bucket_sums(yl * K + pred, w[:, None], K * K).reshape(K, K)
+    mse = (w * (1.0 - py) ** 2).sum() / wsum
+    ranks = torch.argsort(-probs, dim=1, stable=True)
+    pos = torch.argmax((ranks == yl[:, None]).to(torch.int32), dim=1)
+    # times the float32 reciprocal of the row count, not divided by it:
+    # XLA rewrites the JAX package's division by a constant so
+    hitpos = _bucket_sums(pos, torch.ones_like(w)[:, None], K)[:, 0] \
+        * torch.tensor(1.0 / rows, dtype=torch.float32, device=w.device)
+    return ll, err, cm, mse, hitpos
+
+
+def _ovr_auc_kernel(probs, y, w):
+    """One-vs-rest AUC and PR AUC per class on the device, each class
+    column through the 2^17-bucket curve of ``auc_device``: [K] AUCs,
+    [K] PR AUCs (NaN for a class with no positives or no negatives under
+    the weights) and [K] class weights."""
+    wtot = w.sum()
+    aucs, prs, prev = [], [], []
+    for k in range(probs.shape[1]):
+        yk = (y == k).to(torch.float32)
+        hp, hn, _ = _binned_curve_kernel(probs[:, k], yk, w)
+        auc, aucpr = _curve_aucs(hp, hn)
+        aucs.append(auc)
+        prs.append(aucpr)
+        prev.append((w * yk).sum())
+    per_auc, per_pr, prevalence = (torch.stack(aucs), torch.stack(prs),
+                                   torch.stack(prev))
+    bad = (prevalence <= 0) | (prevalence >= wtot)
+    nan = torch.full_like(per_auc, float("nan"))
+    return (torch.where(bad, nan, per_auc), torch.where(bad, nan, per_pr),
+            prevalence)
+
+
+def _auc_table(pa, pp, pv) -> dict:
+    """Per-class OVR AUCs with their macro and prevalence-weighted means,
+    from the host copies of ``_ovr_auc_kernel``'s outputs."""
+    pa = np.asarray(pa, np.float64)
+    pp = np.asarray(pp, np.float64)
+    pv = np.asarray(pv, np.float64)
+    pv = pv / max(pv.sum(), 1e-30)
+    ok = ~np.isnan(pa)
+    macro = float(pa[ok].mean()) if ok.any() else float("nan")
+    weighted = float((pa[ok] * pv[ok]).sum() / max(pv[ok].sum(), 1e-30)) \
+        if ok.any() else float("nan")
+    macro_pr = float(pp[ok].mean()) if ok.any() else float("nan")
+    weighted_pr = float((pp[ok] * pv[ok]).sum() / max(pv[ok].sum(), 1e-30)) \
+        if ok.any() else float("nan")
+    return {"per_class_auc": [float(v) for v in pa],
+            "per_class_aucpr": [float(v) for v in pp],
+            "macro_auc": macro, "weighted_auc": weighted,
+            "macro_aucpr": macro_pr, "weighted_aucpr": weighted_pr}
+
+
+def multinomial_auc_table(probs, y, w, max_classes=20) -> Optional[dict]:
+    """One-vs-rest AUC per class and the macro and weighted averages
+    (hex/MultinomialAUC.java's default); None above ``max_classes``."""
+    if int(probs.shape[1]) > max_classes:
+        return None
+    pa, pp, pv = _host(*_ovr_auc_kernel(probs.to(torch.float32), y,
+                                        w.to(torch.float32)))
+    return _auc_table(pa, pp, pv)
+
+
+@dataclass
+class ModelMetricsMultinomial:
+    logloss: float
+    mse: float
+    rmse: float
+    mean_per_class_error: float
+    error: float
+    confusion_matrix: np.ndarray
+    hit_ratios: np.ndarray
+    nobs: int
+    auc: Optional[float] = None          # macro one-vs-rest
+    aucpr: Optional[float] = None
+    auc_table: Optional[dict] = None     # per-class OVR auc/aucpr + means
+
+    def to_dict(self) -> Dict:
+        return {"logloss": self.logloss, "MSE": self.mse, "RMSE": self.rmse,
+                "mean_per_class_error": self.mean_per_class_error,
+                "error": self.error, "cm": self.confusion_matrix.tolist(),
+                "hit_ratios": self.hit_ratios.tolist(), "nobs": self.nobs,
+                "AUC": self.auc, "pr_auc": self.aucpr}
+
+
+def make_multinomial_metrics(probs, actual, weights=None,
+                             max_auc_classes: int = 20
+                             ) -> ModelMetricsMultinomial:
+    """Every aggregate computed on the scores' device and fetched in one
+    host copy of O(K^2) numbers (the confusion matrix, the hit histogram,
+    the OVR AUC scalars); the [n, K] probabilities never cross."""
+    probs = probs.to(torch.float32)
+    y = actual.to(torch.int32)
+    w = (torch.ones(probs.shape[0], dtype=torch.float32,
+                    device=probs.device)
+         if weights is None else weights.to(torch.float32))
+    K = int(probs.shape[1])
+    ll, err, cm, mse, hitpos = _multinomial_kernel(probs, y, w)
+    parts = [torch.stack([ll, err, mse]), cm.reshape(-1), hitpos]
+    with_auc = K <= max_auc_classes
+    if with_auc:
+        parts += list(_ovr_auc_kernel(probs, y, w))
+    h = torch.cat([t.to(torch.float64) for t in parts]).cpu().numpy()
+    ll, err, mse = (float(v) for v in h[:3])
+    cm = h[3:3 + K * K].reshape(K, K).astype(np.float32)
+    hitpos = h[3 + K * K: 3 + K * K + K]
+    row_tot = cm.sum(axis=1)
+    per_class = np.where(row_tot > 0,
+                         1.0 - np.diag(cm) / np.maximum(row_tot, 1e-30), 0.0)
+    present = row_tot > 0
+    mpce = float(per_class[present].mean()) if present.any() else 0.0
+    # hit ratio @k: the share of rows whose true class ranks in the top k
+    hr = np.cumsum(hitpos)[: min(K, 10)]
+    auct = None
+    if with_auc:
+        o = 3 + K * K + K
+        auct = _auc_table(h[o:o + K], h[o + K:o + 2 * K],
+                          h[o + 2 * K:o + 3 * K])
+    return ModelMetricsMultinomial(
+        logloss=ll, mse=mse, rmse=float(np.sqrt(mse)),
+        mean_per_class_error=mpce, error=err, confusion_matrix=cm,
+        hit_ratios=hr, nobs=int(probs.shape[0]),
+        auc=None if auct is None else auct["macro_auc"],
+        aucpr=None if auct is None else auct["macro_aucpr"],
+        auc_table=auct)

@@ -35,6 +35,7 @@ class TrainingSpec:
     response: str
     response_domain: Optional[tuple]
     nclasses: int                # 1 = regression
+    offset: Optional[torch.Tensor] = None   # [nrow] float32, NaN -> 0
 
     @property
     def n_features(self) -> int:
@@ -49,6 +50,7 @@ def build_training_spec(frame: Frame, y: str,
                         x: Optional[Sequence[str]] = None,
                         ignored_columns: Optional[Sequence[str]] = None,
                         weights_column: Optional[str] = None,
+                        offset_column: Optional[str] = None,
                         classification: Optional[bool] = None
                         ) -> TrainingSpec:
     if y not in frame:
@@ -56,6 +58,8 @@ def build_training_spec(frame: Frame, y: str,
     excluded = {y} | set(ignored_columns or ())
     if weights_column:
         excluded.add(weights_column)
+    if offset_column:
+        excluded.add(offset_column)
     names = list(x) if x else [n for n in frame.names if n not in excluded]
     names = [n for n in names if n != y]
     rvec = frame.vec(y)
@@ -83,10 +87,17 @@ def build_training_spec(frame: Frame, y: str,
     if weights_column:
         wv = frame.vec(weights_column).as_float()
         w = w * torch.where(torch.isnan(wv), 0.0, wv)
+    offset = _offset(frame, offset_column) if offset_column else None
     return TrainingSpec(X=X, y=y_dev, w=w, names=names, is_cat=is_cat,
                         cat_domains=cat_domains, nrow=frame.nrow,
                         response=y, response_domain=response_domain,
-                        nclasses=nclasses)
+                        nclasses=nclasses, offset=offset)
+
+
+def _offset(frame: Frame, offset_column: str) -> torch.Tensor:
+    """An offset column as float32 on the frame's device, NA -> 0."""
+    ov = frame.vec(offset_column).as_float()
+    return torch.where(torch.isnan(ov), 0.0, ov)
 
 
 def adapt_test_matrix(model: "Model", frame: Frame) -> torch.Tensor:
@@ -141,14 +152,16 @@ def response_codes_in_domain(frame: Frame, response: str, domain):
 
 
 def build_validation_spec(frame: Frame, train_spec: TrainingSpec,
-                          weights_column: Optional[str] = None
+                          weights_column: Optional[str] = None,
+                          offset_column: Optional[str] = None
                           ) -> TrainingSpec:
     """A validation frame's spec adapted to a training spec: columns in
     training order, enum codes remapped through the training domains
     (unseen and NA -> NA), response codes mapped through the training
     response domain (unseen and NA -> weight 0). A spec from the
     validation frame's own domains would misroute enum splits and class
-    indices."""
+    indices. A model trained with an offset needs it here too: a frame
+    without the offset column raises."""
     if frame.device != train_spec.device:
         raise ValueError(f"validation frame lives on {frame.device}, the "
                          f"training frame on {train_spec.device}")
@@ -172,12 +185,18 @@ def build_validation_spec(frame: Frame, train_spec: TrainingSpec,
                              f"'{weights_column}'")
         wv = frame.vec(weights_column).as_float()
         w = w * torch.where(torch.isnan(wv), 0.0, wv)
+    offset = None
+    if offset_column:
+        if offset_column not in frame:
+            raise ValueError(
+                f"validation frame lacks offset_column '{offset_column}'")
+        offset = _offset(frame, offset_column)
     return TrainingSpec(X=X, y=y_dev, w=w, names=train_spec.names,
                         is_cat=train_spec.is_cat,
                         cat_domains=train_spec.cat_domains, nrow=frame.nrow,
                         response=train_spec.response,
                         response_domain=train_spec.response_domain,
-                        nclasses=train_spec.nclasses)
+                        nclasses=train_spec.nclasses, offset=offset)
 
 
 class ScoreKeeper:
@@ -232,7 +251,8 @@ class ScoreKeeper:
 
 
 def compute_metrics(scores, y, w, nclasses, deviance=None):
-    """Regression or binomial metrics over the rows with weight > 0."""
+    """Regression, binomial or multinomial metrics over the rows with
+    weight > 0."""
     live = w > 0
     if not bool(live.all()):
         scores, y, w = scores[live], y[live], w[live]
@@ -241,9 +261,7 @@ def compute_metrics(scores, y, w, nclasses, deviance=None):
                                                    deviance=deviance)
     if nclasses == 2:
         return metrics_mod.make_binomial_metrics(scores[:, 1], y, w)
-    raise NotImplementedError(
-        "multinomial metrics are not ported yet (ROADMAP.md, queue 1, "
-        "item A1: the multinomial GBM)")
+    return metrics_mod.make_multinomial_metrics(scores, y, w)
 
 
 class Model:
@@ -271,10 +289,25 @@ class Model:
         self.validation_metrics = None
         self.scoring_history: List[Dict] = []
 
-    def _predict_matrix(self, X: torch.Tensor) -> torch.Tensor:
+    def _predict_matrix(self, X: torch.Tensor,
+                        offset: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """[rows] predictions (regression) or [rows, K] class
-        probabilities."""
+        probabilities; ``offset`` [rows] is added to the margin."""
         raise NotImplementedError
+
+    def _frame_offset(self, frame: Frame) -> Optional[torch.Tensor]:
+        """The scoring frame's offset, for a model trained with
+        offset_column (None otherwise); a frame without the column
+        raises, since dropping it would shift every prediction."""
+        oc = self.params.get("offset_column")
+        if not oc:
+            return None
+        if oc not in frame:
+            raise ValueError(
+                f"model was trained with offset_column='{oc}' but the "
+                f"scoring frame does not contain it")
+        return _offset(frame, oc)
 
     def _correct_probabilities(self, probs: torch.Tensor) -> torch.Tensor:
         """balance_classes probability un-correction (hex/Model
@@ -299,7 +332,8 @@ class Model:
         """Score a frame on its device: regression -> 'predict';
         classification -> 'predict' plus one probability column per
         class."""
-        out = self._predict_matrix(adapt_test_matrix(self, frame))
+        out = self._predict_matrix(adapt_test_matrix(self, frame),
+                                   offset=self._frame_offset(frame))
         if self.nclasses <= 1:
             return Frame(["predict"], [Vec(out.to(torch.float32))])
         out = self._correct_probabilities(out)
@@ -331,7 +365,8 @@ class Model:
 
 # builder-level parameters every algorithm of the port understands
 BUILDER_PARAMS = frozenset({"model_id", "ignored_columns", "weights_column",
-                            "response_column", "training_frame"})
+                            "offset_column", "response_column",
+                            "training_frame"})
 
 
 class ModelBuilder:
@@ -379,11 +414,13 @@ class ModelBuilder:
             training_frame, y, x,
             ignored_columns=self.params.get("ignored_columns"),
             weights_column=self.params.get("weights_column"),
+            offset_column=self.params.get("offset_column"),
             classification=self._classification())
         valid = None
         if validation_frame is not None:
             valid = build_validation_spec(
                 validation_frame, spec,
-                weights_column=self.params.get("weights_column"))
+                weights_column=self.params.get("weights_column"),
+                offset_column=self.params.get("offset_column"))
         self.model = self._train_impl(spec, valid)
         return self

@@ -684,20 +684,30 @@ def predict_raw_tree(X, tree, max_depth: int):
 
 
 def predict_raw_margin(X, f0, feat, thr, na_left, is_split, value,
-                       max_depth: int):
-    """``f0`` plus the leaf values of a stack of T trees (``feat``/
-    ``thr``/... are [T, M]) walked over raw features, added one tree at a
-    time in tree order: each row's sum is the same sequence of float32
-    adds whatever the number of rows, so a one-row batch and a whole
-    frame give a row the same bits. ``f0`` is a 0-d tensor on X's
-    device."""
+                       max_depth: int, offset=None):
+    """``f0`` plus the leaf values of a stack of trees (``feat``/``thr``/
+    ... are [T, M]) walked over raw features, added one tree at a time in
+    tree order: each row's sum is the same sequence of float32 adds
+    whatever the number of rows, so a one-row batch and a whole frame
+    give a row the same bits. ``f0`` is a tensor on X's device: 0-d for
+    one margin a row ([rows], plus ``offset`` [rows] where given), or
+    [K] for K classes, whose stack is in (tree, class) order ([T·K, M]),
+    each tree added into column ``t % K`` of the [rows, K] margin."""
     # clone, never contiguous(): a one-row expand is already contiguous,
     # and the adds below would then write into f0 itself
-    margin = f0.expand(X.shape[0]).clone()
+    if f0.dim() == 0:
+        margin = f0.expand(X.shape[0]).clone()
+        for t in range(feat.shape[0]):
+            nid = _walk_raw(X, feat[t], thr[t], na_left[t], is_split[t],
+                            max_depth)
+            margin += value[t][nid]
+        return margin if offset is None else margin + offset
+    K = f0.shape[0]
+    margin = f0.expand(X.shape[0], K).clone()
     for t in range(feat.shape[0]):
         nid = _walk_raw(X, feat[t], thr[t], na_left[t], is_split[t],
                         max_depth)
-        margin += value[t][nid]
+        margin[:, t % K] += value[t][nid]
     return margin
 
 

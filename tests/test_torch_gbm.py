@@ -6,7 +6,6 @@ sketch; and the port scores a JAX model carried across through
 from_jax_arrays."""
 import numpy as np
 import pytest
-import torch
 
 import h2o3_tpu as jh2o
 import h2o3_tpu_torch as th2o
@@ -103,7 +102,7 @@ def test_gaussian_regression_trains_on_cpu():
 
 @pytest.mark.parametrize("param", [
     {"histogram_type": "random"},
-    {"distribution": "multinomial"}, {"distribution": "poisson"},
+    {"sample_rate_per_class": [1.0, 0.5]}, {"balance_classes": True},
     {"col_sample_rate_per_tree": 0.5}, {"checkpoint": "gbm_1"},
     {"sample_rate": 0.8}, {"col_sample_rate": 0.5}, {"mtries": 3},
     {"monotone_constraints": {"f0": 1}},
@@ -375,17 +374,16 @@ def test_wide_bin_shapes_match_jax(params):
 
 def test_refusals_name_their_roadmap_labels():
     """Each refusal names the ROADMAP.md queue-1 label that ports it:
-    checkpoints A3, the other distributions A6, multinomial metrics
-    A1."""
-    from h2o3_tpu_torch.models.distributions import get_distribution
-    from h2o3_tpu_torch.models.model_base import compute_metrics
+    checkpoints A3, sampling A4, constraints A5, cross-validation and
+    class balancing A7."""
     with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
         TorchGBM(ntrees=1, checkpoint="gbm_1")
     with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
         TorchGBM(ntrees=1, in_training_checkpoints_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item A6: the other"):
-        get_distribution("poisson")
-    scores = torch.full((4, 3), 1.0 / 3)
-    with pytest.raises(NotImplementedError, match="item A1: the multi"):
-        compute_metrics(scores, torch.zeros(4, dtype=torch.int32),
-                        torch.ones(4), 3)
+    with pytest.raises(NotImplementedError, match="item A4, sampling"):
+        TorchGBM(ntrees=1, sample_rate=0.8)
+    with pytest.raises(NotImplementedError, match="item A5, constraints"):
+        TorchGBM(ntrees=1, monotone_constraints={"f0": 1})
+    with pytest.raises(NotImplementedError,
+                       match="item A7, cross-validation"):
+        TorchGBM(ntrees=1, nfolds=3)
