@@ -4,8 +4,10 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and the repository; without either it exits non-zero and
 prints no result. It drives the port's GBM paths from ``Frame.from_numpy`` and from a
-CSV file through ``import_file``, and the XGBoost estimator (BASELINE
-config #2) with a validation frame and early stopping: packed codes
+CSV file through ``import_file``, the XGBoost estimator (BASELINE
+config #2) with a validation frame and early stopping, the sampled GBM
+and XGBoost and the random forest (kernel threefry_uniform, the row,
+column and per-node draws): packed codes
 (``histogram_type="quantiles_global"``, kernels binned_level and
 binned_route_only), adaptive bins (``packed_codes=False``, H2O's
 default ``uniform_adaptive``, kernels adaptive_level and
@@ -97,7 +99,7 @@ against its plain version. Phases, each fatal on failure:
    float level launches), each AUC within 0.005 of its wide path's;
    from a file (after phase 5): CSV -> ``import_file(device="cuda")`` ->
    GBM -> AUC -> predict, the counters set to 0 before each import. The
-   HIGGS shape at 1M rows (nine significant digits, so that every
+   HIGGS shape at 250k rows (nine significant digits, so that every
    float32 comes back exactly): every column bit-equal to
    ``Frame.from_numpy`` of the same arrays and the packed train's trees
    and AUC bit-equal to that frame's (6 x 20 binned_level, 20
@@ -237,6 +239,57 @@ against its plain version. Phases, each fatal on failure:
    below at most one such noise split), the training deviances within a
    relative 1e-5.
 
+8c. sampling, ROADMAP item A4 (``phase_sampling``), on the 10M x 28
+   frame, the launch counters set to 0 just before each train and read
+   just after: the packed GBM (depth 6, 20 trees, seed 7) with
+   sample_rate 0.8, col_sample_rate 0.8 and
+   col_sample_rate_change_per_level 0.9 (120 binned_level, 20 each of
+   binned_route_only and segment_totals, threefry_uniform 20 row samples,
+   20 column masks and a per-node subset at each of levels 1-5); the
+   adaptive GBM (nbins 20) with histogram_type "random" (120
+   adaptive_level, 20 adaptive_route_only, 20 grid phases); XGBoost hist
+   (50 trees, the 500k-row validation frame) with subsample 0.8 and
+   colsample_bytree 0.8 (300, 50, 50 and 100 draws). Each: loop seconds,
+   trees/s, a better-than-chance AUC, two float32 trains bit for bit,
+   card vs CPU at 200k rows and 5 trees (float32): every split equal but
+   below at most one noise split, |dAUC| <= 1e-4.
+
+8d. the random forest (``phase_drf``, ``drf_case``), H2O's DRF at the
+   JAX package's defaults (50 trees, depth 10, nbins 20, min_rows 1,
+   sample_rate 0.632, mtries floor(sqrt F) or F // 3, packed codes at
+   W = 32), seed 7, the launch counters set to 0 just before and read
+   just after: drf_higgs (the 10M x 28 frame, its label as classes,
+   mtries 5: 500 binned_level, 50 binned_route_only and segment_totals,
+   550 draws), drf_covtype (phase 8a's frame: 20 forest trees of 7,
+   mtries 7) and
+   drf_regression (the HIGGS-shaped first feature, rounded to eighths, as
+   the response of the other 27 at 1M rows, mtries 9; that response is
+   independent of its features, so the out-of-bag RMSE must come within
+   5% of its std; in eighths its sums are exact in any order, without
+   which the card and the CPU split near ties of this pure-noise
+   regression differently).
+   Each: every level's form one that sums in a fixed order (printed),
+   the out-of-bag metrics (AUC and logloss; logloss, error and mean
+   per-class error; RMSE) better than the trivial model's, predict
+   finite and of its shape, loop seconds, ms a tree, trees/s, peak
+   memory, two float32 trains bit for bit (20 trees; covertype 5 forest
+   trees), card vs CPU at float32 (200k rows and 5 trees; covertype 50k
+   rows and one forest tree of 7) under the one-noise-split rule, the
+   device busy share of a profiled ``train()`` of 5 trees (covertype one
+   forest tree of 7). drf_higgs deployed at buckets 1 and
+   64: each replay bit-equal to the eager predict, 64 rows served bit-
+   equal to ``predict``. Then the forest's deep levels at 10M x 28, W =
+   32, bf16 (``phase_deep_record``): binned_level in its picked form at
+   N = 64, 128, 256, 512 against its plain version (nid bit-equal, every
+   bin within the mass tolerance, five launches bit-equal), timed beside
+   its bound and one ``index_add_``; binned_route_only from n_prev = 512
+   bit-equal; segment_totals over 1024 leaves (the matched keys) within
+   the tolerance, five launches bit-equal, beside ``index_add_``; and
+   threefry_uniform at 10M rows (``phase_threefry_record``): the uniform
+   and the fused row sample (a rate; per-class rates, codes out of range
+   clamped) bit-equal to the plain version, timed beside it and the
+   bound.
+
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
    kernels in ``tools/csrc/probes.cu``, built in phase 2 beside the
@@ -269,7 +322,7 @@ against its plain version. Phases, each fatal on failure:
    queued back to back (P3's eager chains keep the host's launch time on
    purpose; its shares are of the graph's times).
 
-10. scoring and serving (``phase_serve``, run after phase 8b on the
+10. scoring and serving (``phase_serve``, run after phase 8d on the
    packed main path's model, XGBoost hist, the multinomial model of 8a
    and the airlines model; no K-kernel may launch in it): ``model.predict`` over the 10M x 28 frame
    for the first two, cold and the warm median of 3, rows/s, peak device
@@ -1794,7 +1847,7 @@ def check_train_levels(fr, path, card, flush):
     return tree_ms
 
 
-def phase_csv(card, higgs_rows=1_000_000, air_rows=10_000_000,
+def phase_csv(card, higgs_rows=250_000, air_rows=10_000_000,
               cpu_rows=200_000):
     """The main path from a file: CSV -> ``import_file(device="cuda")``
     -> GBM -> AUC -> predict, the launch counters set to 0 before each
@@ -2508,9 +2561,9 @@ def ingest_sql(card, rows=1_000_000):
         os.unlink(db)
 
 
-def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=1_000_000,
-                 xlsx_rows=100_000, higgs_rows=1_000_000, fb_rows=1_000_000,
-                 sql_rows=1_000_000, member_bytes=1 << 20):
+def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=250_000,
+                 xlsx_rows=50_000, higgs_rows=250_000, fb_rows=1_000_000,
+                 sql_rows=250_000, member_bytes=1 << 20):
     """The rest of ingest on the card (B1-B5), after ``phase_csv``, whose
     10M-row airlines file and default-GBM train (``csv_ref``: its trees
     and AUC) it reuses: gzip and zstd at full width through the GBM;
@@ -3540,9 +3593,11 @@ def check_repeats(runs, path, what):
     key = PATHS[path]["split_key"]
     pairs = {f"{i}-{j}": tree_diffs(runs[i].trees, runs[j].trees, key)
              for i in range(len(runs)) for j in range(i + 1, len(runs))}
-    aucs = [r.training_metrics.auc for r in runs]
+    aucs = [getattr(r.training_metrics, "auc", r.training_metrics.mse)
+            for r in runs]
     print(f"repeatability {path}, {what}: entries that differ "
-          f"{json.dumps(pairs)}, AUC {aucs!r}", flush=True)
+          f"{json.dumps(pairs)}, AUC (a regression's MSE) {aucs!r}",
+          flush=True)
     bad = {p: d for p, d in pairs.items() if any(d.values())}
     if bad:
         raise AssertionError(f"{path} {what}: trains differ {bad}")
@@ -4055,19 +4110,20 @@ def noise_split(gains, t, m, depth):
 
 
 def card_vs_cpu_splits(what, mc, mh, gc, gh, n_trees, depth,
-                       max_noise=1):
-    """Every split of ``n_trees`` trees (feature, split bin, NA side)
-    equal between the card's model ``mc`` and the CPU's ``mh``, except
-    below a node that split on rounding alone on both devices
-    (``noise_split``; ``gc``, ``gh`` the recorded gains), and at most
-    ``max_noise`` such nodes in the train. Returns (trees identical,
-    nodes that differ, noise splits they lie below)."""
+                       max_noise=1, split_key="split_bin"):
+    """Every split of ``n_trees`` trees (feature, ``split_key``: the split
+    bin or the raw threshold, NA side) equal between the card's model
+    ``mc`` and the CPU's ``mh``, except below a node that split on
+    rounding alone on both devices (``noise_split``; ``gc``, ``gh`` the
+    recorded gains), and at most ``max_noise`` such nodes in the train.
+    Returns (trees identical, nodes that differ, noise splits they lie
+    below)."""
     same, differ, roots = 0, 0, set()
     M = 2 ** depth - 1                  # the split levels' nodes
     for t in range(n_trees):
         bad = [m for m in range(M) if any(
             mc.trees[k][t][m] != mh.trees[k][t][m]
-            for k in ("feat", "split_bin", "na_left"))]
+            for k in ("feat", split_key, "na_left"))]
         same += not bad
         differ += len(bad)
         for m in bad:
@@ -4079,8 +4135,8 @@ def card_vs_cpu_splits(what, mc, mh, gc, gh, n_trees, depth,
                 raise AssertionError(
                     f"{what}: card vs cpu: tree {t} node {m}: feat "
                     f"{mc.trees['feat'][t][m]} vs {mh.trees['feat'][t][m]}, "
-                    f"split_bin {mc.trees['split_bin'][t][m]} vs "
-                    f"{mh.trees['split_bin'][t][m]}, not below a noise "
+                    f"{split_key} {mc.trees[split_key][t][m]} vs "
+                    f"{mh.trees[split_key][t][m]}, not below a noise "
                     f"split")
             roots.add((t, a))
     if len(roots) > max_noise:
@@ -4480,6 +4536,536 @@ def phase_families(card, rows=FREMTPL2_ROWS, ntrees=50, depth=5,
     finally:
         _CUSTOM.pop("fremtpl2_poisson", None)
     return out
+
+
+# --------------------------- 8c-8d. sampling (A4) and the random forest
+
+# the sampling values most often tuned (XGBoost's and H2O's own tuning
+# guides): rows and columns at 0.8, the column rate shrinking 0.9 a level
+SAMPLING_GBM = dict(sample_rate=0.8, col_sample_rate=0.8,
+                    col_sample_rate_change_per_level=0.9)
+SAMPLING_XGB = dict(subsample=0.8, colsample_bytree=0.8)
+# H2O's DRF at the JAX package's defaults (DRF_DEFAULTS: 50 trees, depth
+# 10, nbins 20, min_rows 1, sample_rate 0.632, mtries floor(sqrt F) or
+# F // 3), seed 7; the regression forest's rows
+DRF_DEPTH = 10
+DRF_TREES = 50
+DRF_REG_ROWS = 1_000_000
+# the regression forest's response, the generator's first feature, is
+# independent of the other 27: no forest beats the response's mean, and
+# the out-of-bag RMSE must come within this factor of its std. It is
+# rounded to eighths: every split of a pure-noise regression is a near
+# tie, and with a float response the card's and the CPU's orders of adds
+# picked different features at tree 0, node 18 (depth 4); in eighths
+# every sum of the response is exact in float32, whatever the order
+DRF_REG_RMSE_RATIO = 1.05
+DRF_REG_STEP = 0.125
+
+
+def draws_of(iterations, depth, F, K=1, rate=1.0, col_rate=1.0,
+             mtries=0, col_change=1.0, random_grid=False):
+    """The threefry launches of a train of ``iterations`` iterations (a
+    forest's trees) of K trees: an iteration's row sample where
+    ``rate`` < 1 and its column mask where ``col_rate`` < 1; a tree's
+    grid phase with ``random_grid``, and one per-node subset draw at each
+    level whose subset size (``tree._level_mtries``) is above 0."""
+    from h2o3_tpu_torch.models.tree import TreeConfig, _level_mtries
+    cfg = TreeConfig(max_depth=depth, n_bins=2, n_features=F, mtries=mtries,
+                     col_rate_change=col_change)
+    levels = sum(_level_mtries(cfg, d, F) > 0 for d in range(depth))
+    return iterations * (int(rate < 1.0) + int(col_rate < 1.0)
+                         + K * (int(random_grid) + levels))
+
+
+def check_launches(what, launches, want):
+    from h2o3_tpu_torch.ops import kernels
+    full = {k: 0 for k in kernels.LAUNCHES}
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{what}: launched {launches}, expected {full}")
+
+
+def zero_launches():
+    from h2o3_tpu_torch.ops import kernels
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def card_vs_cpu_recorded(what, fit, frame, n_trees, depth, split_key,
+                         metric):
+    """``fit(frame(dev))`` on the card and on the CPU (float32
+    histograms, the caller's), every split equal under the one-noise-split
+    rule (``card_vs_cpu_splits``), and the two models' ``metric`` within
+    1e-4. Returns the line's text."""
+    models, gains = {}, {}
+    for d in ("cuda", "cpu"):
+        with recorded_gains(gains.setdefault(d, [])):
+            models[d] = fit(frame(d))
+    mc, mh = models["cuda"], models["cpu"]
+    same, differ, noise = card_vs_cpu_splits(
+        what, mc, mh, gains["cuda"], gains["cpu"], n_trees, depth,
+        split_key=split_key)
+    vc, vh = metric(mc), metric(mh)
+    if not abs(vc - vh) <= 1e-4:
+        raise AssertionError(f"{what}: card vs cpu: {vc} vs {vh}")
+    return (f"{same} of {n_trees} trees' splits identical; {differ} split "
+            f"nodes differ, each at or below one of {noise} nodes that "
+            f"split on rounding alone on both devices; cuda {vc!r} cpu "
+            f"{vh!r}")
+
+
+def phase_sampling(card, fr, cpu_rows=200_000, cpu_trees=5):
+    """A4 on the card (8c), on the 10M x 28 frame ``fr``, each train with
+    the launch counters set to 0 just before and read just after: (a) the
+    packed GBM (depth 6, 20 trees, seed 7) with ``SAMPLING_GBM``: 120
+    binned_level, 20 binned_route_only and segment_totals, and
+    threefry_uniform 20 row samples, 20 column masks and a subset a level
+    whose size round(28 x 0.9^d) is below 28 (levels 1-5); (b) the
+    adaptive GBM (nbins 20) with histogram_type "random": 120
+    adaptive_level, 20 adaptive_route_only, 20 grid phases; (c) XGBoost
+    hist (50 trees, the 500k-row validation frame of phase 8) with
+    ``SAMPLING_XGB``: 300 binned_level, 50 binned_route_only and
+    segment_totals, 100 draws. For each: loop seconds, trees/s, launches,
+    a better-than-chance AUC; two float32 trains bit for bit; card vs CPU
+    at ``cpu_rows`` rows and ``cpu_trees`` trees, float32, every split
+    equal under the one-noise-split rule and |dAUC| <= 1e-4. Returns the
+    launches by path."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    rows, F = fr.nrow, fr.ncol - 1
+
+    def auc(m):
+        return m.training_metrics.auc
+    X, y, _F = higgs_arrays(cpu_rows, seed=11)
+    Xv, yv, _F = higgs_arrays(XGB_VALID_ROWS, seed=43)
+    vfr = frame_of(Xv, yv, "cuda")
+    Xcv, ycv, _F = higgs_arrays(cpu_rows // 4, seed=12)
+    def packed(f, ntrees=20, **k):
+        return train(f, ntrees, "packed", **SAMPLING_GBM, **k)
+
+    def random_grid(f, ntrees=20, **k):
+        return train(f, ntrees, "adaptive", histogram_type="random", **k)
+
+    def xgboost(f, vf=vfr, **k):
+        return xgb_train(f, vf, tree_method="hist", **SAMPLING_XGB, **k)
+
+    cases = {
+        "sampled_packed": dict(
+            fit=packed, path="packed", depth=6,
+            want=dict(binned_level=120, binned_route_only=20,
+                      segment_totals=20,
+                      threefry_uniform=draws_of(20, 6, F, rate=0.8,
+                                                col_rate=0.8,
+                                                col_change=0.9))),
+        "random_adaptive": dict(
+            fit=random_grid, path="adaptive", depth=6,
+            want=dict(adaptive_level=120, adaptive_route_only=20,
+                      threefry_uniform=draws_of(20, 6, F,
+                                                random_grid=True))),
+        "sampled_xgboost_hist": dict(
+            fit=xgboost, path="packed", depth=6,
+            want=dict(binned_level=300, binned_route_only=50,
+                      segment_totals=50,
+                      threefry_uniform=draws_of(50, 6, F, rate=0.8,
+                                                col_rate=0.8))),
+    }
+    out = {}
+    for name, c in cases.items():
+        clock = PhaseClock()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        m = c["fit"](fr)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check_launches(name, launches, c["want"])
+        if not np.isfinite(auc(m)) or not 0.5 < auc(m) <= 1.0:
+            raise AssertionError(f"{name}: AUC {auc(m)}")
+        loop_s = m.output["training_loop_seconds"]
+        print(f"sampling {name}: {rows}x{F}, {m.ntrees_built} trees depth "
+              f"{c['depth']}, {json.dumps(m.params.get('sample_rate'))} "
+              f"rows, column rates {m.params.get('col_sample_rate')!r} x "
+              f"{m.params.get('col_sample_rate_per_tree')!r} (change "
+              f"{m.params.get('col_sample_rate_change_per_level')!r} a "
+              f"level), histogram_type {m.params.get('histogram_type')}: "
+              f"training AUC {auc(m)!r}, training_loop_seconds {loop_s!r}, "
+              f"trees/s {m.ntrees_built / loop_s!r}, rows/s "
+              f"{rows * m.ntrees_built / loop_s!r}, train_profile "
+              f"{json.dumps(m.output['train_profile'])}, launches "
+              f"{launches}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+              f"[{card}]", flush=True)
+        out[name] = launches
+        runs = [c["fit"](fr, histogram_precision="float32")
+                for _ in range(2)]
+        check_repeats(runs, c["path"], f"{name} float32 x2")
+        del runs, m
+        clock.lap("train, checks, float32 x2")
+        if name == "sampled_xgboost_hist":
+            def frame(d):
+                return frame_of(X, y, d), frame_of(Xcv, ycv, d)
+
+            def fit(fv, c=c):
+                return c["fit"](fv[0], fv[1], ntrees=cpu_trees,
+                                histogram_precision="float32")
+        else:
+            def frame(d):
+                return frame_of(X, y, d)
+
+            def fit(f, c=c):
+                return c["fit"](f, ntrees=cpu_trees,
+                                histogram_precision="float32")
+        text = card_vs_cpu_recorded(name, fit, frame, cpu_trees, c["depth"],
+                                    PATHS[c["path"]]["split_key"], auc)
+        clock.lap(f"card vs cpu, {cpu_trees} trees")
+        print(f"card vs cpu, sampling {name}: {cpu_rows} rows, {cpu_trees} "
+              f"trees, float32: {text} (AUC) [{card}]; seconds "
+              f"{json.dumps(clock.laps)}", flush=True)
+    return out
+
+
+def as_classes(fr, y):
+    """``fr`` with its response ``y`` as an enum column (a numeric
+    response trains a regression forest)."""
+    import h2o3_tpu_torch as h2o
+    return h2o.Frame(fr.names, [fr.vec(n).asfactor() if n == y
+                                else fr.vec(n) for n in fr.names])
+
+
+def drf_train(fr, y, **kw):
+    """H2O's DRF at the JAX package's defaults (and ``kw``), seed 7."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    est = H2ORandomForestEstimator(**{"seed": 7, "ntrees": DRF_TREES,
+                                       **kw})
+    est.train(y=y, training_frame=fr)
+    return est.model
+
+
+def oob_line(m, nclasses):
+    """The out-of-bag metrics as printed: AUC and logloss (binomial),
+    logloss, error and mean per-class error (multinomial), RMSE
+    (regression)."""
+    t = m.training_metrics
+    if nclasses == 2:
+        return {"auc": t.auc, "logloss": t.logloss, "nobs": t.nobs}
+    if nclasses > 2:
+        return {"logloss": t.logloss, "error": t.error,
+                "mean_per_class_error": t.mean_per_class_error,
+                "nobs": t.nobs}
+    return {"rmse": t.rmse, "mse": t.mse, "nobs": t.nobs}
+
+
+def drf_case(card, name, fr, y, K, nclasses, cpu_frame, cpu_trees,
+             ntrees=DRF_TREES, repeat_trees=None, profile_trees=5):
+    """One forest at the defaults on the card with the launch counters
+    set to 0 just before and read just after (10 binned_level a tree, one
+    binned_route_only and segment_totals a tree, threefry_uniform one row
+    sample a forest tree and a subset draw a level a tree), every level's
+    form one that sums in a fixed order, predict finite and of its shape,
+    the out-of-bag metrics better than the trivial model's (regression:
+    within ``DRF_REG_RMSE_RATIO`` of the response's std); two float32
+    trains of ``repeat_trees`` trees bit for bit; card vs CPU on
+    ``cpu_frame(dev)`` at ``cpu_trees`` forest trees, float32; a
+    profiled train() of ``profile_trees`` forest trees. Prints the
+    seconds of each step. Returns (model, launches, predict frame)."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    rows, F = fr.nrow, fr.ncol - 1
+    clock = PhaseClock()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    m = drf_train(fr, y, ntrees=ntrees)
+    pred = m.predict(fr)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    T = ntrees * K
+    mt = m.output["mtries"]
+    check_launches(name, launches, dict(
+        binned_level=DRF_DEPTH * T, binned_route_only=T, segment_totals=T,
+        threefry_uniform=draws_of(ntrees, DRF_DEPTH, F, K, rate=0.632,
+                                  mtries=mt)))
+    W, picks = check_packed_picks(name, m, rows, F, DRF_DEPTH)
+    oob = oob_line(m, nclasses)
+    if not m.output["oob_metrics"] or not all(
+            np.isfinite(v) for v in oob.values()):
+        raise AssertionError(f"{name}: out-of-bag metrics {oob}, "
+                             f"{m.output['oob_metrics']}")
+    yh = fr.vec(y).to_numpy()
+    if nclasses == 2:
+        ok = oob["auc"] > 0.5
+        out = pred.vec(pred.names[-1]).to_numpy()[:, None]
+    elif nclasses > 2:
+        share = np.bincount(yh[yh >= 0].astype(int),
+                            minlength=nclasses) / rows
+        ok = oob["error"] < 1.0 - share.max()
+        out = np.stack([pred.vec(n).to_numpy() for n in pred.names[1:]], 1)
+    else:
+        ok = oob["rmse"] < DRF_REG_RMSE_RATIO * np.nanstd(yh)
+        out = pred.vec("predict").to_numpy()[:, None]
+    if not ok or out.shape[0] != rows or not np.all(np.isfinite(out)):
+        raise AssertionError(f"{name}: out-of-bag {oob}, predict shape "
+                             f"{out.shape}, finite {np.isfinite(out).all()}")
+    loop_s = m.output["training_loop_seconds"]
+    task = f"{nclasses} classes" if nclasses > 1 else "regression"
+    print(f"drf {name}: {rows}x{F}, {task}, {ntrees} "
+          f"trees x {K} depth {DRF_DEPTH} nbins 20 sample_rate 0.632 "
+          f"mtries {mt} on packed codes W={W} (level forms {picks}): "
+          f"out-of-bag {json.dumps(oob)}; training_loop_seconds {loop_s!r}, "
+          f"ms a tree {loop_s * 1e3 / T!r}, trees/s {T / loop_s!r}, "
+          f"train_profile {json.dumps(m.output['train_profile'])}; "
+          f"launches {launches}; peak device memory in the train and "
+          f"predict {peak:.3f} GiB [{card}]", flush=True)
+    clock.lap("train, predict, checks")
+    repeat_trees = repeat_trees or ntrees
+    runs = [drf_train(fr, y, ntrees=repeat_trees,
+                      histogram_precision="float32") for _ in range(2)]
+    check_repeats(runs, "packed", f"drf {name} float32 x2, {repeat_trees} "
+                                  f"trees")
+    del runs
+    clock.lap(f"float32 x2, {repeat_trees} trees")
+    metric = ((lambda mm: mm.training_metrics.auc) if nclasses == 2 else
+              (lambda mm: mm.training_metrics.logloss) if nclasses > 2 else
+              (lambda mm: mm.training_metrics.rmse
+               / float(np.nanstd(yh))))
+    text = card_vs_cpu_recorded(
+        name, lambda f: drf_train(f, y, ntrees=cpu_trees,
+                                  histogram_precision="float32"),
+        cpu_frame, cpu_trees * K, DRF_DEPTH, "split_bin", metric)
+    what = {2: "AUC", 1: "RMSE / std"}.get(nclasses, "logloss")
+    print(f"card vs cpu, drf {name}: {cpu_trees} trees x {K}, float32: "
+          f"{text} (out-of-bag {what}) [{card}]", flush=True)
+    clock.lap(f"card vs cpu, {cpu_trees} trees")
+    profiled_train(card, f"drf {name}", lambda: drf_train(
+        fr, y, ntrees=profile_trees), rows, profile_trees * K)
+    clock.lap(f"profile, {profile_trees} trees")
+    print(f"drf {name} seconds: {json.dumps(clock.laps)}", flush=True)
+    return m, launches, pred
+
+
+def drf_serve(card, m, fr, pred):
+    """``m`` deployed at buckets 1 and 64: each bucket's replay against
+    the eager predict bit for bit, and 64 rows of ``fr`` served (rows
+    and columnar) bit-equal to ``pred``, with no capture and no eager
+    predict after deploy."""
+    from h2o3_tpu_torch import serve
+    names = m.feature_names
+    idx = np.sort(np.random.default_rng(SERVE_SEED).choice(
+        fr.nrow, 64, replace=False))
+    dom = list(m.response_domain)
+    labels, probs = predict_probs(pred, dom)
+    dep = serve.deploy("serve_drf", model=m, buckets=(1, 64), max_batch=64)
+    try:
+        bucket_record(card, "drf_higgs", dep, fr.rows(idx).as_matrix(names),
+                      reps=(20, 3), activities_once=True)
+        caps, eager = dep.scorer.captures, dep.scorer.eager_calls
+        served_vs_predicted("drf_higgs", dep, host_rows(fr, names, idx),
+                            labels[idx], probs[idx], dom)
+        if (dep.scorer.captures, dep.scorer.eager_calls) != (caps, eager):
+            raise AssertionError("serve drf_higgs: served rows captured or "
+                                 "ran an eager predict")
+    finally:
+        serve.undeploy("serve_drf")
+    print(f"serve drf_higgs: 64 rows served (rows and columnar) bit-equal "
+          f"to predict over the whole frame, buckets 1 and 64 [{card}]",
+          flush=True)
+
+
+def phase_drf(card, fr, cov_fr, cpu_rows=200_000, cpu_trees=5,
+              repeat_trees=20, cov_trees=20, cov_cpu_rows=50_000,
+              cov_cpu_trees=1, cov_repeat_trees=5):
+    """The random forest on the card (8d), at the JAX package's DRF
+    defaults (``drf_case``), the float32 repeats at ``repeat_trees``
+    trees: (a) drf_higgs, binomial on the 10M x 28 frame ``fr`` (its
+    label as classes; mtries 5), deployed at buckets 1 and 64
+    (``drf_serve``); (b) drf_covtype, the multinomial on phase 8a's
+    covertype-shaped frame ``cov_fr`` (7 classes, ``cov_trees`` forest
+    trees, mtries 7; card vs CPU at ``cov_cpu_rows`` rows and
+    ``cov_cpu_trees`` forest tree, the repeat at ``cov_repeat_trees``,
+    the profile at 1); (c) drf_regression, the
+    HIGGS-shaped frame's first feature (in steps of ``DRF_REG_STEP``) as
+    the response of the other 27 at 1M rows (mtries 9). Returns {name:
+    launches}."""
+    Xc, yc, _F = higgs_arrays(cpu_rows, seed=11)
+    hfr = as_classes(fr, "label")
+    out = {}
+    m, out["drf_higgs"], pred = drf_case(
+        card, "drf_higgs", hfr, "label", 1, 2,
+        lambda d: as_classes(frame_of(Xc, yc, d), "label"), cpu_trees,
+        repeat_trees=repeat_trees)
+    drf_serve(card, m, hfr, pred)
+    del m, pred, hfr
+    _m, out["drf_covtype"], _p = drf_case(
+        card, "drf_covtype", cov_fr, COVTYPE_Y, len(COVTYPE_SHARES),
+        len(COVTYPE_SHARES),
+        lambda d: covtype_frame(cov_cpu_rows, d, seed=COVTYPE_SEED + 1)[0],
+        cov_cpu_trees, cov_trees, cov_repeat_trees, profile_trees=1)
+    del _m, _p
+    X, _y, _F = higgs_arrays(DRF_REG_ROWS)
+
+    def reg_frame(Xr, d):
+        import h2o3_tpu_torch as h2o
+        cols = {f"f{i}": Xr[:, i] for i in range(1, Xr.shape[1])}
+        cols["y"] = (np.round(Xr[:, 0] / DRF_REG_STEP)
+                     * DRF_REG_STEP).astype(np.float32)
+        return h2o.Frame.from_numpy(cols, device=d)
+    _m, out["drf_regression"], _p = drf_case(
+        card, "drf_regression", reg_frame(X, "cuda"), "y", 1, 1,
+        lambda d: reg_frame(Xc, d), cpu_trees, repeat_trees=repeat_trees)
+    return out
+
+
+def phase_deep_record(dev, rows=10_000_000, F=28, W=32):
+    """The packed kernels at the forest's deep levels, 10M x 28 int8
+    codes at W = 32 (nbins 20), bf16-rounded masses: binned_level in the
+    form the kernel picks at N = 64, 128, 256, 512 (each against its
+    plain version: nid bit-equal, every bin within the float tolerance
+    of the float64 plain version; five launches with the same bits; the
+    time, the bound and one ``index_add_``), binned_route_only from
+    n_prev = 512 into 1024 leaves (bit-equal) and segment_totals over
+    1024 leaves (within the float tolerance, five launches bit-equal;
+    index_add_ beside it). Returns the rows to add to the kernels'
+    records: {name: {...}}."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops.common import segment_totals_plain
+    from h2o3_tpu_torch.ops.hist_adaptive import (binned_level_plain,
+                                                  binned_route_only_plain)
+    from h2o3_tpu_torch import tools
+    level = {}
+    for N in (64, 128, 256, 512):
+        inp = level_inputs(rows, F, W, N, False, 2600 + N, dev)
+        codes, nid, ghw, tables, n_prev, base = inp
+        form = kernels.binned_level_picks(rows, F, W, n_prev, N)
+        err = check_forms("binned", inp, N, W, True, ("picked",))["picked"]
+        outs = [kernels.binned_level(codes, nid, ghw, tables, n_prev, N,
+                                     base, W, True) for _ in range(5)]
+        if not all(torch.equal(outs[0][1], o[1]) for o in outs[1:]):
+            raise AssertionError(f"binned_level N={N}: five launches "
+                                 f"differ")
+        ms = time_cuda(lambda: kernels.binned_level(
+            codes, nid, ghw, tables, n_prev, N, base, W, True), 10)
+        pms = time_cuda(lambda: binned_level_plain(
+            codes, nid, ghw, tables, n_prev, N, base, W, True), 2)
+        lib = index_add_ms(codes, outs[0][0], bf16_rows(ghw), N, base, W, 3)
+        bound, by = level_bound_ms(rows, F, 1, N, W, rows)
+        level[N] = {"form": form, "ms": ms, "plain_ms": pms,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": err}
+        del inp, codes, nid, ghw, outs
+    print(f"binned_level at the forest's deep levels, {rows} x {F}, W={W}, "
+          f"bf16, picked form (device ms, plain, index_add_, bound, max abs "
+          f"err): {json.dumps(level)}; five launches bit-equal at each",
+          flush=True)
+    _e, (codes, nid, tables, n_prev, base) = check_route(rows, F, W, 1024,
+                                                         dev, 2700)
+    r_ms = time_cuda(lambda: kernels.binned_route_only(
+        codes, nid, tables, n_prev, base, W), 20)
+    r_pms = time_cuda(lambda: binned_route_only_plain(
+        codes, nid, tables, n_prev, base, W), 3)
+    r_bound, r_by = route_bound_ms(rows, F, 1)
+    del codes, nid, tables
+    N = 1024
+    s_err, (nid, ghw, base) = check_segment(rows, N, dev, 2701)
+    # past the lane columns' node count the kernel takes the matched keys
+    if not same_bits(kernels.segment_totals(nid, ghw, N, base),
+                     kernels.segment_totals_form(nid, ghw, N, base,
+                                                 "match")):
+        raise AssertionError("segment_totals over 1024 leaves: the picked "
+                             "form's sums are not the matched keys'")
+    s_ms = tools.time_ms(lambda: kernels.segment_totals(nid, ghw, N, base),
+                         dev, 20)
+    s_pms = time_cuda(lambda: segment_totals_plain(nid, ghw, N, base), 3)
+    lid = nid.long() - base
+    live = (lid >= 0) & (lid < N)
+    idx = torch.where(live, lid, 0)
+    vals = (ghw * live).t().contiguous()
+    acc = torch.zeros((N, 3), device=dev)
+    s_lib = tools.time_ms(lambda: acc.index_add_(0, idx, vals), dev, 20)
+    del lid, live, idx, vals, acc, nid, ghw
+    t_b, t_o = rows * (4 + 12) / HBM_BYTES_PER_S, 3 * rows / F32_OPS_PER_S
+    s_bound, s_by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
+                                          else "operations")
+    print(f"binned_route_only n_prev=512 into 1024 leaves at {rows} x {F}: "
+          f"{r_ms!r} ms, plain {r_pms!r} ms, bound {r_bound!r} ms by "
+          f"{r_by}, bit-equal; segment_totals over 1024 leaves at {rows} "
+          f"rows (device): {s_ms!r} ms, plain {s_pms!r} ms, index_add_ "
+          f"{s_lib!r} ms, bound {s_bound!r} ms by {s_by}, max abs err "
+          f"{s_err!r}, five launches bit-equal", flush=True)
+    return {"binned_level": {"deep": level},
+            "binned_route_only": {"deep": {
+                "n_prev": 512, "ms": r_ms, "plain_ms": r_pms,
+                "bound_ms": r_bound, "bound_by": r_by, "max_abs_err": 0.0}},
+            "segment_totals": {"deep": {
+                "n_nodes": N, "ms": s_ms, "plain_ms": s_pms,
+                "library_ms": s_lib, "bound_ms": s_bound, "bound_by": s_by,
+                "max_abs_err": s_err}}}
+
+
+# ~76 32-bit integer operations a row: the key injections, 20 rounds of
+# add, rotate and xor, and the float's assembly
+THREEFRY_OPS = 76
+
+
+def phase_threefry_record(dev, launches, rows=10_000_000):
+    """The threefry kernel at the row draw's shape, 10M rows: its uniform
+    and its fused row sample (a rate; per-class rates, with codes out of
+    range clamped) bit-equal to the plain version (threefry on int64
+    tensors, run here on the card) on the same key, then timed (CUDA
+    events, medians) beside the plain version and the bound: 4 bytes
+    written a row (uniform), 4 read and 4 written (fused sample), or
+    ``THREEFRY_OPS`` integer operations a row at the card's 32-bit
+    scalar rate, whichever takes longer. No PyTorch call computes
+    threefry (torch.rand is another generator): library_ms null."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.ops import random as trandom
+    key = trandom.fold_in(trandom.prng_key(7), 3)
+    u_k = kernels.threefry_uniform(key, (rows,), dev)
+    u_p = trandom.uniform_plain(key, (rows,), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.rand(rows, generator=g, device=dev) * 2.0
+    y = torch.randint(-1, 8, (rows,), generator=g, device=dev,
+                      dtype=torch.int32)
+    rates = torch.linspace(0.2, 0.9, 7, device=dev)
+    s_k = kernels.threefry_sample(key, w, 0.632)
+    s_p = trandom.sample_weights_plain(key, w, 0.632)
+    c_k = kernels.threefry_sample(key, w, 1.0, y, rates)
+    c_p = trandom.sample_weights_plain(key, w, 1.0, y, rates)
+    torch.cuda.synchronize()
+    for what, a, b in (("uniform", u_k, u_p), ("sample", s_k, s_p),
+                       ("per-class sample", c_k, c_p)):
+        if not same_bits(a, b):
+            raise AssertionError(f"threefry {what}: the kernel differs from "
+                                 f"the plain version in "
+                                 f"{int((a != b).sum())} rows")
+    del u_p, s_p, c_p
+    ms = time_cuda(lambda: kernels.threefry_uniform(key, (rows,), dev), 20)
+    s_ms = time_cuda(lambda: kernels.threefry_sample(key, w, 0.632), 20)
+    pms = time_cuda(lambda: trandom.uniform_plain(key, (rows,), dev), 3)
+    s_pms = time_cuda(lambda: trandom.sample_weights_plain(key, w, 0.632), 3)
+    t_o = rows * THREEFRY_OPS / F32_OPS_PER_S
+    bounds = {}
+    for what, nbytes in (("uniform", rows * 4), ("sample", rows * 8)):
+        t_b = nbytes / HBM_BYTES_PER_S
+        bounds[what] = (max(t_b, t_o) * 1e3,
+                        "bytes" if t_b >= t_o else "operations")
+    print(f"threefry_uniform at {rows} rows (device): uniform {ms!r} ms "
+          f"(plain {pms!r} ms, bound {bounds['uniform'][0]!r} ms by "
+          f"{bounds['uniform'][1]}), fused row sample {s_ms!r} ms (plain "
+          f"{s_pms!r} ms, bound {bounds['sample'][0]!r} ms by "
+          f"{bounds['sample'][1]}); uniform, sample and per-class sample "
+          f"bit-equal to the plain version; launches by path "
+          f"{json.dumps(launches)}", flush=True)
+    return [{"name": "threefry_uniform", "route": "cuda",
+             "source": "h2o3_tpu_torch/csrc/threefry.cu",
+             "replaces": "none (jax.random.uniform, fused by XLA in "
+                         "h2o3_tpu/models/gbm.py:326 and drf.py:225)",
+             "launches": sum(launches.values()),
+             "launches_by_path": launches, "max_abs_err": 0.0,
+             "ms": ms, "plain_ms": pms, "bound_ms": bounds["uniform"][0],
+             "bound_by": bounds["uniform"][1], "library_ms": None,
+             "sample_ms": s_ms, "sample_plain_ms": s_pms,
+             "sample_bound_ms": bounds["sample"][0]}]
 
 
 # ------------------------------------------------- 10. scoring and serving
@@ -5561,6 +6147,29 @@ def main() -> int:
                        "segment_totals"):
             by_name[kernel].setdefault("launches_by_path", {})[path] = \
                 launches[kernel]
+    # 8c-8d. A4 and the random forest: sampled GBM and XGBoost trains on
+    # the 10M-row frame, the forest at the JAX package's defaults (HIGGS
+    # binomial, covertype multinomial, a regression), the forest's deep
+    # levels and the draws against their plain versions
+    sampling = phase_sampling(card, fr)
+    clock.lap("8c sampling")
+    forests = phase_drf(card, fr, multi["frame"])
+    clock.lap("8d drf")
+    for kernel, extra in phase_deep_record(dev).items():
+        by_name[kernel].update(extra)
+    for path, launches in {**sampling, **forests}.items():
+        for kernel in ("binned_level", "binned_route_only",
+                       "segment_totals", "adaptive_level",
+                       "adaptive_route_only"):
+            if launches[kernel]:
+                by_name[kernel].setdefault("launches_by_path", {})[
+                    path] = launches[kernel]
+    rec += phase_threefry_record(dev, {
+        path: launches["threefry_uniform"]
+        for path, launches in {**sampling, **forests}.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.lap("8d deep levels + threefry record")
     # 10. scoring and serving: predict at 10M rows, one CUDA graph a
     # batch bucket, served rows against predict, a concurrent load
     phase_serve(card, fr, packed["model"], xgb_hist,
@@ -5593,7 +6202,11 @@ def main() -> int:
           "segment_totals[N=1,64,512,4096; lanes, match x rows%4=1,2,3, "
           "one node at N=1,64; one node at N=4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
-          "atomics] group_rows[alone]; index_add_ beside binned_level "
+          "atomics] group_rows[alone] threefry_uniform[10M rows: uniform, "
+          "row sample, per-class row sample] binned_level[deep: W=32 x "
+          "N=64,128,256,512 picked] binned_route_only[n_prev=512] "
+          "segment_totals[N=1024, picked = match]; index_add_ beside "
+          "binned_level "
           "(W=16,32,64,128,256), adaptive_level (W=32,64,128,256), "
           "binned_level_i8 (W=16,64,128,256) and adaptive_level_i8 "
           "(W=32,64,128,256), segment_totals, global_hist; "

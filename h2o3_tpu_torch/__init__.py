@@ -12,11 +12,14 @@ The port covers import (``import_file``: CSV through the port's own copy
 of the native tokenizer, gzip and zstd inputs, ARFF, SVMLight, Parquet,
 ORC, Avro and xlsx, lists of files and remote URIs; ``import_sql_table``
 from a DB-API connection; numeric, time and enum columns streamed to
-the card a byte range at a time) and training a bernoulli or gaussian
-GBM, or the XGBoost estimator over it, on packed bin codes, on per-node
+the card a byte range at a time) and training the GBM (every family,
+multinomial, offsets, row and column sampling on the JAX package's own
+random bits), the XGBoost estimator over it and the random forest
+(``H2ORandomForestEstimator``), on packed bin codes, on per-node
 adaptive bins (H2O's ``UniformAdaptive``) or on the unpacked global
-sketch (more than 254 bins), with a validation frame, interval scoring and early stopping,
-its training and validation metrics and ``predict``, and serving a
+sketch (more than 254 bins), with a validation frame, interval scoring
+and early stopping, training and validation metrics (out of bag for
+the forest) and ``predict``, and serving a
 trained model's rows (``Model.deploy``, ``h2o3_tpu_torch.serve``: one
 CUDA graph of the predict a batch bucket, a micro-batcher) and the
 EasyPredict row API (``h2o3_tpu_torch.genmodel``); ROADMAP.md queues

@@ -24,6 +24,13 @@ device-to-host copy of the interval's scalars, and stops where
 ``ScoreKeeper`` says so; it builds no tree past the stop. Trees are
 fetched to the host once, at the end.
 
+Sampling (``sample_rate``, ``sample_rate_per_class``, the column rates,
+``histogram_type="random"``) draws from the port's copy of the JAX
+package's generator (``ops/random.py``) with the same keys: iteration
+i's key is ``fold_in(key, i)``, split into the row and the column key,
+and the K trees of a multinomial iteration share its sample, its
+column mask and its key. Rates of 1 make no draw.
+
 Parameters the port does not support yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them; none is silently ignored.
 The reference's compatibility-only parameters (``GBM_COMPAT_PARAMS``)
@@ -56,10 +63,13 @@ from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         packed_bins_upper_bound,
                                         packed_codes_requested,
                                         predict_binned, predict_raw_margin,
-                                        predict_raw_tree, tree_config)
+                                        predict_raw_tree, tree_config,
+                                        tree_sample)
+from h2o3_tpu_torch.log import warn
 from h2o3_tpu_torch.ops.binning import (bin_matrix_device,
                                         digitize_with_edges, pack_codes,
                                         pack_codes_for, packed_codes_record)
+from h2o3_tpu_torch.ops.random import fold_in, split, train_key
 
 # feature layout of the adaptive level kernels on the training path:
 # "rows_f" ([rows, F], the training matrix as it is) or "f_rows"
@@ -100,21 +110,11 @@ GBM_COMPAT_PARAMS: Dict = dict(
 MULTINOMIAL_OFFSET = ("offset_column is not supported for multinomial GBM "
                       "(matching hex/tree/gbm/GBM.java offset restrictions)")
 
-# parameters of the JAX GBM the port refuses until the named ROADMAP.md
-# item (queue 1) lands: (name, predicate on its value, item)
-_UNSUPPORTED = (
-    ("histogram_type", lambda v: str(v or "").lower() == "random",
-     "item A4, sampling: the per-tree generator of the grid phase"),
+# parameters of the JAX GBM (and DRF) the port refuses until the named
+# ROADMAP.md item (queue 1) lands: (name, predicate on its value, item)
+UNSUPPORTED = (
     ("checkpoint", lambda v: v is not None, "item A3, checkpoints"),
     ("in_training_checkpoints_dir", bool, "item A3, checkpoints"),
-    ("sample_rate", lambda v: float(v) != 1.0, "item A4, sampling"),
-    ("sample_rate_per_class", lambda v: v is not None, "item A4, sampling"),
-    ("col_sample_rate", lambda v: float(v) != 1.0, "item A4, sampling"),
-    ("col_sample_rate_per_tree", lambda v: float(v) != 1.0,
-     "item A4, sampling"),
-    ("col_sample_rate_change_per_level", lambda v: float(v or 1.0) != 1.0,
-     "item A4, sampling"),
-    ("mtries", lambda v: v not in (None, 0, -1), "item A4, sampling"),
     ("monotone_constraints", bool, "item A5, constraints"),
     ("interaction_constraints", bool, "item A5, constraints"),
     ("nfolds", lambda v: int(v or 0) > 1,
@@ -126,23 +126,34 @@ _UNSUPPORTED = (
     ("calibrate_model", bool,
      "item A7, cross-validation, class balancing and calibration"),
 )
-_REFUSED_ONLY = {"mtries", "nfolds", "fold_column",
-                 "balance_classes", "calibrate_model"}
+# the refused keys that are no default of the estimators
+REFUSED_ONLY = {"nfolds", "fold_column", "balance_classes",
+                "calibrate_model"}
+# keys the JAX GBM accepts outside its defaults and never reads (DRF's
+# mtries): accepted, with no effect on the trees, as there
+_IGNORED = {"mtries"}
+
+
+def refuse_params(algo: str, params: Dict, known, unsupported) -> None:
+    """Raise ValueError on a parameter outside ``known``, and
+    NotImplementedError naming its ROADMAP.md item on one that a row of
+    ``unsupported`` refuses."""
+    unknown = sorted(set(params) - set(known))
+    if unknown:
+        raise ValueError(f"{algo}: unknown parameter(s) {unknown}")
+    for name, refused, item in unsupported:
+        if name in params and refused(params[name]):
+            raise NotImplementedError(
+                f"{algo}: {name}={params[name]!r} is not ported yet "
+                f"(ROADMAP.md queue 1, {item})")
 
 
 def check_params(params: Dict) -> None:
     """Raise on a parameter the port does not know or does not support
     yet."""
-    known = set(GBM_DEFAULTS) | BUILDER_PARAMS | _REFUSED_ONLY
-    known |= set(GBM_COMPAT_PARAMS)
-    unknown = sorted(set(params) - known)
-    if unknown:
-        raise ValueError(f"gbm: unknown parameter(s) {unknown}")
-    for name, refused, item in _UNSUPPORTED:
-        if name in params and refused(params[name]):
-            raise NotImplementedError(
-                f"gbm: {name}={params[name]!r} is not ported yet "
-                f"(ROADMAP.md queue 1, {item})")
+    refuse_params("gbm", params,
+                  set(GBM_DEFAULTS) | BUILDER_PARAMS | REFUSED_ONLY
+                  | _IGNORED | set(GBM_COMPAT_PARAMS), UNSUPPORTED)
 
 
 def valid_walk(X, bm, pc, max_depth: int):
@@ -194,6 +205,77 @@ def score_entry(margin, sc_spec: TrainingSpec, dist, built: int,
         if want_auc:
             entry["auc"] = h[1]
     return entry
+
+
+def variable_importances(names, feat: np.ndarray, gain: np.ndarray) -> Dict:
+    """The split gains of a tree stack ([T, M] feat and gain) summed per
+    feature, in the JAX package's table: variables by falling
+    importance, relative, scaled to the largest and as a share."""
+    vi = np.zeros(len(names))
+    live = feat >= 0
+    np.add.at(vi, feat[live], gain[live])
+    order = np.argsort(-vi)
+    rel = vi / vi.max() if vi.max() > 0 else vi
+    return {"variable": [names[i] for i in order],
+            "relative_importance": vi[order].tolist(),
+            "scaled_importance": rel[order].tolist(),
+            "percentage": (vi[order] / vi.sum() if vi.sum() > 0
+                           else vi[order]).tolist()}
+
+
+def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
+                random_adapts: bool = True):
+    """The JAX package's path rule (its GBM's ``_train_dense``, and its
+    DRF's, which passes ``mtries`` and sends ``histogram_type="random"``
+    to the sketch: ``random_adapts`` False) and the chosen path's
+    set-up. Returns (cfg, grow(g, h, w, col_mask, key) -> (tree, nid),
+    bm, pc): bm and pc None on the adaptive path, pc None on the
+    global-sketch path (unpacked codes)."""
+    hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
+    depth = int(p["max_depth"])
+
+    def adaptive():
+        cfg, root_lo, root_hi, nb_f = adaptive_setup(spec, p, depth,
+                                                     mtries)
+        x = (spec.X if ADAPTIVE_LAYOUT == "rows_f"
+             else spec.X.t().contiguous())
+
+        def grow(g, h, w, col_mask, key):
+            return grow_tree_adaptive(x, g, h, w, cfg, root_lo, root_hi,
+                                      nb_f=nb_f, col_mask=col_mask,
+                                      layout=ADAPTIVE_LAYOUT, key=key)
+        return cfg, grow, None, None
+
+    packed_req = packed_codes_requested(p) and hist_type != "random"
+    feasible = adaptive_feasible(spec, p, depth)
+    can_adapt = hist_type in ADAPTIVE_HIST_TYPES and feasible
+    if packed_req and can_adapt and not binned_feasible(
+            packed_bins_upper_bound(spec, p), spec.n_features, depth):
+        # packing cannot hold the categorical domains' bins: adaptive
+        # bins, without paying for the sketch
+        packed_req = False
+    if not packed_req and (can_adapt or random_adapts
+                           and hist_type == "random" and feasible):
+        return adaptive()
+    bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
+                           nbins=max(int(p["nbins"]), 2),
+                           nbins_cats=int(p["nbins_cats"]),
+                           histogram_type=hist_type)
+    if packed_req and binned_feasible(bm.n_bins, spec.n_features,
+                                      depth):
+        pc = pack_codes(bm)
+        bm.codes = None                # the packed codes replace them
+        cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
+        return (cfg, lambda g, h, w, cm, key: grow_tree_binned(
+            pc.rm, g, h, w, cfg, cm, key), bm, pc)
+    if packed_req and can_adapt:
+        # the sketch's bin count is past the packed lanes
+        return adaptive()
+    # the global sketch, unpacked: uint8 or int32 codes, NA = n_bins
+    codes = bm.codes
+    cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
+    return (cfg, lambda g, h, w, cm, key: grow_tree(codes, g, h, w, cfg,
+                                                      cm, key), bm, None)
 
 
 class GBMModel(Model):
@@ -343,7 +425,7 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             raise NotImplementedError(MULTINOMIAL_OFFSET)
         dev = spec.device
         t_bin0 = time.monotonic()
-        cfg, grow, bm, pc = self._grower(spec)
+        cfg, grow, bm, pc = path_grower(spec, p)
         t_bin = time.monotonic() - t_bin0
 
         w = spec.w
@@ -371,6 +453,20 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         ntrees = int(p["ntrees"])
         if ntrees < 1:
             raise ValueError(f"gbm: ntrees must be >= 1, got {ntrees}")
+        # sampling (A4): a key a train, one row sample and column mask an
+        # iteration, as the JAX package draws them
+        key = train_key(p.get("seed", -1))
+        rate = float(np.float32(p["sample_rate"]))
+        col_rate = float(np.float32(float(p["col_sample_rate"])
+                                    * float(p["col_sample_rate_per_tree"])))
+        srpc = self.validate_sample_rate_per_class(spec)
+        rates = None
+        if srpc is not None:
+            if float(p.get("sample_rate", 1.0)) < 1.0:
+                warn("sample_rate is ignored when sample_rate_per_class "
+                     "is specified (hex/tree/SharedTree.java:210)")
+            rates = torch.tensor(srpc, dtype=torch.float32, device=dev)
+        y_codes = spec.y if spec.nclasses > 1 else None
         anneal = float(p["learn_rate_annealing"])
         task = ("binomial" if spec.nclasses == 2
                 else "multinomial" if K > 1 else "regression")
@@ -405,9 +501,13 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             # chunks in float64, as the JAX chunk body and its driver do
             lr = np.float32(lr_chunk)
             for _ in range(c):
+                key_t = fold_in(key, built)
+                key_r, key_c = split(key_t)
+                wt, col_mask = tree_sample(key_r, key_c, w, y_codes, rate,
+                                           rates, col_rate, spec.n_features)
                 if K == 1:
                     g, h = dist.grad_hess(margin, y)
-                    tree, nid = grow(g * w, h * w, w)
+                    tree, nid = grow(g * wt, h * wt, wt, col_mask, key_t)
                     margin = margin + float(lr) * tree["value"][nid.long()]
                     if walk is not None:
                         vmargin = vmargin + float(lr) * walk(tree)
@@ -420,7 +520,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                         pk = prob[:, k]
                         g = pk - (y == k).to(torch.float32)
                         h = torch.clamp(pk * (1.0 - pk), min=1e-9)
-                        tree, nid = grow(g * w, h * w, w)
+                        tree, nid = grow(g * wt, h * wt, wt, col_mask,
+                                         key_t)
                         margin[:, k] += float(lr) * tree["value"][nid.long()]
                         if walk is not None:
                             vmargin[:, k] += float(lr) * walk(tree)
@@ -463,56 +564,6 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             model.output["huber_delta"] = float(dist.delta)
         return model
 
-    def _grower(self, spec: TrainingSpec):
-        """The JAX package's path rule (its ``_train_dense``) and the
-        chosen path's set-up. Returns (cfg, grow(g, h, w) -> (tree, nid),
-        bm, pc): bm and pc None on the adaptive path, pc None on the
-        global-sketch path (unpacked codes)."""
-        p = self.params
-        hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
-        depth = int(p["max_depth"])
-
-        def adaptive():
-            cfg, root_lo, root_hi, nb_f = adaptive_setup(spec, p, depth)
-            x = (spec.X if ADAPTIVE_LAYOUT == "rows_f"
-                 else spec.X.t().contiguous())
-
-            def grow(g, h, w):
-                return grow_tree_adaptive(x, g, h, w, cfg, root_lo, root_hi,
-                                          nb_f=nb_f, layout=ADAPTIVE_LAYOUT)
-            return cfg, grow, None, None
-
-        packed_req = packed_codes_requested(p) and hist_type != "random"
-        feasible = adaptive_feasible(spec, p, depth)
-        can_adapt = hist_type in ADAPTIVE_HIST_TYPES and feasible
-        if packed_req and can_adapt and not binned_feasible(
-                packed_bins_upper_bound(spec, p), spec.n_features, depth):
-            # packing cannot hold the categorical domains' bins: adaptive
-            # bins, without paying for the sketch
-            packed_req = False
-        if not packed_req and (can_adapt or hist_type == "random"
-                               and feasible):
-            return adaptive()
-        bm = bin_matrix_device(spec.X, spec.names, spec.is_cat,
-                               nbins=max(int(p["nbins"]), 2),
-                               nbins_cats=int(p["nbins_cats"]),
-                               histogram_type=hist_type)
-        if packed_req and binned_feasible(bm.n_bins, spec.n_features,
-                                          depth):
-            pc = pack_codes(bm)
-            bm.codes = None                # the packed codes replace them
-            cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
-            return (cfg, lambda g, h, w: grow_tree_binned(pc.rm, g, h, w,
-                                                          cfg), bm, pc)
-        if packed_req and can_adapt:
-            # the sketch's bin count is past the packed lanes
-            return adaptive()
-        # the global sketch, unpacked: uint8 or int32 codes, NA = n_bins
-        codes = bm.codes
-        cfg = tree_config(p, depth, bm.n_bins, spec.n_features)
-        return (cfg, lambda g, h, w: grow_tree(codes, g, h, w, cfg), bm,
-                None)
-
     def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev, K, built):
         """One fetch of the stacked trees ([built·K, M] in (iteration,
         class) order), raw thresholds (unbinned from the sketch paths'
@@ -546,17 +597,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                          built, dev, response=spec.response,
                          response_domain=spec.response_domain,
                          is_cat=spec.is_cat, cat_domains=spec.cat_domains)
-        vi = np.zeros(len(spec.names))
-        live = th["feat"] >= 0
-        np.add.at(vi, th["feat"][live], th["gain"][live])
-        order = np.argsort(-vi)
-        rel = vi / vi.max() if vi.max() > 0 else vi
-        model.output["variable_importances"] = {
-            "variable": [spec.names[i] for i in order],
-            "relative_importance": vi[order].tolist(),
-            "scaled_importance": rel[order].tolist(),
-            "percentage": (vi[order] / vi.sum() if vi.sum() > 0
-                           else vi[order]).tolist()}
+        model.output["variable_importances"] = variable_importances(
+            spec.names, th["feat"], th["gain"])
         return model
 
     def _metrics_from_margin(self, margin, spec, dist):

@@ -389,6 +389,23 @@ class ModelBuilder:
                      f"reference API compatibility but NOT implemented — "
                      f"value {self.params[k]!r} has no effect")
 
+    def validate_sample_rate_per_class(self, spec: TrainingSpec):
+        """The GBM's and the DRF's sample_rate_per_class, checked as the
+        JAX package checks it (H2O's SharedTree): one rate per response
+        class of a classification response. Returns the rates as a tuple
+        of floats, or None."""
+        srpc = self.params.get("sample_rate_per_class")
+        if srpc is None or not len(srpc):
+            return None
+        if spec.nclasses < 2:
+            raise ValueError("sample_rate_per_class requires a "
+                             "classification response")
+        if len(srpc) != spec.nclasses:
+            raise ValueError(
+                f"sample_rate_per_class must have {spec.nclasses} "
+                f"values (one per class), got {len(srpc)}")
+        return tuple(float(v) for v in srpc)
+
     def _model_key(self) -> str:
         mid = self.params.get("model_id")
         return str(mid) if mid else f"{self.algo}_{id(self) & 0xffffff:x}"

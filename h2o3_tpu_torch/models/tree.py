@@ -34,6 +34,9 @@ from h2o3_tpu_torch.ops.hist_adaptive import (I8_MAX_ROWS, adaptive_level,
                                               rows_features)
 from h2o3_tpu_torch.ops.common import segment_totals
 from h2o3_tpu_torch.ops.histogram import build_histograms
+from h2o3_tpu_torch.ops.random import (fold_in, level_subset,
+                                       sample_weights, uniform,
+                                       uniform_below)
 
 NEG_INF = -1e30
 BIGV = 1e30
@@ -59,6 +62,14 @@ class TreeConfig:
     min_split_improvement: float = 1e-5
     reg_lambda: float = 0.0
     reg_alpha: float = 0.0
+    # > 0: a random column subset of this size per node per level (DRF's
+    # mtries), drawn from the tree's key
+    mtries: int = 0
+    # col_sample_rate_change_per_level: level d's subset size is
+    # (mtries or F) * col_rate_change^d, clamped to [1, F]
+    col_rate_change: float = 1.0
+    # histogram_type="random": a per-tree grid phase on the adaptive bins
+    random_grid: bool = False
     # 'float32' adds (g, h, w) unrounded, 'bfloat16' rounds each to bf16
     # before the float32 add; 'auto' = float32 below 2^18 rows
     histogram_precision: str = "auto"
@@ -173,6 +184,30 @@ def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None):
             wl_s, wr_sel)
 
 
+def _level_mtries(cfg: TreeConfig, d: int, F: int) -> int:
+    """Level ``d``'s column-subset size: mtries scaled by
+    col_sample_rate_change_per_level^d, clamped to [1, F]; 0 = the full
+    column set, no draw (the JAX package's rule)."""
+    mt_d = cfg.mtries
+    if cfg.col_rate_change != 1.0:
+        base_m = cfg.mtries if cfg.mtries > 0 else F
+        mt_d = int(min(max(1, round(base_m * cfg.col_rate_change ** d)), F))
+        if mt_d >= F and cfg.mtries <= 0:
+            mt_d = 0
+    return mt_d
+
+
+def _level_mask(cfg: TreeConfig, d: int, N: int, col_mask, key):
+    """The column mask of level ``d``'s split search: the tree's
+    ``col_mask`` [F], or, where the level draws a subset
+    (``_level_mtries``) and the tree has a key, the per-node [N, F]
+    subsets of ``random.level_subset``."""
+    m = _level_mtries(cfg, d, col_mask.shape[0])
+    if m > 0 and key is not None:
+        return level_subset(key, d, N, col_mask, m)
+    return col_mask
+
+
 def _binned_split_level(trip, find_cfg: TreeConfig, level_mask,
                         cfg: TreeConfig):
     """One level's split selection and the next level's routing table.
@@ -219,12 +254,15 @@ def _segment_totals(nid, ghw, n_seg: int, base: int):
     return tot[0], tot[1], tot[2]
 
 
-def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
+def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
+                     key=None):
     """Build one tree on packed codes ``[rows, F]`` (int8/int16, NA = the
     reserved lane W-1, W = pick_W(cfg.n_bins)). Split thresholds stay bin
     indices (``split_bin``); finalize unbins them to raw thresholds.
     ``H2O3_HIST_I8`` switches levels to int8 fixed-point masses
-    (``_hist_i8``).
+    (``_hist_i8``). ``col_mask`` [F] limits the split search to the
+    tree's columns, and with ``key`` (the tree's key) levels draw per-node
+    column subsets (``_level_mask``).
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
     is_split, value, gain, node_w; and every row's leaf node id)."""
@@ -268,7 +306,8 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
         nid, hist = binned_level(codes, nid, ghw, tables, N // 2 if d else 0,
                                  N, base, W, bf16, qs)
         sel, can, tables = _binned_split_level(
-            (hist[0], hist[1], hist[2]), find_cfg, col_mask, cfg)
+            (hist[0], hist[1], hist[2]), find_cfg,
+            _level_mask(cfg, d, N, col_mask, key), cfg)
         bg, bf, bb, bnl, gt, ht, wt = sel[:7]
         idx = slice(base, base + N)
         feat[idx] = torch.where(can, bf, -1)
@@ -289,7 +328,7 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     return tree(), nid
 
 
-def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
+def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
     """Build one tree on global-sketch codes ``[rows, F]`` (uint8 or
     int32, NA = bin ``cfg.n_bins``), the JAX package's ``grow_tree`` in
     single-device form. Per level: one histogram build
@@ -297,7 +336,8 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     children only, the right ones being parent - left (sibling
     subtraction); the split search over every bin (no ``max_bin``);
     routing by one packed-word gather per row. The deepest level's leaf
-    values come from per-leaf totals after the last route.
+    values come from per-leaf totals after the last route. ``col_mask``
+    and ``key`` as in ``grow_tree_binned``.
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
     is_split, value, gain, node_w; and every row's leaf node id)."""
@@ -340,7 +380,8 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
             hist = tuple(torch.stack([hl, hp - hl], dim=1).reshape(N, F, B1)
                          for hl, hp in zip(hist_l, prev_hist))
         prev_hist = hist
-        bg, bf, bb, bnl, gt, ht, wt = _find_splits(hist, cfg, col_mask)[:7]
+        bg, bf, bb, bnl, gt, ht, wt = _find_splits(
+            hist, cfg, _level_mask(cfg, d, N, col_mask, key))[:7]
         can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
         idx = slice(base, base + N)
         feat[idx] = torch.where(can, bf, -1)
@@ -373,6 +414,26 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None):
     return {"feat": feat, "split_bin": split_bin, "na_left": na_left,
             "is_split": is_split, "value": value, "gain": gain_arr,
             "node_w": node_w}, nid
+
+
+def tree_sample(key_r, key_c, w, y, rate: float, rates, col_rate: float,
+                F: int):
+    """A tree's row weights and column mask (sampling, ROADMAP item A4),
+    drawn as the JAX package's loops draw them on a one-shard data axis:
+    the row key folded with shard 0, the rows kept where
+    ``uniform(key_r, rows) < rate`` (or ``< rates[y]`` with
+    sample_rate_per_class: ``rates`` float32 [K] on w's device, ``y``
+    int32 codes), the columns where ``uniform(key_c, F) < col_rate``.
+    ``rate`` and ``col_rate`` are float32 values. A rate of 1 keeps
+    every row (or column) with no draw, as the JAX draw does by
+    ``u < 1``. Returns (wt = w times the sample, col_mask [F] bool or
+    None for every column)."""
+    if rates is not None or rate < 1.0:
+        w = sample_weights(fold_in(key_r, 0), w, rate, y, rates)
+    col_mask = None
+    if col_rate < 1.0:
+        col_mask = uniform_below(key_c, F, col_rate, w.device)
+    return w, col_mask
 
 
 # ---------------------------------------------------------------- path rule
@@ -444,15 +505,20 @@ def adaptive_feasible(spec, params, max_depth: int) -> bool:
     return level_bytes <= 96 * 2 ** 20
 
 
-def tree_config(params, max_depth: int, n_bins: int,
-                n_features: int) -> TreeConfig:
-    """The TreeConfig of a GBM's parameters."""
+def tree_config(params, max_depth: int, n_bins: int, n_features: int,
+                mtries: int = 0) -> TreeConfig:
+    """The TreeConfig of a GBM's or a DRF's parameters; ``mtries`` is the
+    DRF's per-node subset size (0 for the GBM, which does not read it)."""
     p = params
     return TreeConfig(max_depth=max_depth, n_bins=n_bins,
                       n_features=n_features, min_rows=float(p["min_rows"]),
                       min_split_improvement=float(p["min_split_improvement"]),
                       reg_lambda=float(p.get("reg_lambda", 0.0)),
                       reg_alpha=float(p.get("reg_alpha", 0.0)),
+                      mtries=mtries,
+                      col_rate_change=float(
+                          p.get("col_sample_rate_change_per_level", 1.0)
+                          or 1.0),
                       histogram_precision=str(
                           p.get("histogram_precision", "auto")).lower())
 
@@ -467,17 +533,22 @@ def _nan_extreme(X, largest: bool):
     return torch.where(fin.any(dim=0), v, 0.0).to(torch.float32)
 
 
-def adaptive_setup(spec, params, max_depth: int):
+def adaptive_setup(spec, params, max_depth: int, mtries: int = 0):
     """TreeConfig, per-feature finite root ranges and per-feature bin
-    counts for the adaptive grower. Enums get identity bins: n_bins is
-    card-1 (capped by nbins_cats and the 254-lane max) and nb_f their
-    root span (capped by nbins_cats); numeric features get nbins. ±inf is
-    masked before the min/max so one infinite cell cannot widen a range.
-    Returns (cfg, root_lo, root_hi, nb_f)."""
+    counts for the adaptive grower (``mtries`` as in ``tree_config``;
+    ``histogram_type="random"`` sets the config's random grid). Enums
+    get identity bins: n_bins is card-1 (capped by nbins_cats and the
+    254-lane max) and nb_f their root span (capped by nbins_cats);
+    numeric features get nbins. ±inf is masked before the min/max so one
+    infinite cell cannot widen a range. Returns (cfg, root_lo, root_hi,
+    nb_f)."""
     nbins = int(params["nbins"])
     nbins_cats = int(params.get("nbins_cats", 1024))
-    cfg = tree_config(params, max_depth, _adaptive_n_bins_eff(spec, params),
-                      spec.n_features)
+    cfg = replace(
+        tree_config(params, max_depth, _adaptive_n_bins_eff(spec, params),
+                    spec.n_features, mtries),
+        random_grid=str(params.get("histogram_type", "")).lower()
+        == "random")
     root_lo = _nan_extreme(spec.X, largest=False)
     root_hi = _nan_extreme(spec.X, largest=True)
     cat = torch.as_tensor(spec.is_cat, dtype=torch.bool,
@@ -527,13 +598,16 @@ def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int):
 
 def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                        nb_f=None, col_mask=None, phase=None,
-                       layout: str = "rows_f"):
+                       layout: str = "rows_f", key=None):
     """Build one tree with per-node adaptive uniform bins on raw float32
     features ``x`` (NaN = NA, enum codes as floats) in ``layout``
     (``"rows_f"`` [rows, F] or ``"f_rows"`` [F, rows]). ``root_lo`` /
     ``root_hi`` are the [F] finite root ranges, ``nb_f`` optional [F]
     per-feature bin counts (capped at W-2), ``phase`` an optional [F]
-    grid offset in [0, 1) bin widths (``histogram_type="random"``).
+    grid offset in [0, 1) bin widths; with ``key`` (the tree's key) and
+    ``cfg.random_grid`` (``histogram_type="random"``) the phase is drawn
+    as ``uniform(fold_in(key, 7919), (F,))``, and levels draw per-node
+    column subsets as in ``grow_tree_binned``.
 
     Per level: per-(node, feature) ranges ``lo``/``inv``, one fused route
     + re-bin + histogram kernel, the split search over every lane (no
@@ -559,6 +633,8 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     find_cfg = replace(cfg, n_bins=W - 1)          # NA lane at W-1
     if col_mask is None:
         col_mask = torch.ones(F, dtype=torch.bool, device=dev)
+    if phase is None and cfg.random_grid and key is not None:
+        phase = uniform(fold_in(key, 7919), (F,), dev)
 
     feat = torch.full((M,), -1, dtype=torch.int32, device=dev)
     thr_arr = torch.zeros(M, dtype=torch.float32, device=dev)
@@ -603,7 +679,7 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                                    layout, qs)
         (bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s, wl_s,
          wr_s) = _find_splits((hist[0], hist[1], hist[2]), find_cfg,
-                              col_mask)
+                              _level_mask(cfg, d, N, col_mask, key))
         can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
         nidx = torch.arange(N, device=dev)
         lo_sel = lo_d[nidx, bf.long()]
@@ -709,6 +785,21 @@ def predict_raw_margin(X, f0, feat, thr, na_left, is_split, value,
                         max_depth)
         margin[:, t % K] += value[t][nid]
     return margin
+
+
+def predict_raw_mean(X, zero, feat, thr, na_left, is_split, value,
+                     max_depth: int):
+    """A forest's mean over a stack of T trees walked over raw features:
+    the leaf values added one tree at a time in tree order onto ``zero``
+    (``predict_raw_margin``'s f0: a 0-d zero for one value a row, [K]
+    zeros for K classes with the stack in (tree, class) order), divided
+    by the number of trees a column. The sum's order is fixed, so a
+    one-row batch and a whole frame give a row the same bits (the JAX
+    package takes the mean in XLA's reduction order)."""
+    total = predict_raw_margin(X, zero, feat, thr, na_left, is_split, value,
+                               max_depth)
+    per_col = feat.shape[0] // (zero.shape[0] if zero.dim() else 1)
+    return total / float(max(per_col, 1))
 
 
 def bins_to_thresholds_stacked(split_bin: np.ndarray, feat: np.ndarray,

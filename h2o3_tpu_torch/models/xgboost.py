@@ -5,8 +5,8 @@ Counterpart of ``h2o3_tpu/models/xgboost.py``: the same map of XGBoost's
 parameter names onto the GBM's, in a plain function of the parameters
 (``xgboost_gbm_params``), then the GBM's own checks on the result, so
 that a value the port does not support yet raises the GBM's labelled
-``NotImplementedError`` (A4 for ``subsample`` or ``colsample_*`` below
-1).
+``NotImplementedError``. ``subsample`` and ``colsample_*`` train through
+the GBM's row and column sampling.
 
   eta                   -> learn_rate          (default 0.3, XGBoost's)
   subsample             -> sample_rate

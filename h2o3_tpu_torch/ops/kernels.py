@@ -39,11 +39,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
             "binned_level_i8": 0, "adaptive_level": 0,
             "adaptive_route_only": 0, "adaptive_level_i8": 0,
-            "leaf_totals": 0, "segment_totals": 0, "global_hist": 0}
+            "leaf_totals": 0, "segment_totals": 0, "global_hist": 0,
+            "threefry_uniform": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U32, _F32 = ctypes.c_uint, ctypes.c_float
 # C signatures: library stem -> {function: argtypes}; every function
 # returns a cudaError_t as int
 _SIGNATURES = {
@@ -103,6 +105,11 @@ _SIGNATURES = {
         "h2o3_global_hist_form": [_VP, _INT, _VP, _VP, _LL, _INT, _INT,
                                   _INT, _INT, _INT, _VP, _VP, _VP],
     },
+}
+_SIGNATURES["threefry"] = {
+    "h2o3_threefry_uniform": [_U32, _U32, _LL, _VP, _VP],
+    "h2o3_threefry_sample": [_U32, _U32, _LL, _VP, _VP, _VP, _INT, _F32, _VP,
+                             _VP],
 }
 # the workspace queries return a byte count (-1: shapes refused); the
 # form queries (*_picks) a form code (LEVEL_FORMS), every other function a
@@ -865,3 +872,56 @@ def global_hist_form(codes: torch.Tensor, seg: torch.Tensor,
     ``global_hist``."""
     return _global_hist(codes, seg, ghw, n_nodes, n_bins1, bf16,
                         bool(shared))
+
+
+def threefry_uniform(key, shape, device) -> torch.Tensor:
+    """Launch the threefry kernel (``csrc/threefry.cu``): float32
+    ``shape`` on ``device`` (CUDA), the bits of ``jax.random.uniform``
+    under ``key`` (two uint32 words). Same contract as
+    ``random.uniform_plain``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called for device {dev}")
+    n = 1
+    for s in shape:
+        n *= int(s)
+    lib = build()["threefry"]
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_threefry_uniform(int(key[0]), int(key[1]), n,
+                                       out.data_ptr(), _stream(dev))
+    _raise_on(rc, "threefry_uniform")
+    LAUNCHES["threefry_uniform"] += 1
+    return out
+
+
+def threefry_sample(key, w: torch.Tensor, rate: float = 1.0, y=None,
+                    rates=None) -> torch.Tensor:
+    """The threefry kernel's fused row sample: ``w * (u < rate)``, or
+    with ``rates`` float32 [K] and ``y`` int32 codes ``w * (u <
+    rates[clamp(y, 0, K - 1)])``, u the uniform of ``key`` over w's rows.
+    Same contract as ``random.sample_weights_plain``; counted as a
+    ``threefry_uniform`` launch."""
+    _check_cuda(w)
+    dev = w.device
+    n = w.shape[0]
+    _check("w", w, torch.float32, (n,), dev)
+    n_rates = 0
+    y_ptr = rates_ptr = None
+    if rates is not None:
+        n_rates = rates.shape[0]
+        _check("y", y, torch.int32, (n,), dev)
+        _check("rates", rates, torch.float32, (n_rates,), dev)
+        if n_rates < 1:
+            raise ValueError("rates must hold at least one class")
+        y_ptr, rates_ptr = y.data_ptr(), rates.data_ptr()
+    lib = build()["threefry"]
+    out = torch.empty_like(w)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_threefry_sample(int(key[0]), int(key[1]), n,
+                                      w.data_ptr(), y_ptr, rates_ptr,
+                                      n_rates, float(rate), out.data_ptr(),
+                                      _stream(dev))
+    _raise_on(rc, "threefry_uniform")
+    LAUNCHES["threefry_uniform"] += 1
+    return out

@@ -101,16 +101,47 @@ def test_gaussian_regression_trains_on_cpu():
 
 
 @pytest.mark.parametrize("param", [
-    {"histogram_type": "random"},
-    {"sample_rate_per_class": [1.0, 0.5]}, {"balance_classes": True},
-    {"col_sample_rate_per_tree": 0.5}, {"checkpoint": "gbm_1"},
-    {"sample_rate": 0.8}, {"col_sample_rate": 0.5}, {"mtries": 3},
+    {"balance_classes": True}, {"checkpoint": "gbm_1"},
     {"monotone_constraints": {"f0": 1}},
     {"interaction_constraints": [["f0", "f1"]]},
 ])
 def test_unsupported_parameters_raise(param):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchGBM(**param)
+
+
+@pytest.mark.parametrize("param", [
+    {"histogram_type": "random", "nbins": 20},
+    {"sample_rate_per_class": [1.0, 0.5]},
+    {"col_sample_rate_per_tree": 0.5},
+    {"sample_rate": 0.8}, {"col_sample_rate": 0.5}, {"mtries": 3},
+])
+def test_sampling_parameters_train_and_match_jax(param):
+    """The sampling parameters the port refused until item A4 train now,
+    to the JAX package's trees (its train on a one-device mesh, where
+    its row draw is the port's; mtries the JAX GBM accepts and never
+    reads)."""
+    import jax
+    from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
+    cols = _data()
+    kw = dict(PARAMS)
+    kw.update(param)
+    old = current_mesh()
+    set_mesh(make_mesh(n_data=1, devices=jax.devices()[:1]))
+    try:
+        jm = JaxGBM(packed_codes=True, **kw).train(
+            y="label", training_frame=jh2o.Frame.from_numpy(cols)).model
+    finally:
+        set_mesh(old)
+    tm = TorchGBM(**kw).train(
+        y="label",
+        training_frame=th2o.Frame.from_numpy(cols, device="cpu")).model
+    for key in ("feat", "thr", "na_left", "is_split"):
+        np.testing.assert_array_equal(tm.trees[key],
+                                      np.asarray(getattr(jm, "_" + key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unknown_parameter_and_validation_frame_raise():
@@ -374,14 +405,13 @@ def test_wide_bin_shapes_match_jax(params):
 
 def test_refusals_name_their_roadmap_labels():
     """Each refusal names the ROADMAP.md queue-1 label that ports it:
-    checkpoints A3, sampling A4, constraints A5, cross-validation and
-    class balancing A7."""
+    checkpoints A3, constraints A5, cross-validation and class balancing
+    A7; sampling (A4) is ported and constructs."""
     with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
         TorchGBM(ntrees=1, checkpoint="gbm_1")
     with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
         TorchGBM(ntrees=1, in_training_checkpoints_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item A4, sampling"):
-        TorchGBM(ntrees=1, sample_rate=0.8)
+    assert TorchGBM(ntrees=1, sample_rate=0.8).params["sample_rate"] == 0.8
     with pytest.raises(NotImplementedError, match="item A5, constraints"):
         TorchGBM(ntrees=1, monotone_constraints={"f0": 1})
     with pytest.raises(NotImplementedError,

@@ -45,9 +45,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_sources_cover_every_model_module():
     """The no-JAX rule above reads every module of the port, the XGBoost
-    estimator among them."""
+    estimator and the random forest among them."""
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
-    for mod in ("gbm", "model_base", "metrics", "tree", "xgboost"):
+    for mod in ("drf", "gbm", "model_base", "metrics", "tree", "xgboost"):
         assert f"h2o3_tpu_torch/models/{mod}.py" in names
 
 

@@ -4,7 +4,8 @@ binned_route_only on packed codes, adaptive_level (the wide form too) /
 adaptive_route_only on raw features in both layouts, the form rule and
 forced forms that do not fit,
 global_hist on unpacked global-sketch codes, the int8 fixed-point levels
-binned_level_i8 / adaptive_level_i8, leaf_totals and segment_totals; and
+binned_level_i8 / adaptive_level_i8, leaf_totals and segment_totals, the
+threefry draws (uniform and the fused row sample) bit for bit; and
 the kernels whose float sums come in a fixed order launched five times
 on inputs where any change of order would show.
 
@@ -18,6 +19,7 @@ import torch
 
 from h2o3_tpu_torch.ops import hist_adaptive as tha
 from h2o3_tpu_torch.ops import kernels
+from h2o3_tpu_torch.ops import random as trandom
 
 
 @pytest.fixture
@@ -962,3 +964,32 @@ def test_i8_level_form_rule(cuda):
     assert kernels.binned_level_i8_picks(rows, 28, 64, 0, 1, 2) == "tiled"
     assert kernels.binned_level_i8_picks(rows, 28, 64, 1, 2, 2) == "wide"
     assert kernels.binned_level_i8_picks(rows, 28, 128, 0, 1, 2) == "wide"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (7,), (28,), (64, 28),
+                                   (1_000_003,)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_threefry_kernel_bit_equal_to_the_plain_version(cuda, shape):
+    """The threefry kernel's uniform and its fused row sample (scalar
+    rate; per-class rates with codes out of range clamped) bit-equal to
+    the plain version on the same key: integer arithmetic leaves no room
+    for order."""
+    key = trandom.fold_in(trandom.prng_key(2 ** 31 - 1), 9)
+    before = kernels.LAUNCHES["threefry_uniform"]
+    got = trandom.uniform(key, shape, cuda)
+    assert kernels.LAUNCHES["threefry_uniform"] == before + 1
+    want = trandom.uniform_plain(key, shape, "cpu")
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    rows = shape[0] if len(shape) == 1 else 4097
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor(rng.uniform(0.0, 2.0, rows).astype(np.float32))
+    y = torch.as_tensor(rng.integers(-1, 4, rows).astype(np.int32))
+    rates = torch.tensor([0.3, 0.6, 0.9])
+    for kw in (dict(rate=0.632), dict(y=y, rates=rates)):
+        dev_kw = {k: v.to(cuda) if torch.is_tensor(v) else v
+                  for k, v in kw.items()}
+        got = trandom.sample_weights(key, w.to(cuda), **dev_kw)
+        want = trandom.sample_weights_plain(key, w, **kw)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))

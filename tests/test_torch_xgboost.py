@@ -84,11 +84,35 @@ def test_booster_other_than_gbtree_raises():
     {"subsample": 0.8}, {"colsample_bytree": 0.5},
     {"colsample_bylevel": 0.7}])
 def test_sampling_raises_the_a4_refusal(params):
-    """The map holds the value (as the JAX estimator's does); the port's
-    GBM check then refuses it with its ROADMAP label."""
-    assert JaxXGB(**params).params
-    with pytest.raises(NotImplementedError, match="item A4, sampling"):
-        TorchXGB(**params)
+    """Named for the refusal it held until sampling (ROADMAP item A4)
+    was ported: the map holds the value as the JAX estimator's does, and
+    the port's XGBoost now trains with it, to the JAX package's trees
+    (its train on a one-device mesh, where its row draw is the
+    port's)."""
+    import jax
+    from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
+    want = JaxXGB(**params).params
+    got = TorchXGB(**params).params
+    for k in ("sample_rate", "col_sample_rate", "col_sample_rate_per_tree"):
+        assert got[k] == want[k]
+    cols = xgb_data(seed=2)
+    kw = dict(XGB, tree_method="hist", ntrees=3, **params)
+    old = current_mesh()
+    set_mesh(make_mesh(n_data=1, devices=jax.devices()[:1]))
+    try:
+        jm = JaxXGB(packed_codes=True, **kw).train(
+            y="label", training_frame=jh2o.Frame.from_numpy(cols)).model
+    finally:
+        set_mesh(old)
+    tm = TorchXGB(**kw).train(
+        y="label",
+        training_frame=th2o.Frame.from_numpy(cols, device="cpu")).model
+    for key in ("feat", "thr", "na_left", "is_split"):
+        np.testing.assert_array_equal(tm.trees[key],
+                                      np.asarray(getattr(jm, "_" + key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unknown_parameter_raises():
