@@ -290,6 +290,44 @@ against its plain version. Phases, each fatal on failure:
    clamped) bit-equal to the plain version, timed beside it and the
    bound.
 
+8e. checkpoints, ROADMAP item A3 (``phase_checkpoints``,
+   ``ckpt_case``), on the 10M x 28 frame: the packed GBM (20 trees) with
+   ``in_training_checkpoints_dir`` every 5 trees (four artifacts, the
+   JAX loop's cadence), resumed from ``<key>_t10.zip`` through
+   ``checkpoint=<path>``; the same with sample_rate 0.8 (the resumed
+   trees' row draws keyed by their index in the whole model); drf_higgs
+   (20 trees, every 10, resumed at 10: its out-of-bag sums resumed). The
+   checkpointing and the resumed trains must equal the plain one in
+   every bit of every tree and in the training (out-of-bag) AUC; the
+   resumed train's launches with the counters set to 0 just before
+   (packed 60, 10, 10; sampled also 10 draws; the forest 100, 10, 10 and
+   110 draws). Each commit's seconds and bytes, the load's seconds, the
+   loop with checkpoints off and on.
+
+8f. constraints, A5 (``phase_constraints``): the packed GBM at full
+   width (20 trees) with monotone constraints on f0, f4 (+1), f1, f3
+   (-1) and three interaction groups covering the 28 features (launches
+   as phase 4's packed path); on the card, 1000 rows x a 64-point sweep
+   of each constrained feature: no step against its direction by more
+   than 1e-5; every root-to-leaf path within one group; ms a tree beside
+   the unconstrained train's. Card vs CPU at 200k rows, 5 trees, float32
+   on the packed, adaptive and global (nbins 300) growers, every split
+   equal under the one-noise-split rule.
+
+8g. cross-validation, class balancing and calibration, A7
+   (``phase_cv``): the packed GBM with nfolds 5 (launches: the main
+   model's and five folds'), CV AUC and logloss, each fold's
+   ``Frame.rows``, train and holdout seconds; fold 0's training rows
+   gathered on the card bit-equal to the host gather (both timed); each
+   fold's holdout bit-equal to its model's ``predict`` on its rows.
+   ``balance_classes`` on phase 8a's covertype frame (20 iterations):
+   the prior class distribution the frame's shares, the balanced one
+   uniform, 512 served rows bit-equal to ``predict`` with the
+   correction. Platt and isotonic calibration of the packed GBM on a
+   500k-row calibration frame: ``cal_p0``/``cal_p1`` finite
+   probabilities, their logloss beside the raw ``p1``'s (Platt's no
+   worse).
+
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
    kernels in ``tools/csrc/probes.cu``, built in phase 2 beside the
@@ -4085,8 +4123,8 @@ def recorded_gains(store):
     from h2o3_tpu_torch.models import tree
     orig = tree._find_splits
 
-    def call(trip, cfg, col_mask, max_bin=None):
-        out = orig(trip, cfg, col_mask, max_bin)
+    def call(trip, cfg, col_mask, max_bin=None, mono=None):
+        out = orig(trip, cfg, col_mask, max_bin, mono)
         parent = tree._leaf_score2(out[4], out[5], cfg)
         store.append((out[0].cpu().numpy(), parent.abs().cpu().numpy()))
         return out
@@ -4911,6 +4949,388 @@ def phase_drf(card, fr, cov_fr, cpu_rows=200_000, cpu_trees=5,
     _m, out["drf_regression"], _p = drf_case(
         card, "drf_regression", reg_frame(X, "cuda"), "y", 1, 1,
         lambda d: reg_frame(Xc, d), cpu_trees, repeat_trees=repeat_trees)
+    return out
+
+
+# ------------------------------------------------- A3, A5, A7 (8e-8g)
+
+# 8e: the packed GBM's checkpoints every CKPT_INTERVAL of CKPT_TREES
+# trees, resumed at CKPT_RESUME; the forest's every DRF_CKPT_INTERVAL
+CKPT_TREES, CKPT_INTERVAL, CKPT_RESUME = 20, 5, 10
+DRF_CKPT_TREES, DRF_CKPT_INTERVAL = 20, 10
+# 8f: two features rising and two falling with the label's logit (f0 and
+# f1 as the generator has them; f4's sin and f3's product bind), and
+# three interaction groups covering every feature
+MONOTONE = {"f0": 1, "f4": 1, "f1": -1, "f3": -1}
+GROUPS = ([f"f{i}" for i in range(4)], [f"f{i}" for i in range(4, 16)],
+          [f"f{i}" for i in range(16, 28)])
+SWEEP_ROWS, SWEEP_POINTS = 1000, 64
+# 8g: the folds, the balanced covtype GBM's iterations, the calibration
+# frame's rows
+CV_FOLDS, BALANCE_TREES, CAL_ROWS = 5, 20, 500_000
+
+
+def same_trees_bits(what, a, b):
+    """Every tree entry of two models equal in every bit (values and
+    node weights as their bits)."""
+    bad = {}
+    for k in ("feat", "thr", "na_left", "is_split", "value", "node_w"):
+        x, y = np.asarray(a.trees[k]), np.asarray(b.trees[k])
+        if x.dtype == np.float32:
+            x, y = x.view(np.uint32), y.view(np.uint32)
+        if x.shape != y.shape or (x != y).any():
+            bad[k] = int((x != y).sum()) if x.shape == y.shape else "shape"
+    if bad or a.ntrees_built != b.ntrees_built:
+        raise AssertionError(f"{what}: trees differ {bad}, "
+                             f"{a.ntrees_built} vs {b.ntrees_built} trees")
+
+
+def ckpt_case(card, name, fit, split_key, want, ntrees, interval, resume,
+              metric):
+    """One checkpoint case (8e): ``fit(**kw)`` without checkpoints, with
+    ``in_training_checkpoints_dir`` every ``interval`` trees (the
+    artifacts at each commit of the JAX loop's cadence), and resumed from
+    ``<key>_t<resume>.zip`` through ``checkpoint=<path>``; the last with
+    the launch counters set to 0 just before and read just after (``want``
+    for its ``ntrees - resume`` trees). The checkpointing and the resumed
+    trains must equal the plain one in every bit of every tree and in
+    ``metric``. Prints the loops off and on, each commit's seconds and
+    bytes, the load's seconds. Returns the resumed train's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from h2o3_tpu_torch import persist
+    from h2o3_tpu_torch.ops import kernels
+    d = tempfile.mkdtemp(prefix="h2o3_ckpt_")
+    try:
+        off = fit()
+        on = fit(model_id=name, in_training_checkpoints_dir=d,
+                 in_training_checkpoints_tree_interval=interval)
+        names = sorted(os.listdir(d))
+        commits = on.output["checkpoints"]
+        t0 = time.perf_counter()
+        prior = persist.load_model(os.path.join(d, f"{name}_t{resume}.zip"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if prior.ntrees_built != resume:
+            raise AssertionError(f"{name}: t{resume} holds "
+                                 f"{prior.ntrees_built} trees")
+        del prior
+        zero_launches()
+        res = fit(checkpoint=os.path.join(d, f"{name}_t{resume}.zip"))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check_launches(f"{name} resumed", launches, want)
+    for what, m in (("checkpointing", on), ("resumed", res)):
+        same_trees_bits(f"{name} {what} vs plain", m, off)
+        if metric(m) != metric(off):
+            raise AssertionError(f"{name} {what}: {metric(m)!r} vs "
+                                 f"{metric(off)!r}")
+    print(f"checkpoints {name}: {ntrees} trees, every {interval}: "
+          f"artifacts {names}; commits (trees, seconds, bytes) "
+          f"{[(c['trees'], c['seconds'], c['bytes']) for c in commits]}; "
+          f"load t{resume} {load_s!r} s; loop seconds off "
+          f"{off.output['training_loop_seconds']!r} on "
+          f"{on.output['training_loop_seconds']!r} resumed "
+          f"{res.output['training_loop_seconds']!r} ({ntrees - resume} "
+          f"trees); checkpointing and resumed trains bit-equal to the "
+          f"plain one in every tree and in {metric(off)!r}; resumed "
+          f"launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def phase_checkpoints(card, fr):
+    """A3 on the card (8e), on the 10M x 28 frame ``fr``: the packed GBM
+    (``CKPT_TREES`` trees, checkpoints every ``CKPT_INTERVAL``, resumed
+    at ``CKPT_RESUME``), the same with sample_rate 0.8 (the row draws of
+    the resumed trees keyed by their index in the whole model), and
+    drf_higgs (``DRF_CKPT_TREES`` trees, every ``DRF_CKPT_INTERVAL``,
+    resumed at the first; its out-of-bag sums resumed: the OOB AUC bit
+    for bit). Returns the resumed trains' launches by path."""
+    F = fr.ncol - 1
+    hfr = as_classes(fr, "label")
+    new = CKPT_TREES - CKPT_RESUME
+    packed_want = dict(binned_level=6 * new, binned_route_only=new,
+                       segment_totals=new)
+    drf_new = DRF_CKPT_TREES - DRF_CKPT_INTERVAL
+    out = {}
+
+    def auc(m):
+        return m.training_metrics.auc
+    out["resumed_packed"] = ckpt_case(
+        card, "ckpt_packed", lambda **k: train(fr, CKPT_TREES, "packed",
+                                               **k),
+        "split_bin", packed_want, CKPT_TREES, CKPT_INTERVAL, CKPT_RESUME,
+        auc)
+    out["resumed_sampled"] = ckpt_case(
+        card, "ckpt_sampled", lambda **k: train(fr, CKPT_TREES, "packed",
+                                                sample_rate=0.8, **k),
+        "split_bin", dict(packed_want, threefry_uniform=draws_of(
+            new, 6, F, rate=0.8)), CKPT_TREES, CKPT_INTERVAL, CKPT_RESUME,
+        auc)
+    out["resumed_drf_higgs"] = ckpt_case(
+        card, "ckpt_drf", lambda **k: drf_train(hfr, "label",
+                                                ntrees=DRF_CKPT_TREES, **k),
+        "split_bin", dict(
+            binned_level=DRF_DEPTH * drf_new, binned_route_only=drf_new,
+            segment_totals=drf_new, threefry_uniform=draws_of(
+                drf_new, DRF_DEPTH, F, rate=0.632, mtries=5)),
+        DRF_CKPT_TREES, DRF_CKPT_INTERVAL, DRF_CKPT_INTERVAL, auc)
+    return out
+
+
+def tree_paths(trees):
+    """Each tree's root-to-leaf sets of split features."""
+    feat, split = trees["feat"], trees["is_split"]
+    out = []
+    for t in range(feat.shape[0]):
+        stack = [(0, frozenset())]
+        while stack:
+            node, used = stack.pop()
+            if node >= feat.shape[1] or not split[t, node]:
+                if used:
+                    out.append(used)
+                continue
+            u = used | {int(feat[t, node])}
+            stack += [(2 * node + 1, u), (2 * node + 2, u)]
+    return out
+
+
+def monotone_sweep(model, fr, names):
+    """``SWEEP_ROWS`` rows of ``fr`` with each constrained feature swept
+    over ``SWEEP_POINTS`` points from its minimum to its maximum there,
+    scored on the card: the largest step against the feature's direction
+    of each (<= 1e-5 required)."""
+    import h2o3_tpu_torch as h2o
+    import torch
+    from h2o3_tpu_torch.frame.vec import Vec
+    X = fr.rows(np.arange(SWEEP_ROWS)).as_matrix(names)
+    worst = {}
+    for col, sign in MONOTONE.items():
+        j = names.index(col)
+        grid = torch.linspace(float(X[:, j].min()), float(X[:, j].max()),
+                              SWEEP_POINTS, device=X.device)
+        Xs = X.repeat_interleave(SWEEP_POINTS, dim=0)
+        Xs[:, j] = grid.repeat(SWEEP_ROWS)
+        sweep = h2o.Frame(names, [Vec(Xs[:, i].contiguous())
+                                  for i in range(len(names))])
+        p1 = model.predict(sweep).vec("p1").data.reshape(SWEEP_ROWS,
+                                                         SWEEP_POINTS)
+        against = -sign * torch.diff(p1.double(), dim=1)
+        worst[col] = float(against.max())
+        if worst[col] > 1e-5:
+            raise AssertionError(f"monotone {col} ({sign:+d}): a step of "
+                                 f"{worst[col]!r} against its direction")
+    return worst
+
+
+def phase_constraints(card, fr, cpu_rows=200_000, cpu_trees=5):
+    """A5 on the card (8f): the packed GBM at full width (20 trees, depth
+    6) with ``MONOTONE`` and ``GROUPS``, the launch counters set to 0
+    just before and read just after (120 binned_level, 20
+    binned_route_only and segment_totals); the monotone property on the
+    card (``monotone_sweep``) and every root-to-leaf path within one
+    group; then card vs CPU at ``cpu_rows`` rows and ``cpu_trees``
+    trees, float32, on the packed, adaptive and global growers, every
+    split equal under the one-noise-split rule. Returns the launches."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    kw = dict(monotone_constraints=MONOTONE,
+              interaction_constraints=[list(g) for g in GROUPS])
+    names = [f"f{i}" for i in range(fr.ncol - 1)]
+    zero_launches()
+    m = train(fr, 20, "packed", **kw)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("constrained_packed", launches, launches_of(6, 20))
+    free = train(fr, 20, "packed")
+    groups = [{names.index(c) for c in g} for g in GROUPS]
+    paths = tree_paths(m.trees)
+    mixed = [sorted(p) for p in paths if not any(p <= g for g in groups)]
+    if mixed or not paths:
+        raise AssertionError(f"constraints: {len(mixed)} of {len(paths)} "
+                             f"paths mix groups, first {mixed[:3]}")
+    worst = monotone_sweep(m, fr, names)
+    loop_s = m.output["training_loop_seconds"]
+    print(f"constraints: {fr.nrow}x{len(names)} packed GBM depth 6, 20 "
+          f"trees, monotone {json.dumps(MONOTONE)}, {len(GROUPS)} "
+          f"interaction groups: training AUC {m.training_metrics.auc!r} "
+          f"(unconstrained {free.training_metrics.auc!r}); "
+          f"training_loop_seconds {loop_s!r} (unconstrained "
+          f"{free.output['training_loop_seconds']!r}), ms a tree "
+          f"{loop_s * 1e3 / 20!r}; largest step against each direction "
+          f"over {SWEEP_ROWS} rows x {SWEEP_POINTS} points "
+          f"{json.dumps(worst)}; {len(paths)} root-to-leaf paths, each "
+          f"within one group; launches {launches} [{card}]", flush=True)
+    del m, free
+    X, y, _F = higgs_arrays(cpu_rows, seed=11)
+
+    def auc(mm):
+        return mm.training_metrics.auc
+    for path, extra in (("packed", {}), ("adaptive", {}),
+                        ("global", dict(nbins=300))):
+        text = card_vs_cpu_recorded(
+            f"constrained {path}",
+            lambda f, path=path, extra=extra: train(
+                f, cpu_trees, path, histogram_precision="float32",
+                **extra, **kw),
+            lambda d: frame_of(X, y, d), cpu_trees, 6,
+            PATHS[path]["split_key"], auc)
+        print(f"card vs cpu, constrained {path}: {cpu_rows} rows, "
+              f"{cpu_trees} trees, float32: {text} (AUC) [{card}]",
+              flush=True)
+    return launches
+
+
+def logloss_of(p1, y):
+    p = np.clip(np.asarray(p1, np.float64), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def phase_cv(card, fr, cov_fr):
+    """A7 on the card (8g). (a) The packed GBM (20 trees, depth 6) with
+    nfolds ``CV_FOLDS`` on the 10M x 28 frame ``fr``, the launch
+    counters set to 0 just before and read just after (the main model
+    and each fold's: 6 x 120 binned_level, 6 x 20 binned_route_only and
+    segment_totals): CV AUC and logloss, each fold's seconds and its
+    ``Frame.rows`` seconds, one fold's training rows gathered on the
+    host against the card's gather (bit-equal), each fold's holdout
+    against its model's ``predict`` on its rows (bit-equal). (b)
+    balance_classes on the covertype-shaped frame ``cov_fr`` (H2O's
+    default GBM, ``BALANCE_TREES`` iterations): the prior class
+    distribution as the frame's shares, the balanced one uniform, 512
+    served rows bit-equal to ``predict`` with the correction. (c) Platt
+    and isotonic calibration of the packed GBM on a ``CAL_ROWS``-row
+    calibration frame: the calibrated columns' logloss beside the raw
+    one (Platt's no worse). Returns the launches by path."""
+    import torch
+    from h2o3_tpu_torch import serve
+    from h2o3_tpu_torch.ops import kernels
+    out = {}
+    clock = PhaseClock()
+    zero_launches()
+    m = train(fr, 20, "packed", nfolds=CV_FOLDS)
+    torch.cuda.synchronize()
+    out["cv_packed"] = dict(kernels.LAUNCHES)
+    check_launches("cv_packed", out["cv_packed"],
+                   launches_of(6, 20 * (CV_FOLDS + 1)))
+    clock.lap("cv train")
+    fold = m.output["cv_fold_assignment"]
+    ho = m.output["cross_validation_holdout_predictions"]
+    for fid, fm in enumerate(m.output["cross_validation_models"]):
+        idx = np.nonzero(fold == fid)[0]
+        p1 = fm.predict(fr.rows(idx)).vec("p1").to_numpy()
+        if p1.view(np.uint32).tolist() != ho[idx, 1].view(
+                np.uint32).tolist():
+            raise AssertionError(f"cv fold {fid}: holdout differs from the "
+                                 f"fold model's predict")
+    clock.lap("holdout vs fold predict")
+    mask = fold != 0
+    t0 = time.perf_counter()
+    dev_rows = fr.rows(mask)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_rows_fr = fr.rows_host(mask)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    diff = frames_differ(dev_rows, host_rows_fr)
+    if diff:
+        raise AssertionError(f"Frame.rows on the card vs the host gather: "
+                             f"{diff}")
+    del dev_rows, host_rows_fr
+    clock.lap("rows card vs host")
+    cvm = m.cross_validation_metrics
+    prof = m.output["cross_validation_profile"]
+    if not 0.5 < cvm.auc <= m.training_metrics.auc or cvm.nobs != fr.nrow:
+        raise AssertionError(f"cv: AUC {cvm.auc} (training "
+                             f"{m.training_metrics.auc}), nobs {cvm.nobs}")
+    print(f"cross-validation: {fr.nrow}x{fr.ncol - 1} packed GBM, 20 "
+          f"trees, nfolds {CV_FOLDS} (random assignment, seed 7): CV AUC "
+          f"{cvm.auc!r} logloss {cvm.logloss!r} (training AUC "
+          f"{m.training_metrics.auc!r}); main loop "
+          f"{m.output['training_loop_seconds']!r} s; folds (rows_s, "
+          f"train_s, predict_s) "
+          f"{[(p['rows_s'], p['train_s'], p['predict_s']) for p in prof]}; "
+          f"Frame.rows of fold 0's training rows on the card {dev_s!r} s, "
+          f"through the host {host_s!r} s, bit-equal; launches "
+          f"{out['cv_packed']}; seconds {json.dumps(clock.laps)} [{card}]",
+          flush=True)
+    del m
+    # (b) balance_classes
+    zero_launches()
+    bm = gbm_default(cov_fr, COVTYPE_Y, ntrees=BALANCE_TREES,
+                     balance_classes=True)
+    torch.cuda.synchronize()
+    out["balanced_covtype"] = dict(kernels.LAUNCHES)
+    K = len(COVTYPE_SHARES)
+    check_launches("balanced_covtype", out["balanced_covtype"],
+                   launches_of(5, BALANCE_TREES * K))
+    yc = cov_fr.vec(COVTYPE_Y).to_numpy()
+    share = np.bincount(yc[yc >= 0], minlength=K) / (yc >= 0).sum()
+    prior_d = np.asarray(bm.output["prior_class_dist"])
+    model_d = np.asarray(bm.output["model_class_dist"])
+    if np.abs(prior_d - share).max() > 1e-12 \
+            or np.abs(model_d - 1.0 / K).max() > 1e-9:
+        raise AssertionError(f"balance: prior {prior_d} vs shares {share}, "
+                             f"model {model_d}")
+    names = bm.feature_names
+    idx = np.sort(np.random.default_rng(SERVE_SEED).choice(
+        cov_fr.nrow, 512, replace=False))
+    dom = list(bm.response_domain)
+    labels, probs = predict_probs(bm.predict(cov_fr), dom)
+    dep = serve.deploy("serve_balanced", model=bm, buckets=(1, 64, 512),
+                       max_batch=512)
+    try:
+        served_vs_predicted("balanced", dep, host_rows(cov_fr, names, idx),
+                            labels[idx], probs[idx], dom)
+    finally:
+        serve.undeploy("serve_balanced")
+    print(f"balance_classes: covtype {cov_fr.nrow}x{len(names)}, {K} "
+          f"classes, {BALANCE_TREES} iterations: prior class distribution "
+          f"{prior_d.tolist()!r}, balanced {model_d.tolist()!r}; training "
+          f"logloss {bm.training_metrics.logloss!r} (balanced weights); "
+          f"loop {bm.output['training_loop_seconds']!r} s; 512 served rows "
+          f"bit-equal to predict with the correction; launches "
+          f"{out['balanced_covtype']} [{card}]", flush=True)
+    del bm
+    clock.lap("balance")
+    # (c) calibration
+    Xc, ycal, _F = higgs_arrays(CAL_ROWS, seed=44)
+    cal_fr = frame_of(Xc, ycal, "cuda")
+    lines = []
+    for method in ("PlattScaling", "IsotonicRegression"):
+        zero_launches()
+        cm = train(fr, 20, "packed", calibrate_model=True,
+                   calibration_frame=cal_fr, calibration_method=method)
+        pred = cm.predict(cal_fr)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check_launches(f"calibrated {method}", launches, launches_of(6, 20))
+        out[f"calibrated_{cm.output['calibration']['method']}"] = launches
+        p1 = pred.vec("p1").to_numpy()
+        q1 = pred.vec("cal_p1").to_numpy()
+        if pred.names[-2:] != ["cal_p0", "cal_p1"] or not np.all(
+                np.isfinite(q1)) or q1.min() < 0 or q1.max() > 1:
+            raise AssertionError(f"calibration {method}: columns "
+                                 f"{pred.names}, cal_p1 in "
+                                 f"[{q1.min()}, {q1.max()}]")
+        raw, cal = logloss_of(p1, ycal), logloss_of(q1, ycal)
+        if method == "PlattScaling" and cal > raw + 1e-6:
+            raise AssertionError(f"Platt: calibrated logloss {cal} above "
+                                 f"the raw {raw}")
+        c = cm.output["calibration"]
+        lines.append(f"{c['method']} "
+                     + (f"a {c['a']!r} b {c['b']!r}" if "a" in c
+                        else f"{len(c['tx'])} knots")
+                     + f": logloss cal_p1 {cal!r} vs p1 {raw!r}")
+        del cm, pred
+    clock.lap("calibration")
+    print(f"calibration: packed GBM, 20 trees, on a {CAL_ROWS}-row frame: "
+          f"{'; '.join(lines)}; seconds {json.dumps(clock.laps)} [{card}]",
+          flush=True)
     return out
 
 
@@ -6155,9 +6575,18 @@ def main() -> int:
     clock.lap("8c sampling")
     forests = phase_drf(card, fr, multi["frame"])
     clock.lap("8d drf")
+    # 8e-8g. A3, A5, A7: checkpoints resumed bit for bit, constrained
+    # trees, cross-validation, class balancing and calibration
+    resumed = phase_checkpoints(card, fr)
+    clock.lap("8e checkpoints")
+    constrained = phase_constraints(card, fr)
+    clock.lap("8f constraints")
+    cv = phase_cv(card, fr, multi["frame"])
+    clock.lap("8g cv, balance, calibration")
     for kernel, extra in phase_deep_record(dev).items():
         by_name[kernel].update(extra)
-    for path, launches in {**sampling, **forests}.items():
+    slice20 = {**resumed, "constrained_packed": constrained, **cv}
+    for path, launches in {**sampling, **forests, **slice20}.items():
         for kernel in ("binned_level", "binned_route_only",
                        "segment_totals", "adaptive_level",
                        "adaptive_route_only"):
@@ -6166,7 +6595,8 @@ def main() -> int:
                     path] = launches[kernel]
     rec += phase_threefry_record(dev, {
         path: launches["threefry_uniform"]
-        for path, launches in {**sampling, **forests}.items()})
+        for path, launches in {**sampling, **forests, **slice20}.items()
+        if launches["threefry_uniform"]})
     gc.collect()
     torch.cuda.empty_cache()
     clock.lap("8d deep levels + threefry record")

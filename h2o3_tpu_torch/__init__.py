@@ -22,19 +22,23 @@ and early stopping, training and validation metrics (out of bag for
 the forest) and ``predict``, and serving a
 trained model's rows (``Model.deploy``, ``h2o3_tpu_torch.serve``: one
 CUDA graph of the predict a batch bucket, a micro-batcher) and the
-EasyPredict row API (``h2o3_tpu_torch.genmodel``); ROADMAP.md queues
-the rest.
+EasyPredict row API (``h2o3_tpu_torch.genmodel``). Models save and load
+(``save_model``, ``load_model``: the JAX package's artifact) and
+continue from a checkpoint; the GBM takes monotone and interaction
+constraints; the builders cross-validate, balance classes and
+calibrate. ROADMAP.md queues the rest.
 """
 from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.ingest.parse import import_file, parse_setup
 from h2o3_tpu_torch.ingest.sql import import_sql_table
+from h2o3_tpu_torch.persist import load_model, save_model
 
 __version__ = "0.1.0"
 
 __all__ = ["Frame", "Vec", "import_file", "import_sql_table", "init",
-           "parse_setup", "upload_numpy"]
+           "load_model", "parse_setup", "save_model", "upload_numpy"]
 
 
 def upload_numpy(data, names=None, device=None) -> Frame:

@@ -150,17 +150,37 @@ class Frame:
 
     # ------------------------------------------------------------ row selection
 
-    def rows(self, sel) -> "Frame":
-        """Row subset by slice, boolean mask or index array, gathered on
-        the host and placed again on the frame's device (as the reference
-        does; the host shadows are made again for the subset)."""
+    def _row_index(self, sel) -> np.ndarray:
         idx = (np.arange(self.nrow)[sel] if isinstance(sel, slice)
                else np.asarray(sel))
-        if idx.dtype == bool:
-            idx = np.nonzero(idx)[0]
-        vecs = [Vec.from_numpy(v.to_numpy()[idx], self.device, vtype=v.type,
-                               domain=v.domain) for v in self._vecs]
+        return np.nonzero(idx)[0] if idx.dtype == bool else idx
+
+    def rows(self, sel) -> "Frame":
+        """Row subset by slice, boolean mask or index array. A column
+        held on the device alone is gathered there (a cross-validation
+        fold's frames then never cross to the host); a column with a host
+        copy (strings, time, exact wide values) is gathered on the host
+        and placed again, its host copy made again for the subset, as in
+        ``rows_host``, whose frame this one equals bit for bit."""
+        idx = self._row_index(sel)
+        index = None
+        vecs = []
+        for v in self._vecs:
+            if v.host_data is not None or v.data is None:
+                vecs.append(_host_rows(v, idx, self.device))
+                continue
+            if index is None:
+                index = torch.as_tensor(idx, dtype=torch.int64,
+                                        device=v.data.device)
+            vecs.append(Vec(v.data[index], v.type, v.domain))
         return Frame(self.names, vecs)
+
+    def rows_host(self, sel) -> "Frame":
+        """``rows`` with every column gathered on the host and placed
+        again on the frame's device (the JAX package's gather)."""
+        idx = self._row_index(sel)
+        return Frame(self.names, [_host_rows(v, idx, self.device)
+                                  for v in self._vecs])
 
     def head(self, n: int = 10) -> "Frame":
         return self.rows(slice(0, min(n, self.nrow)))
@@ -205,6 +225,11 @@ class Frame:
 
     def __repr__(self):
         return f"<Frame {self.nrow}x{self.ncol} on {self.device}>"
+
+
+def _host_rows(v: Vec, idx: np.ndarray, device) -> Vec:
+    return Vec.from_numpy(v.to_numpy()[idx], device, vtype=v.type,
+                          domain=v.domain)
 
 
 def _group_to_device(columns, dtype, device: torch.device):

@@ -25,29 +25,44 @@ draws its trees in chunks of up to 25 under one executable; the keys
 depend on the tree's index alone, so the port's loop over single trees
 draws the same samples.
 
+Checkpoints (A3) as the GBM's: a continued forest draws tree i from
+``fold_in(key, i)`` over the whole forest, and an in-training
+checkpoint (``<key>_t<n>.zip`` every
+``in_training_checkpoints_tree_interval`` trees, and one of the
+finished forest) carries the out-of-bag sums, so that a forest resumed
+from it equals the uninterrupted one in trees and out-of-bag metrics.
+Class balancing, calibration and cross-validation (A7) come from the
+builder (``models/model_base.py``).
+
 Refused as in the JAX package: ``offset_column``, ``max_depth`` past 16
-and ``staged_predict_proba``. Not ported yet: checkpoints (ROADMAP.md
-item A3), cross-validation and class balancing (A7) and contributions
-(item 16).
+and ``staged_predict_proba``. Not ported yet: contributions (item 16).
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.models.gbm import (REFUSED_ONLY, UNSUPPORTED,
-                                       path_grower, refuse_params,
-                                       variable_importances)
-from h2o3_tpu_torch.models.model_base import (BUILDER_PARAMS, Model,
+from h2o3_tpu_torch.log import warn
+from h2o3_tpu_torch.models.gbm import (check_checkpoint, merge_prior_trees,
+                                       merged_importances, path_grower,
+                                       refuse_params,
+                                       resolve_checkpoint_source,
+                                       resume_rows, spec_signature)
+from h2o3_tpu_torch.models.model_base import (BALANCE_DEFAULTS,
+                                              BUILDER_PARAMS,
+                                              CALIBRATION_DEFAULTS, Model,
                                               ModelBuilder, TrainingSpec,
-                                              compute_metrics)
+                                              compute_metrics,
+                                              persist_in_training_ckpt)
 from h2o3_tpu_torch.models.tree import (bins_to_thresholds_stacked,
                                         predict_raw_mean, tree_sample)
 from h2o3_tpu_torch.ops.binning import packed_codes_record
 from h2o3_tpu_torch.ops.random import fold_in, split, train_key
+from h2o3_tpu_torch.persist import register_model_class
 
 MAX_DEPTH_CAP = 16
 
@@ -63,11 +78,6 @@ DRF_DEFAULTS: Dict = dict(
     in_training_checkpoints_tree_interval=1,
     histogram_precision="auto", packed_codes="auto",
 )
-
-# the GBM's refusals of parameters the JAX DRF takes: checkpoints (A3),
-# cross-validation and class balancing (A7)
-_UNSUPPORTED = tuple(row for row in UNSUPPORTED
-                     if row[0] in DRF_DEFAULTS or row[0] in REFUSED_ONLY)
 
 # the JAX package's refusals
 OFFSET_REFUSED = ("DRF does not support offset_column "
@@ -130,6 +140,47 @@ class DRFModel(Model):
         pc = torch.clamp(mean, 0.0, 1.0)
         return pc / torch.clamp(pc.sum(dim=1, keepdim=True), min=1e-12)
 
+    # -- persistence (persist.save_model / load_model) ------------------
+
+    def _save_arrays(self) -> Dict[str, np.ndarray]:
+        """The JAX package's arrays: the stacked trees, node_w, the
+        sketch's edges and, in an in-training checkpoint, the resume
+        state (the out-of-bag sums and counts, the data's signature)."""
+        d = {k: np.asarray(self.trees[k]) for k in
+             ("feat", "thr", "na_left", "is_split", "value")}
+        if self.trees.get("node_w") is not None:
+            d["node_w"] = np.asarray(self.trees["node_w"])
+        for attr in ("resume_oob_num", "resume_oob_cnt", "resume_sig"):
+            v = getattr(self, "_" + attr, None)
+            if v is not None:
+                d[attr] = np.asarray(v)
+        for i, e in enumerate(self.edges):
+            d[f"edge_{i}"] = np.asarray(e)
+        return d
+
+    def _save_extra_meta(self) -> Dict:
+        return {"n_bins": self.n_bins, "max_depth": self.max_depth,
+                "ntrees_built": self.ntrees_built,
+                "n_edges": len(self.edges)}
+
+    @classmethod
+    def _restore(cls, meta: Dict, arrays: Dict, device=None) -> "DRFModel":
+        from h2o3_tpu_torch import _device
+        ex = meta["extra"]
+        trees = {k: np.asarray(arrays[k]) for k in
+                 ("feat", "thr", "na_left", "is_split", "value", "node_w")
+                 if k in arrays}
+        m = cls(meta["key"], meta["params"] or {}, meta["feature_names"],
+                int(meta["nclasses"]), trees,
+                [np.asarray(arrays[f"edge_{i}"])
+                 for i in range(ex["n_edges"])],
+                int(ex["n_bins"]), int(ex["max_depth"]),
+                int(ex["ntrees_built"]), _device.resolve(device),
+                response=meta["response"])._restore_base(meta)
+        for attr in ("resume_oob_num", "resume_oob_cnt", "resume_sig"):
+            setattr(m, "_" + attr, arrays.get(attr))
+        return m
+
     def staged_predict_proba(self, frame):
         raise ValueError(STAGED_REFUSED)
 
@@ -147,11 +198,63 @@ class H2ORandomForestEstimator(ModelBuilder):
 
     def __init__(self, **params):
         refuse_params("drf", params,
-                      set(DRF_DEFAULTS) | BUILDER_PARAMS | REFUSED_ONLY,
-                      _UNSUPPORTED)
+                      set(DRF_DEFAULTS) | BUILDER_PARAMS
+                      | set(BALANCE_DEFAULTS) | set(CALIBRATION_DEFAULTS))
         merged = dict(DRF_DEFAULTS)
+        merged.update(BALANCE_DEFAULTS)
+        merged.update(CALIBRATION_DEFAULTS)
         merged.update(params)
         super().__init__(**merged)
+
+    def _resolve_checkpoint(self, spec: TrainingSpec):
+        """``checkpoint``: the prior forest this train continues, or
+        None; the JAX package's refusals of one that does not fit."""
+        ckpt = self.params.get("checkpoint")
+        if not ckpt:
+            return None
+        prior = resolve_checkpoint_source(ckpt, DRFModel, "DRF",
+                                          spec.device)
+        check_checkpoint(prior, spec, self.params)
+        return prior
+
+    def _resume_oob(self, prior, spec: TrainingSpec, K: int):
+        """The out-of-bag sums and counts to resume from: the prior's
+        saved ones where they fit this frame, else zeros (the JAX
+        package's warning: the metrics then cover the new trees
+        only)."""
+        dev = spec.device
+        if prior is not None:
+            rn = getattr(prior, "_resume_oob_num", None)
+            rc = getattr(prior, "_resume_oob_cnt", None)
+            sig = getattr(prior, "_resume_sig", None)
+            if rn is not None and rc is not None:
+                num = resume_rows(rn, spec, K, sig, "OOB sums")
+                cnt = resume_rows(rc, spec, 1, sig, "OOB counts")
+                if num is not None and cnt is not None:
+                    return num, cnt
+            warn("drf checkpoint carries no OOB resume state — training "
+                 "metrics will reflect only the new trees")
+        return (torch.zeros((spec.nrow,) if K == 1 else (spec.nrow, K),
+                            dtype=torch.float32, device=dev),
+                torch.zeros(spec.nrow, dtype=torch.float32, device=dev))
+
+    def _commit(self, spec, trees, bm, cfg, dev, built, prior, start,
+                oob_num, oob_cnt, ckpt_dir, commits: List[Dict]) -> None:
+        """An in-training checkpoint with the out-of-bag state; a failed
+        commit is logged and the train goes on."""
+        t0 = time.monotonic()
+        try:
+            m = self._finalize(spec, trees, bm, cfg, dev, built, prior, start)
+            m._resume_oob_num = oob_num.cpu().numpy().astype(np.float32)
+            m._resume_oob_cnt = oob_cnt.cpu().numpy().astype(np.float32)
+            m._resume_sig = spec_signature(spec)
+            path = persist_in_training_ckpt(m, self.algo, ckpt_dir)
+        except Exception as e:  # noqa: BLE001 — advisory only
+            warn("drf: in-training checkpoint commit failed: %s", e)
+            return
+        commits.append({"trees": start + built, "path": path,
+                        "seconds": time.monotonic() - t0,
+                        "bytes": os.path.getsize(path) if path else None})
 
     def _train_impl(self, spec: TrainingSpec,
                     valid: Optional[TrainingSpec] = None) -> DRFModel:
@@ -175,6 +278,15 @@ class H2ORandomForestEstimator(ModelBuilder):
         cfg, grow, bm, pc = path_grower(spec, p, mtries, random_adapts=False)
         t_bin = time.monotonic() - t_bin0
 
+        prior = self._resolve_checkpoint(spec)
+        start = prior.ntrees_built if prior is not None else 0
+        ntrees_new = ntrees - start
+        ckpt_dir = p.get("in_training_checkpoints_dir")
+        ckpt_interval = max(int(
+            p.get("in_training_checkpoints_tree_interval", 1) or 1), 1)
+        chunk = max(min(ntrees_new, 25, ckpt_interval), 1)
+        since = boundary = 0
+        commits: List[Dict] = []
         key = train_key(p.get("seed", -1))
         rate = float(np.float32(p["sample_rate"]))
         col_rate = float(np.float32(p.get("col_sample_rate_per_tree", 1.0)))
@@ -186,15 +298,14 @@ class H2ORandomForestEstimator(ModelBuilder):
         yf = spec.y.to(torch.float32)
         ys = ([yf] if K == 1 else
               [(spec.y == k).to(torch.float32) for k in range(K)])
-        oob_num = torch.zeros((spec.nrow,) if K == 1 else (spec.nrow, K),
-                              dtype=torch.float32, device=dev)
-        oob_cnt = torch.zeros(spec.nrow, dtype=torch.float32, device=dev)
+        oob_num, oob_cnt = self._resume_oob(prior, spec, K)
         live_w = w > 0
         trees = []
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop0 = time.monotonic()
-        for i in range(ntrees):
+        for i in range(start, ntrees):
+            # the key of the tree's index in the whole forest
             key_r, key_c, key_m = split(fold_in(key, i), 3)
             wt, col_mask = tree_sample(key_r, key_c, w, y_codes, rate, rates,
                                        col_rate, F)
@@ -213,12 +324,29 @@ class H2ORandomForestEstimator(ModelBuilder):
                                                 torch.stack(preds, dim=1),
                                                 0.0)
             oob_cnt = oob_cnt + live_oob.to(torch.float32)
+            built = i + 1 - start
+            # the JAX loop's cadence: chunks of min(25, interval) trees; at
+            # a chunk's end a commit once the interval is full, but for
+            # the last chunk (the finished forest's commit is below)
+            if ckpt_dir and (built % chunk == 0 or built == ntrees_new):
+                since += built - boundary
+                boundary = built
+                if since >= ckpt_interval and built < ntrees_new:
+                    self._commit(spec, trees, bm, cfg, dev, built, prior,
+                                 start, oob_num, oob_cnt, ckpt_dir, commits)
+                    since = 0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop = time.monotonic() - t_loop0
 
         t_fin0 = time.monotonic()
-        model = self._finalize(spec, trees, bm, cfg, dev, ntrees)
+        model = self._finalize(spec, trees, bm, cfg, dev, ntrees_new, prior,
+                               start)
+        if ckpt_dir:
+            # the finished forest's artifact, with its out-of-bag state
+            self._commit(spec, trees, bm, cfg, dev, ntrees_new, prior,
+                         start, oob_num, oob_cnt, ckpt_dir, commits)
+            model.output["checkpoints"] = commits
         self._oob_metrics(model, spec, K, oob_num, oob_cnt)
         if valid is not None:
             model.validation_metrics = compute_metrics(
@@ -260,10 +388,12 @@ class H2ORandomForestEstimator(ModelBuilder):
             model.training_metrics = compute_metrics(pk, y, w, K)
         model.output["oob_metrics"] = True
 
-    def _finalize(self, spec, trees, bm, cfg, dev, ntrees) -> DRFModel:
+    def _finalize(self, spec, trees, bm, cfg, dev, built, prior=None,
+                  start=0) -> DRFModel:
         """One fetch of the stacked trees ([T·K, M] in (tree, class)
         order), raw thresholds (unbinned from the sketch paths' split
-        bins), variable importances summed over every tree."""
+        bins), variable importances summed over every tree; a continued
+        forest's prior trees first."""
         keys = ("feat", "na_left", "is_split", "value", "gain", "node_w",
                 "thr" if bm is None else "split_bin")
         th = {k: torch.stack([t[k] for t in trees]).cpu().numpy()
@@ -278,12 +408,17 @@ class H2ORandomForestEstimator(ModelBuilder):
             trees_host["split_bin"] = th["split_bin"]
             trees_host["thr"] = bins_to_thresholds_stacked(
                 th["split_bin"], th["feat"], edges)
+        if prior is not None:
+            trees_host = merge_prior_trees(prior.trees, trees_host)
         model = DRFModel(self._model_key(), self.params, spec.names,
                          spec.nclasses, trees_host, edges, cfg.n_bins,
-                         cfg.max_depth, ntrees, dev,
+                         cfg.max_depth, start + built, dev,
                          response=spec.response,
                          response_domain=spec.response_domain,
                          is_cat=spec.is_cat, cat_domains=spec.cat_domains)
-        model.output["variable_importances"] = variable_importances(
-            spec.names, th["feat"], th["gain"])
+        model.output["variable_importances"] = merged_importances(
+            spec.names, th["feat"], th["gain"], prior)
         return model
+
+
+register_model_class("drf", DRFModel)

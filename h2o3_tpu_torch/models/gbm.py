@@ -31,14 +31,26 @@ i's key is ``fold_in(key, i)``, split into the row and the column key,
 and the K trees of a multinomial iteration share its sample, its
 column mask and its key. Rates of 1 make no draw.
 
-Parameters the port does not support yet raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them; none is silently ignored.
-The reference's compatibility-only parameters (``GBM_COMPAT_PARAMS``)
-are accepted, as the JAX package accepts them, with a warning at
-``train()`` for each one set away from its default.
+Checkpoints (A3): ``checkpoint`` continues a live model or an artifact
+(``persist.save_model``) up to ``ntrees`` in all, and
+``in_training_checkpoints_dir`` writes ``<key>_t<n>.zip`` every
+``in_training_checkpoints_tree_interval`` trees (the loop's chunks then
+end on that cadence unless interval scoring sets them), each carrying
+the exact float32 training margin: a train resumed from one builds the
+uninterrupted train's trees bit for bit. Tree i draws from
+``fold_in(key, i)`` with i counted over the whole model, prior trees
+included. Monotone and interaction constraints (A5) ride into the
+growers as ``mono`` [F] and ``sets`` [S, F].
+
+A parameter the port does not know raises ``ValueError``; a keyed-store
+reference as ``checkpoint`` raises ``NotImplementedError`` naming
+ROADMAP.md item 18. The reference's compatibility-only parameters
+(``GBM_COMPAT_PARAMS``) are accepted, as the JAX package accepts them,
+with a warning at ``train()`` for each one set away from its default.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -51,9 +63,13 @@ from h2o3_tpu_torch.models.distributions import (get_distribution,
                                                  softmax, weighted_median,
                                                  weighted_quantile)
 from h2o3_tpu_torch.models.metrics import auc_device
-from h2o3_tpu_torch.models.model_base import (BUILDER_PARAMS, Model,
+from h2o3_tpu_torch.models.model_base import (BALANCE_DEFAULTS,
+                                              BUILDER_PARAMS,
+                                              CALIBRATION_DEFAULTS,
+                                              DKV_REFUSED, Model,
                                               ModelBuilder, ScoreKeeper,
-                                              TrainingSpec, compute_metrics)
+                                              TrainingSpec, compute_metrics,
+                                              persist_in_training_ckpt)
 from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         adaptive_feasible, adaptive_setup,
                                         binned_feasible,
@@ -70,6 +86,7 @@ from h2o3_tpu_torch.ops.binning import (bin_matrix_device,
                                         digitize_with_edges, pack_codes,
                                         pack_codes_for, packed_codes_record)
 from h2o3_tpu_torch.ops.random import fold_in, split, train_key
+from h2o3_tpu_torch.persist import register_model_class
 
 # feature layout of the adaptive level kernels on the training path:
 # "rows_f" ([rows, F], the training matrix as it is) or "f_rows"
@@ -110,50 +127,171 @@ GBM_COMPAT_PARAMS: Dict = dict(
 MULTINOMIAL_OFFSET = ("offset_column is not supported for multinomial GBM "
                       "(matching hex/tree/gbm/GBM.java offset restrictions)")
 
-# parameters of the JAX GBM (and DRF) the port refuses until the named
-# ROADMAP.md item (queue 1) lands: (name, predicate on its value, item)
-UNSUPPORTED = (
-    ("checkpoint", lambda v: v is not None, "item A3, checkpoints"),
-    ("in_training_checkpoints_dir", bool, "item A3, checkpoints"),
-    ("monotone_constraints", bool, "item A5, constraints"),
-    ("interaction_constraints", bool, "item A5, constraints"),
-    ("nfolds", lambda v: int(v or 0) > 1,
-     "item A7, cross-validation, class balancing and calibration"),
-    ("fold_column", bool,
-     "item A7, cross-validation, class balancing and calibration"),
-    ("balance_classes", bool,
-     "item A7, cross-validation, class balancing and calibration"),
-    ("calibrate_model", bool,
-     "item A7, cross-validation, class balancing and calibration"),
-)
-# the refused keys that are no default of the estimators
-REFUSED_ONLY = {"nfolds", "fold_column", "balance_classes",
-                "calibrate_model"}
 # keys the JAX GBM accepts outside its defaults and never reads (DRF's
 # mtries): accepted, with no effect on the trees, as there
 _IGNORED = {"mtries"}
 
 
-def refuse_params(algo: str, params: Dict, known, unsupported) -> None:
-    """Raise ValueError on a parameter outside ``known``, and
-    NotImplementedError naming its ROADMAP.md item on one that a row of
-    ``unsupported`` refuses."""
+def refuse_params(algo: str, params: Dict, known) -> None:
+    """Raise ValueError on a parameter outside ``known``."""
     unknown = sorted(set(params) - set(known))
     if unknown:
         raise ValueError(f"{algo}: unknown parameter(s) {unknown}")
-    for name, refused, item in unsupported:
-        if name in params and refused(params[name]):
-            raise NotImplementedError(
-                f"{algo}: {name}={params[name]!r} is not ported yet "
-                f"(ROADMAP.md queue 1, {item})")
 
 
 def check_params(params: Dict) -> None:
-    """Raise on a parameter the port does not know or does not support
-    yet."""
+    """Raise on a parameter the port does not know."""
     refuse_params("gbm", params,
-                  set(GBM_DEFAULTS) | BUILDER_PARAMS | REFUSED_ONLY
-                  | _IGNORED | set(GBM_COMPAT_PARAMS), UNSUPPORTED)
+                  set(GBM_DEFAULTS) | BUILDER_PARAMS | set(BALANCE_DEFAULTS)
+                  | set(CALIBRATION_DEFAULTS) | _IGNORED
+                  | set(GBM_COMPAT_PARAMS))
+
+
+def spec_signature(spec: TrainingSpec) -> np.ndarray:
+    """The JAX package's fingerprint of the data a resume state belongs
+    to: (nrow, Σy, Σw), the sums float32 on the device, as float64 on
+    the host. A saved margin or OOB state is applied only where it
+    matches."""
+    sums = torch.stack([spec.y.to(torch.float32).sum(),
+                        spec.w.to(torch.float32).sum()]).cpu().tolist()
+    return np.array([float(spec.nrow), sums[0], sums[1]], np.float64)
+
+
+def resolve_checkpoint_source(ckpt, model_cls, label: str, device):
+    """``checkpoint=``: a live model of ``model_cls`` or the path of an
+    artifact, loaded onto ``device``. A string that names no file would
+    be a keyed-store key, which waits for ROADMAP.md item 18."""
+    if isinstance(ckpt, model_cls):
+        return ckpt
+    if isinstance(ckpt, str):
+        if not os.path.isfile(ckpt):
+            raise NotImplementedError(
+                f"checkpoint={ckpt!r} names no artifact file; a model key "
+                f"{DKV_REFUSED}")
+        from h2o3_tpu_torch.persist import load_model
+        prior = load_model(ckpt, device=device)
+    else:
+        raise ValueError(
+            f"checkpoint must be a {label} model or an artifact path, got "
+            f"{type(ckpt).__name__}")
+    if not isinstance(prior, model_cls):
+        raise ValueError(
+            f"checkpoint resolves to a {getattr(prior, 'algo', '?')} "
+            f"model — {label} can only continue from its own kind")
+    return prior
+
+
+def check_checkpoint(prior, spec: TrainingSpec, params: Dict) -> None:
+    """The JAX package's compatibility refusals of a checkpoint (max
+    depth, tree count, features, response classes and domains, enum
+    domains); the GBM also refuses another distribution."""
+    if prior.max_depth != int(params["max_depth"]):
+        raise ValueError("checkpoint max_depth differs")
+    if int(params["ntrees"]) <= prior.ntrees_built:
+        raise ValueError(
+            f"ntrees ({params['ntrees']}) must exceed the checkpoint's "
+            f"ntrees_built ({prior.ntrees_built})")
+    if list(prior.feature_names) != list(spec.names):
+        raise ValueError(
+            f"checkpoint feature set {prior.feature_names} differs from "
+            f"the training spec's {spec.names} — the prior trees' feature "
+            f"indices would address the wrong columns")
+    if prior.nclasses != spec.nclasses:
+        raise ValueError(
+            f"checkpoint has {prior.nclasses} response classes but the "
+            f"training frame has {spec.nclasses}")
+    prd = tuple(prior.response_domain) if prior.response_domain else None
+    srd = tuple(spec.response_domain) if spec.response_domain else None
+    if prd != srd:
+        raise ValueError(
+            f"checkpoint response domain {prior.response_domain} differs "
+            f"from the training frame's {spec.response_domain}")
+    pcd = {k: tuple(v) for k, v in prior.cat_domains.items()}
+    scd = {k: tuple(v) for k, v in spec.cat_domains.items()}
+    if pcd != scd:
+        raise ValueError(
+            "checkpoint categorical domains differ from the training "
+            "frame's — prior trees' enum-code splits would misroute")
+
+
+def resume_rows(arr, spec: TrainingSpec, K: int, sig, what: str):
+    """A saved per-row resume state ([rows] or [rows, K]) as float32 on
+    the spec's device, or None (with the JAX package's warning) where it
+    belongs to other data or has another shape. An artifact of the JAX
+    package holds its padded rows: the first ``nrow`` are the frame's."""
+    a = np.asarray(arr)
+    sig_ok = sig is None or np.array_equal(np.asarray(sig),
+                                           spec_signature(spec))
+    tail = () if K == 1 else (K,)
+    if a.shape[1:] == tail and a.shape[0] >= spec.nrow and sig_ok:
+        return torch.as_tensor(a[:spec.nrow], dtype=torch.float32,
+                               device=spec.device)
+    if not sig_ok:
+        warn(f"checkpoint {what} belongs to different training data — "
+             f"recomputing from trees")
+    else:
+        warn(f"checkpoint {what} shape {a.shape} != expected "
+             f"{(spec.nrow,) + tail} — recomputing from trees")
+    return None
+
+
+def constraint_arrays(p: Dict, spec: TrainingSpec):
+    """``monotone_constraints`` ({column: +1/-1}) and
+    ``interaction_constraints`` ([[column, ...], ...]) as the growers'
+    ``mono`` [F] int32 and ``sets`` [S, F] bool on the spec's device
+    (None where unset), with the JAX package's refusals: a column that
+    is no training feature, a monotone constraint on an enum column."""
+    F = spec.n_features
+    mono = sets = None
+    mc = p.get("monotone_constraints") or {}
+    if mc:
+        host = np.zeros(F, np.int32)
+        for cname, direction in dict(mc).items():
+            if cname not in spec.names:
+                raise ValueError(
+                    f"monotone_constraints column '{cname}' is not a "
+                    f"training feature {list(spec.names)}")
+            if spec.is_cat[spec.names.index(cname)]:
+                raise ValueError(
+                    f"monotone constraint on categorical column "
+                    f"'{cname}' is not supported (reference restricts "
+                    f"constraints to numeric columns)")
+            host[spec.names.index(cname)] = int(direction)
+        mono = torch.as_tensor(host, device=spec.device)
+    ic = p.get("interaction_constraints") or None
+    if ic:
+        host = np.zeros((len(ic), F), bool)
+        for si, group in enumerate(ic):
+            for cname in group:
+                if cname not in spec.names:
+                    raise ValueError(
+                        f"interaction_constraints column '{cname}' is "
+                        f"not a training feature")
+                host[si, spec.names.index(cname)] = True
+        sets = torch.as_tensor(host, device=spec.device)
+    return mono, sets
+
+
+def merge_prior_trees(prior_trees: Dict, trees_host: Dict) -> Dict:
+    """A continued model's tree stack: the prior's trees, then the new
+    ones (keys both carry; ``node_w`` only where both have it)."""
+    return {k: np.concatenate([np.asarray(prior_trees[k]), v])
+            for k, v in trees_host.items() if k in prior_trees}
+
+
+def merged_importances(names, feat, gain, prior) -> Dict:
+    """Variable importances of the new trees, plus, for a continued
+    model, the prior's relative importances by name (added after the
+    new gains, as in the JAX package)."""
+    pv = (prior.output.get("variable_importances") if prior is not None
+          else None)
+    extra = None
+    if pv:
+        lut = {n: i for i, n in enumerate(names)}
+        extra = [(lut[n], g) for n, g in zip(pv["variable"],
+                                             pv["relative_importance"])
+                 if n in lut]
+    return variable_importances(names, feat, gain, extra)
 
 
 def valid_walk(X, bm, pc, max_depth: int):
@@ -207,13 +345,17 @@ def score_entry(margin, sc_spec: TrainingSpec, dist, built: int,
     return entry
 
 
-def variable_importances(names, feat: np.ndarray, gain: np.ndarray) -> Dict:
+def variable_importances(names, feat: np.ndarray, gain: np.ndarray,
+                         extra=None) -> Dict:
     """The split gains of a tree stack ([T, M] feat and gain) summed per
-    feature, in the JAX package's table: variables by falling
-    importance, relative, scaled to the largest and as a share."""
+    feature, then ``extra`` ((index, gain) pairs) added, in the JAX
+    package's table: variables by falling importance, relative, scaled
+    to the largest and as a share."""
     vi = np.zeros(len(names))
     live = feat >= 0
     np.add.at(vi, feat[live], gain[live])
+    for i, g in extra or ():
+        vi[i] += g
     order = np.argsort(-vi)
     rel = vi / vi.max() if vi.max() > 0 else vi
     return {"variable": [names[i] for i in order],
@@ -224,13 +366,15 @@ def variable_importances(names, feat: np.ndarray, gain: np.ndarray) -> Dict:
 
 
 def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
-                random_adapts: bool = True):
+                random_adapts: bool = True, mono=None, sets=None):
     """The JAX package's path rule (its GBM's ``_train_dense``, and its
     DRF's, which passes ``mtries`` and sends ``histogram_type="random"``
     to the sketch: ``random_adapts`` False) and the chosen path's
-    set-up. Returns (cfg, grow(g, h, w, col_mask, key) -> (tree, nid),
-    bm, pc): bm and pc None on the adaptive path, pc None on the
-    global-sketch path (unpacked codes)."""
+    set-up. ``mono`` and ``sets`` are the GBM's constraints
+    (``constraint_arrays``), passed to every tree. Returns (cfg,
+    grow(g, h, w, col_mask, key) -> (tree, nid), bm, pc): bm and pc None
+    on the adaptive path, pc None on the global-sketch path (unpacked
+    codes)."""
     hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
     depth = int(p["max_depth"])
 
@@ -243,7 +387,8 @@ def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
         def grow(g, h, w, col_mask, key):
             return grow_tree_adaptive(x, g, h, w, cfg, root_lo, root_hi,
                                       nb_f=nb_f, col_mask=col_mask,
-                                      layout=ADAPTIVE_LAYOUT, key=key)
+                                      layout=ADAPTIVE_LAYOUT, key=key,
+                                      mono=mono, sets=sets)
         return cfg, grow, None, None
 
     packed_req = packed_codes_requested(p) and hist_type != "random"
@@ -267,15 +412,15 @@ def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
         bm.codes = None                # the packed codes replace them
         cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
         return (cfg, lambda g, h, w, cm, key: grow_tree_binned(
-            pc.rm, g, h, w, cfg, cm, key), bm, pc)
+            pc.rm, g, h, w, cfg, cm, key, mono, sets), bm, pc)
     if packed_req and can_adapt:
         # the sketch's bin count is past the packed lanes
         return adaptive()
     # the global sketch, unpacked: uint8 or int32 codes, NA = n_bins
     codes = bm.codes
     cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
-    return (cfg, lambda g, h, w, cm, key: grow_tree(codes, g, h, w, cfg,
-                                                      cm, key), bm, None)
+    return (cfg, lambda g, h, w, cm, key: grow_tree(
+        codes, g, h, w, cfg, cm, key, mono, sets), bm, None)
 
 
 class GBMModel(Model):
@@ -338,6 +483,47 @@ class GBMModel(Model):
                    is_cat=meta.get("is_cat"),
                    cat_domains=meta.get("cat_domains"))
 
+    # -- persistence (persist.save_model / load_model) ------------------
+
+    def _save_arrays(self) -> Dict[str, np.ndarray]:
+        """The JAX package's arrays: the stacked trees, f0, node_w, the
+        sketch's edges and, in an in-training checkpoint, the resume
+        state (the float32 training margin and the data's signature)."""
+        d = {k: np.asarray(self.trees[k]) for k in
+             ("feat", "thr", "na_left", "is_split", "value")}
+        d["f0"] = np.asarray(self.f0)
+        if self.trees.get("node_w") is not None:
+            d["node_w"] = np.asarray(self.trees["node_w"])
+        for attr in ("resume_margin", "resume_sig"):
+            v = getattr(self, "_" + attr, None)
+            if v is not None:
+                d[attr] = np.asarray(v)
+        for i, e in enumerate(self.edges):
+            d[f"edge_{i}"] = np.asarray(e)
+        return d
+
+    def _save_extra_meta(self) -> Dict:
+        return {"dist_name": self.dist_name, "n_bins": self.n_bins,
+                "max_depth": self.max_depth,
+                "ntrees_built": self.ntrees_built,
+                "n_edges": len(self.edges)}
+
+    @classmethod
+    def _restore(cls, meta: Dict, arrays: Dict, device=None) -> "GBMModel":
+        """A model from an artifact of either package, through
+        ``from_jax_arrays``, with the artifact's base state and resume
+        state."""
+        ex = meta["extra"]
+        flat = dict(ex, names=meta["feature_names"],
+                    nclasses=meta["nclasses"],
+                    response_domain=meta.get("response_domain"),
+                    is_cat=meta["feature_is_cat"],
+                    cat_domains=meta.get("cat_domains"))
+        m = cls.from_jax_arrays(arrays, flat, device)._restore_base(meta)
+        m._resume_margin = arrays.get("resume_margin")
+        m._resume_sig = arrays.get("resume_sig")
+        return m
+
     def _margin_matrix(self, X: torch.Tensor,
                        offset: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -371,6 +557,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         check_params(params)
         merged = dict(GBM_DEFAULTS)
         merged.update(GBM_COMPAT_PARAMS)
+        merged.update(BALANCE_DEFAULTS)
+        merged.update(CALIBRATION_DEFAULTS)
         merged.update(params)
         super().__init__(**merged)
 
@@ -416,6 +604,44 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             return False
         return None
 
+    def _resolve_checkpoint(self, dist_name: str, spec: TrainingSpec):
+        """``checkpoint``: the prior model whose trees this train
+        continues (``ntrees`` counts them), or None; the JAX package's
+        refusals of one that does not fit."""
+        ckpt = self.params.get("checkpoint")
+        if not ckpt:
+            return None
+        prior = resolve_checkpoint_source(ckpt, GBMModel, "GBM",
+                                          spec.device)
+        if prior.dist_name != dist_name:
+            raise ValueError(
+                f"checkpoint distribution '{prior.dist_name}' != "
+                f"'{dist_name}' (checkpoint params must match — "
+                f"hex/ModelBuilder checkpoint contract)")
+        check_checkpoint(prior, spec, self.params)
+        return prior
+
+    def _prior_margin(self, prior: GBMModel, spec: TrainingSpec, K: int):
+        """The margin to resume from: an in-training checkpoint's exact
+        float32 margin (the uninterrupted train's bits; it carries the
+        offset), else the prior's trees summed again over the frame
+        (without the offset). Returns (margin, includes_offset)."""
+        rm = getattr(prior, "_resume_margin", None)
+        if rm is not None:
+            m = resume_rows(rm, spec, K, getattr(prior, "_resume_sig", None),
+                            "resume margin")
+            if m is not None:
+                return m, True
+        return prior._margin_matrix(spec.X).to(spec.device), False
+
+    def _write_in_training_checkpoint(self, model: GBMModel, margin,
+                                      ckpt_dir, spec: TrainingSpec):
+        """An in-training checkpoint: the partial model with its exact
+        float32 training margin and the data's signature."""
+        model._resume_margin = margin.cpu().numpy().astype(np.float32)
+        model._resume_sig = spec_signature(spec)
+        return persist_in_training_ckpt(model, self.algo, ckpt_dir)
+
     def _train_impl(self, spec: TrainingSpec,
                     valid: Optional[TrainingSpec] = None) -> GBMModel:
         p = self.params
@@ -424,35 +650,50 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         if spec.offset is not None and K > 1:
             raise NotImplementedError(MULTINOMIAL_OFFSET)
         dev = spec.device
+        mono, sets = constraint_arrays(p, spec)
         t_bin0 = time.monotonic()
-        cfg, grow, bm, pc = path_grower(spec, p)
+        cfg, grow, bm, pc = path_grower(spec, p, mono=mono, sets=sets)
         t_bin = time.monotonic() - t_bin0
+        prior = self._resolve_checkpoint(dist_name, spec)
 
         w = spec.w
         dist = None
+        prior_has_offset = False
         if K == 1:
             delta = self._huber_delta(spec) if dist_name == "huber" else 1.0
             dist = self._dist(dist_name, delta)
             y = spec.y.to(torch.float32)
-            if spec.offset is not None:
-                # the initial margin on the offset-adjusted scale; the
-                # offset enters the margin, not the trees
-                f0 = offset_adjusted_f0(dist, y, w, spec.offset)
+            if prior is not None:
+                f0 = torch.as_tensor(prior.f0, dtype=torch.float32,
+                                     device=dev)
+                margin, prior_has_offset = self._prior_margin(prior, spec, 1)
             else:
-                f0 = dist.init_f0(y, w)
-            f0 = torch.as_tensor(f0, dtype=torch.float32, device=dev)
-            margin = f0.expand(spec.nrow).contiguous()
-            if spec.offset is not None:
+                if spec.offset is not None:
+                    # the initial margin on the offset-adjusted scale; the
+                    # offset enters the margin, not the trees
+                    f0 = offset_adjusted_f0(dist, y, w, spec.offset)
+                else:
+                    f0 = dist.init_f0(y, w)
+                f0 = torch.as_tensor(f0, dtype=torch.float32, device=dev)
+                margin = f0.expand(spec.nrow).contiguous()
+            if spec.offset is not None and not prior_has_offset:
                 margin = margin + spec.offset
         else:
-            # log class priors; one fixed-order sum a class
             y = spec.y.long()
-            pri = torch.stack([(w * (y == k)).sum() for k in range(K)])
-            f0 = torch.log(torch.clamp(pri / w.sum(), min=1e-9))
-            margin = f0.expand(spec.nrow, K).contiguous()
+            if prior is not None:
+                f0 = torch.as_tensor(prior.f0, dtype=torch.float32,
+                                     device=dev)
+                margin = self._prior_margin(prior, spec, K)[0]
+            else:
+                # log class priors; one fixed-order sum a class
+                pri = torch.stack([(w * (y == k)).sum() for k in range(K)])
+                f0 = torch.log(torch.clamp(pri / w.sum(), min=1e-9))
+                margin = f0.expand(spec.nrow, K).contiguous()
         ntrees = int(p["ntrees"])
         if ntrees < 1:
             raise ValueError(f"gbm: ntrees must be >= 1, got {ntrees}")
+        start_trees = prior.ntrees_built if prior is not None else 0
+        ntrees_new = ntrees - start_trees
         # sampling (A4): a key a train, one row sample and column mask an
         # iteration, as the JAX package draws them
         key = train_key(p.get("seed", -1))
@@ -479,29 +720,67 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         interval = max(int(p.get("score_tree_interval") or 5), 1)
         score_each = (keeper.rounds > 0
                       or int(p.get("score_tree_interval") or 0) > 0)
-        chunk = interval if score_each else min(ntrees, 50)
+        chunk = interval if score_each else min(ntrees_new, 50)
+        # in-training checkpoints: chunks end on the checkpoint cadence,
+        # unless interval scoring sets them (the JAX loop's rule)
+        ckpt_dir = p.get("in_training_checkpoints_dir")
+        ckpt_interval = max(int(
+            p.get("in_training_checkpoints_tree_interval", 1) or 1), 1)
+        if ckpt_dir and not score_each:
+            chunk = max(min(chunk, ckpt_interval), 1)
+        if ckpt_dir and ntrees_new / ckpt_interval > 50:
+            warn("gbm: in_training_checkpoints_tree_interval=%d means ~%d "
+                 "checkpoint commits, each fetching all committed trees "
+                 "and writing a full artifact — consider a larger interval",
+                 ckpt_interval, int(ntrees_new / ckpt_interval))
         sc_spec = valid if valid is not None else spec
         want_auc = keeper.metric == "auc"
         walk = None
         if valid is not None:
             walk = valid_walk(valid.X, bm, pc, cfg.max_depth)
-            vmargin = f0.expand((valid.nrow,) + tuple(f0.shape)).contiguous()
+            if prior is not None:
+                vmargin = prior._margin_matrix(valid.X).to(dev)
+            else:
+                vmargin = f0.expand(
+                    (valid.nrow,) + tuple(f0.shape)).contiguous()
             if valid.offset is not None and K == 1:
                 vmargin = vmargin + valid.offset
         trees: List[dict] = []
         built = 0                      # iterations: K trees each
+        since_ckpt = 0
+        commits: List[Dict] = []
         score_s = 0.0
+
+        def commit():
+            # advisory: a failed commit is logged, the train goes on
+            t0 = time.monotonic()
+            try:
+                m = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev,
+                                   K, built, prior, start_trees)
+                m.scoring_history = list(keeper.history)
+                path = self._write_in_training_checkpoint(m, margin,
+                                                          ckpt_dir, spec)
+            except Exception as e:  # noqa: BLE001 — advisory only
+                warn("%s: in-training checkpoint commit failed: %s",
+                     self.algo, e)
+                return
+            commits.append({"trees": start_trees + built, "path": path,
+                             "seconds": time.monotonic() - t0,
+                             "bytes": (os.path.getsize(path) if path
+                                       else None)})
+
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop0 = time.monotonic()
-        lr_chunk = float(p["learn_rate"])
-        while built < ntrees:
-            c = min(chunk, ntrees - built)
+        lr_chunk = float(p["learn_rate"]) * anneal ** start_trees
+        while built < ntrees_new:
+            c = min(chunk, ntrees_new - built)
             # within a chunk the rate is annealed in float32, across
             # chunks in float64, as the JAX chunk body and its driver do
             lr = np.float32(lr_chunk)
             for _ in range(c):
-                key_t = fold_in(key, built)
+                # the key of the tree's index in the whole model
+                key_t = fold_in(key, start_trees + built)
                 key_r, key_c = split(key_t)
                 wt, col_mask = tree_sample(key_r, key_c, w, y_codes, rate,
                                            rates, col_rate, spec.n_features)
@@ -529,23 +808,29 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                 built += 1
                 lr = np.float32(lr * np.float32(anneal))
             lr_chunk *= anneal ** c
+            since_ckpt += c
             if score_each:
                 t_s0 = time.monotonic()
                 keeper.record(score_entry(
                     vmargin if valid is not None else margin, sc_spec,
-                    dist, built, want_auc))
+                    dist, start_trees + built, want_auc))
                 score_s += time.monotonic() - t_s0
                 # the JAX loop checks before it commits a further chunk:
-                # the last chunk stands whatever the rule says
-                if built < ntrees and keeper.should_stop():
+                # the last chunk stands whatever the rule says, and a
+                # stopped train writes no checkpoint of its last chunk
+                if built < ntrees_new and keeper.should_stop():
                     break
+            if ckpt_dir and (since_ckpt >= ckpt_interval
+                             or built >= ntrees_new):
+                commit()
+                since_ckpt = 0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_loop = time.monotonic() - t_loop0
 
         t_fin0 = time.monotonic()
         model = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev, K,
-                               built)
+                               built, prior, start_trees)
         model.scoring_history = keeper.history
         model.training_metrics = self._metrics_from_margin(margin, spec,
                                                            dist)
@@ -559,24 +844,29 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                                          "finalize_s": t_fin}
         model.output["packed_codes"] = packed_codes_record(
             pc, bm.n_bins if pc is not None else None)
+        if commits:
+            model.output["checkpoints"] = commits
         if dist is not None and dist.name == "huber":
             # the transition point the trees were grown with
             model.output["huber_delta"] = float(dist.delta)
         return model
 
-    def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev, K, built):
+    def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev, K, built,
+                  prior=None, tree_offset=0):
         """One fetch of the stacked trees ([built·K, M] in (iteration,
         class) order), raw thresholds (unbinned from the sketch paths'
         split bins; the adaptive grower's as they are), leaf values scaled
-        by their iteration's learning rate, variable importances summed
-        over every tree."""
+        by their iteration's learning rate (counted over the whole model),
+        variable importances summed over every tree; a continued model's
+        prior trees first."""
         keys = ("feat", "na_left", "is_split", "value", "gain", "node_w",
                 "thr" if bm is None else "split_bin")
         th = {k: torch.stack([t[k] for t in trees]).cpu().numpy()
               for k in keys}
         lr0 = float(self.params["learn_rate"])
         anneal = float(self.params["learn_rate_annealing"])
-        lrs = lr0 * anneal ** np.repeat(np.arange(built), K)
+        lrs = lr0 * anneal ** np.repeat(
+            np.arange(tree_offset, tree_offset + built), K)
         trees_host = {
             "feat": th["feat"], "na_left": th["na_left"],
             "is_split": th["is_split"],
@@ -591,14 +881,16 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             trees_host["split_bin"] = th["split_bin"]
             trees_host["thr"] = bins_to_thresholds_stacked(
                 th["split_bin"], th["feat"], edges)
+        if prior is not None:
+            trees_host = merge_prior_trees(prior.trees, trees_host)
         model = GBMModel(self._model_key(), self.params, spec.names,
                          spec.nclasses, dist_name, f0.cpu().numpy(),
                          trees_host, edges, cfg.n_bins, cfg.max_depth,
-                         built, dev, response=spec.response,
+                         tree_offset + built, dev, response=spec.response,
                          response_domain=spec.response_domain,
                          is_cat=spec.is_cat, cat_domains=spec.cat_domains)
-        model.output["variable_importances"] = variable_importances(
-            spec.names, th["feat"], th["gain"])
+        model.output["variable_importances"] = merged_importances(
+            spec.names, th["feat"], th["gain"], prior)
         return model
 
     def _metrics_from_margin(self, margin, spec, dist):
@@ -612,3 +904,7 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         mu = dist.predict(margin)
         dev = float(dist.deviance(spec.w, spec.y.to(torch.float32), mu))
         return compute_metrics(mu, spec.y, spec.w, 1, deviance=dev)
+
+
+register_model_class("gbm", GBMModel)
+register_model_class("xgboost", GBMModel)

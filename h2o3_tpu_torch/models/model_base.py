@@ -1,16 +1,21 @@
 """Model / ModelBuilder — the spine every algorithm of the port shares.
 
 Counterpart of ``h2o3_tpu/models/model_base.py`` without jobs, the
-keyed store, telemetry, recovery, streaming or cross-validation. A
-builder resolves a ``TrainingSpec`` from the training frame on the
-frame's device (and one from a validation frame, adapted to it), trains
-there, and returns a ``Model`` whose ``predict`` scores a frame on that
-frame's device. ``ScoreKeeper`` keeps the scoring history and decides
-early stopping.
+keyed store, telemetry, recovery or streaming. A builder resolves a
+``TrainingSpec`` from the training frame on the frame's device (and one
+from a validation frame, adapted to it), applies class balancing to its
+weights, trains there, fits the calibration and runs the
+cross-validation folds, and returns a ``Model`` whose ``predict`` scores
+a frame on that frame's device. ``ScoreKeeper`` keeps the scoring
+history and decides early stopping. The persistence hooks
+(``_save_arrays``, ``_save_extra_meta``, ``_restore``) serve
+``h2o3_tpu_torch.persist`` and the in-training checkpoints.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+import time
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -20,6 +25,24 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import T_ENUM, Vec
 from h2o3_tpu_torch.log import warn
 from h2o3_tpu_torch.models import metrics as metrics_mod
+
+# the class-balancing and calibration parameters with the JAX package's
+# defaults (its ModelBuilder merges them for the GBM and the DRF)
+BALANCE_DEFAULTS: Dict = dict(balance_classes=False,
+                              class_sampling_factors=None,
+                              max_after_balance_size=5.0)
+CALIBRATION_DEFAULTS: Dict = dict(calibrate_model=False,
+                                  calibration_frame=None,
+                                  calibration_method="auto")
+# the cross-validation parameters the JAX builder reads; none has a
+# default there
+CV_PARAMS = frozenset({"nfolds", "fold_column", "fold_assignment",
+                       "parallelism"})
+
+# the refusal of a keyed-store reference where the port takes an object
+# or a path
+DKV_REFUSED = ("is not ported yet: the keyed store comes with ROADMAP.md "
+               "queue 1, item 18 (dkv.py)")
 
 
 @dataclass
@@ -287,6 +310,7 @@ class Model:
         self.output: Dict[str, Any] = {}
         self.training_metrics = None
         self.validation_metrics = None
+        self.cross_validation_metrics = None
         self.scoring_history: List[Dict] = []
 
     def _predict_matrix(self, X: torch.Tensor,
@@ -314,8 +338,8 @@ class Model:
         correctProbabilities), copied from the JAX package: p_k ∝ p̂_k ·
         prior_k / model_dist_k, so that a model trained on a rebalanced
         distribution reports probabilities calibrated to the original
-        class priors. The identity until a train records both
-        distributions (ROADMAP.md queue 1, item A7)."""
+        class priors. The identity where a train recorded no
+        distributions (``balance_classes`` off)."""
         prior_d = self.output.get("prior_class_dist")
         model_d = self.output.get("model_class_dist")
         if not prior_d or not model_d or probs.dim() != 2 \
@@ -331,7 +355,8 @@ class Model:
     def predict(self, frame: Frame) -> Frame:
         """Score a frame on its device: regression -> 'predict';
         classification -> 'predict' plus one probability column per
-        class."""
+        class; a calibrated binomial model adds ``cal_p<label>`` for
+        both classes (the JAX package's CalibrationHelper columns)."""
         out = self._predict_matrix(adapt_test_matrix(self, frame),
                                    offset=self._frame_offset(frame))
         if self.nclasses <= 1:
@@ -341,7 +366,45 @@ class Model:
         names = ["predict"] + [f"p{d}" for d in self.response_domain]
         vecs = [Vec(lbl, T_ENUM, self.response_domain)]
         vecs += [Vec(out[:, k].contiguous()) for k in range(self.nclasses)]
+        cal = self.output.get("calibration")
+        if cal and self.nclasses == 2:
+            q1 = calibrated_p1(cal, out[:, 1])
+            names += [f"cal_p{self.response_domain[0]}",
+                      f"cal_p{self.response_domain[1]}"]
+            vecs += [Vec((1.0 - q1).to(torch.float32)),
+                     Vec(q1.to(torch.float32))]
         return Frame(names, vecs)
+
+    # -- persistence hooks (persist.save_model / load_model) ------------
+
+    def _save_arrays(self) -> Dict[str, np.ndarray]:
+        """The algorithm's arrays to persist."""
+        return {}
+
+    def _save_extra_meta(self) -> Dict[str, Any]:
+        """The algorithm's JSON metadata to persist."""
+        return {}
+
+    def _restore_base(self, meta: Dict) -> "Model":
+        """Set the base state from an artifact's metadata (the JAX
+        package's ``_restore_base``; ``_restore`` builds the algorithm's
+        part first)."""
+        self.key = meta["key"]
+        self.params = dict(meta["params"] or {})
+        self.feature_names = list(meta["feature_names"])
+        self.feature_is_cat = list(meta["feature_is_cat"])
+        self.cat_domains = {k: tuple(v) for k, v in
+                            (meta.get("cat_domains") or {}).items()}
+        self.response = meta["response"]
+        rd = meta.get("response_domain")
+        self.response_domain = tuple(rd) if rd else None
+        self.nclasses = meta["nclasses"]
+        self.output = dict(meta.get("output") or {})
+        return self
+
+    @classmethod
+    def _restore(cls, meta: Dict, arrays: Dict, device=None) -> "Model":
+        raise NotImplementedError(f"{cls.__name__} does not support load")
 
     def deploy(self, **serve_config):
         """Deploy this model for row serving (``h2o3_tpu_torch.serve``):
@@ -363,10 +426,102 @@ class Model:
         return f"<{type(self).__name__} {self.key}>"
 
 
+def calibrated_p1(cal: Dict, p1: torch.Tensor) -> torch.Tensor:
+    """The calibrated positive-class probability (float64) of the
+    probabilities ``p1``, on their device: Platt's 1/(1 + exp(-(a·logit
+    p + b))) or the isotonic knots interpolated as ``np.interp`` does
+    (clipped at both ends), p clipped into [1e-12, 1 - 1e-12] first."""
+    p = torch.clamp(p1.to(torch.float64), 1e-12, 1 - 1e-12)
+    if cal["method"] == "platt":
+        return 1.0 / (1.0 + torch.exp(-(cal["a"] * torch.log(p / (1 - p))
+                                        + cal["b"])))
+    tx = torch.tensor(cal["tx"], dtype=torch.float64, device=p.device)
+    ty = torch.tensor(cal["ty"], dtype=torch.float64, device=p.device)
+    if tx.numel() == 1:
+        return ty[0].expand(p.shape).clone()
+    j = torch.clamp(torch.searchsorted(tx, p, right=True) - 1, 0,
+                    tx.numel() - 2)
+    x0, x1, y0, y1 = tx[j], tx[j + 1], ty[j], ty[j + 1]
+    q = (y1 - y0) / (x1 - x0) * (p - x0) + y0
+    q = torch.where(p <= tx[0], ty[0], q)
+    return torch.where(p >= tx[-1], ty[-1], q)
+
+
+def pav(x, wy, w):
+    """Weighted pool-adjacent-violators on knots already collapsed per
+    distinct x (the port's copy of the JAX package's ``isotonic._pav``):
+    blocks merge while their means do not increase; returns the knots
+    (tx, ty), each block's two end points at its mean."""
+    n = len(x)
+    bx0 = np.empty(n)
+    bx1 = np.empty(n)
+    bwy = np.empty(n)
+    bw = np.empty(n)
+    top = 0
+    for i in range(n):
+        bx0[top] = x[i]
+        bx1[top] = x[i]
+        bwy[top] = wy[i]
+        bw[top] = w[i]
+        top += 1
+        while top > 1 and (bwy[top - 2] * bw[top - 1]
+                           >= bwy[top - 1] * bw[top - 2]):
+            bwy[top - 2] += bwy[top - 1]
+            bw[top - 2] += bw[top - 1]
+            bx1[top - 2] = bx1[top - 1]
+            top -= 1
+    vals = bwy[:top] / bw[:top]
+    tx, ty = [], []
+    for i in range(top):
+        tx.append(bx0[i])
+        ty.append(vals[i])
+        if bx1[i] != bx0[i]:
+            tx.append(bx1[i])
+            ty.append(vals[i])
+    return np.asarray(tx), np.asarray(ty)
+
+
+def platt(p1: np.ndarray, y: np.ndarray, w: np.ndarray):
+    """Platt scaling's (a, b) by the JAX package's Newton loop: the
+    weighted 1-D logistic fit of y on logit(p1), float64, at most 50
+    steps."""
+    z = np.log(p1 / (1.0 - p1))
+    a, b = 1.0, 0.0
+    for _ in range(50):
+        mu = 1.0 / (1.0 + np.exp(-(a * z + b)))
+        s = np.maximum(mu * (1 - mu), 1e-12) * w
+        g = np.array([(w * (y - mu) * z).sum(), (w * (y - mu)).sum()])
+        H = np.array([[(s * z * z).sum(), (s * z).sum()],
+                      [(s * z).sum(), s.sum()]])
+        d = np.linalg.solve(H + 1e-9 * np.eye(2), g)
+        a += d[0]
+        b += d[1]
+        if np.abs(d).max() < 1e-10:
+            break
+    return float(a), float(b)
+
+
+def persist_in_training_ckpt(model: "Model", algo: str,
+                             ckpt_dir) -> Optional[str]:
+    """Write an in-training checkpoint, ``<ckpt_dir>/<key>_t<n>.zip``
+    for ``n`` committed trees (the JAX package's artifact; its keyed
+    store entry waits for ROADMAP.md item 18). The caller attaches the
+    resume state first. A failed write is logged and returns None: it
+    never ends the train it protects."""
+    from h2o3_tpu_torch.persist import save_model
+    try:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        return save_model(model, ckpt_dir, force=True,
+                          filename=f"{model.key}_t{model.ntrees_built}.zip")
+    except Exception as e:  # noqa: BLE001 — advisory only
+        warn("%s: in-training checkpoint write failed: %s", algo, e)
+        return None
+
+
 # builder-level parameters every algorithm of the port understands
 BUILDER_PARAMS = frozenset({"model_id", "ignored_columns", "weights_column",
                             "offset_column", "response_column",
-                            "training_frame"})
+                            "training_frame"}) | CV_PARAMS
 
 
 class ModelBuilder:
@@ -417,10 +572,101 @@ class ModelBuilder:
     def _classification(self) -> Optional[bool]:
         return None
 
+    def _validate_calibration(self, spec: TrainingSpec) -> None:
+        """calibrate_model's checks before the train (the JAX package's):
+        a calibration frame, a binomial response, a known method."""
+        if self.params.get("calibration_frame") is None:
+            raise ValueError("calibrate_model requires a calibration_frame")
+        if spec.nclasses != 2:
+            raise ValueError("model calibration is only supported for "
+                             "binomial classification")
+        _calibration_method(self.params)
+
+    def _fit_calibration(self, model: Model) -> None:
+        """calibrate_model, calibration_frame, calibration_method (the
+        JAX package's CalibrationHelper): Platt scaling or isotonic
+        regression (PAV) of the calibration frame's labels on the
+        model's positive-class probability there; ``predict`` then adds
+        the ``cal_p*`` columns. The probabilities come from the card;
+        the fit runs on the host in float64, as in the JAX package."""
+        cf = self.params.get("calibration_frame")
+        if cf is None:
+            raise ValueError("calibrate_model requires a calibration_frame")
+        if isinstance(cf, str):
+            raise NotImplementedError(
+                f"calibration_frame={cf!r}: a frame key {DKV_REFUSED}")
+        if model.nclasses != 2:
+            raise ValueError("model calibration is only supported for "
+                             "binomial classification")
+        method = _calibration_method(self.params)
+        out = model._predict_matrix(adapt_test_matrix(model, cf),
+                                    offset=model._frame_offset(cf))
+        probs = model._correct_probabilities(out)
+        p1 = np.clip(probs[:, 1].to(torch.float64).cpu().numpy(), 1e-12,
+                     1 - 1e-12)
+        yc, w = response_codes_in_domain(cf, model.response,
+                                         model.response_domain)
+        yv = yc.cpu().numpy().astype(np.float64)
+        wv = w.cpu().numpy().astype(np.float64)
+        if method == "platt":
+            a, b = platt(p1, yv, wv)
+            model.output["calibration"] = {"method": "platt", "a": a, "b": b}
+        else:
+            ux, inv = np.unique(p1, return_inverse=True)
+            tx, ty = pav(ux, np.bincount(inv, weights=wv * yv),
+                         np.bincount(inv, weights=wv))
+            model.output["calibration"] = {
+                "method": "isotonic", "tx": [float(v) for v in tx],
+                "ty": [float(v) for v in ty]}
+
+    def _apply_balance_classes(self, spec: TrainingSpec) -> TrainingSpec:
+        """balance_classes, class_sampling_factors,
+        max_after_balance_size (the JAX package's: the class factors
+        multiply the row weights, no rows move): factors from
+        ``class_sampling_factors`` or, by default, total / (K · n_k),
+        scaled down so that the weighted total stays within
+        ``max_after_balance_size`` times the original. The prior and the
+        balanced class distributions are kept for
+        ``_correct_probabilities``. The class sums are one fixed-order
+        sum a class; the codes index the factors clamped into [0, K)
+        (an NA response has code 0 and weight 0)."""
+        self._class_dists = None
+        if not self.params.get("balance_classes") or spec.nclasses < 2:
+            return spec
+        K = spec.nclasses
+        yc = torch.clamp(spec.y.long(), 0, K - 1)
+        counts = torch.stack([(spec.w * (yc == k)).sum() for k in range(K)])
+        ch = counts.cpu().numpy().astype(np.float64)
+        total = float(ch.sum())
+        if total <= 0:
+            return spec
+        csf = self.params.get("class_sampling_factors")
+        if csf is not None and len(csf):
+            fac = np.asarray(csf, np.float64)
+            if fac.shape[0] != K:
+                raise ValueError(
+                    f"class_sampling_factors needs {K} values (one per "
+                    f"response class), got {fac.shape[0]}")
+        else:
+            fac = total / (K * np.maximum(ch, 1.0))
+        mabs = float(self.params.get("max_after_balance_size", 5.0) or 5.0)
+        new_total = float((ch * fac).sum())
+        if new_total > mabs * total:
+            fac *= mabs * total / new_total
+            new_total = mabs * total
+        fac_d = torch.tensor(fac, dtype=torch.float32, device=spec.device)
+        self._class_dists = ((ch / total).tolist(),
+                             ((ch * fac) / max(new_total, 1e-12)).tolist())
+        return replace(spec, w=spec.w * fac_d[yc])
+
     def train(self, x: Optional[Sequence[str]] = None,
               y: Optional[str] = None,
               training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None) -> "ModelBuilder":
+        """Build the spec, balance its classes, train, attach the class
+        distributions, fit the calibration and, with ``nfolds`` > 1 or a
+        ``fold_column``, run the cross-validation folds after the main
+        model (the JAX package's order)."""
         self._warn_compat_params()
         y = y or self.params.get("response_column")
         training_frame = (training_frame if training_frame is not None
@@ -433,11 +679,118 @@ class ModelBuilder:
             weights_column=self.params.get("weights_column"),
             offset_column=self.params.get("offset_column"),
             classification=self._classification())
+        spec = self._apply_balance_classes(spec)
+        if self.params.get("calibrate_model"):
+            self._validate_calibration(spec)
         valid = None
         if validation_frame is not None:
             valid = build_validation_spec(
                 validation_frame, spec,
                 weights_column=self.params.get("weights_column"),
                 offset_column=self.params.get("offset_column"))
-        self.model = self._train_impl(spec, valid)
+        model = self._train_impl(spec, valid)
+        if getattr(self, "_class_dists", None):
+            model.output["prior_class_dist"] = self._class_dists[0]
+            model.output["model_class_dist"] = self._class_dists[1]
+        if self.params.get("calibrate_model"):
+            self._fit_calibration(model)
+        nfolds = int(self.params.get("nfolds", 0) or 0)
+        fold_column = self.params.get("fold_column")
+        if nfolds > 1 or fold_column:
+            self._attach_cv(model, training_frame, y, x,
+                            *self._cv_fold_pass(training_frame, y, x, spec,
+                                                nfolds, fold_column))
+        self.model = model
         return self
+
+    def _cv_fold_pass(self, frame: Frame, y: str, x, spec: TrainingSpec,
+                      nfolds: int, fold_column: Optional[str]):
+        """The JAX package's fold pass: fold ids from ``fold_column``, or
+        ``fold_assignment="modulo"`` (row i in fold i % nfolds), or any
+        other value numpy's ``default_rng(seed).integers(0, nfolds,
+        nrow)``; then a model a fold on the other rows (the builder's
+        parameters without nfolds, fold_column and parallelism; the
+        folds run one after another on the frame's device, whatever
+        ``parallelism`` says) and its raw predictions on the fold's rows.
+        Returns (holdout, fold_models, fold, K, profile)."""
+        nrow = frame.nrow
+        if fold_column:
+            fold = frame.vec(fold_column).to_numpy().astype(int)
+            fold_ids = np.unique(fold)
+        else:
+            assignment = (self.params.get("fold_assignment")
+                          or "auto").lower()
+            seed = int(self.params.get("seed", -1) or -1)
+            rng = np.random.default_rng(None if seed == -1 else seed)
+            if assignment == "modulo":
+                fold = np.arange(nrow) % nfolds
+            else:
+                fold = rng.integers(0, nfolds, size=nrow)
+            fold_ids = np.arange(nfolds)
+        K = spec.nclasses if spec.nclasses > 1 else 1
+        holdout = np.full((nrow, K) if K > 1 else (nrow,), np.nan,
+                          dtype=np.float32)
+        sub_params = {k: v for k, v in self.params.items()
+                      if k not in ("nfolds", "fold_column", "parallelism")}
+        fold_models, profile = [], []
+        for fid in fold_ids:
+            mask = fold == fid
+            t0 = time.monotonic()
+            tr = frame.rows(~mask)
+            te = frame.rows(mask)
+            t1 = time.monotonic()
+            sub = type(self)(**sub_params)
+            sub.train(x=x, y=y, training_frame=tr)
+            fm = sub.model
+            t2 = time.monotonic()
+            out = fm._predict_matrix(adapt_test_matrix(fm, te),
+                                     offset=fm._frame_offset(te))
+            holdout[mask] = out.cpu().numpy()
+            fold_models.append(fm)
+            profile.append({"fold": int(fid), "rows_s": t1 - t0,
+                            "train_s": t2 - t1,
+                            "predict_s": time.monotonic() - t2})
+        return holdout, fold_models, fold, K, profile
+
+    def _attach_cv(self, model: Model, frame: Frame, y: str, x, holdout,
+                   fold_models, fold, K, profile) -> None:
+        """The pooled holdout's metrics on the main model, over the rows
+        with a response (weights of the response alone, as in the JAX
+        package), and the holdout predictions, fold models and fold
+        assignment in its output."""
+        cv_spec = build_training_spec(frame, y, x,
+                                      classification=model.nclasses > 1)
+        ok = (cv_spec.w > 0).cpu().numpy()
+        dev = cv_spec.device
+        yh = cv_spec.y[torch.as_tensor(ok, device=dev)]
+        wh = cv_spec.w[torch.as_tensor(ok, device=dev)]
+        ho = torch.as_tensor(holdout[ok], device=dev)
+        if K > 1:
+            model.cross_validation_metrics = (
+                metrics_mod.make_binomial_metrics(ho[:, 1], yh, wh)
+                if K == 2 else
+                metrics_mod.make_multinomial_metrics(ho, yh, wh))
+        else:
+            model.cross_validation_metrics = \
+                metrics_mod.make_regression_metrics(ho, yh, wh)
+        model.output["cross_validation_holdout_predictions"] = holdout
+        model.output["cross_validation_models"] = fold_models
+        model.output["cv_fold_assignment"] = fold
+        model.output["cross_validation_profile"] = profile
+
+
+def _calibration_method(params: Dict) -> str:
+    """calibration_method spelled as the JAX package reads it: 'platt'
+    (AUTO, PlattScaling) or 'isotonic' (IsotonicRegression); else
+    ValueError."""
+    method = str(params.get("calibration_method") or "auto").lower()
+    method = method.replace("_scaling", "").replace("scaling", "") \
+                   .replace("_regression", "").replace("regression", "")
+    if method in ("auto", ""):
+        return "platt"
+    if method not in ("platt", "isotonic"):
+        raise ValueError(
+            f"unknown calibration_method "
+            f"'{params.get('calibration_method')}' (one of AUTO, "
+            f"PlattScaling, IsotonicRegression)")
+    return method

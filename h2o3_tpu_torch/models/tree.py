@@ -114,14 +114,18 @@ def _cumsum_bins(x):
     return torch.cumsum(x, dim=-1)
 
 
-def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None):
+def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None, mono=None):
     """Best split per node from a (g, h, w) histogram triple, each
     [N, F', B'] with F' >= n_features and B' >= n_bins+1 (lane n_bins is
     NA). ``col_mask`` is [F] or [N, F]. ``max_bin`` limits candidates to
     t in 1..max_bin-1 when the lane width exceeds the real bin count.
+    ``mono`` ([F] int32, -1/0/+1) is the monotone constraints: a
+    candidate on feature f with mono[f] = c is valid only where
+    c·(left child value) <= c·(right child value).
 
     Returns (gain, feat, bin, na_left, g_tot, h_tot, w_tot, vl, vr, wl,
-    wr) per node; vl/vr/wl/wr belong to the selected split."""
+    wr) per node; vl/vr/wl/wr belong to the selected split (vl and vr
+    unclipped: the monotone bounds of the children come from them)."""
     B = cfg.n_bins
     F = cfg.n_features
     g = trip[0][:, :F, :]
@@ -144,6 +148,11 @@ def _find_splits(trip, cfg: TreeConfig, col_mask, max_bin=None):
         wr = w_tot[..., None] - wl
         gain = _leaf_score2(gl, hl, cfg) + _leaf_score2(gr, hr, cfg) - parent
         ok = (wl >= cfg.min_rows) & (wr >= cfg.min_rows)
+        if mono is not None:
+            c = mono.to(torch.float32)[None, :, None]
+            vl = _leaf_value(gl, hl, cfg)
+            vr = _leaf_value(gr, hr, cfg)
+            ok = ok & ((c == 0) | (c * (vr - vl) >= 0))
         return torch.where(ok, gain, NEG_INF)
 
     gains_nr = gains(gl0, hl0, wl0)                                  # NA right
@@ -208,11 +217,79 @@ def _level_mask(cfg: TreeConfig, d: int, N: int, col_mask, key):
     return col_mask
 
 
+def _child_bounds(lo_b, hi_b, vl, vr, mono_dir, can):
+    """Monotone bound propagation (the JAX package's ``_child_bounds``):
+    a split on a constrained feature bounds both subtrees at the midpoint
+    of its clipped child values; other nodes pass their bounds on.
+    Returns the children's [2N] (lo, hi), interleaved."""
+    vl_c = torch.clamp(vl, lo_b, hi_b)
+    vr_c = torch.clamp(vr, lo_b, hi_b)
+    mid = 0.5 * (vl_c + vr_c)
+    up = can & (mono_dir > 0)      # left <= right
+    dn = can & (mono_dir < 0)
+    lo_left = torch.where(dn, mid, lo_b)
+    hi_left = torch.where(up, mid, hi_b)
+    lo_right = torch.where(up, mid, lo_b)
+    hi_right = torch.where(dn, mid, hi_b)
+    return (torch.stack([lo_left, lo_right], dim=1).reshape(-1),
+            torch.stack([hi_left, hi_right], dim=1).reshape(-1))
+
+
+def _next_allowed(allowed, sets, bf, can):
+    """Interaction-constraint propagation (the JAX package's
+    ``_next_allowed``): below a split on feature f, the features that
+    share an interaction set with f, within the node's own allowance.
+    ``allowed`` [N, F] bool, ``sets`` [S, F] bool; returns [2N, F]."""
+    contains = sets[:, bf.long()].t()                 # [N, S]
+    union = (contains[:, :, None] & sets[None, :, :]).any(dim=1)
+    child = torch.where(can[:, None], allowed & union, allowed)
+    return child.repeat_interleave(2, dim=0)
+
+
+class _Constraints:
+    """A tree's monotone bounds (``mono`` [F] int32) and interaction
+    allowance (``sets`` [S, F] bool) through its level loop; either may
+    be None. Without monotone constraints every value is clipped to
+    [-BIGV, BIGV] as before; without sets the level mask passes
+    through."""
+
+    def __init__(self, mono, sets, F: int, dev):
+        self.mono = mono
+        self.sets = sets
+        if mono is not None:
+            self.lo = torch.full((1,), -BIGV, dtype=torch.float32, device=dev)
+            self.hi = torch.full((1,), BIGV, dtype=torch.float32, device=dev)
+        self.allowed = (torch.ones((1, F), dtype=torch.bool, device=dev)
+                        if sets is not None else None)
+
+    def mask(self, level_mask):
+        """The level's column mask ANDed with the allowance."""
+        if self.allowed is None:
+            return level_mask
+        lm2 = level_mask if level_mask.dim() == 2 else level_mask[None, :]
+        return lm2 & self.allowed
+
+    def clip(self, v):
+        if self.mono is None:
+            return torch.clamp(v, -BIGV, BIGV)
+        return torch.clamp(v, self.lo, self.hi)
+
+    def advance(self, vl, vr, bf, can):
+        """The next level's bounds and allowance from this level's
+        selected splits."""
+        if self.mono is not None:
+            self.lo, self.hi = _child_bounds(self.lo, self.hi, vl, vr,
+                                             self.mono[bf.long()], can)
+        if self.allowed is not None:
+            self.allowed = _next_allowed(self.allowed, self.sets, bf, can)
+
+
 def _binned_split_level(trip, find_cfg: TreeConfig, level_mask,
-                        cfg: TreeConfig):
+                        cfg: TreeConfig, mono=None):
     """One level's split selection and the next level's routing table.
     Returns (the _find_splits tuple, can, tables)."""
-    sel = _find_splits(trip, find_cfg, level_mask, max_bin=cfg.n_bins)
+    sel = _find_splits(trip, find_cfg, level_mask, max_bin=cfg.n_bins,
+                       mono=mono)
     bg, bf, bb, bnl, wt = sel[0], sel[1], sel[2], sel[3], sel[6]
     can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
     tables = make_tables(bf.clamp(min=0), bb, bnl, can).contiguous()
@@ -255,14 +332,17 @@ def _segment_totals(nid, ghw, n_seg: int, base: int):
 
 
 def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
-                     key=None):
+                     key=None, mono=None, sets=None):
     """Build one tree on packed codes ``[rows, F]`` (int8/int16, NA = the
     reserved lane W-1, W = pick_W(cfg.n_bins)). Split thresholds stay bin
     indices (``split_bin``); finalize unbins them to raw thresholds.
     ``H2O3_HIST_I8`` switches levels to int8 fixed-point masses
     (``_hist_i8``). ``col_mask`` [F] limits the split search to the
     tree's columns, and with ``key`` (the tree's key) levels draw per-node
-    column subsets (``_level_mask``).
+    column subsets (``_level_mask``). ``mono`` [F] int32 and ``sets``
+    [S, F] bool are the monotone and interaction constraints
+    (``_Constraints``): splits that break them are masked, node values
+    clipped into the monotone bounds.
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
     is_split, value, gain, node_w; and every row's leaf node id)."""
@@ -271,6 +351,7 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
     rows, F = codes.shape
     dev = codes.device
     W = pick_W(cfg.n_bins)
+    cons = _Constraints(mono, sets, F, dev)
     bf16 = _hist_bf16(cfg, rows)
     find_cfg = replace(cfg, n_bins=W - 1)          # NA lane at W-1
     if col_mask is None:
@@ -307,28 +388,30 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
                                  N, base, W, bf16, qs)
         sel, can, tables = _binned_split_level(
             (hist[0], hist[1], hist[2]), find_cfg,
-            _level_mask(cfg, d, N, col_mask, key), cfg)
-        bg, bf, bb, bnl, gt, ht, wt = sel[:7]
+            cons.mask(_level_mask(cfg, d, N, col_mask, key)), cfg, mono)
+        bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s = sel[:9]
         idx = slice(base, base + N)
         feat[idx] = torch.where(can, bf, -1)
         split_bin[idx] = bb
         na_left[idx] = bnl
         is_split[idx] = can
-        value[idx] = torch.clamp(_leaf_value(gt, ht, cfg), -BIGV, BIGV)
+        value[idx] = cons.clip(_leaf_value(gt, ht, cfg))
         gain_arr[idx] = torch.where(can, bg, 0.0)
         node_w[idx] = wt
+        cons.advance(vl_s, vr_s, bf, can)
 
     # deepest level: route, then exact per-leaf (g, h, w) totals
     ND = 2 ** D
     baseD = ND - 1
     nid = binned_route_only(codes, nid, tables, ND // 2, baseD, W)
     gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
-    value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
+    value[baseD:] = cons.clip(_leaf_value(gD, hD, cfg))
     node_w[baseD:] = wD
     return tree(), nid
 
 
-def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
+def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None,
+              mono=None, sets=None):
     """Build one tree on global-sketch codes ``[rows, F]`` (uint8 or
     int32, NA = bin ``cfg.n_bins``), the JAX package's ``grow_tree`` in
     single-device form. Per level: one histogram build
@@ -336,8 +419,8 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
     children only, the right ones being parent - left (sibling
     subtraction); the split search over every bin (no ``max_bin``);
     routing by one packed-word gather per row. The deepest level's leaf
-    values come from per-leaf totals after the last route. ``col_mask``
-    and ``key`` as in ``grow_tree_binned``.
+    values come from per-leaf totals after the last route. ``col_mask``,
+    ``key``, ``mono`` and ``sets`` as in ``grow_tree_binned``.
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
     is_split, value, gain, node_w; and every row's leaf node id)."""
@@ -349,6 +432,7 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
     bf16 = _hist_bf16(cfg, rows)
     if col_mask is None:
         col_mask = torch.ones(F, dtype=torch.bool, device=dev)
+    cons = _Constraints(mono, sets, F, dev)
 
     feat = torch.full((M,), -1, dtype=torch.int32, device=dev)
     split_bin = torch.zeros(M, dtype=torch.int32, device=dev)
@@ -380,17 +464,19 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
             hist = tuple(torch.stack([hl, hp - hl], dim=1).reshape(N, F, B1)
                          for hl, hp in zip(hist_l, prev_hist))
         prev_hist = hist
-        bg, bf, bb, bnl, gt, ht, wt = _find_splits(
-            hist, cfg, _level_mask(cfg, d, N, col_mask, key))[:7]
+        bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s = _find_splits(
+            hist, cfg, cons.mask(_level_mask(cfg, d, N, col_mask, key)),
+            mono=mono)[:9]
         can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
         idx = slice(base, base + N)
         feat[idx] = torch.where(can, bf, -1)
         split_bin[idx] = bb
         na_left[idx] = bnl
         is_split[idx] = can
-        value[idx] = torch.clamp(_leaf_value(gt, ht, cfg), -BIGV, BIGV)
+        value[idx] = cons.clip(_leaf_value(gt, ht, cfg))
         gain_arr[idx] = torch.where(can, bg, 0.0)
         node_w[idx] = wt
+        cons.advance(vl_s, vr_s, bf, can)
         # route the level's rows whose node splits: one gather of the
         # node's packed word per row
         word = (bf | (bb << BIN_SHIFT) | (bnl.to(torch.int32) << NA_SHIFT)
@@ -409,7 +495,7 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None):
     ND = 2 ** D
     baseD = ND - 1
     gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
-    value[baseD:] = torch.clamp(_leaf_value(gD, hD, cfg), -BIGV, BIGV)
+    value[baseD:] = cons.clip(_leaf_value(gD, hD, cfg))
     node_w[baseD:] = wD
     return {"feat": feat, "split_bin": split_bin, "na_left": na_left,
             "is_split": is_split, "value": value, "gain": gain_arr,
@@ -598,7 +684,8 @@ def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int):
 
 def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                        nb_f=None, col_mask=None, phase=None,
-                       layout: str = "rows_f", key=None):
+                       layout: str = "rows_f", key=None, mono=None,
+                       sets=None):
     """Build one tree with per-node adaptive uniform bins on raw float32
     features ``x`` (NaN = NA, enum codes as floats) in ``layout``
     (``"rows_f"`` [rows, F] or ``"f_rows"`` [F, rows]). ``root_lo`` /
@@ -607,7 +694,8 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     grid offset in [0, 1) bin widths; with ``key`` (the tree's key) and
     ``cfg.random_grid`` (``histogram_type="random"``) the phase is drawn
     as ``uniform(fold_in(key, 7919), (F,))``, and levels draw per-node
-    column subsets as in ``grow_tree_binned``.
+    column subsets as in ``grow_tree_binned``. ``mono`` and ``sets`` as
+    there.
 
     Per level: per-(node, feature) ranges ``lo``/``inv``, one fused route
     + re-bin + histogram kernel, the split search over every lane (no
@@ -635,6 +723,7 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
         col_mask = torch.ones(F, dtype=torch.bool, device=dev)
     if phase is None and cfg.random_grid and key is not None:
         phase = uniform(fold_in(key, 7919), (F,), dev)
+    cons = _Constraints(mono, sets, F, dev)
 
     feat = torch.full((M,), -1, dtype=torch.int32, device=dev)
     thr_arr = torch.zeros(M, dtype=torch.float32, device=dev)
@@ -679,7 +768,8 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                                    layout, qs)
         (bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s, wl_s,
          wr_s) = _find_splits((hist[0], hist[1], hist[2]), find_cfg,
-                              _level_mask(cfg, d, N, col_mask, key))
+                              cons.mask(_level_mask(cfg, d, N, col_mask,
+                                                    key)), mono=mono)
         can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
         nidx = torch.arange(N, device=dev)
         lo_sel = lo_d[nidx, bf.long()]
@@ -694,9 +784,10 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
         thr_arr[idx] = thr
         na_left[idx] = bnl
         is_split[idx] = can
-        value[idx] = torch.clamp(_leaf_value(gt, ht, cfg), -BIGV, BIGV)
+        value[idx] = cons.clip(_leaf_value(gt, ht, cfg))
         gain_arr[idx] = torch.where(can, bg, 0.0)
         node_w[idx] = wt
+        cons.advance(vl_s, vr_s, bf, can)
         tables = make_adaptive_tables(bf.clamp(min=0), thr, bnl,
                                       can).contiguous()
         lo_d, hi_d = _next_ranges(hist[2], lo_d, hi_d, inv_d, thr, bf, can,
@@ -707,8 +798,7 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     ND = 2 ** D
     baseD = ND - 1
     nid = adaptive_route_only(x, nid, tables, ND // 2, baseD, layout)
-    value[baseD:] = torch.clamp(
-        torch.stack([vl_s, vr_s], dim=1).reshape(ND), -BIGV, BIGV)
+    value[baseD:] = cons.clip(torch.stack([vl_s, vr_s], dim=1).reshape(ND))
     node_w[baseD:] = torch.stack([wl_s, wr_s], dim=1).reshape(ND)
     return tree(), nid
 

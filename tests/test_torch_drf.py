@@ -15,8 +15,8 @@ x 6 features with 3% NA cells, depth 4, 4 trees, float32 histograms).
   in both).
 - The mtries defaults (floor(sqrt F) classification, F // 3
   regression), variable importances, the JAX package's refusals
-  (max_depth past 16, offset_column, staged_predict_proba), checkpoints
-  (A3) and contributions (item 16).
+  (max_depth past 16, offset_column, staged_predict_proba), a checkpoint
+  by a keyed-store name (item 18) and contributions (item 16).
 - On the CPU a deployed forest serves rows bit-equal to predict.
 
 The JAX trains run on a one-device mesh, as in test_torch_sampling.py."""
@@ -208,8 +208,9 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="offset_column"):
         H2ORandomForestEstimator(ntrees=1, offset_column="off").train(
             y="label", training_frame=fr)
-    with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
-        H2ORandomForestEstimator(checkpoint="drf_1")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        H2ORandomForestEstimator(ntrees=2, checkpoint="drf_1").train(
+            y="label", training_frame=fr)
     with pytest.raises(ValueError, match="unknown parameter"):
         H2ORandomForestEstimator(learn_rate=0.1)
     m = H2ORandomForestEstimator(ntrees=1, max_depth=2).train(

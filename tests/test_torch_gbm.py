@@ -100,14 +100,53 @@ def test_gaussian_regression_trains_on_cpu():
     assert m.predict(fr).names == ["predict"]
 
 
+def _paths(feat, is_split):
+    """Each tree's root-to-leaf sets of split features."""
+    out = []
+    for t in range(feat.shape[0]):
+        def walk(node, used):
+            if node >= feat.shape[1] or not is_split[t, node]:
+                if used:
+                    out.append(frozenset(used))
+                return
+            walk(2 * node + 1, used | {int(feat[t, node])})
+            walk(2 * node + 2, used | {int(feat[t, node])})
+        walk(0, set())
+    return out
+
+
 @pytest.mark.parametrize("param", [
     {"balance_classes": True}, {"checkpoint": "gbm_1"},
     {"monotone_constraints": {"f0": 1}},
     {"interaction_constraints": [["f0", "f1"]]},
 ])
 def test_unsupported_parameters_raise(param):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchGBM(**param)
+    """Named for the refusals these parameters met until items A3, A5
+    and A7 were ported. A keyed-store name as ``checkpoint`` is still
+    refused, naming ROADMAP.md item 18; the others train, and what they
+    do shows: the class distributions recorded, predictions that never
+    fall along f0, no path that mixes f0 or f1 with another feature."""
+    fr = th2o.Frame.from_numpy(_data(), device="cpu")
+    est = TorchGBM(ntrees=3, max_depth=3, distribution="bernoulli",
+                   min_rows=1.0, seed=7, **param)
+    if "checkpoint" in param:
+        with pytest.raises(NotImplementedError, match="item 18"):
+            est.train(y="label", training_frame=fr)
+        return
+    m = est.train(y="label", training_frame=fr).model
+    if "balance_classes" in param:
+        assert np.isclose(sum(m.output["prior_class_dist"]), 1.0)
+        np.testing.assert_allclose(m.output["model_class_dist"], [0.5, 0.5])
+    elif "monotone_constraints" in param:
+        sweep = np.zeros((201, F), np.float32)
+        sweep[:, 0] = np.linspace(-3, 3, 201)
+        p1 = m.predict(th2o.Frame.from_numpy(
+            {f"f{i}": sweep[:, i] for i in range(F)},
+            device="cpu")).vec("p1").to_numpy()
+        assert (np.diff(p1) >= -1e-6).all()
+    else:
+        for used in _paths(m.trees["feat"], m.trees["is_split"]):
+            assert used <= {0, 1} or len(used) == 1, sorted(used)
 
 
 @pytest.mark.parametrize("param", [
@@ -146,7 +185,8 @@ def test_sampling_parameters_train_and_match_jax(param):
 
 def test_unknown_parameter_and_validation_frame_raise():
     """An unknown parameter raises ValueError; a validation frame trains
-    now, and what is still refused around it (a checkpoint) raises."""
+    now, and what is still refused around it (a checkpoint by the model's
+    key, ROADMAP.md item 18) raises; the live model continues."""
     with pytest.raises(ValueError, match="unknown parameter"):
         TorchGBM(hist_kernel="pallas")
     fr = th2o.Frame.from_numpy(_data(), device="cpu")
@@ -154,7 +194,13 @@ def test_unknown_parameter_and_validation_frame_raise():
         y="label", training_frame=fr, validation_frame=fr).model
     assert m.validation_metrics.auc == m.training_metrics.auc
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchGBM(ntrees=1, checkpoint=m.key)
+        TorchGBM(ntrees=2, max_depth=2, checkpoint=m.key).train(
+            y="label", training_frame=fr)
+    m2 = TorchGBM(ntrees=2, max_depth=2, distribution="bernoulli",
+                  checkpoint=m).train(y="label", training_frame=fr,
+                                      validation_frame=fr).model
+    assert m2.ntrees_built == 2
+    np.testing.assert_array_equal(m2.trees["feat"][:1], m.trees["feat"])
 
 
 @pytest.mark.parametrize("key,away", [
@@ -403,17 +449,30 @@ def test_wide_bin_shapes_match_jax(params):
     np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
 
 
-def test_refusals_name_their_roadmap_labels():
-    """Each refusal names the ROADMAP.md queue-1 label that ports it:
-    checkpoints A3, constraints A5, cross-validation and class balancing
-    A7; sampling (A4) is ported and constructs."""
-    with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
-        TorchGBM(ntrees=1, checkpoint="gbm_1")
-    with pytest.raises(NotImplementedError, match="item A3, checkpoints"):
-        TorchGBM(ntrees=1, in_training_checkpoints_dir="ckpt")
+def test_refusals_name_their_roadmap_labels(tmp_path):
+    """What the port still refuses names its ROADMAP.md item: a
+    checkpoint by a keyed-store name (item 18, dkv.py). Checkpoints
+    (A3), constraints (A5) and cross-validation (A7) construct and train
+    now, and the JAX package's own refusals hold: a monotone constraint
+    on an enum column, an unknown constraint column."""
+    cols = _data()
+    cols["colour"] = np.array(["red", "blue"], dtype=object)[
+        np.arange(ROWS) % 2]
+    fr = th2o.Frame.from_numpy(cols, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TorchGBM(ntrees=1, checkpoint="gbm_1").train(y="label",
+                                                      training_frame=fr)
+    m = TorchGBM(ntrees=2, max_depth=2, model_id="ck",
+                 in_training_checkpoints_dir=str(tmp_path)).train(
+        y="label", training_frame=fr).model
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ck_t1.zip",
+                                                          "ck_t2.zip"]
+    assert [c["trees"] for c in m.output["checkpoints"]] == [1, 2]
     assert TorchGBM(ntrees=1, sample_rate=0.8).params["sample_rate"] == 0.8
-    with pytest.raises(NotImplementedError, match="item A5, constraints"):
-        TorchGBM(ntrees=1, monotone_constraints={"f0": 1})
-    with pytest.raises(NotImplementedError,
-                       match="item A7, cross-validation"):
-        TorchGBM(ntrees=1, nfolds=3)
+    with pytest.raises(ValueError, match="categorical column 'colour'"):
+        TorchGBM(ntrees=1, monotone_constraints={"colour": 1}).train(
+            y="label", training_frame=fr)
+    with pytest.raises(ValueError, match="column 'nope'"):
+        TorchGBM(ntrees=1, interaction_constraints=[["f0", "nope"]]).train(
+            y="label", training_frame=fr)
+    assert TorchGBM(ntrees=1, nfolds=3).params["nfolds"] == 3

@@ -55,6 +55,14 @@ def xgb_data(rows=ROWS, seed=0):
          distribution="bernoulli", learn_rate_annealing=0.99),
     # keys the JAX map drops
     dict(weights_column="w", model_id="m", ignored_columns=["f0"]),
+    # checkpoints (A3) and constraints (A5) pass, as GBM defaults
+    dict(checkpoint="x_t5.zip", in_training_checkpoints_dir="ck",
+         in_training_checkpoints_tree_interval=5),
+    dict(monotone_constraints={"f0": 1},
+         interaction_constraints=[["f0", "f1"]]),
+    # cross-validation and class balancing (A7) are dropped
+    dict(nfolds=3, fold_column="fold", fold_assignment="modulo",
+         balance_classes=True, class_sampling_factors=[1.0, 2.0]),
 ], ids=lambda p: ",".join(sorted(p)) or "defaults")
 def test_param_map_matches_jax(params):
     """Every GBM parameter the port's map gives equals the JAX
@@ -70,6 +78,18 @@ def test_param_map_matches_jax(params):
         assert k not in want or want[k] is None, k
     if "weights_column" in params:
         assert dropped == ["weights_column", "model_id", "ignored_columns"]
+
+
+def test_calibration_parameters_are_dropped_as_in_jax():
+    """The JAX map drops calibrate_model and calibration_frame (its
+    estimator keeps the builder's default, False), so its XGBoost never
+    calibrates; the port's map drops them too (ROADMAP.md queue 3)."""
+    cal = dict(calibrate_model=True, calibration_method="isotonic",
+               calibration_frame=None)
+    got = xgboost_gbm_params(cal)
+    assert not set(cal) & set(got)
+    assert JaxXGB(**cal).params["calibrate_model"] is False
+    assert TorchXGB(**cal).params["calibrate_model"] is False
 
 
 def test_booster_other_than_gbtree_raises():
