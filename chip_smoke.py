@@ -328,6 +328,27 @@ against its plain version. Phases, each fatal on failure:
    probabilities, their logloss beside the raw ``p1``'s (Platt's no
    worse).
 
+8h. the out-of-core GBM, item 13 (``phase_streaming``), on the 10M x 28
+   frame under ``memman.reset(budget=...)``: the packed path streamed
+   in one chunk its window holds, bit-equal to phase 4's dense packed
+   train in trees, predictions and AUC; in 8 chunks with 4 resident
+   (``H2O3_STREAM_RESIDENT``), beside a 5-tree ``H2O3_LEVELS_PER_PASS=1``
+   train of the same configuration (its trees equal) and beside a train
+   with no window (its trees equal); the adaptive path in 8 chunks with
+   4 resident; each with its launches (a level kernel a level a chunk,
+   the route and the totals a tree a chunk), its loop, the H2D bytes a
+   tree and the share of the overflow copies' time the compute stream
+   did not wait for (CUDA events on both streams), the AUC within 1e-3
+   of the dense one's; every tree holding all rows' weight (root,
+   children, leaves: exact) and the multi-chunk trains' first root
+   split the dense train's; the L = 1 twin under torch.profiler (kernel
+   and copy device time beside the loop). Then a real
+   out-of-memory degrade: the allocator capped
+   (``set_per_process_memory_fraction``, this process only) at what it
+   holds plus 3 GiB, the dense packed train runs out, completes
+   streamed with one warning and the resident train's first 5 trees;
+   the cap lifted.
+
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
    kernels in ``tools/csrc/probes.cu``, built in phase 2 beside the
@@ -6339,6 +6360,316 @@ def ptxas_usage(log, names):
     return out
 
 
+# ------------------------------------------------- the streamed GBM (8h)
+
+# the overflow chunks of the half-resident trains, and how many of them
+# the window keeps (H2O3_STREAM_RESIDENT: at 28 packed features the
+# budget's own window formula keeps none wherever it cuts more than one
+# chunk)
+STREAM_TREES = 20
+STREAM_CHUNKS = 8
+STREAM_HALF = 4
+STREAM_L1_TREES = 5          # the H2O3_LEVELS_PER_PASS=1 comparison
+STREAM_DEGRADE_TREES = 5
+STREAM_DEGRADE_HEADROOM = 3 << 30    # the allocator's cap over what is held
+
+
+@contextlib.contextmanager
+def env(**kv):
+    """Environment variables set (None: unset) for the block, restored
+    after."""
+    old = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def streamed_train(card, tag, fr, path, ntrees, budget, want, auc_ref=None,
+                   profiled=False, **env_kv):
+    """One streamed train of ``path`` on ``fr`` under ``memman.reset(
+    budget)`` and ``env_kv``, the launch counters set to 0 just before
+    and read just after (they must equal ``want``, every other kernel
+    0); prints its loop, the H2D bytes a tree, the copies' unwaited share
+    and the AUC (within 1e-3 of ``auc_ref`` where given). ``profiled``:
+    the train under torch.profiler (``stream_device_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from h2o3_tpu_torch import memman
+    from h2o3_tpu_torch.ops import kernels
+    memman.reset(budget=budget)
+    try:
+        with env(**env_kv), (profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+                else contextlib.nullcontext()) as prof:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            m = train(fr, ntrees, path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        memman.reset()
+    if profiled:
+        stream_device_ms(card, tag, prof, m, ntrees)
+    if not m.output.get("streamed"):
+        raise AssertionError(f"{tag}: the train did not stream")
+    expected = {k: 0 for k in launches}
+    expected.update(want)
+    if launches != expected:
+        raise AssertionError(f"{tag}: launched {launches}, expected "
+                             f"{expected}")
+    auc = m.training_metrics.auc
+    if not np.isfinite(auc) or not 0.5 < auc <= 1.0:
+        raise AssertionError(f"{tag}: AUC {auc}")
+    if auc_ref is not None and abs(auc - auc_ref) > 1e-3:
+        raise AssertionError(f"{tag}: AUC {auc!r} is more than 1e-3 from "
+                             f"the dense train's {auc_ref!r}")
+    sp = m.output["stream_profile"]
+    rows = fr.nrow
+    print(f"streamed {tag}: {rows}x{fr.ncol - 1} {path} "
+          f"{json.dumps(PATHS[path]['params'])} {ntrees} trees, budget "
+          f"{budget} {json.dumps(env_kv)}: training_loop_seconds "
+          f"{m.output['training_loop_seconds']!r} rows/s "
+          f"{rows * ntrees / m.output['training_loop_seconds']!r} wall "
+          f"{wall!r} train_profile {json.dumps(m.output['train_profile'])} "
+          f"AUC {auc!r} stream_profile {json.dumps(sp)} launches "
+          f"{launches} [{card}]", flush=True)
+    return {"model": m, "launches": launches, "auc": auc, "profile": sp}
+
+
+def same_trees(a, b, what, n=None, keys=("feat", "thr", "value", "na_left",
+                                         "is_split")):
+    for k in keys:
+        x, y = a[k][:n], b[k][:n]
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {k} differs in "
+                                 f"{int((x != y).sum())} entries")
+
+
+def stream_device_ms(card, tag, prof, m, ntrees):
+    """The device time of a streamed train's kernels and host-to-device
+    copies (these on the side stream) as torch.profiler traced them,
+    beside its loop and its stream profile's copy time and unwaited
+    share. The kernels' time over the loop is the compute stream's busy
+    share; kernel and copy time summed past the loop would be overlap
+    that the trace itself shows."""
+    from torch.autograd import DeviceType
+    kern_ms = copy_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if "HtoD" in e.key:
+            copy_ms += t / 1e3
+        elif not e.key.startswith("Memcpy") and not e.key.startswith(
+                "Memset"):
+            kern_ms += t / 1e3
+    sp = m.output["stream_profile"]
+    loop_ms = m.output["training_loop_seconds"] * 1e3
+    print(f"streamed profile {tag}: {ntrees} trees under torch.profiler: "
+          f"loop {loop_ms!r} ms; kernels {kern_ms!r} ms "
+          f"({kern_ms / loop_ms!r} of the loop), H2D copies {copy_ms!r} ms "
+          f"({copy_ms / loop_ms!r} of the loop); stream_profile copy_ms "
+          f"{sp.get('copy_ms')!r} unwaited_copy_share "
+          f"{sp.get('unwaited_copy_share')!r} staging_s "
+          f"{sp.get('staging_s')!r} [{card}]", flush=True)
+    if not kern_ms > 0 or not copy_ms > 0:
+        raise AssertionError(f"streamed profile {tag}: kernels {kern_ms} "
+                             f"ms, copies {copy_ms} ms traced")
+
+
+def whole_weight(what, trees, total, depth):
+    """Every tree of ``trees`` (heap layout, ``depth`` split levels) holds
+    the weight of all ``total`` rows: the root's node_w is ``total``, each
+    split node's is its two children's sum, and the reachable nodes that
+    do not split hold ``total`` between them. Exact: unit weights and
+    counts below 2^24 add exactly in float32. A chunk whose histogram or
+    leaf totals a level dropped or added twice breaks one of the three."""
+    w = np.asarray(trees["node_w"], np.float64)
+    split = np.asarray(trees["is_split"], bool)
+    for t in range(w.shape[0]):
+        reach = np.zeros(w.shape[1], bool)
+        reach[0] = True
+        for m in range(2 ** depth - 1):
+            if reach[m] and split[t, m]:
+                reach[2 * m + 1] = reach[2 * m + 2] = True
+                if w[t, 2 * m + 1] + w[t, 2 * m + 2] != w[t, m]:
+                    raise AssertionError(
+                        f"{what}: tree {t} node {m}: node_w {float(w[t, m])}, "
+                        f"its children {float(w[t, 2 * m + 1])} + "
+                        f"{float(w[t, 2 * m + 2])}")
+        leaves = w[t, reach & ~split[t]].sum()
+        if w[t, 0] != total or leaves != total:
+            raise AssertionError(f"{what}: tree {t}: root node_w "
+                                 f"{float(w[t, 0])}, leaves {float(leaves)}, "
+                                 f"rows {total}")
+
+
+def same_root_split(what, a, b, split_key):
+    """The first tree's root split (feature, ``split_key``) of ``a`` and
+    ``b`` equal."""
+    got = (int(a["feat"][0][0]), a[split_key][0][0])
+    ref = (int(b["feat"][0][0]), b[split_key][0][0])
+    if got != ref:
+        raise AssertionError(f"{what}: first root split (feat, {split_key}) "
+                             f"{got} against the dense train's {ref}")
+
+
+def phase_streaming(card, fr, dense, dense_adaptive):
+    """Item 13 on the card (8h), on the 10M x 28 frame ``fr``: the
+    streamed packed GBM (1) whose window holds the frame in one chunk,
+    bit-equal to the dense train ``dense`` of phase 4 in trees and
+    predictions; (2) over ``STREAM_CHUNKS`` chunks with ``STREAM_HALF``
+    resident, beside a ``H2O3_LEVELS_PER_PASS=1`` train of the same
+    configuration (its first trees equal) under torch.profiler (the
+    kernels' and the copies' device time beside the loop); (3) with no window; (4) the adaptive path at half
+    resident; and (5) a real out-of-memory degrade: the allocator capped
+    over what the process holds, the dense train runs out, the train
+    completes streamed with one warning and the trees of (1). Every
+    streamed train holds every row's weight in every tree
+    (``whole_weight``), and those over several chunks split the first
+    root as the dense train of their path (``dense``, ``dense_adaptive``,
+    phase 4) does. Returns the launches by path."""
+    import logging
+
+    import torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    rows, F = fr.nrow, fr.ncol - 1
+    D = 6
+    gc.collect()
+    torch.cuda.empty_cache()
+    cr = -(-rows // STREAM_CHUNKS)
+    out = {}
+
+    def want(path, ntrees, C):
+        level, route = PATHS[path]["level"], PATHS[path]["route"]
+        w = {level: D * ntrees * C, route: ntrees * C}
+        if PATHS[path].get("totals"):
+            w[PATHS[path]["totals"]] = ntrees * C
+        return w
+
+    # 1. the whole frame in the window, one chunk: past 0.9 of the budget
+    # with the design matrix, within it with the codes
+    res = streamed_train(card, "resident", fr, "packed", STREAM_TREES,
+                         rows * F * 4 + 1, want("packed", STREAM_TREES, 1),
+                         dense["auc"])
+    if res["profile"]["chunks"] != 1 or res["profile"]["resident_chunks"] \
+            != 1:
+        raise AssertionError(f"resident: {res['profile']}")
+    same_trees(res["model"].trees, dense["trees"], "resident vs dense",
+               keys=("feat", "thr", "split_bin", "value", "na_left",
+                     "is_split", "node_w"))
+    p_dense = dense["model"].predict(fr).vec("p1").to_numpy()
+    p_res = res["model"].predict(fr).vec("p1").to_numpy()
+    if not np.array_equal(p_dense, p_res):
+        raise AssertionError("resident vs dense: predictions differ")
+    if res["model"].training_metrics.auc != dense["auc"]:
+        raise AssertionError("resident vs dense: AUC differs")
+    print(f"streamed resident == dense packed: trees, predictions and AUC "
+          f"bit for bit [{card}]", flush=True)
+    out["streamed_resident"] = res["launches"]
+
+    # 2. half resident; 3. no window (and one level a window)
+    C = -(-rows // cr)
+    budget = cr * F * 4
+    half = streamed_train(card, "half_resident", fr, "packed", STREAM_TREES,
+                          budget, want("packed", STREAM_TREES, C),
+                          dense["auc"], H2O3_STREAM_RESIDENT=STREAM_HALF)
+    l1 = streamed_train(card, "half_resident_L1", fr, "packed",
+                        STREAM_L1_TREES, budget,
+                        want("packed", STREAM_L1_TREES, C), profiled=True,
+                        H2O3_STREAM_RESIDENT=STREAM_HALF,
+                        H2O3_LEVELS_PER_PASS=1)
+    same_trees(l1["model"].trees, half["model"].trees, "L=1 vs auto",
+               n=STREAM_L1_TREES)
+    none = streamed_train(card, "no_window", fr, "packed", STREAM_TREES,
+                          budget, want("packed", STREAM_TREES, C),
+                          dense["auc"], H2O3_STREAM_RESIDENT=0)
+    same_trees(none["model"].trees, half["model"].trees,
+               "no window vs half resident")
+    for tag, r in (("half_resident", half), ("no_window", none)):
+        sp = r["profile"]
+        if (sp["chunks"], sp["resident_chunks"]) != (
+                C, STREAM_HALF if tag == "half_resident" else 0):
+            raise AssertionError(f"{tag}: {sp}")
+        out[f"streamed_{tag}"] = r["launches"]
+
+    # 4. the adaptive path at half resident (float32 features)
+    ad = streamed_train(card, "adaptive_half_resident", fr, "adaptive",
+                        STREAM_TREES, cr * F * 16,
+                        want("adaptive", STREAM_TREES, C),
+                        dense_adaptive["auc"],
+                        H2O3_STREAM_RESIDENT=STREAM_HALF)
+    out["streamed_adaptive_half_resident"] = ad["launches"]
+    for tag, r in (("resident", res), ("half resident", half),
+                   ("L=1", l1), ("no window", none), ("adaptive", ad)):
+        whole_weight(f"streamed {tag}", r["model"].trees, rows, D)
+    for tag, r in (("half resident", half), ("no window", none)):
+        same_root_split(f"streamed {tag}", r["model"].trees, dense["trees"],
+                        "split_bin")
+    same_root_split("streamed adaptive", ad["model"].trees,
+                    dense_adaptive["trees"], "thr")
+    print(f"streamed trains over {C} chunks: every tree holds the {rows} "
+          f"rows' weight (root, children and leaves), the first root split "
+          f"as the dense train's [{card}]", flush=True)
+
+    # 5. a real out-of-memory degrade, under a cap on this process's
+    # allocator only
+    del half, none, l1, ad
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    frac = (held + STREAM_DEGRADE_HEADROOM) / total
+    log_ = logging.getLogger("h2o3_tpu_torch")
+    said = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda r: said.append(r.getMessage())
+    log_.addHandler(handler)
+    torch.cuda.set_per_process_memory_fraction(frac)
+    try:
+        est = H2OGradientBoostingEstimator(
+            ntrees=STREAM_DEGRADE_TREES, max_depth=D,
+            distribution="bernoulli", learn_rate=0.1, seed=7, min_rows=1.0,
+            **PATHS["packed"]["params"])
+        t0 = time.perf_counter()
+        est.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+        degrade_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_reserved()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        log_.removeHandler(handler)
+    m = est.model
+    warned = [s for s in said if "degrading to the streamed" in s]
+    if not m.output.get("streamed") or len(warned) != 1:
+        raise AssertionError(f"degrade: streamed {m.output.get('streamed')}, "
+                             f"warnings {said}")
+    same_trees(m.trees, res["model"].trees, "degrade vs resident",
+               n=STREAM_DEGRADE_TREES)
+    whole_weight("streamed degrade", m.trees, rows, D)
+    print(f"streamed degrade: dense train of {rows}x{F} under a cap of "
+          f"{frac:.4f} of {total} bytes ({held} held + "
+          f"{STREAM_DEGRADE_HEADROOM}) ran out of memory and completed "
+          f"streamed in {degrade_s!r} s ({STREAM_DEGRADE_TREES} trees, "
+          f"warning: {warned[0][:160]!r}), trees equal the resident "
+          f"train's; stream_profile {json.dumps(m.output['stream_profile'])}"
+          f" train_profile {json.dumps(m.output['train_profile'])}; peak "
+          f"reserved {peak} [{card}]", flush=True)
+    return out
+
+
 class PhaseClock:
     """Wall seconds of each phase of the run (the cost of each phase)."""
 
@@ -6583,9 +6914,13 @@ def main() -> int:
     clock.lap("8f constraints")
     cv = phase_cv(card, fr, multi["frame"])
     clock.lap("8g cv, balance, calibration")
+    # 8h. item 13: the streamed GBM, against the dense packed train
+    streamed = phase_streaming(card, fr, packed, adaptive)
+    clock.lap("8h streaming")
     for kernel, extra in phase_deep_record(dev).items():
         by_name[kernel].update(extra)
-    slice20 = {**resumed, "constrained_packed": constrained, **cv}
+    slice20 = {**resumed, "constrained_packed": constrained, **cv,
+               **streamed}
     for path, launches in {**sampling, **forests, **slice20}.items():
         for kernel in ("binned_level", "binned_route_only",
                        "segment_totals", "adaptive_level",

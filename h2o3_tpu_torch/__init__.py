@@ -26,7 +26,10 @@ EasyPredict row API (``h2o3_tpu_torch.genmodel``). Models save and load
 (``save_model``, ``load_model``: the JAX package's artifact) and
 continue from a checkpoint; the GBM takes monotone and interaction
 constraints; the builders cross-validate, balance classes and
-calibrate. ROADMAP.md queues the rest.
+calibrate. A frame whose design matrix passes the device budget
+(``memman``) trains the GBM and XGBoost out of core, row chunks
+streamed through the card (``models/streaming.py``). ROADMAP.md queues
+the rest.
 """
 from h2o3_tpu_torch._device import init
 from h2o3_tpu_torch.frame.frame import Frame

@@ -114,6 +114,10 @@ class Frame:
         return list(self._names)
 
     @property
+    def vecs(self) -> List[Vec]:
+        return list(self._vecs)
+
+    @property
     def types(self) -> Dict[str, str]:
         return {n: v.type for n, v in zip(self._names, self._vecs)}
 
@@ -144,6 +148,10 @@ class Frame:
         keep = [(n, v) for n, v in zip(self._names, self._vecs)
                 if n not in drop]
         return Frame([n for n, _ in keep], [v for _, v in keep])
+
+    def rename(self, mapping: Dict[str, str]) -> "Frame":
+        """The same columns, those in ``mapping`` under their new names."""
+        return Frame([mapping.get(n, n) for n in self._names], self._vecs)
 
     def cbind(self, other: "Frame") -> "Frame":
         return Frame(self._names + other._names, self._vecs + other._vecs)
@@ -211,6 +219,14 @@ class Frame:
                         if v.type == T_ENUM else raw)
         return (np.stack(cols, axis=1) if cols
                 else np.empty((self.nrow, 0)))
+
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        """{name: ``Vec.to_numpy()``} in column order."""
+        return {n: v.to_numpy() for n, v in zip(self._names, self._vecs)}
+
+    def summary(self) -> Dict[str, dict]:
+        """{name: the column's rollups}."""
+        return {n: v.rollups() for n, v in zip(self._names, self._vecs)}
 
     def as_matrix(self, names: Optional[Sequence[str]] = None):
         """float32 [nrow, ncol] matrix on the frame's device (enum codes as

@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch import memman
+
 T_REAL = "real"
 T_INT = "int"
 T_ENUM = "enum"
@@ -51,6 +53,11 @@ class Vec:
         self._device = data.device if data is not None else _indexed(
             torch.device(device or "cpu"))
         self._rollups = None
+        # the payload counts against the device budget while the Vec
+        # lives (memman.py)
+        self._memblock = (memman.manager().register(
+            data.numel() * data.element_size()) if data is not None
+            else None)
 
     # ---------------------------------------------------------- construction
 

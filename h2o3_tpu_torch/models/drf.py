@@ -34,8 +34,12 @@ from it equals the uninterrupted one in trees and out-of-bag metrics.
 Class balancing, calibration and cross-validation (A7) come from the
 builder (``models/model_base.py``).
 
-Refused as in the JAX package: ``offset_column``, ``max_depth`` past 16
-and ``staged_predict_proba``. Not ported yet: contributions (item 16).
+The reference's compatibility-only parameters (``DRF_COMPAT_PARAMS``)
+are accepted, as the JAX package accepts them, with a warning at
+``train()`` for each one set away from its default. Refused as in the
+JAX package: ``offset_column``, ``max_depth`` past 16,
+``staged_predict_proba``, and a frame past the device budget (the
+forest has no streamed path). Not ported yet: contributions (item 16).
 """
 from __future__ import annotations
 
@@ -77,6 +81,17 @@ DRF_DEFAULTS: Dict = dict(
     checkpoint=None, in_training_checkpoints_dir=None,
     in_training_checkpoints_tree_interval=1,
     histogram_precision="auto", packed_codes="auto",
+)
+
+# the reference's DRF parameters that the JAX package accepts for API
+# compatibility and does not act on (h2o3_tpu/models/compat_params.py):
+# merged into every estimator's parameters; train() warns for each one
+# set away from its default
+DRF_COMPAT_PARAMS: Dict = dict(
+    max_confusion_matrix_size=20, nbins_top_level=1024, r2_stopping=None,
+    build_tree_one_node=False, binomial_double_trees=False,
+    categorical_encoding="auto", distribution="auto",
+    check_constant_response=True,
 )
 
 # the JAX package's refusals
@@ -195,12 +210,15 @@ class DRFModel(Model):
 
 class H2ORandomForestEstimator(ModelBuilder):
     algo = "drf"
+    compat_params = DRF_COMPAT_PARAMS
 
     def __init__(self, **params):
         refuse_params("drf", params,
                       set(DRF_DEFAULTS) | BUILDER_PARAMS
-                      | set(BALANCE_DEFAULTS) | set(CALIBRATION_DEFAULTS))
+                      | set(BALANCE_DEFAULTS) | set(CALIBRATION_DEFAULTS)
+                      | set(DRF_COMPAT_PARAMS))
         merged = dict(DRF_DEFAULTS)
+        merged.update(DRF_COMPAT_PARAMS)
         merged.update(BALANCE_DEFAULTS)
         merged.update(CALIBRATION_DEFAULTS)
         merged.update(params)

@@ -47,11 +47,24 @@ reference as ``checkpoint`` raises ``NotImplementedError`` naming
 ROADMAP.md item 18. The reference's compatibility-only parameters
 (``GBM_COMPAT_PARAMS``) are accepted, as the JAX package accepts them,
 with a warning at ``train()`` for each one set away from its default.
+
+Out of core (ROADMAP.md item 13): a frame whose design matrix passes the
+device budget (``memman``) trains streamed (``_train_streaming``, the
+JAX package's): binned once on the host, then each tree over row chunks
+(``models/streaming.py``) with the same kernels. The JAX package's
+streamed trainer refuses a multinomial response, a validation frame, an
+offset, ``sample_rate_per_class``, a per-level column rate, huber and the
+constraints, and so does the port's. A dense train that runs out of the
+card's memory degrades to the streamed trainer with a warning
+(``_degrade_to_streaming``); where that refuses the configuration, the
+out-of-memory error is raised again.
 """
 from __future__ import annotations
 
 import os
 import time
+import traceback
+from dataclasses import replace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -75,18 +88,25 @@ from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
                                         binned_feasible,
                                         bins_to_thresholds_stacked,
                                         grow_tree, grow_tree_adaptive,
+                                        grow_tree_adaptive_streamed,
                                         grow_tree_binned,
+                                        grow_tree_binned_streamed,
+                                        levels_per_pass,
                                         packed_bins_upper_bound,
                                         packed_codes_requested,
                                         predict_binned, predict_raw_margin,
                                         predict_raw_tree, tree_config,
                                         tree_sample)
 from h2o3_tpu_torch.log import warn
-from h2o3_tpu_torch.ops.binning import (bin_matrix_device,
+from h2o3_tpu_torch.ops.binning import (PackedCodes, _edges_host,
+                                        bin_matrix_device,
+                                        digitize_codes_host,
                                         digitize_with_edges, pack_codes,
                                         pack_codes_for, packed_codes_record)
-from h2o3_tpu_torch.ops.random import fold_in, split, train_key
+from h2o3_tpu_torch.ops.random import (fold_in, prng_key, split, train_key,
+                                       uniform_below)
 from h2o3_tpu_torch.persist import register_model_class
+from h2o3_tpu_torch.resilience import is_oom
 
 # feature layout of the adaptive level kernels on the training path:
 # "rows_f" ([rows, F], the training matrix as it is) or "f_rows"
@@ -524,6 +544,11 @@ class GBMModel(Model):
         m._resume_sig = arrays.get("resume_sig")
         return m
 
+    def varimp(self, use_pandas=False):
+        """The variable importances: split gains summed per feature
+        (``output["variable_importances"]``)."""
+        return self.output.get("variable_importances")
+
     def _margin_matrix(self, X: torch.Tensor,
                        offset: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -552,6 +577,7 @@ class GBMModel(Model):
 class H2OGradientBoostingEstimator(ModelBuilder):
     algo = "gbm"
     compat_params = GBM_COMPAT_PARAMS
+    supports_streaming = True
 
     def __init__(self, **params):
         check_params(params)
@@ -644,8 +670,44 @@ class H2OGradientBoostingEstimator(ModelBuilder):
 
     def _train_impl(self, spec: TrainingSpec,
                     valid: Optional[TrainingSpec] = None) -> GBMModel:
-        p = self.params
         dist_name = self._distribution(spec)
+        if spec.stream:
+            return self._train_streaming(spec, valid, dist_name)
+        try:
+            return self._train_dense(spec, valid, dist_name)
+        except Exception as e:  # noqa: BLE001 — classified below
+            if not is_oom(e):
+                raise
+            cause = e
+        return self._degrade_to_streaming(spec, valid, dist_name, cause)
+
+    def _degrade_to_streaming(self, spec: TrainingSpec, valid, dist_name,
+                              cause: BaseException) -> GBMModel:
+        """The dense train ran out of device memory: train streamed
+        instead, from the design matrix brought back to the host (the
+        JAX package's graceful degradation). The failed train's frames
+        and torch's cached blocks are let go first, or the retry can run
+        out too. Where the streamed trainer refuses the configuration,
+        the out-of-memory error is raised again, the refusal chained."""
+        warn("%s: device OOM during dense training (%s: %s) — degrading "
+             "to the streamed resident-window path", self.algo,
+             type(cause).__name__, cause)
+        # the traceback holds the failed train's tensors
+        traceback.clear_frames(cause.__traceback__)
+        host_spec = replace(spec, X=None, X_host=spec.X.cpu().numpy(),
+                            stream=True)
+        if spec.device.type == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            return self._train_streaming(host_spec, valid, dist_name)
+        except NotImplementedError as e2:
+            warn("%s: streamed fallback unavailable (%s) — re-raising the "
+                 "device OOM", self.algo, e2)
+            raise cause from e2
+
+    def _train_dense(self, spec: TrainingSpec, valid: Optional[TrainingSpec],
+                     dist_name: str) -> GBMModel:
+        p = self.params
         K = spec.nclasses if spec.nclasses > 2 else 1
         if spec.offset is not None and K > 1:
             raise NotImplementedError(MULTINOMIAL_OFFSET)
@@ -849,6 +911,233 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         if dist is not None and dist.name == "huber":
             # the transition point the trees were grown with
             model.output["huber_delta"] = float(dist.delta)
+        return model
+
+    def _refuse_streaming(self, spec: TrainingSpec, valid, dist_name):
+        """What the JAX package's streamed trainer refuses, with its
+        exception type and words."""
+        p = self.params
+        if spec.nclasses > 2:
+            raise NotImplementedError(
+                "multinomial GBM is not supported in streaming "
+                "(memory-pressure) mode; raise H2O3_DEVICE_BUDGET_BYTES "
+                "or reduce the frame")
+        if valid is not None:
+            raise NotImplementedError(
+                "validation_frame is not supported in streaming mode")
+        if spec.offset is not None:
+            raise NotImplementedError(
+                "offset_column is not supported in streaming mode")
+        if p.get("sample_rate_per_class"):
+            raise NotImplementedError(
+                "sample_rate_per_class is not supported in streaming mode")
+        if float(p.get("col_sample_rate_change_per_level", 1.0)
+                 or 1.0) != 1.0:
+            raise NotImplementedError(
+                "col_sample_rate_change_per_level is not supported in "
+                "streaming mode")
+        if dist_name == "huber":
+            raise NotImplementedError(
+                "huber distribution is not supported in streaming mode "
+                "(its delta re-estimation needs the dense path)")
+        if p.get("monotone_constraints") or p.get("interaction_constraints"):
+            raise NotImplementedError(
+                "monotone/interaction constraints are not supported in "
+                "streaming mode")
+
+    def _train_streaming(self, spec: TrainingSpec, valid, dist_name: str
+                         ) -> GBMModel:
+        """The memory-pressure train (the JAX package's
+        ``_train_streaming``): the design matrix stays on the host
+        (``spec.X_host``), is binned there once (packed codes, where
+        packing holds the bins) or kept as float32 features (adaptive
+        bins), and every tree streams its row chunks through the level
+        kernels (``models/streaming.StreamedChunks``). The chunks are
+        ``budget / (4·F·bytes a value)`` rows, at least 16384. Tree t
+        draws from ``fold_in(PRNGKey(seed), t)`` (seed -1 -> 0), its
+        rows from that key and its columns from ``fold_in(key_t, 1)``,
+        counted over the whole model, prior trees included. A checkpoint
+        resumes from its exact float32 margin, or from the prior's trees
+        summed chunk by chunk; in-training checkpoints carry the margin.
+        A cancel seen between levels ends the train at the committed
+        trees."""
+        from h2o3_tpu_torch import memman
+        from h2o3_tpu_torch.models.streaming import (StreamCancelled,
+                                                     StreamedChunks)
+        self._refuse_streaming(spec, valid, dist_name)
+        p = self.params
+        dist = self._dist(dist_name)
+        dev = spec.device
+        rows, F = spec.nrow, spec.n_features
+        depth = int(p["max_depth"])
+        X_host = np.ascontiguousarray(spec.X_host[:rows], dtype=np.float32)
+        y_host = spec.y.to(torch.float32).cpu().numpy()
+        w_host = spec.w.to(torch.float32).cpu().numpy()
+        budget = memman.manager().budget
+        t_bin0 = time.monotonic()
+        # packed codes binned once on the host (the edge rules first: a
+        # bin count packing cannot hold builds no code matrix)
+        hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
+        packed = packed_codes_requested(p) and hist_type != "random"
+        if packed:
+            try:
+                edges, n_bins_eff = _edges_host(
+                    X_host, rows, spec.is_cat, max(int(p["nbins"]), 2),
+                    int(p.get("nbins_cats", 1024)), hist_type)
+                packed = binned_feasible(n_bins_eff, F, depth)
+            except ValueError:
+                packed = False
+        W = None
+        if packed:
+            x_stream, W = digitize_codes_host(X_host, edges, n_bins_eff)
+            cfg = tree_config(p, depth, n_bins_eff, F)
+        else:
+            cfg, root_lo, root_hi, nb_f = adaptive_setup(spec, p, depth)
+            x_stream = X_host
+        t_bin = time.monotonic() - t_bin0
+        itemsize = int(x_stream.dtype.itemsize)
+        chunk_rows = int(max(min(budget // max(F * itemsize * 4, 1), rows),
+                             16384))
+        prior = self._resolve_checkpoint(dist_name, spec)
+        start_trees = prior.ntrees_built if prior is not None else 0
+        margin0 = None
+        if prior is not None:
+            f0 = float(np.asarray(prior.f0).reshape(-1)[0])
+            rm = getattr(prior, "_resume_margin", None)
+            m = (resume_rows(rm, spec, 1, getattr(prior, "_resume_sig", None),
+                             "resume margin") if rm is not None else None)
+            if m is not None:
+                margin0 = m.cpu().numpy()
+            else:
+                # the prior's trees summed chunk by chunk: the whole host
+                # matrix never goes to the device at once
+                margin0 = np.empty(rows, np.float32)
+                for s0 in range(0, rows, chunk_rows):
+                    e0 = min(s0 + chunk_rows, rows)
+                    margin0[s0:e0] = prior._margin_matrix(torch.as_tensor(
+                        X_host[s0:e0], device=dev)).cpu().numpy()
+        else:
+            f0 = float(dist.init_f0(spec.y.to(torch.float32), spec.w))
+        ntrees_new = int(p["ntrees"]) - start_trees
+        if ntrees_new < 1:
+            raise ValueError(f"gbm: ntrees must be >= 1, got {p['ntrees']}")
+        anneal = float(p.get("learn_rate_annealing", 1.0) or 1.0)
+        lr = float(p["learn_rate"]) * anneal ** start_trees
+        col_rate = (float(p.get("col_sample_rate", 1.0))
+                    * float(p.get("col_sample_rate_per_tree", 1.0)))
+        rate = float(p.get("sample_rate", 1.0))
+        seed = int(p.get("seed", -1) or -1)
+        key = prng_key(seed if seed != -1 else 0)
+        chunks = StreamedChunks(x_stream, y_host, w_host, f0, chunk_rows,
+                                dev, padded_rows=rows, margin0=margin0,
+                                packed_W=W)
+        trees: List[dict] = []
+        commits: List[Dict] = []
+
+        def build_model(done) -> GBMModel:
+            th = {k: np.stack([t[k] for t in done]) for k in done[0]
+                  if k != "gain"}
+            th["value"] = th["value"].astype(np.float32)
+            if prior is not None:
+                th = merge_prior_trees(prior.trees, th)
+            m = GBMModel(self._model_key(), p, spec.names, spec.nclasses,
+                         dist_name, np.float32(f0), th, [], cfg.n_bins,
+                         cfg.max_depth, start_trees + len(done), dev,
+                         response=spec.response,
+                         response_domain=spec.response_domain,
+                         is_cat=spec.is_cat, cat_domains=spec.cat_domains)
+            m.output["variable_importances"] = merged_importances(
+                spec.names, np.stack([t["feat"] for t in done]),
+                np.stack([t["gain"] for t in done]), prior)
+            return m
+
+        ckpt_dir = p.get("in_training_checkpoints_dir")
+        ckpt_interval = max(int(
+            p.get("in_training_checkpoints_tree_interval", 1) or 1), 1)
+
+        def commit():
+            # advisory: a failed commit is logged, the train goes on
+            t_c0 = time.monotonic()
+            try:
+                m = build_model(trees)
+                path = self._write_in_training_checkpoint(
+                    m, torch.from_numpy(chunks.gather_margin()), ckpt_dir,
+                    spec)
+            except Exception as e:  # noqa: BLE001 — advisory only
+                warn("%s: streamed in-training checkpoint commit failed: "
+                     "%s", self.algo, e)
+                return
+            commits.append({"trees": start_trees + len(trees),
+                            "path": path,
+                            "seconds": time.monotonic() - t_c0,
+                            "bytes": (os.path.getsize(path) if path
+                                      else None)})
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        since_ckpt = 0
+        for t in range(ntrees_new):
+            # the key of the tree's index in the whole model
+            tkey = fold_in(key, start_trees + t)
+            col_mask = (uniform_below(fold_in(tkey, 1), F, col_rate, dev)
+                        if col_rate < 1.0 else None)
+            lr32 = float(np.float32(lr))
+            try:
+                if packed:
+                    tree = grow_tree_binned_streamed(
+                        chunks, dist, lr32, cfg, edges, key=tkey,
+                        sample_rate=rate, col_mask=col_mask)
+                else:
+                    tree = grow_tree_adaptive_streamed(
+                        chunks, dist, lr32, cfg, root_lo, root_hi, nb_f,
+                        key=tkey, sample_rate=rate, col_mask=col_mask)
+            except StreamCancelled:
+                # a cancel lands before a tree's leaf pass: its margins
+                # are those of the committed trees
+                break
+            # leaf values scaled by the tree's rate in float64, rounded
+            # once to float32 (the dense finalize's product)
+            tree["value"] = tree["value"].astype(np.float64) * lr
+            trees.append(tree)
+            since_ckpt += 1
+            lr *= anneal
+            if ckpt_dir and since_ckpt >= ckpt_interval \
+                    and len(trees) < ntrees_new:
+                commit()
+                since_ckpt = 0
+        if not trees:
+            raise StreamCancelled(
+                "cancelled before the first streamed tree completed")
+        margin = torch.as_tensor(chunks.gather_margin(), device=dev)
+        t_loop = time.monotonic() - t0
+        t_fin0 = time.monotonic()
+        if ckpt_dir:
+            commit()
+        model = build_model(trees)
+        model.training_metrics = self._metrics_from_margin(margin, spec,
+                                                           dist)
+        T = len(trees)
+        model.output["training_loop_seconds"] = t_loop
+        model.output["streamed"] = True
+        model.output["packed_codes"] = packed_codes_record(
+            PackedCodes(torch.from_numpy(x_stream[:0]), W) if packed
+            else None, cfg.n_bins)
+        lpp = levels_per_pass(cfg.max_depth, F, W) if packed else 1
+        model.output["levels_per_dispatch"] = int(
+            lpp if chunks.C == 1 else 1)
+        sp = chunks.profile()
+        sp["trees"] = T
+        sp["levels_per_pass"] = int(lpp)
+        # the steady traffic a tree, without the once-a-train window
+        sp["h2d_bytes_per_tree"] = (sp["h2d_bytes"]
+                                    - sp["h2d_resident_bytes"]) / T
+        model.output["stream_profile"] = sp
+        if commits:
+            model.output["checkpoints"] = commits
+        model.output["train_profile"] = {
+            "bin_s": t_bin, "loop_s": t_loop, "score_s": 0.0,
+            "finalize_s": time.monotonic() - t_fin0}
         return model
 
     def _finalize(self, spec, dist_name, f0, trees, bm, cfg, dev, K, built,

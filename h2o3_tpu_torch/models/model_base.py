@@ -1,15 +1,24 @@
 """Model / ModelBuilder — the spine every algorithm of the port shares.
 
 Counterpart of ``h2o3_tpu/models/model_base.py`` without jobs, the
-keyed store, telemetry, recovery or streaming. A builder resolves a
+keyed store, telemetry or recovery. A builder resolves a
 ``TrainingSpec`` from the training frame on the frame's device (and one
 from a validation frame, adapted to it), applies class balancing to its
 weights, trains there, fits the calibration and runs the
 cross-validation folds, and returns a ``Model`` whose ``predict`` scores
-a frame on that frame's device. ``ScoreKeeper`` keeps the scoring
-history and decides early stopping. The persistence hooks
-(``_save_arrays``, ``_save_extra_meta``, ``_restore``) serve
-``h2o3_tpu_torch.persist`` and the in-training checkpoints.
+a frame on that frame's device, and whose ``model_performance`` and
+h2o-py accessors (``auc``, ``logloss``, ``rmse``, ``mse``, ``mae``,
+``r2``) read its metrics. ``ScoreKeeper`` keeps the scoring history and
+decides early stopping. The persistence hooks (``_save_arrays``,
+``_save_extra_meta``, ``_restore``) serve ``h2o3_tpu_torch.persist`` and
+the in-training checkpoints.
+
+The memory gate (``build_training_spec``): a design matrix that would
+pass the device budget on top of the column payloads already there
+(``memman``) stays on the host as ``TrainingSpec.X_host``, with
+``stream`` set; a builder whose ``supports_streaming`` is set (the GBM
+and the XGBoost estimator) then trains on row chunks
+(``models/streaming.py``), any other raises.
 """
 from __future__ import annotations
 
@@ -21,8 +30,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch import memman
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.frame.vec import T_ENUM, Vec
+from h2o3_tpu_torch.frame.vec import T_ENUM, T_STR, Vec
 from h2o3_tpu_torch.log import warn
 from h2o3_tpu_torch.models import metrics as metrics_mod
 
@@ -48,7 +58,7 @@ DKV_REFUSED = ("is not ported yet: the keyed store comes with ROADMAP.md "
 @dataclass
 class TrainingSpec:
     """Resolved training inputs on the training frame's device."""
-    X: torch.Tensor              # [nrow, F] float32, NaN = NA
+    X: Optional[torch.Tensor]    # [nrow, F] float32, NaN = NA; None if stream
     y: torch.Tensor              # [nrow] float32 (reg) / int32 codes
     w: torch.Tensor              # [nrow] float32; 0 on NA-response rows
     names: List[str]
@@ -59,6 +69,11 @@ class TrainingSpec:
     response_domain: Optional[tuple]
     nclasses: int                # 1 = regression
     offset: Optional[torch.Tensor] = None   # [nrow] float32, NaN -> 0
+    # memory-pressure mode (memman.fits_device said no): the design
+    # matrix stays on the host as float32 numpy [nrow, F] and X is None;
+    # y, w and the offset stay on the device
+    X_host: Optional[np.ndarray] = None
+    stream: bool = False
 
     @property
     def n_features(self) -> int:
@@ -66,7 +81,7 @@ class TrainingSpec:
 
     @property
     def device(self) -> torch.device:
-        return self.X.device
+        return self.y.device
 
 
 def build_training_spec(frame: Frame, y: str,
@@ -90,7 +105,17 @@ def build_training_spec(frame: Frame, y: str,
         classification = rvec.type == T_ENUM
     if classification and rvec.type != T_ENUM:
         rvec = rvec.asfactor()
-    X = frame.as_matrix(names)
+    # the memory gate: the design matrix is a fresh copy on top of the
+    # column payloads already on the device (the frame's own count)
+    mm = memman.manager()
+    est_bytes = (frame.nrow + 256) * max(len(names), 1) * 4
+    stream = not mm.fits_device(est_bytes
+                                + mm.stats()["device_resident_bytes"])
+    if stream:
+        X, X_host = None, _host_matrix(frame, names)
+    else:
+        mm.request(est_bytes)
+        X, X_host = frame.as_matrix(names), None
     is_cat = [frame.vec(n).type == T_ENUM for n in names]
     cat_domains = {n: frame.vec(n).domain for n in names
                    if frame.vec(n).type == T_ENUM}
@@ -114,7 +139,31 @@ def build_training_spec(frame: Frame, y: str,
     return TrainingSpec(X=X, y=y_dev, w=w, names=names, is_cat=is_cat,
                         cat_domains=cat_domains, nrow=frame.nrow,
                         response=y, response_domain=response_domain,
-                        nclasses=nclasses, offset=offset)
+                        nclasses=nclasses, offset=offset, X_host=X_host,
+                        stream=stream)
+
+
+_HOST_BLOCK = 1 << 20
+
+
+def _host_matrix(frame: Frame, names) -> np.ndarray:
+    """The design matrix on the host, float32 [nrow, F] (``as_matrix``'s
+    values: enum codes as floats, NA -> NaN, a string column all NaN),
+    for the streamed train. It stays pageable: the stream copies each
+    chunk through pinned staging buffers of its own, so no call pins a
+    frame-sized matrix."""
+    out = np.empty((frame.nrow, len(names)), np.float32)
+    cols = [None if frame.vec(n).type == T_STR else frame.vec(n).as_float()
+            for n in names]
+    # a block of rows at a time: the device holds one [block, F] matrix,
+    # the host takes it in one contiguous copy
+    for s in range(0, frame.nrow, _HOST_BLOCK):
+        e = min(s + _HOST_BLOCK, frame.nrow)
+        nan = torch.full((e - s,), torch.nan, dtype=torch.float32,
+                         device=frame.device)
+        out[s:e] = torch.stack([nan if c is None else c[s:e] for c in cols],
+                               dim=1).cpu().numpy()
+    return out
 
 
 def _offset(frame: Frame, offset_column: str) -> torch.Tensor:
@@ -352,6 +401,48 @@ class Model:
         return (p / p.sum(dim=1, keepdim=True).clamp(min=1e-12)).to(
             probs.dtype)
 
+    def model_performance(self, frame: Optional[Frame] = None):
+        """The training metrics, or a frame's: its response remapped
+        through the training response domain (an unseen label and NA
+        take weight 0), the frame's offset applied, as the JAX package
+        scores it (the rows' weights column is not read there either)."""
+        if frame is None:
+            return self.training_metrics
+        out = self._predict_matrix(adapt_test_matrix(self, frame),
+                                   offset=self._frame_offset(frame))
+        if self.nclasses > 1:
+            y, w = response_codes_in_domain(frame, self.response,
+                                            self.response_domain)
+            return compute_metrics(self._correct_probabilities(out), y, w,
+                                   self.nclasses)
+        spec_like = build_training_spec(frame, self.response,
+                                        classification=False)
+        return compute_metrics(out, spec_like.y, spec_like.w, 1)
+
+    # -- h2o-py accessors ----------------------------------------------
+
+    def _metric(self, name: str, valid: bool = False):
+        m = self.validation_metrics if valid else self.training_metrics
+        return getattr(m, name, None)
+
+    def auc(self, valid: bool = False):
+        return self._metric("auc", valid)
+
+    def logloss(self, valid: bool = False):
+        return self._metric("logloss", valid)
+
+    def rmse(self, valid: bool = False):
+        return self._metric("rmse", valid)
+
+    def mse(self, valid: bool = False):
+        return self._metric("mse", valid)
+
+    def mae(self, valid: bool = False):
+        return self._metric("mae", valid)
+
+    def r2(self, valid: bool = False):
+        return self._metric("r2", valid)
+
     def predict(self, frame: Frame) -> Frame:
         """Score a frame on its device: regression -> 'predict';
         classification -> 'predict' plus one probability column per
@@ -532,6 +623,9 @@ class ModelBuilder:
     # parameters accepted for the reference API and not acted on, with
     # their defaults: train() warns for each one set away from it
     compat_params: Dict = {}
+    # builders with a streamed (memory-pressure) path for spec.stream;
+    # the others refuse a frame past the device budget
+    supports_streaming = False
 
     def __init__(self, **params):
         self.params = dict(params)
@@ -633,6 +727,10 @@ class ModelBuilder:
         self._class_dists = None
         if not self.params.get("balance_classes") or spec.nclasses < 2:
             return spec
+        if spec.stream:
+            raise NotImplementedError(
+                "balance_classes is not supported in streaming "
+                "(memory-pressure) mode")
         K = spec.nclasses
         yc = torch.clamp(spec.y.long(), 0, K - 1)
         counts = torch.stack([(spec.w * (yc == k)).sum() for k in range(K)])
@@ -682,6 +780,12 @@ class ModelBuilder:
         spec = self._apply_balance_classes(spec)
         if self.params.get("calibrate_model"):
             self._validate_calibration(spec)
+        if spec.stream and not self.supports_streaming:
+            raise NotImplementedError(
+                f"{self.algo}: the training frame exceeds the device memory "
+                f"budget and this algorithm has no streaming "
+                f"(memory-pressure) path — raise H2O3_DEVICE_BUDGET_BYTES, "
+                f"reduce the frame, or use GBM/XGBoost/GLM which stream")
         valid = None
         if validation_frame is not None:
             valid = build_validation_spec(

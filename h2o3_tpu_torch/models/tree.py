@@ -635,10 +635,23 @@ def adaptive_setup(spec, params, max_depth: int, mtries: int = 0):
                     spec.n_features, mtries),
         random_grid=str(params.get("histogram_type", "")).lower()
         == "random")
-    root_lo = _nan_extreme(spec.X, largest=False)
-    root_hi = _nan_extreme(spec.X, largest=True)
-    cat = torch.as_tensor(spec.is_cat, dtype=torch.bool,
-                          device=spec.X.device)
+    if spec.X is None:
+        # a streamed train: the ranges of the host matrix
+        dev = spec.device
+        fin = np.isfinite(spec.X_host)
+        lo = np.where(fin, spec.X_host, np.inf).min(axis=0, initial=np.inf)
+        hi = np.where(fin, spec.X_host, -np.inf).max(axis=0,
+                                                     initial=-np.inf)
+        any_fin = fin.any(axis=0)
+        root_lo = torch.as_tensor(np.where(any_fin, lo, 0.0)
+                                  .astype(np.float32), device=dev)
+        root_hi = torch.as_tensor(np.where(any_fin, hi, 0.0)
+                                  .astype(np.float32), device=dev)
+    else:
+        dev = spec.X.device
+        root_lo = _nan_extreme(spec.X, largest=False)
+        root_hi = _nan_extreme(spec.X, largest=True)
+    cat = torch.as_tensor(spec.is_cat, dtype=torch.bool, device=dev)
     span = torch.clamp(root_hi - root_lo, min=1.0)
     nb_f = torch.where(cat, torch.clamp(span, max=float(nbins_cats)),
                        float(nbins)).to(torch.float32)
@@ -655,11 +668,14 @@ def _fused_mul_add(a, b, c):
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
-def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int):
+def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int,
+                 fused: bool = True):
     """The next level's [2N, F] ranges: each node's range narrowed to its
     occupied bins (within one bin width), then cut at the split point on
     the split feature. ``hist_w`` is the level's w histogram
-    [N, F, W]."""
+    [N, F, W]. ``fused`` computes ``lo + bin · width`` with one rounding,
+    as the JAX package's compiled dense grower does; its streamed grower
+    runs eagerly, op by op, and rounds twice (``fused=False``)."""
     N, F = lo_d.shape
     occ = hist_w[..., :W - 1] > 0                     # real bins only
     occ8 = occ.to(torch.uint8)      # argmax takes no bool; first max wins
@@ -667,8 +683,13 @@ def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int):
     last = (W - 2) - torch.argmax(occ8.flip(-1), dim=-1)
     width = torch.where(inv_d > 0, 1.0 / torch.clamp(inv_d, min=1e-30),
                         0.0)
-    lo_n = _fused_mul_add(first, width, lo_d)
-    hi_n = torch.minimum(_fused_mul_add(last + 1, width, lo_d), hi_d)
+    if fused:
+        lo_n = _fused_mul_add(first, width, lo_d)
+        hi_n = torch.minimum(_fused_mul_add(last + 1, width, lo_d), hi_d)
+    else:
+        lo_n = lo_d + first.to(torch.float32) * width
+        hi_n = torch.minimum(lo_d + (last + 1).to(torch.float32) * width,
+                             hi_d)
     any_occ = occ.any(dim=-1)
     lo_n = torch.where(any_occ, lo_n, lo_d)
     hi_n = torch.where(any_occ, hi_n, hi_d)
@@ -801,6 +822,275 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     value[baseD:] = cons.clip(torch.stack([vl_s, vr_s], dim=1).reshape(ND))
     node_w[baseD:] = torch.stack([wl_s, wr_s], dim=1).reshape(ND)
     return tree(), nid
+
+
+# ------------------------------------------------------- streamed growers
+#
+# The out-of-core GBM (ROADMAP.md item 13): trees grown over the row
+# chunks of ``models/streaming.StreamedChunks``, as the JAX package's
+# streamed growers grow them. A level's histogram is the sum of the
+# chunks' histograms, added in chunk order; the deepest level's leaf
+# totals the same. The kernels are the in-memory growers', launched per
+# chunk.
+
+# The auto rule's cap on the levels a window covers. A window batches
+# the host's fetch of the split records (one copy at its end); no
+# histogram outlives its level, so no cache or memory size bounds L on
+# the card. The JAX package bounds its window by its TPU kernel's VMEM
+# instead. Trees do not depend on L.
+MAX_LEVELS_PER_PASS = 4
+
+
+def levels_per_pass(max_depth: int, n_features: int, W: int) -> int:
+    """How many consecutive levels one window of the streamed packed
+    grower covers (``H2O3_LEVELS_PER_PASS``): an integer is clamped to
+    [1, max_depth], 1 being one level a window; unset or ``auto``,
+    ``min(MAX_LEVELS_PER_PASS, max_depth)``. ``n_features`` and ``W``
+    keep the JAX package's signature."""
+    D = max(1, int(max_depth))
+    raw = os.environ.get("H2O3_LEVELS_PER_PASS", "").strip().lower()
+    if raw and raw != "auto":
+        return max(1, min(int(raw), D))
+    return min(MAX_LEVELS_PER_PASS, D)
+
+
+_RECORD_KEYS = ("feat", "bin", "nal", "can", "val", "gain", "w")
+
+
+def _level_record(sel, can, cfg: TreeConfig) -> torch.Tensor:
+    """A level's split record as one float64 [7, N] tensor (feat -1
+    where the node does not split, bin, na_left, can, value, gain, w),
+    so that a window's records come home in one copy; every field is
+    exact in float64."""
+    bg, bf, bb, bnl = sel[0], sel[1], sel[2], sel[3]
+    gt, ht, wt = sel[4], sel[5], sel[6]
+    return torch.stack([torch.where(can, bf, -1).double(), bb.double(),
+                        bnl.double(), can.double(),
+                        _leaf_value(gt, ht, cfg).double(),
+                        torch.where(can, bg, 0.0).double(), wt.double()])
+
+
+def _store_records(recs, d0: int, arrays) -> None:
+    """One host copy of a window's records (levels d0, d0+1, ...) into
+    the tree's host arrays (``_host_tree``)."""
+    host = torch.cat(recs, dim=1).cpu().numpy()
+    at = 0
+    for j in range(len(recs)):
+        N = 1 << (d0 + j)
+        idx = slice(N - 1, 2 * N - 1)
+        for key, row in zip(_RECORD_KEYS, host[:, at:at + N]):
+            arrays[key][idx] = row
+        at += N
+
+
+def _streamed_stump(chunks, dist, lr: float, cfg: TreeConfig):
+    """A depth-0 streamed tree: the (g, h, w) totals over the chunks (one
+    host copy a chunk, added in float64 in chunk order), one root leaf,
+    applied with no feature read."""
+    gs = hs = ws = 0.0
+    for ch in chunks.level_pass(need_x=False):
+        ghw = ch.ghw(dist)
+        s3 = ghw.sum(dim=1).cpu().tolist()
+        gs += s3[0]
+        hs += s3[1]
+        ws += s3[2]
+    v0 = float(_leaf_value(torch.tensor(gs, dtype=torch.float32),
+                           torch.tensor(hs, dtype=torch.float32), cfg))
+    tree = {"feat": np.full(1, -1, np.int32), "thr": np.zeros(1, np.float32),
+            "na_left": np.zeros(1, bool), "is_split": np.zeros(1, bool),
+            "value": np.array([v0], np.float32),
+            "gain": np.zeros(1, np.float32),
+            "node_w": np.array([ws], np.float32)}
+    v0_dev = torch.tensor([v0], dtype=torch.float32, device=chunks.dev)
+    for ch in chunks.level_pass(need_x=False):
+        ch.apply_leaf(lr, v0_dev, torch.zeros(ch.e - ch.s, dtype=torch.int32,
+                                              device=chunks.dev))
+    return tree
+
+
+def _host_tree(M: int, bin_dtype) -> dict:
+    """A streamed tree's host arrays, by ``_RECORD_KEYS``; "bin" holds
+    split bins (int32) or raw thresholds (float32)."""
+    return {"feat": np.full(M, -1, np.int32), "bin": np.zeros(M, bin_dtype),
+            "nal": np.zeros(M, bool), "can": np.zeros(M, bool),
+            "val": np.zeros(M, np.float32), "gain": np.zeros(M, np.float32),
+            "w": np.zeros(M, np.float32)}
+
+
+def _tree_dict(a, thr) -> dict:
+    return {"feat": a["feat"], "thr": thr, "na_left": a["nal"],
+            "is_split": a["can"], "value": a["val"], "gain": a["gain"],
+            "node_w": a["w"]}
+
+
+def grow_tree_binned_streamed(chunks, dist, lr: float, cfg: TreeConfig,
+                              edges, key=None, sample_rate: float = 1.0,
+                              col_mask=None):
+    """The streamed counterpart of ``grow_tree_binned`` (the JAX
+    package's ``grow_tree_binned_streamed``): packed codes in
+    ``chunks``, ``levels_per_pass`` levels a window: each level adds the
+    chunks' histograms in chunk order, and the window's records come
+    home in one copy at its end. A pending interrupt clamps a window to
+    one level. The deepest level routes every chunk, sums its exact
+    per-leaf (g, h, w) (``segment_totals``) and adds them in chunk
+    order; a last pass applies ``lr`` times the leaf values to the
+    margins. ``H2O3_HIST_I8`` quantises each chunk's masses on its own.
+
+    Returns the tree as host arrays with raw thresholds (unbinned from
+    ``edges`` here) and the split bins (``split_bin``)."""
+    F = chunks.F
+    D = cfg.max_depth
+    M = cfg.n_nodes
+    W = pick_W(cfg.n_bins)
+    if chunks.packed_W != W:
+        raise ValueError(f"chunks hold codes of W = {chunks.packed_W}, "
+                         f"the tree needs W = {W}")
+    dev = chunks.dev
+    find_cfg = replace(cfg, n_bins=W - 1)
+    if col_mask is None:
+        col_mask = torch.ones(F, dtype=torch.bool, device=dev)
+    bf16 = _hist_bf16(cfg, chunks.padded_rows)
+
+    chunks.begin_tree(key, sample_rate)
+    if D == 0:
+        return _streamed_stump(chunks, dist, lr, cfg)
+
+    a = _host_tree(M, np.int32)
+    tables = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    L = levels_per_pass(D, F, W)
+    d = 0
+    while d < D:
+        Lw = min(L, D - d)
+        if Lw > 1 and chunks.interrupt_pending():
+            # the cooperative yield lands at the next level boundary
+            Lw = 1
+        recs = []
+        for j in range(Lw):
+            N = 1 << (d + j)
+            hist = None
+            for ch in chunks.level_pass():
+                ghw = ch.ghw(dist)
+                nid2, h_c = binned_level(
+                    ch.X, ch.nid, ghw, tables, N // 2 if N > 1 else 0,
+                    N, N - 1, W, bf16,
+                    _hist_i8(ghw, bf16, chunks.padded_rows))
+                ch.put_nid(nid2)
+                hist = h_c if hist is None else hist + h_c
+            sel, can, tables = _binned_split_level(
+                (hist[0], hist[1], hist[2]), find_cfg, col_mask, cfg)
+            recs.append(_level_record(sel, can, cfg))
+        _store_records(recs, d, a)
+        d += Lw
+
+    # deepest level: route each chunk and add its exact leaf totals, in
+    # chunk order; then apply the leaves, reading the stored node ids
+    ND = 2 ** D
+    baseD = ND - 1
+    tot = None
+    for ch in chunks.level_pass():
+        nid2 = binned_route_only(ch.X, ch.nid, tables, ND // 2, baseD, W)
+        ch.put_nid(nid2)
+        t3 = segment_totals(nid2, ch.ghw(dist), ND, baseD)
+        tot = t3 if tot is None else tot + t3
+    leaf = torch.stack([_leaf_value(tot[0], tot[1], cfg), tot[2]]).cpu()
+    a["val"][baseD:] = leaf[0].numpy()
+    a["w"][baseD:] = leaf[1].numpy()
+    value_dev = torch.as_tensor(a["val"], device=dev)
+    for ch in chunks.level_pass(need_x=False):
+        ch.apply_leaf(lr, value_dev, ch.nid)
+    tree = _tree_dict(a, bins_to_thresholds_stacked(
+        a["bin"][None, :], a["feat"][None, :], edges)[0])
+    tree["split_bin"] = a["bin"]
+    return tree
+
+
+def grow_tree_adaptive_streamed(chunks, dist, lr: float, cfg: TreeConfig,
+                                root_lo, root_hi, nb_f=None, key=None,
+                                sample_rate: float = 1.0, col_mask=None):
+    """The streamed counterpart of ``grow_tree_adaptive`` (the JAX
+    package's ``grow_tree_adaptive_streamed``): float32 features in
+    ``chunks``, per-node adaptive bins, one level a pass, each level's
+    histogram the chunks' added in chunk order and its records fetched
+    in one copy. The next level's ranges round as that eager grower
+    rounds (``_next_ranges(fused=False)``); a random grid is not drawn,
+    as there. The deepest level routes every chunk (``adaptive_route_only``)
+    and applies the last split level's selected child values.
+
+    Returns the tree as host arrays with raw thresholds."""
+    F = chunks.F
+    D = cfg.max_depth
+    M = cfg.n_nodes
+    W = pick_W(cfg.n_bins)
+    dev = chunks.dev
+    if nb_f is None:
+        nb_f = torch.full((F,), float(min(cfg.n_bins, W - 2)),
+                          dtype=torch.float32, device=dev)
+    else:
+        nb_f = torch.clamp(nb_f.to(torch.float32), max=float(W - 2))
+    find_cfg = replace(cfg, n_bins=W - 1)
+    if col_mask is None:
+        col_mask = torch.ones(F, dtype=torch.bool, device=dev)
+    bf16 = _hist_bf16(cfg, chunks.padded_rows)
+
+    chunks.begin_tree(key, sample_rate)
+    if D == 0:
+        return _streamed_stump(chunks, dist, lr, cfg)
+
+    a = _host_tree(M, np.float32)
+    lo_d = root_lo.to(torch.float32).reshape(1, F)
+    hi_d = root_hi.to(torch.float32).reshape(1, F)
+    tables = torch.zeros((4, 1), dtype=torch.float32, device=dev)
+    for d in range(D):
+        N = 2 ** d
+        span = torch.clamp(hi_d - lo_d, min=0.0)
+        inv_d = torch.where(span > 0,
+                            nb_f[None, :] / torch.where(span > 0, span, 1.0),
+                            0.0).contiguous()
+        lo_d = lo_d.contiguous()
+        hist = None
+        for ch in chunks.level_pass():
+            ghw = ch.ghw(dist)
+            nid2, h_c = adaptive_level(ch.X, ch.nid, ghw, tables, lo_d,
+                                       inv_d, N // 2 if d else 0, N, N - 1,
+                                       W, bf16, "rows_f",
+                                       _hist_i8(ghw, bf16,
+                                                chunks.padded_rows))
+            ch.put_nid(nid2)
+            hist = h_c if hist is None else hist + h_c
+        (bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s, wl_s,
+         wr_s) = _find_splits((hist[0], hist[1], hist[2]), find_cfg,
+                              col_mask)
+        can = (bg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
+        nidx = torch.arange(N, device=dev)
+        lo_sel = lo_d[nidx, bf.long()]
+        inv_sel = inv_d[nidx, bf.long()]
+        thr = torch.where(
+            can, torch.where(inv_sel > 0,
+                             lo_sel + bb.to(torch.float32)
+                             / torch.clamp(inv_sel, min=1e-30),
+                             BIG_THR), 0.0)
+        rec = _level_record((bg, bf, bb, bnl, gt, ht, wt), can, cfg)
+        rec[1] = thr.double()
+        _store_records([rec], d, a)
+        tables = make_adaptive_tables(bf.clamp(min=0), thr, bnl,
+                                      can).contiguous()
+        lo_d, hi_d = _next_ranges(hist[2], lo_d, hi_d, inv_d, thr, bf, can,
+                                  W, fused=False)
+
+    # deepest level: route each chunk; the leaves are the last split
+    # level's selected children
+    ND = 2 ** D
+    baseD = ND - 1
+    leaf = torch.stack([torch.stack([vl_s, vr_s], dim=1).reshape(ND),
+                        torch.stack([wl_s, wr_s], dim=1).reshape(ND)]).cpu()
+    a["val"][baseD:] = leaf[0].numpy()
+    a["w"][baseD:] = leaf[1].numpy()
+    value_dev = torch.as_tensor(a["val"], device=dev)
+    for ch in chunks.level_pass():
+        nid2 = adaptive_route_only(ch.X, ch.nid, tables, ND // 2, baseD,
+                                   "rows_f")
+        ch.apply_leaf(lr, value_dev, nid2)
+    return _tree_dict(a, a["bin"])
 
 
 def predict_binned(codes, tree, max_depth: int, na_bin: int):

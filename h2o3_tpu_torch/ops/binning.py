@@ -11,9 +11,15 @@ Layout: codes ``[rows, F]`` with values in ``[0, n_bins)``; NA is the
 shared last index ``n_bins``. Split "bin t" means left <=> code < t <=>
 raw < edges[t-1]. The packed form used by the tree level moves NA to the
 reserved lane ``W-1`` and narrows the codes to int8 (W <= 128) or int16.
+
+The streamed (memory-pressure) train bins on the host instead, in numpy
+(``_edges_host``, ``digitize_codes_host``, the JAX package's own edge
+rules): its design matrix never reaches the device whole.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
+import os
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -203,3 +209,105 @@ def packed_codes_record(pc: Optional[PackedCodes],
     return {"enabled": True, "dtype": str(pc.rm.dtype).replace("torch.", ""),
             "W": int(pc.W), "bytes_per_value": int(pc.itemsize),
             "n_bins": int(n_bins), "kernel": "binned_level"}
+
+
+# ------------------------------------------------------------ host binning
+
+
+def _per_column(fn, F: int) -> list:
+    """``[fn(0), ..., fn(F-1)]``, the columns on a few threads (numpy's
+    partition and searchsorted release the interpreter lock); each
+    column's result is what one thread would give."""
+    workers = max(1, min(8, os.cpu_count() or 1, F))
+    if workers == 1:
+        return [fn(f) for f in range(F)]
+    with cf.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, range(F)))
+
+
+def quantile_edges(col: np.ndarray, nbins: int) -> np.ndarray:
+    """The distinct float32 quantile cut points of one feature's finite
+    values (``np.quantile`` at the ``nbins - 1`` inner grid points)."""
+    vals = col[np.isfinite(col)]
+    if vals.size == 0:
+        return np.empty(0, dtype=np.float32)
+    qs = np.quantile(vals, np.linspace(0.0, 1.0, nbins + 1)[1:-1])
+    return np.unique(qs.astype(np.float32))
+
+
+def uniform_edges(col: np.ndarray, nbins: int) -> np.ndarray:
+    """Equal-width cut points between one feature's finite min and max;
+    none where they are equal."""
+    vals = col[np.isfinite(col)]
+    if vals.size == 0:
+        return np.empty(0, dtype=np.float32)
+    lo, hi = float(vals.min()), float(vals.max())
+    if lo == hi:
+        return np.empty(0, dtype=np.float32)
+    return np.linspace(lo, hi, nbins + 1)[1:-1].astype(np.float32)
+
+
+def _edges_host(X_host: np.ndarray, nrow: int, is_cat: Sequence[bool],
+                nbins: int, nbins_cats: int, histogram_type: str):
+    """The JAX package's host edge rules over ``X_host[:nrow]``: a
+    categorical column of cardinality <= ``nbins_cats`` gets one bin a
+    level, a wider one quantile groups of its codes; a numeric column
+    equal-width edges (``uniform_adaptive``, ``uniform``) or quantile
+    edges, at most ``nbins - 1``. Returns (edges, n_bins_eff), the bin
+    count the widest feature needs, at least ``nbins``."""
+    edge_fn = (uniform_edges
+               if histogram_type in ("uniform_adaptive", "uniform")
+               else quantile_edges)
+
+    def edges_of(f: int) -> np.ndarray:
+        col = np.ascontiguousarray(X_host[:nrow, f])
+        if is_cat[f]:
+            card = int(np.nanmax(col)) + 1 if np.isfinite(col).any() else 1
+            if card <= nbins_cats:
+                return np.arange(1, card, dtype=np.float32) - 0.5
+            return quantile_edges(col, nbins_cats)
+        return edge_fn(col, nbins)[: nbins - 1]
+
+    edges = _per_column(edges_of, X_host.shape[1])
+    n_bins_eff = max(nbins, max((len(e) + 1 for e in edges), default=2))
+    if n_bins_eff > 16382:
+        raise ValueError(
+            f"effective bin count {n_bins_eff} exceeds the 14-bit routing "
+            f"limit; lower nbins_cats (reference default is 1024)")
+    return edges, n_bins_eff
+
+
+# up to this many edges a feature digitises by counting (exact, as
+# searchsorted: the padded edges are sorted, finite or +inf)
+_COUNT_EDGES = 64
+
+
+def digitize_codes_host(X_host: np.ndarray, edges: List[np.ndarray],
+                        n_bins_eff: int):
+    """Packed codes of a host matrix under ``edges``, in numpy: the
+    inf-padded edge matrix of ``digitize_with_edges`` searched per
+    feature (side "right"), NA in the reserved lane ``W-1``, narrowed to
+    the kernel dtype, so that they equal the device path's packed codes
+    bit for bit. Returns (codes [rows, F], W)."""
+    X_host = np.asarray(X_host, dtype=np.float32)
+    W = pick_W(n_bins_eff)
+    np_dt = np.int8 if code_dtype(W) == torch.int8 else np.int16
+    emat = _edge_matrix(edges)
+    # a feature's codes are one contiguous row of the transpose; the
+    # [rows, F] layout is one copy at the end
+    codes_t = np.empty(X_host.shape[::-1], np_dt)
+
+    def digitize(f: int) -> None:
+        col = np.ascontiguousarray(X_host[:, f])
+        if emat.shape[1] <= _COUNT_EDGES:
+            # searchsorted(side="right") is the count of edges <= x: one
+            # pass an edge beats a binary search a value at a few edges
+            c = np.zeros(col.shape, np_dt)
+            for e in emat[f]:
+                c += col >= e
+        else:
+            c = np.searchsorted(emat[f], col, side="right")
+        codes_t[f] = np.where(np.isnan(col), W - 1, c).astype(np_dt)
+
+    _per_column(digitize, X_host.shape[1])
+    return np.ascontiguousarray(codes_t.T), W

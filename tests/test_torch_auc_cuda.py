@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from h2o3_tpu_torch.models import metrics as tmetrics
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def auc_inputs(n, seed, ties, weights):

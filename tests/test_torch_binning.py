@@ -7,6 +7,7 @@ import torch
 
 from h2o3_tpu.ops import binning as jbin
 from h2o3_tpu_torch.ops import binning as tbin
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS = 3000
 

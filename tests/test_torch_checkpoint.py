@@ -31,6 +31,7 @@ from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch import persist
 from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                        H2ORandomForestEstimator)
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 1999, 5
 GBM = dict(max_depth=3, nbins=14, histogram_type="quantiles_global",

@@ -23,6 +23,7 @@ from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as JaxGBM
 from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.models.tree import _child_bounds, _next_allowed
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 2000, 5
 BASE = dict(ntrees=3, max_depth=3, learn_rate=0.3, seed=7,

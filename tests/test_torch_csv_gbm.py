@@ -14,6 +14,7 @@ import h2o3_tpu as jh2o
 import h2o3_tpu_torch as th2o
 from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as JaxGBM
 from h2o3_tpu_torch.models.gbm import H2OGradientBoostingEstimator as TorchGBM
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 # min_rows 10 (H2O's default): leaves of a few rows tie exactly between
 # features that cut out the same rows, and their -G/H amplifies the JAX

@@ -37,6 +37,7 @@ from h2o3_tpu_torch import serve
 from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                        H2ORandomForestEstimator)
 from h2o3_tpu_torch.models.model_base import build_training_spec
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 1200, 4
 GBM = dict(ntrees=3, max_depth=3, nbins=14, histogram_type="quantiles_global",

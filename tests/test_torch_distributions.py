@@ -16,6 +16,7 @@ import torch
 
 from h2o3_tpu.models import distributions as jd
 from h2o3_tpu_torch.models import distributions as td
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS = 3000
 

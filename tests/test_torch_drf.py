@@ -18,8 +18,13 @@ x 6 features with 3% NA cells, depth 4, 4 trees, float32 histograms).
   (max_depth past 16, offset_column, staged_predict_proba), a checkpoint
   by a keyed-store name (item 18) and contributions (item 16).
 - On the CPU a deployed forest serves rows bit-equal to predict.
+- The reference's compatibility-only DRF parameters: each trains the
+  trees of a train without it and warns in the JAX package's words; the
+  model API (``model_performance``, the accessors) as the JAX package's
+  (metrics within 1e-5).
 
 The JAX trains run on a one-device mesh, as in test_torch_sampling.py."""
+import logging
 import threading
 
 import jax
@@ -32,7 +37,9 @@ from h2o3_tpu.models.drf import H2ORandomForestEstimator as JaxDRF
 from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch import serve
 from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
-from h2o3_tpu_torch.models.drf import DRF_DEFAULTS, default_mtries
+from h2o3_tpu_torch.models.drf import (DRF_COMPAT_PARAMS, DRF_DEFAULTS,
+                                       default_mtries)
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 3000, 6
 BASE = dict(ntrees=4, max_depth=4, seed=7, histogram_precision="float32")
@@ -272,3 +279,71 @@ def test_served_rows_bit_match_predict_on_cpu():
                 assert p["classProbabilities"][d] == float(ref_p[d][i])
     finally:
         serve.undeploy(m.key)
+
+
+DRF_COMPAT_AWAY = {"max_confusion_matrix_size": 10, "nbins_top_level": 256,
+                   "r2_stopping": 0.5, "build_tree_one_node": True,
+                   "binomial_double_trees": True,
+                   "categorical_encoding": "one_hot_explicit",
+                   "distribution": "bernoulli",
+                   "check_constant_response": False}
+
+
+def test_compat_table_is_the_jax_one():
+    from h2o3_tpu.models.compat_params import COMPAT_PARAMS
+    assert DRF_COMPAT_PARAMS == COMPAT_PARAMS["drf"]
+    assert set(DRF_COMPAT_AWAY) == set(DRF_COMPAT_PARAMS)
+    with pytest.raises(ValueError, match="unknown parameter"):
+        H2ORandomForestEstimator(hist_kernel="pallas")
+
+
+@pytest.mark.parametrize("key", list(DRF_COMPAT_AWAY))
+def test_compat_parameter_trains_the_same_trees_and_warns(caplog, key):
+    """Each compatibility-only DRF parameter, set away from its default,
+    is taken by both packages; the port trains the trees of the train
+    without it (the JAX forest's), and both warn in the same words on
+    their own loggers."""
+    value = DRF_COMPAT_AWAY[key]
+    jm, _jfr, tm0, _tfr = _models("binomial")
+    jlog = logging.getLogger("h2o3_tpu")
+    jlog.addHandler(caplog.handler)     # that logger does not propagate
+    try:
+        with caplog.at_level(logging.WARNING, logger="h2o3_tpu_torch"), \
+                caplog.at_level(logging.WARNING, logger="h2o3_tpu"):
+            JaxDRF(**{key: value})._warn_compat_params()
+            tp, _jp = PATHS["adaptive"]
+            tm = H2ORandomForestEstimator(**BASE, **tp, **{key: value}).train(
+                y="label",
+                training_frame=th2o.Frame.from_numpy(_cols("binomial"),
+                                                     device="cpu")).model
+    finally:
+        jlog.removeHandler(caplog.handler)
+    said = {r.name: r.getMessage() for r in caplog.records
+            if f"parameter '{key}'" in r.getMessage()}
+    assert set(said) == {"h2o3_tpu", "h2o3_tpu_torch"}
+    assert said["h2o3_tpu"] == said["h2o3_tpu_torch"]
+    assert tm.params[key] == value
+    _same_trees(jm, tm)
+    for k in ("feat", "thr", "value"):
+        np.testing.assert_array_equal(tm.trees[k], tm0.trees[k])
+
+
+@pytest.mark.parametrize("task", ["binomial", "regression"])
+def test_model_api_matches_jax(task):
+    """A8 on the forest: ``model_performance`` of another frame and the
+    h2o-py accessors, within 1e-5 of the JAX package's."""
+    jm, _jfr, tm, _tfr = _models(task)
+    te = _cols(task, seed=2)
+    jperf = jm.model_performance(jh2o.Frame.from_numpy(te))
+    tperf = tm.model_performance(th2o.Frame.from_numpy(te, device="cpu"))
+    assert tm.model_performance() is tm.training_metrics
+    assert tperf.nobs == jperf.nobs
+    for name in ("auc", "logloss", "rmse", "mse", "mae", "r2"):
+        j, t = getattr(jperf, name, None), getattr(tperf, name, None)
+        assert (j is None) == (t is None), name
+        if t is not None:
+            assert abs(t - j) <= 1e-5, (name, t, j)
+        j, t = jm._metric(name), getattr(tm, name)()
+        assert (j is None) == (t is None), name
+        if t is not None:
+            assert abs(t - j) <= 1e-5, (name, t, j)

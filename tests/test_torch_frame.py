@@ -1,13 +1,15 @@
 """The port's Frame and Vec against the JAX package's on the same file:
 rollups and percentiles, ``split_frame(ratios, seed)`` assigning the same
-rows, ``rows``, ``head`` and the column operations; string columns reach
-the model builders' matrix as NaN."""
+rows, ``rows``, ``head`` and the column operations, ``vecs``,
+``rename``, ``to_dict`` and ``summary``; string columns reach the model
+builders' matrix as NaN."""
 import numpy as np
 import pytest
 
 import h2o3_tpu as jh2o
 import h2o3_tpu_torch as th2o
 from h2o3_tpu_torch.frame.vec import Vec
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def _csv(tmp_path, nrow=300):
@@ -154,3 +156,33 @@ def test_vec_from_numpy_types_like_jax(arr):
     if jv.host_data is not None:
         np.testing.assert_array_equal(_bits(tv.host_data),
                                       _bits(jv.host_data))
+
+
+def test_vecs_rename_to_dict_and_summary_match_jax(frames):
+    """A8 on the frame: the columns in order, a renamed frame sharing
+    them, the host columns by name (bit for bit) and the rollups by name
+    (exact counts, mean and sigma within rtol 1e-5, as above)."""
+    t, j = frames
+    assert [v.type for v in t.vecs] == [v.type for v in j.vecs]
+    assert all(a is b for a, b in zip(t.vecs, [t.vec(n) for n in t.names]))
+    mapping = {"x": "x_renamed", "g": "group"}
+    tr, jr = t.rename(mapping), j.rename(mapping)
+    assert tr.names == jr.names and t.names == j.names
+    assert tr.vec("group") is t.vec("g")
+    td, jd = t.to_dict(), j.to_dict()
+    assert list(td) == list(jd)
+    for n in jd:
+        if jd[n].dtype == object:
+            assert list(td[n]) == list(jd[n]), n
+        else:
+            assert td[n].dtype == jd[n].dtype, n
+            np.testing.assert_array_equal(_bits(td[n]), _bits(jd[n]),
+                                          err_msg=n)
+    ts, js = t.summary(), j.summary()
+    assert list(ts) == list(js)
+    for n in js:
+        for key in EXACT:
+            assert ts[n][key] == js[n][key], (n, key)
+        for key in ("mean", "sigma"):
+            np.testing.assert_allclose(ts[n][key], js[n][key], rtol=1e-5,
+                                       atol=0)

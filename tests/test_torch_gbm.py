@@ -13,6 +13,9 @@ from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as JaxGBM
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.gbm import H2OGradientBoostingEstimator as TorchGBM
 from h2o3_tpu_torch.ops.hist_adaptive import pick_W as tha_pick_W
+import torch
+from torch_threads import DEFAULT_THREADS
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 3000, 6
 PARAMS = dict(ntrees=3, max_depth=3, nbins=14, learn_rate=0.1,
@@ -58,6 +61,26 @@ def test_trees_match(models):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(tm.f0, np.asarray(jm.f0))
     assert tm.output["packed_codes"] == jm.output["packed_codes"]
+
+
+def test_default_thread_pool_trains_the_jax_trees(models):
+    """The port's packed train at torch's default thread pool, not the
+    test worker's share (``torch_threads``): the JAX package's trees and
+    AUC, as in ``test_trees_match`` and ``test_auc_and_predict_match``."""
+    jm, _jfr, _tm, tfr = models
+    old = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        tm = TorchGBM(**PARAMS).train(y="label", training_frame=tfr).model
+    finally:
+        torch.set_num_threads(old)
+    for k in ("feat", "thr", "na_left", "is_split"):
+        np.testing.assert_array_equal(tm.trees[k],
+                                      np.asarray(getattr(jm, "_" + k)),
+                                      err_msg=k)
+    np.testing.assert_allclose(tm.trees["value"], np.asarray(jm._value),
+                               rtol=1e-5, atol=1e-5)
+    assert abs(tm.training_metrics.auc - jm.training_metrics.auc) <= 1e-6
 
 
 def test_auc_and_predict_match(models):
@@ -476,3 +499,73 @@ def test_refusals_name_their_roadmap_labels(tmp_path):
         TorchGBM(ntrees=1, interaction_constraints=[["f0", "nope"]]).train(
             y="label", training_frame=fr)
     assert TorchGBM(ntrees=1, nfolds=3).params["nfolds"] == 3
+
+
+# ------------------------------------------------------ the model API (A8)
+
+API_TASKS = {
+    "binomial": dict(distribution="bernoulli"),
+    "multinomial": dict(distribution="multinomial"),
+    "regression": dict(distribution="gaussian"),
+    "regression_offset": dict(distribution="gaussian", offset_column="off"),
+}
+API_METRICS = ("auc", "logloss", "rmse", "mse", "mae", "r2")
+
+
+def _api_cols(task, seed):
+    cols = _data(seed)
+    rng = np.random.default_rng(seed + 100)
+    s = np.nan_to_num(cols["f0"]) - np.nan_to_num(cols["f1"])
+    if task == "multinomial":
+        cols["label"] = np.array(["a", "b", "c"], dtype=object)[
+            np.digitize(s + rng.normal(size=ROWS), [-0.7, 0.7])]
+    elif task.startswith("regression"):
+        cols["label"] = (s + 0.3 * rng.normal(size=ROWS)).astype(np.float32)
+        cols["off"] = (0.5 * rng.normal(size=ROWS)).astype(np.float32)
+    return cols
+
+
+@pytest.mark.parametrize("task", list(API_TASKS))
+def test_model_api_matches_jax(task):
+    """A8 on the GBM: ``model_performance`` (None: the training metrics
+    themselves; a frame: its response remapped through the training
+    domain, its offset applied), the h2o-py accessors and ``varimp``, as
+    the JAX package returns them on the same models (one-device mesh).
+    Metrics within 1e-5 (abs; the AUC of K classes within 2e-6 of
+    1: bucket crossings, ROADMAP.md queue 3); varimp's order exact, its
+    gains within rtol 1e-5."""
+    import jax
+    from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
+    kw = dict(PARAMS, ntrees=2, **API_TASKS[task])
+    tr, te = _api_cols(task, 0), _api_cols(task, 1)
+    old = current_mesh()
+    set_mesh(make_mesh(n_data=1, devices=jax.devices()[:1]))
+    try:
+        jm = JaxGBM(packed_codes=True, **kw).train(
+            y="label", training_frame=jh2o.Frame.from_numpy(tr)).model
+        jperf = jm.model_performance(jh2o.Frame.from_numpy(te))
+    finally:
+        set_mesh(old)
+    tm = TorchGBM(**kw).train(
+        y="label", training_frame=th2o.Frame.from_numpy(tr, device="cpu")
+    ).model
+    tperf = tm.model_performance(th2o.Frame.from_numpy(te, device="cpu"))
+    assert tm.model_performance() is tm.training_metrics
+    assert type(tperf).__name__ == type(jperf).__name__
+    for name in API_METRICS:
+        for valid in (False, True):
+            j, t = (jm._metric(name, valid), tm._metric(name, valid))
+            assert getattr(tm, name)(valid=valid) == t
+            assert (j is None) == (t is None), (name, valid)
+            if t is not None:
+                assert abs(t - j) <= 1e-5, (name, t, j)
+        j, t = getattr(jperf, name, None), getattr(tperf, name, None)
+        assert (j is None) == (t is None), name
+        if t is not None:
+            assert abs(t - j) <= (2e-6 if name == "auc" else 1e-5), (
+                name, t, j)
+    assert tperf.nobs == jperf.nobs
+    jv, tv = jm.varimp(), tm.varimp()
+    assert tv["variable"] == jv["variable"]
+    np.testing.assert_allclose(tv["relative_importance"],
+                               jv["relative_importance"], rtol=1e-5)

@@ -29,6 +29,7 @@ from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.genmodel import EasyPredictModelWrapper
 from h2o3_tpu_torch.models import distributions as td
 from h2o3_tpu_torch.models.gbm import MULTINOMIAL_OFFSET, GBMModel
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 3000, 6
 BASE = dict(ntrees=3, max_depth=3, learn_rate=0.1, nbins=14,

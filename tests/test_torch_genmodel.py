@@ -14,6 +14,7 @@ from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as JaxGBM
 from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch import genmodel as tgen
 from h2o3_tpu_torch.models.gbm import GBMModel
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 COLS = ["c", "x", "d"]
 DOMS = {"c": ("a", "b", "c"), "d": ("lo", "hi")}

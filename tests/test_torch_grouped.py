@@ -22,6 +22,7 @@ from h2o3_tpu_torch.ops import hist_adaptive as tha
 from h2o3_tpu_torch.ops.common import (flush_i8, group_rows_plain,
                                        pack_i8_records_plain, split3_bf16)
 from h2o3_tpu_torch.ops.histogram import build_histograms_plain
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 # ------------------------------------------------------------ grouping

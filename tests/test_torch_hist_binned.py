@@ -10,6 +10,7 @@ import torch
 
 from h2o3_tpu.ops import hist_adaptive as jha
 from h2o3_tpu_torch.ops import hist_adaptive as tha
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def _inputs(rows=4096, F=7, W=16, N=4, seed=0, int_ghw=True):

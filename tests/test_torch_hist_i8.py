@@ -18,6 +18,7 @@ from h2o3_tpu.ops import hist_adaptive as jha
 from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.models import tree as ttree
 from h2o3_tpu_torch.ops import hist_adaptive as tha
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS = 3072          # a multiple of the interpret-mode tile (1024)
 

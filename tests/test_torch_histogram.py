@@ -12,6 +12,7 @@ from h2o3_tpu.ops.hist_pallas import hist_pallas_from_rowmajor
 from h2o3_tpu.ops.histogram import _hist_scatter3
 from h2o3_tpu_torch.ops import histogram as thist
 from h2o3_tpu_torch.ops import kernels
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def _inputs(rows, F, n_nodes, B1, dtype, seed):

@@ -17,6 +17,7 @@ import h2o3_tpu_torch as th2o
 from h2o3_tpu_torch import _device
 from h2o3_tpu_torch.ops import hist_adaptive as tha
 from h2o3_tpu_torch.ops import kernels
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
@@ -45,10 +46,13 @@ def test_no_jax_or_reference_import(path):
 
 def test_sources_cover_every_model_module():
     """The no-JAX rule above reads every module of the port, the XGBoost
-    estimator and the random forest among them."""
+    estimator, the random forest, the streamed trainer's chunks and the
+    memory budget among them."""
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
-    for mod in ("drf", "gbm", "model_base", "metrics", "tree", "xgboost"):
+    for mod in ("drf", "gbm", "model_base", "metrics", "streaming", "tree",
+                "xgboost"):
         assert f"h2o3_tpu_torch/models/{mod}.py" in names
+    assert "h2o3_tpu_torch/memman.py" in names
 
 
 INGEST_MODULES = ("h2o3_tpu_torch/resilience.py", "h2o3_tpu_torch/log.py",
@@ -70,6 +74,7 @@ def test_import_leaves_jax_out():
     mods = ", ".join(m[:-3].replace("/", ".") for m in INGEST_MODULES)
     code = ("import sys; import h2o3_tpu_torch, h2o3_tpu_torch.estimators, "
             f"h2o3_tpu_torch.models.xgboost, h2o3_tpu_torch.ops.binning, "
+            f"h2o3_tpu_torch.memman, h2o3_tpu_torch.models.streaming, "
             f"{mods}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o3_tpu')))")

@@ -18,6 +18,7 @@ import h2o3_tpu_torch as th2o
 from h2o3_tpu.ingest import chunk as jchunk
 from h2o3_tpu_torch import _device
 from h2o3_tpu_torch.ingest import chunk as tchunk
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 jparse = importlib.import_module("h2o3_tpu.ingest.parse")
 tparse = importlib.import_module("h2o3_tpu_torch.ingest.parse")

@@ -17,6 +17,7 @@ import h2o3_tpu_torch as th2o
 from h2o3_tpu.ingest import compress as jcompress
 from h2o3_tpu_torch.ingest import compress as tcompress
 from test_torch_ingest import _mixed_csv, assert_same_frame
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 jparse = importlib.import_module("h2o3_tpu.ingest.parse")
 tparse = importlib.import_module("h2o3_tpu_torch.ingest.parse")

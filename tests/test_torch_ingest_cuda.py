@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import h2o3_tpu_torch as th2o
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 CSV = ('id,score,city,seen,note,big\n'
        '1,0.5,ames,2021-01-02,"a ""b""",16777217\n'

@@ -26,6 +26,7 @@ from h2o3_tpu.ingest.sql import import_sql_table as j_import_sql_table
 from h2o3_tpu_torch.ingest import compress as tcompress
 from h2o3_tpu_torch.ingest import persist_uri as tpersist
 from test_torch_ingest import _mixed_csv, assert_same_frame
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -19,6 +19,7 @@ from h2o3_tpu.ingest import stream as jstream
 from h2o3_tpu_torch.ingest import chunk as tchunk
 from h2o3_tpu_torch.ingest import stream as tstream
 from test_torch_ingest import WIDE, _mixed_csv, assert_same_frame
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 jparse = importlib.import_module("h2o3_tpu.ingest.parse")
 tparse = importlib.import_module("h2o3_tpu_torch.ingest.parse")

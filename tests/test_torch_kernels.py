@@ -20,6 +20,7 @@ import torch
 from h2o3_tpu_torch.ops import hist_adaptive as tha
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops import random as trandom
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -8,6 +8,7 @@ import torch
 
 from h2o3_tpu.models import metrics as jm
 from h2o3_tpu_torch.models import metrics as tm
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def _scores(n, seed):

@@ -37,6 +37,7 @@ from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.metrics import (make_multinomial_metrics,
                                            multinomial_auc_table)
 from h2o3_tpu_torch.models.model_base import ScoreKeeper
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F, K = 3000, 6, 4
 LABELS = np.array(["ash", "birch", "cedar", "dogwood"], dtype=object)

@@ -30,6 +30,7 @@ from h2o3_tpu_torch.tools import (kern_ablate, kern_ablate_t,
                                   kern_gather_probe, kern_mxu_probe,
                                   kern_variants)
 from h2o3_tpu_torch.tools._probes import BODIES, LevelInputs
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 F, W, N = 28, 32, 32
 

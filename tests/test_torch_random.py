@@ -15,6 +15,7 @@ import torch
 
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops import random as trandom
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 SEEDS = [0, 7, 42, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 9, 2 ** 40 + 3, -5, -1]
 

@@ -26,6 +26,7 @@ from h2o3_tpu.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                        H2OXGBoostEstimator)
 from h2o3_tpu_torch.ops import random as trandom
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 3000, 6
 BASE = dict(ntrees=3, max_depth=3, learn_rate=0.1, seed=7,

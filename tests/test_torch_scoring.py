@@ -31,6 +31,7 @@ from h2o3_tpu_torch.models.model_base import \
 from h2o3_tpu_torch.models.model_base import \
     build_validation_spec as torch_validation_spec
 from test_torch_auc_cuda import auc_inputs
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 F = 8
 

@@ -11,6 +11,7 @@ import torch
 
 from h2o3_tpu.models import tree as jtree
 from h2o3_tpu_torch.models import tree as ttree
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 
 def _inputs(rows, F, n_bins, dtype, seed):

@@ -15,6 +15,7 @@ from h2o3_tpu_torch.estimators import H2OXGBoostEstimator as TorchXGB
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.xgboost import XGB_DEFAULTS, xgboost_gbm_params
 from h2o3_tpu_torch.ops.hist_adaptive import pick_W
+from torch_threads import torch_worker_threads  # noqa: F401 (autouse)
 
 ROWS, F = 3000, 8
 
@@ -201,3 +202,26 @@ def test_from_jax_arrays_predicts_like_jax():
     got = carried.predict(tfr).vec("p1").to_numpy()
     want = jm.predict(jfr).vec("p1").to_numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("tree_method", ["hist", "auto"])
+def test_model_api_matches_jax(tree_method):
+    """A8 on the XGBoost model: ``model_performance`` of another frame,
+    the h2o-py accessors and ``varimp``, as the JAX package's (metrics
+    within 1e-5; varimp's order exact, its gains within rtol 1e-5)."""
+    jm, _jfr, tm, _tfr = _models(tree_method)
+    te = xgb_data(seed=3)
+    jperf = jm.model_performance(jh2o.Frame.from_numpy(te))
+    tperf = tm.model_performance(th2o.Frame.from_numpy(te, device="cpu"))
+    assert tm.model_performance() is tm.training_metrics
+    assert tperf.nobs == jperf.nobs
+    for name in ("auc", "logloss", "rmse", "mse", "mae", "r2"):
+        for j, t in ((getattr(jperf, name, None), getattr(tperf, name, None)),
+                     (jm._metric(name), getattr(tm, name)())):
+            assert (j is None) == (t is None), name
+            if t is not None:
+                assert abs(t - j) <= 1e-5, (name, t, j)
+    jv, tv = jm.varimp(), tm.varimp()
+    assert tv["variable"] == jv["variable"]
+    np.testing.assert_allclose(tv["relative_importance"],
+                               jv["relative_importance"], rtol=1e-5)
