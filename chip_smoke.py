@@ -111,7 +111,8 @@ against its plain version. Phases, each fatal on failure:
    adaptive bins at W = 256 (6 x 20 adaptive_level, 20
    adaptive_route_only, 0 of any other), AUC above 0.5; two float32
    trains bit for bit; a warm, profiled retrain; card vs CPU on the
-   file's first 200k rows (every split equal, |dAUC| <= 1e-4). Each
+   file's first 200k rows at depth 4 (cut from 6 for the time limit;
+   every split equal, |dAUC| <= 1e-4). Each
    file's write and import seconds, MB/s, rows/s, H2D seconds and the
    host's cores are printed; the files are kept in the temporary
    directory, keyed by their parameters;
@@ -214,7 +215,8 @@ against its plain version. Phases, each fatal on failure:
    row's probabilities summing to 1 within 1e-5 and predict's label
    their argmax; logloss, error, mean per-class error, macro OVR AUC,
    the loop's seconds, rows x iterations / s, trees / s and the peak
-   memory printed. Card vs CPU at 100k rows, 5 iterations, float32:
+   memory printed. Card vs CPU at 100k rows, 5 iterations, depth 3 (cut
+   from 5 for the time limit), float32:
    every tree's splits equal but below at most one node that split on
    rounding alone on both devices, |dlogloss| <= 1e-4. Two float32 trains
    and two 'auto' trains of the full frame, each pair bit for bit.
@@ -251,7 +253,8 @@ against its plain version. Phases, each fatal on failure:
    (50 trees, the 500k-row validation frame) with subsample 0.8 and
    colsample_bytree 0.8 (300, 50, 50 and 100 draws). Each: loop seconds,
    trees/s, a better-than-chance AUC, two float32 trains bit for bit,
-   card vs CPU at 200k rows and 5 trees (float32): every split equal but
+   card vs CPU at 200k rows and 5 trees, depth 4 (cut from 6 for the
+   time limit; float32): every split equal but
    below at most one noise split, |dAUC| <= 1e-4.
 
 8d. the random forest (``phase_drf``, ``drf_case``), H2O's DRF at the
@@ -273,7 +276,8 @@ against its plain version. Phases, each fatal on failure:
    per-class error; RMSE) better than the trivial model's, predict
    finite and of its shape, loop seconds, ms a tree, trees/s, peak
    memory, two float32 trains bit for bit (20 trees; covertype 5 forest
-   trees), card vs CPU at float32 (200k rows and 5 trees; covertype 50k
+   trees), card vs CPU at float32, depth 6 (cut from 10; 200k rows
+   and 5 trees; covertype 50k
    rows and one forest tree of 7) under the one-noise-split rule, the
    device busy share of a profiled ``train()`` of 5 trees (covertype one
    forest tree of 7). drf_higgs deployed at buckets 1 and
@@ -310,7 +314,8 @@ against its plain version. Phases, each fatal on failure:
    as phase 4's packed path); on the card, 1000 rows x a 64-point sweep
    of each constrained feature: no step against its direction by more
    than 1e-5; every root-to-leaf path within one group; ms a tree beside
-   the unconstrained train's. Card vs CPU at 200k rows, 5 trees, float32
+   the unconstrained train's. Card vs CPU at 200k rows, 5 trees, depth
+   4 (cut from 6 for the time limit), float32
    on the packed, adaptive and global (nbins 300) growers, every split
    equal under the one-noise-split rule.
 
@@ -348,6 +353,32 @@ against its plain version. Phases, each fatal on failure:
    holds plus 3 GiB, the dense packed train runs out, completes
    streamed with one warning and the resident train's first 5 trees;
    the cap lifted.
+8i. item 14, the mesh (``phase_spmd``), on the 10M x 28 frame: (4, 1)
+   virtual shards of the one card for the packed, adaptive (W = 32) and
+   global (nbins 1024) paths, each level kernel, route and leaf-totals
+   launch once a shard, each against the one-shard train in two ways:
+   the two trains by ``layout_splits`` (``card_vs_cpu_splits``' rule
+   between two layouts, which also lets a residue split explain a
+   difference: one whose smaller child's hessian is within 4 ulps of
+   the node's, so that the child's score and leaf are made by rounding;
+   the trees after one train on other margins, so the comparison ends
+   there), AUC within 1e-4 where no residue split ended it; and every
+   tree of the one-shard train grown again at (4, 1) from that tree's
+   own g, h and w (``regrown``), all 20 trees by the same rule, the
+   one-shard model with those trees within 1e-4 of its AUC (a tree that
+   a residue split sets apart kept as one shard's: the split is a fault
+   of the float32 search on either layout, ROADMAP queue 3; the AUC
+   with it regrown too is printed). Packed-i8
+   at (4, 1), each shard its own int8 scale, AUC within 0.005 of the
+   float packed path; the packed train at (4, 1) once more, unrecorded
+   and bit-equal to the recorded one (the warm loop, the reduce's
+   device time a level by CUDA events, shardstats' collective wait),
+   and at (4, 2), bit-equal to (4, 1); a sampled GBM and a DRF at (4,
+   1), 200k rows, card against CPU on the same mesh; an NCCL process
+   group of one rank (``h2o3_tpu_torch.tools.multihost_worker``) whose
+   1M-row packed train is the one-shard train's bit for bit, and two
+   gloo processes on the one card, equal digests, equal to the
+   in-process (2, 1) mesh's.
 
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
@@ -408,6 +439,8 @@ two lines of stdout are the kernel record and
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -1661,8 +1694,8 @@ def train(fr, ntrees, path="packed", i8=None, **kw):
     only."""
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     est = H2OGradientBoostingEstimator(
-        ntrees=ntrees, max_depth=6, distribution="bernoulli",
-        **{"learn_rate": 0.1, "seed": 7, "min_rows": 1.0,
+        ntrees=ntrees, distribution="bernoulli",
+        **{"max_depth": 6, "learn_rate": 0.1, "seed": 7, "min_rows": 1.0,
            **PATHS[path]["params"], **kw})
     with hist_i8(i8 if i8 is not None else PATHS[path].get("i8")):
         est.train(y=PATHS[path].get("y", "label"), training_frame=fr)
@@ -1730,6 +1763,18 @@ def phase_main_path(card, path, fr=None, rows=10_000_000, ntrees=20,
     return {"auc": auc, "loop_s": loop_s, "rows_per_s": rps,
             "launches": launches, "frame": fr, "trees": model.trees,
             "n_bins": model.n_bins, "model": model}
+
+
+# the card-vs-CPU trains' depths: the CPU side's plain versions take
+# most of those checks' time. Cut to make room for phase 8i within the
+# 1200 s limit: the GBM checks of phases 8c and 8f and the airlines
+# CSV's from depth 6 to 4, the multinomial's (8a) from 5 to 3, the
+# forests' (8d, 8i) from 10 to 6. Phase 5's float and int8 checks keep
+# depth 6, the only ones that reach the N = 32 level; the trains on the
+# full frames keep their depths
+CPU_DEPTH = 4
+MULTI_CPU_DEPTH = 3
+DRF_CPU_DEPTH = 6
 
 
 def phase_card_vs_cpu(path, rows=200_000, ntrees=5, **kw):
@@ -1980,7 +2025,8 @@ def phase_csv(card, higgs_rows=250_000, air_rows=10_000_000,
     small = path[:-len(".csv")] + f"_head{cpu_rows}.csv"
     csv_prefix(path, small, cpu_rows)
     card_vs_cpu("airlines_csv",
-                lambda dev: h2o.import_file(small, device=dev), cpu_rows, 5)
+                lambda dev: h2o.import_file(small, device=dev), cpu_rows, 5,
+                max_depth=CPU_DEPTH)
     print(f"csv phase: {time.perf_counter() - t_phase!r} s wall, parsed "
           f"{json.dumps(got['cards'])} levels, NA {json.dumps(got['na'])}",
           flush=True)
@@ -2620,8 +2666,8 @@ def ingest_sql(card, rows=1_000_000):
         os.unlink(db)
 
 
-def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=250_000,
-                 xlsx_rows=50_000, higgs_rows=250_000, fb_rows=1_000_000,
+def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=100_000,
+                 xlsx_rows=20_000, higgs_rows=100_000, fb_rows=1_000_000,
                  sql_rows=250_000, member_bytes=1 << 20):
     """The rest of ingest on the card (B1-B5), after ``phase_csv``, whose
     10M-row airlines file and default-GBM train (``csv_ref``: its trees
@@ -4285,12 +4331,12 @@ def phase_multinomial(card, rows=COVTYPE_ROWS, ntrees=50, depth=5,
         with recorded_gains(gains.setdefault(d, [])):
             models[d] = gbm_default(
                 covtype_frame(cpu_rows, d, seed=COVTYPE_SEED + 1)[0],
-                COVTYPE_Y, ntrees=cpu_iters, max_depth=depth,
+                COVTYPE_Y, ntrees=cpu_iters, max_depth=MULTI_CPU_DEPTH,
                 histogram_precision="float32")
     mc, mh = models["cuda"], models["cpu"]
     same, differ, noise = card_vs_cpu_splits(
         "multinomial", mc, mh, gains["cuda"], gains["cpu"], cpu_iters * K,
-        depth)
+        MULTI_CPU_DEPTH)
     d_ll = abs(mc.training_metrics.logloss - mh.training_metrics.logloss)
     print(f"card vs cpu, multinomial_covtype: {cpu_rows} rows, {cpu_iters} "
           f"iterations x {K} trees, float32: {same} of {cpu_iters * K} "
@@ -4765,15 +4811,16 @@ def phase_sampling(card, fr, cpu_rows=200_000, cpu_trees=5):
 
             def fit(fv, c=c):
                 return c["fit"](fv[0], fv[1], ntrees=cpu_trees,
+                                max_depth=CPU_DEPTH,
                                 histogram_precision="float32")
         else:
             def frame(d):
                 return frame_of(X, y, d)
 
             def fit(f, c=c):
-                return c["fit"](f, ntrees=cpu_trees,
+                return c["fit"](f, ntrees=cpu_trees, max_depth=CPU_DEPTH,
                                 histogram_precision="float32")
-        text = card_vs_cpu_recorded(name, fit, frame, cpu_trees, c["depth"],
+        text = card_vs_cpu_recorded(name, fit, frame, cpu_trees, CPU_DEPTH,
                                     PATHS[c["path"]]["split_key"], auc)
         clock.lap(f"card vs cpu, {cpu_trees} trees")
         print(f"card vs cpu, sampling {name}: {cpu_rows} rows, {cpu_trees} "
@@ -4888,8 +4935,9 @@ def drf_case(card, name, fr, y, K, nclasses, cpu_frame, cpu_trees,
                / float(np.nanstd(yh))))
     text = card_vs_cpu_recorded(
         name, lambda f: drf_train(f, y, ntrees=cpu_trees,
+                                  max_depth=DRF_CPU_DEPTH,
                                   histogram_precision="float32"),
-        cpu_frame, cpu_trees * K, DRF_DEPTH, "split_bin", metric)
+        cpu_frame, cpu_trees * K, DRF_CPU_DEPTH, "split_bin", metric)
     what = {2: "AUC", 1: "RMSE / std"}.get(nclasses, "logloss")
     print(f"card vs cpu, drf {name}: {cpu_trees} trees x {K}, float32: "
           f"{text} (out-of-bag {what}) [{card}]", flush=True)
@@ -5196,8 +5244,8 @@ def phase_constraints(card, fr, cpu_rows=200_000, cpu_trees=5):
             f"constrained {path}",
             lambda f, path=path, extra=extra: train(
                 f, cpu_trees, path, histogram_precision="float32",
-                **extra, **kw),
-            lambda d: frame_of(X, y, d), cpu_trees, 6,
+                max_depth=CPU_DEPTH, **extra, **kw),
+            lambda d: frame_of(X, y, d), cpu_trees, CPU_DEPTH,
             PATHS[path]["split_key"], auc)
         print(f"card vs cpu, constrained {path}: {cpu_rows} rows, "
               f"{cpu_trees} trees, float32: {text} (AUC) [{card}]",
@@ -6228,7 +6276,7 @@ def sass_atomics(lib_path):
         ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|HMMA|IMMA)\."
                          r"[A-Z0-9_.]+|LDSM?(?![A-Z0-9_])(?:\.[A-Z0-9_.]+)?)",
                          fn)
-        counts = {op: ops.count(op) for op in sorted(set(ops))}
+        counts = dict(sorted(collections.Counter(ops).items()))
         by_fn[name] = counts
         shown = {k: v for k, v in counts.items() if not k.startswith("LDS")}
         lines.append(f"  {name[:80]}: {shown}")
@@ -6673,14 +6721,492 @@ def phase_streaming(card, fr, dense, dense_adaptive):
 class PhaseClock:
     """Wall seconds of each phase of the run (the cost of each phase)."""
 
-    def __init__(self):
+    def __init__(self, echo=False):
         self.t = time.perf_counter()
         self.laps = {}
+        self.echo = echo
 
     def lap(self, name):
         now = time.perf_counter()
         self.laps[name] = now - self.t
         self.t = now
+        if self.echo:
+            log(f"phase {name}: {self.laps[name]:.1f} s")
+
+
+# 8i: item 14, the data x model mesh. Virtual shards on the one card
+# (the script needs one card): each shard a quarter of the rows, its
+# level kernels launched once a shard.
+SPMD_TREES, SPMD_DEPTH = 20, 6
+SPMD_CPU_ROWS, SPMD_CPU_TREES = 200_000, 3
+SPMD_PROC_ROWS, SPMD_PROC_TREES = 1_000_000, 5
+
+
+@contextlib.contextmanager
+def on_mesh(shape, device):
+    """The port's mesh set to ``shape`` = (n_data, n_model) virtual shards
+    of ``device`` for the block; the previous mesh after it."""
+    from h2o3_tpu_torch.parallel import mesh
+    old = mesh._MESH
+    mesh.set_mesh(mesh.make_mesh(n_data=shape[0], n_model=shape[1],
+                                 devices=[device] * (shape[0] * shape[1])))
+    try:
+        yield mesh.current_mesh()
+    finally:
+        mesh.set_mesh(old)
+
+
+@contextlib.contextmanager
+def recorded_splits(store):
+    """The split search (``tree._find_splits``, one call a level) wrapped:
+    each call appends the chosen gain, the parent's score |G^2 / H|, the
+    node's hessian total H and the chosen split's smaller child hessian,
+    as host arrays (the left child's H summed again from the level's
+    histogram as the search sums it, the right one's H - H_left)."""
+    import torch
+    from h2o3_tpu_torch.models import tree
+    orig = tree._find_splits
+
+    def call(trip, cfg, col_mask, max_bin=None, mono=None):
+        out = orig(trip, cfg, col_mask, max_bin, mono)
+        B, F = cfg.n_bins, cfg.n_features
+        h = trip[1][:, :F, :]
+        n = torch.arange(h.shape[0], device=h.device)
+        f = out[1].long()
+        hl = (tree._cumsum_bins(h[..., :B])[n, f, out[2].long() - 1]
+              + torch.where(out[3], h[n, f, B], torch.zeros(
+                  (), dtype=h.dtype, device=h.device)))
+        parent = tree._leaf_score2(out[4], out[5], cfg).abs()
+        child = torch.minimum(hl, out[5] - hl)
+        store.append(tuple(a.cpu().numpy()
+                           for a in (out[0], parent, out[5], child)))
+        return out
+    tree._find_splits = call
+    try:
+        yield store
+    finally:
+        tree._find_splits = orig
+
+
+def rounding_split(rec, t, m, depth):
+    """How node ``m`` of tree ``t`` chose its split when rounding chose
+    it, else None: "noise" where its gain is within 4 float32 ulps of
+    its parent's score (``noise_split``), "residue" where the chosen
+    split's smaller child has a hessian within 4 ulps of the node's
+    total: a right child's H - H_left is then a residue of the
+    subtraction, and its score (G^2 / H) and gain are made by rounding
+    (at 10M rows a one-row child's hessian is an ulp or two of the
+    node's)."""
+    d = int(np.log2(m + 1))
+    gain, parent, htot, child = rec[t * depth + d]
+    n = m - (2 ** d - 1)
+    if gain[n] <= 4 * np.spacing(np.float32(parent[n])):
+        return "noise"
+    if child[n] <= 4 * np.spacing(np.float32(htot[n])):
+        return "residue"
+    return None
+
+
+def layout_splits(what, ta, tb, ra, rb, n_trees, depth, split_key,
+                  forced=False, max_rounding=2):
+    """``card_vs_cpu_splits``' rule between two layouts of one train
+    (their trees ``ta``, ``tb``: arrays [T, M] by key; their
+    ``recorded_splits`` ``ra``, ``rb``): every split equal, except at or
+    below a node that rounding chose: a noise split on both layouts, or
+    a residue split on either. A residue split gives its one-row child a
+    leaf of about G / 1e-12, so the later trees of two trains train on
+    other margins: the comparison ends with the tree that has one. With
+    ``forced`` each tree of ``tb`` was grown from the inputs of ``ta``'s
+    tree (``regrown``), so a residue moves no later tree and every tree
+    is compared. At most ``max_rounding`` such nodes. Returns (trees
+    compared, trees identical, nodes that differ, the rounding splits by
+    kind)."""
+    same, differ, roots = 0, 0, {}
+    M = 2 ** depth - 1
+    compared = n_trees
+    for t in range(n_trees):
+        bad = [m for m in range(M) if any(
+            ta[k][t][m] != tb[k][t][m] for k in ("feat", split_key,
+                                                  "na_left"))]
+        same += not bad
+        differ += len(bad)
+        for m in bad:
+            a = m
+            while a >= 0:
+                ka = rounding_split(ra, t, a, depth)
+                kb = rounding_split(rb, t, a, depth)
+                kind = ("residue" if "residue" in (ka, kb) else "noise"
+                        if ka == kb == "noise" else None)
+                if kind:
+                    roots[(t, a)] = kind
+                    break
+                a = (a - 1) // 2 if a else -1
+            if a < 0:
+                raise AssertionError(
+                    f"{what}: tree {t} node {m}: feat {ta['feat'][t][m]} "
+                    f"vs {tb['feat'][t][m]}, {split_key} "
+                    f"{ta[split_key][t][m]} vs {tb[split_key][t][m]}, not "
+                    f"below a split that rounding chose")
+        if not forced and any(k == "residue" for (tt, _a), k
+                              in roots.items() if tt == t):
+            compared = t + 1
+            break
+    if len(roots) > max_rounding:
+        raise AssertionError(f"{what}: {len(roots)} rounding splits with "
+                             f"differing nodes at or below them "
+                             f"{sorted(roots.items())}")
+    kinds = {f"{k} (tree, node)": [tn for tn, v in sorted(roots.items())
+                                   if v == k] for k in ("noise", "residue")}
+    return compared, same, differ, kinds
+
+
+# the grower each main path's train calls, by its name in ``models.gbm``
+GROWERS = {"packed": "grow_tree_binned", "adaptive": "grow_tree_adaptive",
+           "global": "grow_tree"}
+
+
+@contextlib.contextmanager
+def recorded_grows(name, store):
+    """The GBM's grower ``name`` (``GROWERS``) wrapped: each call (one a
+    tree) appends its arguments by name and the tree it returned."""
+    import inspect
+    from h2o3_tpu_torch.models import gbm
+    orig = getattr(gbm, name)
+    sig = inspect.signature(orig)
+
+    def call(*args, **kw):
+        tree, nid = orig(*args, **kw)
+        store.append((dict(sig.bind(*args, **kw).arguments), tree))
+        return tree, nid
+    setattr(gbm, name, call)
+    try:
+        yield store
+    finally:
+        setattr(gbm, name, orig)
+
+
+def regrown(name, calls, mesh):
+    """Each of a one-shard train's ``recorded_grows`` calls grown again on
+    ``mesh``, from the same inputs: its row blocks (the matrix, g, h, w)
+    cut over the mesh's data shards as a train cuts them, every other
+    argument as recorded. Returns the trees."""
+    from h2o3_tpu_torch.models import tree
+    from h2o3_tpu_torch.models.model_base import RowShards
+    grower = getattr(tree, name)
+    out = []
+    for args, _tree in calls:
+        a = dict(args, mesh=mesh)
+        if a.get("layout", "rows_f") != "rows_f":
+            raise AssertionError(f"regrown: layout {a['layout']}")
+        blocks = list(a)[:4]                       # matrix, g, h, w
+        one = [a[k][0] if isinstance(a[k], list) else a[k] for k in blocks]
+        rows = RowShards(mesh, one[0].shape[0], one[0].device)
+        if rows.padded != rows.nrow:
+            raise AssertionError(f"regrown: {rows.nrow} rows need pad rows")
+        for k, v in zip(blocks, one):
+            a[k] = rows.split(v, 0)
+        out.append(grower(**a)[0])
+    return out
+
+
+def stacked_trees(trees):
+    """A list of grown trees as host arrays [T, M] by key."""
+    return {k: np.stack([t[k].cpu().numpy() for t in trees])
+            for k in trees[0]}
+
+
+def with_trees(m, trees, lr):
+    """A copy of the GBM ``m`` whose trees are ``trees`` (as grown: split
+    bins unbinned through ``m``'s edges, leaf values scaled by ``lr`` as
+    the train's finalize scales them)."""
+    import copy
+    import torch
+    from h2o3_tpu_torch.models.tree import bins_to_thresholds_stacked
+    th = stacked_trees(trees)
+    host = dict(m.trees)
+    for k in ("feat", "na_left", "is_split"):
+        host[k] = th[k]
+    host["value"] = (th["value"].astype(np.float64) * lr).astype(np.float32)
+    if "thr" in th:
+        host["thr"] = th["thr"]
+    else:
+        host["split_bin"] = th["split_bin"]
+        host["thr"] = bins_to_thresholds_stacked(th["split_bin"], th["feat"],
+                                                 m.edges)
+    new = copy.copy(m)
+    new.trees = host
+    dev = m.device
+    new._feat = torch.tensor(host["feat"], device=dev).long()
+    new._thr = torch.tensor(host["thr"], device=dev)
+    new._na_left = torch.tensor(host["na_left"], device=dev).bool()
+    new._is_split = torch.tensor(host["is_split"], device=dev).bool()
+    new._value = torch.tensor(host["value"], device=dev)
+    return new
+
+
+def spmd_launches(path, shards, ntrees=SPMD_TREES, depth=SPMD_DEPTH):
+    """A path's launches on ``shards`` data shards: each level kernel,
+    route and leaf-totals launch once a shard."""
+    want = {PATHS[path]["level"]: shards * depth * ntrees}
+    for one in ("route", "totals"):
+        if PATHS[path].get(one):
+            want[PATHS[path][one]] = shards * ntrees
+    return want
+
+
+def worker_digests(nproc, backend, device, rows, trees):
+    """``nproc`` processes of ``h2o3_tpu_torch.tools.multihost_worker`` on
+    ``device`` over ``backend``, started together; each must exit 0 and
+    print one digest. Returns (digests, seconds); every process is ended
+    before it returns."""
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "h2o3_tpu_torch.tools.multihost_worker",
+         str(i), str(nproc), str(port), "--device", device, "--backend",
+         backend, "--rows", str(rows), "--trees", str(trees)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    digests = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("DIGEST ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"{backend} worker {i}/{nproc} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+        log(out.strip())
+        digests.append(lines[0].split()[1])
+    return digests, seconds
+
+
+def phase_spmd(card, fr, ones, dev="cuda", cpu_rows=SPMD_CPU_ROWS,
+               cpu_trees=SPMD_CPU_TREES, proc_rows=SPMD_PROC_ROWS,
+               proc_trees=SPMD_PROC_TREES):
+    """8i, item 14 on the card, on the 10M x 28 frame ``fr`` (phase 4's;
+    ``ones`` its packed result, whose AUC the int8 mesh train is held
+    to). (4, 1) virtual shards of one card for the packed, adaptive
+    (W = 32) and global (nbins 1024) paths, each against the one-shard
+    train of the same parameters in two ways, both trains' split
+    searches recorded: the two trains by ``layout_splits`` and AUC
+    within 1e-4 (a residue split ends that comparison: the later trees
+    train on other margins); and every tree of the one-shard train grown
+    again at (4, 1) from its own inputs (``regrown``), all 20 trees by
+    the same rule, the one-shard model with those trees (``with_trees``;
+    a tree that a residue split sets apart kept as one shard's, its own
+    effect printed) within 1e-4 of its AUC. Each launch a shard's
+    (``spmd_launches``).
+    Packed-i8 at (4, 1): each shard its own int8 scale, AUC within 0.005
+    of the float packed path. The packed train again at (4, 1),
+    unrecorded (the warm loop, the reduce's device time a level by CUDA
+    events, shardstats' collective wait), bit-equal to the recorded one,
+    and at (4, 2), bit-equal to (4, 1). Then a sampled GBM and a DRF at
+    (4, 1) on ``cpu_rows`` rows (the forest at ``DRF_CPU_DEPTH``), card
+    against CPU on the same mesh; an NCCL group of one rank (a worker
+    process) whose packed train is the one-shard train's bit for bit;
+    two gloo processes on the one card (NCCL refuses two ranks on one
+    device; gloo's CUDA tensors go through the host), equal digests,
+    equal to the in-process (2, 1) mesh's. Returns the launches by
+    path."""
+    import torch
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.parallel import collectives
+    from h2o3_tpu_torch.tools import multihost_worker
+    rows, F = fr.nrow, fr.ncol - 1
+    out = {}
+    keys = ("feat", "split_bin", "thr", "na_left", "is_split", "value")
+
+    def auc(m):
+        return m.training_metrics.auc
+
+    def spmd_line(m):
+        return json.dumps(m.output["spmd"])
+
+    for path in ("packed", "adaptive", "global"):
+        clock = PhaseClock()
+        key = PATHS[path]["split_key"]
+        g1, g4, gf, calls = [], [], [], []
+        with recorded_splits(g1), recorded_grows(GROWERS[path], calls):
+            m1 = train(fr, SPMD_TREES, path)
+        zero_launches()
+        with on_mesh((4, 1), dev), recorded_splits(g4):
+            m4 = train(fr, SPMD_TREES, path)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check_launches(f"spmd41_{path}", launches, spmd_launches(path, 4))
+        out[f"spmd41_{path}"] = launches
+        compared, same, differ, kinds = layout_splits(
+            f"spmd (4, 1) {path} vs one shard", m4.trees, m1.trees, g4, g1,
+            SPMD_TREES, SPMD_DEPTH, key)
+        if compared == SPMD_TREES and not abs(auc(m4) - auc(m1)) <= 1e-4:
+            raise AssertionError(f"spmd (4, 1) {path}: AUC {auc(m4)} vs one "
+                                 f"shard {auc(m1)}")
+        if not min(auc(m4), auc(m1)) > 0.5:
+            raise AssertionError(f"spmd (4, 1) {path}: AUC {auc(m4)}, one "
+                                 f"shard {auc(m1)}")
+        clock.lap("one shard + (4, 1), searches recorded")
+        with on_mesh((4, 1), dev) as mesh, recorded_splits(gf):
+            forced = regrown(GROWERS[path], calls, mesh)
+        one_trees = [tr for _a, tr in calls]
+        del calls
+        _c, f_same, f_differ, f_kinds = layout_splits(
+            f"spmd (4, 1) {path} regrown vs one shard", stacked_trees(forced),
+            stacked_trees(one_trees), gf, g1, SPMD_TREES, SPMD_DEPTH, key,
+            forced=True)
+        # a tree that a residue split sets apart is a fault of the float32
+        # search on either layout (ROADMAP queue 3), not of the reduce:
+        # the AUC bound holds the regrown model with those trees kept as
+        # one shard's; their own effect is printed
+        lr = float(m1.params["learn_rate"])
+        apart = {t for t, _m in f_kinds["residue (tree, node)"]}
+        a1 = m1.model_performance(fr).auc
+        ak = with_trees(m1, [one_trees[t] if t in apart else tr
+                             for t, tr in enumerate(forced)],
+                        lr).model_performance(fr).auc
+        af = (with_trees(m1, forced, lr).model_performance(fr).auc
+              if apart else ak)
+        if not abs(ak - a1) <= 1e-4:
+            raise AssertionError(f"spmd (4, 1) {path} regrown: AUC {ak} vs "
+                                 f"one shard {a1}")
+        clock.lap("regrown at (4, 1)")
+        print(f"spmd {path}: {rows}x{F}, {SPMD_TREES} trees depth "
+              f"{SPMD_DEPTH}, (4, 1) virtual shards on {dev} against one "
+              f"shard: the two trains {compared} trees compared, {same} "
+              f"with identical splits, {differ} split nodes differ, each at "
+              f"or below a split that rounding chose {json.dumps(kinds)}, "
+              f"AUC (4, 1) {auc(m4)!r} one shard {auc(m1)!r}; each "
+              f"one-shard tree regrown at (4, 1) from its inputs: "
+              f"{SPMD_TREES} trees compared, {f_same} identical, "
+              f"{f_differ} split nodes differ {json.dumps(f_kinds)}, AUC "
+              f"{ak!r} one shard {a1!r} (with the {len(apart)} trees a "
+              f"residue split sets apart regrown too: {af!r}); loops "
+              f"(split searches recorded: a "
+              f"host copy a level) (4, 1) "
+              f"{m4.output['training_loop_seconds']!r} s, one shard "
+              f"{m1.output['training_loop_seconds']!r} s; spmd "
+              f"{spmd_line(m4)}; launches {launches} [{card}]; seconds "
+              f"{json.dumps(clock.laps)}", flush=True)
+        if path == "packed":
+            packed4 = m4
+        del m1, m4, g1, g4, gf, forced, one_trees
+
+    zero_launches()
+    with on_mesh((4, 1), dev):
+        m8 = train(fr, SPMD_TREES, "packed_i8")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("spmd41_packed_i8", launches,
+                   spmd_launches("packed_i8", 4))
+    out["spmd41_packed_i8"] = launches
+    if not abs(auc(m8) - ones["auc"]) <= 0.005:
+        raise AssertionError(f"spmd (4, 1) packed_i8: AUC {auc(m8)} more "
+                             f"than 0.005 from the float path's "
+                             f"{ones['auc']}")
+    print(f"spmd packed_i8 (H2O3_HIST_I8=1, each shard its own scale): "
+          f"(4, 1) AUC {auc(m8)!r}, float one shard {ones['auc']!r}; "
+          f"training_loop_seconds {m8.output['training_loop_seconds']!r}; "
+          f"spmd {spmd_line(m8)}; launches {launches} [{card}]", flush=True)
+    del m8
+
+    zero_launches()
+    with on_mesh((4, 1), dev), collectives.timing() as rec:
+        m4 = train(fr, SPMD_TREES, "packed")
+        torch.cuda.synchronize()
+        reduce_ms = collectives.elapsed_ms(rec)
+    check_repeats([packed4, m4], "packed", "spmd (4, 1) packed x2")
+    per_tree = SPMD_DEPTH + 1
+    if len(reduce_ms) != SPMD_TREES * per_tree:
+        raise AssertionError(f"spmd: {len(reduce_ms)} reduces timed, "
+                             f"expected {SPMD_TREES * per_tree}")
+    level_ms = [float(np.median(reduce_ms[d::per_tree]))
+                for d in range(per_tree)]
+    zero_launches()
+    with on_mesh((4, 2), dev):
+        m42 = train(fr, SPMD_TREES, "packed")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("spmd42_packed", launches, spmd_launches("packed", 4))
+    for k in keys:
+        if k in m4.trees and not np.array_equal(m42.trees[k], m4.trees[k]):
+            raise AssertionError(f"spmd (4, 2) packed: {k} differs from "
+                                 f"(4, 1)")
+    out["spmd42_packed"] = launches
+    if not m42.output["spmd"]["model_axis_split_search"]:
+        raise AssertionError("spmd (4, 2): no model-axis record")
+    print(f"spmd packed warm loops: (4, 1) "
+          f"{m4.output['training_loop_seconds']!r} s (one shard, phase 4: "
+          f"{ones['loop_s']!r} s), (4, 2) "
+          f"{m42.output['training_loop_seconds']!r} s, (4, 2) trees "
+          f"bit-equal to (4, 1); reduce a level over the 4 shards (CUDA "
+          f"events, median over {SPMD_TREES} trees; levels 0-5, then the "
+          f"leaf totals): {[round(x, 4) for x in level_ms]} ms, "
+          f"{sum(reduce_ms) / SPMD_TREES!r} ms a tree; shardstats "
+          f"{json.dumps(m4.output['spmd'].get('collective'))}; (4, 2) "
+          f"spmd {spmd_line(m42)} [{card}]", flush=True)
+    del m4, m42, packed4
+
+    X, y, _F = higgs_arrays(cpu_rows, seed=11)
+
+    def sampled(f):
+        with on_mesh((4, 1), f.device):
+            return train(f, cpu_trees, "packed",
+                         histogram_precision="float32", **SAMPLING_GBM)
+
+    def forest(f):
+        with on_mesh((4, 1), f.device):
+            return drf_train(as_classes(f, "label"), "label",
+                             ntrees=cpu_trees, max_depth=DRF_CPU_DEPTH,
+                             histogram_precision="float32")
+
+    for name, fit, depth, key in (("sampled_packed", sampled, 6,
+                                   "split_bin"),
+                                  ("drf", forest, DRF_CPU_DEPTH, "thr")):
+        t0 = time.perf_counter()
+        text = card_vs_cpu_recorded(f"spmd (4, 1) {name}", fit,
+                                    lambda d: frame_of(X, y, d), cpu_trees,
+                                    depth, key, auc)
+        print(f"card vs cpu, spmd (4, 1) {name}: {cpu_rows} rows, "
+              f"{cpu_trees} trees, float32, each shard's own row draw: "
+              f"{text} (AUC) [{card}]; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # the one-rank NCCL group and the two gloo processes run at once, the
+    # in-process references meanwhile
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        one = pool.submit(worker_digests, 1,
+                          "nccl" if dev == "cuda" else "gloo", dev,
+                          proc_rows, proc_trees)
+        two = pool.submit(worker_digests, 2, "gloo", dev, proc_rows,
+                          proc_trees)
+        ref1 = multihost_worker.train_digest(1, dev, proc_rows, proc_trees)
+        ref2 = multihost_worker.train_digest(2, dev, proc_rows, proc_trees)
+        (nccl, s1), (gloo, s2) = one.result(), two.result()
+    if nccl != [ref1]:
+        raise AssertionError(f"spmd: the one-rank process group's train "
+                             f"{nccl} is not the one-shard train {ref1}")
+    if gloo != [ref2, ref2]:
+        raise AssertionError(f"spmd: two gloo processes' digests {gloo}, "
+                             f"the in-process (2, 1) mesh's {ref2}")
+    print(f"spmd processes: {proc_rows} rows, {proc_trees} packed trees: "
+          f"NCCL group of one rank = one shard ({ref1}; {s1:.1f} s with "
+          f"the process's start), two gloo processes on one card = the "
+          f"in-process (2, 1) mesh ({ref2}; {s2:.1f} s; both groups and "
+          f"the references at once) [{card}]",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -6705,7 +7231,7 @@ def main() -> int:
 
     # 2. build: the training path's libraries and the probe tools' (phase
     # 9), every nvcc started together
-    clock = PhaseClock()
+    clock = PhaseClock(echo=True)
     t0 = time.perf_counter()
     probes_built = []
 
@@ -6730,16 +7256,21 @@ def main() -> int:
     print("ptxas -v, leaf totals and route instances:\n" +
           "\n".join(f"  {fn}: {'; '.join(lines)}"
                     for fn, lines in sorted(usage.items())), flush=True)
+    # every library's cuobjdump at once
+    libs = list(kernels.library_paths().values())
+    probe_libs = list(_probes.library_paths().values())
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + len(probe_libs)
+                                               ) as pool:
+        sass = list(pool.map(sass_atomics, libs + probe_libs))
     by_fn = {}
-    for so in kernels.library_paths().values():
-        text, counts = sass_atomics(so)
+    for text, counts in sass[:len(libs)]:
         print(text, flush=True)
         by_fn.update(counts)
     if by_fn:
         check_sass(by_fn)
     probe_fns = {}
-    for so in _probes.library_paths().values():
-        probe_fns.update(sass_atomics(so)[1])
+    for _text, counts in sass[len(libs):]:
+        probe_fns.update(counts)
     if probe_fns:
         check_probe_sass(probe_fns)
 
@@ -6917,6 +7448,16 @@ def main() -> int:
     # 8h. item 13: the streamed GBM, against the dense packed train
     streamed = phase_streaming(card, fr, packed, adaptive)
     clock.lap("8h streaming")
+    # 8i. item 14: the mesh, virtual shards on the card, the process groups
+    spmd = phase_spmd(card, fr, packed)
+    clock.lap("8i spmd")
+    for path, launches in spmd.items():
+        for kernel in ("binned_level", "binned_route_only",
+                       "segment_totals", "adaptive_level",
+                       "adaptive_route_only", "binned_level_i8"):
+            if launches[kernel]:
+                by_name[kernel].setdefault("launches_by_path", {})[
+                    path] = launches[kernel]
     for kernel, extra in phase_deep_record(dev).items():
         by_name[kernel].update(extra)
     slice20 = {**resumed, "constrained_packed": constrained, **cv,
@@ -6946,6 +7487,8 @@ def main() -> int:
     rec += phase_probes(card, dev)
     clock.lap("9 probes")
     rec += phase_global_record(dev, glob["launches"], warm_s, 20)
+    rec[-1].setdefault("launches_by_path", {})["spmd41_global"] = \
+        spmd["spmd41_global"]["global_hist"]
     clock.lap("6 global record")
     print(f"phase seconds: {json.dumps(clock.laps)}", flush=True)
     print("kernels run: binned_level[W=16,32 x node-grouped, tiled; "

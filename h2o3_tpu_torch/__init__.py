@@ -28,20 +28,26 @@ continue from a checkpoint; the GBM takes monotone and interaction
 constraints; the builders cross-validate, balance classes and
 calibrate. A frame whose design matrix passes the device budget
 (``memman``) trains the GBM and XGBoost out of core, row chunks
-streamed through the card (``models/streaming.py``). ROADMAP.md queues
-the rest.
+streamed through the card (``models/streaming.py``). The GBM, XGBoost
+and the forest train on a ('data', 'model') mesh (``parallel/``: rows
+over data shards, the split search over model shards, one process or
+several), the trees of the JAX package's mesh of the same shape.
+ROADMAP.md queues the rest.
 """
-from h2o3_tpu_torch._device import init
+from h2o3_tpu_torch._device import init, is_coordinator
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.ingest.parse import import_file, parse_setup
 from h2o3_tpu_torch.ingest.sql import import_sql_table
+from h2o3_tpu_torch.parallel.mesh import current_mesh, make_mesh, set_mesh
 from h2o3_tpu_torch.persist import load_model, save_model
 
 __version__ = "0.1.0"
 
-__all__ = ["Frame", "Vec", "import_file", "import_sql_table", "init",
-           "load_model", "parse_setup", "save_model", "upload_numpy"]
+__all__ = ["Frame", "Vec", "current_mesh", "import_file",
+           "import_sql_table", "init", "is_coordinator", "load_model",
+           "make_mesh", "parse_setup", "save_model", "set_mesh",
+           "upload_numpy"]
 
 
 def upload_numpy(data, names=None, device=None) -> Frame:

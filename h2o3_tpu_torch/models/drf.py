@@ -51,21 +51,26 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.log import warn
-from h2o3_tpu_torch.models.gbm import (check_checkpoint, merge_prior_trees,
+from h2o3_tpu_torch.models.gbm import (check_checkpoint,
+                                       merge_prior_trees,
                                        merged_importances, path_grower,
                                        refuse_params,
                                        resolve_checkpoint_source,
-                                       resume_rows, spec_signature)
+                                       resume_rows, spec_signature,
+                                       spmd_record)
 from h2o3_tpu_torch.models.model_base import (BALANCE_DEFAULTS,
                                               BUILDER_PARAMS,
                                               CALIBRATION_DEFAULTS, Model,
-                                              ModelBuilder, TrainingSpec,
+                                              ModelBuilder, RowShards,
+                                              TrainingSpec,
                                               compute_metrics,
                                               persist_in_training_ckpt)
 from h2o3_tpu_torch.models.tree import (bins_to_thresholds_stacked,
                                         predict_raw_mean, tree_sample)
 from h2o3_tpu_torch.ops.binning import packed_codes_record
 from h2o3_tpu_torch.ops.random import fold_in, split, train_key
+from h2o3_tpu_torch.parallel import shardstats
+from h2o3_tpu_torch.parallel.mesh import current_mesh
 from h2o3_tpu_torch.persist import register_model_class
 
 MAX_DEPTH_CAP = 16
@@ -292,8 +297,11 @@ class H2ORandomForestEstimator(ModelBuilder):
         F = spec.n_features
         mtries = default_mtries(p.get("mtries", -1), F, spec.nclasses)
         dev = spec.device
+        # the rows over the mesh's data shards (one block: as they are)
+        rows = RowShards(current_mesh(), spec.nrow, dev)
         t_bin0 = time.monotonic()
-        cfg, grow, bm, pc = path_grower(spec, p, mtries, random_adapts=False)
+        cfg, grow, bm, pc = path_grower(spec, p, rows, mtries,
+                                        random_adapts=False)
         t_bin = time.monotonic() - t_bin0
 
         prior = self._resolve_checkpoint(spec)
@@ -311,51 +319,65 @@ class H2ORandomForestEstimator(ModelBuilder):
         srpc = self.validate_sample_rate_per_class(spec)
         rates = (torch.tensor(srpc, dtype=torch.float32, device=dev)
                  if srpc is not None else None)
-        w = spec.w
-        y_codes = spec.y if spec.nclasses > 1 else None
-        yf = spec.y.to(torch.float32)
-        ys = ([yf] if K == 1 else
-              [(spec.y == k).to(torch.float32) for k in range(K)])
+        # per-shard row state (pad rows: weight 0, never out of bag)
+        w_s = rows.split(spec.w, 0.0)
+        y_codes = rows.split(spec.y, 0) if spec.nclasses > 1 else None
+        y_s = rows.split(spec.y, 0)
+        ys_s = [[yj.to(torch.float32)] if K == 1 else
+                [(yj == k).to(torch.float32) for k in range(K)]
+                for yj in y_s]
         oob_num, oob_cnt = self._resume_oob(prior, spec, K)
-        live_w = w > 0
+        oob_num_s = rows.split(oob_num, 0.0)
+        oob_cnt_s = rows.split(oob_cnt, 0.0)
+        live_s = [wj > 0 for wj in w_s]
         trees = []
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t_loop0 = time.monotonic()
-        for i in range(start, ntrees):
-            # the key of the tree's index in the whole forest
-            key_r, key_c, key_m = split(fold_in(key, i), 3)
-            wt, col_mask = tree_sample(key_r, key_c, w, y_codes, rate, rates,
-                                       col_rate, F)
-            # rows the tree did not sample: weight > 0, sampled weight 0
-            live_oob = live_w & (wt == 0)
-            preds = []
-            for k, yk in enumerate(ys):
-                tree, nid = grow(-(yk * wt), wt, wt, col_mask,
-                                 key_m if K == 1 else fold_in(key_m, k))
-                preds.append(tree["value"][nid.long()])
-                trees.append(tree)
-            if K == 1:
-                oob_num = oob_num + torch.where(live_oob, preds[0], 0.0)
-            else:
-                oob_num = oob_num + torch.where(live_oob[:, None],
-                                                torch.stack(preds, dim=1),
-                                                0.0)
-            oob_cnt = oob_cnt + live_oob.to(torch.float32)
-            built = i + 1 - start
-            # the JAX loop's cadence: chunks of min(25, interval) trees; at
-            # a chunk's end a commit once the interval is full, but for
-            # the last chunk (the finished forest's commit is below)
-            if ckpt_dir and (built % chunk == 0 or built == ntrees_new):
-                since += built - boundary
-                boundary = built
-                if since >= ckpt_interval and built < ntrees_new:
-                    self._commit(spec, trees, bm, cfg, dev, built, prior,
-                                 start, oob_num, oob_cnt, ckpt_dir, commits)
-                    since = 0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t_loop = time.monotonic() - t_loop0
+        steps = shardstats.recorder(rows.mesh, self.algo)
+        with shardstats.recording(steps):
+            t_loop0 = time.monotonic()
+            for i in range(start, ntrees):
+                # the key of the tree's index in the whole forest
+                key_r, key_c, key_m = split(fold_in(key, i), 3)
+                wt_s, col_mask = tree_sample(key_r, key_c, w_s, y_codes,
+                                             rate, rates, col_rate, F,
+                                             rows.ids)
+                # rows the tree did not sample: weight > 0, sampled 0
+                oob_s = [lw & (wt == 0) for lw, wt in zip(live_s, wt_s)]
+                preds = [[] for _ in wt_s]
+                for k in range(len(ys_s[0])):
+                    tree, nid_s = grow(
+                        [-(ys[k] * wt) for ys, wt in zip(ys_s, wt_s)], wt_s,
+                        wt_s, col_mask, key_m if K == 1 else fold_in(key_m, k))
+                    vals = [tree["value"].to(d) for d in rows.devices]
+                    for j, (v, nid) in enumerate(zip(vals, nid_s)):
+                        preds[j].append(v[nid.long()])
+                    trees.append(tree)
+                for j, (oob, pj) in enumerate(zip(oob_s, preds)):
+                    if K == 1:
+                        oob_num_s[j] = oob_num_s[j] + torch.where(oob, pj[0],
+                                                                  0.0)
+                    else:
+                        oob_num_s[j] = oob_num_s[j] + torch.where(
+                            oob[:, None], torch.stack(pj, dim=1), 0.0)
+                    oob_cnt_s[j] = oob_cnt_s[j] + oob.to(torch.float32)
+                built = i + 1 - start
+                # the JAX loop's cadence: chunks of min(25, interval) trees;
+                # at a chunk's end a commit once the interval is full, but
+                # for the last chunk (the finished forest's commit is below)
+                if ckpt_dir and (built % chunk == 0 or built == ntrees_new):
+                    since += built - boundary
+                    boundary = built
+                    if since >= ckpt_interval and built < ntrees_new:
+                        self._commit(spec, trees, bm, cfg, dev, built, prior,
+                                     start, rows.gather(oob_num_s),
+                                     rows.gather(oob_cnt_s), ckpt_dir,
+                                     commits)
+                        since = 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_loop = time.monotonic() - t_loop0
+        oob_num, oob_cnt = rows.gather(oob_num_s), rows.gather(oob_cnt_s)
 
         t_fin0 = time.monotonic()
         model = self._finalize(spec, trees, bm, cfg, dev, ntrees_new, prior,
@@ -377,6 +399,8 @@ class H2ORandomForestEstimator(ModelBuilder):
         model.output["packed_codes"] = packed_codes_record(
             pc, bm.n_bins if pc is not None else None)
         model.output["mtries"] = mtries
+        model.output["spmd"] = spmd_record(
+            rows, steps.summary() if steps is not None else None)
         return model
 
     def _oob_metrics(self, model, spec, K, oob_num, oob_cnt):

@@ -80,7 +80,8 @@ from h2o3_tpu_torch.models.model_base import (BALANCE_DEFAULTS,
                                               BUILDER_PARAMS,
                                               CALIBRATION_DEFAULTS,
                                               DKV_REFUSED, Model,
-                                              ModelBuilder, ScoreKeeper,
+                                              ModelBuilder, RowShards,
+                                              ScoreKeeper,
                                               TrainingSpec, compute_metrics,
                                               persist_in_training_ckpt)
 from h2o3_tpu_torch.models.tree import (ADAPTIVE_HIST_TYPES,
@@ -105,6 +106,9 @@ from h2o3_tpu_torch.ops.binning import (PackedCodes, _edges_host,
                                         pack_codes_for, packed_codes_record)
 from h2o3_tpu_torch.ops.random import (fold_in, prng_key, split, train_key,
                                        uniform_below)
+from h2o3_tpu_torch.parallel import shardstats
+from h2o3_tpu_torch.parallel.mesh import (current_mesh, n_data_shards,
+                                          n_model_shards, spmd_enabled)
 from h2o3_tpu_torch.persist import register_model_class
 from h2o3_tpu_torch.resilience import is_oom
 
@@ -385,30 +389,48 @@ def variable_importances(names, feat: np.ndarray, gain: np.ndarray,
                            else vi[order]).tolist()}
 
 
-def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
-                random_adapts: bool = True, mono=None, sets=None):
+def path_grower(spec: TrainingSpec, p: Dict, rows: RowShards,
+                mtries: int = 0, random_adapts: bool = True, mono=None,
+                sets=None):
     """The JAX package's path rule (its GBM's ``_train_dense``, and its
     DRF's, which passes ``mtries`` and sends ``histogram_type="random"``
     to the sketch: ``random_adapts`` False) and the chosen path's
     set-up. ``mono`` and ``sets`` are the GBM's constraints
-    (``constraint_arrays``), passed to every tree. Returns (cfg,
-    grow(g, h, w, col_mask, key) -> (tree, nid), bm, pc): bm and pc None
-    on the adaptive path, pc None on the global-sketch path (unpacked
-    codes)."""
+    (``constraint_arrays``), passed to every tree. The path's matrix
+    (raw features, packed or sketch codes, binned once on the spec's
+    device) is split over the data shards of ``rows`` (pad rows NA), and
+    ``grow`` takes and returns lists of per-shard blocks. Returns (cfg,
+    grow(g, h, w, col_mask, key) -> (tree on the spec's device, nid),
+    bm, pc): bm and pc None on the adaptive path, pc None on the
+    global-sketch path (unpacked codes)."""
+    cfg, grow, bm, pc = _path(spec, p, rows, mtries, random_adapts, mono,
+                              sets)
+    dev = spec.device
+
+    def grow_home(g, h, w, col_mask, key):
+        # the tree on the spec's device (the lead shard's may differ)
+        tree, nid = grow(g, h, w, col_mask, key)
+        return {k: v.to(dev) for k, v in tree.items()}, nid
+    return cfg, grow_home, bm, pc
+
+
+def _path(spec, p, rows, mtries, random_adapts, mono, sets):
     hist_type = (p.get("histogram_type") or "uniform_adaptive").lower()
     depth = int(p["max_depth"])
+    mesh, shard = rows.mesh, rows.split
 
     def adaptive():
         cfg, root_lo, root_hi, nb_f = adaptive_setup(spec, p, depth,
                                                      mtries)
-        x = (spec.X if ADAPTIVE_LAYOUT == "rows_f"
-             else spec.X.t().contiguous())
+        x = shard(spec.X, float("nan"))
+        if ADAPTIVE_LAYOUT != "rows_f":
+            x = [xj.t().contiguous() for xj in x]
 
         def grow(g, h, w, col_mask, key):
             return grow_tree_adaptive(x, g, h, w, cfg, root_lo, root_hi,
                                       nb_f=nb_f, col_mask=col_mask,
                                       layout=ADAPTIVE_LAYOUT, key=key,
-                                      mono=mono, sets=sets)
+                                      mono=mono, sets=sets, mesh=mesh)
         return cfg, grow, None, None
 
     packed_req = packed_codes_requested(p) and hist_type != "random"
@@ -431,16 +453,31 @@ def path_grower(spec: TrainingSpec, p: Dict, mtries: int = 0,
         pc = pack_codes(bm)
         bm.codes = None                # the packed codes replace them
         cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
+        rm = shard(pc.rm, pc.W - 1)
         return (cfg, lambda g, h, w, cm, key: grow_tree_binned(
-            pc.rm, g, h, w, cfg, cm, key, mono, sets), bm, pc)
+            rm, g, h, w, cfg, cm, key, mono, sets, mesh), bm, pc)
     if packed_req and can_adapt:
         # the sketch's bin count is past the packed lanes
         return adaptive()
     # the global sketch, unpacked: uint8 or int32 codes, NA = n_bins
-    codes = bm.codes
+    codes = shard(bm.codes, bm.n_bins)
     cfg = tree_config(p, depth, bm.n_bins, spec.n_features, mtries)
     return (cfg, lambda g, h, w, cm, key: grow_tree(
-        codes, g, h, w, cfg, cm, key, mono, sets), bm, None)
+        codes, g, h, w, cfg, cm, key, mono, sets, mesh), bm, None)
+
+
+def spmd_record(rows: RowShards, collective) -> Dict:
+    """``output["spmd"]``, the JAX package's record of the mesh a train
+    ran on: its shape, whether the split search sharded over the model
+    axis, and where the train observed its shards (``shardstats``) the
+    merged ``collective`` summary."""
+    nd = 1 if rows.mesh is None else n_data_shards(rows.mesh)
+    nm = 1 if rows.mesh is None else n_model_shards(rows.mesh)
+    out = {"n_data": nd, "n_model": nm,
+           "model_axis_split_search": bool(nm > 1 and spmd_enabled())}
+    if collective is not None:
+        out["collective"] = collective
+    return out
 
 
 class GBMModel(Model):
@@ -713,8 +750,11 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             raise NotImplementedError(MULTINOMIAL_OFFSET)
         dev = spec.device
         mono, sets = constraint_arrays(p, spec)
+        # the rows over the mesh's data shards (one block: as they are)
+        rows = RowShards(current_mesh(), spec.nrow, dev)
         t_bin0 = time.monotonic()
-        cfg, grow, bm, pc = path_grower(spec, p, mono=mono, sets=sets)
+        cfg, grow, bm, pc = path_grower(spec, p, rows, mono=mono,
+                                        sets=sets)
         t_bin = time.monotonic() - t_bin0
         prior = self._resolve_checkpoint(dist_name, spec)
 
@@ -754,6 +794,10 @@ class H2OGradientBoostingEstimator(ModelBuilder):
         ntrees = int(p["ntrees"])
         if ntrees < 1:
             raise ValueError(f"gbm: ntrees must be >= 1, got {ntrees}")
+        # per-shard row state; the pad rows' margins start at f0
+        margin_s = rows.split(margin, f0)
+        w_s = rows.split(w, 0.0)
+        y_s = rows.split(y, 0)
         start_trees = prior.ntrees_built if prior is not None else 0
         ntrees_new = ntrees - start_trees
         # sampling (A4): a key a train, one row sample and column mask an
@@ -769,7 +813,7 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                 warn("sample_rate is ignored when sample_rate_per_class "
                      "is specified (hex/tree/SharedTree.java:210)")
             rates = torch.tensor(srpc, dtype=torch.float32, device=dev)
-        y_codes = spec.y if spec.nclasses > 1 else None
+        y_codes = (rows.split(spec.y, 0) if spec.nclasses > 1 else None)
         anneal = float(p["learn_rate_annealing"])
         task = ("binomial" if spec.nclasses == 2
                 else "multinomial" if K > 1 else "regression")
@@ -820,8 +864,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
                 m = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev,
                                    K, built, prior, start_trees)
                 m.scoring_history = list(keeper.history)
-                path = self._write_in_training_checkpoint(m, margin,
-                                                          ckpt_dir, spec)
+                path = self._write_in_training_checkpoint(
+                    m, rows.gather(margin_s), ckpt_dir, spec)
             except Exception as e:  # noqa: BLE001 — advisory only
                 warn("%s: in-training checkpoint commit failed: %s",
                      self.algo, e)
@@ -833,62 +877,79 @@ class H2OGradientBoostingEstimator(ModelBuilder):
 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t_loop0 = time.monotonic()
-        lr_chunk = float(p["learn_rate"]) * anneal ** start_trees
-        while built < ntrees_new:
-            c = min(chunk, ntrees_new - built)
-            # within a chunk the rate is annealed in float32, across
-            # chunks in float64, as the JAX chunk body and its driver do
-            lr = np.float32(lr_chunk)
-            for _ in range(c):
-                # the key of the tree's index in the whole model
-                key_t = fold_in(key, start_trees + built)
-                key_r, key_c = split(key_t)
-                wt, col_mask = tree_sample(key_r, key_c, w, y_codes, rate,
-                                           rates, col_rate, spec.n_features)
-                if K == 1:
-                    g, h = dist.grad_hess(margin, y)
-                    tree, nid = grow(g * wt, h * wt, wt, col_mask, key_t)
-                    margin = margin + float(lr) * tree["value"][nid.long()]
-                    if walk is not None:
-                        vmargin = vmargin + float(lr) * walk(tree)
-                    trees.append(tree)
-                else:
-                    # the K trees of an iteration share the softmax of
-                    # the margin at its start
-                    prob = softmax(margin)
-                    for k in range(K):
-                        pk = prob[:, k]
-                        g = pk - (y == k).to(torch.float32)
-                        h = torch.clamp(pk * (1.0 - pk), min=1e-9)
-                        tree, nid = grow(g * wt, h * wt, wt, col_mask,
-                                         key_t)
-                        margin[:, k] += float(lr) * tree["value"][nid.long()]
+        steps = shardstats.recorder(rows.mesh, self.algo)
+        with shardstats.recording(steps):
+            t_loop0 = time.monotonic()
+            lr_chunk = float(p["learn_rate"]) * anneal ** start_trees
+            while built < ntrees_new:
+                c = min(chunk, ntrees_new - built)
+                # within a chunk the rate is annealed in float32, across
+                # chunks in float64, as the JAX chunk body and its caller do
+                lr = np.float32(lr_chunk)
+                for _ in range(c):
+                    # the key of the tree's index in the whole model
+                    key_t = fold_in(key, start_trees + built)
+                    key_r, key_c = split(key_t)
+                    wt_s, col_mask = tree_sample(key_r, key_c, w_s, y_codes,
+                                                 rate, rates, col_rate,
+                                                 spec.n_features, rows.ids)
+                    if K == 1:
+                        gs, hs = [], []
+                        for m, yj, wt in zip(margin_s, y_s, wt_s):
+                            g, h = dist.grad_hess(m, yj)
+                            gs.append(g * wt)
+                            hs.append(h * wt)
+                        tree, nid_s = grow(gs, hs, wt_s, col_mask, key_t)
+                        vals = [tree["value"].to(d) for d in rows.devices]
+                        margin_s = [m + float(lr) * v[nid.long()] for m, v,
+                                    nid in zip(margin_s, vals, nid_s)]
                         if walk is not None:
-                            vmargin[:, k] += float(lr) * walk(tree)
+                            vmargin = vmargin + float(lr) * walk(tree)
                         trees.append(tree)
-                built += 1
-                lr = np.float32(lr * np.float32(anneal))
-            lr_chunk *= anneal ** c
-            since_ckpt += c
-            if score_each:
-                t_s0 = time.monotonic()
-                keeper.record(score_entry(
-                    vmargin if valid is not None else margin, sc_spec,
-                    dist, start_trees + built, want_auc))
-                score_s += time.monotonic() - t_s0
-                # the JAX loop checks before it commits a further chunk:
-                # the last chunk stands whatever the rule says, and a
-                # stopped train writes no checkpoint of its last chunk
-                if built < ntrees_new and keeper.should_stop():
-                    break
-            if ckpt_dir and (since_ckpt >= ckpt_interval
-                             or built >= ntrees_new):
-                commit()
-                since_ckpt = 0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t_loop = time.monotonic() - t_loop0
+                    else:
+                        # the K trees of an iteration share the softmax of
+                        # the margin at its start
+                        prob_s = [softmax(m) for m in margin_s]
+                        for k in range(K):
+                            gs, hs = [], []
+                            for prob, yj, wt in zip(prob_s, y_s, wt_s):
+                                pk = prob[:, k]
+                                g = pk - (yj == k).to(torch.float32)
+                                h = torch.clamp(pk * (1.0 - pk), min=1e-9)
+                                gs.append(g * wt)
+                                hs.append(h * wt)
+                            tree, nid_s = grow(gs, hs, wt_s, col_mask,
+                                               key_t)
+                            vals = [tree["value"].to(d) for d in rows.devices]
+                            for m, v, nid in zip(margin_s, vals, nid_s):
+                                m[:, k] += float(lr) * v[nid.long()]
+                            if walk is not None:
+                                vmargin[:, k] += float(lr) * walk(tree)
+                            trees.append(tree)
+                    built += 1
+                    lr = np.float32(lr * np.float32(anneal))
+                lr_chunk *= anneal ** c
+                since_ckpt += c
+                if score_each:
+                    t_s0 = time.monotonic()
+                    keeper.record(score_entry(
+                        vmargin if valid is not None
+                        else rows.gather(margin_s), sc_spec, dist,
+                        start_trees + built, want_auc))
+                    score_s += time.monotonic() - t_s0
+                    # the JAX loop checks before it commits a further chunk:
+                    # the last chunk stands whatever the rule says, and a
+                    # stopped train writes no checkpoint of its last chunk
+                    if built < ntrees_new and keeper.should_stop():
+                        break
+                if ckpt_dir and (since_ckpt >= ckpt_interval
+                                 or built >= ntrees_new):
+                    commit()
+                    since_ckpt = 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_loop = time.monotonic() - t_loop0
+        margin = rows.gather(margin_s)
 
         t_fin0 = time.monotonic()
         model = self._finalize(spec, dist_name, f0, trees, bm, cfg, dev, K,
@@ -908,6 +969,8 @@ class H2OGradientBoostingEstimator(ModelBuilder):
             pc, bm.n_bins if pc is not None else None)
         if commits:
             model.output["checkpoints"] = commits
+        model.output["spmd"] = spmd_record(
+            rows, steps.summary() if steps is not None else None)
         if dist is not None and dist.name == "huber":
             # the transition point the trees were grown with
             model.output["huber_delta"] = float(dist.delta)

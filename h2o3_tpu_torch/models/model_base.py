@@ -13,6 +13,12 @@ decides early stopping. The persistence hooks (``_save_arrays``,
 ``_save_extra_meta``, ``_restore``) serve ``h2o3_tpu_torch.persist`` and
 the in-training checkpoints.
 
+On a mesh (ROADMAP item 14) a spec stays where its frame is, unpadded;
+the trainers split its rows over the data shards with ``RowShards``:
+padded to ``mesh.padded_len`` with the JAX package's pad rows (weight 0,
+response 0, NA features, offset 0) and cut into one block a data shard
+on the shard's device, as the JAX package's ``Vec`` pads at upload.
+
 The memory gate (``build_training_spec``): a design matrix that would
 pass the device budget on top of the column payloads already there
 (``memman``) stays on the host as ``TrainingSpec.X_host``, with
@@ -141,6 +147,70 @@ def build_training_spec(frame: Frame, y: str,
                         response=y, response_domain=response_domain,
                         nclasses=nclasses, offset=offset, X_host=X_host,
                         stream=stream)
+
+
+class RowShards:
+    """A train's rows over the mesh's data axis: this process's blocks
+    of a [nrow, ...] tensor, padded to ``padded_len(nrow, mesh)`` and
+    cut into one contiguous block a local data shard (``ids``, their
+    global indices), each on its shard's device. With one data shard
+    nothing is padded, copied or cut: the one block is the tensor
+    itself, and the train is the single-device train (over a process
+    group of one, its reductions still pass through the group). A spec
+    on another kind of device than the mesh's (a CPU frame under the
+    default mesh of the cards) trains where it is, without the mesh."""
+
+    def __init__(self, mesh, nrow: int, device: torch.device):
+        from h2o3_tpu_torch.parallel.mesh import (n_data_shards, padded_len,
+                                                  partitioner)
+        if mesh is not None and mesh.lead_device.type != device.type:
+            mesh = None
+        self.mesh = mesh
+        self.nrow = int(nrow)
+        self.device = device
+        self.single = mesh is None or n_data_shards(mesh) == 1
+        if self.single:
+            self.padded = self.nrow
+            self.ids = [0]
+            self.devices = [device]
+        else:
+            self.padded = padded_len(self.nrow, mesh)
+            self.part = partitioner(mesh)
+            self.ids = list(mesh.local_shards)
+            self.devices = [mesh.device(s) for s in self.ids]
+
+    def split(self, t: torch.Tensor, fill) -> List[torch.Tensor]:
+        """This process's blocks of ``t`` ([nrow, ...]), the pad rows
+        set to ``fill`` (a number, or a tensor broadcast over a row)."""
+        if self.single:
+            return [t]
+        n = self.part.n_data
+        if t.shape[0] != self.nrow and t.shape[0] % n:
+            # the JAX package's refusal of a frame padded for another mesh
+            raise ValueError(
+                f"padded row count {t.shape[0]} is not divisible by the "
+                f"{n}-shard data axis — the training frame was built "
+                f"under a different mesh; rebuild it after "
+                f"h2o3_tpu_torch.init()")
+        if t.shape[0] != self.nrow:
+            raise ValueError(f"{t.shape[0]} rows where the train has "
+                             f"{self.nrow}")
+        pad = self.padded - self.nrow
+        if pad:
+            tail = torch.empty((pad,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               device=t.device)
+            tail[:] = fill
+            t = torch.cat([t, tail])
+        return self.part.shard_rows(t)
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The [nrow, ...] tensor of every shard's block (the other
+        processes' too, by ``all_gather``), on the spec's device."""
+        if self.single:
+            return parts[0]
+        from h2o3_tpu_torch.parallel.collectives import all_gather
+        blocks = all_gather(parts, self.mesh)
+        return torch.cat(blocks)[:self.nrow].to(self.device)
 
 
 _HOST_BLOCK = 1 << 20

@@ -14,6 +14,21 @@ in torch) followed by the split search here. Split search is Newton
 gain over [nodes, features, bins, NA direction], with NA in a dedicated
 lane whose direction is learned. The level loop is a Python loop;
 everything in it stays on the features' device.
+
+On a mesh (ROADMAP item 14, ``parallel/``) the growers take lists of
+per-data-shard row blocks (codes or features, g, h, w), one a local
+shard in shard order, each on its shard's device. Each level launches
+its kernel once a shard on the shard's rows and reduces the partial
+histograms over the data axis (``collectives.psum``) where the JAX
+growers ``psum``; the deepest level's leaf totals the same. The split
+search runs once, on the lead shard's device, on the reduced
+histogram, whatever the mesh's model axis: the model shards of one
+process would search their feature blocks one after another on the same
+device, and the first maximum over contiguous blocks is the whole
+search's pick. Only ``grow_tree_spmd`` cuts features over the model
+axis.
+A single tensor is the one-shard case: no reduce, no copy, the
+single-device grower's operations.
 """
 from __future__ import annotations
 
@@ -33,10 +48,14 @@ from h2o3_tpu_torch.ops.hist_adaptive import (I8_MAX_ROWS, adaptive_level,
                                               quantize_ghw_i8,
                                               rows_features)
 from h2o3_tpu_torch.ops.common import segment_totals
-from h2o3_tpu_torch.ops.histogram import build_histograms
+from h2o3_tpu_torch.ops.histogram import build_histograms_sharded
 from h2o3_tpu_torch.ops.random import (fold_in, level_subset,
                                        sample_weights, uniform,
                                        uniform_below)
+from h2o3_tpu_torch.parallel import shardstats
+from h2o3_tpu_torch.parallel.collectives import all_gather, psum
+from h2o3_tpu_torch.parallel.mesh import (MODEL_AXIS, n_model_shards,
+                                          on_device)
 
 NEG_INF = -1e30
 BIGV = 1e30
@@ -322,6 +341,18 @@ def _hist_i8(ghw, bf16: bool, rows: int):
     return None
 
 
+def _shards(x):
+    """(list of per-shard tensors, whether ``x`` came as a list)."""
+    if isinstance(x, (list, tuple)):
+        return list(x), True
+    return [x], False
+
+
+def _everywhere(t, devices):
+    """``t`` on each shard's device (the tensor itself where it is)."""
+    return [t.to(d) for d in devices]
+
+
 def _segment_totals(nid, ghw, n_seg: int, base: int):
     """Per-node (g, h, w) sums of the rows whose ``nid`` lies in ``[base,
     base + n_seg)`` (``ghw`` [3, rows] float32): on the card the
@@ -332,7 +363,7 @@ def _segment_totals(nid, ghw, n_seg: int, base: int):
 
 
 def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
-                     key=None, mono=None, sets=None):
+                     key=None, mono=None, sets=None, mesh=None):
     """Build one tree on packed codes ``[rows, F]`` (int8/int16, NA = the
     reserved lane W-1, W = pick_W(cfg.n_bins)). Split thresholds stay bin
     indices (``split_bin``); finalize unbins them to raw thresholds.
@@ -344,12 +375,22 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
     (``_Constraints``): splits that break them are masked, node values
     clipped into the monotone bounds.
 
+    On a mesh ``codes``, ``g``, ``h`` and ``w`` are lists of per-shard
+    blocks (module docstring) and ``mesh`` the mesh: each level's
+    histogram and the leaf totals are reduced over the data shards, each
+    shard deciding its bf16 rounding and int8 scale from its own rows as
+    the JAX growers do under ``shard_map``.
+
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
-    is_split, value, gain, node_w; and every row's leaf node id)."""
+    is_split, value, gain, node_w, on the lead shard's device; and every
+    row's leaf node id, a list of per-shard ids on a mesh)."""
+    cs, sharded = _shards(codes)
+    gs, hs, ws = _shards(g)[0], _shards(h)[0], _shards(w)[0]
+    devs = [c.device for c in cs]
     D = cfg.max_depth
     M = cfg.n_nodes
-    rows, F = codes.shape
-    dev = codes.device
+    rows, F = cs[0].shape
+    dev = devs[0]
     W = pick_W(cfg.n_bins)
     cons = _Constraints(mono, sets, F, dev)
     bf16 = _hist_bf16(cfg, rows)
@@ -365,30 +406,49 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
     gain_arr = torch.zeros(M, dtype=torch.float32, device=dev)
     node_w = torch.zeros(M, dtype=torch.float32, device=dev)
 
-    ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
-    qs = _hist_i8(ghw, bf16, rows)
-    nid = torch.zeros(rows, dtype=torch.int32, device=dev)
-    tables = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    ghws = [torch.stack([gj, hj, wj]).to(torch.float32).contiguous()
+            for gj, hj, wj in zip(gs, hs, ws)]
+    qss = [_hist_i8(ghw, bf16, c.shape[0]) for ghw, c in zip(ghws, cs)]
+    nids = [torch.zeros(c.shape[0], dtype=torch.int32, device=c.device)
+            for c in cs]
+    tables_s = _everywhere(torch.zeros((4, 1), dtype=torch.int32,
+                                       device=dev), devs)
 
     def tree():
         return {"feat": feat, "split_bin": split_bin, "na_left": na_left,
                 "is_split": is_split, "value": value, "gain": gain_arr,
                 "node_w": node_w}
 
+    def out_nid():
+        return nids if sharded else nids[0]
+
     if D == 0:
-        live = (w > 0).to(g.dtype)
-        value[0] = _leaf_value((g * live).sum(), (h * live).sum(), cfg)
-        node_w[0] = w.sum()
-        return tree(), nid
+        parts = [torch.stack([(gj * (wj > 0).to(gj.dtype)).sum(),
+                              (hj * (wj > 0).to(gj.dtype)).sum(), wj.sum()])
+                 for gj, hj, wj in zip(gs, hs, ws)]
+        tot = psum(parts, mesh, lead_only=True)[0]
+        value[0] = _leaf_value(tot[0], tot[1], cfg)
+        node_w[0] = tot[2]
+        return tree(), out_nid()
 
     for d in range(D):
         N = 2 ** d
         base = N - 1
-        nid, hist = binned_level(codes, nid, ghw, tables, N // 2 if d else 0,
-                                 N, base, W, bf16, qs)
+        marks = shardstats.step_begin(dev)
+        hists = []
+        for j, c in enumerate(cs):
+            with on_device(devs[j]):
+                nids[j], hj = binned_level(c, nids[j], ghws[j], tables_s[j],
+                                           N // 2 if d else 0, N, base, W,
+                                           bf16, qss[j])
+            hists.append(hj)
+            if marks is not None:
+                marks.shard_done(devs[j])
+        hist = psum(hists, mesh, lead_only=True)[0]
         sel, can, tables = _binned_split_level(
             (hist[0], hist[1], hist[2]), find_cfg,
             cons.mask(_level_mask(cfg, d, N, col_mask, key)), cfg, mono)
+        tables_s = _everywhere(tables, devs)
         bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s = sel[:9]
         idx = slice(base, base + N)
         feat[idx] = torch.where(can, bf, -1)
@@ -403,32 +463,43 @@ def grow_tree_binned(codes, g, h, w, cfg: TreeConfig, col_mask=None,
     # deepest level: route, then exact per-leaf (g, h, w) totals
     ND = 2 ** D
     baseD = ND - 1
-    nid = binned_route_only(codes, nid, tables, ND // 2, baseD, W)
-    gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
+    tots = []
+    for j, c in enumerate(cs):
+        with on_device(devs[j]):
+            nids[j] = binned_route_only(c, nids[j], tables_s[j], ND // 2,
+                                        baseD, W)
+            tots.append(segment_totals(nids[j], ghws[j], ND, baseD))
+    tot = psum(tots, mesh, lead_only=True)[0]
+    gD, hD, wD = tot[0], tot[1], tot[2]
     value[baseD:] = cons.clip(_leaf_value(gD, hD, cfg))
     node_w[baseD:] = wD
-    return tree(), nid
+    return tree(), out_nid()
 
 
 def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None,
-              mono=None, sets=None):
+              mono=None, sets=None, mesh=None):
     """Build one tree on global-sketch codes ``[rows, F]`` (uint8 or
-    int32, NA = bin ``cfg.n_bins``), the JAX package's ``grow_tree`` in
-    single-device form. Per level: one histogram build
-    (``ops/histogram.build_histograms``), at levels >= 1 of the left
-    children only, the right ones being parent - left (sibling
-    subtraction); the split search over every bin (no ``max_bin``);
-    routing by one packed-word gather per row. The deepest level's leaf
-    values come from per-leaf totals after the last route. ``col_mask``,
-    ``key``, ``mono`` and ``sets`` as in ``grow_tree_binned``.
+    int32, NA = bin ``cfg.n_bins``), the JAX package's ``grow_tree``.
+    Per level: one histogram build (``ops/histogram``, reduced over the
+    data shards on a mesh: ``build_histograms_sharded``), at levels >= 1
+    of the left children only, the right ones being parent - left
+    (sibling subtraction); the split search over every bin (no
+    ``max_bin``); routing by one packed-word gather per row. The deepest
+    level's leaf values come from per-leaf totals after the last route.
+    ``col_mask``, ``key``, ``mono``, ``sets`` and ``mesh`` (with lists
+    of per-shard blocks) as in ``grow_tree_binned``.
 
     Returns (tree dict of [M] tensors: feat, split_bin, na_left,
-    is_split, value, gain, node_w; and every row's leaf node id)."""
+    is_split, value, gain, node_w; and every row's leaf node id, a list
+    on a mesh)."""
+    cs, sharded = _shards(codes)
+    gs, hs, ws = _shards(g)[0], _shards(h)[0], _shards(w)[0]
+    devs = [c.device for c in cs]
     D = cfg.max_depth
     M = cfg.n_nodes
     B1 = cfg.n_bins + 1
-    rows, F = codes.shape
-    dev = codes.device
+    rows, F = cs[0].shape
+    dev = devs[0]
     bf16 = _hist_bf16(cfg, rows)
     if col_mask is None:
         col_mask = torch.ones(F, dtype=torch.bool, device=dev)
@@ -443,24 +514,28 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None,
     node_w = torch.zeros(M, dtype=torch.float32, device=dev)
 
     # stacked once; rows off the level are excluded by an out-of-range seg
-    ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
-    nid = torch.zeros(rows, dtype=torch.int32, device=dev)
+    ghws = [torch.stack([gj, hj, wj]).to(torch.float32).contiguous()
+            for gj, hj, wj in zip(gs, hs, ws)]
+    nids = [torch.zeros(c.shape[0], dtype=torch.int32, device=c.device)
+            for c in cs]
     prev_hist = None
     for d in range(D):
         base = 2 ** d - 1
         N = 2 ** d
-        local = nid - base
-        in_level = (local >= 0) & (local < N)
-        lid = local.clamp(0, N - 1)
+        locs = [nid - base for nid in nids]
+        in_lvls = [(loc >= 0) & (loc < N) for loc in locs]
+        marks = shardstats.step_begin(dev)
         if prev_hist is None:
-            seg = torch.where(in_level, local, -1)
-            hist = build_histograms(codes, seg, ghw, N, B1, bf16)
+            segs = [torch.where(il, loc, -1) for il, loc in zip(in_lvls, locs)]
+            hist = build_histograms_sharded(cs, segs, ghws, N, B1, mesh,
+                                            bf16, marks)
         else:
             # children of a non-split parent get phantom mass here, but
             # no row routes to them, so nothing reads it
-            is_left = in_level & (local % 2 == 0)
-            seg = torch.where(is_left, local // 2, -1)
-            hist_l = build_histograms(codes, seg, ghw, N // 2, B1, bf16)
+            segs = [torch.where(il & (loc % 2 == 0), loc // 2, -1)
+                    for il, loc in zip(in_lvls, locs)]
+            hist_l = build_histograms_sharded(cs, segs, ghws, N // 2, B1,
+                                              mesh, bf16, marks)
             hist = tuple(torch.stack([hl, hp - hl], dim=1).reshape(N, F, B1)
                          for hl, hp in zip(hist_l, prev_hist))
         prev_hist = hist
@@ -481,45 +556,173 @@ def grow_tree(codes, g, h, w, cfg: TreeConfig, col_mask=None, key=None,
         # node's packed word per row
         word = (bf | (bb << BIN_SHIFT) | (bnl.to(torch.int32) << NA_SHIFT)
                 | (can.to(torch.int32) << SPLIT_SHIFT))
-        rw = word[lid.long()]
-        node_feat = (rw & FEAT_MASK).long()
-        node_bin = (rw >> BIN_SHIFT) & BIN_MASK
-        node_nal = ((rw >> NA_SHIFT) & 1).to(torch.bool)
-        node_can = ((rw >> SPLIT_SHIFT) & 1).to(torch.bool)
-        c = codes.gather(1, node_feat[:, None])[:, 0].to(torch.int32)
-        right = torch.where(c == cfg.n_bins, ~node_nal, c >= node_bin)
-        child = 2 * nid + 1 + right.to(torch.int32)
-        nid = torch.where(in_level & node_can, child, nid)
+        for j, (c, word_j) in enumerate(zip(cs, _everywhere(word, devs))):
+            rw = word_j[locs[j].clamp(0, N - 1).long()]
+            node_feat = (rw & FEAT_MASK).long()
+            node_bin = (rw >> BIN_SHIFT) & BIN_MASK
+            node_nal = ((rw >> NA_SHIFT) & 1).to(torch.bool)
+            node_can = ((rw >> SPLIT_SHIFT) & 1).to(torch.bool)
+            cj = c.gather(1, node_feat[:, None])[:, 0].to(torch.int32)
+            right = torch.where(cj == cfg.n_bins, ~node_nal, cj >= node_bin)
+            child = 2 * nids[j] + 1 + right.to(torch.int32)
+            nids[j] = torch.where(in_lvls[j] & node_can, child, nids[j])
 
     # deepest level: leaf values from per-leaf totals
     ND = 2 ** D
     baseD = ND - 1
-    gD, hD, wD = _segment_totals(nid, ghw, ND, baseD)
+    tots = []
+    for j in range(len(cs)):
+        with on_device(devs[j]):
+            tots.append(segment_totals(nids[j], ghws[j], ND, baseD))
+    tot = psum(tots, mesh, lead_only=True)[0]
+    gD, hD, wD = tot[0], tot[1], tot[2]
     value[baseD:] = cons.clip(_leaf_value(gD, hD, cfg))
     node_w[baseD:] = wD
     return {"feat": feat, "split_bin": split_bin, "na_left": na_left,
             "is_split": is_split, "value": value, "gain": gain_arr,
-            "node_w": node_w}, nid
+            "node_w": node_w}, (nids if sharded else nids[0])
+
+
+def grow_tree_spmd(codes, g, h, w, cfg: TreeConfig, col_mask, mesh):
+    """The fully sharded tree build (the JAX package's ``grow_tree_spmd``):
+    rows over the mesh's data axis AND features over its model axis.
+    ``codes`` [rows, F] (global-sketch codes, NA = bin n_bins), ``g``,
+    ``h``, ``w`` [rows] and ``col_mask`` [F] are global tensors, rows
+    padded to a multiple of the data axis; this process keeps its own
+    data shards, each cut into ``n_model`` contiguous feature blocks (F
+    padded with masked features to a multiple). Per level:
+
+      1. each (row block, feature block) builds its histogram (K11 on
+         the card, no sibling subtraction);
+      2. the data-axis psum completes each feature block's histogram;
+      3. each block's ``_find_splits``, then the candidates gathered
+         over the model axis and the first maximum taken (the lowest
+         shard on a tie);
+      4. each row is routed by the model shard owning its node's split
+         feature (the JAX psum over ``model`` of the owner's children).
+
+    The leaf values come from the data-reduced per-leaf totals of (g, h)
+    after the last route (``segment_totals``). Returns (tree dict of [M]
+    tensors: feat, split_bin, na_left, is_split, value, on the lead
+    device; and the global node ids [rows] of this process's shards, in
+    row order, on the lead device)."""
+    from h2o3_tpu_torch.parallel.mesh import partitioner
+    part = partitioner(mesh)
+    n_model = n_model_shards(mesh)
+    D = cfg.max_depth
+    M = cfg.n_nodes
+    B1 = cfg.n_bins + 1
+    F = codes.shape[1]
+    F_loc = -(-F // n_model)
+    Fp = F_loc * n_model
+    if Fp > F:
+        codes = torch.cat([codes, torch.zeros(
+            (codes.shape[0], Fp - F), dtype=codes.dtype,
+            device=codes.device)], dim=1)
+        col_mask = torch.cat([col_mask, torch.zeros(
+            Fp - F, dtype=torch.bool, device=col_mask.device)])
+    cs = part.shard_rows(codes)                 # [rows_s, Fp] a data shard
+    devs = [c.device for c in cs]
+    dev = devs[0]
+    blocks = [[c[:, m * F_loc:(m + 1) * F_loc].contiguous()
+               for m in range(n_model)] for c in cs]
+    ghws = [torch.stack([gj, hj, wj]).to(torch.float32).contiguous()
+            for gj, hj, wj in zip(part.shard_rows(g), part.shard_rows(h),
+                                  part.shard_rows(w))]
+    cm = col_mask.to(dev)
+    cfg_l = replace(cfg, n_features=F_loc)
+    bf16 = _hist_bf16(cfg, cs[0].shape[0])
+
+    feat = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    split_bin = torch.zeros(M, dtype=torch.int32, device=dev)
+    na_left = torch.zeros(M, dtype=torch.bool, device=dev)
+    is_split = torch.zeros(M, dtype=torch.bool, device=dev)
+    value = torch.zeros(M, dtype=torch.float32, device=dev)
+    nids = [torch.zeros(c.shape[0], dtype=torch.int32, device=c.device)
+            for c in cs]
+    for d in range(D):
+        base = 2 ** d - 1
+        N = 2 ** d
+        locs = [nid - base for nid in nids]
+        in_lvls = [(loc >= 0) & (loc < N) for loc in locs]
+        segs = [torch.where(il, loc, -1) for il, loc in zip(in_lvls, locs)]
+        cands, tot0 = [], None
+        for m in range(n_model):
+            hist = build_histograms_sharded(
+                [b[m] for b in blocks], segs, ghws, N, B1, mesh, bf16)
+            sel = _find_splits(hist, cfg_l, cm[m * F_loc:(m + 1) * F_loc])
+            if m == 0:
+                tot0 = sel[4:7]
+            cands.append(torch.stack(
+                [sel[0], (sel[1] + m * F_loc).to(torch.float32),
+                 sel[2].to(torch.float32), sel[3].to(torch.float32)], dim=1))
+        allc = torch.stack(all_gather(cands, axis=MODEL_AXIS))  # [m, N, 4]
+        winner = torch.argmax(allc[:, :, 0], dim=0)
+        pick = allc[winner, torch.arange(N, device=dev)]
+        gbg, gbf = pick[:, 0], pick[:, 1].to(torch.int32)
+        gbb, gbnl = pick[:, 2].to(torch.int32), pick[:, 3] > 0.5
+        gt, ht, wt = tot0
+        can = (gbg > max(cfg.min_split_improvement, 0.0)) & (wt > 0)
+        idx = slice(base, base + N)
+        feat[idx] = torch.where(can, gbf, -1)
+        split_bin[idx] = gbb
+        na_left[idx] = gbnl
+        is_split[idx] = can
+        value[idx] = _leaf_value(gt, ht, cfg)
+        node = torch.stack([gbf, gbb, gbnl.to(torch.int32),
+                            can.to(torch.int32)])
+        for j, node_j in enumerate(_everywhere(node, devs)):
+            rw = node_j[:, locs[j].clamp(0, N - 1).long()]
+            owner = rw[0] // F_loc
+            node_can = rw[3] == 1
+            routed = torch.zeros_like(nids[j])
+            for m in range(n_model):
+                c = blocks[j][m].gather(
+                    1, (rw[0] % F_loc).long()[:, None])[:, 0].to(torch.int32)
+                right = torch.where(c == cfg.n_bins, rw[2] == 0, c >= rw[1])
+                child = 2 * nids[j] + 1 + right.to(torch.int32)
+                routed = routed + torch.where(
+                    (owner == m) & in_lvls[j] & node_can, child, 0)
+            nids[j] = torch.where(in_lvls[j] & node_can, routed, nids[j])
+
+    ND = 2 ** D
+    baseD = ND - 1
+    tots = []
+    for j in range(len(cs)):
+        with on_device(devs[j]):
+            tots.append(segment_totals(nids[j], ghws[j], ND, baseD))
+    tot = psum(tots, mesh, lead_only=True)[0]
+    value[baseD:] = _leaf_value(tot[0], tot[1], cfg)
+    tree = {"feat": feat, "split_bin": split_bin, "na_left": na_left,
+            "is_split": is_split, "value": value}
+    return tree, torch.cat([n.to(dev) for n in nids])
 
 
 def tree_sample(key_r, key_c, w, y, rate: float, rates, col_rate: float,
-                F: int):
+                F: int, shards=None):
     """A tree's row weights and column mask (sampling, ROADMAP item A4),
-    drawn as the JAX package's loops draw them on a one-shard data axis:
-    the row key folded with shard 0, the rows kept where
-    ``uniform(key_r, rows) < rate`` (or ``< rates[y]`` with
-    sample_rate_per_class: ``rates`` float32 [K] on w's device, ``y``
-    int32 codes), the columns where ``uniform(key_c, F) < col_rate``.
-    ``rate`` and ``col_rate`` are float32 values. A rate of 1 keeps
-    every row (or column) with no draw, as the JAX draw does by
-    ``u < 1``. Returns (wt = w times the sample, col_mask [F] bool or
-    None for every column)."""
+    drawn as the JAX package's loops draw them: on each data shard ``s``
+    the row key folded with ``s`` (``shards``, the global indices of the
+    blocks of a list ``w``; shard 0 for a tensor) and the rows kept where
+    ``uniform(key_r_s, rows_s) < rate`` over the shard's own rows (or
+    ``< rates[y]`` with sample_rate_per_class: ``rates`` float32 [K],
+    ``y`` int32 codes, blocks as ``w``), the columns where
+    ``uniform(key_c, F) < col_rate``. ``rate`` and ``col_rate`` are
+    float32 values. A rate of 1 keeps every row (or column) with no
+    draw, as the JAX draw does by ``u < 1``. Returns (wt = w times the
+    sample, a list where ``w`` is one; col_mask [F] bool on the first
+    block's device, or None for every column)."""
+    ws, sharded = _shards(w)
+    ys = _shards(y)[0] if y is not None else [None] * len(ws)
+    ids = list(shards) if shards is not None else list(range(len(ws)))
     if rates is not None or rate < 1.0:
-        w = sample_weights(fold_in(key_r, 0), w, rate, y, rates)
+        ws = [sample_weights(fold_in(key_r, s), wj, rate, yj,
+                             None if rates is None else rates.to(wj.device))
+              for s, wj, yj in zip(ids, ws, ys)]
     col_mask = None
     if col_rate < 1.0:
-        col_mask = uniform_below(key_c, F, col_rate, w.device)
-    return w, col_mask
+        col_mask = uniform_below(key_c, F, col_rate, ws[0].device)
+    return (ws if sharded else ws[0]), col_mask
 
 
 # ---------------------------------------------------------------- path rule
@@ -706,7 +909,7 @@ def _next_ranges(hist_w, lo_d, hi_d, inv_d, thr, bf, can, W: int,
 def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                        nb_f=None, col_mask=None, phase=None,
                        layout: str = "rows_f", key=None, mono=None,
-                       sets=None):
+                       sets=None, mesh=None):
     """Build one tree with per-node adaptive uniform bins on raw float32
     features ``x`` (NaN = NA, enum codes as floats) in ``layout``
     (``"rows_f"`` [rows, F] or ``"f_rows"`` [F, rows]). ``root_lo`` /
@@ -715,23 +918,29 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     grid offset in [0, 1) bin widths; with ``key`` (the tree's key) and
     ``cfg.random_grid`` (``histogram_type="random"``) the phase is drawn
     as ``uniform(fold_in(key, 7919), (F,))``, and levels draw per-node
-    column subsets as in ``grow_tree_binned``. ``mono`` and ``sets`` as
-    there.
+    column subsets as in ``grow_tree_binned``. ``mono``, ``sets`` and
+    ``mesh`` (with lists of per-shard blocks) as there.
 
     Per level: per-(node, feature) ranges ``lo``/``inv``, one fused route
-    + re-bin + histogram kernel, the split search over every lane (no
-    ``max_bin`` limit), raw thresholds ``lo + bin/inv`` (``BIG_THR`` on a
-    zero span), and the next level's ranges (``_next_ranges``). The
-    deepest level only routes: leaf values are the last split level's
-    selected child stats. ``H2O3_HIST_I8`` switches levels to int8
-    fixed-point masses (``_hist_i8``).
+    + re-bin + histogram kernel a shard, the split search over every
+    lane (no ``max_bin`` limit) on the data-reduced histogram, raw
+    thresholds ``lo + bin/inv`` (``BIG_THR`` on a zero span), and the
+    next level's ranges (``_next_ranges``, from the reduced w
+    histogram). The deepest level only routes: leaf values are the last
+    split level's selected child stats. ``H2O3_HIST_I8`` switches levels
+    to int8 fixed-point masses (``_hist_i8``), each shard with its own
+    scale.
 
     Returns (tree dict of [M] tensors: feat, thr, na_left, is_split,
-    value, gain, node_w; and every row's leaf node id)."""
+    value, gain, node_w; and every row's leaf node id, a list on a
+    mesh)."""
+    xs, sharded = _shards(x)
+    gs, hs, ws = _shards(g)[0], _shards(h)[0], _shards(w)[0]
+    devs = [xj.device for xj in xs]
     D = cfg.max_depth
     M = cfg.n_nodes
-    rows, F = rows_features(x, layout)
-    dev = x.device
+    rows, F = rows_features(xs[0], layout)
+    dev = devs[0]
     W = pick_W(cfg.n_bins)
     bf16 = _hist_bf16(cfg, rows)
     if nb_f is None:
@@ -754,23 +963,33 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     gain_arr = torch.zeros(M, dtype=torch.float32, device=dev)
     node_w = torch.zeros(M, dtype=torch.float32, device=dev)
 
-    ghw = torch.stack([g, h, w]).to(torch.float32).contiguous()
-    qs = _hist_i8(ghw, bf16, rows)
-    nid = torch.zeros(rows, dtype=torch.int32, device=dev)
+    ghws = [torch.stack([gj, hj, wj]).to(torch.float32).contiguous()
+            for gj, hj, wj in zip(gs, hs, ws)]
+    qss = [_hist_i8(ghw, bf16, rows_features(xj, layout)[0])
+           for ghw, xj in zip(ghws, xs)]
+    nids = [torch.zeros(rows_features(xj, layout)[0], dtype=torch.int32,
+                        device=xj.device) for xj in xs]
     lo_d = root_lo.to(torch.float32).reshape(1, F)
     hi_d = root_hi.to(torch.float32).reshape(1, F)
-    tables = torch.zeros((4, 1), dtype=torch.float32, device=dev)
+    tables_s = _everywhere(torch.zeros((4, 1), dtype=torch.float32,
+                                       device=dev), devs)
 
     def tree():
         return {"feat": feat, "thr": thr_arr, "na_left": na_left,
                 "is_split": is_split, "value": value, "gain": gain_arr,
                 "node_w": node_w}
 
+    def out_nid():
+        return nids if sharded else nids[0]
+
     if D == 0:
-        live = (w > 0).to(g.dtype)
-        value[0] = _leaf_value((g * live).sum(), (h * live).sum(), cfg)
-        node_w[0] = w.sum()
-        return tree(), nid
+        parts = [torch.stack([(gj * (wj > 0).to(gj.dtype)).sum(),
+                              (hj * (wj > 0).to(gj.dtype)).sum(), wj.sum()])
+                 for gj, hj, wj in zip(gs, hs, ws)]
+        tot = psum(parts, mesh, lead_only=True)[0]
+        value[0] = _leaf_value(tot[0], tot[1], cfg)
+        node_w[0] = tot[2]
+        return tree(), out_nid()
 
     for d in range(D):
         N = 2 ** d
@@ -784,9 +1003,19 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
                             nb_f[None, :] / torch.where(span > 0, span, 1.0),
                             0.0).contiguous()
         lo_d = lo_d.contiguous()
-        nid, hist = adaptive_level(x, nid, ghw, tables, lo_d, inv_d,
-                                   N // 2 if d else 0, N, base, W, bf16,
-                                   layout, qs)
+        marks = shardstats.step_begin(dev)
+        hists = []
+        for j, (xj, lo_j, inv_j) in enumerate(zip(
+                xs, _everywhere(lo_d, devs), _everywhere(inv_d, devs))):
+            with on_device(devs[j]):
+                nids[j], hj = adaptive_level(xj, nids[j], ghws[j],
+                                             tables_s[j], lo_j, inv_j,
+                                             N // 2 if d else 0, N, base, W,
+                                             bf16, layout, qss[j])
+            hists.append(hj)
+            if marks is not None:
+                marks.shard_done(devs[j])
+        hist = psum(hists, mesh, lead_only=True)[0]
         (bg, bf, bb, bnl, gt, ht, wt, vl_s, vr_s, wl_s,
          wr_s) = _find_splits((hist[0], hist[1], hist[2]), find_cfg,
                               cons.mask(_level_mask(cfg, d, N, col_mask,
@@ -809,8 +1038,8 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
         gain_arr[idx] = torch.where(can, bg, 0.0)
         node_w[idx] = wt
         cons.advance(vl_s, vr_s, bf, can)
-        tables = make_adaptive_tables(bf.clamp(min=0), thr, bnl,
-                                      can).contiguous()
+        tables_s = _everywhere(make_adaptive_tables(bf.clamp(min=0), thr, bnl,
+                                                    can).contiguous(), devs)
         lo_d, hi_d = _next_ranges(hist[2], lo_d, hi_d, inv_d, thr, bf, can,
                                   W)
 
@@ -818,10 +1047,13 @@ def grow_tree_adaptive(x, g, h, w, cfg: TreeConfig, root_lo, root_hi,
     # selected children
     ND = 2 ** D
     baseD = ND - 1
-    nid = adaptive_route_only(x, nid, tables, ND // 2, baseD, layout)
+    for j, xj in enumerate(xs):
+        with on_device(devs[j]):
+            nids[j] = adaptive_route_only(xj, nids[j], tables_s[j], ND // 2,
+                                          baseD, layout)
     value[baseD:] = cons.clip(torch.stack([vl_s, vr_s], dim=1).reshape(ND))
     node_w[baseD:] = torch.stack([wl_s, wr_s], dim=1).reshape(ND)
-    return tree(), nid
+    return tree(), out_nid()
 
 
 # ------------------------------------------------------- streamed growers

@@ -455,4 +455,5 @@ def test_probe_tools_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_tool_sources()) == 7   # __init__, _probes and five tools
+    # __init__, _probes, five probe tools and the multi-process worker
+    assert len(_tool_sources()) == 8
