@@ -379,6 +379,35 @@ against its plain version. Phases, each fatal on failure:
    1M-row packed train is the one-shard train's bit for bit, and two
    gloo processes on the one card, equal digests, equal to the
    in-process (2, 1) mesh's.
+8j. item 15a, the dense GLM (``phase_glm``), each cell with the launch
+   counters set to 0 just before its train and read just after
+   (cd_elastic_net once an IRLS step of a coordinate-descent cell, once
+   a class a pass of the multinomial, never elsewhere): H2O's default
+   binomial GLM (Cholesky IRLSM, standardized) on an airlines-shaped
+   frame of 10M rows (``airlines_columns``' table as enums: 668
+   expanded columns and the intercept), and with alpha 0.5 and
+   lambda_search over 10 lambdas (H2O's 30 and its 50 IRLS steps a
+   lambda cut to 10 each for the time limit); L-BFGS (alpha 0, lambda
+   1e-4) on the 10M x 28 HIGGS frame; the multinomial (alpha 0.5,
+   lambda 4e-3, 10 passes) and the ordinal on
+   the covertype frame of 8a; poisson and tweedie (variance power 1.5,
+   log link: the guarded halving) on the freMTPL2 frame of 8b with the
+   log exposure as offset. Each prints its train seconds, iterations,
+   ms an iteration, stage seconds, metric and peak memory; the airlines
+   Gram timed at its design against 2·n·P² float32 operations at the
+   card's rate; the airlines train again with TF32 allowed, its
+   coefficients bit-equal; that model deployed (buckets 1, 64, 4096:
+   served rows bit-equal to predict) and saved and reloaded on the card
+   (predict bit-equal); each cell on the card and on the CPU at 100k
+   rows of its generator (200k for covertype; the airlines cells cut to
+   3 IRLS steps a lambda, the search to 4 lambdas, the ordinal to 200
+   Adam steps),
+   coefficients within 1e-3 of 1 + |c| (the ordinal: its class
+   probabilities within 1e-4 on average) and the metric within 1e-4
+   relative, the path's nonzero counts equal past lambda_max; and
+   cd_elastic_net on one of the lambda search's Grams equal to its
+   plain version, timed against its bound (the measured chain of 10·P
+   block barriers).
 
 9. the probe tools (``phase_probes``; ``h2o3_tpu_torch/tools``, the
    Hopper counterparts of the JAX package's TPU probes P1-P6, their
@@ -2666,8 +2695,10 @@ def ingest_sql(card, rows=1_000_000):
         os.unlink(db)
 
 
-def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=100_000,
-                 xlsx_rows=20_000, higgs_rows=100_000, fb_rows=1_000_000,
+# the formats' sizes: 250k rows (xlsx 50k) at first, cut to 100k (20k)
+# for phase 8i and to 50k (10k) for phase 8j, within the 1200 s limit
+def phase_ingest(card, csv_ref, air_rows=10_000_000, fmt_rows=50_000,
+                 xlsx_rows=10_000, higgs_rows=50_000, fb_rows=1_000_000,
                  sql_rows=250_000, member_bytes=1 << 20):
     """The rest of ingest on the card (B1-B5), after ``phase_csv``, whose
     10M-row airlines file and default-GBM train (``csv_ref``: its trees
@@ -7209,6 +7240,420 @@ def phase_spmd(card, fr, ones, dev="cuda", cpu_rows=SPMD_CPU_ROWS,
     return out
 
 
+# ------------------------------------------------------------ 8j. the GLM
+
+# 8j: item 15a, the dense GLM (BASELINE config #4, "GLM IRLS / L-BFGS") on
+# the frames of the earlier phases, at their published widths. The cells:
+# (name: frame, response, parameters)
+AIRLINES_Y = "dep_delayed_15min"
+GLM_AIR_ROWS = 10_000_000
+GLM_NLAMBDAS = 10          # H2O's default 30, cut for the time limit
+# IRLS steps a lambda of the search (H2O's 50, cut for the time limit:
+# the airlines path took 126 steps of 0.27 s at 50 on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+GLM_PATH_ITERS = 10
+GLM_CPU_ROWS = 100_000     # each cell's card-vs-CPU trains
+GLM_CPU_ROWS_COVTYPE = 200_000   # the multinomial runs away at 100k
+GLM_CPU_LAMBDAS = 4        # the lambda search's card-vs-CPU path
+# the card-vs-CPU trains stop after this many IRLS steps a lambda (the
+# airlines design at 100k rows has levels too thin to converge, and the
+# CPU side's Gram takes about a second a step) or this many Adam steps
+# (the ordinal: 1000 took 10 s on the CPU)
+GLM_CPU_ITERS = 3
+GLM_CPU_ADAM_ITERS = 10    # max_iterations: 20 Adam steps each
+FREMTPL2_OFFSET = "LogExposure"
+GLM_CELLS = {
+    "airlines_glm_irlsm": ("airlines", AIRLINES_Y,
+                           dict(family="binomial")),
+    "airlines_glm_lambda_search": ("airlines", AIRLINES_Y, dict(
+        family="binomial", alpha=0.5, lambda_search=True,
+        nlambdas=GLM_NLAMBDAS, max_iterations=GLM_PATH_ITERS)),
+    "higgs_glm_lbfgs": ("higgs", "label", dict(
+        family="binomial", solver="L_BFGS", alpha=0.0, Lambda=1e-4)),
+    # lambda 4e-3: the class-cyclic IRLS (the JAX package's) runs away
+    # at 1e-4 on this frame (logloss 10.4 after 10 passes on the H100;
+    # the JAX package's own 7.9 at 30k rows) and at 2e-3 on the full
+    # frame
+    "covtype_glm_multinomial": ("covtype", COVTYPE_Y, dict(
+        family="multinomial", alpha=0.5, Lambda=4e-3, max_iterations=10)),
+    "covtype_glm_ordinal": ("covtype", COVTYPE_Y, dict(family="ordinal")),
+    "fremtpl2_glm_poisson": ("fremtpl2", "ClaimNb", dict(
+        family="poisson", offset_column=FREMTPL2_OFFSET)),
+    "fremtpl2_glm_tweedie": ("fremtpl2", "ClaimAmount", dict(
+        family="tweedie", tweedie_variance_power=1.5,
+        tweedie_link_power=0.0, offset_column=FREMTPL2_OFFSET)),
+}
+# card vs CPU on the same rows: coefficients within GLM_COEF_TOL of
+# 1 + |c| (the Gram's float32 sums in another order, cuBLAS against the
+# CPU's BLAS; the lambda path's nonzero counts equal past λ_max), the
+# training metric within GLM_METRIC_TOL relative. The ordinal's Adam
+# leaves a rare indicator's coefficient free to drift (0.33 apart on
+# 1 + |c| with the logloss 8e-7 apart on the H100): its class
+# probabilities are compared instead, within GLM_PROB_TOL on average
+GLM_COEF_TOL = 1e-3
+GLM_METRIC_TOL = 1e-4
+GLM_PROB_TOL = 1e-4
+# the Gram's bound: 2·n·P² float32 operations at the card's rate
+GRAM_REPS = 3
+
+
+def airlines_glm_frame(rows, device, seed=2024):
+    """``airlines_columns``' table as a frame: DepTime (NA where drawn)
+    and Distance numeric, Month, DayofMonth, DayOfWeek, UniqueCarrier (NA
+    where drawn), Origin and Dest enums over their labels, the label
+    dep_delayed_15min N/Y. Expanded (every level but the first): 11 + 30
+    + 6 + 21 + 299 + 299 indicator columns and the two numerics, 668."""
+    tables, idx, _ = airlines_columns(rows, seed)
+    month, dom, dow, dep, car, origin, dest, dist, label = idx
+    labels = [_labels(t) for t in tables]
+    num = {"DepTime": np.where(dep == 2400, np.nan, dep).astype(np.float32),
+           "Distance": dist.astype(np.float32)}
+    enums = {"Month": (month, labels[0]), "DayofMonth": (dom, labels[1]),
+             "DayOfWeek": (dow, labels[2]),
+             "UniqueCarrier": (np.where(car == len(CARRIERS), -1, car),
+                               list(CARRIERS)),
+             "Origin": (origin, labels[5]), "Dest": (dest, labels[6]),
+             AIRLINES_Y: (label, ["N", "Y"])}
+    return frame_with_enums(num, {n: (np.asarray(c, np.int32), d)
+                                  for n, (c, d) in enums.items()}, device)
+
+
+def glm_fit(fr, y, params, ignored=()):
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+    return H2OGeneralizedLinearEstimator(
+        ignored_columns=list(ignored) or None, **params).train(
+            y=y, training_frame=fr).model
+
+
+def glm_frame(kind, rows, device):
+    """A cell's frame at ``rows`` rows of its generator (phase_glm takes
+    the full-size HIGGS and covertype frames from phases 4 and 8a)."""
+    if kind == "airlines":
+        return airlines_glm_frame(rows, device)
+    if kind == "higgs":
+        X, y, _F = higgs_arrays(rows)
+        return as_classes(frame_of(X, y, device), "label")
+    if kind == "covtype":
+        return covtype_frame(rows, device)[0]
+    return fremtpl2_frame(rows, device)
+
+
+def glm_ignored(kind, y):
+    if kind == "fremtpl2":
+        return [n for n in ("Exposure", "ClaimNb", "ClaimAmount") if n != y]
+    return []
+
+
+def glm_coef_diff(a, b):
+    """The largest |a - b| / (1 + |a|) over two models' coefficients
+    (per class for the multinomial)."""
+    ca, cb = a.coef(), b.coef()
+    if isinstance(next(iter(ca.values())), dict):
+        ca = {(k, n): v for k, d in ca.items() for n, v in d.items()}
+        cb = {(k, n): v for k, d in cb.items() for n, v in d.items()}
+    if list(ca) != list(cb):
+        raise AssertionError("coefficient names differ")
+    return max(abs(ca[k] - cb[k]) / (1.0 + abs(ca[k])) for k in ca)
+
+
+def glm_metric(m):
+    """The training metric a cell reports: AUC (binomial), logloss
+    (multinomial, ordinal) or the mean residual deviance."""
+    tm = m.training_metrics
+    keys = ("auc", "logloss") if m.nclasses == 2 else (
+        "logloss", "mean_residual_deviance", "mse")
+    for k in keys:
+        v = getattr(tm, k, None)
+        if v is not None and np.isfinite(v):
+            return k, float(v)
+    raise AssertionError("no training metric")
+
+
+def glm_prob_diff(a, fa, b, fb):
+    """The largest mean |p_a - p_b| over the class columns of two
+    models' predictions on their frames."""
+    pa, pb = a.predict(fa), b.predict(fb)
+    return max(float(np.mean(np.abs(pa.vec(n).to_numpy()
+                                    - pb.vec(n).to_numpy())))
+               for n in pa.names[1:])
+
+
+def glm_card_vs_cpu(name, kind, y, params, rows=GLM_CPU_ROWS):
+    """The cell's train on the card and on the CPU on the same ``rows``
+    rows of the generator: coefficients within GLM_COEF_TOL (the
+    ordinal: class probabilities within GLM_PROB_TOL), the metric within
+    GLM_METRIC_TOL, the λ path's nonzero counts equal past λ_max."""
+    ign = glm_ignored(kind, y)
+    t0 = time.perf_counter()
+    fc = glm_frame(kind, rows, "cuda")
+    card = glm_fit(fc, y, params, ign)
+    t1 = time.perf_counter()
+    fp = glm_frame(kind, rows, "cpu")
+    cpu = glm_fit(fp, y, params, ign)
+    t2 = time.perf_counter()
+    d = glm_coef_diff(cpu, card)
+    mk, mv_cpu = glm_metric(cpu)
+    _, mv_card = glm_metric(card)
+    pa = [s["nonzero"] for s in cpu.output.get("lambda_path", [])][1:]
+    pb = [s["nonzero"] for s in card.output.get("lambda_path", [])][1:]
+    ordinal = params["family"] == "ordinal"
+    pd = glm_prob_diff(card, fc, cpu, fp) if ordinal else None
+    print(f"glm {name} card vs cpu at {rows} rows {json.dumps(params)}: "
+          f"largest coefficient difference {d!r} (relative to 1 + |c|), "
+          f"mean class-probability difference {pd!r}, {mk} {mv_card!r} vs "
+          f"{mv_cpu!r}, nonzero path past lambda_max {pb} vs {pa}; card "
+          f"{t1 - t0:.2f} s, cpu {t2 - t1:.2f} s", flush=True)
+    if (pd > GLM_PROB_TOL if ordinal else d > GLM_COEF_TOL) or pa != pb \
+            or abs(mv_card - mv_cpu) > GLM_METRIC_TOL * max(abs(mv_cpu),
+                                                            1.0):
+        raise AssertionError(f"glm {name}: the card's train differs from "
+                             f"the CPU's")
+
+
+def cd_record(card, dev, solve, launches):
+    """cd_elastic_net on a Gram of the lambda search's path: the
+    kernel's beta equal to the plain version's (run on the card, the
+    same inputs), its time (CUDA events, median of 5) beside the plain
+    version's (one run) and the bound: the larger of G's bytes over the
+    memory rate and the chain of 10·P dependent steps at the measured
+    cost of one block barrier (``cd_barrier_probe``, 10·P steps in a
+    block of the kernel's width). No PyTorch call solves the elastic net:
+    library_ms null."""
+    import torch
+    from h2o3_tpu_torch.ops import glm_cd, kernels
+    args, kw = solve
+    G = args[0]
+    P = G.shape[0]
+    sweeps = args[6]
+    got = kernels.cd_elastic_net(*args, **kw)
+    want = glm_cd.cd_elastic_net_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(got - want)))
+    if not torch.equal(got, want):
+        raise AssertionError(f"cd_elastic_net at P={P}: the kernel differs "
+                             f"from the plain version by {err}")
+    ms = time_cuda(lambda: kernels.cd_elastic_net(*args, **kw), 5)
+    t0 = time.perf_counter()
+    glm_cd.cd_elastic_net_plain(*args, **kw)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    threads = min(max((min(P, 1024) + 31) // 32 * 32, 32), 1024)
+    steps = sweeps * P
+    chain_ms = time_cuda(
+        lambda: kernels.cd_barrier_probe(steps, threads, dev), 5)
+    bytes_ms = (P * P + 6 * P) * 4 / HBM_BYTES_PER_S * 1e3
+    bound = max(bytes_ms, chain_ms)
+    print(f"cd_elastic_net at P={P}, {sweeps} sweeps (a Gram of the lambda "
+          f"search): {ms!r} ms (device, median of 5), plain {pms!r} ms (one "
+          f"run on the card), bound {bound!r} ms by "
+          f"{'operations' if chain_ms >= bytes_ms else 'bytes'} ({steps} "
+          f"barrier steps {chain_ms!r} ms in a block of {threads}; G's "
+          f"bytes {bytes_ms!r} ms), equal to the plain version; launches "
+          f"{json.dumps(launches)} [{card}]", flush=True)
+    return {"name": "cd_elastic_net", "route": "cuda",
+            "source": "h2o3_tpu_torch/csrc/glm_cd.cu",
+            "replaces": "none (lax.fori_loop in XLA: "
+                        "h2o3_tpu/models/glm.py:442 _cd_elastic_net)",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bound,
+            "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
+            "library_ms": None, "P": P, "barrier_chain_ms": chain_ms}
+
+
+def glm_serve(card, name, m, fr, seed=SERVE_SEED):
+    """The model deployed with buckets 1, 64 and 4096 (one CUDA graph
+    each): rows of the frame served one bucket at a time, their class
+    probabilities bit-equal to predict's on the same rows; then saved
+    and loaded on the card, predicting the same bits."""
+    import tempfile
+
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch import serve
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(fr.nrow, 4096, replace=False))
+    sub = fr.rows(idx)
+    dom = m.response_domain
+    want = np.stack([m.predict(sub).vec(f"p{d}").to_numpy() for d in dom], 1)
+    dep = m.deploy(buckets=(1, 64, 4096), max_batch=4096)
+    try:
+        rows = host_rows(fr, m.feature_names, idx)
+        replays = scorer_replays(name, dep)
+        for n in (1, 64, 4096):
+            served = dep.predict_rows(rows[:n])
+            got = np.array([[s["classProbabilities"][d] for d in dom]
+                            for s in served], np.float32)
+            if not np.array_equal(got, want[:n]):
+                raise AssertionError(
+                    f"serve {name}: {n} served rows differ from predict in "
+                    f"{int((got != want[:n]).any(1).sum())} rows")
+        replays = scorer_replays(name, dep) - replays
+        if replays <= 0:
+            raise AssertionError(f"serve {name}: no graph replayed")
+    finally:
+        serve.undeploy(m.key)
+    with tempfile.TemporaryDirectory() as d:
+        path = h2o.save_model(m, d)
+        back = h2o.load_model(path, device="cuda")
+        got = np.stack([back.predict(sub).vec(f"p{c}").to_numpy()
+                        for c in dom], 1)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{name}: the reloaded model predicts other "
+                             f"bits")
+    print(f"glm {name}: served rows at buckets 1, 64, 4096 bit-equal to "
+          f"predict ({replays} replays); saved and "
+          f"reloaded on the card, predict bit-equal", flush=True)
+
+
+def scorer_replays(name, dep):
+    """The deployment's graph replays so far; it must hold one captured
+    graph a bucket."""
+    sc = dep.scorer
+    if not sc.graphed or sc.captures != len(sc.buckets):
+        raise AssertionError(f"serve {name}: graphed {sc.graphed}, "
+                             f"{sc.captures} captures for {sc.buckets}")
+    return sc.replays
+
+
+def gram_record(fr, y):
+    """The Gram at the cell's design: the design built once more (the
+    train's own is freed), ``glm.gram`` timed with CUDA events against
+    2·n·P² float32 operations at the card's rate."""
+    import torch
+    from h2o3_tpu_torch.models import glm as tglm
+    from h2o3_tpu_torch.models.model_base import build_training_spec
+    spec = build_training_spec(fr, y)
+    t0 = time.perf_counter()
+    Xs, names, _ = tglm.expand_design(spec, extra_cols=1)
+    torch.cuda.synchronize()
+    design_s = time.perf_counter() - t0
+    n, P = Xs.shape
+    z = torch.linspace(-1.0, 1.0, n, device=Xs.device)
+    with tglm.full_fp32():
+        ms = time_cuda(lambda: tglm.gram(Xs, spec.w, z), GRAM_REPS)
+    ops_ms = 2.0 * n * P * P / F32_OPS_PER_S * 1e3
+    bytes_ms = n * P * 4 / HBM_BYTES_PER_S * 1e3
+    del Xs, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n": n, "P": P, "design_s": design_s, "gram_ms": ms,
+            "gram_bound_ms": max(ops_ms, bytes_ms),
+            "gram_bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_glm(card, dev, fr, cov_fr):
+    """8j, item 15a: the dense GLM on the card, each cell at its
+    published width with the launch counters set to 0 just before its
+    train and read just after; then each cell on the card and on the CPU
+    at GLM_CPU_ROWS rows of the same generator (``glm_card_vs_cpu``).
+    The airlines IRLSM train again with TF32 allowed, bit-equal; that
+    model served and reloaded (``glm_serve``); the Gram timed at its
+    design against its bound, and cd_elastic_net recorded on a Gram of
+    the lambda search (``cd_record``). Returns the kernel record."""
+    import torch
+    from h2o3_tpu_torch.models import glm as tglm
+    from h2o3_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    frames = {"airlines": airlines_glm_frame(GLM_AIR_ROWS, "cuda"),
+              "higgs": as_classes(fr, "label"), "covtype": cov_fr,
+              "fremtpl2": fremtpl2_frame(FREMTPL2_ROWS, "cuda")}
+    torch.cuda.synchronize()
+    print(f"glm frames: airlines {GLM_AIR_ROWS} rows in "
+          f"{time.perf_counter() - t0:.2f} s (with freMTPL2's)", flush=True)
+    launches, models, solve = {}, {}, []
+    real_cd = tglm.cd_elastic_net
+    calls = [0]
+
+    def stash(*a, **kw):
+        # keep the inputs of the lambda search's sixth solve (past
+        # lambda_max, where every coefficient is at its threshold) for
+        # cd_record
+        calls[0] += 1
+        if calls[0] == 6:
+            solve.append(([t.clone() if torch.is_tensor(t) else t
+                           for t in a], dict(kw)))
+        return real_cd(*a, **kw)
+    for name, (kind, y, params) in GLM_CELLS.items():
+        frame = frames[kind]
+        ign = glm_ignored(kind, y)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        tglm.cd_elastic_net = stash if "lambda" in name else real_cd
+        t = time.perf_counter()
+        try:
+            m = glm_fit(frame, y, params, ign)
+            torch.cuda.synchronize()
+        finally:
+            tglm.cd_elastic_net = real_cd
+        train_s = time.perf_counter() - t
+        got = dict(kernels.LAUNCHES)
+        cd = got["cd_elastic_net"]
+        uses_cd = params.get("alpha", 0.5) > 0 and (
+            params.get("Lambda", 0) or params.get("lambda_search"))
+        if uses_cd and params["family"] == "multinomial":
+            want = m.output["iterations"] * cov_fr.vec(y).cardinality
+        elif uses_cd:
+            want = m.output["iterations"]
+        else:
+            want = 0
+        check_launches(f"glm {name}", got, {"cd_elastic_net": want})
+        launches[name] = cd
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mk, mv = glm_metric(m)
+        its = m.output["iterations"]
+        prof = m.output["train_profile"]
+        print(f"glm {name}: {frame.nrow} rows, {len(m.exp_names)} expanded "
+              f"columns {json.dumps(params)}: train {train_s!r} s, "
+              f"iterations {its}, {prof['path_s'] / max(its, 1) * 1e3!r} ms "
+              f"an iteration, train_profile {json.dumps(prof)}, {mk} {mv!r}, "
+              f"lambda {m.lambda_best!r}, cd_elastic_net launches {cd}, "
+              f"peak device memory {peak:.3f} GiB [{card}]", flush=True)
+        if not np.isfinite(np.asarray(m.beta)).all() or (
+                mk == "auc" and not 0.5 < mv <= 1.0):
+            raise AssertionError(f"glm {name}: coefficients or {mk} {mv}")
+        models[name] = m
+    air = models["airlines_glm_irlsm"]
+    if len(air.exp_names) != 668:
+        raise AssertionError(f"airlines: {len(air.exp_names)} expanded "
+                             f"columns, expected 668")
+    gr = gram_record(frames["airlines"], AIRLINES_Y)
+    print(f"glm airlines Gram: {gr['n']} x {gr['P']} design built in "
+          f"{gr['design_s']!r} s; gram {gr['gram_ms']!r} ms (device, median "
+          f"of {GRAM_REPS}) against its bound {gr['gram_bound_ms']!r} ms by "
+          f"{gr['gram_bound_by']} [{card}]", flush=True)
+    # TF32 allowed by the caller: the GLM runs its products in float32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = glm_fit(frames["airlines"], AIRLINES_Y,
+                       GLM_CELLS["airlines_glm_irlsm"][2])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not (np.array_equal(tf32.beta, air.beta)
+            and tf32.intercept_value == air.intercept_value):
+        raise AssertionError("airlines: the TF32-allowed train differs")
+    print("glm airlines_glm_irlsm with TF32 allowed: coefficients "
+          "bit-equal to the plain run", flush=True)
+    glm_serve(card, "airlines_glm_irlsm", air, frames["airlines"])
+    del frames, models, air, tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, (kind, y, params) in GLM_CELLS.items():
+        if "lambda" in name:
+            params = dict(params, nlambdas=GLM_CPU_LAMBDAS)
+        if kind == "airlines":
+            params = dict(params, max_iterations=GLM_CPU_ITERS)
+        if params["family"] == "ordinal":
+            params = dict(params, max_iterations=GLM_CPU_ADAM_ITERS)
+        glm_card_vs_cpu(name, kind, y, params, GLM_CPU_ROWS_COVTYPE
+                        if kind == "covtype" else GLM_CPU_ROWS)
+    return cd_record(card, dev, solve[0], {
+        k: v for k, v in launches.items() if v})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7451,6 +7896,9 @@ def main() -> int:
     # 8i. item 14: the mesh, virtual shards on the card, the process groups
     spmd = phase_spmd(card, fr, packed)
     clock.lap("8i spmd")
+    # 8j. item 15a: the dense GLM on the card
+    rec.append(phase_glm(card, dev, fr, multi["frame"]))
+    clock.lap("8j glm")
     for path, launches in spmd.items():
         for kernel in ("binned_level", "binned_route_only",
                        "segment_totals", "adaptive_level",
@@ -7510,7 +7958,9 @@ def main() -> int:
           "segment_totals[N=1,64,512,4096; lanes, match x rows%4=1,2,3, "
           "one node at N=1,64; one node at N=4096] "
           "global_hist[B1=15 uint8,257,1025 int32; node-grouped, global "
-          "atomics] group_rows[alone] threefry_uniform[10M rows: uniform, "
+          "atomics] group_rows[alone] cd_elastic_net[P=669 x 10 sweeps, "
+          "a Gram of the airlines lambda search; the GLM cells' solves] "
+          "threefry_uniform[10M rows: uniform, "
           "row sample, per-class row sample] binned_level[deep: W=32 x "
           "N=64,128,256,512 picked] binned_route_only[n_prev=512] "
           "segment_totals[N=1024, picked = match]; index_add_ beside "

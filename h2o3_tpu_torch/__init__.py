@@ -31,8 +31,11 @@ calibrate. A frame whose design matrix passes the device budget
 streamed through the card (``models/streaming.py``). The GBM, XGBoost
 and the forest train on a ('data', 'model') mesh (``parallel/``: rows
 over data shards, the split search over model shards, one process or
-several), the trees of the JAX package's mesh of the same shape.
-ROADMAP.md queues the rest.
+several), the trees of the JAX package's mesh of the same shape. The
+dense GLM (``H2OGeneralizedLinearEstimator``: every family and link,
+Cholesky IRLSM, coordinate descent on a CUDA kernel, L-BFGS, lambda
+search, multinomial and ordinal) trains, predicts, saves and serves on
+the frame's device. ROADMAP.md queues the rest.
 """
 from h2o3_tpu_torch._device import init, is_coordinator
 from h2o3_tpu_torch.frame.frame import Frame

@@ -587,6 +587,19 @@ class Model:
         return f"<{type(self).__name__} {self.key}>"
 
 
+def pack_impute_means(means) -> Dict[str, np.ndarray]:
+    """The npz form of the {column: imputation mean} dict of the
+    expanded-design models (the GLM): the JAX package's keys, so that
+    either package loads the other's artifact."""
+    return {"impute_keys": np.array(list(means.keys())),
+            "impute_vals": np.array(list(means.values()), dtype=np.float64)}
+
+
+def unpack_impute_means(arrays) -> Dict[str, float]:
+    return {str(k): float(v) for k, v in
+            zip(arrays["impute_keys"], arrays["impute_vals"])}
+
+
 def calibrated_p1(cal: Dict, p1: torch.Tensor) -> torch.Tensor:
     """The calibrated positive-class probability (float64) of the
     probabilities ``p1``, on their device: Platt's 1/(1 + exp(-(a·logit

@@ -40,7 +40,7 @@ LAUNCHES = {"binned_level": 0, "binned_route_only": 0,
             "binned_level_i8": 0, "adaptive_level": 0,
             "adaptive_route_only": 0, "adaptive_level_i8": 0,
             "leaf_totals": 0, "segment_totals": 0, "global_hist": 0,
-            "threefry_uniform": 0}
+            "threefry_uniform": 0, "cd_elastic_net": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -111,6 +111,12 @@ _SIGNATURES["threefry"] = {
     "h2o3_threefry_sample": [_U32, _U32, _LL, _VP, _VP, _VP, _INT, _F32, _VP,
                              _VP],
 }
+_SIGNATURES["glm_cd"] = {
+    "h2o3_cd_workspace": [_INT],
+    "h2o3_cd_elastic_net": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP,
+                            _F32, _F32, _INT, _INT, _VP, _VP, _VP],
+    "h2o3_cd_barrier_probe": [_LL, _INT, _VP, _VP],
+}
 # the workspace queries return a byte count (-1: shapes refused); the
 # form queries (*_picks) a form code (LEVEL_FORMS), every other function a
 # cudaError_t, as int
@@ -119,7 +125,7 @@ _RETURNS_BYTES = ("h2o3_binned_level_workspace",
                   "h2o3_adaptive_level_workspace",
                   "h2o3_adaptive_level_i8_workspace",
                   "h2o3_group_rows_workspace", "h2o3_leaf_totals_workspace",
-                  "h2o3_global_hist_workspace")
+                  "h2o3_global_hist_workspace", "h2o3_cd_workspace")
 
 
 def _nvcc() -> str:
@@ -924,4 +930,64 @@ def threefry_sample(key, w: torch.Tensor, rate: float = 1.0, y=None,
                                       _stream(dev))
     _raise_on(rc, "threefry_uniform")
     LAUNCHES["threefry_uniform"] += 1
+    return out
+
+
+def cd_elastic_net(G: torch.Tensor, b: torch.Tensor, beta0: torch.Tensor,
+                   lam_l1: float, lam_l2: float, pen_mask: torch.Tensor,
+                   n_sweeps: int = 10, non_negative: bool = False,
+                   nn_mask: Optional[torch.Tensor] = None,
+                   lo: Optional[torch.Tensor] = None,
+                   hi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the coordinate-descent kernel (``csrc/glm_cd.cu``) on one
+    Gram: float32 ``G`` [P, P], ``b``, ``beta0``, ``pen_mask`` and the
+    optional ``nn_mask``, ``lo``, ``hi`` [P] on one CUDA device; returns
+    beta [P]. Same contract as ``glm_cd.cd_elastic_net_plain``: the
+    kernel reads G's columns as the rows of G' (one copy here) and starts
+    from ``G @ beta0``, the plain version's product."""
+    _check_cuda(G)
+    dev = G.device
+    P = G.shape[0]
+    _check("G", G, torch.float32, (P, P), dev)
+    vecs = {"b": b, "beta0": beta0, "pen_mask": pen_mask, "nn_mask": nn_mask,
+            "lo": lo, "hi": hi}
+    for name, t in vecs.items():
+        if t is not None:
+            _check(name, t, torch.float32, (P,), dev)
+    if (lo is None) != (hi is None):
+        raise ValueError("lo and hi come together")
+    nn_mode = 2 if nn_mask is not None else (1 if non_negative else 0)
+    lib = build()["glm_cd"]
+    Gt = G.t().contiguous()
+    Gb0 = G @ beta0
+    out = torch.empty(P, dtype=torch.float32, device=dev)
+    ws_bytes = lib.h2o3_cd_workspace(P)
+    ws = _workspace(ws_bytes, "cd_elastic_net", dev) if ws_bytes else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_cd_elastic_net(
+            Gt.data_ptr(), b.data_ptr(), beta0.data_ptr(), Gb0.data_ptr(),
+            pen_mask.data_ptr(), ptr(nn_mask), nn_mode, ptr(lo), ptr(hi),
+            float(lam_l1), float(lam_l2), P, int(n_sweeps), ptr(ws),
+            out.data_ptr(), _stream(dev))
+    _raise_on(rc, "cd_elastic_net")
+    LAUNCHES["cd_elastic_net"] += 1
+    return out
+
+
+def cd_barrier_probe(steps: int, threads: int, device) -> torch.Tensor:
+    """``steps`` dependent steps of one block barrier each in one block of
+    ``threads`` (``csrc/glm_cd.cu``): the floor of cd_elastic_net's chain
+    of coordinates, for its bound. Not counted in ``LAUNCHES``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called for device {dev}")
+    lib = build()["glm_cd"]
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.h2o3_cd_barrier_probe(int(steps), int(threads),
+                                       out.data_ptr(), _stream(dev))
+    _raise_on(rc, "cd_barrier_probe")
     return out

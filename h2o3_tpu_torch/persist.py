@@ -6,8 +6,8 @@ and domain metadata, output, metrics) and ``arrays.npz`` (the model's
 arrays), written through per-algorithm hooks (``Model._save_arrays``,
 ``_save_extra_meta``, ``_restore``). The layout and its keys are the JAX
 package's, so that either package loads what the other wrote. The class
-registry covers the algorithms the port trains (gbm, drf; xgboost trains
-a GBM model); any other algo raises ``ValueError``, as the JAX package
+registry covers the algorithms the port trains (gbm, drf, glm; xgboost
+trains a GBM model); any other algo raises ``ValueError``, as the JAX package
 does for an algo it does not know. Frames (``save_frame``,
 ``export_file``, ``load_frame``) wait for ROADMAP.md item 18.
 """
@@ -36,7 +36,7 @@ def register_model_class(algo: str, cls) -> None:
 
 def _model_class(algo: str):
     if not _MODEL_CLASSES:
-        from h2o3_tpu_torch.models import drf, gbm  # noqa: F401
+        from h2o3_tpu_torch.models import drf, gbm, glm  # noqa: F401
     if algo not in _MODEL_CLASSES:
         raise ValueError(f"no registered model class for algo '{algo}'")
     return _MODEL_CLASSES[algo]

@@ -46,11 +46,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_sources_cover_every_model_module():
     """The no-JAX rule above reads every module of the port, the XGBoost
-    estimator, the random forest, the streamed trainer's chunks and the
-    memory budget among them."""
+    estimator, the random forest, the GLM, the streamed trainer's chunks
+    and the memory budget among them."""
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
-    for mod in ("drf", "gbm", "model_base", "metrics", "streaming", "tree",
-                "xgboost"):
+    for mod in ("drf", "gbm", "glm", "model_base", "metrics", "streaming",
+                "tree", "xgboost"):
         assert f"h2o3_tpu_torch/models/{mod}.py" in names
     assert "h2o3_tpu_torch/memman.py" in names
 
@@ -74,6 +74,7 @@ def test_import_leaves_jax_out():
     mods = ", ".join(m[:-3].replace("/", ".") for m in INGEST_MODULES)
     code = ("import sys; import h2o3_tpu_torch, h2o3_tpu_torch.estimators, "
             f"h2o3_tpu_torch.models.xgboost, h2o3_tpu_torch.ops.binning, "
+            f"h2o3_tpu_torch.models.glm, h2o3_tpu_torch.ops.glm_cd, "
             f"h2o3_tpu_torch.memman, h2o3_tpu_torch.models.streaming, "
             f"{mods}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
